@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Drive feinsum_tpu_torch's main path once on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero before the final line:
+
+1. check for a CUDA card, print its name and power limit (nvidia-smi), and
+   build the CUDA kernels from ``feinsum_tpu_torch/csrc/`` (nvcc, sm_90a);
+2. compare each kernel with its plain PyTorch version on the card, at a
+   small shape and at the suite's full shapes (E = 1M), within 2e-5 of
+   max|plain| (the float32 oracle's rule);
+3. reset the launch counters and run the main path for the six DG-suite
+   rows: validate against the numpy oracle on the card at E = 2000, then
+   apply_layouts -> build_executable -> run at E = 1M; read the counters;
+4. check the E = 1M outputs (finite, stored shape, equal to the plain
+   per-step route within 2e-5) and time the kernel route, the kernels'
+   plain versions and the plain per-step route (CUDA events, median of 20
+   launches), each against the card's data-sheet roofline.
+
+The last lines are the card line, one JSON object of per-kernel results,
+and ``{"ok": true, "device": {...}}``.  It imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+E_FULL = 1_000_000
+E_VALIDATE = 2000
+E_SMALL = 777          # not a multiple of the block or of 4: ragged edges
+RTOL = 2e-5
+REPLACES = "feinsum_tpu/ops/pallas_emitter.py:464"
+SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
+           "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu"}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=False)
+    if proc.returncode != 0 or not proc.stdout.strip():
+        raise SmokeFailure(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def max_err(got, want) -> tuple:
+    """(max |got - want|, that over max |want|), in float64."""
+    got = got.double()
+    want = want.double()
+    if got.shape != want.shape:
+        raise SmokeFailure(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not bool(got.isfinite().all()):
+        raise SmokeFailure("non-finite output")
+    abs_err = float((got - want).abs().max())
+    scale = float(want.abs().max()) or 1.0
+    return abs_err, abs_err / scale
+
+
+def main() -> int:
+    if not (HERE / "feinsum_tpu_torch" / "csrc").is_dir():
+        raise SmokeFailure(f"no feinsum_tpu_torch/csrc beside {__file__}:"
+                           " run from a checkout of the repository")
+    sys.path.insert(0, str(HERE))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    card = card_line()
+    log(card)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda};"
+        f" {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SmokeFailure("TF32 matmul is on; the float32 oracle needs it"
+                           " off")
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import (
+        apply_layouts, evaluate_giga_op_map, generate_input_arrays,
+        get_giga_op_map, timeit_cuda)
+    from feinsum_tpu_torch.ops import _build, kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.layouts import stored_out_letters
+    from feinsum_tpu_torch.suite import default_transform, suite
+
+    # phase 1: build
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"[build] kernels loaded in {time.perf_counter() - t0:.2f} s"
+        f" (nvcc {_build.build_info['seconds']:.2f} s)"
+        f" -> {_build.library_path().name}")
+    for line in _build.build_info["log"].splitlines():
+        if any(w in line for w in ("registers", "spill", "entry function")):
+            log("[build]", line.strip())
+
+    rows = suite()
+    programs = {name: default_transform(e)(ft.generate_program(e))
+                for name, e in rows}
+
+    def inputs(name, e, length, seed=0):
+        return apply_layouts(programs[name], generate_input_arrays(
+            e, long_dim_length=length, seed=seed, device=dev))
+
+    # phase 2: each kernel against its plain version on the card
+    worst = {k: 0.0 for k in SOURCES}
+    for length in (E_SMALL, E_FULL):
+        for name, e in rows:
+            plan = plan_cuda_launch(programs[name],
+                                    get_index_lengths(e, length))
+            operands = plan.operands(inputs(name, e, length, seed=1))
+            got = plan.run(operands)
+            want = plan.plain(operands)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                abs_err, rel = max_err(g, w)
+                worst[plan.kernel] = max(worst[plan.kernel], abs_err)
+                ok = rel <= RTOL
+                log(f"[compare] {plan.kernel} {name} E={length}:"
+                    f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
+                    f" max|plain| (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SmokeFailure(f"{plan.kernel} disagrees with its"
+                                       f" plain version on {name}")
+            del operands, got, want
+
+    # phase 3: the main path, counted
+    kernels.reset_launch_counts()
+    runs = {}
+    for name, e in rows:
+        transform = default_transform(e)
+        ft.validate_batched_einsum_transform(
+            e, transform, long_dim_length=E_VALIDATE, device=dev)
+        program = transform(ft.generate_program(e))
+        arrays = apply_layouts(program, generate_input_arrays(
+            e, long_dim_length=E_FULL, device=dev))
+        fn = ft.build_executable(program, long_dim_length=E_FULL, device=dev)
+        outs = fn(arrays)
+        torch.cuda.synchronize()
+        runs[name] = (program, arrays, fn, outs)
+        log(f"[main] {name}: validated on {dev} at E={E_VALIDATE}, ran at"
+            f" E={E_FULL}: outputs {[tuple(o.shape) for o in outs]}")
+    launches = dict(kernels.launch_counts)
+    log(f"[main] launch counts over the main path: {launches}")
+    for kernel, count in launches.items():
+        if count < 1:
+            raise SmokeFailure(f"{kernel} was not launched on the main path")
+
+    # phase 4: check the outputs, then time
+    power = card.split(",")[-1].strip()
+    label = f"[{torch.cuda.get_device_name(0)}, power limit {power}]"
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0} for k in SOURCES}
+    for name, e in rows:
+        program, arrays, fn, outs = runs.pop(name)
+        xla = ft.build_executable(program.with_descriptor(backend="xla"),
+                                  long_dim_length=E_FULL, device=dev)
+        for got, want in zip(outs, xla(arrays)):
+            want_shape = tuple(
+                get_index_lengths(e, E_FULL)[ix]
+                for ix in stored_out_letters(program))
+            if tuple(got.shape) != want_shape:
+                raise SmokeFailure(f"{name}: output shape {tuple(got.shape)}"
+                                   f" != {want_shape}")
+            _, rel = max_err(got, want)
+            if rel > RTOL:
+                raise SmokeFailure(f"{name}: E={E_FULL} output differs from"
+                                   f" the plain route by {rel:.2e}")
+        del outs
+        plan = plan_cuda_launch(program, get_index_lengths(e, E_FULL))
+
+        def plain(a, plan=plan):
+            return plan.plain(plan.operands(a))
+
+        # in turns: plain, kernel, kernel, plain (and the per-step route
+        # around them)
+        t_xla = [timeit_cuda(xla, arrays)]
+        t_plain = [timeit_cuda(plain, arrays)]
+        t_kern = [timeit_cuda(fn, arrays), timeit_cuda(fn, arrays)]
+        t_plain.append(timeit_cuda(plain, arrays))
+        t_xla.append(timeit_cuda(xla, arrays))
+        gops = sum(evaluate_giga_op_map(get_giga_op_map(e), E_FULL).values())
+        roof = ft.get_roofline_flop_rate(e, dev, long_dim_length=E_FULL,
+                                         ignore_unknown_device=True)
+        for route, ts in (("kernel " + plan.kernel, t_kern),
+                          ("plain version", t_plain),
+                          ("plain per-step route", t_xla)):
+            ms = sum(ts) / len(ts)
+            rate = gops / (ms * 1e-3)
+            share = (f"{100 * rate / roof:.1f}% of roofline"
+                     f" ({roof:.0f} GOp/s)" if roof else "roofline unknown")
+            log(f"[time] {name} E={E_FULL} {route}: {ms:.4f} ms"
+                f" (runs {', '.join(f'{t:.4f}' for t in ts)}),"
+                f" {rate:.1f} GOp/s, {share} {label}")
+        totals[plan.kernel]["ms"] += sum(t_kern) / len(t_kern)
+        totals[plan.kernel]["plain_ms"] += sum(t_plain) / len(t_plain)
+        del arrays
+        torch.cuda.empty_cache()
+
+    for k in SOURCES:
+        if not all(math.isfinite(v) and v > 0 for v in totals[k].values()):
+            raise SmokeFailure(f"{k}: no time measured")
+    log(card)
+    log(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": SOURCES[k],
+         "replaces": REPLACES, "launches": launches[k],
+         "max_abs_err": worst[k], "ms": totals[k]["ms"],
+         "plain_ms": totals[k]["plain_ms"]} for k in SOURCES]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAIL: {exc}", file=sys.stderr, flush=True)
+        sys.exit(1)

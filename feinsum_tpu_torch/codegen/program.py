@@ -1,0 +1,181 @@
+"""
+EinsumProgram: the transformable kernel object.
+
+An immutable (einsum, schedule, descriptor) triple, as in
+``feinsum_tpu.codegen.program``.  A ``TransformT`` maps a program to a
+program (usually only touching the descriptor/schedule);
+:func:`build_executable` interprets the result into a callable on torch
+tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, replace
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..contraction_schedule import (
+    FALLBACK_LONG_DIM_LENGTH,
+    ContractionSchedule,
+    EinsumOperand,
+    get_opt_einsum_contraction_schedule,
+    get_trivial_contraction_schedule,
+)
+from ..diagnostics import InvalidParameterError
+from ..einsum import BatchedEinsum, SizeParam
+from .descriptor import ScheduleDescriptor, check_supported
+
+
+@dataclass(frozen=True)
+class EinsumProgram:
+    """An executable description of a batched einsum: what to compute
+    (einsum), in which algebraic steps (schedule), and how to map it onto the
+    device (descriptor)."""
+
+    einsum: BatchedEinsum
+    schedule: ContractionSchedule
+    descriptor: ScheduleDescriptor
+
+    def copy(self, **changes) -> "EinsumProgram":
+        return replace(self, **changes)
+
+    def with_descriptor(self, **changes) -> "EinsumProgram":
+        return replace(self, descriptor=self.descriptor.copy(**changes))
+
+
+def generate_program(einsum: BatchedEinsum,
+                     schedule: Optional[ContractionSchedule] = None,
+                     descriptor: Optional[ScheduleDescriptor] = None
+                     ) -> EinsumProgram:
+    """Default program: trivial schedule, plain (``"xla"``) backend."""
+    return EinsumProgram(
+        einsum=einsum,
+        schedule=schedule or get_trivial_contraction_schedule(einsum),
+        descriptor=descriptor or ScheduleDescriptor(),
+    )
+
+
+def generate_program_with_opt_einsum_schedule(
+        einsum: BatchedEinsum, *,
+        descriptor: Optional[ScheduleDescriptor] = None,
+        long_dim_length: int = FALLBACK_LONG_DIM_LENGTH) -> EinsumProgram:
+    """Program with the optimal pairwise contraction path (see
+    :func:`~feinsum_tpu_torch.contraction_schedule.
+    get_opt_einsum_contraction_schedule`)."""
+    return EinsumProgram(
+        einsum=einsum,
+        schedule=get_opt_einsum_contraction_schedule(
+            einsum, long_dim_length=long_dim_length),
+        descriptor=descriptor or ScheduleDescriptor(),
+    )
+
+
+TransformT = Callable[[EinsumProgram], EinsumProgram]
+
+
+def get_index_lengths(einsum: BatchedEinsum, long_dim_length: int) -> dict:
+    """Concrete index -> length map with SizeParams bound to
+    *long_dim_length*."""
+    return {
+        ix: long_dim_length if isinstance(ln, SizeParam) else int(ln)
+        for ix, ln in einsum.index_to_dim_length.items()}
+
+
+def output_dtype(einsum: BatchedEinsum, row: int) -> np.dtype:
+    """dtype of batch-row *row*'s output: numpy promotion of its operands."""
+    return np.result_type(*[arg.dtype for arg in einsum.args[row]])
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def check_full_fp32_matmul() -> None:
+    """The plain route's float32 products must run in IEEE fp32: TF32 keeps
+    10 mantissa bits and fails the 2e-5 oracle.  PyTorch's defaults are
+    full fp32; this refuses a process that turned TF32 on."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise InvalidParameterError(
+            "TF32 matmul is enabled (torch.backends.cuda.matmul.allow_tf32"
+            " or float32_matmul_precision); the float32 oracle needs it off")
+
+
+def _logical_arrays(program: EinsumProgram, arrays_by_name: dict) -> dict:
+    """Undo the descriptor's argument permutations to recover logical axes
+    (strided views, no copies)."""
+    out = dict(arrays_by_name)
+    for name, perm in program.descriptor.arg_layouts_map.items():
+        out[name] = out[name].permute(*(int(i) for i in np.argsort(perm)))
+    return out
+
+
+def _xla_row(program: EinsumProgram, row: int, logical: dict):
+    """One batch row's schedule, one ``torch.einsum`` per step, delivered in
+    the descriptor's stored output layout (contiguous)."""
+    e = program.einsum
+    env: dict = {}
+    result = None
+    for subs, name, step_args in zip(program.schedule.subscripts,
+                                     program.schedule.result_names,
+                                     program.schedule.arguments):
+        ins = [logical[e.args[row][a.position].name]
+               if isinstance(a, EinsumOperand) else env[a.name]
+               for a in step_args]
+        env[name] = result = torch.einsum(subs.replace(" ", ""), *ins)
+    result = result.to(torch_dtype(output_dtype(e, row)))
+    if program.descriptor.out_layout is not None:
+        result = result.permute(*(int(p) for p
+                                  in program.descriptor.out_layout))
+    return result.contiguous()
+
+
+@functools.lru_cache(maxsize=512)
+def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
+                             device: Optional[torch.device]):
+    check_supported(program.descriptor)
+    if program.descriptor.backend == "pallas":
+        from ..ops.cuda_emitter import build_cuda_executable
+        inner = build_cuda_executable(program, dict(lengths_key))
+    else:
+        def inner(arrays_by_name: dict):
+            check_full_fp32_matmul()
+            logical = _logical_arrays(program, arrays_by_name)
+            return tuple(_xla_row(program, r, logical)
+                         for r in range(program.einsum.b))
+
+    if device is None:
+        return inner
+
+    def on_device(arrays_by_name: dict):
+        for name, arr in arrays_by_name.items():
+            if arr.device != device:
+                raise ValueError(f"argument {name!r} lies on {arr.device};"
+                                 f" the executable was built for {device}")
+        return inner(arrays_by_name)
+
+    return on_device
+
+
+def build_executable(program: EinsumProgram, *,
+                     long_dim_length: int = 100_000,
+                     index_to_length: Optional[dict] = None,
+                     device=None):
+    """Compile *program* into ``fn(arrays_by_name: dict) -> tuple`` returning
+    the b row outputs as tensors in the stored output layout.  The arguments
+    are tensors in the stored layout (:func:`~feinsum_tpu_torch.measure.
+    apply_layouts`).  With *device*, the executable refuses tensors that lie
+    elsewhere.  Executables are cached on (program, lengths, device)."""
+    if index_to_length is None:
+        index_to_length = get_index_lengths(program.einsum, long_dim_length)
+    lengths_key = tuple(sorted(index_to_length.items()))
+    dev = None
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return _build_executable_cached(program, lengths_key, dev)

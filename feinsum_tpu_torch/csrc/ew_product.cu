@@ -1,0 +1,113 @@
+// ew_product_f32: the contraction-free rows of a batched einsum.
+//
+// Replaces the TPU kernel feinsum_tpu/ops/pallas_emitter.py::
+// build_pallas_executable (K1) on its contraction-free case (the suite's
+// copy row, ij,ij->ij with i the element axis): out = prod of the row's
+// operands, elementwise, over operands that share the output's stored
+// layout, so every row is a flat array of n floats.
+//
+// What bounds it on an H100: bytes.  Each element reads nops floats and
+// writes one, with nops - 1 multiplies, so the only lever is streaming at
+// the HBM rate.  Each thread moves 16 bytes per operand per step (float4)
+// when every pointer is 16-byte aligned and n % 4 == 0, else 4 bytes, in a
+// grid-stride loop; all rows go in one launch (blockIdx.y is the row).
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kMaxRows = 4;
+constexpr int kMaxOps = 8;
+constexpr int kThreads = 256;
+constexpr long long kMaxBlocks = 1 << 20;
+
+struct EwRow {
+  const float* in[kMaxOps];
+  float* out;
+};
+
+struct EwRows {
+  EwRow row[kMaxRows];
+};
+
+__global__ void __launch_bounds__(kThreads)
+ew_product_f32_vec4(const EwRows rows, const int nops, const long long n4) {
+  const EwRow rw = rows.row[blockIdx.y];
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long k = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       k < n4; k += step) {
+    float4 acc = reinterpret_cast<const float4*>(rw.in[0])[k];
+#pragma unroll
+    for (int o = 1; o < kMaxOps; ++o) {
+      if (o < nops) {
+        const float4 v = reinterpret_cast<const float4*>(rw.in[o])[k];
+        acc.x *= v.x;
+        acc.y *= v.y;
+        acc.z *= v.z;
+        acc.w *= v.w;
+      }
+    }
+    reinterpret_cast<float4*>(rw.out)[k] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+ew_product_f32_scalar(const EwRows rows, const int nops, const long long n) {
+  const EwRow rw = rows.row[blockIdx.y];
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long k = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       k < n; k += step) {
+    float acc = rw.in[0][k];
+#pragma unroll
+    for (int o = 1; o < kMaxOps; ++o) {
+      if (o < nops) acc *= rw.in[o][k];
+    }
+    rw.out[k] = acc;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int ew_product_f32_max_rows() { return kMaxRows; }
+
+int ew_product_f32_max_ops() { return kMaxOps; }
+
+// ins: nrows x nops input pointers; outs: nrows output pointers; n floats
+// per operand.  Returns the CUDA error of the launch (0 on success).
+int ew_product_f32(int nrows, int nops, void* const* ins, void* const* outs,
+                   long long n, void* stream) {
+  if (nrows < 1 || nrows > kMaxRows || nops < 1 || nops > kMaxOps || n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  EwRows rows;
+  bool aligned = n % 4 == 0;
+  for (int r = 0; r < nrows; ++r) {
+    for (int o = 0; o < nops; ++o) {
+      rows.row[r].in[o] = static_cast<const float*>(ins[r * nops + o]);
+      aligned = aligned && reinterpret_cast<uintptr_t>(ins[r * nops + o]) %
+                               16 == 0;
+    }
+    for (int o = nops; o < kMaxOps; ++o) rows.row[r].in[o] = nullptr;
+    rows.row[r].out = static_cast<float*>(outs[r]);
+    aligned = aligned && reinterpret_cast<uintptr_t>(outs[r]) % 16 == 0;
+  }
+  const long long work = aligned ? n / 4 : n;
+  long long nblocks = (work + kThreads - 1) / kThreads;
+  if (nblocks > kMaxBlocks) nblocks = kMaxBlocks;
+  const dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(nrows));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (aligned) {
+    ew_product_f32_vec4<<<grid, kThreads, 0, s>>>(rows, nops, work);
+  } else {
+    ew_product_f32_scalar<<<grid, kThreads, 0, s>>>(rows, nops, work);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,116 @@
+"""
+Build and load the package's CUDA kernels.
+
+The sources under ``feinsum_tpu_torch/csrc/`` have a plain C interface; at
+first use they are compiled by ``nvcc`` into one shared library for
+``sm_90a`` and loaded with :mod:`ctypes` (no PyTorch headers, so the build
+takes seconds).  The library lands under ``build/feinsum_tpu_torch/`` at the
+root of the checkout, named by a hash of the sources and the flags, so an
+edited source rebuilds and an unchanged one is reused.  It is written under
+a temporary name and renamed into place, so a concurrent or interrupted
+build never leaves a torn library behind.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "feinsum_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# (name, restype, argtypes) of every C entry point in csrc/
+_P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I, _I64 = ctypes.c_int, ctypes.c_int64
+_SIGNATURES = (
+    ("dg_rows_f32", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _P)),
+    ("dg_rows_f32_smem_bytes", ctypes.c_size_t, (_I, _I, _I, _I)),
+    ("dg_rows_f32_max_rows", _I, ()),
+    ("ew_product_f32", _I, (_I, _I, _PP, _PP, _I64, _P)),
+    ("ew_product_f32_max_rows", _I, ()),
+    ("ew_product_f32_max_ops", _I, ()),
+)
+
+# what the last build printed (nvcc's -Xptxas -v register and shared-memory
+# report) and how long it took; empty when the library came from the cache
+build_info = {"seconds": 0.0, "log": "", "path": ""}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME/bin``, else from ``PATH``; raises
+    ``RuntimeError`` if there is none."""
+    if os.environ.get("CUDA_HOME"):
+        cand = os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+        if os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    on_path = shutil.which("nvcc")
+    if on_path:
+        return on_path
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the"
+        " feinsum_tpu_torch CUDA kernels cannot be built")
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libfeinsum_kernels_{_digest()}.so"
+
+
+def _compile(target: Path) -> None:
+    nvcc = find_nvcc()
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=target.stem + ".", suffix=".tmp.so",
+                               dir=target.parent)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_info.update(seconds=time.perf_counter() - t0,
+                      log=proc.stdout + proc.stderr, path=str(target))
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if needed.  A failed build
+    raises; nothing falls back."""
+    target = library_path()
+    if not target.exists():
+        _compile(target)
+    lib = ctypes.CDLL(str(target))
+    for name, restype, argtypes in _SIGNATURES:
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+    return lib

@@ -1,0 +1,92 @@
+"""
+Storage layouts of streamed operands.
+
+``dofmajor_layouts`` computes the argument and output permutations that
+rotate every parametric (long) axis to the back.  On the GPU that puts the
+element axis at stride 1, so neighbouring threads, which own neighbouring
+elements, read neighbouring addresses.  The stored layout is the memory
+layout: :func:`feinsum_tpu_torch.measure.apply_layouts` materialises each
+permutation (``.contiguous()``), where a bare ``permute`` would only make a
+strided view.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..einsum import BatchedEinsum, SizeParam
+
+
+def dofmajor_layouts(einsum: BatchedEinsum):
+    """(arg_layouts, out_layout) rotating long axes to the trailing position
+    for every operand/output that carries one; resident operands of rank > 2
+    keep their two largest axes trailing (the same rule as
+    ``feinsum_tpu.ops.layouts.dofmajor_layouts``)."""
+    arg_idx = {}
+    for row in einsum.args:
+        for arg, idx_set in zip(row, einsum.in_idx_sets):
+            arg_idx[arg.name] = idx_set
+    long_letters = {ix for ix, ln in einsum.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)}
+
+    def rotate(idx_set):
+        perm = [i for i, ix in enumerate(idx_set) if ix not in long_letters]
+        perm += [i for i, ix in enumerate(idx_set) if ix in long_letters]
+        return tuple(perm)
+
+    layouts = []
+    for name, idx_set in arg_idx.items():
+        if (set(idx_set) & long_letters) and idx_set \
+                and idx_set[-1] not in long_letters:
+            layouts.append((name, rotate(idx_set)))
+        elif not (set(idx_set) & long_letters) and len(idx_set) > 2:
+            sizes = {ix: int(einsum.index_to_dim_length[ix])
+                     for ix in idx_set}
+            biggest = sorted(range(len(idx_set)),
+                             key=lambda p: sizes[idx_set[p]])[-2:]
+            big_sorted = sorted(biggest)      # keep relative order
+            perm = tuple([p for p in range(len(idx_set))
+                          if p not in biggest] + big_sorted)
+            if perm != tuple(range(len(idx_set))):
+                layouts.append((name, perm))
+    out = tuple(einsum.out_idx_set)
+    out_perm = None
+    if out and out[-1] not in long_letters and (set(out) & long_letters):
+        out_perm = rotate(out)
+    return tuple(layouts), out_perm
+
+
+def stored_arg_layouts(program) -> dict:
+    """arg name -> stored (post arg_layouts permutation) index letters."""
+    e = program.einsum
+    layouts = program.descriptor.arg_layouts_map
+    out = {}
+    for row in e.args:
+        for arg, idx_set in zip(row, e.in_idx_sets):
+            perm = layouts.get(arg.name)
+            out[arg.name] = (tuple(idx_set[p] for p in perm)
+                             if perm is not None else tuple(idx_set))
+    return out
+
+
+def stored_out_letters(program) -> tuple:
+    """The output's stored index letters (after ``out_layout``)."""
+    e = program.einsum
+    if program.descriptor.out_layout is None:
+        return tuple(e.out_idx_set)
+    return tuple(e.out_idx_set[p] for p in program.descriptor.out_layout)
+
+
+def unpack_output(program, arr, logical_shape):
+    """Invert the descriptor's output storage contract: stored row output
+    tensor ``arr`` -> the logical einsum output of shape *logical_shape*
+    (a view).  Only the ``out_layout`` permutation exists here; the other
+    output contracts are refused by ``build_executable``."""
+    out_layout = program.descriptor.out_layout
+    if out_layout is not None:
+        arr = arr.permute(*(int(i) for i in np.argsort(out_layout)))
+    if tuple(arr.shape) != tuple(logical_shape):
+        raise ValueError(
+            f"unpack_output: inverted stored shape {tuple(arr.shape)} does"
+            f" not match the logical output {tuple(logical_shape)}")
+    return arr

@@ -1,0 +1,128 @@
+"""
+The DG benchmark suite and its built-in default transform, shared by the
+tests and ``chip_smoke.py``.
+
+The einsums are those of ``bench.py``'s ``suite()`` (the reference's
+archived rows): div, grad, face-mass and mass at ndof 35, matvec at ndof 20
+and a copy, each over a long element axis ``E``.
+"""
+
+from __future__ import annotations
+
+from .codegen.program import generate_program_with_opt_einsum_schedule
+from .make_einsum import array, batched_einsum, einsum
+from .ops.layouts import dofmajor_layouts
+
+# Elements of E per CUDA thread block (descriptor.block_long).  A block of
+# dg_rows_f32 holds about 33 KB of shared memory at ndof 35, so six blocks
+# share an SM: 792 block slots on the H100's 132 SMs.  At E = 1M, 512
+# elements per block give 1954 blocks per row, about 2.5 waves, where 1024
+# gives 1.2 waves and a long idle tail, and 8192 (the TPU value) gives 122
+# blocks per row, fewer than the SMs.  Measured on an H100 SXM (700 W
+# limit), 256 and 512 are the fastest for all five DG rows and 1024 is up
+# to 26% slower (grad); 512 is the faster of the two for div and face-mass.
+BLOCK_LONG = 512
+
+
+def make_div(ndof: int, dtype: str = "float32"):
+    return batched_einsum(
+        "es,sij,ej->ei",
+        [[array(jn, ("E", 3), dtype),
+          array("R", (3, ndof, ndof), dtype),
+          array(un, ("E", ndof), dtype)]
+         for jn, un in [("Jx", "ux"), ("Jy", "uy"), ("Jz", "uz")]])
+
+
+def make_grad(ndof: int, dtype: str = "float32"):
+    return einsum("xre,rij,ej->xei",
+                  array("J", (3, 3, "E"), dtype),
+                  array("D", (3, ndof, ndof), dtype),
+                  array("u", ("E", ndof), dtype))
+
+
+def make_face_mass(ndof: int = 35, nface_dof: int = 15,
+                   dtype: str = "float32"):
+    return einsum("ifj,fe,fej->ei",
+                  array("L", (ndof, 4, nface_dof), dtype),
+                  array("Fj", (4, "E"), dtype),
+                  array("flux", (4, "E", nface_dof), dtype))
+
+
+def make_mass(ndof: int, dtype: str = "float32"):
+    return einsum("e,ij,ej->ei",
+                  array("jac", ("E",), dtype),
+                  array("M", (ndof, ndof), dtype),
+                  array("u", ("E", ndof), dtype))
+
+
+def make_matvec(ndof: int, dtype: str = "float32"):
+    return einsum("ej,ij->ei",
+                  array("u", ("E", ndof), dtype),
+                  array("D", (ndof, ndof), dtype))
+
+
+def make_copy(ndof: int, dtype: str = "float32"):
+    return einsum("ij,ij->ij",
+                  array("A", ("E", ndof), dtype),
+                  array("B", ("E", ndof), dtype))
+
+
+def make_curl(ndof: int = 35, dtype: str = "float32"):
+    return batched_einsum(
+        "e,rij,ej->ei",
+        [[array(j, ("E",), dtype),
+          array("D", (3, ndof, ndof), dtype),
+          array(u, ("E", ndof), dtype)]
+         for j, u in [("Jy", "uz"), ("Jz", "ux"), ("Jx", "uy")]])
+
+
+def suite() -> list:
+    """``(name, einsum)`` of the six headline rows."""
+    return [
+        ("dg_div_ndof35", make_div(35)),
+        ("dg_grad_ndof35", make_grad(35)),
+        ("dg_face_mass", make_face_mass()),
+        ("dg_mass_ndof35", make_mass(35)),
+        ("matvec_ndof20", make_matvec(20)),
+        ("copy_ndof35", make_copy(35)),
+    ]
+
+
+def extended_suite() -> list:
+    """``(name, einsum)`` of ``bench.py``'s evidence rows: the P1-P3 DG
+    sizes, curl, and two bandwidth-bound rows."""
+    return [
+        ("dg_div_single_ndof35", einsum(
+            "es,sij,ej->ei", array("J", ("E", 3), "float32"),
+            array("R", (3, 35, 35), "float32"),
+            array("u", ("E", 35), "float32"))),
+        ("dg_div_ndof20_P3", make_div(20)),
+        ("dg_div_ndof10_P2", make_div(10)),
+        ("dg_div_ndof4_P1", make_div(4)),
+        ("dg_grad_ndof20_P3", make_grad(20)),
+        ("dg_grad_ndof10_P2", make_grad(10)),
+        ("dg_grad_ndof4_P1", make_grad(4)),
+        ("dg_curl_ndof35", make_curl(35)),
+        ("vecmat_ndof35", einsum("ej,j->e", array("A", ("E", 35), "float32"),
+                                 array("x", (35,), "float32"))),
+        ("rowsum_ndof35", einsum("ej->e", array("A", ("E", 35), "float32"))),
+    ]
+
+
+def default_transform(einsum):
+    """The built-in default schedule of ``bench.py``: the optimal-path
+    schedule on the fused kernels (``backend="pallas"``) with dof-major
+    layouts and ``BLOCK_LONG``; float64 einsums take the plain route."""
+    is_f64 = any(a.dtype == "float64" for row in einsum.args for a in row)
+
+    def tr(program):
+        e = program.einsum
+        if is_f64:
+            return generate_program_with_opt_einsum_schedule(
+                e).with_descriptor(backend="xla", precision="highest")
+        layouts, out_perm = dofmajor_layouts(e)
+        return generate_program_with_opt_einsum_schedule(e).with_descriptor(
+            backend="pallas", block_long=BLOCK_LONG,
+            dimension_semantics="parallel",
+            arg_layouts=layouts, out_layout=out_perm)
+    return tr
