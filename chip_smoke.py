@@ -16,7 +16,19 @@ Phases; any failure exits non-zero before the final line:
 4. check the E = 1M outputs (finite, stored shape, equal to the plain
    per-step route within 2e-5) and time the kernel route, the kernels'
    plain versions and the plain per-step route (CUDA events, median of 20
-   launches), each against the card's data-sheet roofline.
+   launches), each against the card's data-sheet roofline;
+5. compare the fp64 kernel ``dd_rows`` with its plain version on the card
+   for the four fp64 DG rows (grad, div, mass, face-mass at ndof 35), at
+   E = 777 and E = 1M, within 1e-12 of max|plain| on the float64 values;
+6. the archive path for the same rows: autotune the ``dd_pallas_v0`` space
+   on the card into a fresh archive under ``build/`` (a few points per row,
+   timed at E = 1M) and print the facts recorded; reset the launch counters;
+   take each row through ``candidate_transforms`` (the archived champion
+   must win), validate it on the card at E = 2000, replay it
+   (apply_layouts -> build_executable -> ``dd_rows``) at E = 1M and read the
+   counters; check each output against the plain per-step float64 route
+   within 1e-12, and time the kernel route, ``dd_rows_plain`` and the
+   per-step route against the card's FP64 roofline.
 
 The last lines are the card line, one JSON object of per-kernel results,
 and ``{"ok": true, "device": {...}}``.  It imports no JAX.
@@ -36,9 +48,18 @@ E_FULL = 1_000_000
 E_VALIDATE = 2000
 E_SMALL = 777          # not a multiple of the block or of 4: ragged edges
 RTOL = 2e-5
-REPLACES = "feinsum_tpu/ops/pallas_emitter.py:464"
+RTOL_F64 = 1e-12
+TUNE_POINTS = 4        # measured points per fp64 row (autotune test_limit)
+# two block lengths the tuner measures first, then random draws
+TUNE_SEEDS = [{"log2_block": 9, "blkc128": 0},
+              {"log2_block": 10, "blkc128": 0}]
+F32_KERNELS = ("dg_rows_f32", "ew_product_f32")
+REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "ew_product_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "dd_rows": "feinsum_tpu/ops/dd_emitter.py:233"}
 SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
-           "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu"}
+           "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
+           "dd_rows": "feinsum_tpu_torch/csrc/dd_rows.cu"}
 
 
 class SmokeFailure(Exception):
@@ -159,14 +180,14 @@ def main() -> int:
             f" E={E_FULL}: outputs {[tuple(o.shape) for o in outs]}")
     launches = dict(kernels.launch_counts)
     log(f"[main] launch counts over the main path: {launches}")
-    for kernel, count in launches.items():
-        if count < 1:
+    for kernel in F32_KERNELS:
+        if launches[kernel] < 1:
             raise SmokeFailure(f"{kernel} was not launched on the main path")
 
     # phase 4: check the outputs, then time
     power = card.split(",")[-1].strip()
     label = f"[{torch.cuda.get_device_name(0)}, power limit {power}]"
-    totals = {k: {"ms": 0.0, "plain_ms": 0.0} for k in SOURCES}
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0} for k in F32_KERNELS}
     for name, e in rows:
         program, arrays, fn, outs = runs.pop(name)
         xla = ft.build_executable(program.with_descriptor(backend="xla"),
@@ -213,19 +234,178 @@ def main() -> int:
         del arrays
         torch.cuda.empty_cache()
 
+    worst["dd_rows"] = fp64_kernel_check(dev)
+    launches["dd_rows"], totals["dd_rows"] = fp64_archive_path(dev, label)
+
     for k in SOURCES:
         if not all(math.isfinite(v) and v > 0 for v in totals[k].values()):
             raise SmokeFailure(f"{k}: no time measured")
     log(card)
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES, "launches": launches[k],
+         "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": worst[k], "ms": totals[k]["ms"],
          "plain_ms": totals[k]["plain_ms"]} for k in SOURCES]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def fp64_kernel_check(dev) -> float:
+    """Phase 5: ``dd_rows`` against ``dd_rows_plain`` on the four fp64
+    rows at E_SMALL and E_FULL; returns the largest absolute error on the
+    float64 values."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops.dd_emitter import combine_pairs, \
+        plan_dd_launch
+    from feinsum_tpu_torch.suite import fp64_suite
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    space = get_transform_func_from_module_path("dd_pallas_v0")
+    worst = 0.0
+    for length in (E_SMALL, E_FULL):
+        for name, e in fp64_suite():
+            program = space.bind_args(e, log2_block=9)(ft.generate_program(e))
+            plan = plan_dd_launch(program, get_index_lengths(e, length))
+            operands = plan.operands(apply_layouts(
+                program, generate_input_arrays(e, long_dim_length=length,
+                                               seed=1, device=dev)))
+            got = plan.run(operands)
+            want = plan.plain(operands)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                abs_err, rel = max_err(combine_pairs(g), combine_pairs(w))
+                worst = max(worst, abs_err)
+                ok = rel <= RTOL_F64
+                log(f"[compare] dd_rows {name} E={length}:"
+                    f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
+                    f" max|plain| (tolerance {RTOL_F64})"
+                    f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SmokeFailure(f"dd_rows disagrees with its plain"
+                                       f" version on {name}")
+            del operands, got, want
+    return worst
+
+
+def fp64_archive_path(dev, label: str) -> tuple:
+    """Phase 6: tune, record, replay and time the fp64 rows; returns the
+    dd_rows launches of the replays and the summed kernel and plain ms."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.data.device_info import get_device_key
+    from feinsum_tpu_torch.measure import (
+        apply_layouts, evaluate_giga_op_map, generate_input_arrays,
+        get_giga_op_map, timeit_cuda)
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.dd_emitter import plan_dd_launch
+    from feinsum_tpu_torch.suite import (candidate_transforms,
+                                         default_transform, fp64_suite)
+
+    db = HERE / "build" / "chip_smoke" / "archive.sqlite"
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    key = get_device_key(dev)
+    rows = fp64_suite()
+    for name, e in rows:
+        t0 = time.perf_counter()
+        ft.autotune(e, "dd_pallas_v0", db_path=str(db), device=dev,
+                    long_dim_length=E_FULL, test_limit=TUNE_POINTS,
+                    seed_configs=TUNE_SEEDS)
+        facts = ft.query(e, dev, db_path=str(db))
+        log(f"[tune] {name}: {len(facts)} facts in"
+            f" {time.perf_counter() - t0:.1f} s")
+        for q in facts:
+            log(f"[tune]   {q.device_name} {q.transform_id}"
+                f" {dict(q.transform_params)}:"
+                f" {q.runtime_in_sec * 1e3:.4f} ms,"
+                f" {q.total_giga_op_rate:.1f} GOp/s {label}")
+        if len(facts) != TUNE_POINTS or any(q.device_name != key
+                                            for q in facts):
+            raise SmokeFailure(f"{name}: expected {TUNE_POINTS} facts"
+                               f" under {key}")
+
+    kernels.reset_launch_counts()
+    runs = {}
+    for name, e in rows:
+        winner = next(candidate_transforms(name, e, db_path=str(db),
+                                           device=dev))
+        log(f"[replay] {winner.label}")
+        if winner.fact is None or winner.fact.transform_id \
+                != "dd_pallas_v0.py":
+            raise SmokeFailure(f"{name}: the winner is not an archived"
+                               " dd_pallas_v0.py fact")
+        ft.validate_batched_einsum_transform(
+            e, winner.transform, long_dim_length=E_VALIDATE, device=dev)
+        program = winner.transform(ft.generate_program(e))
+        logical = generate_input_arrays(e, long_dim_length=E_FULL,
+                                        device=dev)
+        arrays = apply_layouts(program, logical)
+        fn = ft.build_executable(program, long_dim_length=E_FULL,
+                                 device=dev)
+        before = kernels.launch_counts["dd_rows"]
+        outs = fn(arrays)
+        torch.cuda.synchronize()
+        if kernels.launch_counts["dd_rows"] <= before:
+            raise SmokeFailure(f"{name}: the replay did not launch dd_rows")
+        runs[name] = (program, logical, arrays, fn, outs)
+        log(f"[replay] {name}: validated on {dev} at E={E_VALIDATE}, ran"
+            f" at E={E_FULL}: outputs {[tuple(o.shape) for o in outs]}")
+    launches = kernels.launch_counts["dd_rows"]
+    log(f"[replay] launch counts over the replays:"
+        f" {dict(kernels.launch_counts)}")
+
+    totals = {"ms": 0.0, "plain_ms": 0.0}
+    for name, e in rows:
+        program, logical, arrays, fn, outs = runs.pop(name)
+        xla = ft.build_executable(
+            default_transform(e)(ft.generate_program(e)),
+            long_dim_length=E_FULL, device=dev)
+        for got, want in zip(outs, xla(logical)):
+            got = ft.unpack_output(program, got, tuple(want.shape))
+            _, rel = max_err(got, want)
+            log(f"[check] {name} E={E_FULL}: max|replay-per-step| ="
+                f" {rel:.2e} of max|per-step| (tolerance {RTOL_F64})")
+            if rel > RTOL_F64:
+                raise SmokeFailure(f"{name}: E={E_FULL} output differs from"
+                                   f" the plain per-step route by {rel:.2e}")
+        del outs
+        plan = plan_dd_launch(program, get_index_lengths(e, E_FULL))
+
+        def plain(a, plan=plan):
+            return plan.plain(plan.operands(a))
+
+        t_xla = [timeit_cuda(xla, logical)]
+        t_plain = [timeit_cuda(plain, arrays)]
+        t_kern = [timeit_cuda(fn, arrays), timeit_cuda(fn, arrays)]
+        t_plain.append(timeit_cuda(plain, arrays))
+        t_xla.append(timeit_cuda(xla, logical))
+        gops = sum(evaluate_giga_op_map(get_giga_op_map(e), E_FULL).values())
+        roof = ft.get_roofline_flop_rate(e, dev, long_dim_length=E_FULL,
+                                         ignore_unknown_device=True)
+        for route, ts in (("kernel dd_rows", t_kern),
+                          ("plain version", t_plain),
+                          ("plain per-step route", t_xla)):
+            ms = sum(ts) / len(ts)
+            rate = gops / (ms * 1e-3)
+            share = (f"{100 * rate / roof:.1f}% of the fp64 roofline"
+                     f" ({roof:.0f} GOp/s)" if roof else "roofline unknown")
+            log(f"[time] {name} E={E_FULL} {route}: {ms:.4f} ms"
+                f" (runs {', '.join(f'{t:.4f}' for t in ts)}),"
+                f" {rate:.1f} GOp/s, {share} {label}")
+        totals["ms"] += sum(t_kern) / len(t_kern)
+        totals["plain_ms"] += sum(t_plain) / len(t_plain)
+        del logical, arrays
+        torch.cuda.empty_cache()
+    return launches, totals
 
 
 if __name__ == "__main__":

@@ -2,12 +2,23 @@
 feinsum_tpu_torch — the batched-einsum library of ``feinsum_tpu`` ported to
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (``sm_90a``).
 
-This first slice carries the DG suite's main path: build a batched einsum in
-the IR, schedule it (optimal pairwise path), lay it out dof-major, validate
-it against the numpy oracle, and run it through the fused CUDA kernels
-(``ops/cuda_emitter.py``).  Public names are those of ``feinsum_tpu``.  The
+It carries the DG suite's main path (build a batched einsum in the IR,
+schedule it, lay it out dof-major, validate it against the numpy oracle and
+run it through the fused CUDA kernels of ``ops/cuda_emitter.py``), and the
+archive path: canonicalize an einsum to its archive key, tune a transform
+space on the device into the sqlite archive (``tuning.autotune``), and
+replay the archived champion (``sql_utils``) onto the fp64 DG kernel of
+``ops/dd_emitter.py``.  Public names are those of ``feinsum_tpu``.  The
 package imports ``torch`` and never ``jax`` or ``feinsum_tpu``.
 """
+
+from .canonicalization import (
+    are_einsums_isomorphic,
+    canonical_operand_positions,
+    canonicalize_einsum,
+    get_substitution_mapping_between_isomorphic_batched_einsums,
+)
+from .cl_utils import FakeCLDevice, FakeDevice
 
 from .codegen import (
     EinsumProgram,
@@ -45,42 +56,82 @@ from .measure import (
     get_footprint_gbytes,
     get_giga_op_map,
     get_roofline_flop_rate,
+    timeit,
     validate_batched_einsum_transform,
 )
 from .ops.layouts import unpack_output
+from .sql_utils import (
+    DEFAULT_DB,
+    apply_best_transform,
+    get_timed_einsums_in_db,
+    query,
+    record_facts,
+    retrieve,
+)
+from .tuning import (
+    BoolParameter,
+    IntParameter,
+    ParametrizedTransform,
+    PermutationParameter,
+    TupleParameter,
+    autotune,
+    einsum_arg,
+    transform_param,
+)
 
 __version__ = "0.1.0"
 
 __all__ = (
     "Array",
     "BatchedEinsum",
+    "BoolParameter",
     "ContractionSchedule",
+    "DEFAULT_DB",
     "EinsumAxisAccess",
     "EinsumMatchError",
     "EinsumOperand",
     "EinsumProgram",
     "EinsumTunitMatchError",
+    "FakeCLDevice",
+    "FakeDevice",
     "FreeAxis",
+    "IntParameter",
     "IntermediateResult",
     "InvalidParameterError",
     "NoDevicePeaksInfoError",
     "NoFactInDatabaseError",
+    "ParametrizedTransform",
+    "PermutationParameter",
     "ScheduleDescriptor",
     "SizeParam",
     "SummationAxis",
     "TransformValidationError",
+    "TupleParameter",
+    "apply_best_transform",
     "apply_layouts",
+    "are_einsums_isomorphic",
     "array",
+    "autotune",
     "batched_einsum",
     "build_executable",
+    "canonical_operand_positions",
+    "canonicalize_einsum",
     "einsum",
+    "einsum_arg",
     "generate_program",
     "generate_program_with_opt_einsum_schedule",
     "get_footprint_gbytes",
     "get_giga_op_map",
     "get_opt_einsum_contraction_schedule",
     "get_roofline_flop_rate",
+    "get_substitution_mapping_between_isomorphic_batched_einsums",
+    "get_timed_einsums_in_db",
     "get_trivial_contraction_schedule",
+    "query",
+    "record_facts",
+    "retrieve",
+    "timeit",
+    "transform_param",
     "unpack_output",
     "validate_batched_einsum_transform",
 )

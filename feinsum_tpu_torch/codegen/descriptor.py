@@ -57,6 +57,11 @@ class ScheduleDescriptor:
     :attr hoist_resident_steps: accepted at both values; a schedule step
         that reads no long-axis operand raises on the fused route either way
         (the hoisted-step path is not ported yet).
+    :attr dd_pairs: ``True`` with ``backend="pallas"`` stores every float64
+        operand and output as a (2, ...) float32 [hi, lo] pair
+        (``ops/dd_emitter.py``) and runs the ``dd_rows`` kernel, which
+        computes in native FP64 on the card; every operand must be float64.
+        With ``backend="xla"`` it raises.
     :attr interpret: ``None`` or ``False``; ``True`` raises (a CUDA kernel
         has no interpret mode; CPU tensors take the plain versions).
     :attr flags: free-form, carried and ignored.
@@ -65,7 +70,7 @@ class ScheduleDescriptor:
     item that will bring them: ``pre_layouts``, ``pre_out_layout`` and
     ``bind_lengths`` (the TC-as-GEMM rewrites, queue 1 item 8);
     ``grid_blocks``, ``grid_m``, ``mstack`` (K2); ``flatten`` (K3);
-    ``dd_pairs`` (K4); ``lane_pack``, ``lane_pack_args``, ``kron_args``,
+    ``lane_pack``, ``lane_pack_args``, ``kron_args``,
     ``lane_pack_expand`` and ``rowcat``/``rowcat_args`` (the lane-pack and
     row-concatenation rewrites, queue 1 item 3); ``xla_block_long`` (the
     chunked route, queue 1 item 3).  ``fold_long``, ``preblock_args``,
@@ -131,7 +136,6 @@ _UNPORTED = {
     "grid_m": "queue 2 K2 (multi-axis grid)",
     "mstack": "queue 2 K2 (multi-axis grid)",
     "flatten": "queue 2 K3 (flat elementwise)",
-    "dd_pairs": "queue 2 K4 (fp64 DG family)",
     "lane_pack": "queue 1 item 3 (lane-pack rewrite)",
     "lane_pack_args": "queue 1 item 3 (lane-pack rewrite)",
     "kron_args": "queue 1 item 3 (lane-pack rewrite)",
@@ -173,6 +177,9 @@ def check_supported(desc: ScheduleDescriptor) -> None:
     if desc.dimension_semantics not in ("parallel", "arbitrary"):
         raise InvalidParameterError(
             f"unknown dimension_semantics {desc.dimension_semantics!r}")
+    if desc.dd_pairs and desc.backend != "pallas":
+        raise InvalidParameterError(
+            "dd_pairs=True needs backend='pallas' (the dd_rows kernel)")
     if desc.interpret:
         raise InvalidParameterError(
             "interpret=True: CUDA kernels have no interpret mode")

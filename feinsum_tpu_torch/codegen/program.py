@@ -138,7 +138,10 @@ def _xla_row(program: EinsumProgram, row: int, logical: dict):
 def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
                              device: Optional[torch.device]):
     check_supported(program.descriptor)
-    if program.descriptor.backend == "pallas":
+    if program.descriptor.dd_pairs:
+        from ..ops.dd_emitter import build_dd_executable
+        inner = build_dd_executable(program, dict(lengths_key))
+    elif program.descriptor.backend == "pallas":
         from ..ops.cuda_emitter import build_cuda_executable
         inner = build_cuda_executable(program, dict(lengths_key))
     else:

@@ -40,16 +40,32 @@ def sanitize_device_name(name: str) -> str:
     return name.strip().replace(" ", "_").replace("-", "_")
 
 
-def get_device_key(device) -> str:
-    """Roofline-table key for *device*: a ``torch.device`` or device string
-    (``"cuda"``, ``"cuda:0"``) names the CUDA card's model; any other
-    string is taken as a device name or key."""
+def get_device_key(device=None) -> str:
+    """Roofline-table and archive key for *device*:
+
+    * ``None``: the current CUDA card (raises without one);
+    * a ``torch.device`` or device string: ``"cuda"``/``"cuda:0"`` name the
+      CUDA card's model, ``"cpu"`` is the key ``"cpu"`` (host timings, which
+      no roofline table holds);
+    * anything with a ``.name`` (:class:`~feinsum_tpu_torch.cl_utils.
+      FakeDevice`): that name;
+    * any other string: a device name or key."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise NoDevicePeaksInfoError(
+                "no CUDA card: name the device (a torch device, a device"
+                " name or a FakeDevice)")
+        device = torch.device("cuda", torch.cuda.current_device())
     if isinstance(device, str):
         try:
             device = torch.device(device)
         except RuntimeError:
             return sanitize_device_name(device)
+    if not isinstance(device, torch.device):
+        return sanitize_device_name(str(device.name))
+    if device.type == "cpu":
+        return "cpu"
     if device.type != "cuda":
         raise NoDevicePeaksInfoError(
-            f"no roofline entry for device type {device.type!r}")
+            f"no device key for device type {device.type!r}")
     return sanitize_device_name(torch.cuda.get_device_name(device))

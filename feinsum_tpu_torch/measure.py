@@ -9,13 +9,17 @@ Measurement and validation harness.
   write bytes, and the roofline rate from ``data/device_info.py``;
 * :func:`timeit_cuda`: CUDA-event timing on the card, median of many
   launches, with the L2 cache flushed between launches when the working set
-  would otherwise stay in it.  There is no host-clock or CPU timer: a
-  measurement without a card fails.
+  would otherwise stay in it;
+* :func:`timeit`, the tuner's timer: validate a transform, then time it on
+  the device it is given.  On a CUDA device that is :func:`timeit_cuda`; on
+  the CPU it is the host clock, and the tuner records such a time under the
+  device key ``"cpu"``, never under a card's.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Optional
 
 import numpy as np
@@ -50,6 +54,7 @@ DTYPE_TO_RTOL = {
 L2_BYTES = 50 * 1024 * 1024   # H100 L2 cache
 WARMUP_REPS = 3                # untimed calls before timeit_cuda measures
 TIMED_REPS = 20                # timed launches whose median timeit_cuda takes
+VALIDATION_LENGTH = 100        # long-axis length at which timeit validates
 
 
 # {{{ inputs
@@ -86,8 +91,10 @@ def generate_input_arrays(einsum: BatchedEinsum, *, long_dim_length: int,
 def apply_layouts(program: EinsumProgram, arrays: dict) -> dict:
     """Pack logical (einsum-shaped) tensors into *program*'s stored layout:
     each ``arg_layouts`` permutation is materialised (``.contiguous()``), so
-    the stored layout is the memory layout.  Numpy arrays are accepted and
-    returned as C-contiguous numpy arrays."""
+    the stored layout is the memory layout; under ``dd_pairs`` every
+    float64 operand is then split into (2, ...) float32 [hi, lo] pairs
+    (:func:`~feinsum_tpu_torch.ops.dd_emitter.split_to_pairs`).  Numpy
+    arrays are accepted and returned as C-contiguous numpy arrays."""
     out = dict(arrays)
     for name, perm in program.descriptor.arg_layouts_map.items():
         perm = tuple(int(p) for p in perm)
@@ -96,6 +103,11 @@ def apply_layouts(program: EinsumProgram, arrays: dict) -> dict:
             out[name] = np.ascontiguousarray(arr.transpose(perm))
         else:
             out[name] = arr.permute(*perm).contiguous()
+    if program.descriptor.dd_pairs:
+        from .ops.dd_emitter import split_to_pairs
+        for name, arr in out.items():
+            if arr.dtype in (np.float64, torch.float64):
+                out[name] = split_to_pairs(arr)
     return out
 
 # }}}
@@ -259,6 +271,9 @@ def validate_batched_einsum_transform(
     out_layout = program.descriptor.out_layout
     for r, (got, ref) in enumerate(zip(results, expected)):
         got = got.cpu().numpy()
+        if program.descriptor.dd_pairs:
+            from .ops.dd_emitter import combine_pairs
+            got = combine_pairs(got)
         if out_layout is not None:
             ref = np.transpose(ref, tuple(int(p) for p in out_layout))
         tol = rtol if rtol is not None else DTYPE_TO_RTOL.get(
@@ -314,5 +329,43 @@ def timeit_cuda(fn, arrays: dict) -> float:
         pairs.append((start, stop))
     torch.cuda.synchronize(device)
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def timeit(einsum: BatchedEinsum, *, transform: Optional[TransformT] = None,
+           long_dim_length: int = 100_000, device=None) -> float:
+    """Seconds per call of the transformed program on *device*: validate it
+    against the numpy oracle there at ``VALIDATION_LENGTH``, then
+    time it on seeded inputs at *long_dim_length* in its stored layout.
+    *device* is a CUDA device (``None``: the current card), timed by
+    :func:`timeit_cuda`, or the CPU, timed by the host clock (the median of
+    ``TIMED_REPS`` calls after ``WARMUP_REPS``; CPU kernels are
+    synchronous)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("timeit: no CUDA card; pass device='cpu' to"
+                               " time on the host")
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    validate_batched_einsum_transform(
+        einsum, transform, long_dim_length=VALIDATION_LENGTH, device=device)
+    program = generate_program(einsum)
+    if transform is not None:
+        program = transform(program)
+    arrays = apply_layouts(program, generate_input_arrays(
+        einsum, long_dim_length=long_dim_length, device=device))
+    fn = build_executable(program, long_dim_length=long_dim_length,
+                          device=device)
+    if device.type == "cuda":
+        return timeit_cuda(fn, arrays) * 1e-3
+    if device.type != "cpu":
+        raise RuntimeError(f"timeit: no timer for device {device}")
+    for _ in range(WARMUP_REPS):
+        fn(arrays)
+    times = []
+    for _ in range(TIMED_REPS):
+        t0 = time.perf_counter()
+        fn(arrays)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
 
 # }}}

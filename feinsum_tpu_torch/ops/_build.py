@@ -2,12 +2,13 @@
 Build and load the package's CUDA kernels.
 
 The sources under ``feinsum_tpu_torch/csrc/`` have a plain C interface; at
-first use they are compiled by ``nvcc`` into one shared library for
-``sm_90a`` and loaded with :mod:`ctypes` (no PyTorch headers, so the build
-takes seconds).  The library lands under ``build/feinsum_tpu_torch/`` at the
-root of the checkout, named by a hash of the sources and the flags, so an
-edited source rebuilds and an unchanged one is reused.  It is written under
-a temporary name and renamed into place, so a concurrent or interrupted
+first use each is compiled by its own ``nvcc`` process for ``sm_90a``, all
+started together, and the objects are linked into one shared library that
+is loaded with :mod:`ctypes` (no PyTorch headers, so the build takes
+seconds).  The library lands under ``build/feinsum_tpu_torch/`` at the root
+of the checkout, named by a hash of the sources and the flags, so an edited
+source rebuilds and an unchanged one is reused.  It is written under a
+temporary name and renamed into place, so a concurrent or interrupted
 build never leaves a torn library behind.
 """
 
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "feinsum_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # (name, restype, argtypes) of every C entry point in csrc/
 _P = ctypes.c_void_p
@@ -40,6 +41,9 @@ _SIGNATURES = (
     ("ew_product_f32", _I, (_I, _I, _PP, _PP, _I64, _P)),
     ("ew_product_f32_max_rows", _I, ()),
     ("ew_product_f32_max_ops", _I, ()),
+    ("dd_rows", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _P)),
+    ("dd_rows_smem_bytes", ctypes.c_size_t, (_I, _I, _I, _I)),
+    ("dd_rows_max_rows", _I, ()),
 )
 
 # what the last build printed (nvcc's -Xptxas -v register and shared-memory
@@ -78,27 +82,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfeinsum_kernels_{_digest()}.so"
 
 
+def _run_all(cmds: list) -> list:
+    """Run the commands concurrently; their (stdout + stderr) texts.  Raises
+    if any fails."""
+    procs = []
+    logs, failed = [], []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=600)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
 def _compile(target: Path) -> None:
     nvcc = find_nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=target.stem + ".", suffix=".tmp.so",
-                               dir=target.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                         for src, obj in zip(_sources(), objs)])
+        tmp = os.path.join(tmpdir, target.name)
+        logs += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr, path=str(target))
+    build_info.update(seconds=time.perf_counter() - t0, log="".join(logs),
+                      path=str(target))
 
 
 @functools.cache

@@ -57,7 +57,7 @@ def _check_routable(program, lengths: dict) -> None:
     if bad:
         raise InvalidParameterError(
             f"the fused CUDA route takes float32 only, got {sorted(bad)}"
-            " (float64: ROADMAP queue 2 K4)")
+            " (float64 runs on pair storage: descriptor.dd_pairs)")
     long_letters = [ix for ix, ln in e.index_to_dim_length.items()
                     if isinstance(ln, SizeParam)]
     if len(long_letters) != 1:

@@ -79,9 +79,14 @@ def stored_out_letters(program) -> tuple:
 
 def unpack_output(program, arr, logical_shape):
     """Invert the descriptor's output storage contract: stored row output
-    tensor ``arr`` -> the logical einsum output of shape *logical_shape*
-    (a view).  Only the ``out_layout`` permutation exists here; the other
-    output contracts are refused by ``build_executable``."""
+    tensor ``arr`` -> the logical einsum output of shape *logical_shape*.
+    A ``dd_pairs`` output's (2, ...) float32 pairs are recombined into
+    float64 first (a new tensor); the ``out_layout`` permutation is then
+    undone (a view).  The other output contracts are refused by
+    ``build_executable``."""
+    if program.descriptor.dd_pairs:
+        from .dd_emitter import combine_pairs
+        arr = combine_pairs(arr)
     out_layout = program.descriptor.out_layout
     if out_layout is not None:
         arr = arr.permute(*(int(i) for i in np.argsort(out_layout)))

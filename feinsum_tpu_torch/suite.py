@@ -1,14 +1,20 @@
 """
-The DG benchmark suite and its built-in default transform, shared by the
-tests and ``chip_smoke.py``.
+The DG benchmark suite, its built-in default transform and the candidate
+ladder that replays archived facts, shared by the tests and
+``chip_smoke.py``.
 
 The einsums are those of ``bench.py``'s ``suite()`` (the reference's
 archived rows): div, grad, face-mass and mass at ndof 35, matvec at ndof 20
-and a copy, each over a long element axis ``E``.
+and a copy, each over a long element axis ``E``; and ``bench.py``'s fp64
+rows (:func:`fp64_suite`).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable, Iterator, Optional
+
+from . import sql_utils
 from .codegen.program import generate_program_with_opt_einsum_schedule
 from .make_einsum import array, batched_einsum, einsum
 from .ops.layouts import dofmajor_layouts
@@ -109,11 +115,26 @@ def extended_suite() -> list:
     ]
 
 
+def fp64_suite() -> list:
+    """``(name, einsum)`` of ``bench.py``'s fp64 rows: grad, div (b = 3),
+    mass and face-mass at ndof 35, in float64.  ``bench.py`` runs mass and
+    face-mass only when the archive already holds a fact for them, because
+    on the TPU a fresh float64 compile could disable the remote compile
+    service for every row after it; no such hazard exists on the card, so
+    all four rows are here."""
+    return [
+        ("dg_grad_ndof35_fp64", make_grad(35, "float64")),
+        ("dg_div_ndof35_fp64", make_div(35, "float64")),
+        ("dg_mass_ndof35_fp64", make_mass(35, "float64")),
+        ("dg_face_mass_fp64", make_face_mass(dtype="float64")),
+    ]
+
+
 def default_transform(einsum):
     """The built-in default schedule of ``bench.py``: the optimal-path
     schedule on the fused kernels (``backend="pallas"``) with dof-major
     layouts and ``BLOCK_LONG``; float64 einsums take the plain route."""
-    is_f64 = any(a.dtype == "float64" for row in einsum.args for a in row)
+    is_f64 = _is_f64(einsum)
 
     def tr(program):
         e = program.einsum
@@ -126,3 +147,59 @@ def default_transform(einsum):
             dimension_semantics="parallel",
             arg_layouts=layouts, out_layout=out_perm)
     return tr
+
+
+def _is_f64(einsum) -> bool:
+    return any(a.dtype == "float64" for row in einsum.args for a in row)
+
+
+@dataclass(frozen=True)
+class Candidate:
+    """One rung of the ladder: a label, and the archived fact it replays or
+    the built-in transform."""
+
+    label: str
+    fact: Optional[sql_utils.QueryInfo] = None
+    builtin: Optional[Callable] = None
+
+    @property
+    def transform(self) -> Callable:
+        """The rung's transform.  A fact binds its space here, when the
+        rung is tried: one whose space this package does not carry raises
+        ``FileNotFoundError``."""
+        return self.fact.transform if self.fact is not None \
+            else self.builtin
+
+
+def _dd_builtin(program):
+    """``dd_pallas_v0`` at ``BLOCK_LONG`` elements per thread block."""
+    from .tuning import get_transform_func_from_module_path
+    sp = get_transform_func_from_module_path("dd_pallas_v0")
+    return sp.bind_args(program.einsum,
+                        log2_block=BLOCK_LONG.bit_length() - 1)(program)
+
+
+def candidate_transforms(name: str, einsum, *, db_path=None,
+                         device=None) -> Iterator[Candidate]:
+    """The candidates for *einsum*, best first, as ``bench.py`` tries them
+    (its ladder v3): the archived configurations for *device*, collapsed
+    over re-timings and ranked by measured rate
+    (:func:`~feinsum_tpu_torch.sql_utils.aggregate_reconfirmations`) —
+    the best three for float64, four otherwise — then, for float64 and
+    only when the archive holds a ``dd_`` fact for the einsum, the dd
+    built-in, then the built-in default (:func:`default_transform`).  A
+    caller takes the first candidate that builds.  *name* labels the
+    rungs."""
+    distinct = sql_utils.aggregate_reconfirmations(sql_utils.query(
+        einsum, device, db_path=db_path, err_if_no_results=False))
+    f64 = _is_f64(einsum)
+    for rank, q in enumerate(distinct[:3 if f64 else 4]):
+        yield Candidate(
+            f"{name}: archive[{rank}] {q.transform_id}"
+            f" {dict(q.transform_params)} ({q.total_giga_op_rate:.1f}"
+            f" GOp/s)", fact=q)
+    if f64 and any("dd_" in q.transform_id for q in distinct):
+        yield Candidate(f"{name}: built-in dd_pallas_v0",
+                        builtin=_dd_builtin)
+    yield Candidate(f"{name}: built-in default",
+                    builtin=default_transform(einsum))

@@ -91,7 +91,8 @@ def test_emitter_matches_reference(name, backend):
     for got, ref in zip(outs, ref_outs):
         assert_close(got, ref)
     # CPU tensors run the plain versions: no kernel was launched
-    assert kernels.launch_counts == {"dg_rows_f32": 0, "ew_product_f32": 0}
+    assert kernels.launch_counts == {"dg_rows_f32": 0, "ew_product_f32": 0,
+                                     "dd_rows": 0}
 
 
 def test_one_launch_per_row_knob_matches():

@@ -1,7 +1,7 @@
 """The port's kernel wrappers (``feinsum_tpu_torch/ops/kernels.py``): their
 operand checks and plain versions on CPU tensors, and, in the tests marked
-``cuda``, the hand-written kernels against their plain versions on the
-card.  This file imports no JAX, so it runs where only PyTorch is
+``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``,
+``dd_rows``) against their plain versions on the card.  This file imports no JAX, so it runs where only PyTorch is
 installed; on such a machine run it without the JAX-importing conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
@@ -18,14 +18,53 @@ from feinsum_tpu_torch import suite as S
 from feinsum_tpu_torch.ops import _build, kernels
 
 RTOL = 2e-5
+# dd_rows computes in float64; its pairs carry about 48 bits
+DD_RTOL = 1e-12
 
 
-def assert_close(got, ref):
+def assert_close(got, ref, rtol=RTOL):
     got = np.asarray(got, dtype=np.float64)
     ref = np.asarray(ref, dtype=np.float64)
     assert got.shape == ref.shape
     scale = float(np.max(np.abs(ref))) or 1.0
-    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=RTOL * scale)
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * scale)
+
+
+def _pairs(a):
+    """float64 numpy -> (2, ...) float32 [hi, lo] pairs."""
+    hi = a.astype(np.float32)
+    return np.stack([hi, (a - hi.astype(np.float64)).astype(np.float32)])
+
+
+def _unpair(t):
+    t = t.cpu().numpy()
+    return t[0].astype(np.float64) + t[1].astype(np.float64)
+
+
+def _dd_rows(device, S_=3, I=5, J=7, X=2, E=33, u_has_s=False, seed=0,
+             with_f=True):
+    """Two fp64 rows as pairs on *device*, and their float64 values."""
+    rng = np.random.default_rng(seed)
+    rows, values = [], []
+    for _ in range(2):
+        u = rng.random((S_ if u_has_s else 1, J, E))
+        R = rng.random((S_, I, J))
+        F = rng.random((X, S_, E)) if with_f else None
+
+        def t(a):
+            return None if a is None else torch.from_numpy(_pairs(a)).to(
+                device)
+        rows.append(kernels.DDRow(u=t(u), R=t(R), F=t(F)))
+        values.append((u, R, F))
+    return rows, values
+
+
+def _dd_formula(u, R, F):
+    t = np.einsum("sij,sje->sie", R, np.broadcast_to(
+        u, (R.shape[0],) + u.shape[1:]))
+    if F is None:
+        return t.sum(0, keepdims=True)
+    return np.einsum("xse,sie->xie", F, t)
 
 
 def _dg_rows(device, S_=3, I=5, J=7, X=2, u_has_s=False, seed=0):
@@ -71,6 +110,32 @@ def test_dg_rows_plain_is_the_row_formula(u_has_s):
                          row.R.double().numpy(), u.numpy())
         assert out.is_contiguous() and out.shape == (5, 2, 33)
         assert_close(out.numpy(), want)
+
+
+@pytest.mark.parametrize("u_has_s,with_f", [(False, True), (True, True),
+                                             (True, False)])
+def test_dd_rows_plain_is_the_row_formula(u_has_s, with_f):
+    rows, values = _dd_rows("cpu", u_has_s=u_has_s, with_f=with_f, seed=8)
+    outs = kernels.dd_rows(rows, block_long=8)
+    for out, (u, R, F) in zip(outs, values):
+        assert out.dtype == torch.float32 and out.is_contiguous()
+        assert out.shape == (2, 2 if with_f else 1, 5, 33)
+        assert_close(_unpair(out), _dd_formula(u, R, F), rtol=DD_RTOL)
+    assert kernels.launch_counts["dd_rows"] == 0
+
+
+def test_dd_rows_checks_its_operands():
+    rows, _ = _dd_rows("cpu")
+    not_pairs = [kernels.DDRow(u=rows[0].u[0], R=rows[0].R[0],
+                               F=rows[0].F[0])]
+    with pytest.raises(ValueError):
+        kernels.dd_rows(not_pairs, block_long=8)
+    as_f64 = [kernels.DDRow(u=rows[0].u.double(), R=rows[0].R.double(),
+                            F=rows[0].F.double())]
+    with pytest.raises(ft.InvalidParameterError):
+        kernels.dd_rows(as_f64, block_long=8)
+    with pytest.raises(ValueError):
+        kernels.dd_rows(_dd_rows("meta")[0], block_long=8)
 
 
 # {{{ on the card
@@ -147,6 +212,72 @@ def test_ew_product_kernel_matches_plain(cuda_device, n, offset):
         assert_close(g.cpu().numpy(), want.cpu().numpy())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_has_s,with_f", [(False, True), (True, True),
+                                             (True, False)])
+@pytest.mark.parametrize("block_long,E", [(8, 33), (128, 1000),
+                                          (1000, 777), (4096, 777)])
+def test_dd_rows_kernel_matches_plain(cuda_device, u_has_s, with_f,
+                                      block_long, E):
+    rows, _ = _dd_rows(cuda_device, u_has_s=u_has_s, with_f=with_f, E=E,
+                       seed=9)
+    before = kernels.launch_counts["dd_rows"]
+    got = kernels.dd_rows(rows, block_long=block_long)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dd_rows"] == before + 1
+    for g, want in zip(got, kernels.dd_rows_plain(rows)):
+        assert g.shape == want.shape and g.is_contiguous()
+        assert_close(_unpair(g), _unpair(want), rtol=DD_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_launch,launches", [(True, 2), (False, 5)])
+def test_dd_rows_kernel_splits_rows(cuda_device, one_launch, launches):
+    """Five rows: two launches of at most four rows, or one per row."""
+    rows = (_dd_rows(cuda_device, seed=10)[0] * 2
+            + _dd_rows(cuda_device, seed=11)[0][:1])
+    before = kernels.launch_counts["dd_rows"]
+    got = kernels.dd_rows(rows, one_launch=one_launch, block_long=16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dd_rows"] == before + launches
+    for g, want in zip(got, kernels.dd_rows_plain(rows)):
+        assert_close(_unpair(g), _unpair(want), rtol=DD_RTOL)
+
+
+@pytest.mark.cuda
+def test_dd_rows_shared_memory_guard(cuda_device):
+    rows, _ = _dd_rows(cuda_device, S_=4, I=100, J=100, u_has_s=True, E=8)
+    assert kernels.dd_rows_smem_bytes(4, 100, 100, True) \
+        > kernels.MAX_SMEM_BYTES
+    with pytest.raises(ft.InvalidParameterError):
+        kernels.dd_rows(rows, block_long=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S_,I,J,u_has_s", [(3, 35, 35, False),
+                                            (4, 35, 15, True),
+                                            (1, 35, 35, False)])
+def test_dd_rows_smem_formula_matches_the_kernel(cuda_device, S_, I, J,
+                                                 u_has_s):
+    from feinsum_tpu_torch.ops._build import load_library
+    assert load_library().dd_rows_smem_bytes(S_, I, J, int(u_has_s)) == \
+        kernels.dd_rows_smem_bytes(S_, I, J, u_has_s)
+
+
+# the fp64 suite's rows, replayed from the dd transform space
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [name for name, _ in S.fp64_suite()])
+def test_fp64_rows_validate_on_card(cuda_device, name):
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+    e = dict(S.fp64_suite())[name]
+    tr = get_transform_func_from_module_path("dd_pallas_v0").bind_args(
+        e, log2_block=9)
+    before = kernels.launch_counts["dd_rows"]
+    ft.validate_batched_einsum_transform(e, tr, long_dim_length=2000,
+                                         device=cuda_device)
+    assert kernels.launch_counts["dd_rows"] == before + 1
+
+
 # the suite rows and the extended suite's DG rows (P1-P3 widths, curl)
 FUSED_ROWS = dict(S.suite() + [(name, e) for name, e in S.extended_suite()
                                if name.startswith("dg_")])
@@ -193,4 +324,4 @@ def test_library_name_follows_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()       # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "dg_rows.cu", "ew_product.cu"}
+        "dg_rows.cu", "ew_product.cu", "dd_rows.cu"}
