@@ -28,7 +28,23 @@ Phases; any failure exits non-zero before the final line:
    (apply_layouts -> build_executable -> ``dd_rows``) at E = 1M and read the
    counters; check each output against the plain per-step float64 route
    within 1e-12, and time the kernel route, ``dd_rows_plain`` and the
-   per-step route against the card's FP64 roofline.
+   per-step route against the card's FP64 roofline;
+7. compare the tensor-contraction kernel ``tc_grid_f32`` with its plain
+   version ``tc_grid_plain`` on the card within 2e-5 of max|plain|: the five
+   rank >= 3 rows of the TCCG sample at their published sizes, two small
+   ragged contractions (M, N and K not multiples of any tile), and stored
+   permutations of both operands and of the output;
+8. the TCCG archive path: autotune the ``tc_pallas_v1`` space on the card
+   for each of the five rows into a fresh archive under ``build/`` (two
+   seed points of ``suite.TCCG_SEEDS`` and one more) and print the facts; reset the launch
+   counters; take each row through ``candidate_transforms`` (the archived
+   champion must win), validate it on the card against the numpy oracle,
+   replay it (apply_layouts -> build_executable -> ``tc_grid_f32``) and read
+   the counters; check each output against the plain per-step route
+   (``tc_xla_v0``) within 2e-5, and time the kernel route,
+   ``tc_grid_plain`` and the per-step route (cuBLAS through
+   ``torch.einsum``) against the card's fp32 roofline.  The sixth row,
+   the rank-2 GEMM tccg_12, runs and is timed on the plain route alone.
 
 The last lines are the card line, one JSON object of per-kernel results,
 and ``{"ok": true, "device": {...}}``.  It imports no JAX.
@@ -41,6 +57,7 @@ import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -53,13 +70,16 @@ TUNE_POINTS = 4        # measured points per fp64 row (autotune test_limit)
 # two block lengths the tuner measures first, then random draws
 TUNE_SEEDS = [{"log2_block": 9, "blkc128": 0},
               {"log2_block": 10, "blkc128": 0}]
+TC_TUNE_POINTS = 3     # measured points per TCCG row (autotune test_limit)
 F32_KERNELS = ("dg_rows_f32", "ew_product_f32")
 REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "ew_product_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
-            "dd_rows": "feinsum_tpu/ops/dd_emitter.py:233"}
+            "dd_rows": "feinsum_tpu/ops/dd_emitter.py:233",
+            "tc_grid_f32": "feinsum_tpu/ops/pallas_emitter.py:268"}
 SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
-           "dd_rows": "feinsum_tpu_torch/csrc/dd_rows.cu"}
+           "dd_rows": "feinsum_tpu_torch/csrc/dd_rows.cu",
+           "tc_grid_f32": "feinsum_tpu_torch/csrc/tc_grid.cu"}
 
 
 class SmokeFailure(Exception):
@@ -236,6 +256,9 @@ def main() -> int:
 
     worst["dd_rows"] = fp64_kernel_check(dev)
     launches["dd_rows"], totals["dd_rows"] = fp64_archive_path(dev, label)
+    worst["tc_grid_f32"] = tc_kernel_check(dev)
+    launches["tc_grid_f32"], totals["tc_grid_f32"] = tccg_archive_path(
+        dev, label)
 
     for k in SOURCES:
         if not all(math.isfinite(v) and v > 0 for v in totals[k].values()):
@@ -404,6 +427,209 @@ def fp64_archive_path(dev, label: str) -> tuple:
         totals["ms"] += sum(t_kern) / len(t_kern)
         totals["plain_ms"] += sum(t_plain) / len(t_plain)
         del logical, arrays
+        torch.cuda.empty_cache()
+    return launches, totals
+
+
+def _tc_seed(name: str, k: int) -> dict:
+    from feinsum_tpu_torch.suite import TCCG_SEEDS
+    return {**TCCG_SEEDS[name][k], "precision_idx": 0}
+
+
+def tc_kernel_check(dev) -> float:
+    """Phase 7: ``tc_grid_f32`` against ``tc_grid_plain`` on the TCCG rows
+    at full size, on small ragged contractions and on stored permutations;
+    returns the largest absolute error."""
+    import numpy as np
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.tc_emitter import tc_step
+    from feinsum_tpu_torch.suite import tccg_suite
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    v1 = get_transform_func_from_module_path("tc_pallas_v1")
+    cases = []       # (label, step, A, B)
+    for name, e in tccg_suite():
+        if len(e.out_idx_set) < 3:
+            continue
+        program = v1.bind_args(e, **_tc_seed(name, 0))(ft.generate_program(e))
+        step, (pa, pb) = tc_step(program, get_index_lengths(e, 1))
+        arrays = apply_layouts(program, generate_input_arrays(
+            e, long_dim_length=1, seed=1, device=dev))
+        A, B = (arrays[e.args[0][p].name] for p in (pa, pb))
+        cases.append((name, step, A, B))
+        if name == "tccg_35":
+            # every stored axis order reversed: operands and output
+            rev = [tuple(reversed(x)) for x in (step.a, step.b, step.c)]
+            cases.append((name + " reversed layouts",
+                          replace(step, a=rev[0], b=rev[1], c=rev[2]),
+                          A.permute(*reversed(range(A.ndim))).contiguous(),
+                          B.permute(*reversed(range(B.ndim))).contiguous()))
+    rng = np.random.default_rng(2)
+    for label, (a, b, c, lengths, grid, grid_m) in (
+            ("ragged gemm", ("ij", "jk", "ki", dict(i=1000, j=333, k=700),
+                             (), None)),
+            ("ragged tccg_35 shape",
+             ("dfgb", "geac", "fecbda",
+              dict(a=7, b=13, c=5, d=27, e=9, f=17, g=19), (("a", 7),),
+              "e"))):
+        step = kernels.TCStep(a=tuple(a), b=tuple(b), c=tuple(c),
+                              lengths=tuple(sorted(lengths.items())),
+                              grid=grid, grid_m=grid_m)
+        A, B = (torch.from_numpy(rng.random([lengths[x] for x in lt],
+                                            dtype=np.float32)).to(dev)
+                for lt in (a, b))
+        cases.append((label, step, A, B))
+    worst = 0.0
+    for label, step, A, B in cases:
+        got = kernels.tc_grid_f32(A, B, step)
+        want = kernels.tc_grid_plain(A, B, step)
+        torch.cuda.synchronize()
+        abs_err, rel = max_err(got, want)
+        worst = max(worst, abs_err)
+        ok = rel <= RTOL and got.is_contiguous()
+        shape = kernels.tc_classify(step)
+        log(f"[compare] tc_grid_f32 {label} {''.join(step.a)},"
+            f"{''.join(step.b)}->{''.join(step.c)} (Mc {shape.Mc}, Nc"
+            f" {shape.Nc}, K {shape.K}, {shape.ncells} cells, tile"
+            f" {kernels.TC_TILES[shape.variant]}): max|kernel-plain|"
+            f" {abs_err:.3e} = {rel:.2e} of max|plain| (tolerance {RTOL})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"tc_grid_f32 disagrees with its plain"
+                               f" version on {label}")
+        del got, want
+    return worst
+
+
+def tccg_archive_path(dev, label: str) -> tuple:
+    """Phase 8: tune, record, replay and time the TCCG rows; returns the
+    tc_grid_f32 launches of the replays and the summed kernel and plain
+    ms."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.data.device_info import get_device_key
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        evaluate_giga_op_map, generate_input_arrays, get_giga_op_map, \
+        timeit_cuda
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.tc_emitter import plan_tc_launch
+    from feinsum_tpu_torch.suite import candidate_transforms, tccg_suite
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    db = HERE / "build" / "chip_smoke" / "tc_archive.sqlite"
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    key = get_device_key(dev)
+    rows = tccg_suite()
+    tc_rows = [(name, e) for name, e in rows if len(e.out_idx_set) >= 3]
+    for name, e in tc_rows:
+        t0 = time.perf_counter()
+        ft.autotune(e, "tc_pallas_v1", db_path=str(db), device=dev,
+                    test_limit=TC_TUNE_POINTS,
+                    seed_configs=[_tc_seed(name, k) for k in (0, 1)])
+        facts = ft.query(e, dev, db_path=str(db))
+        log(f"[tune] {name}: {len(facts)} facts in"
+            f" {time.perf_counter() - t0:.1f} s")
+        for q in facts:
+            log(f"[tune]   {q.device_name} {q.transform_id}"
+                f" {dict(q.transform_params)}:"
+                f" {q.runtime_in_sec * 1e3:.4f} ms,"
+                f" {q.total_giga_op_rate:.1f} GOp/s {label}")
+        if len(facts) != TC_TUNE_POINTS or any(q.device_name != key
+                                               for q in facts):
+            raise SmokeFailure(f"{name}: expected {TC_TUNE_POINTS} facts"
+                               f" under {key}")
+
+    per_step = get_transform_func_from_module_path("tc_xla_v0")
+    kernels.reset_launch_counts()
+    runs = {}
+    for name, e in tc_rows:
+        winner = next(candidate_transforms(name, e, db_path=str(db),
+                                           device=dev))
+        log(f"[replay] {winner.label}")
+        if winner.fact is None or winner.fact.transform_id \
+                != "tc_pallas_v1.py":
+            raise SmokeFailure(f"{name}: the winner is not an archived"
+                               " tc_pallas_v1.py fact")
+        ft.validate_batched_einsum_transform(e, winner.transform,
+                                             device=dev)
+        program = winner.transform(ft.generate_program(e))
+        logical = generate_input_arrays(e, long_dim_length=1, device=dev)
+        arrays = apply_layouts(program, logical)
+        fn = ft.build_executable(program, device=dev)
+        before = kernels.launch_counts["tc_grid_f32"]
+        outs = fn(arrays)
+        torch.cuda.synchronize()
+        if kernels.launch_counts["tc_grid_f32"] <= before:
+            raise SmokeFailure(f"{name}: the replay did not launch"
+                               " tc_grid_f32")
+        runs[name] = (program, logical, arrays, fn, outs)
+        log(f"[replay] {name}: validated on {dev}, ran at full size:"
+            f" outputs {[tuple(o.shape) for o in outs]}")
+    launches = kernels.launch_counts["tc_grid_f32"]
+    log(f"[replay] launch counts over the replays:"
+        f" {dict(kernels.launch_counts)}")
+
+    totals = {"ms": 0.0, "plain_ms": 0.0}
+    for name, e in rows:
+        xla = ft.build_executable(per_step.bind_args(
+            e, use_opt_path=True, precision_idx=0)(ft.generate_program(e)),
+            device=dev)
+        gops = sum(evaluate_giga_op_map(get_giga_op_map(e), 1).values())
+        roof = ft.get_roofline_flop_rate(e, dev, ignore_unknown_device=True)
+        if name not in runs:
+            # the rank-2 GEMM: the plain route only, as in the reference
+            ft.validate_batched_einsum_transform(
+                e, per_step.bind_args(e, use_opt_path=True, precision_idx=0),
+                device=dev)
+            logical = generate_input_arrays(e, long_dim_length=1, device=dev)
+            routes = (("plain per-step route (no kernel: a rank-2 GEMM)",
+                       [timeit_cuda(xla, logical),
+                        timeit_cuda(xla, logical)]),)
+        else:
+            program, logical, arrays, fn, outs = runs.pop(name)
+            for got, want in zip(outs, xla(logical)):
+                got = ft.unpack_output(program, got, tuple(want.shape))
+                _, rel = max_err(got, want)
+                log(f"[check] {name}: max|replay-per-step| = {rel:.2e} of"
+                    f" max|per-step| (tolerance {RTOL})")
+                if rel > RTOL:
+                    raise SmokeFailure(f"{name}: output differs from the"
+                                       f" plain per-step route by {rel:.2e}")
+            del outs
+            plan = plan_tc_launch(program, get_index_lengths(e, 1))
+
+            def plain(a, plan=plan):
+                return plan.plain(plan.operands(a))
+
+            t_xla = [timeit_cuda(xla, logical)]
+            t_plain = [timeit_cuda(plain, arrays)]
+            t_kern = [timeit_cuda(fn, arrays), timeit_cuda(fn, arrays)]
+            t_plain.append(timeit_cuda(plain, arrays))
+            t_xla.append(timeit_cuda(xla, logical))
+            routes = (("kernel tc_grid_f32", t_kern),
+                      ("plain version", t_plain),
+                      ("plain per-step route", t_xla))
+            totals["ms"] += sum(t_kern) / len(t_kern)
+            totals["plain_ms"] += sum(t_plain) / len(t_plain)
+            del arrays
+        for route, ts in routes:
+            ms = sum(ts) / len(ts)
+            rate = gops / (ms * 1e-3)
+            share = (f"{100 * rate / roof:.1f}% of the fp32 roofline"
+                     f" ({roof:.0f} GOp/s)" if roof else "roofline unknown")
+            log(f"[time] {name} {e.get_subscripts()} {route}: {ms:.4f} ms"
+                f" (runs {', '.join(f'{t:.4f}' for t in ts)}),"
+                f" {rate:.1f} GOp/s, {share} {label}")
+        del logical
         torch.cuda.empty_cache()
     return launches, totals
 

@@ -8,7 +8,9 @@ run it through the fused CUDA kernels of ``ops/cuda_emitter.py``), and the
 archive path: canonicalize an einsum to its archive key, tune a transform
 space on the device into the sqlite archive (``tuning.autotune``), and
 replay the archived champion (``sql_utils``) onto the fp64 DG kernel of
-``ops/dd_emitter.py``.  Public names are those of ``feinsum_tpu``.  The
+``ops/dd_emitter.py`` or, for the TCCG dense tensor contractions
+(``get_tccg_benchmark``), onto the tensor-contraction kernel of
+``ops/tc_emitter.py``.  Public names are those of ``feinsum_tpu``.  The
 package imports ``torch`` and never ``jax`` or ``feinsum_tpu``.
 """
 
@@ -68,6 +70,7 @@ from .sql_utils import (
     record_facts,
     retrieve,
 )
+from .utils import get_tccg_benchmark
 from .tuning import (
     BoolParameter,
     IntParameter,
@@ -125,6 +128,7 @@ __all__ = (
     "get_opt_einsum_contraction_schedule",
     "get_roofline_flop_rate",
     "get_substitution_mapping_between_isomorphic_batched_einsums",
+    "get_tccg_benchmark",
     "get_timed_einsums_in_db",
     "get_trivial_contraction_schedule",
     "query",

@@ -5,8 +5,10 @@ backends, named as in ``feinsum_tpu.codegen``:
 
 * ``xla``    — each schedule step becomes a ``torch.einsum`` (the plain
                route).  Always available; the CPU path.
-* ``pallas`` — hand-written CUDA kernels that compute every row of the
-               batched einsum in one launch (``ops/cuda_emitter``).
+* ``pallas`` — hand-written CUDA kernels: the fused DG rows, every row of
+               the batched einsum in one launch (``ops/cuda_emitter``), or,
+               with a tuple ``grid_index``, the dense tensor contraction
+               (``ops/tc_emitter``).
 """
 
 from .descriptor import ScheduleDescriptor

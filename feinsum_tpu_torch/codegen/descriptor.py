@@ -32,13 +32,53 @@ class ScheduleDescriptor:
 
     :attr backend: ``"xla"``: the plain route, one ``torch.einsum`` per
         schedule step (what the reference hands to XLA).  ``"pallas"``: the
-        fused hand-written CUDA kernels (``ops/cuda_emitter.py``).  The fused
+        hand-written CUDA kernels: with a tuple ``grid_index`` the tensor-
+        contraction kernel (``ops/tc_emitter.py``), else the fused DG
+        kernels (``ops/cuda_emitter.py``).  The fused
         kernels compute each row's value, not the schedule's step order: the
         div schedule ``ej,es->ejs; ejs,sij->ei`` and the kernel's direct sum
         ``Σ_s J[e,s] Σ_j R[s,i,j] u[e,j]`` agree up to rounding.
-    :attr grid_index: ``None`` or the unique parametric letter.  A tuple of
-        letters (the multi-axis dense-contraction grid, kernel K2 in
-        ROADMAP.md) raises.
+    :attr grid_index: ``None`` or the unique parametric letter (the fused
+        DG kernels), or a tuple of concrete output letters: with
+        ``backend="pallas"`` the dense tensor-contraction kernel
+        ``tc_grid_f32`` (``ops/tc_emitter.py``, the port of K2 in
+        ROADMAP.md).  Its CUDA grid walks the combinations of these letters
+        (each combination one "cell") and tiles each cell's remaining output
+        as an M x N matrix of thread-block tiles; each output element is
+        computed and written once, in place, in the stored layout.  The
+        plain route (``backend="xla"``) has no grid and ignores the tuple,
+        as the reference's XLA route does; ``dd_pairs`` with a tuple
+        raises.
+    :attr grid_blocks: with a tuple ``grid_index`` only: ``(letter, blk)``
+        puts *blk* consecutive indices of the grid letter into one cell
+        (default 1; *blk* must divide the length).  The cell's in-cell
+        extent of the letter joins its tile axis, so the block decides the
+        cell's M x N shape, the tile shape and the number of cells.  A
+        batch letter (carried by both operands and the output) is walked one
+        index per cell; a block > 1 on it raises.
+    :attr grid_m: with a tuple ``grid_index`` only: an output letter with
+        in-cell extent > 1.  The operand that carries it is the tile's row
+        (M) operand, and the letter runs fastest along the tile's M axis,
+        which sets the access order of that operand and of the output.
+        ``None``: the step's first operand gives the rows, and each side's
+        letters are ordered by the strides of its larger tensor.
+    :attr mstack: with a tuple ``grid_index`` only; accepted at both values
+        and without effect.  It stacked unrolled output slices into the TPU
+        MXU's M dimension; ``tc_grid_f32``'s tile already spans all of a
+        cell's M letters.
+    :attr pre_layouts, pre_out_layout: storage contracts of a rewritten
+        program (the TC-as-GEMM rewrite of ``tc_gemm_v0``): per operand,
+        and for every output, a grouping of the logical axes into merged
+        stored axes (:func:`~feinsum_tpu_torch.ops.layouts.
+        apply_nested_layout`).  :func:`~feinsum_tpu_torch.measure.
+        apply_layouts` applies ``pre_layouts`` before ``arg_layouts``;
+        validation and :func:`~feinsum_tpu_torch.ops.layouts.unpack_output`
+        undo ``pre_out_layout`` after ``out_layout``.  Any backend.
+    :attr bind_lengths: ``(letter, length)`` pairs that override the
+        caller's lengths in :func:`~feinsum_tpu_torch.codegen.program.
+        build_executable`: the axes of a rewritten program whose lengths the
+        original einsum fixes (the flattened M axis of a TC-as-GEMM
+        rewrite).
     :attr block_long: elements of the long axis per CUDA thread block.
     :attr accum_dtype, compute_dtype: ``None`` or ``"float32"``: the kernels
         run IEEE fp32 on the CUDA cores.  Anything else raises.
@@ -67,10 +107,8 @@ class ScheduleDescriptor:
     :attr flags: free-form, carried and ignored.
 
     Fields that raise at any value but their default, with the ROADMAP.md
-    item that will bring them: ``pre_layouts``, ``pre_out_layout`` and
-    ``bind_lengths`` (the TC-as-GEMM rewrites, queue 1 item 8);
-    ``grid_blocks``, ``grid_m``, ``mstack`` (K2); ``flatten`` (K3);
-    ``lane_pack``, ``lane_pack_args``, ``kron_args``,
+    item that will bring them: ``flatten`` (K3, with ``elementwise_v1``,
+    queue 1 item 3); ``lane_pack``, ``lane_pack_args``, ``kron_args``,
     ``lane_pack_expand`` and ``rowcat``/``rowcat_args`` (the lane-pack and
     row-concatenation rewrites, queue 1 item 3); ``xla_block_long`` (the
     chunked route, queue 1 item 3).  ``fold_long``, ``preblock_args``,
@@ -82,7 +120,7 @@ class ScheduleDescriptor:
     pre_layouts: tuple = ()
     pre_out_layout: Optional[tuple] = None
     bind_lengths: tuple = ()
-    grid_index: Optional[str] = None
+    grid_index: Optional[object] = None    # a letter or a tuple of letters
     grid_blocks: tuple = ()
     grid_m: Optional[str] = None
     mstack: bool = False
@@ -129,13 +167,7 @@ class ScheduleDescriptor:
 
 # field -> ROADMAP.md item that will bring a non-default value
 _UNPORTED = {
-    "pre_layouts": "queue 1 item 8 (TC-as-GEMM rewrites)",
-    "pre_out_layout": "queue 1 item 8 (TC-as-GEMM rewrites)",
-    "bind_lengths": "queue 1 item 8 (TC-as-GEMM rewrites)",
-    "grid_blocks": "queue 2 K2 (multi-axis grid)",
-    "grid_m": "queue 2 K2 (multi-axis grid)",
-    "mstack": "queue 2 K2 (multi-axis grid)",
-    "flatten": "queue 2 K3 (flat elementwise)",
+    "flatten": "queue 1 item 3 (K3 with elementwise_v1)",
     "lane_pack": "queue 1 item 3 (lane-pack rewrite)",
     "lane_pack_args": "queue 1 item 3 (lane-pack rewrite)",
     "kron_args": "queue 1 item 3 (lane-pack rewrite)",
@@ -148,6 +180,9 @@ _UNPORTED = {
     "mfold": "North star: a TPU MXU row-packing knob",
     "vmem_limit_bytes": "North star: a TPU VMEM cap",
 }
+
+# fields with a meaning only beside a tuple grid_index
+_MULTIGRID_ONLY = ("grid_blocks", "grid_m", "mstack")
 
 FP32_PRECISIONS = ("default", "highest", "float32")
 
@@ -162,9 +197,16 @@ def check_supported(desc: ScheduleDescriptor) -> None:
                 f"descriptor.{name}={getattr(desc, name)!r} is not supported"
                 f" by feinsum_tpu_torch (ROADMAP: {item})")
     if isinstance(desc.grid_index, tuple):
-        raise InvalidParameterError(
-            "a tuple grid_index (multi-axis grid) is not supported"
-            " (ROADMAP: queue 2 K2)")
+        if desc.dd_pairs:
+            raise InvalidParameterError(
+                "a tuple grid_index (the tc_grid_f32 grid) does not compose"
+                " with dd_pairs")
+    else:
+        for name in _MULTIGRID_ONLY:
+            if getattr(desc, name) != getattr(defaults, name):
+                raise InvalidParameterError(
+                    f"descriptor.{name}={getattr(desc, name)!r} needs a"
+                    " tuple grid_index (the tc_grid_f32 grid)")
     for name in ("accum_dtype", "compute_dtype"):
         if getattr(desc, name) not in (None, "float32"):
             raise InvalidParameterError(

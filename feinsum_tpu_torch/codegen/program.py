@@ -141,6 +141,10 @@ def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
     if program.descriptor.dd_pairs:
         from ..ops.dd_emitter import build_dd_executable
         inner = build_dd_executable(program, dict(lengths_key))
+    elif program.descriptor.backend == "pallas" \
+            and isinstance(program.descriptor.grid_index, tuple):
+        from ..ops.tc_emitter import build_tc_executable
+        inner = build_tc_executable(program, dict(lengths_key))
     elif program.descriptor.backend == "pallas":
         from ..ops.cuda_emitter import build_cuda_executable
         inner = build_cuda_executable(program, dict(lengths_key))
@@ -172,9 +176,14 @@ def build_executable(program: EinsumProgram, *,
     the b row outputs as tensors in the stored output layout.  The arguments
     are tensors in the stored layout (:func:`~feinsum_tpu_torch.measure.
     apply_layouts`).  With *device*, the executable refuses tensors that lie
-    elsewhere.  Executables are cached on (program, lengths, device)."""
+    elsewhere.  Executables are cached on (program, lengths, device).  The
+    descriptor's ``bind_lengths`` override the caller's lengths: they fix
+    the axes of a rewritten program to the original einsum's."""
     if index_to_length is None:
         index_to_length = get_index_lengths(program.einsum, long_dim_length)
+    index_to_length = dict(index_to_length)
+    for ix, ln in program.descriptor.bind_lengths:
+        index_to_length[ix] = int(ln)
     lengths_key = tuple(sorted(index_to_length.items()))
     dev = None
     if device is not None:

@@ -89,13 +89,21 @@ def generate_input_arrays(einsum: BatchedEinsum, *, long_dim_length: int,
 
 
 def apply_layouts(program: EinsumProgram, arrays: dict) -> dict:
-    """Pack logical (einsum-shaped) tensors into *program*'s stored layout:
-    each ``arg_layouts`` permutation is materialised (``.contiguous()``), so
-    the stored layout is the memory layout; under ``dd_pairs`` every
-    float64 operand is then split into (2, ...) float32 [hi, lo] pairs
+    """Pack logical (einsum-shaped) tensors into *program*'s stored layout,
+    in the reference's order: first each ``pre_layouts`` grouping (a
+    rewritten program's operands, e.g. a tensor-contraction operand stored
+    as a GEMM-natural 2D matrix, :func:`~feinsum_tpu_torch.ops.layouts.
+    apply_nested_layout`), then each ``arg_layouts`` permutation, both
+    materialised (``.contiguous()``), so the stored layout is the memory
+    layout; under ``dd_pairs`` every float64 operand is then split into
+    (2, ...) float32 [hi, lo] pairs
     (:func:`~feinsum_tpu_torch.ops.dd_emitter.split_to_pairs`).  Numpy
     arrays are accepted and returned as C-contiguous numpy arrays."""
+    from .ops.layouts import apply_nested_layout
+
     out = dict(arrays)
+    for name, nested in program.descriptor.pre_layouts:
+        out[name] = apply_nested_layout(out[name], nested)
     for name, perm in program.descriptor.arg_layouts_map.items():
         perm = tuple(int(p) for p in perm)
         arr = out[name]
@@ -269,11 +277,16 @@ def validate_batched_einsum_transform(
         raise TransformValidationError(
             f"expected {einsum.b} outputs, got {len(results)}")
     out_layout = program.descriptor.out_layout
+    pre_out = program.descriptor.pre_out_layout
     for r, (got, ref) in enumerate(zip(results, expected)):
         got = got.cpu().numpy()
         if program.descriptor.dd_pairs:
             from .ops.dd_emitter import combine_pairs
             got = combine_pairs(got)
+        if pre_out is not None:
+            # a rewritten program's output is grouped (e.g. GEMM-natural 2D)
+            from .ops.layouts import apply_nested_layout
+            ref = apply_nested_layout(ref, pre_out)
         if out_layout is not None:
             ref = np.transpose(ref, tuple(int(p) for p in out_layout))
         tol = rtol if rtol is not None else DTYPE_TO_RTOL.get(

@@ -44,6 +44,9 @@ _SIGNATURES = (
     ("dd_rows", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _P)),
     ("dd_rows_smem_bytes", ctypes.c_size_t, (_I, _I, _I, _I)),
     ("dd_rows_max_rows", _I, ()),
+    ("tc_grid_f32", _I, (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P)),
+    ("tc_grid_f32_tile_rows", _I, (_I,)),
+    ("tc_grid_f32_tile_cols", _I, (_I,)),
 )
 
 # what the last build printed (nvcc's -Xptxas -v register and shared-memory

@@ -23,6 +23,14 @@ The third replaces ``feinsum_tpu/ops/dd_emitter.py::build_dd_executable``
   computes the row in native FP64 on the card (the TPU has no FP64 units and
   used pair arithmetic); the source's header says what bounds it.
 
+The fourth replaces ``feinsum_tpu/ops/pallas_emitter.py::_build_multigrid``
+(K2), the dense tensor-contraction kernel gridded over output letters:
+
+* ``tc_grid_f32`` (``csrc/tc_grid.cu``) — one contraction step
+  ``C[c] = Σ A[a] B[b]`` (:class:`TCStep`), the output written once, in
+  place, in its stored layout, through offset tables built here on the
+  host once per operand strides.
+
 A wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; it runs the plain version only for tensors that lie on the
 CPU.  There is no fallback from a CUDA tensor to the plain version.  Each
@@ -37,6 +45,7 @@ import functools
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..diagnostics import InvalidParameterError
@@ -45,10 +54,11 @@ from ..diagnostics import InvalidParameterError
 MAX_SMEM_BYTES = 232_448
 # register-array bounds of csrc/dg_rows.cu and csrc/dd_rows.cu (kMaxX, kMaxS)
 MAX_X = MAX_S = 4
-# threads per block of csrc/dd_rows.cu (kThreads)
-DD_THREADS = 128
+# threads per block of csrc/dd_rows.cu and csrc/dg_rows.cu (kThreads)
+DD_THREADS = DG_THREADS = 128
 
-launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "dd_rows": 0}
+launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "dd_rows": 0,
+                 "tc_grid_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -104,6 +114,14 @@ class DGRow:
     u: torch.Tensor
     R: torch.Tensor
     F: Optional[torch.Tensor]
+
+
+def dg_rows_smem_bytes(S: int, I: int, J: int, u_has_s: bool) -> int:
+    """Shared memory one block of ``dg_rows_f32`` needs, in bytes: R (i
+    padded to a multiple of 4) and one u column per thread (the formula of
+    ``csrc/dg_rows.cu``)."""
+    return 4 * (S * J * (-(-I // 4) * 4)
+                + (S if u_has_s else 1) * J * DG_THREADS)
 
 
 def _dg_dims(rows: Sequence[DGRow]) -> tuple:
@@ -379,5 +397,255 @@ def dd_rows(rows: Sequence[DDRow], *, block_long: int,
                                    f" {err}")
             launch_counts["dd_rows"] += 1
     return outs
+
+# }}}
+
+
+# {{{ tc_grid_f32
+
+# (rows, columns) of a thread block's output tile, by variant
+# (csrc/tc_grid.cu kTM, kTN: 16 x 16 threads, TM x TN outputs each)
+TC_TILES = ((128, 128), (64, 64), (128, 32), (32, 128))
+TC_MAX_BLOCKS = 2 ** 31 - 1     # gridDim.x
+TC_SMS = 132                    # SMs of an H100 SXM
+
+
+@dataclass(frozen=True)
+class TCStep:
+    """One dense contraction step ``C[c] = Σ A[a] B[b]`` in stored letters:
+    ``a``, ``b`` and ``c`` name the axes of the stored operands and of the
+    stored output, ``lengths`` gives ``(letter, length)`` pairs, ``grid`` the
+    ``(letter, block)`` pairs the CUDA grid walks (a cell holds *block*
+    consecutive indices of the letter) and ``grid_m`` the output letter that
+    runs fastest along the tile's rows (``None``: ``A`` gives the rows)."""
+
+    a: tuple
+    b: tuple
+    c: tuple
+    lengths: tuple
+    grid: tuple = ()
+    grid_m: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class TCShape:
+    """A :class:`TCStep` classified for ``tc_grid_f32``: whether ``B`` is the
+    row operand (``swap``), the in-cell row, column and contracted letters
+    (extent > 1) with their in-cell extents, the cells as ``(letter, block,
+    count)``, the sizes ``Mc x Nc`` per cell, ``K`` and ``ncells``, and the
+    tile variant."""
+
+    swap: bool
+    m: tuple
+    n: tuple
+    k: tuple
+    extent: tuple
+    cells: tuple
+    Mc: int
+    Nc: int
+    K: int
+    ncells: int
+    variant: int
+
+
+def _pick_tile(Mc: int, Nc: int, ncells: int) -> int:
+    """The tile variant: the largest tile (8 x 8 per thread, balanced
+    between shared-memory loads and FMAs) unless another pads the cell's
+    Mc x Nc output by at least 15% less; a 64 x 64 tile when the large one
+    leaves fewer than two blocks per SM."""
+    def tiles(v):
+        bm, bn = TC_TILES[v]
+        return -(-Mc // bm) * -(-Nc // bn)
+
+    def padded(v):
+        return tiles(v) * TC_TILES[v][0] * TC_TILES[v][1]
+    v = min(range(len(TC_TILES)),
+            key=lambda v: (padded(v) * (1.0 if v == 0 else 1.15), v))
+    if v == 0 and ncells * tiles(0) < 2 * TC_SMS:
+        v = 1
+    return v
+
+
+@functools.lru_cache(maxsize=256)
+def tc_classify(step: TCStep) -> TCShape:
+    """Classify *step*'s letters for ``tc_grid_f32``; raises
+    :class:`InvalidParameterError` for what the kernel does not take."""
+    lengths = dict(step.lengths)
+    a, b, c = set(step.a), set(step.b), set(step.c)
+    for name, letters in (("A", step.a), ("B", step.b), ("C", step.c)):
+        if len(set(letters)) != len(letters):
+            raise InvalidParameterError(
+                f"tc_grid_f32: {name} repeats a letter ({letters})")
+    private = (a ^ b) - c
+    if private:
+        raise InvalidParameterError(
+            f"tc_grid_f32: letters {sorted(private)} are contracted within"
+            " one operand")
+    if not c <= a | b:
+        raise InvalidParameterError("tc_grid_f32: an output letter is in"
+                                    " neither operand")
+    blocks = dict(step.grid)
+    for l, blk in step.grid:
+        if l not in c:
+            raise InvalidParameterError(
+                f"tc_grid_f32: grid letter {l!r} must be an output letter")
+        if blk < 1 or lengths[l] % blk:
+            raise InvalidParameterError(
+                f"grid block {blk} does not divide {l}={lengths[l]}")
+        if l in a and l in b and blk > 1:
+            raise InvalidParameterError(
+                f"tc_grid_f32: batch letter {l!r} is walked one index per"
+                f" cell; block {blk} > 1")
+    # batch letters are walked by the grid, one index per cell
+    grid = list(step.grid) + [(l, 1) for l in step.c
+                              if l in a and l in b and l not in blocks]
+    extent = {l: (dict(grid)[l] if l in dict(grid) else lengths[l])
+              for l in a | b}
+    swap = step.grid_m is not None and step.grid_m not in a
+    if step.grid_m is not None:
+        if step.grid_m not in c:
+            raise InvalidParameterError(
+                f"grid_m {step.grid_m!r} must be an output letter")
+        if extent[step.grid_m] <= 1:
+            raise InvalidParameterError(
+                f"grid_m {step.grid_m!r} has in-cell extent"
+                f" {extent[step.grid_m]}; block it or leave it ungridded")
+    rows, cols = (b, a) if swap else (a, b)
+
+    def in_cell(letters):
+        return tuple(sorted(l for l in letters if extent[l] > 1))
+    m = in_cell((rows & c) - cols)
+    n = in_cell((cols & c) - rows)
+    k = in_cell((a & b) - c)
+    size = {key: int(np.prod([extent[l] for l in v], dtype=np.int64))
+            for key, v in (("m", m), ("n", n), ("k", k))}
+    cells = tuple((l, blk, lengths[l] // blk) for l, blk in grid)
+    ncells = int(np.prod([cnt for _, _, cnt in cells], dtype=np.int64))
+    if max(size.values()) > 2 ** 31 - 1:
+        raise InvalidParameterError(
+            f"tc_grid_f32: a cell's rows, columns or K exceed 2**31 ({size})")
+    variant = _pick_tile(size["m"], size["n"], ncells)
+    bm, bn = TC_TILES[variant]
+    if ncells * -(-size["m"] // bm) * -(-size["n"] // bn) > TC_MAX_BLOCKS:
+        raise InvalidParameterError(
+            "tc_grid_f32: the launch exceeds the CUDA grid's 2**31 - 1"
+            " blocks")
+    return TCShape(swap=swap, m=m, n=n, k=k,
+                   extent=tuple(sorted(extent.items())), cells=cells,
+                   Mc=size["m"], Nc=size["n"], K=size["k"], ncells=ncells,
+                   variant=variant)
+
+
+def _offsets(letters: tuple, extent: dict, strides: Sequence[dict]) -> list:
+    """Per tensor, the int64 offsets of the flattened index over *letters*
+    (the first letter fastest)."""
+    offs = [np.zeros(1, dtype=np.int64) for _ in strides]
+    for l in reversed(letters):
+        idx = np.arange(extent[l], dtype=np.int64)
+        offs = [(o[:, None] + idx[None, :] * st.get(l, 0)).ravel()
+                for o, st in zip(offs, strides)]
+    return offs
+
+
+@functools.lru_cache(maxsize=32)
+def tc_tables(step: TCStep, a_strides: tuple, b_strides: tuple,
+              c_strides: tuple) -> tuple:
+    """``(tables, flags)`` of ``tc_grid_f32`` for operands and an output
+    with these strides (elements per axis, in stored letter order): the
+    offset tables in the order ``csrc/tc_grid.cu`` reads them (int32 when
+    every offset and the output fit, else int64), and the kernel's
+    flags.  Each side's letters are ordered fastest first by
+    the strides of its larger tensor (the row side's, or the output's),
+    ``grid_m`` first on the row side; the contracted letters by the larger
+    operand's strides."""
+    shape = tc_classify(step)
+    lengths = dict(step.lengths)
+    extent = dict(shape.extent)
+    sa, sb, sc = (dict(zip(letters, st)) for letters, st in (
+        (step.a, a_strides), (step.b, b_strides), (step.c, c_strides)))
+    if shape.swap:
+        sa, sb = sb, sa
+        na, nb = step.b, step.a
+    else:
+        na, nb = step.a, step.b
+
+    def numel(letters):
+        return int(np.prod([lengths[l] for l in letters], dtype=np.int64))
+
+    def order(letters, by):
+        return tuple(sorted(letters, key=lambda l: (by.get(l, 0), l)))
+    m = order(shape.m, sa if numel(na) > numel(step.c) else sc)
+    if step.grid_m in m:
+        m = (step.grid_m,) + tuple(l for l in m if l != step.grid_m)
+    n = order(shape.n, sb if numel(nb) > numel(step.c) else sc)
+    k = order(shape.k, sa if numel(na) >= numel(nb) else sb)
+
+    def fastest(letters, st):
+        return st[letters[0]] if letters else np.inf
+    flags = ((1 if fastest(k, sa) < fastest(m, sa) else 0)
+             | (2 if fastest(k, sb) < fastest(n, sb) else 0)
+             | (4 if fastest(m, sc) < fastest(n, sc) else 0))
+    am, cm = _offsets(m, extent, (sa, sc))
+    bn, cn = _offsets(n, extent, (sb, sc))
+    ak, bk = _offsets(k, extent, (sa, sb))
+    bases = [np.zeros(1, dtype=np.int64) for _ in range(3)]
+    for l, blk, count in reversed(shape.cells):
+        idx = np.arange(count, dtype=np.int64) * blk
+        bases = [(o[:, None] + idx[None, :] * st.get(l, 0)).ravel()
+                 for o, st in zip(bases, (sa, sb, sc))]
+    tables = np.concatenate([am, cm, bn, cn, ak, bk, *bases])
+    if int(tables.max()) < 2 ** 31 - 1 and numel(step.c) < 2 ** 31:
+        # int32 offsets: fewer registers and integer instructions
+        tables, flags = tables.astype(np.int32), flags | 8
+    return tables, flags
+
+
+@functools.lru_cache(maxsize=32)
+def _tc_device_tables(step: TCStep, a_strides: tuple, b_strides: tuple,
+                      c_strides: tuple, device: torch.device) -> tuple:
+    tables, flags = tc_tables(step, a_strides, b_strides, c_strides)
+    return torch.from_numpy(tables).to(device), flags
+
+
+def tc_grid_plain(A: torch.Tensor, B: torch.Tensor, step: TCStep
+                  ) -> torch.Tensor:
+    """The plain PyTorch version of ``tc_grid_f32``: ``torch.einsum`` on the
+    stored operands (their letters are their axes), the result contiguous in
+    the output's stored layout."""
+    subs = f"{''.join(step.a)},{''.join(step.b)}->{''.join(step.c)}"
+    return torch.einsum(subs, A, B).contiguous()
+
+
+def tc_grid_f32(A: torch.Tensor, B: torch.Tensor, step: TCStep
+                ) -> torch.Tensor:
+    """``C[c] = Σ A[a] B[b]`` for one :class:`TCStep`, ``C`` allocated
+    contiguous in the output's stored letter order ``step.c``."""
+    lengths = dict(step.lengths)
+    device = A.device
+    _check_operand("A", A, device, tuple(lengths[l] for l in step.a))
+    _check_operand("B", B, device, tuple(lengths[l] for l in step.b))
+    shape = tc_classify(step)
+    if device.type == "cpu":
+        return tc_grid_plain(A, B, step)
+    if device.type != "cuda":
+        raise ValueError(f"tc_grid_f32: no kernel for device {device}")
+
+    from ._build import load_library
+    lib = load_library()
+    C = torch.empty(tuple(lengths[l] for l in step.c), dtype=torch.float32,
+                    device=device)
+    tables, flags = _tc_device_tables(step, tuple(A.stride()),
+                                      tuple(B.stride()), tuple(C.stride()),
+                                      device)
+    rows, cols = (B, A) if shape.swap else (A, B)
+    with torch.cuda.device(device):
+        err = lib.tc_grid_f32(rows.data_ptr(), cols.data_ptr(),
+                              C.data_ptr(), tables.data_ptr(), shape.Mc,
+                              shape.Nc, shape.K, shape.ncells, flags,
+                              shape.variant, _stream_of(device))
+    if err:
+        raise RuntimeError(f"tc_grid_f32 launch failed: CUDA error {err}")
+    launch_counts["tc_grid_f32"] += 1
+    return C
 
 # }}}

@@ -1,5 +1,6 @@
 """
-Storage layouts of streamed operands.
+Storage layouts of streamed operands, and the grouped layouts of a
+rewritten program (:func:`apply_nested_layout`).
 
 ``dofmajor_layouts`` computes the argument and output permutations that
 rotate every parametric (long) axis to the back.  On the GPU that puts the
@@ -77,19 +78,51 @@ def stored_out_letters(program) -> tuple:
     return tuple(e.out_idx_set[p] for p in program.descriptor.out_layout)
 
 
+def apply_nested_layout(arr, nested):
+    """Apply a grouped storage layout (``descriptor.pre_layouts`` and
+    ``pre_out_layout``): *nested* is a tuple of tuples of source-axis
+    positions; the stored array is *arr* transposed to the flattened order
+    and reshaped to one merged axis per group, materialised (a C-contiguous
+    numpy array or tensor).  This is how a high-rank operand of a tensor
+    contraction becomes the GEMM-natural 2D matrix of a TC-as-GEMM
+    rewrite."""
+    flat = tuple(int(p) for g in nested for p in g)
+    if sorted(flat) != list(range(arr.ndim)):
+        raise ValueError(
+            f"nested layout {nested!r} is not a grouping of {arr.ndim} axes")
+    shape = []
+    k = 0
+    for g in nested:
+        n = 1
+        for _ in g:
+            n *= arr.shape[flat[k]]
+            k += 1
+        shape.append(n)
+    if isinstance(arr, np.ndarray):
+        return np.ascontiguousarray(arr.transpose(flat)).reshape(shape)
+    return arr.permute(*flat).contiguous().reshape(shape)
+
+
 def unpack_output(program, arr, logical_shape):
     """Invert the descriptor's output storage contract: stored row output
     tensor ``arr`` -> the logical einsum output of shape *logical_shape*.
-    A ``dd_pairs`` output's (2, ...) float32 pairs are recombined into
-    float64 first (a new tensor); the ``out_layout`` permutation is then
-    undone (a view).  The other output contracts are refused by
-    ``build_executable``."""
-    if program.descriptor.dd_pairs:
+    The forward chain is ``pre_out_layout`` -> ``out_layout`` -> dd pairs
+    (the reference's order), so this undoes them in reverse: a ``dd_pairs``
+    output's (2, ...) float32 pairs are recombined into float64 (a new
+    tensor), the ``out_layout`` permutation is undone (a view), and a
+    ``pre_out_layout`` grouping is split back into its source axes and
+    transposed to the logical order.  The other output contracts are
+    refused by ``build_executable``."""
+    desc = program.descriptor
+    if desc.dd_pairs:
         from .dd_emitter import combine_pairs
         arr = combine_pairs(arr)
-    out_layout = program.descriptor.out_layout
-    if out_layout is not None:
-        arr = arr.permute(*(int(i) for i in np.argsort(out_layout)))
+    if desc.out_layout is not None:
+        arr = arr.permute(*(int(i) for i in np.argsort(desc.out_layout)))
+    if desc.pre_out_layout is not None:
+        flat = [int(p) for g in desc.pre_out_layout for p in g]
+        arr = arr.reshape(tuple(int(logical_shape[p]) for p in flat))
+        arr = arr.permute(*(int(i) for i in np.argsort(flat)))
     if tuple(arr.shape) != tuple(logical_shape):
         raise ValueError(
             f"unpack_output: inverted stored shape {tuple(arr.shape)} does"

@@ -5,8 +5,9 @@ ladder that replays archived facts, shared by the tests and
 
 The einsums are those of ``bench.py``'s ``suite()`` (the reference's
 archived rows): div, grad, face-mass and mass at ndof 35, matvec at ndof 20
-and a copy, each over a long element axis ``E``; and ``bench.py``'s fp64
-rows (:func:`fp64_suite`).
+and a copy, each over a long element axis ``E``; ``bench.py``'s fp64 rows
+(:func:`fp64_suite`); and ``bench.py``'s TCCG sample of dense tensor
+contractions (:func:`tccg_suite`).
 """
 
 from __future__ import annotations
@@ -130,6 +131,38 @@ def fp64_suite() -> list:
     ]
 
 
+# bench.py's TCCG sample: one contraction per structural family of the 48
+TCCG_SAMPLE = (2, 5, 12, 21, 35, 43)
+
+
+# the tuner's first two tc_pallas_v1 points per rank >= 3 TCCG row (among
+# the fastest of tools/sweep_tc_grid on an H100 SXM, 700 W); chip_smoke.py
+# seeds autotune with them
+TCCG_SEEDS = {
+    "tccg_02": [dict(n_grid=1, blk0_idx=9, blk1_idx=0, m_pos=2),
+                dict(n_grid=1, blk0_idx=9, blk1_idx=0, m_pos=1)],
+    "tccg_05": [dict(n_grid=1, blk0_idx=4, blk1_idx=0, m_pos=3),
+                dict(n_grid=1, blk0_idx=0, blk1_idx=0, m_pos=3)],
+    "tccg_21": [dict(n_grid=2, blk0_idx=9, blk1_idx=9, m_pos=3),
+                dict(n_grid=1, blk0_idx=9, blk1_idx=0, m_pos=3)],
+    "tccg_35": [dict(n_grid=2, blk0_idx=9, blk1_idx=0, m_pos=5),
+                dict(n_grid=1, blk0_idx=0, blk1_idx=0, m_pos=5)],
+    "tccg_43": [dict(n_grid=2, blk0_idx=0, blk1_idx=9, m_pos=5),
+                dict(n_grid=2, blk0_idx=9, blk1_idx=0, m_pos=5)],
+}
+
+
+def tccg_suite() -> list:
+    """``(name, einsum)`` of ``bench.py``'s TCCG sample at the published
+    sizes, in float32: ``tccg_02`` ``dca,bd->abc``, ``tccg_05``
+    ``ebad,ce->abcd``, ``tccg_12`` ``ac,cb->ab`` (a rank-2 GEMM), ``tccg_21``
+    ``aebf,fdec->abcd``, ``tccg_35`` ``dfgb,geac->abcdef`` and ``tccg_43``
+    ``geab,dfgc->abcdef``."""
+    from .utils import get_tccg_benchmark
+    return [(f"tccg_{i:02d}", get_tccg_benchmark(i, dtype="float32"))
+            for i in TCCG_SAMPLE]
+
+
 def default_transform(einsum):
     """The built-in default schedule of ``bench.py``: the optimal-path
     schedule on the fused kernels (``backend="pallas"``) with dof-major
@@ -189,7 +222,11 @@ def candidate_transforms(name: str, einsum, *, db_path=None,
     only when the archive holds a ``dd_`` fact for the einsum, the dd
     built-in, then the built-in default (:func:`default_transform`).  A
     caller takes the first candidate that builds.  *name* labels the
-    rungs."""
+    rungs.  On a dense tensor contraction (no long axis) the built-in
+    default does not build: the fused DG kernels need a long axis and raise
+    :class:`~feinsum_tpu_torch.diagnostics.InvalidParameterError`, as the
+    reference's default raises there, so such an einsum runs only from an
+    archived fact (``tc_pallas_v1`` and the other TC spaces)."""
     distinct = sql_utils.aggregate_reconfirmations(sql_utils.query(
         einsum, device, db_path=db_path, err_if_no_results=False))
     f64 = _is_f64(einsum)

@@ -5,7 +5,10 @@ a checkout as ``python -m feinsum_tpu_torch.tools.<name>``:
   a range of ``block_long`` values (how ``suite.BLOCK_LONG`` was chosen);
 * ``profile_suite``: per suite row and route, device busy time from the
   profiler's kernel events against host wall time, hence the device's idle
-  share.
+  share;
+* ``sweep_tc_grid``: ``tc_grid_f32``'s time on the rank >= 3 TCCG rows over
+  a grid of ``tc_pallas_v1`` points (how ``chip_smoke.py``'s tuner seeds
+  were chosen).
 
 Each prints the card's name and power limit first.
 """

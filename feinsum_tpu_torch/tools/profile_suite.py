@@ -2,6 +2,12 @@
 and the plain per-step route, on one NVIDIA card:
 
     python -m feinsum_tpu_torch.tools.profile_suite
+    python -m feinsum_tpu_torch.tools.profile_suite tccg
+
+With ``tccg``, the rows are the rank >= 3 TCCG rows at their published
+sizes, and the routes are ``tc_grid_f32`` at the row's first tuner seed
+(``suite.TCCG_SEEDS``), its plain version and the plain per-step route
+(``tc_xla_v0``).
 
 For each row and route, ``CALLS`` back-to-back calls are timed twice: once
 on the host clock without the profiler (wall), and once under
@@ -9,11 +15,13 @@ on the host clock without the profiler (wall), and once under
 intervals of its kernel, copy and set events (CPU-side operator events are
 left out: they carry the device time of the kernels they launch, and
 counting them too would count that time twice).  The idle share is
-``1 - busy / wall``.
+``1 - busy / wall``; the host's own time per call (to the return of the
+call, before the card finishes) is printed beside the wall time.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
@@ -40,13 +48,61 @@ def device_busy_us(events) -> float:
     return busy
 
 
-def _calls(fn, arrays) -> float:
-    """Host seconds of ``CALLS`` calls, to the end of the last on the card."""
+def _calls(fn, arrays) -> tuple:
+    """Host seconds of ``CALLS`` calls: to the return of the last call (the
+    host's own time), and to the end of the last on the card (wall)."""
     t0 = time.perf_counter()
     for _ in range(CALLS):
         fn(arrays)
+    t_host = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return t_host, time.perf_counter() - t0
+
+
+def report(name: str, route: str, fn, arrays) -> None:
+    """Print *fn*'s wall and device-busy time per call on *arrays*."""
+    for _ in range(WARMUP_CALLS):
+        fn(arrays)
+    torch.cuda.synchronize()
+    host_ms, wall_ms = (1e3 * t / CALLS for t in _calls(fn, arrays))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _calls(fn, arrays)
+    events = prof.events()
+    busy_ms = device_busy_us(events) / 1e3 / CALLS
+    n_dev = sum(ev.device_type == DeviceType.CUDA for ev in events)
+    print(f"[profile] {name} {route}: wall {wall_ms:.4f} ms/call (host"
+          f" {host_ms:.4f}),"
+          f" device busy {busy_ms:.4f} ms/call,"
+          f" idle {100 * (1 - busy_ms / wall_ms):.1f}%,"
+          f" {n_dev / CALLS:g} device events/call", flush=True)
+
+
+def tccg_routes(dev):
+    """``(name, [(route, fn, arrays), ...])`` of each rank >= 3 TCCG row."""
+    from ..codegen.program import generate_program, get_index_lengths
+    from ..measure import apply_layouts, generate_input_arrays
+    from ..ops.tc_emitter import plan_tc_launch
+    from ..suite import TCCG_SEEDS, tccg_suite
+    from ..tuning import get_transform_func_from_module_path
+
+    v1 = get_transform_func_from_module_path("tc_pallas_v1")
+    xla = get_transform_func_from_module_path("tc_xla_v0")
+    for name, e in tccg_suite():
+        if name not in TCCG_SEEDS:
+            continue
+        program = v1.bind_args(e, **TCCG_SEEDS[name][0], precision_idx=0)(
+            generate_program(e))
+        logical = generate_input_arrays(e, long_dim_length=1, device=dev)
+        arrays = apply_layouts(program, logical)
+        plan = plan_tc_launch(program, get_index_lengths(e, 1))
+        yield name, [
+            ("kernel", build_executable(program, device=dev), arrays),
+            ("plain version", lambda a, plan=plan: plan.plain(
+                plan.operands(a)), arrays),
+            ("per-step", build_executable(xla.bind_args(
+                e, use_opt_path=True, precision_idx=0)(generate_program(e)),
+                device=dev), logical)]
 
 
 def main() -> None:
@@ -54,25 +110,18 @@ def main() -> None:
         raise SystemExit("needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     print(card_line(), flush=True)
+    if sys.argv[1:] == ["tccg"]:
+        for name, routes in tccg_routes(dev):
+            for route, fn, arrays in routes:
+                report(name, route, fn, arrays)
+            del routes
+            torch.cuda.empty_cache()
+        return
     for name, _, program, arrays in suite_inputs(dev):
         for route, p in (("kernel", program),
                          ("per-step", program.with_descriptor(backend="xla"))):
-            fn = build_executable(p, long_dim_length=LONG_DIM_LENGTH,
-                                  device=dev)
-            for _ in range(WARMUP_CALLS):
-                fn(arrays)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * _calls(fn, arrays) / CALLS
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                _calls(fn, arrays)
-            events = prof.events()
-            busy_ms = device_busy_us(events) / 1e3 / CALLS
-            n_dev = sum(ev.device_type == DeviceType.CUDA for ev in events)
-            print(f"[profile] {name} {route}: wall {wall_ms:.4f} ms/call,"
-                  f" device busy {busy_ms:.4f} ms/call,"
-                  f" idle {100 * (1 - busy_ms / wall_ms):.1f}%,"
-                  f" {n_dev / CALLS:g} device events/call", flush=True)
+            report(name, route, build_executable(
+                p, long_dim_length=LONG_DIM_LENGTH, device=dev), arrays)
         del arrays
         torch.cuda.empty_cache()
 

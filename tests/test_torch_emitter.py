@@ -92,7 +92,7 @@ def test_emitter_matches_reference(name, backend):
         assert_close(got, ref)
     # CPU tensors run the plain versions: no kernel was launched
     assert kernels.launch_counts == {"dg_rows_f32": 0, "ew_product_f32": 0,
-                                     "dd_rows": 0}
+                                     "dd_rows": 0, "tc_grid_f32": 0}
 
 
 def test_one_launch_per_row_knob_matches():

@@ -1,7 +1,7 @@
 """The port's kernel wrappers (``feinsum_tpu_torch/ops/kernels.py``): their
 operand checks and plain versions on CPU tensors, and, in the tests marked
 ``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``,
-``dd_rows``) against their plain versions on the card.  This file imports no JAX, so it runs where only PyTorch is
+``dd_rows``, ``tc_grid_f32``) against their plain versions on the card.  This file imports no JAX, so it runs where only PyTorch is
 installed; on such a machine run it without the JAX-importing conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
@@ -264,6 +264,16 @@ def test_dd_rows_smem_formula_matches_the_kernel(cuda_device, S_, I, J,
         kernels.dd_rows_smem_bytes(S_, I, J, u_has_s)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S_,I,J,u_has_s", [(1, 24, 312, False),
+                                            (4, 35, 15, True)])
+def test_dg_rows_smem_formula_matches_the_kernel(cuda_device, S_, I, J,
+                                                 u_has_s):
+    from feinsum_tpu_torch.ops._build import load_library
+    assert load_library().dg_rows_f32_smem_bytes(S_, I, J, int(u_has_s)) \
+        == kernels.dg_rows_smem_bytes(S_, I, J, u_has_s)
+
+
 # the fp64 suite's rows, replayed from the dd transform space
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", [name for name, _ in S.fp64_suite()])
@@ -276,6 +286,152 @@ def test_fp64_rows_validate_on_card(cuda_device, name):
     ft.validate_batched_einsum_transform(e, tr, long_dim_length=2000,
                                          device=cuda_device)
     assert kernels.launch_counts["dd_rows"] == before + 1
+
+
+# {{{ tc_grid_f32
+
+# (A letters, B letters, C letters, lengths, grid, grid_m): ragged M, N and
+# K (not multiples of any tile), blocked grid letters, a batch letter, the
+# rows on either operand, and an expansion with no contracted letter
+TC_CASES = {
+    "ragged_gemm": ("ij", "jk", "ik", dict(i=130, j=33, k=70), (), None),
+    "ragged_gemm_rows_b": ("ij", "jk", "ki", dict(i=130, j=33, k=70), (),
+                           "k"),
+    "tccg35_small": ("dfgb", "geac", "abcdef",
+                     dict(a=3, b=2, c=5, d=7, e=3, f=9, g=11), (("a", 1),),
+                     None),
+    "tccg35_blocked": ("dfgb", "geac", "fedcba",
+                       dict(a=3, b=2, c=5, d=7, e=3, f=9, g=11),
+                       (("a", 3), ("b", 1)), "e"),
+    "tccg02_small": ("dca", "bd", "abc", dict(a=6, b=5, c=37, d=70),
+                     (("a", 2),), "b"),
+    "batch": ("abk", "akc", "cab", dict(a=3, b=40, c=50, k=19), (("a", 1),),
+              "c"),
+    "expansion": ("i", "k", "ik", dict(i=50, k=77), (), None),
+}
+
+
+def _tc_operands(device, a, b, lengths, seed, permute):
+    rng = np.random.default_rng(seed)
+    out = []
+    for letters in (a, b):
+        t = torch.from_numpy(rng.random([lengths[x] for x in letters],
+                                        dtype=np.float32)).to(device)
+        if permute:     # a stored permutation: reversed axes in memory
+            rev = tuple(reversed(range(t.ndim)))
+            t = t.permute(*rev).contiguous().permute(*rev)
+        out.append(t)
+    return out
+
+
+def test_tc_grid_plain_is_the_contraction():
+    a, b, c, lengths, grid, grid_m = TC_CASES["tccg35_blocked"]
+    step = kernels.TCStep(a=tuple(a), b=tuple(b), c=tuple(c),
+                          lengths=tuple(sorted(lengths.items())), grid=grid,
+                          grid_m=grid_m)
+    A, B = _tc_operands("cpu", a, b, lengths, 0, True)
+    out = kernels.tc_grid_f32(A, B, step)
+    assert out.is_contiguous() and kernels.launch_counts["tc_grid_f32"] == 0
+    assert_close(out.numpy(), np.einsum(f"{a},{b}->{c}", A.double().numpy(),
+                                        B.double().numpy()))
+    with pytest.raises(ft.InvalidParameterError):      # a private letter
+        kernels.tc_classify(kernels.TCStep(
+            a=("i", "j"), b=("j", "k"), c=("k",),
+            lengths=(("i", 2), ("j", 3), ("k", 4))))
+    with pytest.raises(ValueError):
+        kernels.tc_grid_f32(A.double().float()[..., :1], B, step)
+
+
+def _emulate_tc_grid(A, B, step):
+    """``tc_grid_f32``'s addressing run on the host: every cell's rows and
+    columns from the offset tables, as the kernel reads and writes them;
+    also checks that each output element is written exactly once."""
+    shape = kernels.tc_classify(step)
+    lengths = dict(step.lengths)
+    C = torch.zeros(tuple(lengths[x] for x in step.c), dtype=torch.float64)
+    tables, _ = kernels.tc_tables(step, tuple(A.stride()), tuple(B.stride()),
+                                  tuple(C.stride()))
+    sizes = (shape.Mc, shape.Mc, shape.Nc, shape.Nc, shape.K, shape.K,
+             shape.ncells, shape.ncells, shape.ncells)
+    am, cm, bn, cn, ak, bk, ba, bb, bc = np.split(tables,
+                                                  np.cumsum(sizes)[:-1])
+
+    def memory(t):       # the tensor's storage in memory order
+        return np.lib.stride_tricks.as_strided(
+            t.numpy(), (t.untyped_storage().nbytes() // t.element_size(),),
+            (t.element_size(),)).astype(np.float64)
+    rows, cols = (B, A) if shape.swap else (A, B)
+    fa, fb, fc = memory(rows), memory(cols), C.numpy().reshape(-1)
+    written = np.zeros(fc.shape, dtype=int)
+    for cell in range(shape.ncells):
+        a = fa[ba[cell] + am[:, None] + ak[None, :]]
+        b = fb[bb[cell] + bn[:, None] + bk[None, :]]
+        idx = bc[cell] + cm[:, None] + cn[None, :]
+        fc[idx] = a @ b.T
+        np.add.at(written, idx.ravel(), 1)
+    assert (written == 1).all()
+    return C
+
+
+@pytest.mark.parametrize("permute", [False, True])
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_tc_grid_tables_address_the_contraction(case, permute):
+    """The host-side offset tables, followed as the kernel follows them,
+    give the contraction (the kernel itself runs only on the card)."""
+    a, b, c, lengths, grid, grid_m = TC_CASES[case]
+    step = kernels.TCStep(a=tuple(a), b=tuple(b), c=tuple(c),
+                          lengths=tuple(sorted(lengths.items())), grid=grid,
+                          grid_m=grid_m)
+    A, B = _tc_operands("cpu", a, b, lengths, 4, permute)
+    assert_close(_emulate_tc_grid(A, B, step).numpy(),
+                 kernels.tc_grid_plain(A.double(), B.double(), step).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("permute", [False, True])
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_tc_grid_kernel_matches_plain(cuda_device, case, permute):
+    a, b, c, lengths, grid, grid_m = TC_CASES[case]
+    step = kernels.TCStep(a=tuple(a), b=tuple(b), c=tuple(c),
+                          lengths=tuple(sorted(lengths.items())), grid=grid,
+                          grid_m=grid_m)
+    A, B = _tc_operands(cuda_device, a, b, lengths, 3, permute)
+    before = kernels.launch_counts["tc_grid_f32"]
+    got = kernels.tc_grid_f32(A, B, step)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["tc_grid_f32"] == before + 1
+    want = kernels.tc_grid_plain(A, B, step)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", range(len(kernels.TC_TILES)))
+def test_tc_grid_tiles_match_the_kernel(cuda_device, variant):
+    lib = _build.load_library()
+    assert (lib.tc_grid_f32_tile_rows(variant),
+            lib.tc_grid_f32_tile_cols(variant)) == kernels.TC_TILES[variant]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space,params", [
+    ("tc_pallas_v0", dict(n_grid=2, precision_idx=0, use_opt_path=True)),
+    ("tc_pallas_v1", dict(n_grid=1, blk0_idx=2, blk1_idx=0, m_pos=3,
+                          precision_idx=0)),
+    ("tc_pallas_v1", dict(n_grid=2, blk0_idx=9, blk1_idx=1, m_pos=0,
+                          precision_idx=0)),
+])
+def test_tc_spaces_validate_on_card(cuda_device, space, params):
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+    e = ft.einsum("dfgb,geac->abcdef",
+                  ft.array("A", (7, 9, 11, 2), "float32"),
+                  ft.array("B", (11, 3, 6, 5), "float32"))
+    tr = get_transform_func_from_module_path(space).bind_args(e, **params)
+    before = kernels.launch_counts["tc_grid_f32"]
+    ft.validate_batched_einsum_transform(e, tr, device=cuda_device)
+    assert kernels.launch_counts["tc_grid_f32"] == before + 1
+
+# }}}
 
 
 # the suite rows and the extended suite's DG rows (P1-P3 widths, curl)
@@ -324,4 +480,4 @@ def test_library_name_follows_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()       # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "dg_rows.cu", "ew_product.cu", "dd_rows.cu"}
+        "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu"}

@@ -81,7 +81,7 @@ def test_slice_matches_reference(name):
         scale = float(np.max(np.abs(ref)))
         np.testing.assert_allclose(got, ref, rtol=RTOL, atol=RTOL * scale)
     assert kernels.launch_counts == {"dg_rows_f32": 0, "ew_product_f32": 0,
-                                     "dd_rows": 0}
+                                     "dd_rows": 0, "tc_grid_f32": 0}
 
 
 def test_unpack_output_recovers_the_logical_result():

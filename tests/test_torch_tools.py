@@ -32,3 +32,31 @@ def test_sweep_covers_the_suite_value():
     from feinsum_tpu_torch.suite import BLOCK_LONG
 
     assert BLOCK_LONG in sweep_block_long.BLOCKS
+
+
+def test_tc_sweep_covers_the_tuner_seeds():
+    """``suite.TCCG_SEEDS`` (the points ``chip_smoke.py`` seeds the tuner
+    with) are points of ``sweep_tc_grid``, and every sweep point on the
+    TCCG rows binds or is refused by a guard."""
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.suite import TCCG_SEEDS, tccg_suite
+    from feinsum_tpu_torch.tools import sweep_tc_grid
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    v1 = get_transform_func_from_module_path("tc_pallas_v1")
+    rows = dict(tccg_suite())
+    assert set(TCCG_SEEDS) == {name for name, e in rows.items()
+                               if len(e.out_idx_set) >= 3}
+    for name, seeds in TCCG_SEEDS.items():
+        e = rows[name]
+        points = sweep_tc_grid.points(e)
+        n_bound = 0
+        for params in points:
+            try:
+                v1.bind_args(e, **params)(ft.generate_program(e))
+                n_bound += 1
+            except ft.InvalidParameterError:
+                pass
+        assert n_bound > len(points) // 2
+        for seed in seeds:
+            assert {**seed, "precision_idx": 0} in points, (name, seed)
