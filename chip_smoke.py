@@ -44,10 +44,32 @@ Phases; any failure exits non-zero before the final line:
    (``tc_xla_v0``) within 2e-5, and time the kernel route,
    ``tc_grid_plain`` and the per-step route (cuBLAS through
    ``torch.einsum``) against the card's fp32 roofline.  The sixth row,
-   the rank-2 GEMM tccg_12, runs and is timed on the plain route alone.
+   the rank-2 GEMM tccg_12, runs and is timed on the plain route alone;
+9. compare the kernels of the f32 DG archive path with their plain versions
+   on the card within 2e-5 of max|plain|: ``row_reduce_f32`` on vecmat and
+   rowsum at E = 777 and E = 1M in the dof-major and the element-major
+   layout, the flatten route ``ew_flat_f32`` on scale_flat at E = 777 and
+   at its full length (35 * 2**20), and ``dg_rows_f32`` on curl with its
+   hoisted ``R = sum_r D``; time ``row_reduce_f32`` at E = 1M and E = 2**23
+   against its byte bound and print the device idle share of those calls;
+10. the f32 DG archive path: autotune each of the six suite rows, the ten
+   extended rows and scale_flat in its space (``suite.F32_SPACES``, the
+   seeds of ``suite.f32_seed_configs`` first) on the card into a fresh
+   archive under ``build/`` and print the facts; reset the launch
+   counters; take each row through ``candidate_transforms`` (the archived
+   champion must win), validate it on the card at E = 2000, replay it at
+   E = 1M (scale_flat at its full length) and read the counters; check
+   each output against the plain per-step route within 2e-5, and time the
+   kernel route, the kernel's plain version and the per-step route;
+11. curl's ``prereduce`` point against its default point, timed in turns.
 
-The last lines are the card line, one JSON object of per-kernel results,
-and ``{"ok": true, "device": {...}}``.  It imports no JAX.
+The last lines are the card line, one JSON object of per-kernel results
+(each kernel's time, its plain version's, the bound of the data-sheet
+roofline for the same work and one PyTorch call's for the same function),
+and ``{"ok": true, "device": {...}}``.  The times of ``dg_rows_f32`` and
+``ew_product_f32`` are phase 4's rows, those of ``row_reduce_f32`` and
+``ew_flat_f32`` phase 10's; launches are counted over the main path
+(phase 3) and the archive replays (phases 6, 8, 10).  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -71,15 +93,24 @@ TUNE_POINTS = 4        # measured points per fp64 row (autotune test_limit)
 TUNE_SEEDS = [{"log2_block": 9, "blkc128": 0},
               {"log2_block": 10, "blkc128": 0}]
 TC_TUNE_POINTS = 3     # measured points per TCCG row (autotune test_limit)
+F32_TUNE_POINTS = 3    # measured points per f32 archive row (at most)
+E_REDUCE_LONG = 2 ** 23   # row_reduce_f32's second timing length
 F32_KERNELS = ("dg_rows_f32", "ew_product_f32")
 REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "ew_product_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "ew_flat_f32": "feinsum_tpu/ops/pallas_emitter.py:187",
+            "row_reduce_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "dd_rows": "feinsum_tpu/ops/dd_emitter.py:233",
             "tc_grid_f32": "feinsum_tpu/ops/pallas_emitter.py:268"}
 SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
+           "ew_flat_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
+           "row_reduce_f32": "feinsum_tpu_torch/csrc/row_reduce.cu",
            "dd_rows": "feinsum_tpu_torch/csrc/dd_rows.cu",
            "tc_grid_f32": "feinsum_tpu_torch/csrc/tc_grid.cu"}
+# the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W)
+PEAK_BYTES_PER_MS = 3.35e9
+PEAK_OPS_PER_MS = {"float32": 67e9, "float64": 34e9}
 
 
 class SmokeFailure(Exception):
@@ -111,6 +142,96 @@ def max_err(got, want) -> tuple:
     abs_err = float((got - want).abs().max())
     scale = float(want.abs().max()) or 1.0
     return abs_err, abs_err / scale
+
+
+def row_bound(e, length: int, program=None) -> tuple:
+    """``(bytes ms, operations ms)`` of one row: its bytes (each operand
+    read once, each output written once) over the peak memory rate, and
+    its operations over the peak rate of their type: the optimal pairwise
+    schedule's count, or *program*'s schedule's where that is smaller
+    (curl's pre-reduced ``R``); the roofline bound is the larger."""
+    from feinsum_tpu_torch.measure import evaluate_giga_op_map, \
+        get_footprint_gbytes, get_giga_op_map
+    t_bytes = get_footprint_gbytes(e, long_dim_length=length) * 1e9 \
+        / PEAK_BYTES_PER_MS
+    schedules = [None]
+    if program is not None and program.einsum == e:
+        schedules.append(program.schedule)
+    t_ops = min(sum(g * 1e9 / PEAK_OPS_PER_MS[dt] for dt, g in
+                    evaluate_giga_op_map(get_giga_op_map(e, schedule),
+                                         length).items())
+                for schedule in schedules)
+    return t_bytes, t_ops
+
+
+def bound_text(e, length: int, program=None) -> str:
+    t_bytes, t_ops = row_bound(e, length, program)
+    return (f"bound {max(t_bytes, t_ops):.4f} ms"
+            f" ({'bytes' if t_bytes >= t_ops else 'operations'})")
+
+
+class KernelStats:
+    """Per kernel: summed kernel, plain-version and library-call ms, and
+    the summed data-sheet bound of the same work."""
+
+    def __init__(self):
+        self.rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                         "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+                     for k in SOURCES}
+
+    def add(self, kernel: str, e, length: int, ms: float, plain_ms: float,
+            library_ms=None, program=None) -> None:
+        """One row's times, and its bound (:func:`row_bound`)."""
+        t_bytes, t_ops = row_bound(e, length, program)
+        row = self.rows[kernel]
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["library_ms"] = (None if library_ms is None
+                             or row["library_ms"] is None
+                             else row["library_ms"] + library_ms)
+        row["bytes_ms"] += t_bytes
+        row["ops_ms"] += t_ops
+        row["bound_ms"] += max(t_bytes, t_ops)
+
+    def entry(self, kernel: str, launches: int, worst: float) -> dict:
+        row = self.rows[kernel]
+        return {"name": kernel, "route": "cuda", "source": SOURCES[kernel],
+                "replaces": REPLACES[kernel], "launches": launches,
+                "max_abs_err": worst, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                             else "operations"),
+                "library_ms": row["library_ms"]}
+
+
+def library_call(program):
+    """One ``torch.einsum`` per row on the stored operands, computing the
+    row's whole function: the PyTorch call the kernels are held to."""
+    import torch
+
+    from feinsum_tpu_torch.ops.layouts import stored_arg_layouts, \
+        stored_out_letters
+
+    e = program.einsum
+    stored = stored_arg_layouts(program)
+    subs = (",".join("".join(stored[a.name]) for a in e.args[0]) + "->"
+            + "".join(stored_out_letters(program)))
+
+    def call(arrays):
+        return [torch.einsum(subs, *[arrays[a.name] for a in row])
+                for row in e.args]
+    return call
+
+
+def timed_in_turns(routes: dict, arrays_of: dict) -> dict:
+    """ms of each route, timed in turns (each route, then each again in
+    reverse order), each the mean of its two medians."""
+    from feinsum_tpu_torch.measure import timeit_cuda
+    order = list(routes)
+    times = {k: [] for k in order}
+    for k in order + order[::-1]:
+        times[k].append(timeit_cuda(routes[k], arrays_of[k]))
+    return times
 
 
 def main() -> int:
@@ -207,7 +328,7 @@ def main() -> int:
     # phase 4: check the outputs, then time
     power = card.split(",")[-1].strip()
     label = f"[{torch.cuda.get_device_name(0)}, power limit {power}]"
-    totals = {k: {"ms": 0.0, "plain_ms": 0.0} for k in F32_KERNELS}
+    stats = KernelStats()
     for name, e in rows:
         program, arrays, fn, outs = runs.pop(name)
         xla = ft.build_executable(program.with_descriptor(backend="xla"),
@@ -230,18 +351,23 @@ def main() -> int:
             return plan.plain(plan.operands(a))
 
         # in turns: plain, kernel, kernel, plain (and the per-step route
-        # around them)
+        # and the library call around them)
+        library = library_call(program)
+        t_lib = [timeit_cuda(library, arrays)]
         t_xla = [timeit_cuda(xla, arrays)]
         t_plain = [timeit_cuda(plain, arrays)]
         t_kern = [timeit_cuda(fn, arrays), timeit_cuda(fn, arrays)]
         t_plain.append(timeit_cuda(plain, arrays))
         t_xla.append(timeit_cuda(xla, arrays))
+        t_lib.append(timeit_cuda(library, arrays))
         gops = sum(evaluate_giga_op_map(get_giga_op_map(e), E_FULL).values())
         roof = ft.get_roofline_flop_rate(e, dev, long_dim_length=E_FULL,
                                          ignore_unknown_device=True)
+        log(f"[time] {name} E={E_FULL} {bound_text(e, E_FULL)}")
         for route, ts in (("kernel " + plan.kernel, t_kern),
                           ("plain version", t_plain),
-                          ("plain per-step route", t_xla)):
+                          ("plain per-step route", t_xla),
+                          ("library call (torch.einsum)", t_lib)):
             ms = sum(ts) / len(ts)
             rate = gops / (ms * 1e-3)
             share = (f"{100 * rate / roof:.1f}% of roofline"
@@ -249,26 +375,43 @@ def main() -> int:
             log(f"[time] {name} E={E_FULL} {route}: {ms:.4f} ms"
                 f" (runs {', '.join(f'{t:.4f}' for t in ts)}),"
                 f" {rate:.1f} GOp/s, {share} {label}")
-        totals[plan.kernel]["ms"] += sum(t_kern) / len(t_kern)
-        totals[plan.kernel]["plain_ms"] += sum(t_plain) / len(t_plain)
+        stats.add(plan.kernel, e, E_FULL, sum(t_kern) / len(t_kern),
+                  sum(t_plain) / len(t_plain), sum(t_lib) / len(t_lib))
         del arrays
         torch.cuda.empty_cache()
 
+    log(f"[phase] 1-4 (build, f32 kernels, main path, times):"
+        f" {time.perf_counter() - t0:.1f} s")
+    t_phase = time.perf_counter()
     worst["dd_rows"] = fp64_kernel_check(dev)
-    launches["dd_rows"], totals["dd_rows"] = fp64_archive_path(dev, label)
+    launches["dd_rows"] = fp64_archive_path(dev, label, stats)
+    log(f"[phase] 5-6 (fp64): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     worst["tc_grid_f32"] = tc_kernel_check(dev)
-    launches["tc_grid_f32"], totals["tc_grid_f32"] = tccg_archive_path(
-        dev, label)
+    launches["tc_grid_f32"] = tccg_archive_path(dev, label, stats)
+    log(f"[phase] 7-8 (TCCG): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    worst.update(f32_kernel_check(dev, label, worst))
+    log(f"[phase] 9 (f32 kernels): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    for k, n in f32_archive_path(dev, label, stats).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[phase] 10 (f32 archive path):"
+        f" {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    curl_prereduce_comparison(dev, label)
+    log(f"[phase] 11 (curl prereduce): {time.perf_counter() - t_phase:.1f} s;"
+        f" all phases {time.perf_counter() - t0:.1f} s")
 
-    for k in SOURCES:
-        if not all(math.isfinite(v) and v > 0 for v in totals[k].values()):
-            raise SmokeFailure(f"{k}: no time measured")
+    entries = [stats.entry(k, launches[k], worst[k]) for k in SOURCES]
+    for entry in entries:
+        times = [entry[k] for k in ("ms", "plain_ms", "bound_ms")]
+        if entry["library_ms"] is not None:
+            times.append(entry["library_ms"])
+        if not all(math.isfinite(v) and v > 0 for v in times):
+            raise SmokeFailure(f"{entry['name']}: no time measured")
     log(card)
-    log(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES[k], "launches": launches[k],
-         "max_abs_err": worst[k], "ms": totals[k]["ms"],
-         "plain_ms": totals[k]["plain_ms"]} for k in SOURCES]}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -317,9 +460,9 @@ def fp64_kernel_check(dev) -> float:
     return worst
 
 
-def fp64_archive_path(dev, label: str) -> tuple:
+def fp64_archive_path(dev, label: str, stats: KernelStats) -> int:
     """Phase 6: tune, record, replay and time the fp64 rows; returns the
-    dd_rows launches of the replays and the summed kernel and plain ms."""
+    dd_rows launches of the replays and adds the times to *stats*."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -386,7 +529,6 @@ def fp64_archive_path(dev, label: str) -> tuple:
     log(f"[replay] launch counts over the replays:"
         f" {dict(kernels.launch_counts)}")
 
-    totals = {"ms": 0.0, "plain_ms": 0.0}
     for name, e in rows:
         program, logical, arrays, fn, outs = runs.pop(name)
         xla = ft.build_executable(
@@ -424,11 +566,12 @@ def fp64_archive_path(dev, label: str) -> tuple:
             log(f"[time] {name} E={E_FULL} {route}: {ms:.4f} ms"
                 f" (runs {', '.join(f'{t:.4f}' for t in ts)}),"
                 f" {rate:.1f} GOp/s, {share} {label}")
-        totals["ms"] += sum(t_kern) / len(t_kern)
-        totals["plain_ms"] += sum(t_plain) / len(t_plain)
+        # no one PyTorch call computes a float64 row on pair storage
+        stats.add("dd_rows", e, E_FULL, sum(t_kern) / len(t_kern),
+                  sum(t_plain) / len(t_plain))
         del logical, arrays
         torch.cuda.empty_cache()
-    return launches, totals
+    return launches
 
 
 def _tc_seed(name: str, k: int) -> dict:
@@ -507,10 +650,11 @@ def tc_kernel_check(dev) -> float:
     return worst
 
 
-def tccg_archive_path(dev, label: str) -> tuple:
+def tccg_archive_path(dev, label: str, stats: KernelStats) -> int:
     """Phase 8: tune, record, replay and time the TCCG rows; returns the
-    tc_grid_f32 launches of the replays and the summed kernel and plain
-    ms."""
+    tc_grid_f32 launches of the replays and adds the times to *stats*
+    (the plain version ``tc_grid_plain`` is one ``torch.einsum`` call, so
+    it is also the library call)."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -578,7 +722,6 @@ def tccg_archive_path(dev, label: str) -> tuple:
     log(f"[replay] launch counts over the replays:"
         f" {dict(kernels.launch_counts)}")
 
-    totals = {"ms": 0.0, "plain_ms": 0.0}
     for name, e in rows:
         xla = ft.build_executable(per_step.bind_args(
             e, use_opt_path=True, precision_idx=0)(ft.generate_program(e)),
@@ -618,8 +761,9 @@ def tccg_archive_path(dev, label: str) -> tuple:
             routes = (("kernel tc_grid_f32", t_kern),
                       ("plain version", t_plain),
                       ("plain per-step route", t_xla))
-            totals["ms"] += sum(t_kern) / len(t_kern)
-            totals["plain_ms"] += sum(t_plain) / len(t_plain)
+            stats.add("tc_grid_f32", e, 1, sum(t_kern) / len(t_kern),
+                      sum(t_plain) / len(t_plain),
+                      sum(t_plain) / len(t_plain))
             del arrays
         for route, ts in routes:
             ms = sum(ts) / len(ts)
@@ -631,7 +775,275 @@ def tccg_archive_path(dev, label: str) -> tuple:
                 f" {rate:.1f} GOp/s, {share} {label}")
         del logical
         torch.cuda.empty_cache()
-    return launches, totals
+    return launches
+
+
+def f32_kernel_check(dev, label: str, worst: dict) -> dict:
+    """Phase 9: ``row_reduce_f32``, ``ew_flat_f32`` and the hoisted curl
+    on ``dg_rows_f32`` against their plain versions; times
+    ``row_reduce_f32`` at E_FULL and E_REDUCE_LONG with its byte bound and
+    idle share.  Returns the largest absolute errors by kernel (the
+    ``dg_rows_f32`` entry of *worst* included)."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.suite import (SCALE_FLAT_LENGTH, default_transform,
+                                         extended_suite, make_scale_flat,
+                                         space_point)
+    from feinsum_tpu_torch.tools.profile_suite import report
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    ext = dict(extended_suite())
+    cases = []      # (label, einsum, program, lengths)
+    for name in ("vecmat_ndof35", "rowsum_ndof35"):
+        e = ext[name]
+        dof = default_transform(e)(ft.generate_program(e))
+        for layout, program in (
+                ("dof-major", dof),
+                ("element-major",
+                 dof.with_descriptor(arg_layouts=(), out_layout=None))):
+            for length in (E_SMALL, E_FULL):
+                cases.append((f"{name} {layout}", e, program, length))
+    flat = make_scale_flat()
+    flat_prog = get_transform_func_from_module_path("elementwise_v1") \
+        .bind_args(flat, **space_point("elementwise_v1", flat,
+                                       flatten=True))(ft.generate_program(flat))
+    for length in (E_SMALL, SCALE_FLAT_LENGTH):
+        cases.append(("scale_flat flatten", flat, flat_prog, length))
+    curl = ext["dg_curl_ndof35"]
+    curl_prog = get_transform_func_from_module_path("curl_3d_v0").bind_args(
+        curl, **space_point("curl_3d_v0", curl, prereduce=True))(
+        ft.generate_program(curl))
+    for length in (E_SMALL, E_FULL):
+        cases.append(("dg_curl_ndof35 prereduce, R hoisted", curl,
+                      curl_prog, length))
+
+    out = {"row_reduce_f32": 0.0, "ew_flat_f32": 0.0,
+           "dg_rows_f32": worst["dg_rows_f32"]}
+    for case, e, program, length in cases:
+        plan = plan_cuda_launch(program, get_index_lengths(e, length))
+        operands = plan.operands(apply_layouts(program, generate_input_arrays(
+            e, long_dim_length=length, seed=1, device=dev)))
+        got = plan.run(operands)
+        want = plan.plain(operands)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            abs_err, rel = max_err(g, w)
+            out[plan.kernel] = max(out[plan.kernel], abs_err)
+            ok = rel <= RTOL
+            log(f"[compare] {plan.kernel} {case} E={length}:"
+                f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
+                f" max|plain| (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SmokeFailure(f"{plan.kernel} disagrees with its plain"
+                                   f" version on {case}")
+        del operands, got, want
+
+    # row_reduce_f32 against its byte bound, and the device's idle share;
+    # one set of inputs per row and length serves both layouts
+    for length in (E_FULL, E_REDUCE_LONG):
+        for name in ("vecmat_ndof35", "rowsum_ndof35"):
+            e = ext[name]
+            logical = generate_input_arrays(e, long_dim_length=length,
+                                            device=dev)
+            for case, _, program, _ in cases[:8:2]:
+                if not case.startswith(name):
+                    continue
+                arrays = apply_layouts(program, logical)
+                fn = ft.build_executable(program, long_dim_length=length,
+                                         device=dev)
+                plan = plan_cuda_launch(program, get_index_lengths(e, length))
+                times = timed_in_turns(
+                    {"kernel": fn,
+                     "plain": lambda a, plan=plan: plan.plain(
+                         plan.operands(a)),
+                     "library": library_call(program)},
+                    {k: arrays for k in ("kernel", "plain", "library")})
+                log(f"[time] row_reduce_f32 {case} E={length}: kernel"
+                    f" {sum(times['kernel']) / 2:.4f} ms, plain version"
+                    f" {sum(times['plain']) / 2:.4f} ms, library call"
+                    f" {sum(times['library']) / 2:.4f} ms,"
+                    f" {bound_text(e, length)} (runs {times}) {label}")
+                report(f"row_reduce_f32 {case} E={length}", "kernel", fn,
+                       arrays)
+                del arrays
+            del logical
+            torch.cuda.empty_cache()
+    return out
+
+
+def f32_archive_path(dev, label: str, stats: KernelStats) -> dict:
+    """Phase 10: tune, record, replay and time the f32 rows; returns the
+    launches by kernel over the replays, and adds the times of
+    ``row_reduce_f32`` (vecmat, rowsum) and ``ew_flat_f32`` (scale_flat)
+    to *stats*."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import (
+        generate_program_with_opt_einsum_schedule, get_index_lengths)
+    from feinsum_tpu_torch.data.device_info import get_device_key
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        evaluate_giga_op_map, generate_input_arrays, get_giga_op_map
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.suite import (F32_SPACES, SCALE_FLAT_LENGTH,
+                                         candidate_transforms,
+                                         f32_rows, f32_seed_configs)
+
+    db = HERE / "build" / "chip_smoke" / "f32_archive.sqlite"
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    key = get_device_key(dev)
+    rows = f32_rows()
+    length_of = {name: SCALE_FLAT_LENGTH if name == "scale_flat" else E_FULL
+                 for name, _ in rows}
+    for name, e in rows:
+        t0 = time.perf_counter()
+        ft.autotune(e, F32_SPACES[name], db_path=str(db), device=dev,
+                    long_dim_length=length_of[name],
+                    test_limit=F32_TUNE_POINTS,
+                    seed_configs=f32_seed_configs(name, e))
+        facts = ft.query(e, dev, db_path=str(db))
+        log(f"[tune] {name}: {len(facts)} facts in"
+            f" {time.perf_counter() - t0:.1f} s")
+        for q in facts:
+            log(f"[tune]   {q.device_name} {q.transform_id}"
+                f" {dict(q.transform_params)}:"
+                f" {q.runtime_in_sec * 1e3:.4f} ms,"
+                f" {q.total_giga_op_rate:.1f} GOp/s {label}")
+        if not 1 <= len(facts) <= F32_TUNE_POINTS \
+                or any(q.device_name != key for q in facts):
+            raise SmokeFailure(f"{name}: expected 1 to {F32_TUNE_POINTS}"
+                               f" facts under {key}")
+
+    kernels.reset_launch_counts()
+    runs = {}
+    for name, e in rows:
+        winner = next(candidate_transforms(name, e, db_path=str(db),
+                                           device=dev))
+        log(f"[replay] {winner.label}")
+        if winner.fact is None or winner.fact.transform_id \
+                != F32_SPACES[name] + ".py":
+            raise SmokeFailure(f"{name}: the winner is not an archived"
+                               f" {F32_SPACES[name]}.py fact")
+        ft.validate_batched_einsum_transform(
+            e, winner.transform, long_dim_length=E_VALIDATE, device=dev)
+        program = winner.transform(ft.generate_program(e))
+        length = length_of[name]
+        logical = generate_input_arrays(e, long_dim_length=length,
+                                        device=dev)
+        arrays = apply_layouts(program, logical)
+        fn = ft.build_executable(program, long_dim_length=length,
+                                 device=dev)
+        before = dict(kernels.launch_counts)
+        outs = fn(arrays)
+        torch.cuda.synchronize()
+        if kernels.launch_counts == before:
+            raise SmokeFailure(f"{name}: the replay launched no kernel")
+        runs[name] = (program, logical, arrays, fn, outs)
+        log(f"[replay] {name}: validated on {dev} at E={E_VALIDATE}, ran"
+            f" at E={length}: outputs {[tuple(o.shape) for o in outs]}")
+    launches = {k: kernels.launch_counts[k] for k in (
+        "dg_rows_f32", "ew_product_f32", "ew_flat_f32", "row_reduce_f32")}
+    log(f"[replay] launch counts over the replays:"
+        f" {dict(kernels.launch_counts)}")
+    for k, n in launches.items():
+        if n < 1:
+            raise SmokeFailure(f"{k} was not launched on the f32 archive"
+                               " path")
+
+    for name, e in rows:
+        program, logical, arrays, fn, outs = runs.pop(name)
+        length = length_of[name]
+        per_step = ft.build_executable(
+            generate_program_with_opt_einsum_schedule(e),
+            long_dim_length=length, device=dev)
+        wants = per_step(logical)
+        if program.descriptor.rowcat > 1:
+            # one output: the rows stacked along the long axis
+            outs = list(ft.unpack_output(program, outs[0],
+                                         tuple(wants[0].shape)))
+        else:
+            outs = [ft.unpack_output(program, o, tuple(w.shape))
+                    for o, w in zip(outs, wants)]
+        for got, want in zip(outs, wants):
+            _, rel = max_err(got, want)
+            log(f"[check] {name} E={length}: max|replay-per-step| ="
+                f" {rel:.2e} of max|per-step| (tolerance {RTOL})")
+            if rel > RTOL:
+                raise SmokeFailure(f"{name}: E={length} output differs from"
+                                   f" the plain per-step route by {rel:.2e}")
+        del outs, wants
+        plan = plan_cuda_launch(program, get_index_lengths(
+            program.einsum, length * program.descriptor.rowcat))
+        times = timed_in_turns(
+            {"kernel": fn,
+             "plain": lambda a, plan=plan: plan.plain(plan.operands(a)),
+             "per-step": per_step,
+             "library": library_call(program)},
+            {"kernel": arrays, "plain": arrays, "per-step": logical,
+             "library": arrays})
+        gops = sum(evaluate_giga_op_map(get_giga_op_map(e), length).values())
+        roof = ft.get_roofline_flop_rate(e, dev, long_dim_length=length,
+                                         ignore_unknown_device=True)
+        log(f"[time] {name} E={length} {bound_text(e, length, program)}")
+        for route, ts in (("kernel " + plan.kernel, times["kernel"]),
+                          ("plain version", times["plain"]),
+                          ("plain per-step route", times["per-step"]),
+                          ("library call (torch.einsum)", times["library"])):
+            ms = sum(ts) / len(ts)
+            rate = gops / (ms * 1e-3)
+            share = (f"{100 * rate / roof:.1f}% of roofline"
+                     f" ({roof:.0f} GOp/s)" if roof else "roofline unknown")
+            log(f"[time] {name} E={length} {route}: {ms:.4f} ms"
+                f" (runs {', '.join(f'{t:.4f}' for t in ts)}),"
+                f" {rate:.1f} GOp/s, {share} {label}")
+        if plan.kernel in ("row_reduce_f32", "ew_flat_f32"):
+            stats.add(plan.kernel, e, length, sum(times["kernel"]) / 2,
+                      sum(times["plain"]) / 2, sum(times["library"]) / 2,
+                      program)
+        del logical, arrays
+        torch.cuda.empty_cache()
+    return launches
+
+
+def curl_prereduce_comparison(dev, label: str) -> None:
+    """Phase 11: curl at its ``prereduce`` point (``R = sum_r D`` hoisted,
+    one S = 1 launch) and at its default point (S = 3), timed in turns."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.measure import apply_layouts, generate_input_arrays
+    from feinsum_tpu_torch.suite import extended_suite, space_point
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    e = dict(extended_suite())["dg_curl_ndof35"]
+    space = get_transform_func_from_module_path("curl_3d_v0")
+    logical = generate_input_arrays(e, long_dim_length=E_FULL, device=dev)
+    fns, arrays = {}, {}
+    for point, knobs in (("default", {}), ("prereduce", {"prereduce": True})):
+        program = space.bind_args(e, **space_point("curl_3d_v0", e, **knobs))(
+            ft.generate_program(e))
+        arrays[point] = apply_layouts(program, logical)
+        fns[point] = ft.build_executable(program, long_dim_length=E_FULL,
+                                         device=dev)
+    outs = {k: fns[k](arrays[k]) for k in fns}
+    for a, b in zip(outs["default"], outs["prereduce"]):
+        _, rel = max_err(b, a)
+        if rel > RTOL:
+            raise SmokeFailure(f"curl prereduce differs from the default"
+                               f" point by {rel:.2e}")
+    times = timed_in_turns(fns, arrays)
+    log(f"[curl] E={E_FULL} default point {sum(times['default']) / 2:.4f}"
+        f" ms, prereduce point {sum(times['prereduce']) / 2:.4f} ms"
+        f" (runs {times}) {label}")
+    del logical, arrays
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

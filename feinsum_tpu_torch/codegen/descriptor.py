@@ -94,9 +94,37 @@ class ScheduleDescriptor:
     :attr multiple_results_in_one_kernel: ``True`` launches all rows of a
         batched einsum together (``blockIdx.y`` = row); ``False`` launches
         once per row.
-    :attr hoist_resident_steps: accepted at both values; a schedule step
-        that reads no long-axis operand raises on the fused route either way
-        (the hoisted-step path is not ported yet).
+    :attr hoist_resident_steps: ``True`` (the default): on the fused route
+        a schedule step that reads no long-axis operand, transitively, is
+        evaluated once per call by ``torch.einsum`` on the card (what the
+        reference hands to XLA), rows whose hoisted steps read the same
+        operands share one result, and each row is planned on the einsum in
+        which the hoisted results replace the operands they consumed (curl
+        with ``prereduce``: ``R = Σ_r D`` once, then a mass-shaped
+        ``dg_rows_f32`` launch with S = 1).  ``False``: the kernels compute
+        each row's value from its own operands, whatever the step order.
+    :attr flatten: with ``backend="pallas"``, K3's route: a single-step,
+        contraction-free program of 1-D operands that all carry the
+        output's subscript, with no ``arg_layouts`` or ``out_layout``, runs
+        ``ew_flat_f32`` (the ``ew_product_f32`` kernel over a flat stream,
+        ``block_long`` elements per thread block); any other program raises
+        the reference's message.  The plain route ignores it, as the
+        reference's does.
+    :attr rowcat, rowcat_args: the row-concatenation rewrite: the program
+        is one row over a long axis ``rowcat`` times as long, whose
+        streamed operands ``rowcat_args`` (``(stacked, (row0, row1,
+        ...))``) are stored stacked end to end along the leading long axis
+        (:func:`~feinsum_tpu_torch.measure.apply_layouts`); its one output
+        is the rows' outputs stacked the same way
+        (:func:`~feinsum_tpu_torch.ops.layouts.unpack_output`).
+        :func:`~feinsum_tpu_torch.codegen.program.build_executable`
+        stretches the long axis by ``rowcat``.  Any backend.
+    :attr xla_block_long: with ``backend="xla"``: the schedule runs chunk by
+        chunk over this many elements of the long axis, each chunk's rows
+        written into a preallocated output (the last chunk is shorter).  It
+        bounds the footprint of the intermediates.  The long axis must be an
+        output axis; ``pre_layouts`` do not compose with it.  The fused
+        route ignores it, as the reference's does.
     :attr dd_pairs: ``True`` with ``backend="pallas"`` stores every float64
         operand and output as a (2, ...) float32 [hi, lo] pair
         (``ops/dd_emitter.py``) and runs the ``dd_rows`` kernel, which
@@ -107,13 +135,21 @@ class ScheduleDescriptor:
     :attr flags: free-form, carried and ignored.
 
     Fields that raise at any value but their default, with the ROADMAP.md
-    item that will bring them: ``flatten`` (K3, with ``elementwise_v1``,
-    queue 1 item 3); ``lane_pack``, ``lane_pack_args``, ``kron_args``,
-    ``lane_pack_expand`` and ``rowcat``/``rowcat_args`` (the lane-pack and
-    row-concatenation rewrites, queue 1 item 3); ``xla_block_long`` (the
-    chunked route, queue 1 item 3).  ``fold_long``, ``preblock_args``,
-    ``mfold`` and ``vmem_limit_bytes`` describe the TPU's (8, 128) tiling,
-    its MXU and its VMEM; a Hopper analog, if one pays, is tuner work.
+    item that will bring them: ``lane_pack``, ``lane_pack_args``,
+    ``kron_args`` and ``lane_pack_expand`` (the lane-pack rewrites, queue 2
+    K1 remainder).  ``fold_long``, ``preblock_args``, ``mfold`` and
+    ``vmem_limit_bytes`` describe the TPU's (8, 128) tiling, its MXU and its
+    VMEM; a Hopper analog, if one pays, is tuner work.
+
+    The DG spaces' knobs (``tuning/impls/_common.py::make_dg_space``) on
+    the card: ``log2_block``/``blkc128`` set ``block_long``; ``dofmajor``,
+    ``split_rows``, ``prereduce`` and ``rowcat`` are searched (each changes
+    the launch); ``parallel_grid`` sets ``dimension_semantics``; ``hoist``,
+    ``jfold`` and ``host_hoist`` build the reference's schedule and the
+    same launch (pinned); ``vmem_idx`` is accepted and ignored, as in
+    ``dd_pallas_v0`` and ``tc_gemm_v0`` (no ``vmem_limit_bytes``);
+    ``fold``, ``preblock``, ``precision_3x``, ``mfold`` and
+    ``lane_pack_g > 0`` raise (pinned off).
     """
 
     backend: str = "xla"
@@ -167,14 +203,10 @@ class ScheduleDescriptor:
 
 # field -> ROADMAP.md item that will bring a non-default value
 _UNPORTED = {
-    "flatten": "queue 1 item 3 (K3 with elementwise_v1)",
-    "lane_pack": "queue 1 item 3 (lane-pack rewrite)",
-    "lane_pack_args": "queue 1 item 3 (lane-pack rewrite)",
-    "kron_args": "queue 1 item 3 (lane-pack rewrite)",
-    "lane_pack_expand": "queue 1 item 3 (lane-pack rewrite)",
-    "rowcat": "queue 1 item 3 (row-concatenation rewrite)",
-    "rowcat_args": "queue 1 item 3 (row-concatenation rewrite)",
-    "xla_block_long": "queue 1 item 3 (chunked XLA route)",
+    "lane_pack": "queue 2 K1 remainder (lane-pack rewrites)",
+    "lane_pack_args": "queue 2 K1 remainder (lane-pack rewrites)",
+    "kron_args": "queue 2 K1 remainder (lane-pack rewrites)",
+    "lane_pack_expand": "queue 2 K1 remainder (lane-pack rewrites)",
     "fold_long": "North star: a TPU (8, 128) tiling knob",
     "preblock_args": "North star: a TPU (8, 128) tiling knob",
     "mfold": "North star: a TPU MXU row-packing knob",
@@ -228,3 +260,10 @@ def check_supported(desc: ScheduleDescriptor) -> None:
     if desc.block_long < 1:
         raise InvalidParameterError(
             f"block_long must be positive, got {desc.block_long}")
+    if desc.xla_block_long is not None and desc.xla_block_long < 1:
+        raise InvalidParameterError(
+            f"xla_block_long must be positive, got {desc.xla_block_long}")
+    if desc.rowcat < 1 or (desc.rowcat > 1) != bool(desc.rowcat_args):
+        raise InvalidParameterError(
+            f"rowcat={desc.rowcat} needs rowcat_args (and they need"
+            " rowcat > 1)")

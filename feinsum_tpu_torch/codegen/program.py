@@ -134,6 +134,58 @@ def _xla_row(program: EinsumProgram, row: int, logical: dict):
     return result.contiguous()
 
 
+def _xla_chunked_fn(program: EinsumProgram, index_to_length: dict,
+                    blk: int):
+    """The plain route chunk by chunk (``descriptor.xla_block_long``): each
+    chunk of *blk* elements of the long axis runs the whole schedule on
+    slices of the long-axis operands, and its rows are written into
+    preallocated outputs in the stored layout.  The reference pads the last
+    chunk to *blk* and drops the padded rows; here the last chunk is
+    shorter, which gives the same outputs."""
+    e = program.einsum
+    desc = program.descriptor
+    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)]
+    if len(long_letters) != 1:
+        raise InvalidParameterError(
+            "xla_block_long needs exactly one parametric long axis")
+    if desc.pre_layouts:
+        raise InvalidParameterError(
+            "xla_block_long composes with neither fold_long nor pre_layouts")
+    (letter,) = long_letters
+    if letter not in e.out_idx_set:
+        raise InvalidParameterError(
+            "xla_block_long needs the long axis in the output")
+    length = int(index_to_length[letter])
+    blk = min(blk, length)
+    axis_of = {a.name: tuple(idx).index(letter)
+               for row in e.args for a, idx in zip(row, e.in_idx_sets)
+               if letter in idx}
+    out_letters = (tuple(e.out_idx_set[p] for p in desc.out_layout)
+                   if desc.out_layout is not None else tuple(e.out_idx_set))
+    p_out = out_letters.index(letter)
+    out_shape = tuple(int(index_to_length[ix]) for ix in out_letters)
+
+    def fn(arrays_by_name: dict):
+        check_full_fp32_matmul()
+        logical = _logical_arrays(program, arrays_by_name)
+        device = next(iter(logical.values())).device
+        outs = [torch.empty(out_shape, device=device,
+                            dtype=torch_dtype(output_dtype(e, r)))
+                for r in range(e.b)]
+        for start in range(0, length, blk):
+            stop = min(start + blk, length)
+            chunk = {name: (t.narrow(axis_of[name], start, stop - start)
+                            if name in axis_of else t)
+                     for name, t in logical.items()}
+            for r, out in enumerate(outs):
+                out.narrow(p_out, start, stop - start).copy_(
+                    _xla_row(program, r, chunk))
+        return tuple(outs)
+
+    return fn
+
+
 @functools.lru_cache(maxsize=512)
 def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
                              device: Optional[torch.device]):
@@ -148,6 +200,9 @@ def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
     elif program.descriptor.backend == "pallas":
         from ..ops.cuda_emitter import build_cuda_executable
         inner = build_cuda_executable(program, dict(lengths_key))
+    elif program.descriptor.xla_block_long is not None:
+        inner = _xla_chunked_fn(program, dict(lengths_key),
+                                int(program.descriptor.xla_block_long))
     else:
         def inner(arrays_by_name: dict):
             check_full_fp32_matmul()
@@ -178,12 +233,18 @@ def build_executable(program: EinsumProgram, *,
     apply_layouts`).  With *device*, the executable refuses tensors that lie
     elsewhere.  Executables are cached on (program, lengths, device).  The
     descriptor's ``bind_lengths`` override the caller's lengths: they fix
-    the axes of a rewritten program to the original einsum's."""
+    the axes of a rewritten program to the original einsum's, and a
+    row-concatenation rewrite (``descriptor.rowcat`` = b) stretches the long
+    axis b-fold: its rows lie end to end."""
     if index_to_length is None:
         index_to_length = get_index_lengths(program.einsum, long_dim_length)
     index_to_length = dict(index_to_length)
     for ix, ln in program.descriptor.bind_lengths:
         index_to_length[ix] = int(ln)
+    if program.descriptor.rowcat > 1:
+        for ix, ln in program.einsum.index_to_dim_length.items():
+            if isinstance(ln, SizeParam):
+                index_to_length[ix] *= program.descriptor.rowcat
     lengths_key = tuple(sorted(index_to_length.items()))
     dev = None
     if device is not None:

@@ -90,7 +90,10 @@ def generate_input_arrays(einsum: BatchedEinsum, *, long_dim_length: int,
 
 def apply_layouts(program: EinsumProgram, arrays: dict) -> dict:
     """Pack logical (einsum-shaped) tensors into *program*'s stored layout,
-    in the reference's order: first each ``pre_layouts`` grouping (a
+    in the reference's order: first each ``rowcat_args`` group, the rows'
+    streamed operands stacked end to end along their leading long axis
+    into the rewritten program's operand, then each ``pre_layouts``
+    grouping (a
     rewritten program's operands, e.g. a tensor-contraction operand stored
     as a GEMM-natural 2D matrix, :func:`~feinsum_tpu_torch.ops.layouts.
     apply_nested_layout`), then each ``arg_layouts`` permutation, both
@@ -102,6 +105,11 @@ def apply_layouts(program: EinsumProgram, arrays: dict) -> dict:
     from .ops.layouts import apply_nested_layout
 
     out = dict(arrays)
+    for new_name, olds in program.descriptor.rowcat_args:
+        stack = [out.pop(n) for n in olds]
+        out[new_name] = (np.concatenate(stack, axis=0)
+                         if isinstance(stack[0], np.ndarray)
+                         else torch.cat(stack, dim=0))
     for name, nested in program.descriptor.pre_layouts:
         out[name] = apply_nested_layout(out[name], nested)
     for name, perm in program.descriptor.arg_layouts_map.items():
@@ -273,9 +281,15 @@ def validate_batched_einsum_transform(
     fn = build_executable(program, long_dim_length=long_dim_length,
                           device=device)
     results = fn(dev_arrays)
-    if len(results) != einsum.b:
+    if program.descriptor.rowcat > 1:
+        # one output: the rows' outputs end to end along the long axis
+        (el,) = [ix for ix, ln in einsum.index_to_dim_length.items()
+                 if isinstance(ln, SizeParam)]
+        expected = [np.concatenate(expected,
+                                   axis=list(einsum.out_idx_set).index(el))]
+    if len(results) != len(expected):
         raise TransformValidationError(
-            f"expected {einsum.b} outputs, got {len(results)}")
+            f"expected {len(expected)} outputs, got {len(results)}")
     out_layout = program.descriptor.out_layout
     pre_out = program.descriptor.pre_out_layout
     for r, (got, ref) in enumerate(zip(results, expected)):

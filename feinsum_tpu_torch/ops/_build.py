@@ -38,7 +38,7 @@ _SIGNATURES = (
     ("dg_rows_f32", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _P)),
     ("dg_rows_f32_smem_bytes", ctypes.c_size_t, (_I, _I, _I, _I)),
     ("dg_rows_f32_max_rows", _I, ()),
-    ("ew_product_f32", _I, (_I, _I, _PP, _PP, _I64, _P)),
+    ("ew_product_f32", _I, (_I, _I, _PP, _PP, _I64, _I64, _P)),
     ("ew_product_f32_max_rows", _I, ()),
     ("ew_product_f32_max_ops", _I, ()),
     ("dd_rows", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _P)),
@@ -47,6 +47,10 @@ _SIGNATURES = (
     ("tc_grid_f32", _I, (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P)),
     ("tc_grid_f32_tile_rows", _I, (_I,)),
     ("tc_grid_f32_tile_cols", _I, (_I,)),
+    ("row_reduce_f32", _I, (_I, _PP, _I64P, _I, _I64, _I, _P)),
+    ("row_reduce_f32_max_rows", _I, ()),
+    ("row_reduce_f32_max_j", _I, ()),
+    ("row_reduce_f32_staged", _I, (_I, _I64, _I64)),
 )
 
 # what the last build printed (nvcc's -Xptxas -v register and shared-memory

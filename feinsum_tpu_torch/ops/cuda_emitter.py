@@ -2,18 +2,32 @@
 CUDA emitter: lower an :class:`EinsumProgram` onto the hand-written kernels.
 
 The port of ``feinsum_tpu/ops/pallas_emitter.py::build_pallas_executable``
-(K1) on the DG suite's path.  Where K1 runs every schedule step inside one
-Pallas kernel gridded over blocks of the long axis, this emitter plans each
-row of the batched einsum and launches a kernel that computes the row's
-value directly, all rows in one launch:
+(K1) and of its flatten route ``_try_build_flat_elementwise`` (K3).  Where
+K1 runs every schedule step inside one Pallas kernel gridded over blocks of
+the long axis, this emitter plans each row of the batched einsum and
+launches a kernel that computes the row's value directly, all rows in one
+launch:
 
-* a row in the DG family (``ops/dg_rows.py``) goes to ``dg_rows_f32``;
+* schedule steps that read no long-axis operand, transitively, are hoisted
+  (``descriptor.hoist_resident_steps``, the reference's ``:690-784``): each
+  is evaluated once per call by ``torch.einsum`` on the card, rows whose
+  hoisted steps read the same operands share one result, and the rows are
+  planned on the einsum in which each hoisted result replaces the operands
+  it consumed (:func:`hoist_resident_steps`);
+* ``descriptor.flatten`` takes what K3 takes: a single-step,
+  contraction-free program of 1-D operands that all carry the output's
+  subscript, with no stored layouts; it runs ``ew_flat_f32`` (the
+  ``ew_product_f32`` kernel, ``block_long`` elements per thread block);
 * a contraction-free row whose operands share the output's stored layout
-  goes to ``ew_product_f32``.
+  goes to ``ew_product_f32``;
+* a row whose output is the long axis alone goes to ``row_reduce_f32``
+  (``ops/dg_rows.py::plan_reduce_row``);
+* a row in the DG family (``ops/dg_rows.py::plan_row``) goes to
+  ``dg_rows_f32``.
 
-Everything else raises :class:`InvalidParameterError` naming the ROADMAP.md
-item that will bring it.  The executable takes and returns tensors in the
-descriptor's stored layouts; CPU tensors run the kernels' plain versions.
+Everything else raises :class:`InvalidParameterError` naming what is
+missing.  The executable takes and returns tensors in the descriptor's
+stored layouts; CPU tensors run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -21,16 +35,24 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from ..contraction_schedule import EinsumOperand
+import numpy as np
+import torch
+
+from ..contraction_schedule import EinsumOperand, \
+    get_trivial_contraction_schedule
 from ..diagnostics import InvalidParameterError
-from ..einsum import SizeParam
-from .dg_rows import plan_row
+from ..einsum import Array, BatchedEinsum, SizeParam
+from .dg_rows import plan_reduce_row, plan_row
 from .kernels import (
     DGRow,
+    ReduceRow,
     dg_rows_f32,
     dg_rows_plain,
+    ew_flat_f32,
     ew_product_f32,
     ew_product_plain,
+    row_reduce_f32,
+    row_reduce_plain,
 )
 from .layouts import stored_arg_layouts, stored_out_letters
 
@@ -49,6 +71,16 @@ def _role_view(t, stored: tuple, roles: tuple):
     return v
 
 
+def _long_letter(e: BatchedEinsum) -> str:
+    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)]
+    if len(long_letters) != 1:
+        raise InvalidParameterError(
+            "the fused CUDA route needs exactly one long (SizeParam) axis,"
+            f" found {long_letters}")
+    return long_letters[0]
+
+
 def _check_routable(program, lengths: dict) -> None:
     """Refuse what the fused route does not carry."""
     e = program.einsum
@@ -58,38 +90,160 @@ def _check_routable(program, lengths: dict) -> None:
         raise InvalidParameterError(
             f"the fused CUDA route takes float32 only, got {sorted(bad)}"
             " (float64 runs on pair storage: descriptor.dd_pairs)")
-    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
-                    if isinstance(ln, SizeParam)]
-    if len(long_letters) != 1:
-        raise InvalidParameterError(
-            "the fused CUDA route needs exactly one long (SizeParam) axis,"
-            f" found {long_letters}")
-    el = long_letters[0]
+    el = _long_letter(e)
     if desc.grid_index not in (None, el):
         raise InvalidParameterError(
             f"grid_index {desc.grid_index!r} is not the long axis {el!r}")
-    if el not in e.out_idx_set:
-        if desc.dimension_semantics == "parallel":
+    if lengths[el] < 1:
+        raise InvalidParameterError(f"long axis length {lengths[el]} < 1")
+
+
+def _check_flat(program) -> None:
+    """K3's conditions (the reference's ``_try_build_flat_elementwise``
+    and its caller's message)."""
+    e = program.einsum
+    desc = program.descriptor
+    out = tuple(e.out_idx_set)
+    if (program.schedule.nsteps != 1 or e.sum_indices
+            or any(tuple(s) != out for s in e.in_idx_sets)
+            or desc.arg_layouts or desc.out_layout or len(out) != 1):
+        raise InvalidParameterError(
+            "flatten=True requires a single-step, contraction-free program"
+            " whose operands all share the output subscript")
+
+
+def _check_long_axis_kept(program) -> None:
+    e = program.einsum
+    if _long_letter(e) not in e.out_idx_set:
+        if program.descriptor.dimension_semantics == "parallel":
             raise InvalidParameterError(
                 "cannot use 'parallel' grid semantics when the grid axis is"
                 " contracted (the kernel accumulates across grid steps)")
         raise InvalidParameterError(
             "a contracted long axis (accumulation across blocks with a tail"
             " mask) is not ported yet (ROADMAP queue 2 K1 remainder)")
-    carried: dict = {}
-    for subs, name, step_args in zip(program.schedule.subscripts,
-                                     program.schedule.result_names,
-                                     program.schedule.arguments):
-        carried[name] = any(
+
+
+# {{{ hoisted resident-only steps
+
+@dataclass(frozen=True)
+class HostStep:
+    """One hoisted step evaluated once per call: ``result`` =
+    ``torch.einsum(subscripts, *operands)``, each operand ``("arg", name)``
+    (a logical einsum operand) or ``("host", result)`` (an earlier hoisted
+    result)."""
+
+    result: str
+    subscripts: str
+    operands: tuple
+
+
+def hoist_resident_steps(program) -> tuple:
+    """``(program', host_steps)``: with ``descriptor.hoist_resident_steps``,
+    every schedule step but the last whose operands carry no long axis,
+    transitively, is hoisted.  Rows whose hoisted steps read the same
+    operands share one result (``_host<k>``, in the step's output letters),
+    and ``program'`` is the single-step program over the einsum in which
+    each hoisted result replaces the operands it consumed.  Without hoisted
+    steps: ``(program, ())``."""
+    e = program.einsum
+    sched = program.schedule
+    if not program.descriptor.hoist_resident_steps:
+        return program, ()
+    el = _long_letter(e)
+    steps = list(zip(sched.subscripts, sched.result_names, sched.arguments))
+    carries: dict = {}
+    for _, name, args in steps:
+        carries[name] = any(
             el in e.in_idx_sets[a.position] if isinstance(a, EinsumOperand)
-            else carried[a.name] for a in step_args)
-        if not carried[name]:
-            raise InvalidParameterError(
-                f"schedule step {subs!r} reads no long-axis operand; hoisted"
-                " resident-only steps are not ported yet (ROADMAP queue 2 K1"
-                " remainder)")
-    if lengths[el] < 1:
-        raise InvalidParameterError(f"long axis length {lengths[el]} < 1")
+            else carries[a.name] for a in args)
+    hoisted = {name for _, name, _ in steps[:-1] if not carries[name]}
+    if not hoisted:
+        return program, ()
+    step_of = {name: (subs.replace(" ", ""), args)
+               for subs, name, args in steps}
+
+    def leaves(args):
+        for a in args:
+            if isinstance(a, EinsumOperand):
+                yield ("arg", a.position)
+            elif a.name in hoisted:
+                yield ("host", a.name)
+            else:
+                yield from leaves(step_of[a.name][1])
+    kernel_leaves = list(leaves(steps[-1][2]))
+    positions = [x for kind, x in kernel_leaves if kind == "arg"]
+    if len(set(positions)) != len(positions):
+        raise InvalidParameterError(
+            "the schedule reads an operand twice; it is not a contraction"
+            " tree")
+
+    def letters(name):
+        return step_of[name][0].split("->")[1]
+
+    host_steps: list = []
+    slot_of_key: dict = {}
+    rows = []
+    for r in range(e.b):
+        value_of: dict = {}       # step name -> ("arg"/"host", name)
+        for subs, name, args in steps:
+            if name not in hoisted:
+                continue
+            refs = tuple(("arg", e.args[r][a.position].name)
+                         if isinstance(a, EinsumOperand) else value_of[a.name]
+                         for a in args)
+            ins = [e.in_idx_sets[a.position] if isinstance(a, EinsumOperand)
+                   else letters(a.name) for a in args]
+            key = (step_of[name][0], refs)
+            if key not in slot_of_key:
+                slot_of_key[key] = slot = f"_host{len(slot_of_key)}"
+                host_steps.append(HostStep(
+                    slot, ",".join("".join(s) for s in ins) + "->"
+                    + letters(name), refs))
+            value_of[name] = ("host", slot_of_key[key])
+        row = []
+        for kind, x in kernel_leaves:
+            if kind == "arg":
+                row.append(e.args[r][x])
+                continue
+            row.append(Array(
+                name=value_of[x][1],
+                shape=tuple(int(e.index_to_dim_length[ix])
+                            for ix in letters(x)),
+                dtype=np.result_type(*e.arg_to_dtype.values())))
+        rows.append(tuple(row))
+    in_idx_sets = tuple(tuple(e.in_idx_sets[x]) if kind == "arg"
+                        else tuple(letters(x)) for kind, x in kernel_leaves)
+    kept = {a.name for row in rows for a in row}
+    derived = BatchedEinsum(out_idx_set=tuple(e.out_idx_set),
+                            in_idx_sets=in_idx_sets, args=tuple(rows))
+    desc = program.descriptor.copy(
+        arg_layouts=tuple((n, p) for n, p in program.descriptor.arg_layouts
+                          if n in kept))
+    return (program.copy(einsum=derived, descriptor=desc,
+                         schedule=get_trivial_contraction_schedule(derived)),
+            tuple(host_steps))
+
+
+def _host_values(program, host_steps: tuple, arrays_by_name: dict) -> dict:
+    """The hoisted results, by name, from the stored arrays (each logical
+    operand is a view of its stored tensor)."""
+    perms = program.descriptor.arg_layouts_map
+    vals: dict = {}
+    for step in host_steps:
+        ops = []
+        for kind, name in step.operands:
+            if kind == "host":
+                ops.append(vals[name])
+                continue
+            t = arrays_by_name[name]
+            if name in perms:
+                t = t.permute(*(int(i) for i in np.argsort(perms[name])))
+            ops.append(t)
+        vals[step.result] = torch.einsum(step.subscripts, *ops).contiguous()
+    return vals
+
+# }}}
 
 
 def _is_pure_product(program) -> bool:
@@ -118,17 +272,44 @@ class KernelPlan:
 def plan_cuda_launch(program, index_to_length: dict) -> KernelPlan:
     """Plan *program* onto the CUDA kernels; raises
     :class:`InvalidParameterError` for what they do not carry."""
-    e = program.einsum
-    desc = program.descriptor
     lengths = dict(index_to_length)
     _check_routable(program, lengths)
+    desc = program.descriptor
+    one_launch = desc.multiple_results_in_one_kernel
+    if desc.flatten:
+        _check_flat(program)
+        e = program.einsum
+        return KernelPlan(
+            kernel="ew_flat_f32",
+            operands=lambda arrays: [[arrays[a.name] for a in row]
+                                     for row in e.args],
+            run=lambda rows: ew_flat_f32(rows, block_long=desc.block_long,
+                                         one_launch=one_launch),
+            plain=ew_product_plain)
+    _check_long_axis_kept(program)
+    kernel_program, host_steps = hoist_resident_steps(program)
+    plan = _plan_rows(kernel_program, lengths)
+    if not host_steps:
+        return plan
+
+    def operands(arrays_by_name: dict) -> list:
+        return plan.operands({**arrays_by_name, **_host_values(
+            program, host_steps, arrays_by_name)})
+    return KernelPlan(kernel=plan.kernel, operands=operands, run=plan.run,
+                      plain=plan.plain)
+
+
+def _plan_rows(program, lengths: dict) -> KernelPlan:
+    """Plan the rows of a program without hoisted steps."""
+    e = program.einsum
+    desc = program.descriptor
     stored = stored_arg_layouts(program)
     out_letters = stored_out_letters(program)
     stored_shapes = {name: tuple(lengths[ix] for ix in idx)
                      for name, idx in stored.items()}
     one_launch = desc.multiple_results_in_one_kernel
 
-    def check_args(arrays_by_name: dict) -> None:
+    def checked(arrays_by_name: dict) -> dict:
         for name, shape in stored_shapes.items():
             if name not in arrays_by_name:
                 raise ValueError(f"missing argument {name!r}")
@@ -137,19 +318,35 @@ def plan_cuda_launch(program, index_to_length: dict) -> KernelPlan:
                     f"argument {name!r}: shape"
                     f" {tuple(arrays_by_name[name].shape)}, stored layout"
                     f" {stored[name]} needs {shape}")
+        return arrays_by_name
 
     if _is_pure_product(program):
-        def ew_operands(arrays_by_name: dict) -> list:
-            check_args(arrays_by_name)
-            return [[arrays_by_name[a.name] for a in row] for row in e.args]
         return KernelPlan(
-            kernel="ew_product_f32", operands=ew_operands,
+            kernel="ew_product_f32",
+            operands=lambda arrays: [[checked(arrays)[a.name] for a in row]
+                                     for row in e.args],
             run=lambda rows: ew_product_f32(rows, one_launch=one_launch),
             plain=ew_product_plain)
     if not e.sum_indices:
         raise InvalidParameterError(
             "a contraction-free row whose operands do not all share the"
             " output's stored layout has no fused CUDA kernel yet")
+
+    if len(e.out_idx_set) == 1:
+        reduce_plans = [plan_reduce_row(e, r) for r in range(e.b)]
+        el, j = reduce_plans[0].e_letter, reduce_plans[0].j_letter
+
+        def reduce_operands(arrays_by_name: dict) -> list:
+            arrays = checked(arrays_by_name)
+            return [ReduceRow(
+                u=_role_view(arrays[p.u.name], stored[p.u.name], (el, j)),
+                w=arrays[p.w.name] if p.w is not None else None)
+                for p in reduce_plans]
+        return KernelPlan(
+            kernel="row_reduce_f32", operands=reduce_operands,
+            run=lambda rows: row_reduce_f32(rows, block_long=desc.block_long,
+                                            one_launch=one_launch),
+            plain=row_reduce_plain)
 
     plans = [plan_row(e, r) for r in range(e.b)]
     p0 = plans[0]
@@ -171,18 +368,16 @@ def plan_cuda_launch(program, index_to_length: dict) -> KernelPlan:
                                                     for ix in out_letters)
 
     def dg_operands(arrays_by_name: dict) -> list:
-        check_args(arrays_by_name)
+        arrays = checked(arrays_by_name)
         rows = []
         for p in plans:
             F = None
             if p.F is not None:
-                F = _role_view(arrays_by_name[p.F.name], stored[p.F.name],
+                F = _role_view(arrays[p.F.name], stored[p.F.name],
                                f_roles).expand(*f_shape)
             rows.append(DGRow(
-                u=_role_view(arrays_by_name[p.u.name], stored[p.u.name],
-                             u_roles),
-                R=_role_view(arrays_by_name[p.R.name], stored[p.R.name],
-                             r_roles),
+                u=_role_view(arrays[p.u.name], stored[p.u.name], u_roles),
+                R=_role_view(arrays[p.R.name], stored[p.R.name], r_roles),
                 F=F))
         return rows
 

@@ -16,8 +16,12 @@ _recognize_row`` (the family of the reference's ``xre_rij_xej_to_ei*``,
 
 For div-like rows (two (e, letter) streams, both letters contracted — the
 sum is symmetric in (s, j)) the longer letter becomes j, the inner dot.
-The fused CUDA kernel ``dg_rows_f32`` computes exactly this family; the
-fp64 kernel K4 (ROADMAP.md queue 2) will reuse the planner.
+The fused CUDA kernel ``dg_rows_f32`` computes exactly this family, and
+the fp64 kernel ``dd_rows`` the same family in float64.
+
+Rows whose output is the long axis alone (vecmat ``ej,j->e``, rowsum
+``ej->e``) have no ``i`` and no resident matrix: :func:`plan_reduce_row`
+classifies them as ``out[e] = Σ_j w[j] · u[e, j]`` for ``row_reduce_f32``.
 """
 
 from __future__ import annotations
@@ -144,3 +148,40 @@ def plan_row(e: BatchedEinsum, row: int) -> RowPlan:
         F=f_op[0] if f_op else None, f_idx=f_op[1] if f_op else (),
         e_letter=el, i_letter=i, j_letter=j_letter, s_letter=s_letter,
         x_letter=x_letter, u_has_s=s_letter in u_op[1])
+
+
+@dataclass(frozen=True)
+class ReduceRowPlan:
+    """One batch row classified for ``row_reduce_f32``: the streamed ``u``
+    over (e, j) and the optional resident weight ``w`` over (j,)."""
+
+    u: Array
+    u_idx: tuple
+    w: Optional[Array]
+    e_letter: str
+    j_letter: str
+
+
+def plan_reduce_row(e: BatchedEinsum, row: int) -> ReduceRowPlan:
+    """Classify batch row *row* of *e* as ``out[e] = Σ_j w[j] u[e, j]``;
+    raises :class:`InvalidParameterError` outside that family."""
+    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)]
+    if len(long_letters) != 1 or tuple(e.out_idx_set) != (long_letters[0],):
+        raise InvalidParameterError(
+            "reduce rows need the output to be the long axis alone")
+    el = long_letters[0]
+    streams, resident = [], []
+    for arg, idx in zip(e.args[row], e.in_idx_sets):
+        (streams if el in idx else resident).append((arg, tuple(idx)))
+    if len(streams) != 1 or len(streams[0][1]) != 2:
+        raise InvalidParameterError(
+            "reduce rows need one streamed (e, j) operand")
+    u, u_idx = streams[0]
+    (j,) = [ix for ix in u_idx if ix != el]
+    if len(resident) > 1 or (resident and resident[0][1] != (j,)):
+        raise InvalidParameterError(
+            "reduce rows take at most one resident (j,) weight")
+    return ReduceRowPlan(u=u, u_idx=u_idx,
+                         w=resident[0][0] if resident else None,
+                         e_letter=el, j_letter=j)

@@ -15,6 +15,15 @@ batched einsum in one fused kernel gridded over the long element axis:
 * ``ew_product_f32`` (``csrc/ew_product.cu``) — the contraction-free rows,
   an elementwise product of same-layout operands.  It is bound by HBM
   bytes; the design streams 16 bytes per thread and step.
+* ``row_reduce_f32`` (``csrc/row_reduce.cu``) — the rows with no ``i``
+  output axis, ``out[e] = Σ_j w[j] u[e, j]`` (vecmat; rowsum without
+  ``w``), as planned by :func:`~feinsum_tpu_torch.ops.dg_rows.
+  plan_reduce_row`.  Bound by HBM bytes.
+
+``ew_flat_f32`` launches ``ew_product_f32`` on the flatten route of 1-D
+operands with ``block_long`` elements per thread block: the port of
+``feinsum_tpu/ops/pallas_emitter.py::_try_build_flat_elementwise`` (K3).
+Its launches count apart from the copy row's.
 
 The third replaces ``feinsum_tpu/ops/dd_emitter.py::build_dd_executable``
 (K4), the same DG rows in float64 on (2, ...) float32 hi/lo pair storage:
@@ -56,9 +65,11 @@ MAX_SMEM_BYTES = 232_448
 MAX_X = MAX_S = 4
 # threads per block of csrc/dd_rows.cu and csrc/dg_rows.cu (kThreads)
 DD_THREADS = DG_THREADS = 128
+# the most j values csrc/row_reduce.cu takes (kMaxJ: w in shared memory)
+MAX_REDUCE_J = 8192
 
-launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "dd_rows": 0,
-                 "tc_grid_f32": 0}
+launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
+                 "row_reduce_f32": 0, "dd_rows": 0, "tc_grid_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -242,13 +253,8 @@ def ew_product_plain(rows: Sequence[Sequence[torch.Tensor]]) -> list:
             else row[0].clone() for row in rows]
 
 
-def ew_product_f32(rows: Sequence[Sequence[torch.Tensor]], *,
-                   one_launch: bool = True) -> list:
-    """Elementwise product of each row's same-shape contiguous operands; all
-    rows in one launch (up to the kernel's row limit) unless *one_launch*
-    is false."""
-    if not rows:
-        return []
+def _ew_launch(rows: Sequence[Sequence[torch.Tensor]], block_long: int,
+               one_launch: bool, counter: str) -> list:
     shape = _ew_check(rows)
     device = rows[0][0].device
     if device.type == "cpu":
@@ -274,11 +280,107 @@ def ew_product_f32(rows: Sequence[Sequence[torch.Tensor]], *,
             out_ptrs = (ctypes.c_void_p * len(idx))(
                 *[outs[k].data_ptr() for k in idx])
             err = lib.ew_product_f32(len(idx), nops, ins, out_ptrs, n,
-                                     _stream_of(device))
+                                     block_long, _stream_of(device))
             if err:
                 raise RuntimeError(f"ew_product_f32 launch failed: CUDA"
                                    f" error {err}")
-            launch_counts["ew_product_f32"] += 1
+            launch_counts[counter] += 1
+    return outs
+
+
+def ew_product_f32(rows: Sequence[Sequence[torch.Tensor]], *,
+                   one_launch: bool = True) -> list:
+    """Elementwise product of each row's same-shape contiguous operands; all
+    rows in one launch (up to the kernel's row limit) unless *one_launch*
+    is false.  The kernel's threads stride over the whole array."""
+    if not rows:
+        return []
+    return _ew_launch(rows, 0, one_launch, "ew_product_f32")
+
+
+def ew_flat_f32(rows: Sequence[Sequence[torch.Tensor]], *, block_long: int,
+                one_launch: bool = True) -> list:
+    """The flatten route (K3's port): ``ew_product_f32`` on each row's
+    1-D operands with *block_long* consecutive elements per thread block;
+    counted under ``ew_flat_f32``."""
+    if not rows:
+        return []
+    if any(t.ndim != 1 for row in rows for t in row):
+        raise ValueError("ew_flat_f32 takes 1-D operands")
+    if block_long < 1:
+        raise InvalidParameterError(
+            f"block_long must be positive, got {block_long}")
+    return _ew_launch(rows, int(block_long), one_launch, "ew_flat_f32")
+
+# }}}
+
+
+# {{{ row_reduce_f32
+
+@dataclass(frozen=True)
+class ReduceRow:
+    """One planned no-``i`` row's operands as views in role order: ``u``
+    (E, J) through any strides, ``w`` (J,) or ``None`` (weight 1)."""
+
+    u: torch.Tensor
+    w: Optional[torch.Tensor]
+
+
+def row_reduce_plain(rows: Sequence[ReduceRow]) -> list:
+    """The plain PyTorch version of ``row_reduce_f32``: per row ``u @ w``,
+    or ``u.sum(1)`` without ``w``; contiguous (E,) outputs."""
+    return [(row.u.sum(1) if row.w is None else row.u @ row.w).contiguous()
+            for row in rows]
+
+
+def row_reduce_f32(rows: Sequence[ReduceRow], *, block_long: int,
+                   one_launch: bool = True) -> list:
+    """Each row's ``out[e] = Σ_j w[j] u[e, j]`` as a contiguous (E,) tensor;
+    all rows in one launch (up to the kernel's row limit) unless
+    *one_launch* is false; *block_long* elements per thread block."""
+    if not rows:
+        return []
+    E, J = rows[0].u.shape
+    device = rows[0].u.device
+    has_w = rows[0].w is not None
+    for k, row in enumerate(rows):
+        if (row.w is not None) != has_w:
+            raise ValueError("rows disagree on the weight w")
+        _check_operand(f"row {k} u", row.u, device, (E, J))
+        if has_w:
+            _check_operand(f"row {k} w", row.w, device, (J,))
+            if not row.w.is_contiguous():
+                raise ValueError(f"row {k} w is not contiguous")
+    if device.type == "cpu":
+        return row_reduce_plain(rows)
+    if device.type != "cuda":
+        raise ValueError(f"row_reduce_f32: no kernel for device {device}")
+
+    if J > MAX_REDUCE_J:
+        raise InvalidParameterError(
+            f"row_reduce_f32 takes at most {MAX_REDUCE_J} values of j, got"
+            f" {J}")
+    from ._build import load_library
+    lib = load_library()
+    outs = [torch.empty((E,), dtype=torch.float32, device=device)
+            for _ in rows]
+    per_launch = lib.row_reduce_f32_max_rows() if one_launch else 1
+    with torch.cuda.device(device):
+        for idx in _chunks(range(len(rows)), per_launch):
+            ptrs = (ctypes.c_void_p * (3 * len(idx)))()
+            strides = (ctypes.c_int64 * (2 * len(idx)))()
+            for n, k in enumerate(idx):
+                row = rows[k]
+                ptrs[3 * n:3 * n + 3] = [
+                    row.u.data_ptr(), row.w.data_ptr() if has_w else None,
+                    outs[k].data_ptr()]
+                strides[2 * n:2 * n + 2] = list(row.u.stride())
+            err = lib.row_reduce_f32(len(idx), ptrs, strides, J, E,
+                                     int(block_long), _stream_of(device))
+            if err:
+                raise RuntimeError(f"row_reduce_f32 launch failed: CUDA"
+                                   f" error {err}")
+            launch_counts["row_reduce_f32"] += 1
     return outs
 
 # }}}

@@ -111,8 +111,10 @@ def unpack_output(program, arr, logical_shape):
     output's (2, ...) float32 pairs are recombined into float64 (a new
     tensor), the ``out_layout`` permutation is undone (a view), and a
     ``pre_out_layout`` grouping is split back into its source axes and
-    transposed to the logical order.  The other output contracts are
-    refused by ``build_executable``."""
+    transposed to the logical order.  A ``rowcat`` = b program's one
+    output holds the b rows' outputs end to end along the leading long
+    axis: it comes back as a (b, *logical_shape) view, row r at ``[r]``.
+    The other output contracts are refused by ``build_executable``."""
     desc = program.descriptor
     if desc.dd_pairs:
         from .dd_emitter import combine_pairs
@@ -123,6 +125,9 @@ def unpack_output(program, arr, logical_shape):
         flat = [int(p) for g in desc.pre_out_layout for p in g]
         arr = arr.reshape(tuple(int(logical_shape[p]) for p in flat))
         arr = arr.permute(*(int(i) for i in np.argsort(flat)))
+    if desc.rowcat > 1:
+        logical_shape = (desc.rowcat, *logical_shape)
+        arr = arr.reshape(logical_shape)
     if tuple(arr.shape) != tuple(logical_shape):
         raise ValueError(
             f"unpack_output: inverted stored shape {tuple(arr.shape)} does"

@@ -5,9 +5,12 @@ ladder that replays archived facts, shared by the tests and
 
 The einsums are those of ``bench.py``'s ``suite()`` (the reference's
 archived rows): div, grad, face-mass and mass at ndof 35, matvec at ndof 20
-and a copy, each over a long element axis ``E``; ``bench.py``'s fp64 rows
-(:func:`fp64_suite`); and ``bench.py``'s TCCG sample of dense tensor
-contractions (:func:`tccg_suite`).
+and a copy, each over a long element axis ``E``; its extended rows
+(:func:`extended_suite`); a 1-D product for K3's flatten route
+(:func:`make_scale_flat`); ``bench.py``'s fp64 rows (:func:`fp64_suite`);
+and ``bench.py``'s TCCG sample of dense tensor contractions
+(:func:`tccg_suite`).  :data:`F32_SPACES` names the space that tunes each
+float32 row, and :func:`f32_seed_configs` the tuner's first points.
 """
 
 from __future__ import annotations
@@ -83,6 +86,17 @@ def make_curl(ndof: int = 35, dtype: str = "float32"):
          for j, u in [("Jy", "uz"), ("Jz", "ux"), ("Jx", "uy")]])
 
 
+def make_scale_flat(dtype: str = "float32"):
+    """A 1-D product over the long axis, ``e,e->e``: the row K3's flatten
+    route takes."""
+    return einsum("e,e->e", array("a", ("E",), dtype),
+                  array("s", ("E",), dtype))
+
+
+# scale_flat's length: 35 * 2**20 elements, the copy row's bytes at E = 1M
+SCALE_FLAT_LENGTH = 36_700_160
+
+
 def suite() -> list:
     """``(name, einsum)`` of the six headline rows."""
     return [
@@ -114,6 +128,71 @@ def extended_suite() -> list:
                                  array("x", (35,), "float32"))),
         ("rowsum_ndof35", einsum("ej->e", array("A", ("E", 35), "float32"))),
     ]
+
+
+# the space that tunes each float32 row of suite(), extended_suite() and
+# scale_flat (the reference's transform ids)
+F32_SPACES = {
+    "dg_div_ndof35": "dg_div_v0",
+    "dg_grad_ndof35": "dg_grad_v0",
+    "dg_face_mass": "face_mass_v0",
+    "dg_mass_ndof35": "mass_v0",
+    "matvec_ndof20": "mass_v0",
+    "copy_ndof35": "elementwise_v1",
+    "dg_div_single_ndof35": "dg_div_v0",
+    "dg_div_ndof20_P3": "dg_div_v0",
+    "dg_div_ndof10_P2": "dg_div_v0",
+    "dg_div_ndof4_P1": "dg_div_v0",
+    "dg_grad_ndof20_P3": "dg_grad_v0",
+    "dg_grad_ndof10_P2": "dg_grad_v0",
+    "dg_grad_ndof4_P1": "dg_grad_v0",
+    "dg_curl_ndof35": "curl_3d_v0",
+    "vecmat_ndof35": "mass_v0",
+    "rowsum_ndof35": "mass_v0",
+    "scale_flat": "elementwise_v1",
+}
+
+# the knobs of each row's first tuner points, before the default point;
+# scale_flat's three are flatten points (K3's route) at three block lengths
+F32_SEEDS = {
+    "dg_curl_ndof35": [{"prereduce": True}],
+    "dg_div_ndof35": [{"rowcat": True}],
+    "scale_flat": [{"flatten": True}, {"flatten": True, "log2_block": 13},
+                   {"flatten": True, "log2_block": 16}],
+}
+
+
+def f32_rows() -> list:
+    """``(name, einsum)`` of every row of :data:`F32_SPACES`."""
+    return suite() + extended_suite() + [("scale_flat", make_scale_flat())]
+
+
+def space_point(space: str, einsum, **overrides) -> dict:
+    """A whole point of the transform space *space* on *einsum*: each
+    pinned knob at its one value, ``log2_block`` at ``BLOCK_LONG`` where it
+    is searched, ``dofmajor`` on where it is searched, the other searched
+    knobs off; then *overrides*."""
+    from .tuning import BoolParameter, get_transform_func_from_module_path
+    params = {}
+    for name, p in get_transform_func_from_module_path(
+            space).get_param_space(einsum).items():
+        if isinstance(p, BoolParameter):
+            params[name] = name == "dofmajor"
+        elif name == "log2_block" and p.low < p.high:
+            params[name] = BLOCK_LONG.bit_length() - 1
+        else:
+            params[name] = p.low
+    params.update(overrides)
+    return params
+
+
+def f32_seed_configs(name: str, einsum) -> list:
+    """The tuner's first points for the float32 row *name*: the row's own
+    seeds of :data:`F32_SEEDS` (curl's ``prereduce``, div's ``rowcat``,
+    scale_flat's ``flatten``), then the default point."""
+    space = F32_SPACES[name]
+    return [space_point(space, einsum, **knobs)
+            for knobs in F32_SEEDS.get(name, []) + [{}]]
 
 
 def fp64_suite() -> list:

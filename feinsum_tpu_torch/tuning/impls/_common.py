@@ -6,6 +6,36 @@ from ...diagnostics import InvalidParameterError
 from ...einsum import SizeParam
 
 
+def _is_streamed(einsum, p: int) -> bool:
+    return any(isinstance(einsum.index_to_dim_length[ix], SizeParam)
+               for ix in einsum.in_idx_sets[p])
+
+
+def _private_indices(einsum, p: int) -> list:
+    """The indices of operand *p* that no other operand and not the output
+    carries."""
+    elsewhere = set(einsum.out_idx_set)
+    for q in range(einsum.n):
+        if q != p:
+            elsewhere |= set(einsum.in_idx_sets[q])
+    return [ix for ix in einsum.in_idx_sets[p] if ix not in elsewhere]
+
+
+def has_resident_private_indices(einsum) -> bool:
+    """Whether some resident (no-long-axis) operand carries indices private
+    to it, which a first step can sum away: the ``prereduce`` knob's
+    applicability (:func:`prereduce_resident_private`)."""
+    return any(not _is_streamed(einsum, p) and _private_indices(einsum, p)
+               for p in range(einsum.n))
+
+
+def jfold_applicable(einsum) -> bool:
+    """``jfold`` needs >= 2 streamed operands (to form the outer product)
+    and >= 1 resident operand (to contract against)."""
+    n_long = sum(_is_streamed(einsum, p) for p in range(einsum.n))
+    return 2 <= n_long < einsum.n
+
+
 def long_axis_of(einsum) -> str:
     """The einsum's one parametric (long) index letter."""
     params = [ix for ix, ln in einsum.index_to_dim_length.items()
@@ -39,19 +69,34 @@ def resolve_block(log2_block: int, blkc128: int = 0) -> int:
 
 
 def guard_smem(einsum, kernel: str = "dd_rows") -> None:
-    """Raise :class:`InvalidParameterError` when one thread block of the DG
-    row kernel *kernel* (``"dd_rows"`` or ``"dg_rows_f32"``) would need more
-    shared memory than a Hopper block has (227 KB): the analog of
-    ``feinsum_tpu``'s VMEM guard.  The demand depends on the row shape only
-    (R and one u column per thread are staged), not on the block length."""
-    from ...ops.dg_rows import plan_row
-    from ...ops.kernels import MAX_SMEM_BYTES, dd_rows_smem_bytes, \
-        dg_rows_smem_bytes
+    """Raise :class:`InvalidParameterError` when one thread block of the
+    kernel that runs a row would need more shared memory than a Hopper
+    block has (227 KB): the analog of ``feinsum_tpu``'s VMEM guard.  The
+    demand depends on the row shape only, not on the block length.
+
+    *kernel* is ``"dd_rows"`` (the fp64 DG rows) or ``"dg_rows_f32"``, the
+    float32 fused route, where each row goes to the kernel that will run it:
+    a contraction-free row to ``ew_product_f32`` (no shared memory), a row
+    whose output is the long axis alone to ``row_reduce_f32`` (its weight
+    w, at most ``MAX_REDUCE_J`` values), and the others to ``dg_rows_f32``
+    (R and one u column per thread)."""
+    from ...ops.dg_rows import plan_reduce_row, plan_row
+    from ...ops.kernels import MAX_REDUCE_J, MAX_SMEM_BYTES, \
+        dd_rows_smem_bytes, dg_rows_smem_bytes
 
     smem_bytes = {"dd_rows": dd_rows_smem_bytes,
                   "dg_rows_f32": dg_rows_smem_bytes}[kernel]
     lengths = einsum.index_to_dim_length
     for row in range(einsum.b):
+        if kernel == "dg_rows_f32" and not einsum.sum_indices:
+            continue
+        if kernel == "dg_rows_f32" and len(einsum.out_idx_set) == 1:
+            j = int(lengths[plan_reduce_row(einsum, row).j_letter])
+            if j > MAX_REDUCE_J:
+                raise InvalidParameterError(
+                    f"row_reduce_f32 holds at most {MAX_REDUCE_J} weights in"
+                    f" shared memory, the row has {j}")
+            continue
         p = plan_row(einsum, row)
         S = int(lengths[p.s_letter]) if p.s_letter is not None else 1
         need = smem_bytes(S, int(lengths[p.i_letter]),
@@ -76,29 +121,389 @@ def guard_tc_grid(program) -> None:
     plan_tc_launch(program, get_index_lengths(program.einsum, 1))
 
 
-def fused_pallas_program(program, *, block_long: int,
+def prereduce_resident_private(einsum, schedule):
+    """Prefix *schedule* with steps that reduce each resident (no-long-axis)
+    operand over its private indices (in no other operand nor the output),
+    and rewrite later steps to read the reduced results.  Curl's D (r, i, j)
+    with r private becomes ``rij->ij``: on the fused route that step is
+    hoisted, and each row becomes a mass-shaped launch.  Returns *schedule*
+    itself when no resident operand has private indices."""
+    from ...contraction_schedule import (
+        ContractionSchedule,
+        EinsumOperand,
+        IntermediateResult,
+    )
+
+    e = einsum
+    pre_subs, pre_names, pre_args = [], [], []
+    replace = {}
+    for p in range(e.n):
+        private = [] if _is_streamed(e, p) else _private_indices(e, p)
+        if private:
+            sub = e.in_idx_sets[p]
+            reduced = "".join(ix for ix in sub if ix not in private)
+            name = f"_fe_pre_{p}"
+            pre_subs.append(f"{''.join(sub)}->{reduced}")
+            pre_names.append(name)
+            pre_args.append((EinsumOperand(p),))
+            replace[p] = (name, reduced)
+    if not replace:
+        return schedule
+    new_subs, new_args = [], []
+    for subs_, args_ in zip(schedule.subscripts, schedule.arguments):
+        ins, out = subs_.split("->")
+        ins2, args2 = [], []
+        for s_, a_ in zip(ins.split(","), args_):
+            if isinstance(a_, EinsumOperand) and a_.position in replace:
+                name, reduced = replace[a_.position]
+                ins2.append(reduced)
+                args2.append(IntermediateResult(name))
+            else:
+                ins2.append(s_)
+                args2.append(a_)
+        new_subs.append(f"{','.join(ins2)}->{out}")
+        new_args.append(tuple(args2))
+    return ContractionSchedule(
+        subscripts=tuple(pre_subs) + tuple(new_subs),
+        result_names=tuple(pre_names) + schedule.result_names,
+        arguments=tuple(pre_args) + tuple(new_args))
+
+
+def fused_pallas_program(program, *, block_long: int, hoist: bool,
                          parallel_grid: bool = True, dofmajor: bool = False,
-                         fold: bool = False, precision_3x: bool = False):
-    """The subset of ``feinsum_tpu``'s core DG schedule that
-    ``tc_gemm_v0`` reaches: the trivial schedule on the fused DG kernels
-    (``backend="pallas"``), *block_long* elements per thread block,
-    *parallel_grid* as ``dimension_semantics`` and *dofmajor* layouts.
-    ``fold`` (the TPU's fold-8 storage) and ``precision_3x`` (the TPU's
-    3-pass bf16 dot) raise."""
-    from ...contraction_schedule import get_trivial_contraction_schedule
+                         fold: bool = False, preblock: bool = False,
+                         precision_3x: bool = False, jfold: bool = False,
+                         prereduce: bool = False, vmem_idx=None,
+                         split_rows: bool = False, accum_f32: bool = False,
+                         host_hoist: bool = True, mfold: bool = False,
+                         **desc):
+    """``feinsum_tpu``'s core DG schedule on the fused kernels
+    (``backend="pallas"``): the schedule (``jfold``'s outer-product-first
+    one, the optimal path with ``hoist``, else the trivial one), resident
+    pre-reduction (``prereduce``), *block_long* elements per thread block,
+    *parallel_grid* as ``dimension_semantics``, *dofmajor* layouts, one
+    launch per row with *split_rows*, and ``hoist_resident_steps`` from
+    *host_hoist*; extra keywords are descriptor fields (``flatten``).
+
+    On the card: ``fold`` (the fold-8 storage), ``preblock`` (the (8, 128)
+    tile blocks), ``precision_3x`` (the 3-pass bf16 dot) and ``mfold`` (MXU
+    row packing) raise; ``vmem_idx`` (the TPU's VMEM cap) is accepted and
+    ignored.  Shared memory is guarded per row on the einsum the kernels
+    run (:func:`guard_smem`)."""
+    from ...contraction_schedule import (
+        get_opt_einsum_contraction_schedule,
+        get_trivial_contraction_schedule,
+    )
+    from ...ops.cuda_emitter import hoist_resident_steps
     from ...ops.layouts import dofmajor_layouts
 
-    if fold:
-        raise InvalidParameterError(
-            "fold: the TPU's fold-8 storage has no Hopper meaning")
-    if precision_3x:
-        raise InvalidParameterError(
-            "precision bf16_3x: the port runs full fp32 (no 3-pass split)")
+    del vmem_idx     # a TPU VMEM cap; see the docstring
+    for on, why in (
+            (fold, "fold: the TPU's fold-8 storage"),
+            (preblock, "preblock: the TPU's (8, 128) tile blocks"),
+            (precision_3x, "precision_3x: the TPU's 3-pass bf16 dot"
+                           " (bf16_3x); the port runs full fp32"),
+            (mfold, "mfold: the TPU's MXU row packing")):
+        if on:
+            raise InvalidParameterError(f"{why} has no Hopper meaning")
     e = program.einsum
-    layouts, out_perm = dofmajor_layouts(e) if dofmajor else ((), None)
-    return program.copy(
-        schedule=get_trivial_contraction_schedule(e)).with_descriptor(
+    if jfold:
+        from ...algebraic import \
+            extract_multiplicative_terms_in_sum_reduction_as_subst
+        from ...codegen.program import generate_program
+
+        if not jfold_applicable(e):
+            raise InvalidParameterError(
+                "jfold needs >=2 streamed operands and >=1 resident operand")
+        long_pos = [p for p in range(e.n) if _is_streamed(e, p)]
+        schedule = prereduce_resident_private(
+            e, extract_multiplicative_terms_in_sum_reduction_as_subst(
+                generate_program(e), long_pos).schedule)
+    elif hoist:
+        schedule = get_opt_einsum_contraction_schedule(e)
+    else:
+        schedule = get_trivial_contraction_schedule(e)
+    if prereduce and not jfold:
+        reduced = prereduce_resident_private(e, schedule)
+        if reduced is schedule:
+            raise InvalidParameterError(
+                "prereduce: no resident operand has private contracted"
+                " indices")
+        schedule = reduced
+    if dofmajor and "arg_layouts" not in desc:
+        desc["arg_layouts"], desc["out_layout"] = dofmajor_layouts(e)
+    if split_rows:
+        if e.b <= 1:
+            raise InvalidParameterError(
+                "split_rows needs a multi-row batched einsum")
+        desc["multiple_results_in_one_kernel"] = False
+    if accum_f32:
+        if all(dt.itemsize >= 4 for dt in e.arg_to_dtype.values()):
+            raise InvalidParameterError(
+                "accum_f32 only applies to sub-32-bit input dtypes")
+        desc["accum_dtype"] = "float32"
+    if not host_hoist:
+        desc["hoist_resident_steps"] = False
+    p2 = program.copy(schedule=schedule).with_descriptor(
         backend="pallas",
         block_long=block_long,
         dimension_semantics="parallel" if parallel_grid else "arbitrary",
-        arg_layouts=layouts, out_layout=out_perm)
+        **desc)
+    guard_smem(hoist_resident_steps(p2)[0].einsum, "dg_rows_f32")
+    return p2
+
+
+def make_dg_space(*, log2_block_max: int = 18):
+    """The DG family's transform space: every DG module
+    (``dg_div_v0``, ``dg_grad_v0``, ``face_mass_v0``, ``mass_v0``,
+    ``curl_3d_v0``) is ``transform = make_dg_space()``.  It has
+    ``feinsum_tpu``'s parameter names, defaults and signature, so every
+    archived fact binds.  It searches only the knobs whose values launch
+    different kernels or arguments on the card; the others are pinned
+    (``IntParameter(v, v)``) at a value that sets no TPU-only field:
+
+    * searched: ``log2_block``/``blkc128`` (``block_long``), ``dofmajor``
+      (where it changes a layout), ``prereduce`` (where a resident operand
+      has private indices: curl), ``rowcat`` (where rows can be stacked:
+      div, curl) and ``split_rows`` (b > 1);
+    * pinned, accepted at any value: ``parallel_grid`` (1),
+      ``vmem_idx`` (2, ignored), ``host_hoist`` (1), ``hoist`` and
+      ``jfold`` (0: they build the reference's schedules, and
+      ``dg_rows_f32`` computes each row's value whatever the step order;
+      no DG row's optimal path has a resident-only step, and ``jfold``'s
+      pre-reduction on curl is ``prereduce``'s launch);
+    * pinned at 0, raising at 1: ``fold``, ``preblock``, ``precision_3x``,
+      ``mfold`` and ``lane_pack_g`` (the lane-pack rewrites are not ported
+      yet); ``accum_f32`` is gated off for 32-bit inputs, as in the
+      reference."""
+    from ...ops.layouts import dofmajor_layouts
+    from .. import BoolParameter, IntParameter, transform_param
+
+    def gate(cond):
+        return BoolParameter() if cond else IntParameter(0, 0)
+
+    def pinned(value: int):
+        return lambda e: IntParameter(value, value)
+
+    @transform_param("log2_block", lambda e: IntParameter(8, log2_block_max))
+    @transform_param("blkc128", lambda e: IntParameter(0, 32))
+    @transform_param("dofmajor", lambda e: gate(
+        dofmajor_layouts(e) != ((), None)))
+    @transform_param("fold", pinned(0))
+    @transform_param("preblock", pinned(0))
+    @transform_param("precision_3x", pinned(0))
+    @transform_param("hoist", pinned(0))
+    @transform_param("jfold", pinned(0))
+    @transform_param("mfold", pinned(0))
+    @transform_param("prereduce", lambda e: gate(
+        has_resident_private_indices(e)))
+    @transform_param("lane_pack_g", pinned(0))
+    @transform_param("rowcat", lambda e: gate(rowcat_applicable(e)))
+    @transform_param("parallel_grid", pinned(1))
+    @transform_param("vmem_idx", pinned(2))
+    @transform_param("split_rows", lambda e: gate(e.b > 1))
+    @transform_param("accum_f32", lambda e: gate(
+        any(dt.itemsize < 4 for dt in e.arg_to_dtype.values())))
+    @transform_param("host_hoist", pinned(1))
+    def transform(program, log2_block, blkc128=0, *, dofmajor, parallel_grid,
+                  hoist=False, fold=False, preblock=False, precision_3x=False,
+                  jfold=False, mfold=False, prereduce=False, lane_pack_g=0,
+                  rowcat=False, vmem_idx=None, split_rows=False,
+                  accum_f32=False, host_hoist=True):
+        extras = {}
+        if rowcat:
+            if split_rows:
+                raise InvalidParameterError(
+                    "rowcat merges rows; split_rows contradicts it")
+            program, extras = rewrite_rowcat(program)
+        if lane_pack_g:
+            e = program.einsum
+            if not lane_packable(e) and (hoist or jfold or mfold
+                                         or prereduce):
+                raise InvalidParameterError(
+                    "lane_pack (DG variant) fixes its own schedule;"
+                    " hoist/jfold/mfold/prereduce do not compose")
+            kind = ("lane_pack" if lane_packable(e) else
+                    "lane_pack (DG variant)" if lane_pack_dg_applicable(e)
+                    else "no lane_pack")
+            raise InvalidParameterError(
+                f"lane_pack_g={lane_pack_g}: the {kind} rewrite is not"
+                " ported (ROADMAP queue 2 K1 remainder)")
+        p2 = fused_pallas_program(
+            program, block_long=resolve_block(log2_block, blkc128),
+            hoist=bool(hoist), parallel_grid=parallel_grid,
+            dofmajor=dofmajor, fold=fold, preblock=preblock,
+            precision_3x=precision_3x, jfold=bool(jfold), mfold=bool(mfold),
+            prereduce=bool(prereduce), vmem_idx=vmem_idx,
+            split_rows=bool(split_rows), accum_f32=bool(accum_f32),
+            host_hoist=bool(host_hoist))
+        return p2.with_descriptor(**extras) if extras else p2
+
+    return transform
+
+
+def lane_packable(einsum):
+    """``feinsum_tpu``'s shape check for the lane-pack rewrite: a single-row
+    2-operand matvec-class einsum (streamed (e, j) with the long axis
+    leading, resident over {i, j}, output (e, i)), or the vecmat variant
+    ``ej,j->e``.  Returns ``(el, i_letter, j_letter, streamed_name,
+    resident_name, resident_idx)`` or ``None``."""
+    e = einsum
+    if e.b != 1 or e.n != 2:
+        return None
+    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)]
+    if len(long_letters) != 1:
+        return None
+    el = long_letters[0]
+    streamed = [p for p, s in enumerate(e.in_idx_sets) if el in s]
+    if len(streamed) != 1:
+        return None
+    sp = streamed[0]
+    rp = 1 - sp
+    s_idx, r_idx = e.in_idx_sets[sp], e.in_idx_sets[rp]
+    if len(s_idx) != 2 or s_idx[0] != el:
+        return None
+    j = s_idx[1]
+    if tuple(e.out_idx_set) == (el,) and tuple(r_idx) == (j,):
+        return (el, None, j, e.args[0][sp].name, e.args[0][rp].name, (j,))
+    if len(e.out_idx_set) != 2 or e.out_idx_set[0] != el:
+        return None
+    i = e.out_idx_set[1]
+    if set(r_idx) != {i, j} or i == j:
+        return None
+    return (el, i, j, e.args[0][sp].name, e.args[0][rp].name, tuple(r_idx))
+
+
+def lane_pack_dg_applicable(einsum):
+    """``feinsum_tpu``'s structure check for the DG-family lane-pack
+    rewrite: three operands, one resident over (i, j, m...), one main
+    streamed ``(lam_u..., e, j)``, one scale streamed ``(e, s)`` or
+    ``(lam_j..., e)``, and output ``(chi..., e, i)``.  Returns the
+    structure dict or ``None``."""
+    e = einsum
+    if e.n != 3:
+        return None
+    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)]
+    if len(long_letters) != 1:
+        return None
+    el = long_letters[0]
+    out = tuple(e.out_idx_set)
+    if len(out) < 2 or out[-2] != el or out[-1] == el:
+        return None
+    i = out[-1]
+    chi = out[:-2]
+    if el in chi or i in chi:
+        return None
+    residents = [p for p, s in enumerate(e.in_idx_sets) if el not in s]
+    if len(residents) != 1:
+        return None
+    rp = residents[0]
+    rho = tuple(e.in_idx_sets[rp])
+    if i not in rho:
+        return None
+    streamed = [p for p in range(3) if p != rp]
+
+    def classify(up, jp):
+        s = tuple(e.in_idx_sets[up])
+        if not (len(s) >= 2 and s[-2] == el and s[-1] in rho and s[-1] != i
+                and s[-1] not in out and set(s[:-2]) <= set(rho) - {i}):
+            return None
+        j, lam_u = s[-1], s[:-2]
+        js = tuple(e.in_idx_sets[jp])
+        m = tuple(c for c in rho if c not in (i, j))
+        if len(js) == 2 and js[0] == el and js[1] in m:
+            variant, s_ax, lam_j = "A", js[1], ()
+        elif js[-1] == el and el not in js[:-1]:
+            variant, s_ax, lam_j = "B", None, js[:-1]
+            if not set(lam_j) <= set(m) | set(chi):
+                return None
+            if i in lam_j or j in lam_j:
+                return None
+        else:
+            return None
+        if not set(chi) <= set(lam_j):
+            return None
+        for c in set(rho) | set(lam_j) | {i, j}:
+            if c != el and isinstance(e.index_to_dim_length[c], SizeParam):
+                return None
+        return dict(el=el, i=i, j=j, chi=chi, rp=rp, up=up, jp=jp, rho=rho,
+                    m=m, lam_u=lam_u, lam_j=lam_j, variant=variant,
+                    s_ax=s_ax)
+
+    cands = [c for c in (classify(streamed[0], streamed[1]),
+                         classify(streamed[1], streamed[0])) if c]
+    if not cands:
+        return None
+    return max(cands, key=lambda c: int(e.index_to_dim_length[c["j"]]))
+
+
+def rowcat_applicable(einsum) -> bool:
+    """``rowcat`` merges batch rows that share every resident operand and
+    stream distinct per-row operands with the long axis leading (div and
+    curl: J (E, s), u (E, j)); the long axis must lead the output too."""
+    e = einsum
+    if e.b <= 1:
+        return False
+    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)]
+    if len(long_letters) != 1:
+        return False
+    el = long_letters[0]
+    if not e.out_idx_set or e.out_idx_set[0] != el:
+        return False
+    for p, idx in enumerate(e.in_idx_sets):
+        names = [e.args[r][p].name for r in range(e.b)]
+        if len({e.args[r][p].dtype for r in range(e.b)}) != 1:
+            return False
+        if el in idx:
+            if idx[0] != el or len(set(names)) != e.b:
+                return False
+        elif len(set(names)) != 1:
+            return False
+    return True
+
+
+def rewrite_rowcat(program):
+    """Rewrite a rowcat-applicable batched program into one row over a
+    b·E-long axis: the streamed operands are stored stacked end to end
+    (``descriptor.rowcat_args``), the residents pass through, and the one
+    output is the b row outputs stacked the same way.  Traffic and work are
+    the same; on the card the b rows become one launch row over b times as
+    many elements.  Returns ``(rewritten_program, descriptor_extras)``."""
+    from ...contraction_schedule import get_trivial_contraction_schedule
+    from ...make_einsum import array, einsum
+
+    e = program.einsum
+    if not rowcat_applicable(e):
+        raise InvalidParameterError(
+            "rowcat needs a batched einsum whose rows share every resident"
+            " operand and stream distinct long-leading operands")
+    el = long_axis_of(e)
+    taken = set(e.arg_to_shape)
+    new_args, rowcat_args = [], []
+    for p, idx in enumerate(e.in_idx_sets):
+        arg0 = e.args[0][p]
+        if el in idx:
+            k = 0
+            while f"cat{p}_{k}" in taken:
+                k += 1
+            name = f"cat{p}_{k}"
+            taken.add(name)
+            rowcat_args.append(
+                (name, tuple(e.args[r][p].name for r in range(e.b))))
+            shape = tuple(f"N{el}_" if ix == el else
+                          int(e.index_to_dim_length[ix]) for ix in idx)
+            new_args.append(array(name, shape, arg0.dtype.name))
+        else:
+            new_args.append(array(
+                arg0.name,
+                tuple(int(e.index_to_dim_length[ix]) for ix in idx),
+                arg0.dtype.name))
+    subs = (",".join("".join(s) for s in e.in_idx_sets)
+            + "->" + "".join(e.out_idx_set))
+    e2 = einsum(subs, *new_args)
+    extras = dict(rowcat=int(e.b), rowcat_args=tuple(rowcat_args))
+    return program.copy(einsum=e2,
+                        schedule=get_trivial_contraction_schedule(e2)), extras

@@ -1,0 +1,15 @@
+"""
+Transform space of the DG face-mass / lift family ``ifj,fe,fej->ei`` (the flux
+carries the face axis: ``dg_rows_f32`` with u over s).
+
+The space is the shared DG definition
+(:func:`~feinsum_tpu_torch.tuning.impls._common.make_dg_space`), which says
+what each knob does on the card.  The file name is ``feinsum_tpu``'s, so an
+archived fact's ``transform_id`` binds here.
+"""
+
+from __future__ import annotations
+
+from feinsum_tpu_torch.tuning.impls._common import make_dg_space
+
+transform = make_dg_space()

@@ -95,7 +95,6 @@ def transform(program, log2_block, blkc128=0, *, backend_pallas,
     from feinsum_tpu_torch.tuning.impls._common import (
         fp32_precision,
         fused_pallas_program,
-        guard_smem,
         resolve_block,
     )
 
@@ -128,13 +127,12 @@ def transform(program, log2_block, blkc128=0, *, backend_pallas,
     precision = _PRECISIONS[precision_idx]
     if backend_pallas:
         p2 = fused_pallas_program(
-            p2, block_long=resolve_block(log2_block, blkc128),
+            p2, block_long=resolve_block(log2_block, blkc128), hoist=False,
             parallel_grid=True, dofmajor=dofmajor, fold=fold,
             precision_3x=(precision == "bf16_3x"))
         if precision == "default":
             raise InvalidParameterError(
                 "pallas route has no 1-pass mode (duplicate of highest)")
-        guard_smem(e2d, "dg_rows_f32")
     else:
         if dofmajor or fold:
             raise InvalidParameterError(

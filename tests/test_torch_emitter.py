@@ -25,9 +25,11 @@ from feinsum_tpu.measure import (
 from feinsum_tpu.ops.dd_emitter import _recognize_row
 from feinsum_tpu.ops.layouts import dofmajor_layouts as ref_dofmajor_layouts
 from feinsum_tpu_torch import suite as S
+from feinsum_tpu_torch.codegen.program import get_index_lengths
 from feinsum_tpu_torch.interop import arrays_from_numpy, \
     program_from_reference
 from feinsum_tpu_torch.ops import kernels
+from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
 from feinsum_tpu_torch.ops.dg_rows import plan_row
 
 E = 64
@@ -91,8 +93,9 @@ def test_emitter_matches_reference(name, backend):
     for got, ref in zip(outs, ref_outs):
         assert_close(got, ref)
     # CPU tensors run the plain versions: no kernel was launched
-    assert kernels.launch_counts == {"dg_rows_f32": 0, "ew_product_f32": 0,
-                                     "dd_rows": 0, "tc_grid_f32": 0}
+    assert set(kernels.launch_counts) >= {"dg_rows_f32", "ew_product_f32",
+                                          "dd_rows", "tc_grid_f32"}
+    assert not any(kernels.launch_counts.values())
 
 
 def test_one_launch_per_row_knob_matches():
@@ -152,14 +155,12 @@ def test_unported_descriptors_raise(change):
 
 
 @pytest.mark.parametrize("einsum", [
-    ft.einsum("ej,j->e", ft.array("A", ("E", 5), "float32"),
-              ft.array("x", (5,), "float32")),
     ft.einsum("ej->j", ft.array("A", ("E", 5), "float32")),
     ft.einsum("ij,ej->ei", ft.array("D", (4, 4), "float64"),
               ft.array("u", ("E", 4), "float64")),
     ft.einsum("ej,e->ej", ft.array("A", ("E", 5), "float32"),
               ft.array("w", ("E",), "float32")),
-], ids=["vecmat", "contracted_long", "float64", "broadcast_product"])
+], ids=["contracted_long", "float64", "broadcast_product"])
 def test_unfused_rows_raise_on_fused_route(einsum):
     prog = S.default_transform(einsum)(ft.generate_program(einsum))
     prog = prog.with_descriptor(backend="pallas")
@@ -169,6 +170,67 @@ def test_unfused_rows_raise_on_fused_route(einsum):
     ft.validate_batched_einsum_transform(
         einsum, lambda p: p.with_descriptor(backend="xla"),
         long_dim_length=E)
+
+
+# rows with no i output axis: the extended suite's vecmat and rowsum, at a
+# narrow and at the suite's width
+REDUCE_ROWS = {
+    "vecmat_ndof5": ft.einsum("ej,j->e", ft.array("A", ("E", 5), "float32"),
+                              ft.array("x", (5,), "float32")),
+    "vecmat_ndof35": dict(S.extended_suite())["vecmat_ndof35"],
+    "rowsum_ndof35": dict(S.extended_suite())["rowsum_ndof35"],
+    "rowsum_ndof4": ft.einsum("ej->e", ft.array("A", ("E", 4), "float32")),
+}
+
+
+@pytest.mark.parametrize("layout", ["dofmajor", "logical"])
+@pytest.mark.parametrize("name", sorted(REDUCE_ROWS))
+def test_reduce_rows_match_reference(name, layout):
+    """The reference's K1 runs vecmat and rowsum; the port plans them onto
+    ``row_reduce_f32`` (its plain version on CPU tensors), in the
+    dof-major (J, E) layout and in the element-major (E, J) one."""
+    prog = reference_program(REDUCE_ROWS[name])
+    if layout == "logical":
+        prog = prog.with_descriptor(arg_layouts=(), out_layout=None)
+    plan = plan_cuda_launch(program_from_reference(prog),
+                            get_index_lengths(REDUCE_ROWS[name], E))
+    assert plan.kernel == "row_reduce_f32"
+    ref_outs, outs = run_both(prog, seed=5)
+    assert_close(outs[0], ref_outs[0])
+
+
+FLAT_ROWS = {
+    "scale_flat": S.make_scale_flat(),
+    "flat_b2": ft.batched_einsum(
+        "e,e,e->e", [[ft.array(a, ("E",), "float32") for a in names]
+                     for names in (("a", "b", "c"), ("d", "b", "f"))]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLAT_ROWS))
+def test_flatten_matches_reference_k3(name):
+    """``flatten=True`` on 1-D products: the reference's K3
+    (``_try_build_flat_elementwise``, one flat block in interpret mode)
+    against the port's flatten route (``ew_flat_f32``)."""
+    r = to_reference(FLAT_ROWS[name])
+    prog = fr.generate_program(r).with_descriptor(
+        backend="pallas", flatten=True, block_long=E)
+    plan = plan_cuda_launch(program_from_reference(prog),
+                            get_index_lengths(FLAT_ROWS[name], E))
+    assert plan.kernel == "ew_flat_f32"
+    ref_outs, outs = run_both(prog, seed=6)
+    assert len(outs) == FLAT_ROWS[name].b
+    for got, ref in zip(outs, ref_outs):
+        assert_close(got, ref)
+
+
+@pytest.mark.parametrize("change", [{"arg_layouts": (("a", (0,)),)},
+                                    {"fold_long": 8}])
+def test_flatten_refuses_what_the_reference_refuses(change):
+    prog = ft.generate_program(S.make_scale_flat()).with_descriptor(
+        backend="pallas", flatten=True, **change)
+    with pytest.raises(ft.InvalidParameterError):
+        ft.build_executable(prog, long_dim_length=E)
 
 
 def test_tf32_is_refused():

@@ -1,8 +1,10 @@
 """The port's kernel wrappers (``feinsum_tpu_torch/ops/kernels.py``): their
 operand checks and plain versions on CPU tensors, and, in the tests marked
-``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``,
-``dd_rows``, ``tc_grid_f32``) against their plain versions on the card.  This file imports no JAX, so it runs where only PyTorch is
-installed; on such a machine run it without the JAX-importing conftest:
+``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``
+and its flatten route ``ew_flat_f32``, ``row_reduce_f32``, ``dd_rows``,
+``tc_grid_f32``) against their plain versions on the card.  This file
+imports no JAX, so it runs where only PyTorch is installed; on such a
+machine run it without the JAX-importing conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
 """
@@ -434,9 +436,9 @@ def test_tc_spaces_validate_on_card(cuda_device, space, params):
 # }}}
 
 
-# the suite rows and the extended suite's DG rows (P1-P3 widths, curl)
-FUSED_ROWS = dict(S.suite() + [(name, e) for name, e in S.extended_suite()
-                               if name.startswith("dg_")])
+# the suite rows, the extended suite's rows (P1-P3 widths, curl, vecmat,
+# rowsum) and scale_flat
+FUSED_ROWS = dict(S.f32_rows())
 
 
 @pytest.mark.cuda
@@ -468,6 +470,127 @@ def test_ew_product_plain_is_the_product():
     assert_close(out.numpy(), ops[0] * ops[1] * ops[2])
 
 
+# {{{ row_reduce_f32 and the flatten route
+
+def _reduce_rows(device, E=33, J=7, element_major=False, with_w=True,
+                 nrows=2, seed=0):
+    """Rows of (E, J) u views (dof-major storage unless *element_major*)
+    and (J,) weights."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(nrows):
+        u = torch.from_numpy(rng.random((E, J), dtype=np.float32)).to(device)
+        if not element_major:
+            u = u.t().contiguous().t()          # stored (J, E), e stride 1
+        w = (torch.from_numpy(rng.random(J, dtype=np.float32)).to(device)
+             if with_w else None)
+        rows.append(kernels.ReduceRow(u=u, w=w))
+    return rows
+
+
+@pytest.mark.parametrize("element_major", [False, True])
+@pytest.mark.parametrize("with_w", [False, True])
+def test_row_reduce_plain_is_the_row_formula(element_major, with_w):
+    rows = _reduce_rows("cpu", element_major=element_major, with_w=with_w,
+                        seed=12)
+    outs = kernels.row_reduce_f32(rows, block_long=8)
+    for row, out in zip(rows, outs):
+        w = row.w.double().numpy() if with_w else np.ones(7)
+        assert out.shape == (33,) and out.is_contiguous()
+        assert_close(out.numpy(), row.u.double().numpy() @ w)
+    assert kernels.launch_counts["row_reduce_f32"] == 0
+
+
+def test_row_reduce_checks_its_operands():
+    rows = _reduce_rows("cpu")
+    with pytest.raises(ValueError):       # rows disagree on w
+        kernels.row_reduce_f32([rows[0], kernels.ReduceRow(rows[1].u, None)],
+                               block_long=8)
+    with pytest.raises(ValueError):
+        kernels.row_reduce_f32([kernels.ReduceRow(rows[0].u, rows[0].w[:3])],
+                               block_long=8)
+    with pytest.raises(ft.InvalidParameterError):
+        kernels.row_reduce_f32([kernels.ReduceRow(rows[0].u.double(), None)],
+                               block_long=8)
+    with pytest.raises(ValueError):      # no kernel and no plain version
+        kernels.row_reduce_f32(_reduce_rows("meta"), block_long=8)
+
+
+def test_ew_flat_plain_and_checks():
+    rng = np.random.default_rng(13)
+    ops = [torch.from_numpy(rng.random(50, dtype=np.float32))
+           for _ in range(2)]
+    (out,) = kernels.ew_flat_f32([ops], block_long=16)
+    assert_close(out.numpy(), ops[0].numpy() * ops[1].numpy())
+    assert kernels.launch_counts["ew_flat_f32"] == 0
+    with pytest.raises(ValueError):
+        kernels.ew_flat_f32([[torch.ones(4, 3)] * 2], block_long=16)
+    with pytest.raises(ft.InvalidParameterError):
+        kernels.ew_flat_f32([ops], block_long=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_w", [False, True])
+@pytest.mark.parametrize("element_major", [False, True])
+@pytest.mark.parametrize("E,J,block_long", [(33, 7, 8), (777, 35, 512),
+                                            (1000, 20, 100),
+                                            (257, 100, 4096)])
+def test_row_reduce_kernel_matches_plain(cuda_device, E, J, block_long,
+                                         element_major, with_w):
+    """Dof-major and element-major storage (the staged path, and the
+    strided one for J = 100, whose tile exceeds 48 KB), ragged blocks."""
+    rows = _reduce_rows(cuda_device, E=E, J=J, element_major=element_major,
+                        with_w=with_w, seed=14)
+    before = kernels.launch_counts["row_reduce_f32"]
+    got = kernels.row_reduce_f32(rows, block_long=block_long)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["row_reduce_f32"] == before + 1
+    for g, want in zip(got, kernels.row_reduce_plain(rows)):
+        assert g.shape == (E,) and g.is_contiguous()
+        assert_close(g.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_launch,launches", [(True, 2), (False, 5)])
+def test_row_reduce_kernel_splits_rows(cuda_device, one_launch, launches):
+    rows = _reduce_rows(cuda_device, nrows=5, seed=15)
+    before = kernels.launch_counts["row_reduce_f32"]
+    got = kernels.row_reduce_f32(rows, block_long=16, one_launch=one_launch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["row_reduce_f32"] == before + launches
+    for g, want in zip(got, kernels.row_reduce_plain(rows)):
+        assert_close(g.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_row_reduce_limits_match_the_kernel(cuda_device):
+    lib = _build.load_library()
+    assert lib.row_reduce_f32_max_j() == kernels.MAX_REDUCE_J
+    assert lib.row_reduce_f32_staged(35, 35, 1) == 1
+    assert lib.row_reduce_f32_staged(35, 1, 1000) == 0
+    assert lib.row_reduce_f32_staged(100, 100, 1) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset,block_long", [
+    (4096, 0, 256), (4097, 0, 1024), (4096, 1, 512), (100_000, 0, 6),
+    (36_700_160, 0, 32768)])
+def test_ew_flat_kernel_matches_plain(cuda_device, n, offset, block_long):
+    """float4 path, ragged length, a misaligned operand and a block length
+    not a multiple of 4 (scalar path), and scale_flat's full length."""
+    rng = np.random.default_rng(16)
+    rows = [[torch.from_numpy(rng.random(n + offset, dtype=np.float32)).to(
+        cuda_device)[offset:] for _ in range(2)] for _ in range(2)]
+    before = kernels.launch_counts["ew_flat_f32"]
+    got = kernels.ew_flat_f32(rows, block_long=block_long)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["ew_flat_f32"] == before + 1
+    for g, want in zip(got, kernels.ew_product_plain(rows)):
+        assert_close(g.cpu().numpy(), want.cpu().numpy())
+
+# }}}
+
+
 def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setenv("PATH", "")
@@ -480,4 +603,5 @@ def test_library_name_follows_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()       # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu"}
+        "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu",
+        "row_reduce.cu"}

@@ -80,8 +80,9 @@ def test_slice_matches_reference(name):
         assert got.shape == ref.shape and np.all(np.isfinite(got))
         scale = float(np.max(np.abs(ref)))
         np.testing.assert_allclose(got, ref, rtol=RTOL, atol=RTOL * scale)
-    assert kernels.launch_counts == {"dg_rows_f32": 0, "ew_product_f32": 0,
-                                     "dd_rows": 0, "tc_grid_f32": 0}
+    assert set(kernels.launch_counts) >= {"dg_rows_f32", "ew_product_f32",
+                                          "dd_rows", "tc_grid_f32"}
+    assert not any(kernels.launch_counts.values())
 
 
 def test_unpack_output_recovers_the_logical_result():
