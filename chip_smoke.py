@@ -61,15 +61,35 @@ Phases; any failure exits non-zero before the final line:
    E = 1M (scale_flat at its full length) and read the counters; check
    each output against the plain per-step route within 2e-5, and time the
    kernel route, the kernel's plain version and the per-step route;
-11. curl's ``prereduce`` point against its default point, timed in turns.
+11. curl's ``prereduce`` point against its default point, timed in turns;
+12. ``long_reduce_f32`` (a contracted long axis) against
+   ``long_reduce_plain`` and a float64 ``torch.einsum`` on the energy
+   ``ej,ej->``, ``ej,ej->j`` and the Gram matrix ``ei,ej->ij`` at E = 1M and
+   a ragged E = 1,000,003, ndof 35, in both stored layouts, within 2e-5 of
+   the sum of the terms' magnitudes; timed at E = 1M, with the kernel's
+   device idle share;
+13. the consumer flow of ``examples/compile_user_rhs.py`` at its size
+   (E = 100,000): the H100's relayout rates; the div (b = 3), lift and
+   energy classes tuned into a fresh archive under ``build/``;
+   ``compile_fn_with_archive`` on ``suite.user_rhs`` and
+   ``suite.user_rhs_limited``; each plan's kernel (one b = 3 div plan on
+   ``dg_rows_f32``, the energy on ``long_reduce_f32``, every plan an
+   archived kernel program); outputs against the plain torch function
+   within 2e-5; cold and warm time per call;
+14. the wave model at E = 500,000 and Maxwell at E = 65,536 (ndof 35) with
+   the default schedules: the face restriction on ``dg_rows_f32`` against
+   its plain version, 5 steps each against the per-step route within
+   2e-5, then ms per step and Gdof/s.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
 roofline for the same work and one PyTorch call's for the same function),
 and ``{"ok": true, "device": {...}}``.  The times of ``dg_rows_f32`` and
 ``ew_product_f32`` are phase 4's rows, those of ``row_reduce_f32`` and
-``ew_flat_f32`` phase 10's; launches are counted over the main path
-(phase 3) and the archive replays (phases 6, 8, 10).  It imports no JAX.
+``ew_flat_f32`` phase 10's, ``long_reduce_f32``'s phase 12's; launches are
+counted over the main path (phase 3), the archive replays (phases 6, 8,
+10), the consumer flow's calls (phase 13) and one step of each model
+(phase 14).  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -97,6 +117,7 @@ F32_TUNE_POINTS = 3    # measured points per f32 archive row (at most)
 E_REDUCE_LONG = 2 ** 23   # row_reduce_f32's second timing length
 F32_KERNELS = ("dg_rows_f32", "ew_product_f32")
 REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "long_reduce_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "ew_product_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "ew_flat_f32": "feinsum_tpu/ops/pallas_emitter.py:187",
             "row_reduce_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
@@ -106,6 +127,7 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
            "ew_flat_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
            "row_reduce_f32": "feinsum_tpu_torch/csrc/row_reduce.cu",
+           "long_reduce_f32": "feinsum_tpu_torch/csrc/long_reduce.cu",
            "dd_rows": "feinsum_tpu_torch/csrc/dd_rows.cu",
            "tc_grid_f32": "feinsum_tpu_torch/csrc/tc_grid.cu"}
 # the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W)
@@ -400,7 +422,18 @@ def main() -> int:
         f" {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     curl_prereduce_comparison(dev, label)
-    log(f"[phase] 11 (curl prereduce): {time.perf_counter() - t_phase:.1f} s;"
+    log(f"[phase] 11 (curl prereduce): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    worst["long_reduce_f32"] = long_reduce_check(dev, label, stats)
+    log(f"[phase] 12 (long_reduce_f32): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    for k, n in consumer_flow(dev, label).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[phase] 13 (consumer flow): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    for k, n in models_full_width(dev, label).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[phase] 14 (models): {time.perf_counter() - t_phase:.1f} s;"
         f" all phases {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k], worst[k]) for k in SOURCES]
@@ -1044,6 +1077,385 @@ def curl_prereduce_comparison(dev, label: str) -> None:
         f" (runs {times}) {label}")
     del logical, arrays
     torch.cuda.empty_cache()
+
+
+# phase 12's einsums: (name, subscripts, operand names); "u" twice is one
+# tensor read by both operands, as in the energy
+LONG_REDUCE_CASES = (("energy", "ej,ej->", ("u", "u")),
+                     ("per-letter sum", "ej,ej->j", ("u", "v")),
+                     ("Gram", "ei,ej->ij", ("u", "v")))
+E_RAGGED = 1_000_003
+LONG_REDUCE_BLOCK = 512
+
+
+def long_reduce_einsum(subs: str, names: tuple, ndof: int = 35):
+    import feinsum_tpu_torch as ft
+    ins = subs.split("->")[0].split(",")
+    return ft.einsum(subs, *[ft.array(n, ("E",) + (ndof,) * (len(s) - 1),
+                                       "float32")
+                             for n, s in zip(names, ins)])
+
+
+def long_reduce_check(dev, label: str, stats: KernelStats) -> float:
+    """Phase 12: ``long_reduce_f32`` against ``long_reduce_plain`` and a
+    float64 ``torch.einsum`` on the energy, the per-letter sum and the Gram
+    matrix at E = 1M and a ragged E = 1,000,003, ndof 35, in the dof-major
+    and the element-major layout; the error of each against float64 within
+    2e-5 of the sum of the terms' magnitudes.  Times the three at E = 1M
+    dof-major (kernel, plain version, ``torch.einsum`` on the stored
+    operands) into *stats*, and prints the kernel's device-busy time and
+    idle share.  Returns the largest |kernel - plain|."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.layouts import dofmajor_layouts, \
+        stored_arg_layouts, stored_out_letters
+    from feinsum_tpu_torch.tools.profile_suite import report
+
+    worst = 0.0
+    for name, subs, names in LONG_REDUCE_CASES:
+        e = long_reduce_einsum(subs, names)
+        layouts, out_layout = dofmajor_layouts(e)
+        base = ft.generate_program(e).with_descriptor(
+            backend="pallas", block_long=LONG_REDUCE_BLOCK,
+            dimension_semantics="arbitrary")
+        for layout, program in (
+                ("dof-major", base.with_descriptor(arg_layouts=layouts,
+                                                   out_layout=out_layout)),
+                ("element-major", base)):
+            stored = stored_arg_layouts(program)
+            f64_subs = (",".join("".join(stored[a.name]) for a in e.args[0])
+                        + "->" + "".join(stored_out_letters(program)))
+            for length in (E_FULL, E_RAGGED):
+                arrays = apply_layouts(program, generate_input_arrays(
+                    e, long_dim_length=length, seed=3, device=dev))
+                plan = plan_cuda_launch(program, get_index_lengths(e, length))
+                operands = plan.operands(arrays)
+                (got,) = plan.run(operands)
+                (want,) = plan.plain(operands)
+                ops64 = [arrays[a.name].double() for a in e.args[0]]
+                ref = torch.einsum(f64_subs, *ops64)
+                mag = torch.einsum(f64_subs, *[t.abs() for t in ops64])
+                torch.cuda.synchronize()
+                abs_err, _ = max_err(got, want)
+                worst = max(worst, abs_err)
+                rel = {k: float(((v.double() - ref).abs() / mag).max())
+                       for k, v in (("kernel", got), ("plain", want))}
+                ok = plan.kernel == "long_reduce_f32" and all(
+                    r <= RTOL for r in rel.values())
+                log(f"[compare] long_reduce_f32 {name} {subs} {layout}"
+                    f" E={length}: max|kernel-plain| {abs_err:.3e}; error"
+                    f" against float64 / sum|terms|: kernel"
+                    f" {rel['kernel']:.2e}, plain {rel['plain']:.2e}"
+                    f" (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SmokeFailure(f"long_reduce_f32 fails on {name}"
+                                       f" {layout} E={length}")
+                if length == E_FULL and layout == "dof-major":
+                    fn = ft.build_executable(program, long_dim_length=length,
+                                             device=dev)
+                    times = timed_in_turns(
+                        {"kernel": fn,
+                         "plain": lambda a, plan=plan: plan.plain(
+                             plan.operands(a)),
+                         "library": library_call(program)},
+                        {k: arrays for k in ("kernel", "plain", "library")})
+                    ms = {k: sum(v) / 2 for k, v in times.items()}
+                    log(f"[time] long_reduce_f32 {name} {subs} E={length}:"
+                        f" kernel {ms['kernel']:.4f} ms, plain version"
+                        f" {ms['plain']:.4f} ms, torch.einsum"
+                        f" {ms['library']:.4f} ms, {bound_text(e, length)}"
+                        f" (runs {times}) {label}")
+                    stats.add("long_reduce_f32", e, length, ms["kernel"],
+                              ms["plain"], ms["library"])
+                    report(f"long_reduce_f32 {name} E={length}", "kernel",
+                           fn, arrays)
+                del arrays, operands, got, want, ops64, ref, mag
+                torch.cuda.empty_cache()
+    return worst
+
+
+def relayout_rates(dev, label: str) -> dict:
+    """The H100's rates of the two in-graph relayouts the consumer path
+    pays (``apply._RETILE_GBPS``, ``apply._STREAM_GBPS``): a permute copy of
+    an (E, 35) float32 tensor into (35, E) and a contiguous ``torch.cat`` of
+    three of them, at E = 1M; each rate is twice the bytes (read and
+    written) over the CUDA-event time."""
+    import torch
+
+    from feinsum_tpu_torch.measure import timeit_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.rand((E_FULL, 35), generator=gen, device=dev)
+          for _ in range(3)]
+    arrays = {f"x{k}": x for k, x in enumerate(xs)}
+    t_perm = timeit_cuda(lambda a: a["x0"].permute(1, 0).contiguous(),
+                         arrays)
+    t_cat = timeit_cuda(lambda a: torch.cat([a["x0"], a["x1"], a["x2"]]),
+                        arrays)
+    nbytes = xs[0].numel() * 4
+    rates = {"retile": 2 * nbytes / (t_perm * 1e-3) / 1e9,
+             "stream": 2 * 3 * nbytes / (t_cat * 1e-3) / 1e9}
+    log(f"[relayout] E={E_FULL} ndof 35: permute copy {t_perm:.4f} ms"
+        f" = {rates['retile']:.1f} GB/s, torch.cat of three {t_cat:.4f} ms"
+        f" = {rates['stream']:.1f} GB/s {label}")
+    del xs, arrays
+    torch.cuda.empty_cache()
+    return rates
+
+
+CONSUMER_TUNE_POINTS = 2   # measured points per consumer row
+CONSUMER_LONG_DIM = 1000   # compile_user_rhs.py's long_dim_length
+MODEL_STEPS = 5            # checked steps per model
+MODEL_TIMED_STEPS = 20
+
+
+def consumer_flow(dev, label: str) -> dict:
+    """Phase 13: ``examples/compile_user_rhs.py``'s flow at its own size
+    (E = 100,000, ndof 35, 4 faces x 15): the relayout rates; autotune of
+    the div (b = 3), lift and energy classes into a fresh archive under
+    ``build/``; ``compile_fn_with_archive`` on the torch ``user_rhs`` and
+    ``user_rhs_limited`` (no shootout: the archived kernels must serve every
+    plan); each plan and the kernel it goes to; the outputs against the
+    plain torch function within 2e-5 of max|ref|; cold and warm time per
+    call.  Returns the launches of the compiled calls by kernel, counted
+    from 0."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import suite as S
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.data.device_info import get_device_key
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+
+    relayout_rates(dev, label)
+    E = S.CONSUMER_SIZES["E"]
+    db = HERE / "build" / "chip_smoke" / "consumer_archive.sqlite"
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    key = get_device_key(dev)
+    sizes = {k: S.CONSUMER_SIZES[k] for k in ("ndof", "nf", "nfdof")}
+    for name, e in S.consumer_rows(**sizes):
+        space = S.CONSUMER_SPACES[name]
+        seeds = [S.space_point(space, e), S.space_point(space, e,
+                                                        dofmajor=False)]
+        t0 = time.perf_counter()
+        ft.autotune(e, space, db_path=str(db), device=dev,
+                    long_dim_length=E, test_limit=CONSUMER_TUNE_POINTS,
+                    seed_configs=seeds)
+        facts = ft.query(e, dev, db_path=str(db))
+        log(f"[tune] {name}: {len(facts)} facts in"
+            f" {time.perf_counter() - t0:.1f} s")
+        for q in facts:
+            log(f"[tune]   {q.device_name} {q.transform_id}"
+                f" {dict(q.transform_params)}:"
+                f" {q.runtime_in_sec * 1e3:.4f} ms,"
+                f" {q.total_giga_op_rate:.1f} GOp/s {label}")
+        if not facts or any(q.device_name != key for q in facts):
+            raise SmokeFailure(f"{name}: no facts under {key}")
+
+    args = S.consumer_args(E=E, **sizes, device=dev)
+    launches = {k: 0 for k in kernels.launch_counts}
+    for fn in (S.user_rhs, S.user_rhs_limited):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn2 = ft.compile_fn_with_archive(
+            fn, args, db_path=str(db), long_dim_length=CONSUMER_LONG_DIM,
+            shootout=False)
+        kernels.reset_launch_counts()
+        got = fn2(*args)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        for k, n in kernels.launch_counts.items():
+            launches[k] += n
+        plan_kernels = []
+        for infos, einsum, program in fn2.plans:
+            if program.descriptor.backend != "pallas":
+                raise SmokeFailure(f"{fn.__name__}: the plan of"
+                                   f" {einsum.get_subscripts()} is not an"
+                                   " archived kernel program")
+            kernel = plan_cuda_launch(program, get_index_lengths(
+                program.einsum, E * program.descriptor.rowcat)).kernel
+            plan_kernels.append((einsum, kernel))
+            log(f"[consumer] {fn.__name__}: plan"
+                f" {einsum.get_subscripts():24s} b={einsum.b}"
+                f" insns={[i.flat_index for i in infos]}"
+                f" scales={[i.scale for i in infos]}"
+                f" scale_vars={[len(i.scale_vars) for i in infos]}"
+                f" -> {kernel} (block {program.descriptor.block_long},"
+                f" layouts {dict(program.descriptor.arg_layouts)})")
+        if not any(e.b == 3 and k == "dg_rows_f32" for e, k in plan_kernels):
+            raise SmokeFailure(f"{fn.__name__}: the div instructions do not"
+                               " form one b = 3 plan on dg_rows_f32")
+        if fn is S.user_rhs_limited and not any(
+                k == "long_reduce_f32" for _, k in plan_kernels):
+            raise SmokeFailure("the energy plan does not run"
+                               " long_reduce_f32")
+        want = fn(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(_tensors(got), _tensors(want)):
+            _, rel = max_err(g, w)
+            log(f"[consumer] {fn.__name__}: output {tuple(g.shape)},"
+                f" max|compiled-plain| = {rel:.2e} of max|plain|"
+                f" (tolerance {RTOL})")
+            if rel > RTOL:
+                raise SmokeFailure(f"{fn.__name__}: the compiled output"
+                                   f" differs from the plain function by"
+                                   f" {rel:.2e}")
+        arrays = {"dt": args[0]}
+        times = timed_in_turns(
+            {"compiled": lambda a: _tensors(fn2(*args)),
+             "plain": lambda a: _tensors(fn(*args))},
+            {"compiled": arrays, "plain": arrays})
+        log(f"[consumer] {fn.__name__} E={E}: cold (plans, spot checks,"
+            f" first call) {cold:.3f} s; warm per call: compiled"
+            f" {sum(times['compiled']) / 2:.4f} ms, plain torch function"
+            f" {sum(times['plain']) / 2:.4f} ms (runs {times}) {label}")
+        del got, want
+    # what the automatic shootout serves (the plans above are pinned)
+    fn3 = ft.compile_fn_with_archive(
+        S.user_rhs_limited, args, db_path=str(db),
+        long_dim_length=CONSUMER_LONG_DIM)
+    log(f"[consumer] with the automatic shootout: "
+        f"{[(e.get_subscripts(), p.descriptor.backend) for _, e, p in fn3.plans]}")
+    del args, fn3
+    torch.cuda.empty_cache()
+    log(f"[consumer] launch counts over the compiled calls: {launches}")
+    for k in ("dg_rows_f32", "long_reduce_f32"):
+        if launches[k] < 1:
+            raise SmokeFailure(f"{k} was not launched by the consumer flow")
+    return launches
+
+
+def _tensors(x) -> tuple:
+    """The tensors of an output: a tensor, a tuple of them or a dict."""
+    if isinstance(x, dict):
+        return tuple(x.values())
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _step_check(name, step, plain_step, state, geom, n_elements, ndof,
+                label, also=None) -> None:
+    """MODEL_STEPS steps of *step*, each against *plain_step* from the same
+    state within RTOL of max|plain|; then ms per step (CUDA events over
+    MODEL_TIMED_STEPS chained steps), in turns with the plain step and the
+    steps of *also* (label -> step)."""
+    import torch
+
+    for k in range(MODEL_STEPS):
+        nxt = step(state, geom)
+        want = plain_step(state, geom)
+        rels = {f: max_err(nxt[f], want[f])[1] for f in nxt}
+        log(f"[model] {name} step {k}: max rel diff to the per-step route"
+            f" {max(rels.values()):.2e} (tolerance {RTOL})")
+        if max(rels.values()) > RTOL:
+            raise SmokeFailure(f"{name} step {k}: the kernel route differs"
+                               f" from the per-step route by {rels}")
+        state = nxt
+        del want
+
+    def chained(fn):
+        def run(_):
+            st = state
+            for _ in range(MODEL_TIMED_STEPS):
+                st = fn(st, geom)
+            return _tensors(st)
+        return run
+    routes = {"kernel": step, **(also or {}), "per-step route": plain_step}
+    arrays = dict(state)
+    times = timed_in_turns({k: chained(f) for k, f in routes.items()},
+                           {k: arrays for k in routes})
+    for route, ts in times.items():
+        ms = sum(ts) / len(ts) / MODEL_TIMED_STEPS
+        log(f"[model] {name} E={n_elements} ndof {ndof} {route}: {ms:.4f}"
+            f" ms per step ({n_elements * ndof / (ms * 1e-3) / 1e9:.2f}"
+            f" Gdof/s; {MODEL_TIMED_STEPS} chained steps, runs"
+            f" {[round(t, 4) for t in ts]}) {label}")
+    torch.cuda.synchronize()
+
+
+def models_full_width(dev, label: str) -> dict:
+    """Phase 14: the wave model at E = 500,000 (ndof 35, 4 x 15 face dofs)
+    and Maxwell at E = 65,536 (ndof 35) with the default schedules
+    (``db_path=None``, the reference's 4096 elements per block): the
+    restriction row's kernel against its plain version, 5 steps each
+    against the plain per-step route, and ms per step and Gdof/s, timed in
+    turns with the per-step route and with the kernels at the suite's
+    ``BLOCK_LONG``.  Returns the launches of one kernel step of each."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import suite as S
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+
+    launches = {k: 0 for k in kernels.launch_counts}
+    w = S.MODEL_SIZES["wave"]
+    op = ft.WaveOperator3D(ndof=w["ndof"], nfacedof=w["nfacedof"],
+                           nfaces=w["nfaces"], db_path=None)
+    plain_op = ft.WaveOperator3D(ndof=w["ndof"], nfacedof=w["nfacedof"],
+                                 nfaces=w["nfaces"], use_pallas=False)
+    E = w["n_elements"]
+    restrict = op.programs["restrict"]
+    plan = plan_cuda_launch(restrict, get_index_lengths(restrict.einsum, E))
+    if plan.kernel != "dg_rows_f32":
+        raise SmokeFailure(f"the restriction row plans onto {plan.kernel}")
+    operands = plan.operands(apply_layouts(restrict, generate_input_arrays(
+        restrict.einsum, long_dim_length=E, seed=1, device=dev)))
+    abs_err, rel = max_err(plan.run(operands)[0], plan.plain(operands)[0])
+    log(f"[model] wave restriction {restrict.einsum.get_subscripts()}"
+        f" -> {plan.kernel} (merged i = 60): max|kernel-plain|"
+        f" {abs_err:.3e} = {rel:.2e} of max|plain| (tolerance {RTOL})")
+    if rel > RTOL:
+        raise SmokeFailure("dg_rows_f32 disagrees with its plain version on"
+                           " the restriction row")
+    del operands
+    state, geom = ft.make_wave_state(E, ndof=w["ndof"],
+                                     nfacedof=w["nfacedof"],
+                                     nfaces=w["nfaces"], device=dev)
+    kernels.reset_launch_counts()
+    step = op.make_step(E)
+    step(state, geom)
+    torch.cuda.synchronize()
+    for k, n in kernels.launch_counts.items():
+        launches[k] += n
+    alt = ft.WaveOperator3D(ndof=w["ndof"], nfacedof=w["nfacedof"],
+                            nfaces=w["nfaces"], block_long=S.BLOCK_LONG)
+    _step_check("wave", step, plain_op.make_step(E), state, geom, E,
+                w["ndof"], label,
+                also={f"kernel, block {S.BLOCK_LONG}": alt.make_step(E)})
+    del state, geom
+    torch.cuda.empty_cache()
+
+    m = S.MODEL_SIZES["maxwell"]
+    E = m["n_elements"]
+    op = ft.MaxwellOperator3D(ndof=m["ndof"], db_path=None)
+    plain_op = ft.MaxwellOperator3D(ndof=m["ndof"], use_pallas=False)
+    state, geom = ft.make_maxwell_state(E, ndof=m["ndof"], device=dev)
+    kernels.reset_launch_counts()
+    step = op.make_step(E)
+    step(state, geom)
+    torch.cuda.synchronize()
+    for k, n in kernels.launch_counts.items():
+        launches[k] += n
+    alt = ft.MaxwellOperator3D(ndof=m["ndof"], block_long=S.BLOCK_LONG)
+    _step_check("maxwell", step, plain_op.make_step(E), state, geom, E,
+                m["ndof"], label,
+                also={f"kernel, block {S.BLOCK_LONG}": alt.make_step(E)})
+    del state, geom
+    torch.cuda.empty_cache()
+    log(f"[model] launch counts over one step of each model: {launches}")
+    if launches["dg_rows_f32"] < 1:
+        raise SmokeFailure("the models launched no dg_rows_f32")
+    return launches
 
 
 if __name__ == "__main__":

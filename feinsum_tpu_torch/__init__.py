@@ -10,10 +10,16 @@ space on the device into the sqlite archive (``tuning.autotune``), and
 replay the archived champion (``sql_utils``) onto the fp64 DG kernel of
 ``ops/dd_emitter.py`` or, for the TCCG dense tensor contractions
 (``get_tccg_benchmark``), onto the tensor-contraction kernel of
-``ops/tc_emitter.py``.  Public names are those of ``feinsum_tpu``.  The
-package imports ``torch`` and never ``jax`` or ``feinsum_tpu``.
+``ops/tc_emitter.py``.  Its consumer entry points are
+``compile_fn_with_archive`` (a user's torch function, traced by
+``torch.fx``, matched against the grammar and replayed from the archive)
+and the DG wave and Maxwell models (``models``).  Public names are those
+of ``feinsum_tpu``.  The package imports ``torch`` and never ``jax`` or
+``feinsum_tpu``.
 """
 
+from .algebraic import hoist_cses_in_fn
+from .apply import compile_fn_with_archive
 from .canonicalization import (
     are_einsums_isomorphic,
     canonical_operand_positions,
@@ -53,6 +59,17 @@ from .einsum import (
     SummationAxis,
 )
 from .make_einsum import array, batched_einsum, einsum
+from .matching import (
+    InsnInfo,
+    abstract_long_axes,
+    get_a_matched_einsum,
+    get_call_ids,
+    get_matched_einsums,
+    identify_as_einsum,
+    map_names,
+    match_fn_to_einsum,
+    match_t_unit_to_einsum,
+)
 from .measure import (
     apply_layouts,
     get_footprint_gbytes,
@@ -69,6 +86,12 @@ from .sql_utils import (
     query,
     record_facts,
     retrieve,
+)
+from .models import (
+    MaxwellOperator3D,
+    WaveOperator3D,
+    make_maxwell_state,
+    make_wave_state,
 )
 from .utils import get_tccg_benchmark
 from .tuning import (
@@ -98,9 +121,11 @@ __all__ = (
     "FakeCLDevice",
     "FakeDevice",
     "FreeAxis",
+    "InsnInfo",
     "IntParameter",
     "IntermediateResult",
     "InvalidParameterError",
+    "MaxwellOperator3D",
     "NoDevicePeaksInfoError",
     "NoFactInDatabaseError",
     "ParametrizedTransform",
@@ -110,6 +135,8 @@ __all__ = (
     "SummationAxis",
     "TransformValidationError",
     "TupleParameter",
+    "WaveOperator3D",
+    "abstract_long_axes",
     "apply_best_transform",
     "apply_layouts",
     "are_einsums_isomorphic",
@@ -119,18 +146,29 @@ __all__ = (
     "build_executable",
     "canonical_operand_positions",
     "canonicalize_einsum",
+    "compile_fn_with_archive",
     "einsum",
     "einsum_arg",
     "generate_program",
     "generate_program_with_opt_einsum_schedule",
+    "get_a_matched_einsum",
+    "get_call_ids",
     "get_footprint_gbytes",
     "get_giga_op_map",
+    "get_matched_einsums",
     "get_opt_einsum_contraction_schedule",
     "get_roofline_flop_rate",
     "get_substitution_mapping_between_isomorphic_batched_einsums",
     "get_tccg_benchmark",
     "get_timed_einsums_in_db",
     "get_trivial_contraction_schedule",
+    "hoist_cses_in_fn",
+    "identify_as_einsum",
+    "make_maxwell_state",
+    "make_wave_state",
+    "map_names",
+    "match_fn_to_einsum",
+    "match_t_unit_to_einsum",
     "query",
     "record_facts",
     "retrieve",

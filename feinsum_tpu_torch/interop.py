@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .cl_utils import default_device
 from .codegen.descriptor import ScheduleDescriptor
 from .codegen.program import EinsumProgram
 from .contraction_schedule import (
@@ -74,8 +75,10 @@ def program_from_reference(ref_program) -> EinsumProgram:
         descriptor=descriptor_from_reference(ref_program.descriptor))
 
 
-def arrays_from_numpy(arrays: dict, device="cpu") -> dict:
+def arrays_from_numpy(arrays: dict, device=None) -> dict:
     """``{name: numpy array}`` -> ``{name: tensor on device}`` (the same
-    values; C-contiguous)."""
+    values; C-contiguous).  *device* defaults to the current CUDA card
+    (:func:`~feinsum_tpu_torch.cl_utils.default_device`)."""
+    device = default_device(device, caller="arrays_from_numpy")
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in arrays.items()}

@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .cl_utils import default_device
 from .codegen.program import (
     EinsumProgram,
     TransformT,
@@ -60,12 +61,13 @@ VALIDATION_LENGTH = 100        # long-axis length at which timeit validates
 # {{{ inputs
 
 def generate_input_arrays(einsum: BatchedEinsum, *, long_dim_length: int,
-                          seed: int = 0, device="cpu",
+                          seed: int = 0, device=None,
                           as_numpy: bool = False) -> dict:
     """Random inputs for every distinct operand in its logical shape: the
     same numbers as ``feinsum_tpu.measure.generate_input_arrays`` for the
-    same seed, as tensors on *device* (or numpy arrays with *as_numpy*).
-    Storage layouts are applied by :func:`apply_layouts`."""
+    same seed, as tensors on *device* (default: the current CUDA card; it
+    raises without one unless ``device="cpu"``), or numpy arrays with
+    *as_numpy*.  Storage layouts are applied by :func:`apply_layouts`."""
     lengths = get_index_lengths(einsum, long_dim_length)
     rng = np.random.default_rng(seed)
     out = {}
@@ -85,6 +87,7 @@ def generate_input_arrays(einsum: BatchedEinsum, *, long_dim_length: int,
         out[name] = np.asarray(base, dtype=dtype)
     if as_numpy:
         return out
+    device = default_device(device, caller="generate_input_arrays")
     return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
@@ -358,6 +361,25 @@ def timeit_cuda(fn, arrays: dict) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def _timeit_in_graph(fn, arrays: dict, *,
+                     min_work_seconds: float = 0.2) -> float:
+    """Seconds per call of ``fn(arrays)`` as a caller pays it (the consumer
+    path's shootout): on the card the median of :func:`timeit_cuda`; on the
+    CPU the host clock's median over calls, repeated until
+    *min_work_seconds* have passed (at least ``TIMED_REPS`` calls)."""
+    if {t.device.type for t in arrays.values()} == {"cuda"}:
+        return timeit_cuda(fn, arrays) * 1e-3
+    for _ in range(WARMUP_REPS):
+        fn(arrays)
+    times, start = [], time.perf_counter()
+    while len(times) < TIMED_REPS \
+            or time.perf_counter() - start < min_work_seconds:
+        t0 = time.perf_counter()
+        fn(arrays)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
 def timeit(einsum: BatchedEinsum, *, transform: Optional[TransformT] = None,
            long_dim_length: int = 100_000, device=None) -> float:
     """Seconds per call of the transformed program on *device*: validate it
@@ -367,12 +389,7 @@ def timeit(einsum: BatchedEinsum, *, transform: Optional[TransformT] = None,
     :func:`timeit_cuda`, or the CPU, timed by the host clock (the median of
     ``TIMED_REPS`` calls after ``WARMUP_REPS``; CPU kernels are
     synchronous)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("timeit: no CUDA card; pass device='cpu' to"
-                               " time on the host")
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
+    device = default_device(device, caller="timeit")
     validate_batched_einsum_transform(
         einsum, transform, long_dim_length=VALIDATION_LENGTH, device=device)
     program = generate_program(einsum)

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_IP = ctypes.POINTER(ctypes.c_int)
 _I, _I64 = ctypes.c_int, ctypes.c_int64
 _SIGNATURES = (
     ("dg_rows_f32", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _P)),
@@ -51,6 +52,9 @@ _SIGNATURES = (
     ("row_reduce_f32_max_rows", _I, ()),
     ("row_reduce_f32_max_j", _I, ()),
     ("row_reduce_f32_staged", _I, (_I, _I64, _I64)),
+    ("long_reduce_f32", _I, (_I, _PP, _I64P, _IP, _I, _I, _I, _I, _I64, _I,
+                             _I, _I, _P, _P)),
+    ("long_reduce_f32_max_rows", _I, ()),
 )
 
 # what the last build printed (nvcc's -Xptxas -v register and shared-memory

@@ -20,8 +20,15 @@ launch:
   ``ew_product_f32`` kernel, ``block_long`` elements per thread block);
 * a contraction-free row whose operands share the output's stored layout
   goes to ``ew_product_f32``;
+* a row whose long axis is contracted goes to ``long_reduce_f32``
+  (``ops/dg_rows.py::plan_long_reduce_row``): the reference's accumulation
+  across grid steps with its tail mask;
 * a row whose output is the long axis alone goes to ``row_reduce_f32``
   (``ops/dg_rows.py::plan_reduce_row``);
+* a matvec whose resident carries every output letter but the long axis
+  (the face restriction ``fji,ei->fej``) goes to ``dg_rows_f32`` with the
+  merged output letters as its ``i`` (``ops/dg_rows.py::
+  plan_restrict_row``);
 * a row in the DG family (``ops/dg_rows.py::plan_row``) goes to
   ``dg_rows_f32``.
 
@@ -42,15 +49,26 @@ from ..contraction_schedule import EinsumOperand, \
     get_trivial_contraction_schedule
 from ..diagnostics import InvalidParameterError
 from ..einsum import Array, BatchedEinsum, SizeParam
-from .dg_rows import plan_reduce_row, plan_row
+from .dg_rows import (
+    plan_long_reduce_row,
+    plan_reduce_row,
+    plan_restrict_row,
+    plan_row,
+    resident_carries_outputs,
+)
 from .kernels import (
     DGRow,
+    LongReduceRow,
+    LongReduceShape,
     ReduceRow,
+    check_long_reduce_shape,
     dg_rows_f32,
     dg_rows_plain,
     ew_flat_f32,
     ew_product_f32,
     ew_product_plain,
+    long_reduce_f32,
+    long_reduce_plain,
     row_reduce_f32,
     row_reduce_plain,
 )
@@ -112,16 +130,20 @@ def _check_flat(program) -> None:
             " whose operands all share the output subscript")
 
 
-def _check_long_axis_kept(program) -> None:
+def _check_long_axis_kept(program, lengths: dict) -> None:
+    """The reference's rule (``pallas_emitter.py:607-613``): a contracted
+    long axis over more than one block refuses ``"parallel"`` semantics,
+    since the reference accumulates across its grid steps.  The port sums
+    the blocks' partials in a second launch (``long_reduce_f32``), so the
+    rule is kept for parity, not for a race."""
     e = program.einsum
-    if _long_letter(e) not in e.out_idx_set:
-        if program.descriptor.dimension_semantics == "parallel":
-            raise InvalidParameterError(
-                "cannot use 'parallel' grid semantics when the grid axis is"
-                " contracted (the kernel accumulates across grid steps)")
+    el = _long_letter(e)
+    desc = program.descriptor
+    if el not in e.out_idx_set and lengths[el] > desc.block_long \
+            and desc.dimension_semantics == "parallel":
         raise InvalidParameterError(
-            "a contracted long axis (accumulation across blocks with a tail"
-            " mask) is not ported yet (ROADMAP queue 2 K1 remainder)")
+            "cannot use 'parallel' grid semantics when the grid axis is"
+            " contracted (the kernel accumulates across grid steps)")
 
 
 # {{{ hoisted resident-only steps
@@ -286,7 +308,7 @@ def plan_cuda_launch(program, index_to_length: dict) -> KernelPlan:
             run=lambda rows: ew_flat_f32(rows, block_long=desc.block_long,
                                          one_launch=one_launch),
             plain=ew_product_plain)
-    _check_long_axis_kept(program)
+    _check_long_axis_kept(program, lengths)
     kernel_program, host_steps = hoist_resident_steps(program)
     plan = _plan_rows(kernel_program, lengths)
     if not host_steps:
@@ -332,6 +354,9 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
             "a contraction-free row whose operands do not all share the"
             " output's stored layout has no fused CUDA kernel yet")
 
+    if _long_letter(e) not in e.out_idx_set:
+        return _plan_long_reduce(program, lengths, checked)
+
     if len(e.out_idx_set) == 1:
         reduce_plans = [plan_reduce_row(e, r) for r in range(e.b)]
         el, j = reduce_plans[0].e_letter, reduce_plans[0].j_letter
@@ -347,6 +372,9 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
             run=lambda rows: row_reduce_f32(rows, block_long=desc.block_long,
                                             one_launch=one_launch),
             plain=row_reduce_plain)
+
+    if resident_carries_outputs(e):
+        return _plan_restrict(program, lengths, checked)
 
     plans = [plan_row(e, r) for r in range(e.b)]
     p0 = plans[0]
@@ -390,6 +418,94 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
         run=lambda rows: stored_outputs(dg_rows_f32(
             rows, out_order=out_order, block_long=desc.block_long,
             one_launch=one_launch)),
+        plain=lambda rows: stored_outputs(dg_rows_plain(rows, out_order)))
+
+
+def long_reduce_shape(program, lengths: dict) -> tuple:
+    """``(row plans, LongReduceShape)`` of a program whose long axis is
+    contracted; raises :class:`InvalidParameterError` when its rows plan
+    differently or ``long_reduce_f32`` does not take them."""
+    e = program.einsum
+    plans = [plan_long_reduce_row(e, r) for r in range(e.b)]
+    p0 = plans[0]
+    key = (p0.a_letter, p0.b_letter, p0.p_letter, p0.q_letter, p0.c_letter,
+           p0.c_batch, p0.b is None)
+    if any((p.a_letter, p.b_letter, p.p_letter, p.q_letter, p.c_letter,
+            p.c_batch, p.b is None) != key for p in plans):
+        raise InvalidParameterError("rows of the batched einsum plan"
+                                    " differently")
+    role_of = {p0.p_letter: "p", p0.q_letter: "q", p0.c_letter: "c"}
+    a_role, b_role = p0.roles
+    shape = LongReduceShape(
+        a_role=a_role, b_role=b_role,
+        P=lengths[p0.p_letter] if p0.p_letter is not None else 1,
+        Q=lengths[p0.q_letter] if p0.q_letter is not None else 1,
+        C=lengths[p0.c_letter] if p0.c_letter is not None else 1,
+        c_batch=p0.c_batch,
+        out_axes=tuple(role_of[ix] for ix in stored_out_letters(program)))
+    check_long_reduce_shape(shape)
+    return plans, shape
+
+
+def _plan_long_reduce(program, lengths: dict, checked: Callable
+                      ) -> KernelPlan:
+    """A contracted long axis onto ``long_reduce_f32``."""
+    desc = program.descriptor
+    stored = stored_arg_layouts(program)
+    plans, shape = long_reduce_shape(program, lengths)
+    el = plans[0].e_letter
+
+    def operands(arrays_by_name: dict) -> list:
+        arrays = checked(arrays_by_name)
+        return [LongReduceRow(
+            a=_role_view(arrays[p.a.name], stored[p.a.name],
+                         (el, p.a_letter)),
+            b=None if p.b is None else _role_view(
+                arrays[p.b.name], stored[p.b.name], (el, p.b_letter)))
+            for p in plans]
+    return KernelPlan(
+        kernel="long_reduce_f32", operands=operands,
+        run=lambda rows: long_reduce_f32(
+            rows, shape, block_long=desc.block_long,
+            one_launch=desc.multiple_results_in_one_kernel),
+        plain=lambda rows: long_reduce_plain(rows, shape))
+
+
+def _plan_restrict(program, lengths: dict, checked: Callable) -> KernelPlan:
+    """A matvec whose resident carries every output letter but e onto
+    ``dg_rows_f32``: the merged output letters are the kernel's ``i``, as
+    views of the stored resident and output (no copies)."""
+    e = program.einsum
+    desc = program.descriptor
+    stored = stored_arg_layouts(program)
+    out_letters = stored_out_letters(program)
+    (pos,) = [p for p in range(e.n) if _long_letter(e) not in e.in_idx_sets[p]]
+    plans = [plan_restrict_row(e, r, stored[e.args[r][pos].name], out_letters)
+             for r in range(e.b)]
+    el, j, merged = plans[0].e_letter, plans[0].j_letter, plans[0].merged
+    I, J = int(np.prod([lengths[ix] for ix in merged])), lengths[j]
+    out_order = ((0, 1, 2) if out_letters.index(merged[0])
+                 < out_letters.index(el) else (0, 2, 1))
+    out_shape = tuple(lengths[ix] for ix in out_letters)
+
+    def r_view(t, letters):
+        perm = [letters.index(ix) for ix in merged + (j,)]
+        return t.permute(*perm).view(1, I, J)
+
+    def operands(arrays_by_name: dict) -> list:
+        arrays = checked(arrays_by_name)
+        return [DGRow(
+            u=_role_view(arrays[p.u.name], stored[p.u.name], (None, j, el)),
+            R=r_view(arrays[p.R.name], stored[p.R.name]), F=None)
+            for p in plans]
+
+    def stored_outputs(outs: list) -> list:
+        return [o[0].view(out_shape) for o in outs]
+    return KernelPlan(
+        kernel="dg_rows_f32", operands=operands,
+        run=lambda rows: stored_outputs(dg_rows_f32(
+            rows, out_order=out_order, block_long=desc.block_long,
+            one_launch=desc.multiple_results_in_one_kernel)),
         plain=lambda rows: stored_outputs(dg_rows_plain(rows, out_order)))
 
 

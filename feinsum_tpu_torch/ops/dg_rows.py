@@ -22,6 +22,15 @@ the fp64 kernel ``dd_rows`` the same family in float64.
 Rows whose output is the long axis alone (vecmat ``ej,j->e``, rowsum
 ``ej->e``) have no ``i`` and no resident matrix: :func:`plan_reduce_row`
 classifies them as ``out[e] = Σ_j w[j] · u[e, j]`` for ``row_reduce_f32``.
+
+Rows whose single resident carries every output letter but ``e`` (the wave
+model's face restriction ``fji,ei->fej``) are matvecs over the merged
+output letters: :func:`plan_restrict_row` classifies them for
+``dg_rows_f32`` with those letters as one ``i``.
+
+Rows whose long axis is contracted (the energy ``ej,ej->``, ``ej,ej->j``,
+the Gram matrix ``ei,ej->ij``) are planned by :func:`plan_long_reduce_row`
+for ``long_reduce_f32``.
 """
 
 from __future__ import annotations
@@ -185,3 +194,155 @@ def plan_reduce_row(e: BatchedEinsum, row: int) -> ReduceRowPlan:
     return ReduceRowPlan(u=u, u_idx=u_idx,
                          w=resident[0][0] if resident else None,
                          e_letter=el, j_letter=j)
+
+
+@dataclass(frozen=True)
+class RestrictRowPlan:
+    """One batch row classified as ``out[m..., e] = Σ_j R[m..., j] u[e, j]``:
+    the streamed ``u`` over (e, j), the resident ``R`` over the merged
+    output letters ``merged`` (every output letter but e, in the stored
+    output's order) and j."""
+
+    u: Array
+    u_idx: tuple
+    R: Array
+    e_letter: str
+    j_letter: str
+    merged: tuple
+
+
+def resident_carries_outputs(e: BatchedEinsum) -> bool:
+    """Whether the rows' single resident operand carries more than one
+    output letter: the rows :func:`plan_restrict_row` takes and
+    :func:`plan_row` refuses."""
+    long_letters = {ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)}
+    resident = [idx for idx in e.in_idx_sets if not set(idx) & long_letters]
+    return (len(resident) == 1
+            and len(set(resident[0]) & set(e.out_idx_set)) > 1)
+
+
+def _adjacent_in_order(letters: tuple, stored: tuple) -> bool:
+    pos = [stored.index(ix) for ix in letters]
+    return pos == list(range(pos[0], pos[0] + len(pos)))
+
+
+def plan_restrict_row(e: BatchedEinsum, row: int, r_stored: tuple,
+                      out_stored: tuple) -> RestrictRowPlan:
+    """Classify batch row *row* of *e* as a matvec whose resident carries
+    every output letter but e; *r_stored* and *out_stored* are the stored
+    letters of the resident and of the output.  The merged letters must be
+    adjacent and in the same order in both, so that each is one axis of a
+    view; raises :class:`InvalidParameterError` otherwise and outside the
+    family."""
+    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)]
+    if len(long_letters) != 1:
+        raise InvalidParameterError("restriction rows need one long axis")
+    el = long_letters[0]
+    out = tuple(e.out_idx_set)
+    if el not in out:
+        raise InvalidParameterError(
+            "restriction rows keep the long axis in the output")
+    streams, resident = [], []
+    for arg, idx in zip(e.args[row], e.in_idx_sets):
+        (streams if el in idx else resident).append((arg, tuple(idx)))
+    if len(streams) != 1 or len(resident) != 1 or len(streams[0][1]) != 2:
+        raise InvalidParameterError(
+            "restriction rows need one streamed (e, j) operand and one"
+            " resident operand")
+    (u, u_idx), (R, r_idx) = streams[0], resident[0]
+    (j,) = [ix for ix in u_idx if ix != el]
+    merged = tuple(ix for ix in out_stored if ix != el)
+    if j in out or set(r_idx) != set(merged) | {j} or len(r_idx) \
+            != len(merged) + 1:
+        raise InvalidParameterError(
+            "restriction rows: the resident must carry every output letter"
+            " but the long axis, and the contracted letter of the streamed"
+            " operand")
+    if not (_adjacent_in_order(merged, out_stored)
+            and _adjacent_in_order(merged, r_stored)):
+        raise InvalidParameterError(
+            f"restriction rows: the output letters {merged} must be adjacent"
+            f" and in the same order in the stored output {out_stored} and"
+            f" the stored resident {r_stored}")
+    return RestrictRowPlan(u=u, u_idx=u_idx, R=R, e_letter=el, j_letter=j,
+                           merged=merged)
+
+
+@dataclass(frozen=True)
+class LongReduceRowPlan:
+    """One batch row classified for ``long_reduce_f32``: its streamed
+    operands ``a`` and ``b`` (``None``: one operand) with their short
+    letters (``None``: the long axis alone), and the letters' roles: ``p``
+    (A's output letter), ``q`` (B's), ``c`` (shared, or contracted in one
+    operand) and whether ``c`` is an output letter."""
+
+    a: Array
+    a_letter: Optional[str]
+    b: Optional[Array]
+    b_letter: Optional[str]
+    e_letter: str
+    p_letter: Optional[str]
+    q_letter: Optional[str]
+    c_letter: Optional[str]
+    c_batch: bool
+
+    @property
+    def roles(self) -> tuple:
+        """(A's role, B's role), each ``"p"``/``"q"``, ``"c"`` or ``None``."""
+        def role(letter, own):
+            if letter is None:
+                return None
+            return "c" if letter == self.c_letter else own
+        return role(self.a_letter, "p"), role(self.b_letter, "q")
+
+
+def plan_long_reduce_row(e: BatchedEinsum, row: int) -> LongReduceRowPlan:
+    """Classify batch row *row* of *e*, whose long axis is contracted, as
+    ``out[p?, q?, c?] = Σ_e Σ_c A[e, p?, c?] B[e, q?, c?]``: one or two
+    operands, each over the long axis and at most one short letter.
+    Raises :class:`InvalidParameterError` outside that family."""
+    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
+                    if isinstance(ln, SizeParam)]
+    if len(long_letters) != 1:
+        raise InvalidParameterError("long-axis reductions need one long axis")
+    el = long_letters[0]
+    out = tuple(e.out_idx_set)
+    if el in out:
+        raise InvalidParameterError("the long axis is not contracted")
+    ops = [(arg, tuple(idx)) for arg, idx in zip(e.args[row], e.in_idx_sets)]
+    if not 1 <= len(ops) <= 2 or any(el not in idx or len(idx) > 2
+                                     for _, idx in ops):
+        raise InvalidParameterError(
+            "a contracted long axis takes one or two streamed operands over"
+            " the long axis and at most one other letter each (no resident"
+            " operand)")
+    (a, a_idx), (b, b_idx) = ops[0], (ops[1] if len(ops) == 2
+                                      else (None, ()))
+    la = next((ix for ix in a_idx if ix != el), None)
+    lb = next((ix for ix in b_idx if ix != el), None)
+    p = q = c = None
+    if la is not None and la == lb:
+        c = la
+    else:
+        for letter, own in ((la, "p"), (lb, "q")):
+            if letter is None:
+                continue
+            if letter in out:
+                p, q = (letter, q) if own == "p" else (p, letter)
+            elif c is None:
+                c = letter
+            else:
+                raise InvalidParameterError(
+                    "a contracted long axis: at most one other contracted"
+                    " letter")
+    c_batch = c is not None and c in out
+    if set(out) != {ix for ix in (p, q, c if c_batch else None)
+                    if ix is not None}:
+        raise InvalidParameterError(
+            f"a contracted long axis: output letters {out} are not the"
+            " operands' own")
+    return LongReduceRowPlan(a=a, a_letter=la, b=b, b_letter=lb,
+                             e_letter=el, p_letter=p, q_letter=q,
+                             c_letter=c, c_batch=c_batch)

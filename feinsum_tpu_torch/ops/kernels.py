@@ -20,6 +20,13 @@ batched einsum in one fused kernel gridded over the long element axis:
   ``w``), as planned by :func:`~feinsum_tpu_torch.ops.dg_rows.
   plan_reduce_row`.  Bound by HBM bytes.
 
+* ``long_reduce_f32`` (``csrc/long_reduce.cu``) — the rows whose long axis
+  is contracted (the reference accumulates them across its grid steps),
+  ``out[p?, q?, c?] = Σ_e Σ_c A[e, p?, c?] B[e, q?, c?]`` as planned by
+  :func:`~feinsum_tpu_torch.ops.dg_rows.plan_long_reduce_row`: per-block
+  partials in a workspace, summed across blocks by a second launch in a
+  fixed order.  Bound by HBM bytes on the energy ``ej,ej->``.
+
 ``ew_flat_f32`` launches ``ew_product_f32`` on the flatten route of 1-D
 operands with ``block_long`` elements per thread block: the port of
 ``feinsum_tpu/ops/pallas_emitter.py::_try_build_flat_elementwise`` (K3).
@@ -67,9 +74,15 @@ MAX_X = MAX_S = 4
 DD_THREADS = DG_THREADS = 128
 # the most j values csrc/row_reduce.cu takes (kMaxJ: w in shared memory)
 MAX_REDUCE_J = 8192
+# csrc/long_reduce.cu: threads per block (kThreads), which bounds a row's
+# output entries, or its 4 x 4 tiles of an outer product, and a staged tile;
+# the shared memory per block its staged tiles fill (48 KB, in floats)
+LR_THREADS = 256
+LR_SMEM_FLOATS = 12 * 1024
 
 launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
-                 "row_reduce_f32": 0, "dd_rows": 0, "tc_grid_f32": 0}
+                 "row_reduce_f32": 0, "long_reduce_f32": 0, "dd_rows": 0,
+                 "tc_grid_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -381,6 +394,215 @@ def row_reduce_f32(rows: Sequence[ReduceRow], *, block_long: int,
                 raise RuntimeError(f"row_reduce_f32 launch failed: CUDA"
                                    f" error {err}")
             launch_counts["row_reduce_f32"] += 1
+    return outs
+
+# }}}
+
+
+# {{{ long_reduce_f32
+
+@dataclass(frozen=True)
+class LongReduceShape:
+    """The letters of a contracted-long-axis row for ``long_reduce_f32``:
+    the role of A's short letter (``"p"``, an output letter; ``"c"``, the
+    shared or contracted letter; ``None``: A has none), of B's (``"q"``,
+    ``"c"`` or ``None``), the lengths ``P``, ``Q``, ``C`` (1 where absent),
+    whether ``c`` is an output letter (``c_batch``) and the output's stored
+    axes, each ``"p"``, ``"q"`` or ``"c"``."""
+
+    a_role: Optional[str]
+    b_role: Optional[str]
+    P: int
+    Q: int
+    C: int
+    c_batch: bool
+    out_axes: tuple
+
+    def length(self, role: Optional[str]) -> int:
+        return {"p": self.P, "q": self.Q, "c": self.C, None: 1}[role]
+
+    @property
+    def out_shape(self) -> tuple:
+        return tuple(self.length(r) for r in self.out_axes)
+
+    @property
+    def entries(self) -> int:
+        return self.P * self.Q * (self.C if self.c_batch else 1)
+
+
+@dataclass(frozen=True)
+class LongReduceRow:
+    """One planned row's operands as (E, R) views in role order: ``a`` over
+    (e, A's short letter), ``b`` over (e, B's) or ``None`` (the value 1);
+    R is 1 for an operand with no short letter."""
+
+    a: torch.Tensor
+    b: Optional[torch.Tensor]
+
+
+def long_reduce_tile(ra: int, rb: int) -> int:
+    """Elements of e per staged tile of ``long_reduce_f32`` for short
+    letters of lengths *ra* and *rb* (``rb = 0``: B is not staged): two
+    buffers of the rows, each padded to the kernel's odd pitch, fill at most
+    48 KB, at most 256 elements, a multiple of 32 above 32; 0 when not one
+    element fits."""
+    per = (ra | 1) + ((rb | 1) if rb > 0 else 0)
+    te = min(LR_SMEM_FLOATS // 2 // per, LR_THREADS)
+    return te - te % 32 if te > 32 else te
+
+
+def check_long_reduce_shape(shape: LongReduceShape) -> None:
+    """Raise :class:`InvalidParameterError` for a row ``long_reduce_f32``
+    does not take: an outer product (the Gram matrix) of more than 256
+    4 x 4 tiles, any other row of more than 256 output entries, or short
+    letters too long for one staged element's rows."""
+    if shape.a_role == "p" and shape.b_role == "q":
+        tiles = -(-shape.P // 4) * -(-shape.Q // 4)
+        if tiles > LR_THREADS:
+            raise InvalidParameterError(
+                f"long_reduce_f32 takes an outer product of at most"
+                f" {LR_THREADS} 4 x 4 tiles of output entries, the row has"
+                f" {tiles}")
+    elif shape.entries > LR_THREADS:
+        raise InvalidParameterError(
+            f"long_reduce_f32 takes at most {LR_THREADS} output entries,"
+            f" the row has {shape.entries}")
+    ra = shape.length(shape.a_role)
+    rb = shape.length(shape.b_role) if shape.b_role is not None else 1
+    if long_reduce_tile(ra, rb) < 1:
+        raise InvalidParameterError(
+            f"long_reduce_f32 cannot stage short letters of lengths {ra} and"
+            f" {rb} in shared memory")
+
+
+def _long_reduce_dims(rows: Sequence[LongReduceRow],
+                      shape: LongReduceShape) -> tuple:
+    """(E, has_b), with every operand checked."""
+    E = rows[0].a.shape[0]
+    device = rows[0].a.device
+    has_b = rows[0].b is not None
+    if shape.a_role not in ("p", "c", None) \
+            or shape.b_role not in ("q", "c", None):
+        raise ValueError(f"roles {shape.a_role!r}, {shape.b_role!r}: A's is"
+                         " 'p', 'c' or None, B's 'q', 'c' or None")
+    if shape.b_role is not None and not has_b:
+        raise ValueError("B has a role but no operand")
+    if sorted(shape.out_axes) != sorted(
+            [r for r in ("p", "q") if r in (shape.a_role, shape.b_role)]
+            + (["c"] if shape.c_batch else [])):
+        raise ValueError(f"output axes {shape.out_axes} do not match the"
+                         " roles")
+    if shape.c_batch and not (shape.a_role == shape.b_role == "c"):
+        raise ValueError("an output letter c must be shared by A and B")
+    for k, row in enumerate(rows):
+        if (row.b is not None) != has_b:
+            raise ValueError("rows disagree on the operand B")
+        _check_operand(f"row {k} a", row.a, device,
+                       (E, shape.length(shape.a_role)))
+        if has_b:
+            _check_operand(f"row {k} b", row.b, device,
+                           (E, shape.length(shape.b_role)))
+    return E, has_b
+
+
+def long_reduce_plain(rows: Sequence[LongReduceRow],
+                      shape: LongReduceShape) -> list:
+    """The plain PyTorch version of ``long_reduce_f32``, step by step in
+    float32: each operand as (E, P or Q, C) (broadcast where it lacks the
+    letter), then one product over e (and c, when contracted) by
+    ``torch.matmul``; outputs contiguous in the stored axis order."""
+    E, has_b = _long_reduce_dims(rows, shape)
+    Cb = shape.C if shape.c_batch else 1
+
+    def as3(t, role):
+        """(E, R) -> (E, P or Q or 1, C), broadcast where it lacks a
+        letter; the absent B is the value 1."""
+        if t is None:
+            return torch.ones((), dtype=torch.float32,
+                              device=rows[0].a.device).expand(E, 1, shape.C)
+        if role == "c":
+            return t[:, None, :].expand(E, 1, shape.C)
+        return t[:, :, None].expand(E, t.shape[1], shape.C)
+
+    outs = []
+    for row in rows:
+        A = as3(row.a, shape.a_role)                     # (E, P, C)
+        B = as3(row.b, shape.b_role)                     # (E, Q, C)
+        if shape.c_batch:
+            full = torch.matmul(A.permute(2, 1, 0), B.permute(2, 0, 1))
+            full = full.permute(1, 2, 0)                 # (P, Q, C)
+        else:
+            A2 = A.permute(1, 0, 2).reshape(A.shape[1], E * shape.C)
+            B2 = B.permute(1, 0, 2).reshape(B.shape[1], E * shape.C)
+            full = torch.matmul(A2, B2.T)[:, :, None]    # (P, Q, 1)
+        full = full.expand(shape.P, shape.Q, Cb)
+        axes = {"p": 0, "q": 1, "c": 2}
+        order = [axes[r] for r in shape.out_axes]
+        rest = [k for k in range(3) if k not in order]
+        outs.append(full.permute(*order, *rest).reshape(
+            shape.out_shape).contiguous())
+    return outs
+
+
+def long_reduce_f32(rows: Sequence[LongReduceRow], shape: LongReduceShape,
+                    *, block_long: int, one_launch: bool = True) -> list:
+    """Each row's sum over the contracted long axis (:class:`LongReduceShape`)
+    as a contiguous tensor in the output's stored axis order.  All rows go
+    in one pair of launches (up to the kernel's row limit) unless
+    *one_launch* is false; *block_long* elements of e per thread block."""
+    if not rows:
+        return []
+    E, has_b = _long_reduce_dims(rows, shape)
+    device = rows[0].a.device
+    if device.type == "cpu":
+        return long_reduce_plain(rows, shape)
+    if device.type != "cuda":
+        raise ValueError(f"long_reduce_f32: no kernel for device {device}")
+    check_long_reduce_shape(shape)
+    if block_long < 1:
+        raise InvalidParameterError(
+            f"block_long must be positive, got {block_long}")
+
+    from ._build import load_library
+    lib = load_library()
+    roles = {None: 0, "p": 1, "q": 1, "c": 2}
+    role_arr = (ctypes.c_int * 2)(roles[shape.a_role],
+                                  roles[shape.b_role if has_b else None])
+    nblocks = -(-E // int(block_long))
+    # B is staged unless it is A itself in every row (the energy)
+    b_staged = has_b and not all(
+        r.b.data_ptr() == r.a.data_ptr() and r.b.stride() == r.a.stride()
+        and r.b.shape == r.a.shape for r in rows)
+    te = long_reduce_tile(shape.length(shape.a_role),
+                          shape.length(shape.b_role) if b_staged else 0)
+    outs = [torch.empty(shape.out_shape, dtype=torch.float32, device=device)
+            for _ in rows]
+    per_launch = lib.long_reduce_f32_max_rows() if one_launch else 1
+    with torch.cuda.device(device):
+        for idx in _chunks(range(len(rows)), per_launch):
+            work = torch.empty(len(idx) * nblocks * shape.entries,
+                               dtype=torch.float32, device=device)
+            ptrs = (ctypes.c_void_p * (3 * len(idx)))()
+            strides = (ctypes.c_int64 * (7 * len(idx)))()
+            for n, k in enumerate(idx):
+                row, out = rows[k], outs[k]
+                out_stride = dict(zip(shape.out_axes, out.stride()))
+                ptrs[3 * n:3 * n + 3] = [
+                    row.a.data_ptr(), row.b.data_ptr() if has_b else None,
+                    out.data_ptr()]
+                b_strides = row.b.stride() if has_b else (0, 0)
+                strides[7 * n:7 * n + 7] = [
+                    *row.a.stride(), *b_strides,
+                    *(out_stride.get(r, 0) for r in ("p", "q", "c"))]
+            err = lib.long_reduce_f32(
+                len(idx), ptrs, strides, role_arr, shape.P, shape.Q,
+                shape.C, int(shape.c_batch), E, int(block_long), te,
+                int(b_staged), ctypes.c_void_p(work.data_ptr()),
+                _stream_of(device))
+            if err:
+                raise RuntimeError(f"long_reduce_f32 launch failed: CUDA"
+                                   f" error {err}")
+            launch_counts["long_reduce_f32"] += 1
     return outs
 
 # }}}

@@ -11,12 +11,20 @@ and a copy, each over a long element axis ``E``; its extended rows
 and ``bench.py``'s TCCG sample of dense tensor contractions
 (:func:`tccg_suite`).  :data:`F32_SPACES` names the space that tunes each
 float32 row, and :func:`f32_seed_configs` the tuner's first points.
+
+The consumer flow of ``examples/compile_user_rhs.py`` is here in torch
+(:func:`user_rhs`, :func:`user_rhs_limited`, :func:`consumer_args`) with
+the einsums its instructions match (:func:`consumer_rows`) and their spaces
+(:data:`CONSUMER_SPACES`), and the models' full sizes (:data:`MODEL_SIZES`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
 
 from . import sql_utils
 from .codegen.program import generate_program_with_opt_einsum_schedule
@@ -193,6 +201,82 @@ def f32_seed_configs(name: str, einsum) -> list:
     space = F32_SPACES[name]
     return [space_point(space, einsum, **knobs)
             for knobs in F32_SEEDS.get(name, []) + [{}]]
+
+
+def make_energy(ndof: int, dtype: str = "float32"):
+    """The energy diagnostic ``ej,ej->``: one operand read twice (the
+    canonical form of ``einsum("ej,ej->", u, u)``), its long axis
+    contracted."""
+    return einsum("ej,ej->", array("u", ("E", ndof), dtype),
+                  array("u", ("E", ndof), dtype))
+
+
+# examples/compile_user_rhs.py's sizes: E, ndof, faces, face dofs
+CONSUMER_SIZES = {"E": 100_000, "ndof": 35, "nf": 4, "nfdof": 15}
+
+
+def user_rhs(dt, Jx, Jy, Jz, R, ux, uy, uz, L, Fj, flux):
+    """``examples/compile_user_rhs.py``'s DG right-hand side in torch: a
+    componentwise divergence (three einsums, one negated, the last over the
+    affine-rescaled Jacobian ``2 Jz + 1``), a face lift and a traced time
+    step factor."""
+    div = (torch.einsum("es,sij,ej->ei", Jx, R, ux)
+           + torch.einsum("es,sij,ej->ei", Jy, R, uy)
+           - torch.einsum("es,sij,ej->ei", 2.0 * Jz + 1.0, R, uz))
+    lift = torch.einsum("ifj,fe,fej->ei", L, Fj, flux)
+    return dt * (div - 0.5 * lift)
+
+
+def user_rhs_limited(dt, Jx, Jy, Jz, R, ux, uy, uz, L, Fj, flux):
+    """:func:`user_rhs` inside a limiter-style ``tanh``, with the energy
+    diagnostic ``sqrt(Σ u²)``: the einsums sit inside non-grammar
+    epilogues."""
+    r = user_rhs(dt, Jx, Jy, Jz, R, ux, uy, uz, L, Fj, flux)
+    energy = torch.sqrt(torch.einsum("ej,ej->", ux, ux))
+    return torch.tanh(r), energy
+
+
+def consumer_args(*, E: int = CONSUMER_SIZES["E"],
+                  ndof: int = CONSUMER_SIZES["ndof"],
+                  nf: int = CONSUMER_SIZES["nf"],
+                  nfdof: int = CONSUMER_SIZES["nfdof"], seed: int = 0,
+                  device=None) -> list:
+    """The arguments of :func:`user_rhs`, drawn as
+    ``examples/compile_user_rhs.py`` draws them (numpy's
+    ``default_rng(seed)``, float32, in its order) with ``dt`` = 0.125, on
+    *device* (default: the current CUDA card)."""
+    from .cl_utils import default_device
+    device = default_device(device, caller="consumer_args")
+    rng = np.random.default_rng(seed)
+    shapes = [(E, 3), (E, 3), (E, 3), (3, ndof, ndof), (E, ndof), (E, ndof),
+              (E, ndof), (ndof, nf, nfdof), (nf, E), (nf, E, nfdof)]
+    arrays = [rng.random(shape, np.float32) for shape in shapes]
+    return [torch.tensor(0.125, dtype=torch.float32, device=device)] + [
+        torch.from_numpy(a).to(device) for a in arrays]
+
+
+def consumer_rows(ndof: int = CONSUMER_SIZES["ndof"],
+                  nf: int = CONSUMER_SIZES["nf"],
+                  nfdof: int = CONSUMER_SIZES["nfdof"]) -> list:
+    """``(name, einsum)`` of the archive classes :func:`user_rhs_limited`'s
+    instructions match: the b = 3 divergence, the face lift and the
+    energy."""
+    return [("consumer_div", make_div(ndof)),
+            ("consumer_lift", make_face_mass(ndof, nfdof)),
+            ("consumer_energy", make_energy(ndof))]
+
+
+# the space that tunes each consumer row: elementwise_v1 gives the energy
+# the reference's reduction grid (parallel_grid 0, "arbitrary")
+CONSUMER_SPACES = {"consumer_div": "dg_div_v0",
+                   "consumer_lift": "face_mass_v0",
+                   "consumer_energy": "elementwise_v1"}
+
+# the models at full width: wave as examples/wave_3d_p4_auto.py runs it on
+# the accelerator, Maxwell as examples/maxwell_3d.py does
+MODEL_SIZES = {"wave": {"n_elements": 500_000, "ndof": 35, "nfaces": 4,
+                        "nfacedof": 15},
+               "maxwell": {"n_elements": 65_536, "ndof": 35}}
 
 
 def fp64_suite() -> list:

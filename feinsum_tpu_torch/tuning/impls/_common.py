@@ -79,14 +79,38 @@ def guard_smem(einsum, kernel: str = "dd_rows") -> None:
     a contraction-free row to ``ew_product_f32`` (no shared memory), a row
     whose output is the long axis alone to ``row_reduce_f32`` (its weight
     w, at most ``MAX_REDUCE_J`` values), and the others to ``dg_rows_f32``
-    (R and one u column per thread)."""
-    from ...ops.dg_rows import plan_reduce_row, plan_row
+    (R and one u column per thread); a row whose long axis is contracted to
+    ``long_reduce_f32`` (its output entries and staged rows) and a
+    restriction row to ``dg_rows_f32`` as a matvec over its merged output
+    letters."""
+    from ...ops.dg_rows import plan_reduce_row, plan_row, \
+        resident_carries_outputs
     from ...ops.kernels import MAX_REDUCE_J, MAX_SMEM_BYTES, \
         dd_rows_smem_bytes, dg_rows_smem_bytes
 
     smem_bytes = {"dd_rows": dd_rows_smem_bytes,
                   "dg_rows_f32": dg_rows_smem_bytes}[kernel]
     lengths = einsum.index_to_dim_length
+    if kernel == "dg_rows_f32" and long_axis_of(einsum) \
+            not in einsum.out_idx_set:
+        _guard_long_reduce(einsum)
+        return
+    if kernel == "dg_rows_f32" and resident_carries_outputs(einsum):
+        # a restriction row: a matvec over the merged output letters
+        (r_idx,) = [idx for idx in einsum.in_idx_sets
+                    if long_axis_of(einsum) not in idx]
+        i_len = j_len = 1
+        for ix in r_idx:
+            if ix in einsum.out_idx_set:
+                i_len *= int(lengths[ix])
+            else:
+                j_len *= int(lengths[ix])
+        need = smem_bytes(1, i_len, j_len, False)
+        if need > MAX_SMEM_BYTES:
+            raise InvalidParameterError(
+                f"{kernel} needs {need} bytes of shared memory per block;"
+                f" a Hopper block has {MAX_SMEM_BYTES}")
+        return
     for row in range(einsum.b):
         if kernel == "dg_rows_f32" and not einsum.sum_indices:
             continue
@@ -105,6 +129,16 @@ def guard_smem(einsum, kernel: str = "dd_rows") -> None:
             raise InvalidParameterError(
                 f"{kernel} needs {need} bytes of shared memory per block;"
                 f" a Hopper block has {MAX_SMEM_BYTES}")
+
+
+def _guard_long_reduce(einsum) -> None:
+    """``long_reduce_f32``'s limits on a row with a contracted long axis:
+    its output entries and the staged rows of its short letters."""
+    from ...codegen.program import generate_program
+    from ...ops.cuda_emitter import long_reduce_shape
+    lengths = {ix: 1 if isinstance(ln, SizeParam) else int(ln)
+               for ix, ln in einsum.index_to_dim_length.items()}
+    long_reduce_shape(generate_program(einsum), lengths)
 
 
 def guard_tc_grid(program) -> None:

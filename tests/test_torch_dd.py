@@ -187,7 +187,7 @@ def test_dd_refuses_float32_operands_and_wrong_pair_shapes():
         ft.build_executable(program.copy(einsum=e32), long_dim_length=E)
     fn = ft.build_executable(program, long_dim_length=E)
     arrays = arrays_from_numpy(apply_layouts(program, generate_input_arrays(
-        e, long_dim_length=E, as_numpy=True)))
+        e, long_dim_length=E, as_numpy=True)), "cpu")
     arrays["u"] = arrays["u"][0]             # the hi plane alone
     with pytest.raises(ft.InvalidParameterError, match="pair layout"):
         fn(arrays)

@@ -253,7 +253,7 @@ def test_searched_knobs_change_the_launch(space, key):
         plan = plan_cuda_launch(p, get_index_lengths(
             p.einsum, E * p.descriptor.rowcat))
         rows = plan.operands(apply_layouts(p, generate_input_arrays(
-            e, long_dim_length=E, seed=SEED)))
+            e, long_dim_length=E, seed=SEED, device="cpu")))
         args = [tuple((tuple(t.shape), t.stride()) for t in (
             row if isinstance(row, list)
             else [v for v in vars(row).values() if v is not None]))
@@ -442,7 +442,7 @@ def test_rowcat_storage_contract():
     for name in ours:
         np.testing.assert_array_equal(ours[name], np.asarray(ref[name]))
     (out,) = ft.build_executable(prog, long_dim_length=E, device="cpu")(
-        arrays_from_numpy(ours))
+        arrays_from_numpy(ours, "cpu"))
     rows = ft.unpack_output(prog, out, (E, 6))
     assert rows.shape == (3, E, 6)
     subs = e.get_subscripts().replace(" ", "")
@@ -501,7 +501,7 @@ def test_hoisted_results_are_shared_across_rows():
     assert kernel_prog.einsum.get_subscripts() == "e,ij,ej -> ei"
     plan = plan_cuda_launch(prog, get_index_lengths(e, E))
     rows = plan.operands(apply_layouts(prog, generate_input_arrays(
-        e, long_dim_length=E, seed=SEED)))
+        e, long_dim_length=E, seed=SEED, device="cpu")))
     assert [tuple(row.R.shape) for row in rows] == [(1, 6, 6)] * 3
     assert len({row.R.data_ptr() for row in rows}) == 1
     unhoisted = prog.with_descriptor(hoist_resident_steps=False)

@@ -155,7 +155,10 @@ def test_unported_descriptors_raise(change):
 
 
 @pytest.mark.parametrize("einsum", [
-    ft.einsum("ej->j", ft.array("A", ("E", 5), "float32")),
+    # a contracted long axis with a resident operand: still the reference's
+    # K1 alone (long_reduce_f32 takes streamed operands only)
+    ft.einsum("ej,j->", ft.array("A", ("E", 5), "float32"),
+              ft.array("w", (5,), "float32")),
     ft.einsum("ij,ej->ei", ft.array("D", (4, 4), "float64"),
               ft.array("u", ("E", 4), "float64")),
     ft.einsum("ej,e->ej", ft.array("A", ("E", 5), "float32"),
@@ -170,6 +173,75 @@ def test_unfused_rows_raise_on_fused_route(einsum):
     ft.validate_batched_einsum_transform(
         einsum, lambda p: p.with_descriptor(backend="xla"),
         long_dim_length=E)
+
+
+# rows whose long axis is contracted: the energy, the per-letter sums and the
+# Gram matrix (long_reduce_f32), at a narrow width
+LONG_ROWS = {
+    "energy_ndof6": S.make_energy(6),
+    "per_letter_ndof6": ft.einsum("ej,ej->j",
+                                  ft.array("u", ("E", 6), "float32"),
+                                  ft.array("v", ("E", 6), "float32")),
+    "gram_ndof5x7": ft.einsum("ei,ej->ij",
+                              ft.array("u", ("E", 5), "float32"),
+                              ft.array("v", ("E", 7), "float32")),
+}
+
+
+@pytest.mark.parametrize("layout", ["dofmajor", "logical"])
+@pytest.mark.parametrize("name", sorted(LONG_ROWS))
+def test_contracted_long_axis_matches_reference(name, layout):
+    """The reference's K1 accumulates a contracted long axis across its
+    grid ("arbitrary" semantics; one grid step here, F3); the port plans
+    the row onto ``long_reduce_f32`` (its plain version on CPU tensors)."""
+    prog = reference_program(LONG_ROWS[name]).with_descriptor(
+        dimension_semantics="arbitrary")
+    if layout == "logical":
+        prog = prog.with_descriptor(arg_layouts=(), out_layout=None)
+    plan = plan_cuda_launch(program_from_reference(prog),
+                            get_index_lengths(LONG_ROWS[name], E))
+    assert plan.kernel == "long_reduce_f32"
+    ref_outs, outs = run_both(prog, seed=6)
+    assert_close(outs[0], ref_outs[0])
+
+
+def test_contracted_long_axis_refuses_parallel_over_blocks():
+    """As in the reference (``pallas_emitter.py:609-613``): "parallel"
+    semantics over more than one block of a contracted long axis raise;
+    over one block, or with "arbitrary" semantics, the row builds."""
+    e = LONG_ROWS["energy_ndof6"]
+    prog = program_from_reference(reference_program(e)).with_descriptor(
+        block_long=16)
+    with pytest.raises(ft.InvalidParameterError, match="'parallel'"):
+        ft.build_executable(prog, long_dim_length=E)
+    ft.build_executable(prog, long_dim_length=16)
+    ft.build_executable(prog.with_descriptor(dimension_semantics="arbitrary"),
+                        long_dim_length=E)
+
+
+def test_energy_space_is_the_reference_reduction_grid():
+    """``elementwise_v1`` gives the energy the reference's reduction grid:
+    at the reference's point with ``parallel_grid`` off, both packages
+    build the same program ("arbitrary" semantics), the port's space pins
+    that knob there, and the outputs agree (one grid step, F3)."""
+    from feinsum_tpu.tuning import \
+        get_transform_func_from_module_path as ref_space
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    e = LONG_ROWS["energy_ndof6"]
+    params = dict(log2_block=6, blkc128=0, dofmajor=True, fold=False,
+                  flatten=False, parallel_grid=False, vmem_idx=2)
+    # vmem_idx sets the TPU's VMEM cap, which the port accepts and ignores
+    ref_prog = ref_space("elementwise_v1").bind_args(
+        to_reference(e), **params)(fr.generate_program(
+            to_reference(e))).with_descriptor(vmem_limit_bytes=None)
+    ours = get_transform_func_from_module_path("elementwise_v1")
+    assert ours.get_param_space(e)["parallel_grid"].high == 0
+    prog = ours.bind_args(e, **params)(ft.generate_program(e))
+    assert prog == program_from_reference(ref_prog)
+    assert prog.descriptor.dimension_semantics == "arbitrary"
+    ref_outs, outs = run_both(ref_prog, seed=7)
+    assert_close(outs[0], ref_outs[0])
 
 
 # rows with no i output axis: the extended suite's vecmat and rowsum, at a
@@ -237,7 +309,8 @@ def test_tf32_is_refused():
     prog = ft.generate_program(ROWS["matvec_ndof10"])
     fn = ft.build_executable(prog, long_dim_length=E)
     arrays = ft.measure.generate_input_arrays(prog.einsum,
-                                              long_dim_length=E)
+                                              long_dim_length=E,
+                                              device="cpu")
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:

@@ -1,8 +1,10 @@
 """The port's kernel wrappers (``feinsum_tpu_torch/ops/kernels.py``): their
 operand checks and plain versions on CPU tensors, and, in the tests marked
 ``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``
-and its flatten route ``ew_flat_f32``, ``row_reduce_f32``, ``dd_rows``,
-``tc_grid_f32``) against their plain versions on the card.  This file
+and its flatten route ``ew_flat_f32``, ``row_reduce_f32``,
+``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32``) against their plain
+versions on the card; and the default device of the helpers that make
+tensors (the card, or an error, unless the caller names the CPU).  This file
 imports no JAX, so it runs where only PyTorch is installed; on such a
 machine run it without the JAX-importing conftest:
 
@@ -10,6 +12,8 @@ machine run it without the JAX-importing conftest:
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -591,6 +595,256 @@ def test_ew_flat_kernel_matches_plain(cuda_device, n, offset, block_long):
 # }}}
 
 
+# {{{ long_reduce_f32
+
+# name: (subscripts, A's role, B's role or "same" (B is A) or None (no B),
+# c is an output letter, output axes in order)
+LR_CASES = {
+    "energy": ("ej,ej->", "c", "same", False, ()),
+    "per-letter sum": ("ej,ej->j", "c", "c", True, ("c",)),
+    "gram": ("ei,ej->ij", "p", "q", False, ("p", "q")),
+    "gram transposed": ("ei,ej->ji", "p", "q", False, ("q", "p")),
+    "letter sums": ("ej->j", "p", None, False, ("p",)),
+    "total": ("ej->", "c", None, False, ()),
+    "weighted sums": ("e,ej->j", None, "q", False, ("q",)),
+}
+
+
+def _lr_case(name, device, E=37, element_major=False, nrows=2, seed=0):
+    """(rows, shape, wants): *nrows* rows of the case on *device* with
+    short letters of lengths 5 (A) and 6 (B, or 5 when shared), stored
+    dof-major (e at stride 1) unless *element_major*, and each row's
+    float64 numpy value in the output's axis order."""
+    subs, a_role, b_role, c_batch, out_axes = LR_CASES[name]
+    rng = np.random.default_rng(seed)
+    length = {"p": 5, "c": 5, "q": 6, None: 1}
+
+    def operand(role):
+        t = torch.from_numpy(rng.random((E, length[role]), dtype=np.float32))
+        if not element_major:
+            t = t.t().contiguous().t()
+        return t.to(device)
+    rows, wants = [], []
+    ins = subs.split("->")[0].split(",")
+    for _ in range(nrows):
+        a = operand(a_role)
+        b = a if b_role == "same" else (None if b_role is None
+                                        else operand(b_role))
+        rows.append(kernels.LongReduceRow(a=a, b=b))
+        ops = [a, b][:len(ins)]
+        wants.append(np.einsum(subs, *[
+            (o.double().cpu().numpy() if len(sub) == 2
+             else o.double().cpu().numpy()[:, 0]) for o, sub in zip(ops, ins)]))
+    shape = kernels.LongReduceShape(
+        a_role=a_role, b_role="c" if b_role == "same" else b_role,
+        P=length["p"] if "p" in (a_role,) else 1,
+        Q=length["q"] if b_role == "q" else 1,
+        C=5 if "c" in (a_role, b_role) else 1, c_batch=c_batch,
+        out_axes=out_axes)
+    return rows, shape, wants
+
+
+@pytest.mark.parametrize("element_major", [False, True])
+@pytest.mark.parametrize("name", sorted(LR_CASES))
+def test_long_reduce_plain_is_numpy_einsum(name, element_major):
+    rows, shape, wants = _lr_case(name, "cpu", element_major=element_major,
+                                  seed=21)
+    outs = kernels.long_reduce_f32(rows, shape, block_long=8)
+    for out, want in zip(outs, wants):
+        assert tuple(out.shape) == shape.out_shape and out.is_contiguous()
+        assert_close(out.numpy(), want)
+    assert kernels.launch_counts["long_reduce_f32"] == 0
+
+
+def test_long_reduce_checks_its_operands():
+    rows, shape, _ = _lr_case("gram", "cpu")
+    with pytest.raises(ValueError):         # rows disagree on B
+        kernels.long_reduce_f32([rows[0], kernels.LongReduceRow(rows[1].a,
+                                                                None)],
+                                shape, block_long=8)
+    with pytest.raises(ValueError):         # B's short letter is 6 long
+        kernels.long_reduce_f32([kernels.LongReduceRow(rows[0].a,
+                                                       rows[0].a)],
+                                shape, block_long=8)
+    with pytest.raises(ValueError):         # the output axes miss q
+        kernels.long_reduce_f32(rows, replace(shape, out_axes=("p",)),
+                                block_long=8)
+    with pytest.raises(ValueError):         # a batch c must be shared
+        kernels.long_reduce_f32(rows, replace(shape, c_batch=True),
+                                block_long=8)
+    with pytest.raises(ft.InvalidParameterError):
+        kernels.long_reduce_f32([kernels.LongReduceRow(
+            rows[0].a.double(), rows[0].b.double())], shape, block_long=8)
+    meta_rows = [kernels.LongReduceRow(r.a.to("meta"), r.b.to("meta"))
+                 for r in rows]
+    with pytest.raises(ValueError):         # no kernel and no plain version
+        kernels.long_reduce_f32(meta_rows, shape, block_long=8)
+    # an outer product takes up to 256 4 x 4 tiles, any other row up to 256
+    # output entries
+    gram = kernels.LongReduceShape("p", "q", 64, 64, 1, False, ("p", "q"))
+    kernels.check_long_reduce_shape(gram)
+    with pytest.raises(ft.InvalidParameterError, match="4 x 4 tiles"):
+        kernels.check_long_reduce_shape(replace(gram, P=65))
+    sums = kernels.LongReduceShape("c", "c", 1, 1, 256, True, ("c",))
+    kernels.check_long_reduce_shape(sums)
+    with pytest.raises(ft.InvalidParameterError, match="output entries"):
+        kernels.check_long_reduce_shape(replace(sums, C=257))
+
+
+def test_long_reduce_tile_formula():
+    assert kernels.long_reduce_tile(35, 0) == 160      # the energy: A alone
+    assert kernels.long_reduce_tile(35, 35) == 64      # two (E, 35) tiles
+    assert kernels.long_reduce_tile(1, 0) == 256
+    assert kernels.long_reduce_tile(6143, 0) == 1
+    assert kernels.long_reduce_tile(6144, 1) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("element_major", [False, True])
+@pytest.mark.parametrize("E,block_long", [(37, 512), (777, 64), (1003, 256),
+                                          (100_003, 512)])
+@pytest.mark.parametrize("name", sorted(LR_CASES))
+def test_long_reduce_kernel_matches_plain(cuda_device, name, E, block_long,
+                                          element_major):
+    """Each case in both layouts: E smaller than one block, a ragged tail,
+    several blocks and tiles."""
+    rows, shape, wants = _lr_case(name, cuda_device, E=E,
+                                  element_major=element_major, seed=22)
+    before = kernels.launch_counts["long_reduce_f32"]
+    got = kernels.long_reduce_f32(rows, shape, block_long=block_long)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["long_reduce_f32"] == before + 1
+    for g, plain, want in zip(got, kernels.long_reduce_plain(rows, shape),
+                              wants):
+        assert tuple(g.shape) == shape.out_shape and g.is_contiguous()
+        assert_close(g.cpu().numpy(), plain.cpu().numpy())
+        assert_close(g.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_launch,launches", [(True, 2), (False, 9)])
+def test_long_reduce_kernel_splits_rows(cuda_device, one_launch, launches):
+    rows, shape, wants = _lr_case("gram", cuda_device, E=999, nrows=9,
+                                  seed=23)
+    before = kernels.launch_counts["long_reduce_f32"]
+    got = kernels.long_reduce_f32(rows, shape, block_long=128,
+                                  one_launch=one_launch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["long_reduce_f32"] == before + launches
+    for g, want in zip(got, wants):
+        assert_close(g.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("element_major", [False, True])
+@pytest.mark.parametrize("case", ["gram 64", "sums 256", "energy 256"])
+def test_long_reduce_kernel_at_its_limits(cuda_device, case, element_major):
+    """The largest rows the kernel takes: a 64 x 64 Gram matrix (256 tiles
+    of 4 x 4 entries, one group each), ej,ej->j over 256 letters (one lane
+    per entry) and the energy of a 256-wide operand (the smallest tile)."""
+    rng = np.random.default_rng(24)
+    E = 3001
+
+    def operand(n):
+        t = torch.from_numpy(rng.random((E, n), dtype=np.float32))
+        return (t if element_major else t.t().contiguous().t()).to(
+            cuda_device)
+    if case == "gram 64":
+        a, b = operand(64), operand(64)
+        shape = kernels.LongReduceShape("p", "q", 64, 64, 1, False,
+                                        ("p", "q"))
+        subs = "ei,ej->ij"
+    elif case == "sums 256":
+        a, b = operand(256), operand(256)
+        shape = kernels.LongReduceShape("c", "c", 1, 1, 256, True, ("c",))
+        subs = "ej,ej->j"
+    else:
+        a = operand(256)
+        b = a
+        shape = kernels.LongReduceShape("c", "c", 1, 1, 256, False, ())
+        subs = "ej,ej->"
+    rows = [kernels.LongReduceRow(a=a, b=b)]
+    before = kernels.launch_counts["long_reduce_f32"]
+    (got,) = kernels.long_reduce_f32(rows, shape, block_long=1024)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["long_reduce_f32"] == before + 1
+    assert_close(got.cpu().numpy(),
+                 kernels.long_reduce_plain(rows, shape)[0].cpu().numpy())
+    assert_close(got.cpu().numpy(), np.einsum(
+        subs, a.double().cpu().numpy(), b.double().cpu().numpy()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shootout", [False, True])
+def test_compile_fn_with_archive_raises_when_a_kernel_fails_to_build(
+        cuda_device, tmp_path, monkeypatch, shootout):
+    """An archived schedule whose kernel does not build (or launch) on the
+    card is an error, not a reason to serve the plain program."""
+    from feinsum_tpu_torch import sql_utils
+
+    e = ft.einsum("ej,ij->ei", ft.array("u", ("E", 20), "float32"),
+                  ft.array("D", (20, 20), "float32"))
+    db = str(tmp_path / "archive.sqlite")
+    dev = ft.FakeDevice("TPU v5 lite")
+    sql_utils.record_facts(e, transform_id="mass_v0",
+                           transform_params=S.space_point("mass_v0", e),
+                           runtime_in_sec=1e-6, device=dev, db_path=db,
+                           long_dim_length=2048)
+    rng = np.random.default_rng(25)
+    u = torch.from_numpy(rng.random((2048, 20), dtype=np.float32)).to(
+        cuda_device)
+    D = torch.from_numpy(rng.random((20, 20), dtype=np.float32)).to(
+        cuda_device)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(_build, "load_library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ft.compile_fn_with_archive(
+            lambda u, D: torch.einsum("ej,ij->ei", u, D), [u, D],
+            db_path=db, device=dev, long_dim_length=500, shootout=shootout)
+
+# }}}
+
+
+# {{{ the default device
+
+def test_helpers_take_no_card_unless_asked_for_the_cpu(monkeypatch):
+    """``arrays_from_numpy`` and ``generate_input_arrays`` put their tensors
+    on the current CUDA card by default; without one they raise unless the
+    caller names the CPU."""
+    from feinsum_tpu_torch.interop import arrays_from_numpy
+    from feinsum_tpu_torch.measure import generate_input_arrays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    e = S.make_matvec(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_input_arrays(e, long_dim_length=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        arrays_from_numpy({"x": np.ones(3, np.float32)})
+    arrays = generate_input_arrays(e, long_dim_length=8, device="cpu")
+    assert {t.device.type for t in arrays.values()} == {"cpu"}
+    assert arrays_from_numpy({"x": np.ones(3)}, "cpu")["x"].device.type \
+        == "cpu"
+    # numpy arrays need no device
+    assert isinstance(generate_input_arrays(e, long_dim_length=8,
+                                            as_numpy=True)["u"], np.ndarray)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.consumer_args(E=8, ndof=4, nf=2, nfdof=3)
+
+
+@pytest.mark.cuda
+def test_helpers_default_to_the_card(cuda_device):
+    from feinsum_tpu_torch.interop import arrays_from_numpy
+    from feinsum_tpu_torch.measure import generate_input_arrays
+
+    arrays = generate_input_arrays(S.make_matvec(4), long_dim_length=8)
+    assert {t.device.type for t in arrays.values()} == {"cuda"}
+    assert arrays_from_numpy({"x": np.ones(3)})["x"].device.type == "cuda"
+
+# }}}
+
+
 def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setenv("PATH", "")
@@ -604,4 +858,4 @@ def test_library_name_follows_the_sources():
     assert path == _build.library_path()       # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu",
-        "row_reduce.cu"}
+        "row_reduce.cu", "long_reduce.cu"}

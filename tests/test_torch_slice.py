@@ -92,7 +92,7 @@ def test_unpack_output_recovers_the_logical_result():
                                       as_numpy=True)
     fn = ft.build_executable(program, long_dim_length=E)
     (out,) = fn(apply_layouts(program, generate_input_arrays(
-        e, long_dim_length=E, seed=SEED)))
+        e, long_dim_length=E, seed=SEED, device="cpu")))
     logical = ft.unpack_output(program, out, (3, E, 35)).numpy()
     want = np.einsum("xre,rij,ej->xei", *[np_arrays[n]
                                            for n in ("J", "D", "u")])

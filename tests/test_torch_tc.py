@@ -309,7 +309,7 @@ def test_reference_k2_programs_carry_across():
     stored = ref_apply_layouts(ref_prog, ref_generate_input_arrays(
         r, long_dim_length=1, seed=SEED, as_numpy=True))
     (want,) = fr.build_executable(ref_prog, long_dim_length=1)(stored)
-    (got,) = plan.run(plan.operands(arrays_from_numpy(stored)))
+    (got,) = plan.run(plan.operands(arrays_from_numpy(stored, "cpu")))
     assert plan.kernel == "tc_grid_f32"
     assert_close(got.numpy(), np.asarray(want))
 
@@ -330,7 +330,8 @@ def test_rulings_on_the_multigrid_fields():
     # mstack moves nothing: the same plan and output
     lengths = get_index_lengths(e, 1)
     arrays = apply_layouts(prog, generate_input_arrays(e, long_dim_length=1,
-                                                       seed=SEED))
+                                                       seed=SEED,
+                                                       device="cpu"))
     outs = [plan_tc_launch(p, lengths).run(plan_tc_launch(
         p, lengths).operands(arrays))[0] for p in
         (prog, prog.with_descriptor(mstack=True))]
