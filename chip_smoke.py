@@ -2,6 +2,7 @@
 """Drive feinsum_tpu_torch's main path once on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --split-only   # phases 1 and 15-17 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -77,19 +78,44 @@ Phases; any failure exits non-zero before the final line:
    archived kernel program); outputs against the plain torch function
    within 2e-5; cold and warm time per call;
 14. the wave model at E = 500,000 and Maxwell at E = 65,536 (ndof 35) with
-   the default schedules: the face restriction on ``dg_rows_f32`` against
-   its plain version, 5 steps each against the per-step route within
-   2e-5, then ms per step and Gdof/s.
+   the default schedules (``suite.BLOCK_LONG`` elements per block): the
+   face restriction on ``dg_rows_f32`` against its plain version, 5 steps
+   each against the per-step route within 2e-5, then ms per step and
+   Gdof/s, in turns with the reference's TPU block of 4096;
+15. ``precision="bf16_3x"`` (three TF32 tensor-core passes over an f32
+   hi/lo split): ``dg_rows_3xtf32`` against ``dg_rows_3x_plain`` on the
+   five suite DG rows, the face restriction and curl with ``prereduce`` at
+   E = 1M, ``tc_grid_3xtf32`` against ``tc_grid_3x_plain`` on the five
+   rank >= 3 TCCG rows at their published sizes, each within 1e-6 of the
+   sum of the terms' magnitudes (times sqrt(K / 64) for a contraction over
+   K > 64: both are float32 sums), and each program against the numpy
+   oracle on the card (E = 2000 for the DG rows, full size for TCCG);
+   each suite and TCCG row's 3x kernel timed beside its f32 kernel, the
+   plain version, ``torch.einsum`` in f32 and the bound;
+16. the bf16_3x archive path: the five DG rows tuned with ``precision_3x``
+   off and on, the TCCG rows in ``tc_pallas_v1`` with ``precision_idx`` 0
+   and 1, into a fresh archive under ``build/``; counters reset; each row's
+   champion replayed through ``candidate_transforms`` (which rows chose 3x
+   is printed) and, where it is f32, the row's best bf16_3x fact
+   (``sql_utils.retrieve`` with a filter), each against the plain per-step
+   route within 2e-5;
+17. Maxwell at E = 65,536 built from an archive whose curl fact (a
+   ``dg_div_v0.py`` point) sets ``precision_3x``, ``fold`` and
+   ``preblock``: the model drops the storage knobs, its curl runs on
+   ``dg_rows_3xtf32``; 5 steps against the per-step route, timed beside the
+   f32 default.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
-roofline for the same work and one PyTorch call's for the same function),
+roofline for the same work and one PyTorch call's for the same function;
+``max_abs_err`` is the largest |kernel - plain| and ``max_err_over_terms``
+the largest of that over the sum of the terms' magnitudes at the entry),
 and ``{"ok": true, "device": {...}}``.  The times of ``dg_rows_f32`` and
 ``ew_product_f32`` are phase 4's rows, those of ``row_reduce_f32`` and
-``ew_flat_f32`` phase 10's, ``long_reduce_f32``'s phase 12's; launches are
-counted over the main path (phase 3), the archive replays (phases 6, 8,
-10), the consumer flow's calls (phase 13) and one step of each model
-(phase 14).  It imports no JAX.
+``ew_flat_f32`` phase 10's, ``long_reduce_f32``'s phase 12's, the 3x
+kernels' phase 15's; launches are counted over the main path (phase 3),
+the archive replays (phases 6, 8, 10, 16), the consumer flow's calls
+(phase 13) and one step of each model (phases 14, 17).  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -116,7 +142,19 @@ TC_TUNE_POINTS = 3     # measured points per TCCG row (autotune test_limit)
 F32_TUNE_POINTS = 3    # measured points per f32 archive row (at most)
 E_REDUCE_LONG = 2 ** 23   # row_reduce_f32's second timing length
 F32_KERNELS = ("dg_rows_f32", "ew_product_f32")
+SPLIT_KERNELS = ("dg_rows_3xtf32", "tc_grid_3xtf32")
+# a 3x kernel against its plain version, over the sum of the terms'
+# magnitudes: the same split summed in another order, both in float32, so
+# for a contraction over K > 64 it grows as sqrt(K / 64), as the rounding of
+# a float32 sum does (the plain version's alone reaches 1e-6 at K = 312)
+RTOL_3X = 1e-6
+
+
+def split_tolerance(K: int) -> float:
+    return RTOL_3X * max(1.0, math.sqrt(K / 64))
 REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "dg_rows_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "tc_grid_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:268",
             "long_reduce_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "ew_product_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "ew_flat_f32": "feinsum_tpu/ops/pallas_emitter.py:187",
@@ -129,10 +167,17 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "row_reduce_f32": "feinsum_tpu_torch/csrc/row_reduce.cu",
            "long_reduce_f32": "feinsum_tpu_torch/csrc/long_reduce.cu",
            "dd_rows": "feinsum_tpu_torch/csrc/dd_rows.cu",
-           "tc_grid_f32": "feinsum_tpu_torch/csrc/tc_grid.cu"}
-# the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W)
+           "tc_grid_f32": "feinsum_tpu_torch/csrc/tc_grid.cu",
+           "dg_rows_3xtf32": "feinsum_tpu_torch/csrc/dg_rows_3x.cu",
+           "tc_grid_3xtf32": "feinsum_tpu_torch/csrc/tc_grid_3x.cu"}
+# the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W);
+# TF32 on the tensor cores, dense
 PEAK_BYTES_PER_MS = 3.35e9
 PEAK_OPS_PER_MS = {"float32": 67e9, "float64": 34e9}
+PEAK_TF32_OPS_PER_MS = 495e9
+# per kernel: the largest |kernel - plain|, and that over the sum of the
+# terms' magnitudes at the entry
+ERRORS = {k: {"abs": 0.0, "terms": 0.0} for k in SOURCES}
 
 
 class SmokeFailure(Exception):
@@ -153,6 +198,35 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def note_error(kernel: str, got, want, terms) -> float:
+    """Record *got* against *want* for *kernel*: the largest |got - want|,
+    and that over *terms*, the sum of the terms' magnitudes at each entry
+    (the plain version on the operands' magnitudes); returns the latter."""
+    got, want, terms = got.double(), want.double(), terms.double()
+    diff = (got - want).abs()
+    over = float((diff / terms.clamp_min(1e-300)).max())
+    err = ERRORS[kernel]
+    err["abs"] = max(err["abs"], float(diff.max()))
+    err["terms"] = max(err["terms"], over)
+    return over
+
+
+def magnitudes(operands) -> list:
+    """The kernel rows with every tensor replaced by its magnitude: a plain
+    version run on them gives the sum of the terms' magnitudes at each
+    output entry."""
+    import torch
+    from dataclasses import fields, is_dataclass
+
+    def mag(row):
+        if is_dataclass(row):
+            return replace(row, **{
+                f.name: getattr(row, f.name).abs() for f in fields(row)
+                if isinstance(getattr(row, f.name), torch.Tensor)})
+        return type(row)(t.abs() for t in row)
+    return [mag(row) for row in operands]
+
+
 def max_err(got, want) -> tuple:
     """(max |got - want|, that over max |want|), in float64."""
     got = got.double()
@@ -166,16 +240,22 @@ def max_err(got, want) -> tuple:
     return abs_err, abs_err / scale
 
 
-def row_bound(e, length: int, program=None) -> tuple:
+def row_bound(e, length: int, program=None, precision: str = "default",
+              padded_flops: float = 0.0) -> tuple:
     """``(bytes ms, operations ms)`` of one row: its bytes (each operand
     read once, each output written once) over the peak memory rate, and
     its operations over the peak rate of their type: the optimal pairwise
     schedule's count, or *program*'s schedule's where that is smaller
-    (curl's pre-reduced ``R``); the roofline bound is the larger."""
+    (curl's pre-reduced ``R``); the roofline bound is the larger.  At
+    ``precision="bf16_3x"`` the operations are the tensor cores' three
+    TF32 passes over *padded_flops*, the dot's flops at the kernel's
+    padded tile sizes (:func:`split_flops`)."""
     from feinsum_tpu_torch.measure import evaluate_giga_op_map, \
         get_footprint_gbytes, get_giga_op_map
     t_bytes = get_footprint_gbytes(e, long_dim_length=length) * 1e9 \
         / PEAK_BYTES_PER_MS
+    if precision == "bf16_3x":
+        return t_bytes, 3 * padded_flops / PEAK_TF32_OPS_PER_MS
     schedules = [None]
     if program is not None and program.einsum == e:
         schedules.append(program.schedule)
@@ -186,8 +266,29 @@ def row_bound(e, length: int, program=None) -> tuple:
     return t_bytes, t_ops
 
 
-def bound_text(e, length: int, program=None) -> str:
-    t_bytes, t_ops = row_bound(e, length, program)
+def split_flops(rows) -> float:
+    """The flops of the 3x kernels' dots at their padded tile sizes: per
+    DG row (``DGRow``) 2 S x pad8(I) x pad8(J) x E (an m16n8k8 tile over
+    M = e, N = i, K = j; the x outputs share the dot), per TC step (a
+    ``TCShape``) 2 pad16(Mc) x pad8(Nc) x pad8(K) per cell."""
+    from feinsum_tpu_torch.ops.kernels import DGRow
+
+    def pad(n, m):
+        return -(-n // m) * m
+    total = 0.0
+    for row in rows:
+        if isinstance(row, DGRow):
+            S, I, J = row.R.shape
+            total += 2.0 * S * pad(I, 8) * pad(J, 8) * row.u.shape[2]
+        else:
+            total += (2.0 * pad(row.Mc, 16) * pad(row.Nc, 8) * pad(row.K, 8)
+                      * row.ncells)
+    return total
+
+
+def bound_text(e, length: int, program=None, precision: str = "default",
+               padded_flops: float = 0.0) -> str:
+    t_bytes, t_ops = row_bound(e, length, program, precision, padded_flops)
     return (f"bound {max(t_bytes, t_ops):.4f} ms"
             f" ({'bytes' if t_bytes >= t_ops else 'operations'})")
 
@@ -202,9 +303,11 @@ class KernelStats:
                      for k in SOURCES}
 
     def add(self, kernel: str, e, length: int, ms: float, plain_ms: float,
-            library_ms=None, program=None) -> None:
+            library_ms=None, program=None, precision: str = "default",
+            padded_flops: float = 0.0) -> None:
         """One row's times, and its bound (:func:`row_bound`)."""
-        t_bytes, t_ops = row_bound(e, length, program)
+        t_bytes, t_ops = row_bound(e, length, program, precision,
+                                   padded_flops)
         row = self.rows[kernel]
         row["ms"] += ms
         row["plain_ms"] += plain_ms
@@ -215,11 +318,13 @@ class KernelStats:
         row["ops_ms"] += t_ops
         row["bound_ms"] += max(t_bytes, t_ops)
 
-    def entry(self, kernel: str, launches: int, worst: float) -> dict:
+    def entry(self, kernel: str, launches: int) -> dict:
         row = self.rows[kernel]
         return {"name": kernel, "route": "cuda", "source": SOURCES[kernel],
                 "replaces": REPLACES[kernel], "launches": launches,
-                "max_abs_err": worst, "ms": row["ms"],
+                "max_abs_err": ERRORS[kernel]["abs"],
+                "max_err_over_terms": ERRORS[kernel]["terms"],
+                "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": ("bytes" if row["bytes_ms"] >= row["ops_ms"]
                              else "operations"),
@@ -295,6 +400,8 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "entry function")):
             log("[build]", line.strip())
 
+    if "--split-only" in sys.argv[1:]:
+        return split_only(dev, card)
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -304,7 +411,6 @@ def main() -> int:
             e, long_dim_length=length, seed=seed, device=dev))
 
     # phase 2: each kernel against its plain version on the card
-    worst = {k: 0.0 for k in SOURCES}
     for length in (E_SMALL, E_FULL):
         for name, e in rows:
             plan = plan_cuda_launch(programs[name],
@@ -312,18 +418,20 @@ def main() -> int:
             operands = plan.operands(inputs(name, e, length, seed=1))
             got = plan.run(operands)
             want = plan.plain(operands)
+            terms = plan.plain(magnitudes(operands))
             torch.cuda.synchronize()
-            for g, w in zip(got, want):
+            for g, w, t in zip(got, want, terms):
                 abs_err, rel = max_err(g, w)
-                worst[plan.kernel] = max(worst[plan.kernel], abs_err)
+                over = note_error(plan.kernel, g, w, t)
                 ok = rel <= RTOL
                 log(f"[compare] {plan.kernel} {name} E={length}:"
                     f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
-                    f" max|plain| (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
+                    f" max|plain| (tolerance {RTOL}), {over:.2e} of the"
+                    f" terms' magnitudes {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SmokeFailure(f"{plan.kernel} disagrees with its"
                                        f" plain version on {name}")
-            del operands, got, want
+            del operands, got, want, terms
 
     # phase 3: the main path, counted
     kernels.reset_launch_counts()
@@ -405,15 +513,15 @@ def main() -> int:
     log(f"[phase] 1-4 (build, f32 kernels, main path, times):"
         f" {time.perf_counter() - t0:.1f} s")
     t_phase = time.perf_counter()
-    worst["dd_rows"] = fp64_kernel_check(dev)
+    fp64_kernel_check(dev)
     launches["dd_rows"] = fp64_archive_path(dev, label, stats)
     log(f"[phase] 5-6 (fp64): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    worst["tc_grid_f32"] = tc_kernel_check(dev)
+    tc_kernel_check(dev)
     launches["tc_grid_f32"] = tccg_archive_path(dev, label, stats)
     log(f"[phase] 7-8 (TCCG): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    worst.update(f32_kernel_check(dev, label, worst))
+    f32_kernel_check(dev, label)
     log(f"[phase] 9 (f32 kernels): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     for k, n in f32_archive_path(dev, label, stats).items():
@@ -424,7 +532,7 @@ def main() -> int:
     curl_prereduce_comparison(dev, label)
     log(f"[phase] 11 (curl prereduce): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    worst["long_reduce_f32"] = long_reduce_check(dev, label, stats)
+    long_reduce_check(dev, label, stats)
     log(f"[phase] 12 (long_reduce_f32): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     for k, n in consumer_flow(dev, label).items():
@@ -433,10 +541,28 @@ def main() -> int:
     t_phase = time.perf_counter()
     for k, n in models_full_width(dev, label).items():
         launches[k] = launches.get(k, 0) + n
-    log(f"[phase] 14 (models): {time.perf_counter() - t_phase:.1f} s;"
+    log(f"[phase] 14 (models): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    split_kernel_check(dev, label, stats)
+    log(f"[phase] 15 (bf16_3x kernels): {time.perf_counter() - t_phase:.1f}"
+        " s")
+    t_phase = time.perf_counter()
+    split_launches = {k: 0 for k in SPLIT_KERNELS}
+    for k, n in split_archive_path(dev, label).items():
+        split_launches[k] += n
+    log(f"[phase] 16 (bf16_3x archive path):"
+        f" {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    split_launches["dg_rows_3xtf32"] += maxwell_from_archive(dev, label)
+    log(f"[phase] 17 (Maxwell at bf16_3x from an archive):"
+        f" {time.perf_counter() - t_phase:.1f} s;"
         f" all phases {time.perf_counter() - t0:.1f} s")
+    for k, n in split_launches.items():
+        if n < 1:
+            raise SmokeFailure(f"{k} was not launched on the bf16_3x path")
+        launches[k] = launches.get(k, 0) + n
 
-    entries = [stats.entry(k, launches[k], worst[k]) for k in SOURCES]
+    entries = [stats.entry(k, launches[k]) for k in SOURCES]
     for entry in entries:
         times = [entry[k] for k in ("ms", "plain_ms", "bound_ms")]
         if entry["library_ms"] is not None:
@@ -451,10 +577,35 @@ def main() -> int:
     return 0
 
 
-def fp64_kernel_check(dev) -> float:
+def split_only(dev, card: str) -> int:
+    """Phases 15-17 alone, for work on the 3x kernels: their build report,
+    checks and times, and their entries of the ``kernels`` line (launches
+    from phases 16-17).  It prints no ``ok`` line."""
+    import torch
+
+    from feinsum_tpu_torch.ops import _build
+    label = (f"[{torch.cuda.get_device_name(0)}, power limit"
+             f" {card.split(',')[-1].strip()}]")
+    lines = _build.build_info["log"].splitlines()
+    for k, line in enumerate(lines):
+        if "3xtf32" in line and "entry function" in line:
+            for text in lines[k:k + 4]:
+                log("[build]", text.strip())
+    stats = KernelStats()
+    t0 = time.perf_counter()
+    split_kernel_check(dev, label, stats)
+    launches = split_archive_path(dev, label)
+    launches["dg_rows_3xtf32"] += maxwell_from_archive(dev, label)
+    log(f"[phase] 15-17: {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": [stats.entry(k, launches[k])
+                                for k in SPLIT_KERNELS]}))
+    return 0
+
+
+def fp64_kernel_check(dev) -> None:
     """Phase 5: ``dd_rows`` against ``dd_rows_plain`` on the four fp64
-    rows at E_SMALL and E_FULL; returns the largest absolute error on the
-    float64 values."""
+    rows at E_SMALL and E_FULL, on the float64 values."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -467,7 +618,6 @@ def fp64_kernel_check(dev) -> float:
     from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
 
     space = get_transform_func_from_module_path("dd_pallas_v0")
-    worst = 0.0
     for length in (E_SMALL, E_FULL):
         for name, e in fp64_suite():
             program = space.bind_args(e, log2_block=9)(ft.generate_program(e))
@@ -477,20 +627,21 @@ def fp64_kernel_check(dev) -> float:
                                                seed=1, device=dev)))
             got = plan.run(operands)
             want = plan.plain(operands)
+            terms = plan.plain(magnitudes(operands))
             torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                abs_err, rel = max_err(combine_pairs(g), combine_pairs(w))
-                worst = max(worst, abs_err)
+            for g, w, t in zip(got, want, terms):
+                g, w = combine_pairs(g), combine_pairs(w)
+                abs_err, rel = max_err(g, w)
+                over = note_error("dd_rows", g, w, combine_pairs(t).abs())
                 ok = rel <= RTOL_F64
                 log(f"[compare] dd_rows {name} E={length}:"
                     f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
-                    f" max|plain| (tolerance {RTOL_F64})"
-                    f" {'ok' if ok else 'FAIL'}")
+                    f" max|plain| (tolerance {RTOL_F64}), {over:.2e} of the"
+                    f" terms' magnitudes {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SmokeFailure(f"dd_rows disagrees with its plain"
                                        f" version on {name}")
-            del operands, got, want
-    return worst
+            del operands, got, want, terms
 
 
 def fp64_archive_path(dev, label: str, stats: KernelStats) -> int:
@@ -612,10 +763,10 @@ def _tc_seed(name: str, k: int) -> dict:
     return {**TCCG_SEEDS[name][k], "precision_idx": 0}
 
 
-def tc_kernel_check(dev) -> float:
+def tc_kernel_check(dev) -> None:
     """Phase 7: ``tc_grid_f32`` against ``tc_grid_plain`` on the TCCG rows
-    at full size, on small ragged contractions and on stored permutations;
-    returns the largest absolute error."""
+    at full size, on small ragged contractions and on stored
+    permutations."""
     import numpy as np
     import torch
 
@@ -661,13 +812,13 @@ def tc_kernel_check(dev) -> float:
                                             dtype=np.float32)).to(dev)
                 for lt in (a, b))
         cases.append((label, step, A, B))
-    worst = 0.0
     for label, step, A, B in cases:
         got = kernels.tc_grid_f32(A, B, step)
         want = kernels.tc_grid_plain(A, B, step)
+        terms = kernels.tc_grid_plain(A.abs(), B.abs(), step)
         torch.cuda.synchronize()
         abs_err, rel = max_err(got, want)
-        worst = max(worst, abs_err)
+        note_error("tc_grid_f32", got, want, terms)
         ok = rel <= RTOL and got.is_contiguous()
         shape = kernels.tc_classify(step)
         log(f"[compare] tc_grid_f32 {label} {''.join(step.a)},"
@@ -679,8 +830,7 @@ def tc_kernel_check(dev) -> float:
         if not ok:
             raise SmokeFailure(f"tc_grid_f32 disagrees with its plain"
                                f" version on {label}")
-        del got, want
-    return worst
+        del got, want, terms
 
 
 def tccg_archive_path(dev, label: str, stats: KernelStats) -> int:
@@ -811,12 +961,11 @@ def tccg_archive_path(dev, label: str, stats: KernelStats) -> int:
     return launches
 
 
-def f32_kernel_check(dev, label: str, worst: dict) -> dict:
+def f32_kernel_check(dev, label: str) -> None:
     """Phase 9: ``row_reduce_f32``, ``ew_flat_f32`` and the hoisted curl
     on ``dg_rows_f32`` against their plain versions; times
     ``row_reduce_f32`` at E_FULL and E_REDUCE_LONG with its byte bound and
-    idle share.  Returns the largest absolute errors by kernel (the
-    ``dg_rows_f32`` entry of *worst* included)."""
+    idle share."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -855,18 +1004,17 @@ def f32_kernel_check(dev, label: str, worst: dict) -> dict:
         cases.append(("dg_curl_ndof35 prereduce, R hoisted", curl,
                       curl_prog, length))
 
-    out = {"row_reduce_f32": 0.0, "ew_flat_f32": 0.0,
-           "dg_rows_f32": worst["dg_rows_f32"]}
     for case, e, program, length in cases:
         plan = plan_cuda_launch(program, get_index_lengths(e, length))
         operands = plan.operands(apply_layouts(program, generate_input_arrays(
             e, long_dim_length=length, seed=1, device=dev)))
         got = plan.run(operands)
         want = plan.plain(operands)
+        terms = plan.plain(magnitudes(operands))
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
+        for g, w, t in zip(got, want, terms):
             abs_err, rel = max_err(g, w)
-            out[plan.kernel] = max(out[plan.kernel], abs_err)
+            note_error(plan.kernel, g, w, t)
             ok = rel <= RTOL
             log(f"[compare] {plan.kernel} {case} E={length}:"
                 f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
@@ -874,7 +1022,7 @@ def f32_kernel_check(dev, label: str, worst: dict) -> dict:
             if not ok:
                 raise SmokeFailure(f"{plan.kernel} disagrees with its plain"
                                    f" version on {case}")
-        del operands, got, want
+        del operands, got, want, terms
 
     # row_reduce_f32 against its byte bound, and the device's idle share;
     # one set of inputs per row and length serves both layouts
@@ -906,7 +1054,6 @@ def f32_kernel_check(dev, label: str, worst: dict) -> dict:
                 del arrays
             del logical
             torch.cuda.empty_cache()
-    return out
 
 
 def f32_archive_path(dev, label: str, stats: KernelStats) -> dict:
@@ -1096,7 +1243,7 @@ def long_reduce_einsum(subs: str, names: tuple, ndof: int = 35):
                              for n, s in zip(names, ins)])
 
 
-def long_reduce_check(dev, label: str, stats: KernelStats) -> float:
+def long_reduce_check(dev, label: str, stats: KernelStats) -> None:
     """Phase 12: ``long_reduce_f32`` against ``long_reduce_plain`` and a
     float64 ``torch.einsum`` on the energy, the per-letter sum and the Gram
     matrix at E = 1M and a ragged E = 1,000,003, ndof 35, in the dof-major
@@ -1104,7 +1251,7 @@ def long_reduce_check(dev, label: str, stats: KernelStats) -> float:
     2e-5 of the sum of the terms' magnitudes.  Times the three at E = 1M
     dof-major (kernel, plain version, ``torch.einsum`` on the stored
     operands) into *stats*, and prints the kernel's device-busy time and
-    idle share.  Returns the largest |kernel - plain|."""
+    idle share."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -1116,7 +1263,6 @@ def long_reduce_check(dev, label: str, stats: KernelStats) -> float:
         stored_arg_layouts, stored_out_letters
     from feinsum_tpu_torch.tools.profile_suite import report
 
-    worst = 0.0
     for name, subs, names in LONG_REDUCE_CASES:
         e = long_reduce_einsum(subs, names)
         layouts, out_layout = dofmajor_layouts(e)
@@ -1142,7 +1288,7 @@ def long_reduce_check(dev, label: str, stats: KernelStats) -> float:
                 mag = torch.einsum(f64_subs, *[t.abs() for t in ops64])
                 torch.cuda.synchronize()
                 abs_err, _ = max_err(got, want)
-                worst = max(worst, abs_err)
+                note_error("long_reduce_f32", got, want, mag)
                 rel = {k: float(((v.double() - ref).abs() / mag).max())
                        for k, v in (("kernel", got), ("plain", want))}
                 ok = plan.kernel == "long_reduce_f32" and all(
@@ -1176,7 +1322,6 @@ def long_reduce_check(dev, label: str, stats: KernelStats) -> float:
                            fn, arrays)
                 del arrays, operands, got, want, ops64, ref, mag
                 torch.cuda.empty_cache()
-    return worst
 
 
 def relayout_rates(dev, label: str) -> dict:
@@ -1379,14 +1524,19 @@ def _step_check(name, step, plain_step, state, geom, n_elements, ndof,
     torch.cuda.synchronize()
 
 
+# the reference's (TPU) block length, timed beside the models' default
+TPU_BLOCK_LONG = 4096
+
+
 def models_full_width(dev, label: str) -> dict:
     """Phase 14: the wave model at E = 500,000 (ndof 35, 4 x 15 face dofs)
     and Maxwell at E = 65,536 (ndof 35) with the default schedules
-    (``db_path=None``, the reference's 4096 elements per block): the
+    (``db_path=None``, ``suite.BLOCK_LONG`` elements per block): the
     restriction row's kernel against its plain version, 5 steps each
     against the plain per-step route, and ms per step and Gdof/s, timed in
-    turns with the per-step route and with the kernels at the suite's
-    ``BLOCK_LONG``.  Returns the launches of one kernel step of each."""
+    turns with the per-step route and with the kernels at the reference's
+    4096 elements per block.  Returns the launches of one kernel step of
+    each."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -1428,10 +1578,10 @@ def models_full_width(dev, label: str) -> dict:
     for k, n in kernels.launch_counts.items():
         launches[k] += n
     alt = ft.WaveOperator3D(ndof=w["ndof"], nfacedof=w["nfacedof"],
-                            nfaces=w["nfaces"], block_long=S.BLOCK_LONG)
-    _step_check("wave", step, plain_op.make_step(E), state, geom, E,
-                w["ndof"], label,
-                also={f"kernel, block {S.BLOCK_LONG}": alt.make_step(E)})
+                            nfaces=w["nfaces"], block_long=TPU_BLOCK_LONG)
+    _step_check(f"wave (block {S.BLOCK_LONG})", step, plain_op.make_step(E),
+                state, geom, E, w["ndof"], label,
+                also={f"kernel, block {TPU_BLOCK_LONG}": alt.make_step(E)})
     del state, geom
     torch.cuda.empty_cache()
 
@@ -1446,15 +1596,322 @@ def models_full_width(dev, label: str) -> dict:
     torch.cuda.synchronize()
     for k, n in kernels.launch_counts.items():
         launches[k] += n
-    alt = ft.MaxwellOperator3D(ndof=m["ndof"], block_long=S.BLOCK_LONG)
-    _step_check("maxwell", step, plain_op.make_step(E), state, geom, E,
-                m["ndof"], label,
-                also={f"kernel, block {S.BLOCK_LONG}": alt.make_step(E)})
+    alt = ft.MaxwellOperator3D(ndof=m["ndof"], block_long=TPU_BLOCK_LONG)
+    _step_check(f"maxwell (block {S.BLOCK_LONG})", step,
+                plain_op.make_step(E), state, geom, E, m["ndof"], label,
+                also={f"kernel, block {TPU_BLOCK_LONG}": alt.make_step(E)})
     del state, geom
     torch.cuda.empty_cache()
     log(f"[model] launch counts over one step of each model: {launches}")
     if launches["dg_rows_f32"] < 1:
         raise SmokeFailure("the models launched no dg_rows_f32")
+    return launches
+
+
+def _restriction(ndof: int = 35, nfaces: int = 4, nfdof: int = 15):
+    """The wave model's face restriction ``fji,ei->fej`` at its sizes."""
+    import feinsum_tpu_torch as ft
+    return ft.einsum("fji,ei->fej",
+                     ft.array("R", (nfaces, nfdof, ndof), "float32"),
+                     ft.array("u", ("E", ndof), "float32"))
+
+
+def split_dg_rows() -> list:
+    """Phase 15's DG rows: ``(name, einsum, transform at bf16_3x, timed)``
+    for the five suite DG rows (timed), the face restriction and curl
+    with ``prereduce``."""
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.ops.layouts import dofmajor_layouts
+    from feinsum_tpu_torch.suite import (default_transform, extended_suite,
+                                         space_point, suite)
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    def at_3x(transform):
+        return lambda p: transform(p).with_descriptor(precision="bf16_3x")
+    rows = [(name, e, at_3x(default_transform(e)), True)
+            for name, e in suite() if name != "copy_ndof35"]
+    r = _restriction()
+    layouts, out_layout = dofmajor_layouts(r)
+    rows.append(("face restriction", r, at_3x(
+        lambda p: p.with_descriptor(backend="pallas", block_long=512,
+                                    arg_layouts=layouts,
+                                    out_layout=out_layout)), False))
+    curl = dict(extended_suite())["dg_curl_ndof35"]
+    rows.append(("dg_curl_ndof35 prereduce", curl,
+                 get_transform_func_from_module_path("curl_3d_v0").bind_args(
+                     curl, **space_point("curl_3d_v0", curl, prereduce=True,
+                                         precision_3x=True)), False))
+    return rows
+
+
+def split_kernel_check(dev, label: str, stats: KernelStats) -> None:
+    """Phase 15: the 3x kernels against their plain versions within RTOL_3X
+    of the terms' magnitudes and against the numpy oracle on the card;
+    the timed rows' 3x kernel beside the f32 kernel, the plain version,
+    ``torch.einsum`` in f32 and the bound, into *stats*."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.tc_emitter import plan_tc_launch, tc_step
+    from feinsum_tpu_torch.suite import tccg_suite
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    def check(kernel, name, got, want, terms, K):
+        for g, w, t in zip(got, want, terms):
+            over = note_error(kernel, g, w, t)
+            ok = over <= split_tolerance(K)
+            log(f"[compare] {kernel} {name}, K = {K}: max|kernel-plain| ="
+                f" {over:.2e} of the terms' magnitudes (tolerance"
+                f" {split_tolerance(K):.2e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SmokeFailure(f"{kernel} disagrees with its plain"
+                                   f" version on {name}")
+
+    def timed(kernel, name, e, length, fns, arrays, padded):
+        """fns: the 3x kernel's, the f32 kernel's, the plain version's and
+        the library call's callables, timed in turns."""
+        times = timed_in_turns(fns, {k: arrays for k in fns})
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        log(f"[time] {kernel} {name}: 3x kernel {ms['3x']:.4f} ms, f32"
+            f" kernel {ms['f32']:.4f} ms, plain version {ms['plain']:.4f}"
+            f" ms, torch.einsum (f32) {ms['library']:.4f} ms,"
+            f" {bound_text(e, length, None, 'bf16_3x', padded)}"
+            f" (runs {times}) {label}")
+        stats.add(kernel, e, length, ms["3x"], ms["plain"], ms["library"],
+                  None, "bf16_3x", padded)
+
+    for name, e, transform, is_timed in split_dg_rows():
+        ft.validate_batched_einsum_transform(
+            e, transform, long_dim_length=E_VALIDATE, device=dev)
+        program = transform(ft.generate_program(e))
+        lengths = get_index_lengths(e, E_FULL)
+        plan = plan_cuda_launch(program, lengths)
+        if plan.kernel != "dg_rows_3xtf32":
+            raise SmokeFailure(f"{name} at bf16_3x plans onto {plan.kernel}")
+        arrays = apply_layouts(program, generate_input_arrays(
+            e, long_dim_length=E_FULL, seed=1, device=dev))
+        operands = plan.operands(arrays)
+        got = plan.run(operands)
+        want = plan.plain(operands)
+        terms = plan.plain(magnitudes(operands))
+        torch.cuda.synchronize()
+        check("dg_rows_3xtf32", f"{name} E={E_FULL} (oracle at"
+              f" E={E_VALIDATE}: ok)", got, want, terms,
+              operands[0].R.shape[2])
+        del got, want, terms, operands
+        if is_timed:
+            f32 = program.with_descriptor(precision="default")
+            timed("dg_rows_3xtf32", f"{name} E={E_FULL}", e, E_FULL, {
+                "3x": ft.build_executable(program, long_dim_length=E_FULL,
+                                          device=dev),
+                "f32": ft.build_executable(f32, long_dim_length=E_FULL,
+                                           device=dev),
+                "plain": lambda a, plan=plan: plan.plain(plan.operands(a)),
+                "library": library_call(program)}, arrays,
+                split_flops(plan.operands(arrays)))
+        del arrays
+        torch.cuda.empty_cache()
+
+    v1 = get_transform_func_from_module_path("tc_pallas_v1")
+    for name, e in tccg_suite():
+        if len(e.out_idx_set) < 3:
+            continue
+        point = {**_tc_seed(name, 0), "precision_idx": 1}
+        ft.validate_batched_einsum_transform(e, v1.bind_args(e, **point),
+                                             device=dev)
+        program = v1.bind_args(e, **point)(ft.generate_program(e))
+        step, (pa, pb) = tc_step(program, get_index_lengths(e, 1))
+        arrays = apply_layouts(program, generate_input_arrays(
+            e, long_dim_length=1, seed=1, device=dev))
+        A, B = (arrays[e.args[0][p].name] for p in (pa, pb))
+        got = kernels.tc_grid_3xtf32(A, B, step)
+        want = kernels.tc_grid_3x_plain(A, B, step)
+        terms = kernels.tc_grid_plain(A.abs(), B.abs(), step)
+        torch.cuda.synchronize()
+        check("tc_grid_3xtf32", f"{name} (oracle at full size: ok)", [got],
+              [want], [terms], kernels.tc_classify(step).K)
+        del got, want, terms
+        plan = plan_tc_launch(program, get_index_lengths(e, 1))
+        f32 = v1.bind_args(e, **_tc_seed(name, 0))(ft.generate_program(e))
+        timed("tc_grid_3xtf32", name, e, 1, {
+            "3x": ft.build_executable(program, device=dev),
+            "f32": ft.build_executable(f32, device=dev),
+            "plain": lambda a, plan=plan: plan.plain(plan.operands(a)),
+            "library": library_call(program)}, arrays,
+            split_flops([kernels.tc_classify(step)]))
+        del arrays, A, B
+        torch.cuda.empty_cache()
+
+
+SPLIT_TUNE_POINTS = 2     # measured points per row: precision off and on
+
+
+def _is_split_fact(q) -> bool:
+    params = dict(q.transform_params)
+    return bool(params.get("precision_3x")) or (
+        q.transform_id == "tc_pallas_v1.py" and params["precision_idx"] == 1)
+
+
+def split_archive_path(dev, label: str) -> dict:
+    """Phase 16: the five suite DG rows tuned in their spaces with
+    ``precision_3x`` off and on, and the five rank >= 3 TCCG rows in
+    ``tc_pallas_v1`` with ``precision_idx`` 0 and 1, into a fresh archive;
+    counters reset; each row's champion replayed through the ladder and,
+    where it is f32, the row's best bf16_3x fact, each checked against the
+    plain per-step route.  Returns the launches of the replays by kernel."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import sql_utils
+    from feinsum_tpu_torch.codegen.program import \
+        generate_program_with_opt_einsum_schedule
+    from feinsum_tpu_torch.data.device_info import get_device_key
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.suite import (F32_SPACES, candidate_transforms,
+                                         space_point, suite, tccg_suite)
+
+    db = HERE / "build" / "chip_smoke" / "split_archive.sqlite"
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    key = get_device_key(dev)
+    rows = []     # (name, einsum, space, length, seeds)
+    for name, e in suite():
+        if name == "copy_ndof35":
+            continue
+        space = F32_SPACES[name]
+        rows.append((name, e, space, E_FULL, [
+            space_point(space, e), space_point(space, e, precision_3x=True)]))
+    for name, e in tccg_suite():
+        if len(e.out_idx_set) >= 3:
+            rows.append((name, e, "tc_pallas_v1", 1, [
+                _tc_seed(name, 0), {**_tc_seed(name, 0), "precision_idx": 1}]))
+    for name, e, space, length, seeds in rows:
+        t0 = time.perf_counter()
+        ft.autotune(e, space, db_path=str(db), device=dev,
+                    long_dim_length=length, test_limit=SPLIT_TUNE_POINTS,
+                    seed_configs=seeds)
+        facts = ft.query(e, dev, db_path=str(db))
+        log(f"[tune] {name}: {len(facts)} facts in"
+            f" {time.perf_counter() - t0:.1f} s")
+        for q in facts:
+            log(f"[tune]   {q.device_name} {q.transform_id}"
+                f" {dict(q.transform_params)}:"
+                f" {q.runtime_in_sec * 1e3:.4f} ms,"
+                f" {q.total_giga_op_rate:.1f} GOp/s {label}")
+        if len(facts) != SPLIT_TUNE_POINTS or any(
+                q.device_name != key for q in facts) or sorted(
+                _is_split_fact(q) for q in facts) != [False, True]:
+            raise SmokeFailure(f"{name}: expected an f32 and a bf16_3x fact"
+                               f" under {key}")
+
+    kernels.reset_launch_counts()
+    chose = {}
+    for name, e, space, length, _ in rows:
+        winner = next(candidate_transforms(name, e, db_path=str(db),
+                                           device=dev))
+        if winner.fact is None or winner.fact.transform_id != space + ".py":
+            raise SmokeFailure(f"{name}: the winner is not an archived"
+                               f" {space}.py fact")
+        chose[name] = _is_split_fact(winner.fact)
+        replays = [("champion", winner.transform)]
+        if not chose[name]:
+            replays.append(("best bf16_3x fact", sql_utils.retrieve(
+                e, dev, db_path=str(db), filter_in=_is_split_fact)))
+        logical = generate_input_arrays(e, long_dim_length=length,
+                                        device=dev)
+        per_step = ft.build_executable(
+            generate_program_with_opt_einsum_schedule(e),
+            long_dim_length=length, device=dev)(logical)
+        for what, transform in replays:
+            program = transform(ft.generate_program(e))
+            outs = ft.build_executable(program, long_dim_length=length,
+                                       device=dev)(
+                apply_layouts(program, logical))
+            torch.cuda.synchronize()
+            for got, want in zip(outs, per_step):
+                got = ft.unpack_output(program, got, tuple(want.shape))
+                _, rel = max_err(got, want)
+                log(f"[replay] {name} {what} (precision"
+                    f" {program.descriptor.precision}): max|replay-per-step|"
+                    f" = {rel:.2e} of max|per-step| (tolerance {RTOL})")
+                if rel > RTOL:
+                    raise SmokeFailure(f"{name}: the {what} differs from the"
+                                       f" per-step route by {rel:.2e}")
+            del outs
+        del logical, per_step
+        torch.cuda.empty_cache()
+    log(f"[replay] champions that chose bf16_3x:"
+        f" {sorted(k for k, v in chose.items() if v)}; f32:"
+        f" {sorted(k for k, v in chose.items() if not v)} {label}")
+    launches = {k: kernels.launch_counts[k] for k in SPLIT_KERNELS}
+    log(f"[replay] launch counts over the bf16_3x replays:"
+        f" {dict(kernels.launch_counts)}")
+    return launches
+
+
+def maxwell_from_archive(dev, label: str) -> int:
+    """Phase 17: Maxwell at its full size from an archive whose curl fact
+    (a ``dg_div_v0.py`` point, timed on the card without its storage
+    knobs) sets ``precision_3x``, ``fold`` and ``preblock``; the model
+    drops the storage knobs and runs the curl on ``dg_rows_3xtf32``.  5
+    steps against the per-step route, ms per step beside the f32 default.
+    Returns the launches of one step."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import sql_utils
+    from feinsum_tpu_torch import suite as S
+    from feinsum_tpu_torch.measure import timeit
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    m = S.MODEL_SIZES["maxwell"]
+    E = m["n_elements"]
+    db = HERE / "build" / "chip_smoke" / "maxwell_archive.sqlite"
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    plain_op = ft.MaxwellOperator3D(ndof=m["ndof"], use_pallas=False)
+    curl = plain_op.curl_einsum
+    params = {"log2_block": 9, "hoist": True, "parallel_grid": True,
+              "dofmajor": True, "fold": True, "preblock": True,
+              "precision_3x": True}
+    runtime = timeit(curl, transform=get_transform_func_from_module_path(
+        "dg_div_v0").bind_args(curl, **{**params, "fold": False,
+                                        "preblock": False}),
+        long_dim_length=E, device=dev)
+    sql_utils.record_facts(curl, transform_id="dg_div_v0.py",
+                           transform_params=params, runtime_in_sec=runtime,
+                           device=dev, db_path=str(db), long_dim_length=E)
+    op = ft.MaxwellOperator3D(ndof=m["ndof"], db_path=str(db), device=dev)
+    desc = op.program.descriptor
+    log(f"[model] maxwell from the archive: precision {desc.precision},"
+        f" block {desc.block_long}, fold_long {desc.fold_long},"
+        f" preblock_args {desc.preblock_args} (fact {params},"
+        f" {runtime * 1e3:.4f} ms) {label}")
+    if desc.precision != "bf16_3x" or desc.fold_long != 1 \
+            or desc.preblock_args:
+        raise SmokeFailure("the Maxwell model did not carry the fact's"
+                           " precision or kept its storage knobs")
+    state, geom = ft.make_maxwell_state(E, ndof=m["ndof"], device=dev)
+    kernels.reset_launch_counts()
+    step = op.make_step(E)
+    step(state, geom)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["dg_rows_3xtf32"]
+    log(f"[model] launch counts over one step: {dict(kernels.launch_counts)}")
+    _step_check("maxwell bf16_3x from the archive", step,
+                plain_op.make_step(E), state, geom, E, m["ndof"], label,
+                also={"kernel, f32 default": ft.MaxwellOperator3D(
+                    ndof=m["ndof"]).make_step(E)})
+    del state, geom
+    torch.cuda.empty_cache()
     return launches
 
 

@@ -86,8 +86,24 @@ class ScheduleDescriptor:
         stored layout; the kernels take one stride per letter, so any
         permutation works (dof-major, long axis stride 1, is the coalesced
         one).
-    :attr precision: ``"default"``, ``"highest"`` or ``"float32"``, all full
-        fp32 (no TF32).  ``"bf16_3x"`` and every other value raise.
+    :attr precision: ``"default"``, ``"highest"`` or ``"float32"``
+        (:data:`FP32_PRECISIONS`), all full fp32 (no TF32), or ``"bf16_3x"``
+        (:data:`SPLIT_PRECISIONS`); every other value raises.  The name
+        ``bf16_3x`` is the reference's, kept so that its facts bind: there
+        each in-kernel dot is three bf16 MXU passes over an f32 hi/lo split
+        (``feinsum_tpu/ops/kernel_lowering.py::_dot_bf16_3x``).  On the card
+        it means three TF32 tensor-core passes over the same split, ``hi =
+        tf32(x)``, ``lo = tf32(x - hi)`` and ``lo·hi + hi·lo + hi·hi``
+        (about 2**-21 of each product), for the contraction of a dot step:
+        the j-dot of a DG row on ``dg_rows_3xtf32``, the K of a TC step on
+        ``tc_grid_3xtf32``, and on the plain route every step that
+        contracts two float32 operands (``ops.kernels.einsum_3x``, three
+        full-fp32 ``torch.einsum`` passes; TF32 matmul is never switched
+        on).  Steps the reference computes without a dot keep full fp32:
+        rows on ``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32`` and
+        ``long_reduce_f32``, the ``Σ_s F t`` combine of a DG row, hoisted
+        resident steps (the reference runs them at HIGHEST), and float64
+        (``dd_rows``).
     :attr dimension_semantics: both ``"parallel"`` and ``"arbitrary"`` are
         accepted; thread blocks always run in parallel.  ``"parallel"`` with
         a contracted long axis raises, as in the reference.
@@ -148,7 +164,8 @@ class ScheduleDescriptor:
     ``jfold`` and ``host_hoist`` build the reference's schedule and the
     same launch (pinned); ``vmem_idx`` is accepted and ignored, as in
     ``dd_pallas_v0`` and ``tc_gemm_v0`` (no ``vmem_limit_bytes``);
-    ``fold``, ``preblock``, ``precision_3x``, ``mfold`` and
+    ``precision_3x`` sets ``precision="bf16_3x"`` (searched where the row
+    reaches ``dg_rows_3xtf32``); ``fold``, ``preblock``, ``mfold`` and
     ``lane_pack_g > 0`` raise (pinned off).
     """
 
@@ -217,6 +234,13 @@ _UNPORTED = {
 _MULTIGRID_ONLY = ("grid_blocks", "grid_m", "mstack")
 
 FP32_PRECISIONS = ("default", "highest", "float32")
+# the reference's 3-pass split dot: three TF32 tensor-core passes here
+SPLIT_PRECISIONS = ("bf16_3x",)
+
+
+def is_split(desc: ScheduleDescriptor) -> bool:
+    """Whether *desc* asks for the 3xTF32 split (``bf16_3x``)."""
+    return (desc.precision or "default").lower() in SPLIT_PRECISIONS
 
 
 def check_supported(desc: ScheduleDescriptor) -> None:
@@ -244,10 +268,12 @@ def check_supported(desc: ScheduleDescriptor) -> None:
             raise InvalidParameterError(
                 f"descriptor.{name}={getattr(desc, name)!r}: only float32"
                 " is supported")
-    if (desc.precision or "default").lower() not in FP32_PRECISIONS:
+    if (desc.precision or "default").lower() not in FP32_PRECISIONS \
+            + SPLIT_PRECISIONS:
         raise InvalidParameterError(
             f"precision {desc.precision!r}: only full fp32"
-            f" {FP32_PRECISIONS} is supported")
+            f" {FP32_PRECISIONS} and the 3xTF32 split {SPLIT_PRECISIONS} are"
+            " supported")
     if desc.dimension_semantics not in ("parallel", "arbitrary"):
         raise InvalidParameterError(
             f"unknown dimension_semantics {desc.dimension_semantics!r}")

@@ -26,7 +26,7 @@ from ..contraction_schedule import (
 )
 from ..diagnostics import InvalidParameterError
 from ..einsum import BatchedEinsum, SizeParam
-from .descriptor import ScheduleDescriptor, check_supported
+from .descriptor import ScheduleDescriptor, check_supported, is_split
 
 
 @dataclass(frozen=True)
@@ -116,17 +116,23 @@ def _logical_arrays(program: EinsumProgram, arrays_by_name: dict) -> dict:
 
 def _xla_row(program: EinsumProgram, row: int, logical: dict):
     """One batch row's schedule, one ``torch.einsum`` per step, delivered in
-    the descriptor's stored output layout (contiguous)."""
+    the descriptor's stored output layout (contiguous).  At ``bf16_3x`` each
+    step contracts its float32 operands in three TF32 passes
+    (:func:`~feinsum_tpu_torch.ops.kernels.einsum_3x`)."""
     e = program.einsum
     env: dict = {}
     result = None
+    if is_split(program.descriptor):
+        from ..ops.kernels import einsum_3x as einsum
+    else:
+        einsum = torch.einsum
     for subs, name, step_args in zip(program.schedule.subscripts,
                                      program.schedule.result_names,
                                      program.schedule.arguments):
         ins = [logical[e.args[row][a.position].name]
                if isinstance(a, EinsumOperand) else env[a.name]
                for a in step_args]
-        env[name] = result = torch.einsum(subs.replace(" ", ""), *ins)
+        env[name] = result = einsum(subs.replace(" ", ""), *ins)
     result = result.to(torch_dtype(output_dtype(e, row)))
     if program.descriptor.out_layout is not None:
         result = result.permute(*(int(p) for p

@@ -15,7 +15,8 @@ one batched einsum with six div-class rows (+y z, -z y, +z x, -x z, +x y,
 -y x) sharing D and the metric columns, so one launch of ``dg_rows_f32``
 streams every operand once per curl and the +/- pairing happens on the
 outputs.  As in the wave model, the archive is consulted (``db_path``) with
-the reference's default otherwise, and state and geometry are dof-major.
+the reference's default otherwise (``suite.BLOCK_LONG`` elements per
+thread block), and state and geometry are dof-major.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from ..cl_utils import default_device
 from ..codegen.program import build_executable
 from ..make_einsum import array, batched_einsum
+from ..suite import BLOCK_LONG
 from .wave import _to_device, archived_or_default
 
 # six rows of the cross product: (metric column, source component); rows
@@ -42,7 +44,7 @@ class MaxwellOperator3D(torch.nn.Module):
     ``ndof`` volume dofs per field component; it holds the curl program."""
 
     def __init__(self, *, ndof: int = 35, dtype: str = "float32",
-                 use_pallas: bool = True, block_long: int = 4096,
+                 use_pallas: bool = True, block_long: int = BLOCK_LONG,
                  db_path: Optional[str] = None, device=None) -> None:
         super().__init__()
         self.ndof = ndof

@@ -15,11 +15,13 @@ einsum (a matvec whose resident carries both output letters but e,
 ``dg_rows_f32`` over the merged (f, j)).  Every einsum runs through the
 transform-database machinery: the archive is consulted for the best
 schedule on the device (``db_path``), with the reference's default on the
-fused kernels otherwise, and state and geometry stay dof-major end to end.
+fused kernels otherwise (at ``suite.BLOCK_LONG`` elements per thread block,
+the H100's), and state and geometry stay dof-major end to end.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
@@ -36,6 +38,11 @@ from ..codegen.program import (
 from ..diagnostics import NoFactInDatabaseError
 from ..make_einsum import array, batched_einsum, einsum
 from ..ops.layouts import dofmajor_layouts
+from ..suite import BLOCK_LONG
+
+# the spaces' storage knobs: how an archived schedule wants its arrays
+# stored (the TPU's fold-8 storage and (8, 128) tile blocks)
+STORAGE_KNOBS = ("fold", "preblock")
 
 
 def _default_transform(program: EinsumProgram, *, use_pallas: bool,
@@ -55,17 +62,23 @@ def archived_or_default(e, *, db_path, device, use_pallas: bool,
                         block_long: int) -> EinsumProgram:
     """*e*'s program: the archive's best schedule for *device* when
     *db_path* holds one, else :func:`_default_transform`; then pinned to the
-    models' dof-major storage (the schedule, backend and block size carry
-    over, the archive's storage choices do not)."""
+    models' dof-major storage.  The schedule, backend, block size and
+    precision carry over, the archive's storage choices do not: the fact is
+    bound with its :data:`STORAGE_KNOBS` off (the reference resets the
+    ``fold_long`` and ``preblock_args`` they set), so a fact that sets them
+    replays here too."""
     program = generate_program(e)
-    transform = None
+    fact = None
     if db_path is not None:
         try:
-            transform = sql_utils.retrieve(e, device, db_path=db_path)
+            fact = sql_utils.aggregate_reconfirmations(
+                sql_utils.query(e, device, db_path=db_path))[0]
         except NoFactInDatabaseError:
-            transform = None
-    if transform is not None:
-        program = transform(program)
+            fact = None
+    if fact is not None:
+        params = tuple((k, False if k in STORAGE_KNOBS else v)
+                       for k, v in fact.transform_params)
+        program = replace(fact, transform_params=params).transform(program)
     else:
         program = _default_transform(program, use_pallas=use_pallas,
                                      block_long=block_long)
@@ -81,7 +94,7 @@ class WaveOperator3D(torch.nn.Module):
 
     def __init__(self, *, ndof: int = 35, nfacedof: int = 15,
                  nfaces: int = 4, dtype: str = "float32",
-                 use_pallas: bool = True, block_long: int = 4096,
+                 use_pallas: bool = True, block_long: int = BLOCK_LONG,
                  db_path: Optional[str] = None, device=None) -> None:
         super().__init__()
         self.ndof = ndof

@@ -55,6 +55,13 @@ _SIGNATURES = (
     ("long_reduce_f32", _I, (_I, _PP, _I64P, _IP, _I, _I, _I, _I, _I64, _I,
                              _I, _I, _P, _P)),
     ("long_reduce_f32_max_rows", _I, ()),
+    ("dg_rows_3xtf32", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I,
+                            _P)),
+    ("dg_rows_3xtf32_smem_bytes", ctypes.c_size_t, (_I, _I, _I, _I, _I)),
+    ("dg_rows_3xtf32_max_rows", _I, ()),
+    ("tc_grid_3xtf32", _I, (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P)),
+    ("tc_grid_3xtf32_tile_rows", _I, (_I,)),
+    ("tc_grid_3xtf32_tile_cols", _I, (_I,)),
 )
 
 # what the last build printed (nvcc's -Xptxas -v register and shared-memory

@@ -32,6 +32,13 @@ launch:
 * a row in the DG family (``ops/dg_rows.py::plan_row``) goes to
   ``dg_rows_f32``.
 
+At ``precision="bf16_3x"`` the rows that go to ``dg_rows_f32`` (DG rows and
+restriction rows) go to its 3xTF32 variant ``dg_rows_3xtf32`` instead: the
+j-dot in three TF32 tensor-core passes.  The other kernels have no 3x
+variant, since the reference applies the split only to its dots; a
+``bf16_3x`` row planned onto one of them runs it in f32 and counts under
+its name in ``kernels.launch_counts``.
+
 Everything else raises :class:`InvalidParameterError` naming what is
 missing.  The executable takes and returns tensors in the descriptor's
 stored layouts; CPU tensors run the kernels' plain versions.
@@ -45,6 +52,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..codegen.descriptor import is_split
 from ..contraction_schedule import EinsumOperand, \
     get_trivial_contraction_schedule
 from ..diagnostics import InvalidParameterError
@@ -62,6 +70,8 @@ from .kernels import (
     LongReduceShape,
     ReduceRow,
     check_long_reduce_shape,
+    dg_rows_3x_plain,
+    dg_rows_3xtf32,
     dg_rows_f32,
     dg_rows_plain,
     ew_flat_f32,
@@ -283,7 +293,9 @@ class KernelPlan:
     """A program planned onto one kernel.  ``operands(arrays_by_name)``
     gives the kernel wrapper's rows; ``run(rows)`` launches the kernel (the
     plain version for CPU tensors) and ``plain(rows)`` runs the plain
-    version; both return the b outputs in the stored output layout."""
+    version; both return the b outputs in the stored output layout.  At
+    ``bf16_3x`` the DG kernel is ``dg_rows_3xtf32``; a kernel with no 3x
+    variant runs in f32, as its name in ``kernel`` says."""
 
     kernel: str
     operands: Callable
@@ -413,12 +425,21 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
         # without an x letter the (1, ...) leading axis is dropped (a view)
         return [o[0] if x is None else o for o in outs]
 
+    kernel, launch, plain = _dg_kernel(desc)
     return KernelPlan(
-        kernel="dg_rows_f32", operands=dg_operands,
-        run=lambda rows: stored_outputs(dg_rows_f32(
+        kernel=kernel, operands=dg_operands,
+        run=lambda rows: stored_outputs(launch(
             rows, out_order=out_order, block_long=desc.block_long,
             one_launch=one_launch)),
-        plain=lambda rows: stored_outputs(dg_rows_plain(rows, out_order)))
+        plain=lambda rows: stored_outputs(plain(rows, out_order)))
+
+
+def _dg_kernel(desc) -> tuple:
+    """``(name, wrapper, plain version)`` of the DG row kernel for the
+    descriptor's precision."""
+    if is_split(desc):
+        return "dg_rows_3xtf32", dg_rows_3xtf32, dg_rows_3x_plain
+    return "dg_rows_f32", dg_rows_f32, dg_rows_plain
 
 
 def long_reduce_shape(program, lengths: dict) -> tuple:
@@ -501,12 +522,13 @@ def _plan_restrict(program, lengths: dict, checked: Callable) -> KernelPlan:
 
     def stored_outputs(outs: list) -> list:
         return [o[0].view(out_shape) for o in outs]
+    kernel, launch, plain = _dg_kernel(desc)
     return KernelPlan(
-        kernel="dg_rows_f32", operands=operands,
-        run=lambda rows: stored_outputs(dg_rows_f32(
+        kernel=kernel, operands=operands,
+        run=lambda rows: stored_outputs(launch(
             rows, out_order=out_order, block_long=desc.block_long,
             one_launch=desc.multiple_results_in_one_kernel)),
-        plain=lambda rows: stored_outputs(dg_rows_plain(rows, out_order)))
+        plain=lambda rows: stored_outputs(plain(rows, out_order)))
 
 
 def build_cuda_executable(program, index_to_length: dict):

@@ -47,6 +47,18 @@ The fourth replaces ``feinsum_tpu/ops/pallas_emitter.py::_build_multigrid``
   place, in its stored layout, through offset tables built here on the
   host once per operand strides.
 
+Two more run a schedule whose precision is ``"bf16_3x"`` (the reference's
+3-pass split dot, ``feinsum_tpu/ops/kernel_lowering.py::_dot_bf16_3x``) on
+Hopper's TF32 tensor cores: each f32 operand splits into ``hi =
+tf32_round(x)`` and ``lo = tf32_round(x - hi)``, and a dot is ``lo·hi +
+hi·lo + hi·hi`` (:func:`tf32_split`, :func:`einsum_3x`):
+
+* ``dg_rows_3xtf32`` (``csrc/dg_rows_3x.cu``) — ``dg_rows_f32``'s rows with
+  the j-dot on ``mma.sync`` m16n8k8 TF32 (K1 at ``bf16_3x``);
+* ``tc_grid_3xtf32`` (``csrc/tc_grid_3x.cu``) — ``tc_grid_f32``'s steps,
+  tables and tiles with the tile's inner product on the same MMAs (K2 at
+  ``bf16_3x``).
+
 A wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; it runs the plain version only for tensors that lie on the
 CPU.  There is no fallback from a CUDA tensor to the plain version.  Each
@@ -72,6 +84,10 @@ MAX_SMEM_BYTES = 232_448
 MAX_X = MAX_S = 4
 # threads per block of csrc/dd_rows.cu and csrc/dg_rows.cu (kThreads)
 DD_THREADS = DG_THREADS = 128
+# csrc/dg_rows_3x.cu: elements per warp tile (kTE: one m16 tile) and warps
+# per block (kWarps)
+DG3X_ELEMENTS = 16
+DG3X_WARPS = 4
 # the most j values csrc/row_reduce.cu takes (kMaxJ: w in shared memory)
 MAX_REDUCE_J = 8192
 # csrc/long_reduce.cu: threads per block (kThreads), which bounds a row's
@@ -80,9 +96,12 @@ MAX_REDUCE_J = 8192
 LR_THREADS = 256
 LR_SMEM_FLOATS = 12 * 1024
 
+# launches by kernel; a ``bf16_3x`` row planned onto a kernel with no 3x
+# variant (``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32``,
+# ``long_reduce_f32``, ``dd_rows``) runs it in f32 and counts under its name
 launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
                  "row_reduce_f32": 0, "long_reduce_f32": 0, "dd_rows": 0,
-                 "tc_grid_f32": 0}
+                 "tc_grid_f32": 0, "dg_rows_3xtf32": 0, "tc_grid_3xtf32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -125,6 +144,76 @@ def _stream_of(device: torch.device) -> ctypes.c_void_p:
 def _chunks(seq: Sequence, n: int):
     for k in range(0, len(seq), n):
         yield seq[k:k + n]
+
+
+# {{{ the 3xTF32 split
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """*x* (float32) rounded to TF32, 10 explicit mantissa bits: to nearest,
+    ties away from zero, on the bit pattern, as ``cvt.rna.tf32.f32`` rounds
+    (and as the 3x kernels do); the low 13 bits of the result are zero.  A
+    value that rounds past the largest float becomes an infinity;
+    infinities and NaN pass unchanged."""
+    finite = torch.isfinite(x)
+    bits = torch.where(finite, x, 0.0).view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(finite, rounded, x)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """``(hi, lo)``: ``hi = tf32_round(x)`` and ``lo = tf32_round(x -
+    hi)``, so that ``x = hi + lo`` to about 2**-22 of ``|x|``."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def einsum_split(subscripts: str, a: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """The two-operand ``torch.einsum`` in three passes over the TF32
+    split, ``lo·hi + hi·lo + hi·hi`` (the small terms first), each pass a
+    full-f32 ``torch.einsum``: a product of two TF32 values is exact in f32,
+    so this is the 3x kernels' arithmetic up to the order of the sums."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return (torch.einsum(subscripts, al, bh) + torch.einsum(subscripts, ah, bl)
+            + torch.einsum(subscripts, ah, bh))
+
+
+def einsum_3x(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with every contraction of two float32 operands in
+    three TF32 passes (:func:`einsum_split`): the ``bf16_3x`` meaning of a
+    plain-route step.  Several operands are contracted pairwise, at each
+    turn the pair whose result is smallest (a pair that contracts a letter
+    first); a pair that contracts nothing, a single operand's sums and
+    operands of other types run as plain ``torch.einsum``."""
+    ins, out = subscripts.replace(" ", "").split("->")
+    terms = list(zip(ins.split(","), operands))
+    while len(terms) > 1:
+        best = None
+        for p in range(len(terms)):
+            for q in range(p + 1, len(terms)):
+                rest = set(out).union(*(set(s) for k, (s, _) in
+                                        enumerate(terms) if k not in (p, q)))
+                (sp, tp), (sq, tq) = terms[p], terms[q]
+                keep = "".join(dict.fromkeys(c for c in sp + sq if c in rest))
+                length = dict(zip(sp, tp.shape)) | dict(zip(sq, tq.shape))
+                size = int(np.prod([length[c] for c in keep], dtype=np.int64))
+                summed = len(set(sp + sq) - set(keep))
+                if best is None or (size, -summed) < best[0]:
+                    best = ((size, -summed), p, q, keep, summed)
+        _, p, q, keep, summed = best
+        (sp, tp), (sq, tq) = terms[p], terms[q]
+        pair = f"{sp},{sq}->{keep}"
+        if summed and tp.dtype == tq.dtype == torch.float32:
+            val = einsum_split(pair, tp, tq)
+        else:
+            val = torch.einsum(pair, tp, tq)
+        terms = [t for k, t in enumerate(terms) if k not in (p, q)]
+        terms.append((keep, val))
+    ((s, t),) = terms
+    return torch.einsum(f"{s}->{out}", t)
+
+# }}}
 
 
 # {{{ dg_rows_f32
@@ -172,20 +261,50 @@ def _dg_dims(rows: Sequence[DGRow]) -> tuple:
     return X, S, I, J, E, u_has_s, has_f
 
 
-def dg_rows_plain(rows: Sequence[DGRow], out_order: tuple = (0, 1, 2)
-                  ) -> list:
-    """The plain PyTorch version of ``dg_rows_f32``: per row,
-    ``t = R @ u`` over j, then ``Σ_s F t``; outputs contiguous in the
-    stored order *out_order* (a permutation of the (X, I, E) axes)."""
+def dg_rows_3x_smem_bytes(X: int, S: int, I: int, J: int,
+                          u_has_s: bool) -> int:
+    """Shared memory one block of ``dg_rows_3xtf32`` needs, in bytes: R
+    split into hi and lo (i and j padded to multiples of 8, 16 floats per
+    tile of 8 j and 16 more per row when those tiles are even in number),
+    and per warp two tiles of u and of F (16 elements each) and an output
+    tile (the formula of ``csrc/dg_rows_3x.cu``)."""
+    def pad8(n):
+        return -(-n // 8) * 8
+    kt = pad8(J) // 8
+    r_pitch = 16 * kt + (16 if kt % 2 == 0 else 0)
+    te = DG3X_ELEMENTS
+    per_warp = (2 * (S if u_has_s else 1) * pad8(J) * (te + 8)
+                + 2 * X * S * te + X * pad8(I) * (te + 4))
+    return 4 * (S * pad8(I) * r_pitch + DG3X_WARPS * per_warp)
+
+
+def _dg_plain(rows: Sequence[DGRow], out_order: tuple, matmul) -> list:
     outs = []
     for row in rows:
-        t = torch.matmul(row.R, row.u)                      # (S, I, E)
+        t = matmul(row.R, row.u)                            # (S, I, E)
         if row.F is None:
             val = t.sum(0, keepdim=True)                    # (1, I, E)
         else:
             val = torch.einsum("xse,sie->xie", row.F, t)
         outs.append(val.permute(*out_order).contiguous())
     return outs
+
+
+def dg_rows_plain(rows: Sequence[DGRow], out_order: tuple = (0, 1, 2)
+                  ) -> list:
+    """The plain PyTorch version of ``dg_rows_f32``: per row,
+    ``t = R @ u`` over j, then ``Σ_s F t``; outputs contiguous in the
+    stored order *out_order* (a permutation of the (X, I, E) axes)."""
+    return _dg_plain(rows, out_order, torch.matmul)
+
+
+def dg_rows_3x_plain(rows: Sequence[DGRow], out_order: tuple = (0, 1, 2)
+                     ) -> list:
+    """The plain PyTorch version of ``dg_rows_3xtf32``: ``dg_rows_plain``
+    with the j-dot ``t = R @ u`` in three passes over the TF32 split
+    (:func:`einsum_split`); ``Σ_s F t`` in f32."""
+    return _dg_plain(rows, out_order, lambda R, u: einsum_split(
+        "sij,sje->sie", R, u.expand(R.shape[0], *u.shape[1:])))
 
 
 def dg_rows_f32(rows: Sequence[DGRow], *, block_long: int,
@@ -195,6 +314,23 @@ def dg_rows_f32(rows: Sequence[DGRow], *, block_long: int,
     the stored order *out_order* (a permutation of the (X, I, E) axes).
     All rows go in one launch (up to the kernel's row limit per launch)
     unless *one_launch* is false; *block_long* elements per thread block."""
+    return _dg_launch("dg_rows_f32", rows, block_long, out_order, one_launch)
+
+
+def dg_rows_3xtf32(rows: Sequence[DGRow], *, block_long: int,
+                   out_order: tuple = (0, 1, 2),
+                   one_launch: bool = True) -> list:
+    """``dg_rows_f32``'s rows with the j-dot in three TF32 passes on the
+    tensor cores (``csrc/dg_rows_3x.cu``): the ``bf16_3x`` precision; the
+    same arguments and outputs."""
+    return _dg_launch("dg_rows_3xtf32", rows, block_long, out_order,
+                      one_launch)
+
+
+def _dg_launch(name: str, rows: Sequence[DGRow], block_long: int,
+               out_order: tuple, one_launch: bool) -> list:
+    """Launch ``dg_rows_f32`` or ``dg_rows_3xtf32`` (*name*; the plain
+    version for CPU tensors)."""
     if not rows:
         return []
     X, S, I, J, E, u_has_s, has_f = _dg_dims(rows)
@@ -202,22 +338,26 @@ def dg_rows_f32(rows: Sequence[DGRow], *, block_long: int,
     if sorted(out_order) != [0, 1, 2]:
         raise ValueError(f"out_order {out_order} is not a permutation of 3")
     if device.type == "cpu":
-        return dg_rows_plain(rows, out_order)
+        return (dg_rows_3x_plain if name == "dg_rows_3xtf32"
+                else dg_rows_plain)(rows, out_order)
     if device.type != "cuda":
-        raise ValueError(f"dg_rows_f32: no kernel for device {device}")
+        raise ValueError(f"{name}: no kernel for device {device}")
 
     from ._build import load_library
     lib = load_library()
-    smem = lib.dg_rows_f32_smem_bytes(S, I, J, int(u_has_s))
+    if name == "dg_rows_3xtf32":
+        smem = lib.dg_rows_3xtf32_smem_bytes(X, S, I, J, int(u_has_s))
+    else:
+        smem = lib.dg_rows_f32_smem_bytes(S, I, J, int(u_has_s))
     if smem > MAX_SMEM_BYTES:
         raise InvalidParameterError(
-            f"dg_rows_f32 needs {smem} bytes of shared memory per block;"
+            f"{name} needs {smem} bytes of shared memory per block;"
             f" an H100 block has {MAX_SMEM_BYTES}")
     dims = (X, I, E)
     inverse = tuple(sorted(range(3), key=lambda k: out_order[k]))
     outs = [torch.empty(tuple(dims[k] for k in out_order),
                         dtype=torch.float32, device=device) for _ in rows]
-    per_launch = lib.dg_rows_f32_max_rows() if one_launch else 1
+    per_launch = getattr(lib, f"{name}_max_rows")() if one_launch else 1
     with torch.cuda.device(device):
         for idx in _chunks(range(len(rows)), per_launch):
             ptrs = (ctypes.c_void_p * (4 * len(idx)))()
@@ -231,13 +371,12 @@ def dg_rows_f32(rows: Sequence[DGRow], *, block_long: int,
                 strides[12 * n:12 * n + 12] = [
                     *row.u.stride(), *row.R.stride(), *f_strides,
                     *out.stride()]
-            err = lib.dg_rows_f32(len(idx), ptrs, strides, X, S, I, J, E,
-                                  int(u_has_s), int(block_long),
-                                  _stream_of(device))
+            err = getattr(lib, name)(len(idx), ptrs, strides, X, S, I, J, E,
+                                     int(u_has_s), int(block_long),
+                                     _stream_of(device))
             if err:
-                raise RuntimeError(f"dg_rows_f32 launch failed: CUDA error"
-                                   f" {err}")
-            launch_counts["dg_rows_f32"] += 1
+                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            launch_counts[name] += 1
     return outs
 
 # }}}
@@ -940,19 +1079,43 @@ def tc_grid_plain(A: torch.Tensor, B: torch.Tensor, step: TCStep
     return torch.einsum(subs, A, B).contiguous()
 
 
+def tc_grid_3x_plain(A: torch.Tensor, B: torch.Tensor, step: TCStep
+                     ) -> torch.Tensor:
+    """The plain PyTorch version of ``tc_grid_3xtf32``: ``tc_grid_plain``
+    in three passes over the TF32 split (:func:`einsum_split`)."""
+    subs = f"{''.join(step.a)},{''.join(step.b)}->{''.join(step.c)}"
+    return einsum_split(subs, A, B).contiguous()
+
+
 def tc_grid_f32(A: torch.Tensor, B: torch.Tensor, step: TCStep
                 ) -> torch.Tensor:
     """``C[c] = Σ A[a] B[b]`` for one :class:`TCStep`, ``C`` allocated
     contiguous in the output's stored letter order ``step.c``."""
+    return _tc_launch("tc_grid_f32", A, B, step)
+
+
+def tc_grid_3xtf32(A: torch.Tensor, B: torch.Tensor, step: TCStep
+                   ) -> torch.Tensor:
+    """``tc_grid_f32``'s step with the tile's inner product in three TF32
+    passes on the tensor cores (``csrc/tc_grid_3x.cu``): the ``bf16_3x``
+    precision; the same tables, tiles and output."""
+    return _tc_launch("tc_grid_3xtf32", A, B, step)
+
+
+def _tc_launch(name: str, A: torch.Tensor, B: torch.Tensor, step: TCStep
+               ) -> torch.Tensor:
+    """Launch ``tc_grid_f32`` or ``tc_grid_3xtf32`` (*name*; the plain
+    version for CPU tensors)."""
     lengths = dict(step.lengths)
     device = A.device
     _check_operand("A", A, device, tuple(lengths[l] for l in step.a))
     _check_operand("B", B, device, tuple(lengths[l] for l in step.b))
     shape = tc_classify(step)
     if device.type == "cpu":
-        return tc_grid_plain(A, B, step)
+        return (tc_grid_3x_plain if name == "tc_grid_3xtf32"
+                else tc_grid_plain)(A, B, step)
     if device.type != "cuda":
-        raise ValueError(f"tc_grid_f32: no kernel for device {device}")
+        raise ValueError(f"{name}: no kernel for device {device}")
 
     from ._build import load_library
     lib = load_library()
@@ -963,13 +1126,13 @@ def tc_grid_f32(A: torch.Tensor, B: torch.Tensor, step: TCStep
                                       device)
     rows, cols = (B, A) if shape.swap else (A, B)
     with torch.cuda.device(device):
-        err = lib.tc_grid_f32(rows.data_ptr(), cols.data_ptr(),
-                              C.data_ptr(), tables.data_ptr(), shape.Mc,
-                              shape.Nc, shape.K, shape.ncells, flags,
-                              shape.variant, _stream_of(device))
+        err = getattr(lib, name)(rows.data_ptr(), cols.data_ptr(),
+                                 C.data_ptr(), tables.data_ptr(), shape.Mc,
+                                 shape.Nc, shape.K, shape.ncells, flags,
+                                 shape.variant, _stream_of(device))
     if err:
-        raise RuntimeError(f"tc_grid_f32 launch failed: CUDA error {err}")
-    launch_counts["tc_grid_f32"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
     return C
 
 # }}}

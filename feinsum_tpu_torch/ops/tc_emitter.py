@@ -10,7 +10,10 @@ length, ``grid_m`` must be an output letter with in-cell extent > 1, and
 takes one contraction step of two operands: a schedule with more steps (a
 dense contraction of more than two operands) raises
 :class:`InvalidParameterError` (ROADMAP.md queue 1 item 4, multi-step dense
-schedules on K2).  Each row of a batched einsum is one launch.  The
+schedules on K2).  Each row of a batched einsum is one launch.  At
+``precision="bf16_3x"`` the step runs on ``tc_grid_3xtf32``, the same
+tables and tiles with the inner product in three TF32 tensor-core passes;
+a failed build or launch raises, as for ``tc_grid_f32``.  The
 executable takes and returns tensors in the descriptor's stored layouts;
 CPU tensors run the kernel's plain version.
 """
@@ -20,8 +23,16 @@ from __future__ import annotations
 from ..contraction_schedule import EinsumOperand
 from ..diagnostics import InvalidParameterError
 from ..einsum import SizeParam
+from ..codegen.descriptor import is_split
 from .cuda_emitter import KernelPlan
-from .kernels import TCStep, tc_classify, tc_grid_f32, tc_grid_plain
+from .kernels import (
+    TCStep,
+    tc_classify,
+    tc_grid_3x_plain,
+    tc_grid_3xtf32,
+    tc_grid_f32,
+    tc_grid_plain,
+)
 from .layouts import stored_arg_layouts, stored_out_letters
 
 
@@ -88,7 +99,8 @@ def tc_step(program, index_to_length: dict) -> tuple:
 
 
 def plan_tc_launch(program, index_to_length: dict) -> KernelPlan:
-    """Plan *program* (a tuple ``grid_index``) onto ``tc_grid_f32``; raises
+    """Plan *program* (a tuple ``grid_index``) onto ``tc_grid_f32``, or
+    ``tc_grid_3xtf32`` at ``bf16_3x``; raises
     :class:`InvalidParameterError` for what the kernel does not carry."""
     e = program.einsum
     lengths = {ix: int(ln) for ix, ln in index_to_length.items()}
@@ -109,10 +121,14 @@ def plan_tc_launch(program, index_to_length: dict) -> KernelPlan:
                     f" {stored[name]} needs {shape}")
         return [(arrays_by_name[a], arrays_by_name[b]) for a, b in names]
 
+    kernel, launch, plain = (
+        ("tc_grid_3xtf32", tc_grid_3xtf32, tc_grid_3x_plain)
+        if is_split(program.descriptor)
+        else ("tc_grid_f32", tc_grid_f32, tc_grid_plain))
     return KernelPlan(
-        kernel="tc_grid_f32", operands=operands,
-        run=lambda rows: [tc_grid_f32(A, B, step) for A, B in rows],
-        plain=lambda rows: [tc_grid_plain(A, B, step) for A, B in rows])
+        kernel=kernel, operands=operands,
+        run=lambda rows: [launch(A, B, step) for A, B in rows],
+        plain=lambda rows: [plain(A, B, step) for A, B in rows])
 
 
 def build_tc_executable(program, index_to_length: dict):

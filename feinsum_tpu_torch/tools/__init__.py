@@ -2,7 +2,8 @@
 a checkout as ``python -m feinsum_tpu_torch.tools.<name>``:
 
 * ``sweep_block_long``: kernel-route time of each suite row at E = 1M for
-  a range of ``block_long`` values (how ``suite.BLOCK_LONG`` was chosen);
+  a range of ``block_long`` values (how ``suite.BLOCK_LONG`` was chosen;
+  with the argument ``bf16_3x``, at that precision);
 * ``profile_suite``: per suite row and route, device busy time from the
   profiler's kernel events against host wall time, hence the device's idle
   share;

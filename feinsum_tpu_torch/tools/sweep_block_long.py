@@ -1,13 +1,16 @@
 """Kernel-route time of each DG-suite row at E = 1M against ``block_long``
 (elements of E per thread block), on one NVIDIA card:
 
-    python -m feinsum_tpu_torch.tools.sweep_block_long
+    python -m feinsum_tpu_torch.tools.sweep_block_long [bf16_3x]
 
+With ``bf16_3x`` the rows run at that precision (``dg_rows_3xtf32``).
 Every value is timed twice, once in ascending and once in descending order
 of ``block_long``, and the mean of the two medians is printed.
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
@@ -22,8 +25,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
-    print(card_line(), flush=True)
+    precision = sys.argv[1] if len(sys.argv) > 1 else "default"
+    print(card_line(), f"precision {precision}", flush=True)
     for name, _, program, arrays in suite_inputs(dev):
+        program = program.with_descriptor(precision=precision)
         times = {b: [] for b in BLOCKS}
         for order in (BLOCKS, BLOCKS[::-1]):
             for b in order:

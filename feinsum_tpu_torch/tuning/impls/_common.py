@@ -48,17 +48,26 @@ def long_axis_of(einsum) -> str:
 
 
 def fp32_precision(name: str) -> str:
-    """A space's precision choice, checked: the full-fp32 names pass and
-    ``"bf16_3x"`` (the TPU's 3-pass bf16 dot) raises
-    :class:`InvalidParameterError` when the transform is bound, since the
-    port runs IEEE fp32 and has no 3-pass split (ROADMAP: a 3xTF32 meaning
-    for ``bf16_3x``)."""
-    from ...codegen.descriptor import FP32_PRECISIONS
-    if name not in FP32_PRECISIONS:
+    """A space's precision choice, checked: the full-fp32 names and
+    ``"bf16_3x"`` (the reference's 3-pass bf16 dot; three TF32 tensor-core
+    passes on the card, see the descriptor's ``precision``) pass; any other
+    name raises :class:`InvalidParameterError`."""
+    from ...codegen.descriptor import FP32_PRECISIONS, SPLIT_PRECISIONS
+    if name not in FP32_PRECISIONS + SPLIT_PRECISIONS:
         raise InvalidParameterError(
-            f"precision {name!r}: the port runs full fp32 only"
-            f" {FP32_PRECISIONS}")
+            f"precision {name!r}: the port runs full fp32"
+            f" {FP32_PRECISIONS} or the 3xTF32 split {SPLIT_PRECISIONS}")
     return name
+
+
+def has_dg_dot(einsum) -> bool:
+    """Whether the fused route plans *einsum*'s rows onto ``dg_rows_f32``
+    (a contracted short axis, the long axis and another letter in the
+    output), the one fused kernel with a 3xTF32 variant: the rows where
+    ``precision_3x`` changes the launch."""
+    el = long_axis_of(einsum)
+    return bool(einsum.sum_indices) and el in einsum.out_idx_set \
+        and len(einsum.out_idx_set) > 1
 
 
 def resolve_block(log2_block: int, blkc128: int = 0) -> int:
@@ -74,28 +83,32 @@ def guard_smem(einsum, kernel: str = "dd_rows") -> None:
     block has (227 KB): the analog of ``feinsum_tpu``'s VMEM guard.  The
     demand depends on the row shape only, not on the block length.
 
-    *kernel* is ``"dd_rows"`` (the fp64 DG rows) or ``"dg_rows_f32"``, the
-    float32 fused route, where each row goes to the kernel that will run it:
+    *kernel* is ``"dd_rows"`` (the fp64 DG rows), ``"dg_rows_f32"``, the
+    float32 fused route, or ``"dg_rows_3xtf32"``, that route at
+    ``bf16_3x``; on the fused route each row goes to the kernel that will
+    run it:
     a contraction-free row to ``ew_product_f32`` (no shared memory), a row
     whose output is the long axis alone to ``row_reduce_f32`` (its weight
     w, at most ``MAX_REDUCE_J`` values), and the others to ``dg_rows_f32``
     (R and one u column per thread); a row whose long axis is contracted to
     ``long_reduce_f32`` (its output entries and staged rows) and a
     restriction row to ``dg_rows_f32`` as a matvec over its merged output
-    letters."""
+    letters (at ``bf16_3x`` on ``dg_rows_3xtf32``, whose shared memory
+    also holds a tile of the outputs, so X counts)."""
     from ...ops.dg_rows import plan_reduce_row, plan_row, \
         resident_carries_outputs
     from ...ops.kernels import MAX_REDUCE_J, MAX_SMEM_BYTES, \
-        dd_rows_smem_bytes, dg_rows_smem_bytes
+        dd_rows_smem_bytes, dg_rows_3x_smem_bytes, dg_rows_smem_bytes
 
-    smem_bytes = {"dd_rows": dd_rows_smem_bytes,
-                  "dg_rows_f32": dg_rows_smem_bytes}[kernel]
+    smem_bytes = {"dd_rows": lambda X, *a: dd_rows_smem_bytes(*a),
+                  "dg_rows_f32": lambda X, *a: dg_rows_smem_bytes(*a),
+                  "dg_rows_3xtf32": dg_rows_3x_smem_bytes}[kernel]
+    fused = kernel != "dd_rows"
     lengths = einsum.index_to_dim_length
-    if kernel == "dg_rows_f32" and long_axis_of(einsum) \
-            not in einsum.out_idx_set:
+    if fused and long_axis_of(einsum) not in einsum.out_idx_set:
         _guard_long_reduce(einsum)
         return
-    if kernel == "dg_rows_f32" and resident_carries_outputs(einsum):
+    if fused and resident_carries_outputs(einsum):
         # a restriction row: a matvec over the merged output letters
         (r_idx,) = [idx for idx in einsum.in_idx_sets
                     if long_axis_of(einsum) not in idx]
@@ -105,16 +118,16 @@ def guard_smem(einsum, kernel: str = "dd_rows") -> None:
                 i_len *= int(lengths[ix])
             else:
                 j_len *= int(lengths[ix])
-        need = smem_bytes(1, i_len, j_len, False)
+        need = smem_bytes(1, 1, i_len, j_len, False)
         if need > MAX_SMEM_BYTES:
             raise InvalidParameterError(
                 f"{kernel} needs {need} bytes of shared memory per block;"
                 f" a Hopper block has {MAX_SMEM_BYTES}")
         return
     for row in range(einsum.b):
-        if kernel == "dg_rows_f32" and not einsum.sum_indices:
+        if fused and not einsum.sum_indices:
             continue
-        if kernel == "dg_rows_f32" and len(einsum.out_idx_set) == 1:
+        if fused and len(einsum.out_idx_set) == 1:
             j = int(lengths[plan_reduce_row(einsum, row).j_letter])
             if j > MAX_REDUCE_J:
                 raise InvalidParameterError(
@@ -123,7 +136,8 @@ def guard_smem(einsum, kernel: str = "dd_rows") -> None:
             continue
         p = plan_row(einsum, row)
         S = int(lengths[p.s_letter]) if p.s_letter is not None else 1
-        need = smem_bytes(S, int(lengths[p.i_letter]),
+        X = int(lengths[p.x_letter]) if p.x_letter is not None else 1
+        need = smem_bytes(X, S, int(lengths[p.i_letter]),
                           int(lengths[p.j_letter]), p.u_has_s)
         if need > MAX_SMEM_BYTES:
             raise InvalidParameterError(
@@ -219,11 +233,13 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
     launch per row with *split_rows*, and ``hoist_resident_steps`` from
     *host_hoist*; extra keywords are descriptor fields (``flatten``).
 
-    On the card: ``fold`` (the fold-8 storage), ``preblock`` (the (8, 128)
-    tile blocks), ``precision_3x`` (the 3-pass bf16 dot) and ``mfold`` (MXU
-    row packing) raise; ``vmem_idx`` (the TPU's VMEM cap) is accepted and
-    ignored.  Shared memory is guarded per row on the einsum the kernels
-    run (:func:`guard_smem`)."""
+    On the card: ``precision_3x`` sets ``precision="bf16_3x"``, as in the
+    reference (three TF32 tensor-core passes for the DG rows' j-dot on
+    ``dg_rows_3xtf32``); ``fold`` (the fold-8 storage), ``preblock`` (the
+    (8, 128) tile blocks) and ``mfold`` (MXU row packing) raise;
+    ``vmem_idx`` (the TPU's VMEM cap) is accepted and ignored.  Shared
+    memory is guarded per row on the einsum the kernels run
+    (:func:`guard_smem`)."""
     from ...contraction_schedule import (
         get_opt_einsum_contraction_schedule,
         get_trivial_contraction_schedule,
@@ -235,8 +251,6 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
     for on, why in (
             (fold, "fold: the TPU's fold-8 storage"),
             (preblock, "preblock: the TPU's (8, 128) tile blocks"),
-            (precision_3x, "precision_3x: the TPU's 3-pass bf16 dot"
-                           " (bf16_3x); the port runs full fp32"),
             (mfold, "mfold: the TPU's MXU row packing")):
         if on:
             raise InvalidParameterError(f"{why} has no Hopper meaning")
@@ -278,12 +292,15 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
         desc["accum_dtype"] = "float32"
     if not host_hoist:
         desc["hoist_resident_steps"] = False
+    if precision_3x:
+        desc["precision"] = "bf16_3x"
     p2 = program.copy(schedule=schedule).with_descriptor(
         backend="pallas",
         block_long=block_long,
         dimension_semantics="parallel" if parallel_grid else "arbitrary",
         **desc)
-    guard_smem(hoist_resident_steps(p2)[0].einsum, "dg_rows_f32")
+    guard_smem(hoist_resident_steps(p2)[0].einsum,
+               "dg_rows_3xtf32" if precision_3x else "dg_rows_f32")
     return p2
 
 
@@ -299,17 +316,19 @@ def make_dg_space(*, log2_block_max: int = 18):
     * searched: ``log2_block``/``blkc128`` (``block_long``), ``dofmajor``
       (where it changes a layout), ``prereduce`` (where a resident operand
       has private indices: curl), ``rowcat`` (where rows can be stacked:
-      div, curl) and ``split_rows`` (b > 1);
+      div, curl), ``split_rows`` (b > 1) and ``precision_3x`` (where the
+      rows go to ``dg_rows_f32``, whose 3xTF32 variant it selects:
+      :func:`has_dg_dot`; elsewhere pinned at 0, and a fact with it on
+      binds and runs the f32 kernel);
     * pinned, accepted at any value: ``parallel_grid`` (1),
       ``vmem_idx`` (2, ignored), ``host_hoist`` (1), ``hoist`` and
       ``jfold`` (0: they build the reference's schedules, and
       ``dg_rows_f32`` computes each row's value whatever the step order;
       no DG row's optimal path has a resident-only step, and ``jfold``'s
       pre-reduction on curl is ``prereduce``'s launch);
-    * pinned at 0, raising at 1: ``fold``, ``preblock``, ``precision_3x``,
-      ``mfold`` and ``lane_pack_g`` (the lane-pack rewrites are not ported
-      yet); ``accum_f32`` is gated off for 32-bit inputs, as in the
-      reference."""
+    * pinned at 0, raising at 1: ``fold``, ``preblock``, ``mfold`` and
+      ``lane_pack_g`` (the lane-pack rewrites are not ported yet);
+      ``accum_f32`` is gated off for 32-bit inputs, as in the reference."""
     from ...ops.layouts import dofmajor_layouts
     from .. import BoolParameter, IntParameter, transform_param
 
@@ -325,7 +344,7 @@ def make_dg_space(*, log2_block_max: int = 18):
         dofmajor_layouts(e) != ((), None)))
     @transform_param("fold", pinned(0))
     @transform_param("preblock", pinned(0))
-    @transform_param("precision_3x", pinned(0))
+    @transform_param("precision_3x", lambda e: gate(has_dg_dot(e)))
     @transform_param("hoist", pinned(0))
     @transform_param("jfold", pinned(0))
     @transform_param("mfold", pinned(0))

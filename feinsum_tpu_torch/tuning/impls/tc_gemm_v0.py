@@ -21,8 +21,10 @@ facts bind here.  On the port:
   positions (the archive's params are tuned on the canonical einsum; replay
   applies the transform to the user's program).
 * ``precision_idx`` indexes ``("highest", "bf16_3x", "default")``:
-  ``bf16_3x`` raises, ``default`` on the fused route raises (a duplicate of
-  ``highest``), as in the reference.
+  ``bf16_3x`` runs the fused route on ``dg_rows_3xtf32`` and the plain
+  route's product in three full-fp32 passes over the TF32 split;
+  ``default`` on the fused route raises (a duplicate of ``highest``), as
+  in the reference.
 * ``vmem_idx`` chose the TPU's VMEM cap: accepted and ignored (no
   ``vmem_limit_bytes``).  ``fold=True`` (the TPU's fold-8 storage) raises.
 """

@@ -9,8 +9,8 @@ The file name, parameters and descriptor fields are those of
 sets the grid letters; ``use_opt_path`` picks the optimal-path or trivial
 schedule (one step either way; the optimal path lists the operands in
 another order, which swaps the tile's row and column operands);
-``precision_idx`` indexes ``("default", "bf16_3x")`` and ``bf16_3x``
-raises, so the search covers 0 only.
+``precision_idx`` indexes ``("default", "bf16_3x")``: ``tc_grid_f32``, or
+``tc_grid_3xtf32`` (three TF32 tensor-core passes).
 
 What changed for Hopper: the reference's VMEM guard, its unroll guard and
 its Mosaic last-two-dims refusal (an operand with fewer than two
@@ -42,7 +42,7 @@ def _max_grid_axes(e) -> int:
 
 
 @transform_param("n_grid", lambda e: IntParameter(1, _max_grid_axes(e)))
-@transform_param("precision_idx", lambda e: IntParameter(0, 0))
+@transform_param("precision_idx", lambda e: IntParameter(0, 1))
 @transform_param("use_opt_path", lambda e: BoolParameter())
 def transform(program, n_grid, precision_idx, use_opt_path):
     e = program.einsum

@@ -15,8 +15,9 @@ search space declares only what changes the launched kernel on Hopper:
 * ``m_pos``: ``grid_m``, the output letter whose operand gives the tile's
   rows and which runs fastest along them (the access order of that operand
   and of the output);
-* ``precision_idx``: ``("default", "bf16_3x")``; ``bf16_3x`` raises, so the
-  search covers 0 only.
+* ``precision_idx``: ``("default", "bf16_3x")``: ``tc_grid_f32`` in IEEE
+  f32, or ``tc_grid_3xtf32``, the tile's inner product in three TF32
+  tensor-core passes over an f32 hi/lo split.
 
 Accepted and not searched, because they do not change the kernel:
 ``mstack`` (stacking output slices into the TPU MXU's M dimension; the
@@ -62,7 +63,7 @@ def _divisors(n: int) -> list:
 @transform_param("blk1_idx", lambda e: IntParameter(0, 9))
 @transform_param("m_pos",
                  lambda e: IntParameter(0, len(e.out_idx_set) - 1))
-@transform_param("precision_idx", lambda e: IntParameter(0, 0))
+@transform_param("precision_idx", lambda e: IntParameter(0, 1))
 def transform(program, n_grid, blk0_idx, blk1_idx, m_pos, precision_idx,
               mstack=False, use_opt_path=False):
     e = program.einsum

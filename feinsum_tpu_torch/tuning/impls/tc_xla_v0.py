@@ -6,8 +6,9 @@ in full fp32), with a tunable contraction order and precision.
 The file name and parameters are those of ``feinsum_tpu``'s space, so its
 facts bind here.  ``precision_idx`` indexes ``("default", "highest",
 "bf16_3x")`` as in the reference: the first two are both full fp32 on the
-port, and ``bf16_3x`` (the TPU's 3-pass bf16 dot) raises
-:class:`InvalidParameterError` when the transform is bound to a program.
+port, and ``bf16_3x`` (the TPU's 3-pass bf16 dot) runs each step's product
+in three full-fp32 passes over the TF32 hi/lo split
+(:func:`~feinsum_tpu_torch.ops.kernels.einsum_3x`).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ The file name and parameters are those of ``feinsum_tpu``'s space, so its
 facts bind here.  The choices are the operands' and the output's stored
 permutations (``arg_layouts``, ``out_layout``; ``perm_*`` index the
 permutations of each rank in ``itertools.permutations`` order) and the
-precision (``bf16_3x`` raises).  The operand permutations are archived
+precision (``bf16_3x``: three full-fp32 passes over the TF32 split).  The operand permutations are archived
 relative to CANONICAL operand positions (``autotune`` canonicalizes first)
 and are routed onto the user's operand positions through
 :func:`~feinsum_tpu_torch.canonicalization.canonical_operand_positions`,

@@ -5,7 +5,7 @@ swaps two axes), on the plain route.
 
 The file name and parameters are those of ``feinsum_tpu``'s space, so its
 facts bind here; the rules are those of ``ttgt_v0`` (canonical-relative
-operand permutations, ``bf16_3x`` raises).
+operand permutations, ``bf16_3x`` as three passes over the TF32 split).
 """
 
 from __future__ import annotations

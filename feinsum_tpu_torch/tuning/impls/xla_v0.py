@@ -6,8 +6,9 @@ precision and chunking of the long axis.
 The file name and parameters are those of ``feinsum_tpu``'s space, so its
 facts bind here.  ``precision_idx`` indexes ``("default", "highest",
 "bf16_3x")`` as in the reference: the first two are both full fp32 (or
-float64) on the port, and ``bf16_3x`` (the TPU's 3-pass bf16 dot) raises
-:class:`InvalidParameterError` when the transform is bound to a program.
+float64) on the port, and ``bf16_3x`` (the TPU's 3-pass bf16 dot) runs each
+step that contracts two float32 operands in three full-fp32 passes over the
+TF32 hi/lo split (:func:`~feinsum_tpu_torch.ops.kernels.einsum_3x`).
 ``log2_chunk > 0`` runs the schedule chunk by chunk over ``2 **
 log2_chunk`` elements of the long axis (``descriptor.xla_block_long``),
 which bounds the footprint of the intermediates.

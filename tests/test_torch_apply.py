@@ -189,14 +189,20 @@ def test_componentwise_div_groups_into_batched_archive_hit(tmp_path):
         return (torch.einsum("es,sij,ej->ei", Jx, R, ux)
                 + torch.einsum("es,sij,ej->ei", Jy, R, uy)
                 - torch.einsum("es,sij,ej->ei", Jz, R, uz))
-    _, ours2 = compile_both(juser, tuser, arrays, db_path=db,
-                            device=ft.FakeDevice(TPU), long_dim_length=500)
+    ref2, ours2 = compile_both(juser, tuser, arrays, db_path=db,
+                               device=ft.FakeDevice(TPU),
+                               long_dim_length=500)
     ((infos, einsum, program),) = ours2.plans
     assert len(infos) == 3 and einsum.b == 3
     assert [i.scale for i in infos] == [1.0, 1.0, -1.0]
     assert program.descriptor.backend == "pallas"
+    # the archive's champion, the reference's too, sets bf16_3x: the j-dot
+    # runs on the 3xTF32 kernel
+    ((_, _, ref_program),) = ref2.plans
+    assert program.descriptor.precision == ref_program.descriptor.precision \
+        == "bf16_3x"
     assert plan_cuda_launch(program, get_index_lengths(
-        einsum, E * program.descriptor.rowcat)).kernel == "dg_rows_f32"
+        einsum, E * program.descriptor.rowcat)).kernel == "dg_rows_3xtf32"
 
 
 def test_epilogues_match_reference():

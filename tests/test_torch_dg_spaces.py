@@ -6,11 +6,12 @@
   points of the reference's space the port's program (schedule, einsum and
   descriptor, carried across by ``interop``) equals the reference's, or the
   port raises ``InvalidParameterError`` for a knob the descriptor's ruling
-  refuses (``fold``, ``preblock``, ``precision_3x``, ``mfold``,
-  ``lane_pack_g``, ``bf16_3x``); the port does not set ``vmem_limit_bytes``
-  (``vmem_idx`` is accepted and ignored);
+  refuses (``fold``, ``preblock``, ``mfold``, ``lane_pack_g``); the port
+  does not set ``vmem_limit_bytes`` (``vmem_idx`` is accepted and ignored);
+  ``precision_3x`` sets ``precision="bf16_3x"``, as in the reference;
 * every shipped TPU fact of those seven transform ids binds: it builds, or
-  raises naming a refused knob;
+  raises naming a refused knob; the 102 that set ``precision_3x`` and no
+  refused knob build;
 * outputs equal the reference's from the same numpy-seeded inputs within
   2e-5 (f32) and 1e-12 (f64): vecmat and rowsum through ``mass_v0``, curl
   with ``prereduce`` (the hoisted pre-reduction), div with ``rowcat``,
@@ -61,7 +62,7 @@ DG_SPACES = ("dg_div_v0", "dg_grad_v0", "face_mass_v0", "mass_v0",
              "curl_3d_v0")
 SPACES = DG_SPACES + ("elementwise_v1", "xla_v0")
 # what the port refuses by the descriptor's rulings
-RULED = ("fold", "preblock", "precision_3x", "mfold", "lane_pack", "bf16_3x")
+RULED = ("fold", "preblock", "mfold", "lane_pack")
 # what the reference refuses for the TPU alone
 TPU_GUARDS = ("VMEM", "MiB")
 
@@ -170,8 +171,7 @@ def test_programs_match_reference(space, key):
     r = to_reference(ROWS[space][key])
     ref_params = ref_space(space).get_param_space(r)
     ruled_off = {k: 0 if k == "lane_pack_g" else False for k in (
-        "fold", "preblock", "precision_3x", "mfold", "lane_pack_g")
-        if k in ref_params}
+        "fold", "preblock", "mfold", "lane_pack_g") if k in ref_params}
     n_compared = 0
     for sampled in _sample_params(ref_params, 60, seed=len(space + key)):
         for params in (sampled, {**sampled, **ruled_off}):
@@ -204,6 +204,9 @@ def test_programs_match_reference(space, key):
     ("dg_grad_v0", "grad", dict(hoist=1, dofmajor=False)),
     ("elementwise_v1", "scale_flat", dict(flatten=True)),
     ("mass_v0", "vecmat", dict(dofmajor=False)),
+    ("dg_div_v0", "div_b3", dict(precision_3x=True)),
+    ("curl_3d_v0", "curl", dict(prereduce=True, precision_3x=True)),
+    ("mass_v0", "vecmat", dict(precision_3x=True)),
 ], ids=lambda v: str(v) if not isinstance(v, dict) else "-".join(v))
 def test_searched_points_match_reference(space, key, params):
     """The points the port searches or seeds, at the reference's values
@@ -221,8 +224,7 @@ def test_searched_points_match_reference(space, key, params):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("fold", 1), ("preblock", 1), ("precision_3x", 1), ("mfold", 1),
-    ("lane_pack_g", 2)])
+    ("fold", 1), ("preblock", 1), ("mfold", 1), ("lane_pack_g", 2)])
 def test_ruled_knobs_raise(knob, value):
     e = ROWS["mass_v0"]["mass"]
     params = S.space_point("mass_v0", e, **{knob: value})
@@ -344,6 +346,32 @@ def test_tpu_facts_bind(shipped_facts, space_id, count):
     assert n_built + n_ruled == count
     assert n_built > 0
 
+
+@pytest.mark.parametrize("space_id,count", [
+    ("dg_div_v0.py", 19), ("dg_grad_v0.py", 22), ("face_mass_v0.py", 3),
+    ("mass_v0.py", 57), ("curl_3d_v0.py", 1)])
+def test_tpu_facts_that_set_precision_3x_bind(shipped_facts, space_id,
+                                              count):
+    """The facts whose one knob outside the port's rulings was
+    ``precision_3x`` (102 of the five DG spaces') build at ``bf16_3x``;
+    those with a j-dot plan onto ``dg_rows_3xtf32``."""
+    n = 0
+    for e, q in shipped_facts.get(space_id, []):
+        params = dict(q.transform_params)
+        if not params.get("precision_3x") or any(
+                params.get(k) for k in ("fold", "preblock", "mfold",
+                                        "lane_pack_g")):
+            continue
+        prog = q.transform(ft.generate_program(e))
+        assert prog.descriptor.precision == "bf16_3x"
+        ft.build_executable(prog, long_dim_length=8, device="cpu")
+        if _common.has_dg_dot(e):
+            assert plan_cuda_launch(prog, get_index_lengths(
+                prog.einsum, 8 * prog.descriptor.rowcat)).kernel \
+                == "dg_rows_3xtf32"
+        n += 1
+    assert n == count
+
 # }}}
 
 
@@ -372,6 +400,7 @@ OUTPUT_CASES = [
     ("curl_3d_v0", "curl", dict(prereduce=True, rowcat=True)),
     ("dg_div_v0", "div_b3", dict(rowcat=True)),
     ("dg_div_v0", "div_b3", dict(rowcat=True, dofmajor=False)),
+    ("dg_div_v0", "div_b3", dict(rowcat=True, precision_3x=True)),
     ("elementwise_v1", "scale_flat", dict(flatten=True)),
 ]
 

@@ -143,7 +143,7 @@ def test_copy_row_is_not_a_dg_row():
 
 @pytest.mark.parametrize("change", [
     {"fold_long": 8}, {"flatten": True}, {"dd_pairs": True},
-    {"grid_index": ("i", "j")}, {"precision": "bf16_3x"},
+    {"grid_index": ("i", "j")}, {"vmem_limit_bytes": 2 ** 20},
     {"preblock_args": ("u",)}, {"lane_pack": 4}, {"mfold": True},
     {"interpret": True}, {"compute_dtype": "bfloat16"},
 ])
@@ -152,6 +152,22 @@ def test_unported_descriptors_raise(change):
         reference_program(ROWS["mass_ndof9"])).with_descriptor(**change)
     with pytest.raises(ft.InvalidParameterError):
         ft.build_executable(prog, long_dim_length=E)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_bf16_3x_builds_and_matches_on_both_routes(backend):
+    """``precision="bf16_3x"`` (three TF32 passes over an f32 split): the
+    fused route plans the row onto ``dg_rows_3xtf32`` and both routes meet
+    the numpy oracle."""
+    e = ROWS["mass_ndof9"]
+    prog = ft.interop.program_from_reference(
+        reference_program(e)).with_descriptor(backend=backend,
+                                              precision="bf16_3x")
+    if backend == "pallas":
+        assert plan_cuda_launch(prog, get_index_lengths(
+            e, E)).kernel == "dg_rows_3xtf32"
+    ft.validate_batched_einsum_transform(
+        e, lambda p: prog, long_dim_length=E)
 
 
 @pytest.mark.parametrize("einsum", [

@@ -2,9 +2,11 @@
 operand checks and plain versions on CPU tensors, and, in the tests marked
 ``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``
 and its flatten route ``ew_flat_f32``, ``row_reduce_f32``,
-``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32``) against their plain
-versions on the card; and the default device of the helpers that make
-tensors (the card, or an error, unless the caller names the CPU).  This file
+``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32`` and the 3xTF32 kernels
+``dg_rows_3xtf32`` and ``tc_grid_3xtf32``) against their plain versions on
+the card; the TF32 rounding the 3x kernels and their plain versions share;
+and the default device of the helpers that make tensors (the card, or an
+error, unless the caller names the CPU).  This file
 imports no JAX, so it runs where only PyTorch is installed; on such a
 machine run it without the JAX-importing conftest:
 
@@ -807,6 +809,280 @@ def test_compile_fn_with_archive_raises_when_a_kernel_fails_to_build(
 # }}}
 
 
+# {{{ the 3xTF32 kernels (bf16_3x)
+
+# a 3x kernel against its plain version: the same split, summed in another
+# order (the tensor cores' accumulate truncates), so relative to the sum of
+# the terms' magnitudes
+RTOL_3X = 1e-6
+
+
+def _bits(values) -> list:
+    return [int(v) for v in torch.tensor(values, dtype=torch.float32).view(
+        torch.int32).numpy().astype(np.uint32)]
+
+
+def _float(bits: int) -> float:
+    return float(torch.tensor([bits], dtype=torch.int64).to(
+        torch.int32).view(torch.float32)[0])
+
+
+# (input bits, rounded bits): ties go away from zero, on the bit pattern
+TF32_CASES = {
+    "tie up": (0x3F801000, 0x3F802000),
+    "negative tie": (0xBF801000, 0xBF802000),
+    "below a tie": (0x3F800FFF, 0x3F800000),
+    "above a tie": (0x3F801001, 0x3F802000),
+    "odd tie": (0x3F803000, 0x3F804000),
+    "subnormal tie": (0x00001000, 0x00002000),
+    "subnormal below a tie": (0x00000FFF, 0x00000000),
+    "largest float overflows": (0x7F7FFFFF, 0x7F800000),
+    "lowest float overflows": (0xFF7FFFFF, 0xFF800000),
+    "inf": (0x7F800000, 0x7F800000),
+    "-inf": (0xFF800000, 0xFF800000),
+    "-0": (0x80000000, 0x80000000),
+    "exact": (0x40402000, 0x40402000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TF32_CASES))
+def test_tf32_round_on_bit_patterns(case):
+    given, want = TF32_CASES[case]
+    (got,) = _bits(kernels.tf32_round(torch.tensor([_float(given)])))
+    assert got == want, (hex(got), hex(want))
+    assert got & 0x1FFF == 0
+
+
+def test_tf32_round_keeps_nan_and_splits_exactly():
+    assert torch.isnan(kernels.tf32_round(torch.tensor([float("nan")])))[0]
+    x = torch.from_numpy(np.random.default_rng(30).standard_normal(
+        10_000).astype(np.float32) * 1e3)
+    hi, lo = kernels.tf32_split(x)
+    assert all(b & 0x1FFF == 0 for b in _bits(hi) + _bits(lo))
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert float((err / x.double().abs()).max()) <= 2.0 ** -22
+    # a product of two TF32 values is exact in float32
+    assert torch.equal((hi[:100] * hi[100:200]).double(),
+                       hi[:100].double() * hi[100:200].double())
+
+
+def _close_to_terms(got, want, mag, rtol=RTOL_3X):
+    got, want, mag = (np.asarray(t, dtype=np.float64) for t in (got, want,
+                                                                  mag))
+    assert got.shape == want.shape == mag.shape
+    assert float((np.abs(got - want) / np.maximum(mag, 1e-30)).max()) <= rtol
+
+
+def _abs_rows(rows):
+    return [replace(r, **{k: None if v is None else v.abs()
+                          for k, v in vars(r).items()}) for r in rows]
+
+
+@pytest.mark.parametrize("u_has_s", [False, True])
+def test_dg_rows_3x_plain_is_the_row_formula(u_has_s):
+    rows = _dg_rows("cpu", u_has_s=u_has_s, seed=31)
+    outs = kernels.dg_rows_3xtf32(rows, out_order=(1, 0, 2), block_long=8)
+    assert not kernels.launch_counts["dg_rows_3xtf32"]
+    for row, out in zip(rows, outs):
+        u = row.u.double().expand(3, 7, 33)
+        want = np.einsum("xse,sij,sje->ixe", row.F.double().numpy(),
+                         row.R.double().numpy(), u.numpy())
+        assert out.is_contiguous() and out.shape == (5, 2, 33)
+        _close_to_terms(out.numpy(), want, want)
+
+
+def test_einsum_3x_contracts_pairwise():
+    rng = np.random.default_rng(32)
+    ops = [rng.standard_normal(s).astype(np.float32)
+           for s in ((40, 3), (3, 6, 5), (40, 5))]
+    got = kernels.einsum_3x("es,sij,ej->ei", *map(torch.from_numpy, ops))
+    want = np.einsum("es,sij,ej->ei", *[o.astype(np.float64) for o in ops])
+    mag = np.einsum("es,sij,ej->ei", *[np.abs(o.astype(np.float64))
+                                        for o in ops])
+    _close_to_terms(got.numpy(), want, mag)
+    # a float64 step and a single operand run as plain torch.einsum
+    a = torch.from_numpy(ops[0]).double()
+    assert torch.equal(kernels.einsum_3x("es,es->e", a, a),
+                       torch.einsum("es,es->e", a, a))
+    assert torch.equal(kernels.einsum_3x("sij->ij", torch.from_numpy(ops[1])),
+                       torch.from_numpy(ops[1]).sum(0))
+
+
+def test_tc_grid_3x_plain_is_the_contraction():
+    a, b, c, lengths, grid, grid_m = TC_CASES["tccg35_blocked"]
+    step = kernels.TCStep(a=tuple(a), b=tuple(b), c=tuple(c),
+                          lengths=tuple(sorted(lengths.items())), grid=grid,
+                          grid_m=grid_m)
+    A, B = _tc_operands("cpu", a, b, lengths, 33, True)
+    out = kernels.tc_grid_3xtf32(A, B, step)
+    assert out.is_contiguous() and not kernels.launch_counts["tc_grid_3xtf32"]
+    want = np.einsum(f"{a},{b}->{c}", A.double().numpy(), B.double().numpy())
+    _close_to_terms(out.numpy(), want, want)
+
+
+def test_3x_runs_leave_tf32_off():
+    """A ``bf16_3x`` program splits in software: TF32 matmul stays off and
+    the float32 matmul precision "highest" on both routes."""
+    from feinsum_tpu_torch.measure import generate_input_arrays
+    e = S.make_div(6)
+    arrays = generate_input_arrays(e, long_dim_length=64, seed=34,
+                                   device="cpu")
+    for backend in ("xla", "pallas"):
+        prog = S.default_transform(e)(ft.generate_program(e)).with_descriptor(
+            backend=backend, precision="bf16_3x")
+        ft.build_executable(prog, long_dim_length=64, device="cpu")(
+            ft.apply_layouts(prog, arrays))
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_dg_rows_3x_smem_formula():
+    """The suite's rows fit a Hopper block; S = 4, I = J = 64 with u
+    carrying s and four outputs does not."""
+    assert kernels.dg_rows_3x_smem_bytes(3, 3, 35, 35, False) \
+        <= kernels.MAX_SMEM_BYTES // 2
+    assert kernels.dg_rows_3x_smem_bytes(1, 4, 35, 15, True) \
+        <= kernels.MAX_SMEM_BYTES // 2
+    assert kernels.dg_rows_3x_smem_bytes(4, 4, 64, 64, True) \
+        > kernels.MAX_SMEM_BYTES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("X", [1, 2, 3, 4])
+@pytest.mark.parametrize("u_has_s", [False, True])
+@pytest.mark.parametrize("block_long,out_order,I,J,E", [
+    (8, (2, 0, 1), 5, 7, 33), (1024, (0, 1, 2), 35, 35, 2000),
+    (100, (1, 2, 0), 60, 15, 777)])
+def test_dg_rows_3x_kernel_matches_plain(cuda_device, X, u_has_s,
+                                         block_long, out_order, I, J, E):
+    rng = np.random.default_rng(35)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device)
+    rows = [kernels.DGRow(u=t(3 if u_has_s else 1, J, E), R=t(3, I, J),
+                          F=t(X, 3, E)) for _ in range(2)]
+    before = kernels.launch_counts["dg_rows_3xtf32"]
+    got = kernels.dg_rows_3xtf32(rows, out_order=out_order,
+                                 block_long=block_long)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dg_rows_3xtf32"] == before + 1
+    for g, want, mag in zip(got, kernels.dg_rows_3x_plain(rows, out_order),
+                            kernels.dg_rows_plain(_abs_rows(rows),
+                                                  out_order)):
+        assert g.is_contiguous()
+        _close_to_terms(g.cpu(), want.cpu(), mag.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_launch,launches", [(True, 2), (False, 5)])
+def test_dg_rows_3x_kernel_splits_rows(cuda_device, one_launch, launches):
+    rows = (_dg_rows(cuda_device, seed=36) * 2
+            + _dg_rows(cuda_device, seed=37)[:1])
+    before = kernels.launch_counts["dg_rows_3xtf32"]
+    got = kernels.dg_rows_3xtf32(rows, one_launch=one_launch, block_long=16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dg_rows_3xtf32"] == before + launches
+    for g, want in zip(got, kernels.dg_rows_3x_plain(rows)):
+        _close_to_terms(g.cpu(), want.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_dg_rows_3x_kernel_without_factor(cuda_device):
+    rows = [kernels.DGRow(u=r.u, R=r.R, F=None)
+            for r in _dg_rows(cuda_device, u_has_s=True, seed=38)]
+    got = kernels.dg_rows_3xtf32(rows, block_long=32)
+    torch.cuda.synchronize()
+    for g, want in zip(got, kernels.dg_rows_3x_plain(rows)):
+        _close_to_terms(g.cpu(), want.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("X,S_,I,J,u_has_s", [(3, 3, 35, 35, False),
+                                              (1, 4, 35, 15, True),
+                                              (1, 1, 60, 35, False),
+                                              (4, 4, 64, 64, True)])
+def test_dg_rows_3x_smem_formula_matches_the_kernel(cuda_device, X, S_, I,
+                                                    J, u_has_s):
+    assert _build.load_library().dg_rows_3xtf32_smem_bytes(
+        X, S_, I, J, int(u_has_s)) == kernels.dg_rows_3x_smem_bytes(
+        X, S_, I, J, u_has_s)
+
+
+@pytest.mark.cuda
+def test_dg_rows_3x_shared_memory_guard(cuda_device):
+    rows = _dg_rows(cuda_device, S_=4, I=100, J=100, X=4, u_has_s=True)
+    with pytest.raises(ft.InvalidParameterError, match="shared memory"):
+        kernels.dg_rows_3xtf32(rows, block_long=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("permute", [False, True])
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_tc_grid_3x_kernel_matches_plain(cuda_device, case, permute):
+    a, b, c, lengths, grid, grid_m = TC_CASES[case]
+    step = kernels.TCStep(a=tuple(a), b=tuple(b), c=tuple(c),
+                          lengths=tuple(sorted(lengths.items())), grid=grid,
+                          grid_m=grid_m)
+    A, B = _tc_operands(cuda_device, a, b, lengths, 39, permute)
+    before = kernels.launch_counts["tc_grid_3xtf32"]
+    got = kernels.tc_grid_3xtf32(A, B, step)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["tc_grid_3xtf32"] == before + 1
+    want = kernels.tc_grid_3x_plain(A, B, step)
+    assert got.shape == want.shape and got.is_contiguous()
+    _close_to_terms(got.cpu(), want.cpu(),
+                    kernels.tc_grid_plain(A.abs(), B.abs(), step).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", range(len(kernels.TC_TILES)))
+def test_tc_grid_3x_tiles_match_the_kernel(cuda_device, variant):
+    lib = _build.load_library()
+    assert (lib.tc_grid_3xtf32_tile_rows(variant),
+            lib.tc_grid_3xtf32_tile_cols(variant)) == kernels.TC_TILES[variant]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FUSED_ROWS))
+def test_rows_validate_on_card_at_bf16_3x(cuda_device, name):
+    """The fused route at ``bf16_3x`` against the numpy oracle on the card:
+    the rows with a j-dot on ``dg_rows_3xtf32``, the others on their f32
+    kernels."""
+    e = FUSED_ROWS[name]
+
+    def tr(p):
+        return S.default_transform(e)(p).with_descriptor(precision="bf16_3x")
+    before = dict(kernels.launch_counts)
+    ft.validate_batched_einsum_transform(e, tr, long_dim_length=2000,
+                                         device=cuda_device)
+    launched = {k for k, n in kernels.launch_counts.items()
+                if n != before[k]}
+    assert launched
+    assert "dg_rows_f32" not in launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("space,params", [
+    ("tc_pallas_v0", dict(n_grid=2, precision_idx=1, use_opt_path=True)),
+    ("tc_pallas_v1", dict(n_grid=1, blk0_idx=2, blk1_idx=0, m_pos=3,
+                          precision_idx=1)),
+    ("tc_pallas_v1", dict(n_grid=2, blk0_idx=9, blk1_idx=1, m_pos=0,
+                          precision_idx=1)),
+])
+def test_tc_spaces_validate_on_card_at_bf16_3x(cuda_device, space, params):
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+    e = ft.einsum("dfgb,geac->abcdef",
+                  ft.array("A", (7, 9, 11, 2), "float32"),
+                  ft.array("B", (11, 3, 6, 5), "float32"))
+    tr = get_transform_func_from_module_path(space).bind_args(e, **params)
+    before = kernels.launch_counts["tc_grid_3xtf32"]
+    ft.validate_batched_einsum_transform(e, tr, device=cuda_device)
+    assert kernels.launch_counts["tc_grid_3xtf32"] == before + 1
+
+# }}}
+
+
 # {{{ the default device
 
 def test_helpers_take_no_card_unless_asked_for_the_cpu(monkeypatch):
@@ -858,4 +1134,4 @@ def test_library_name_follows_the_sources():
     assert path == _build.library_path()       # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu",
-        "row_reduce.cu", "long_reduce.cu"}
+        "row_reduce.cu", "long_reduce.cu", "dg_rows_3x.cu", "tc_grid_3x.cu"}

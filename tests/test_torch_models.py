@@ -4,7 +4,10 @@ wave step and one Maxwell step at ndof 10 (6 face dofs) from the
 reference's state carried across, within 2e-5 of max|ref|.  The
 reference's fused kernels run in Pallas interpret mode at one grid step
 (``block_long`` >= E; ROADMAP fault F3); the port's run their plain
-versions at several thread blocks.  Also the face-restriction row
+versions at several thread blocks.  The models take their default block
+length from ``suite.BLOCK_LONG`` and bind an archived fact without its
+storage knobs (``fold``, ``preblock``), its precision carried over (the
+reference's own tests of both).  Also the face-restriction row
 ``fji,ei->fej``: it plans onto ``dg_rows_f32`` as a matvec over the merged
 (f, j), and any other stored order of those letters raises."""
 
@@ -115,6 +118,85 @@ def test_restriction_rows_refuse_other_orders(r_perm, out_perm):
         out_layout=out_perm)
     with pytest.raises(ft.InvalidParameterError, match="restriction rows"):
         plan_cuda_launch(program, get_index_lengths(e, E))
+
+
+def test_models_default_to_the_h100_block_length():
+    """Without an archive the models run the reference's default schedule
+    at ``suite.BLOCK_LONG`` (512) elements per thread block, not the TPU's
+    4096."""
+    from feinsum_tpu_torch import suite as S
+    op = ft.WaveOperator3D(ndof=NDOF, nfacedof=NFDOF)
+    assert {p.descriptor.block_long for p in op.programs.values()} == {
+        S.BLOCK_LONG} == {512}
+    assert ft.MaxwellOperator3D(ndof=NDOF).program.descriptor.block_long \
+        == 512
+
+
+def test_wave_model_strips_storage_knobs_from_db_schedules(tmp_path):
+    """An archived fact may set ``fold`` and ``preblock`` (how its schedule
+    stores the arrays on the TPU); the models keep plain dof-major storage,
+    so the fact is bound with them off, as the reference resets
+    ``fold_long`` and ``preblock_args``; block size and precision carry
+    over.  A step matches the reference's."""
+    from feinsum_tpu_torch import sql_utils
+    db = str(tmp_path / "db.sqlite")
+    probe = ft.WaveOperator3D(ndof=NDOF, nfacedof=NFDOF, use_pallas=False)
+    sql_utils.record_facts(
+        probe.grad_einsum, transform_id="dg_grad_v0.py",
+        transform_params={"log2_block": 10, "hoist": True,
+                          "parallel_grid": True, "dofmajor": True,
+                          "fold": True, "preblock": True,
+                          "precision_3x": True},
+        runtime_in_sec=1e-4, device="cpu", db_path=db,
+        long_dim_length=2048)
+    op = ft.WaveOperator3D(ndof=NDOF, nfacedof=NFDOF, db_path=db,
+                           device="cpu")
+    desc = op.programs["grad"].descriptor
+    assert desc.fold_long == 1 and desc.preblock_args == ()
+    assert desc.precision == "bf16_3x"    # the dot's precision carries over
+    assert desc.block_long == 1024
+    assert op.programs["div"].descriptor.precision == "default"
+    grad = op.programs["grad"]
+    assert plan_cuda_launch(grad, get_index_lengths(
+        grad.einsum, E)).kernel == "dg_rows_3xtf32"
+    ref_op = RefWave(ndof=NDOF, nfacedof=NFDOF, block_long=E)
+    state, geom = ref_wave_state(E, ndof=NDOF, nfacedof=NFDOF, seed=5)
+    want = _np(ref_op.make_step(E)(state, geom))
+    st, gm = state_from_reference(_np(state), _np(geom), device="cpu")
+    got = op.make_step(E)(st, gm)
+    for k in want:
+        _close(got[k], want[k])
+
+
+def test_maxwell_model_uses_db_schedule(tmp_path):
+    """The reference's Maxwell case: a ``dg_div_v0.py`` fact with
+    ``precision_3x`` (and ``fold`` and ``preblock``, which the model drops)
+    bound to the curl einsum; the curl runs on ``dg_rows_3xtf32`` at the
+    fact's block and a step matches the reference's."""
+    from feinsum_tpu_torch import sql_utils
+    db = str(tmp_path / "db.sqlite")
+    probe = ft.MaxwellOperator3D(ndof=NDOF, use_pallas=False)
+    sql_utils.record_facts(
+        probe.curl_einsum, transform_id="dg_div_v0.py",
+        transform_params={"log2_block": 9, "hoist": True,
+                          "parallel_grid": True, "dofmajor": True,
+                          "fold": True, "preblock": True,
+                          "precision_3x": True},
+        runtime_in_sec=1e-4, device="cpu", db_path=db,
+        long_dim_length=1024)
+    op = ft.MaxwellOperator3D(ndof=NDOF, db_path=db, device="cpu")
+    desc = op.program.descriptor
+    assert desc.block_long == 512 and desc.precision == "bf16_3x"
+    assert desc.fold_long == 1 and desc.preblock_args == ()
+    assert plan_cuda_launch(op.program, get_index_lengths(
+        op.program.einsum, E)).kernel == "dg_rows_3xtf32"
+    ref_op = RefMaxwell(ndof=NDOF, block_long=E)
+    state, geom = ref_maxwell_state(E, ndof=NDOF, seed=6)
+    want = _np(ref_op.make_step(E, dt=1e-3)(state, geom))
+    st, gm = state_from_reference(_np(state), _np(geom), device="cpu")
+    got = op.make_step(E, dt=1e-3)(st, gm)
+    for k in want:
+        _close(got[k], want[k])
 
 
 def test_models_take_no_card_unless_asked_for_the_cpu(monkeypatch):

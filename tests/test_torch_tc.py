@@ -61,9 +61,9 @@ FIELDS = ("grid_index", "grid_blocks", "grid_m", "arg_layouts", "out_layout",
 # what the reference refuses for the TPU alone (VMEM, Mosaic, unrolling)
 TPU_GUARDS = ("VMEM", "Mosaic", "unroll", "last-two", "carries M, K and N",
               "MiB")
-# what the port refuses by its rulings: bf16_3x, the fold-8 storage, and a
-# resident factor over a Hopper block's shared memory
-PORT_RULINGS = ("bf16_3x", "fold", "shared memory")
+# what the port refuses by its rulings: the fold-8 storage, and a resident
+# factor over a Hopper block's shared memory
+PORT_RULINGS = ("fold", "shared memory")
 
 
 def make_pair(key):
@@ -323,15 +323,21 @@ def test_rulings_on_the_multigrid_fields():
     v1 = get_transform_func_from_module_path("tc_pallas_v1")
     prog = v1.bind_args(e, n_grid=1, blk0_idx=1, blk1_idx=0, m_pos=5,
                         precision_idx=0)(ft.generate_program(e))
-    # bf16_3x raises at bind; a TPU fact's precision_idx 1 is that
-    with pytest.raises(ft.InvalidParameterError, match="bf16_3x"):
-        v1.bind_args(e, n_grid=1, blk0_idx=1, blk1_idx=0, m_pos=5,
-                     precision_idx=1)(ft.generate_program(e))
-    # mstack moves nothing: the same plan and output
+    # bf16_3x (a TPU fact's precision_idx 1) binds: the same tables on
+    # tc_grid_3xtf32
+    p3x = v1.bind_args(e, n_grid=1, blk0_idx=1, blk1_idx=0, m_pos=5,
+                       precision_idx=1)(ft.generate_program(e))
+    assert p3x.descriptor == prog.descriptor.copy(precision="bf16_3x")
     lengths = get_index_lengths(e, 1)
     arrays = apply_layouts(prog, generate_input_arrays(e, long_dim_length=1,
                                                        seed=SEED,
                                                        device="cpu"))
+    plan3x = plan_tc_launch(p3x, lengths)
+    assert plan3x.kernel == "tc_grid_3xtf32"
+    assert_close(plan3x.run(plan3x.operands(arrays))[0].numpy(),
+                 plan_tc_launch(prog, lengths).run(plan_tc_launch(
+                     prog, lengths).operands(arrays))[0].numpy())
+    # mstack moves nothing: the same plan and output
     outs = [plan_tc_launch(p, lengths).run(plan_tc_launch(
         p, lengths).operands(arrays))[0] for p in
         (prog, prog.with_descriptor(mstack=True))]
@@ -401,15 +407,51 @@ def test_tpu_facts_bind_and_plan(archive, space_id, count):
                 continue
             pt = get_transform_func_from_module_path(space_id)
             params = dict(q.transform_params)
-            prog = pt.bind_args(e, **{**params, "precision_idx": 0})(
-                ft.generate_program(e))
-            plan = plan_tc_launch(prog, get_index_lengths(e, 1))
-            assert plan.kernel == "tc_grid_f32"
-            with pytest.raises(ft.InvalidParameterError, match="bf16_3x"):
-                pt.bind_args(e, **{**params, "precision_idx": 1})(
+            for idx, kernel in ((0, "tc_grid_f32"), (1, "tc_grid_3xtf32")):
+                prog = pt.bind_args(e, **{**params, "precision_idx": idx})(
                     ft.generate_program(e))
+                plan = plan_tc_launch(prog, get_index_lengths(e, 1))
+                assert plan.kernel == kernel
             n += 1
     assert n == count
+
+
+# facts that set bf16_3x, by space, and the index that is bf16_3x
+BF16_3X_FACTS = {"tc_xla_v0.py": (134, 2), "ttgt_v0.py": (127, 2),
+                 "tc_pallas_v1.py": (44, 1), "tc_gemm_v0.py": (32, 1),
+                 "ttgt_v1.py": (12, 2), "tc_pallas_v0.py": (4, 1)}
+
+
+@pytest.mark.parametrize("space_id", sorted(BF16_3X_FACTS))
+def test_tpu_facts_that_set_bf16_3x_bind(archive, space_id):
+    """The shipped facts that set ``bf16_3x`` (353 of the six TC spaces')
+    bind and build at that precision but eight of ``tc_gemm_v0``: four
+    that also set ``fold`` raise naming it, and four whose resident factor
+    (R split into hi and lo) exceeds a Hopper block of ``dg_rows_3xtf32``
+    raise naming its shared memory."""
+    count, index = BF16_3X_FACTS[space_id]
+    n = n_fold = n_smem = 0
+    for e in sql_utils.get_timed_einsums_in_db(db_path=archive):
+        for q in sql_utils.query(e, ft.FakeDevice(TPU), db_path=archive,
+                                 err_if_no_results=False):
+            if q.transform_id != space_id \
+                    or dict(q.transform_params)["precision_idx"] != index:
+                continue
+            n += 1
+            try:
+                prog = q.transform(ft.generate_program(e))
+            except ft.InvalidParameterError as err:
+                if "shared memory" in str(err):
+                    assert "dg_rows_3xtf32" in str(err)
+                    n_smem += 1
+                    continue
+                assert "fold" in str(err) and dict(q.transform_params)["fold"]
+                n_fold += 1
+                continue
+            assert prog.descriptor.precision == "bf16_3x"
+            ft.build_executable(prog, device="cpu")
+    assert n == count
+    assert n_fold == n_smem == (4 if space_id == "tc_gemm_v0.py" else 0)
 
 
 def test_archive_path_on_cpu(tmp_path):
@@ -484,15 +526,17 @@ def test_ttgt_replay_routes_canonical_positions(tmp_path):
 
 def test_space_knobs_change_the_kernel():
     """Every parameter the port's ``tc_pallas_v1`` searches changes the
-    launched kernel: its step (grid, blocks, row letter) or its tables."""
+    launched kernel: which kernel (``precision_idx``), its step (grid,
+    blocks, row letter) or its tables."""
     e, _ = make_pair("tccg35_small")
     v1 = get_transform_func_from_module_path("tc_pallas_v1")
     base = dict(n_grid=2, blk0_idx=1, blk1_idx=1, m_pos=4, precision_idx=0)
     lengths = get_index_lengths(e, 1)
 
     def launched(params):
-        """What the kernel is launched with: the row and column operands'
-        stored letters, the tile variant, the sizes and the tables."""
+        """The kernel and what it is launched with: the row and column
+        operands' stored letters, the tile variant, the sizes and the
+        tables."""
         from feinsum_tpu_torch.ops.tc_emitter import tc_step
         prog = v1.bind_args(e, **params)(ft.generate_program(e))
         step, _ = tc_step(prog, lengths)
@@ -504,15 +548,15 @@ def test_space_knobs_change_the_kernel():
         tables, flags = kernels.tc_tables(step, strides(step.a),
                                           strides(step.b), strides(step.c))
         rows, cols = (step.b, step.a) if shape.swap else (step.a, step.b)
-        return (rows, cols, shape.variant, shape.Mc, shape.Nc, shape.K,
-                shape.ncells, flags, tables.tobytes())
+        return (plan_tc_launch(prog, lengths).kernel, rows, cols,
+                shape.variant, shape.Mc, shape.Nc, shape.K, shape.ncells,
+                flags, tables.tobytes())
     ref = launched(base)
     space = v1.get_param_space(e)
     assert set(space) == {"n_grid", "blk0_idx", "blk1_idx", "m_pos",
                           "precision_idx"}
     for k, p in space.items():
-        if p.low == p.high:
-            continue          # precision_idx: searched over 0 only
+        assert p.low < p.high, k
         changed = []
         for v in range(p.low, p.high + 1):
             if v == base[k]:
