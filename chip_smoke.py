@@ -2,7 +2,8 @@
 """Drive feinsum_tpu_torch's main path once on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --split-only   # phases 1 and 15-17 alone
+    python3 chip_smoke.py --split-only       # phases 1 and 15-17 alone
+    python3 chip_smoke.py --lane-pack-only   # phases 1 and 18 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -103,7 +104,21 @@ Phases; any failure exits non-zero before the final line:
    ``dg_div_v0.py`` point) sets ``precision_3x``, ``fold`` and
    ``preblock``: the model drops the storage knobs, its curl runs on
    ``dg_rows_3xtf32``; 5 steps against the per-step route, timed beside the
-   f32 default.
+   f32 default;
+18. the lane-pack path (``lane_pack_g``) at E = 1M on the rows of the
+   shipped archive's lane-pack facts (div and grad at ndof 4, 10, 20,
+   face-mass at 35/15, matvec at 20, vecmat at 35) and mass and curl at
+   ndof 35: ``lane_pack_dg_f32`` and ``lane_pack_dg_3xtf32`` against their
+   plain versions on the packed DG rows at g = 8 (2e-5 of max|plain|; the 3x
+   within ``split_tolerance`` of the terms); counters reset; each of the
+   104 shipped TPU lane-pack facts bound and replayed as an H100 program
+   (70, the two champions among them, against the plain per-step route
+   within 2e-5; 7 refused naming ``fold``, 2 ``mfold``, 25 shared memory);
+   counters read; the rows tuned with ``lane_pack_g`` searched into a fresh
+   archive under ``build/`` (which champions are packed); each packed point
+   timed in turns against the row's unpacked champion and one
+   ``torch.einsum`` of the logical einsum, beside the logical einsum's
+   bound and the packed program's dense flops.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -113,9 +128,11 @@ the largest of that over the sum of the terms' magnitudes at the entry),
 and ``{"ok": true, "device": {...}}``.  The times of ``dg_rows_f32`` and
 ``ew_product_f32`` are phase 4's rows, those of ``row_reduce_f32`` and
 ``ew_flat_f32`` phase 10's, ``long_reduce_f32``'s phase 12's, the 3x
-kernels' phase 15's; launches are counted over the main path (phase 3),
-the archive replays (phases 6, 8, 10, 16), the consumer flow's calls
-(phase 13) and one step of each model (phases 14, 17).  It imports no JAX.
+kernels' phase 15's, the lane-pack kernels' phase 18's (g = 8, their
+bound that of the logical einsum); launches are counted over the main path
+(phase 3), the archive replays (phases 6, 8, 10, 16, 18), the consumer
+flow's calls (phase 13) and one step of each model (phases 14, 17).  It
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -160,7 +177,9 @@ REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "ew_flat_f32": "feinsum_tpu/ops/pallas_emitter.py:187",
             "row_reduce_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "dd_rows": "feinsum_tpu/ops/dd_emitter.py:233",
-            "tc_grid_f32": "feinsum_tpu/ops/pallas_emitter.py:268"}
+            "tc_grid_f32": "feinsum_tpu/ops/pallas_emitter.py:268",
+            "lane_pack_dg_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "lane_pack_dg_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464"}
 SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
            "ew_flat_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
@@ -169,7 +188,9 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "dd_rows": "feinsum_tpu_torch/csrc/dd_rows.cu",
            "tc_grid_f32": "feinsum_tpu_torch/csrc/tc_grid.cu",
            "dg_rows_3xtf32": "feinsum_tpu_torch/csrc/dg_rows_3x.cu",
-           "tc_grid_3xtf32": "feinsum_tpu_torch/csrc/tc_grid_3x.cu"}
+           "tc_grid_3xtf32": "feinsum_tpu_torch/csrc/tc_grid_3x.cu",
+           "lane_pack_dg_f32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
+           "lane_pack_dg_3xtf32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu"}
 # the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W);
 # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_MS = 3.35e9
@@ -402,6 +423,8 @@ def main() -> int:
 
     if "--split-only" in sys.argv[1:]:
         return split_only(dev, card)
+    if "--lane-pack-only" in sys.argv[1:]:
+        return lane_pack_only(dev, card)
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -555,12 +578,15 @@ def main() -> int:
     t_phase = time.perf_counter()
     split_launches["dg_rows_3xtf32"] += maxwell_from_archive(dev, label)
     log(f"[phase] 17 (Maxwell at bf16_3x from an archive):"
-        f" {time.perf_counter() - t_phase:.1f} s;"
-        f" all phases {time.perf_counter() - t0:.1f} s")
+        f" {time.perf_counter() - t_phase:.1f} s")
     for k, n in split_launches.items():
         if n < 1:
             raise SmokeFailure(f"{k} was not launched on the bf16_3x path")
         launches[k] = launches.get(k, 0) + n
+    t_phase = time.perf_counter()
+    launches.update(lane_pack_path(dev, label, stats))
+    log(f"[phase] 18 (lane-pack path): {time.perf_counter() - t_phase:.1f} s;"
+        f" all phases {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k]) for k in SOURCES]
     for entry in entries:
@@ -600,6 +626,23 @@ def split_only(dev, card: str) -> int:
     log(card)
     log(json.dumps({"kernels": [stats.entry(k, launches[k])
                                 for k in SPLIT_KERNELS]}))
+    return 0
+
+
+def lane_pack_only(dev, card: str) -> int:
+    """Phase 18 alone, for work on the lane-pack path: its checks, tuning
+    and times, and the lane-pack kernels' entries of the ``kernels`` line
+    (launches from its replays).  It prints no ``ok`` line."""
+    import torch
+    label = (f"[{torch.cuda.get_device_name(0)}, power limit"
+             f" {card.split(',')[-1].strip()}]")
+    stats = KernelStats()
+    t0 = time.perf_counter()
+    launches = lane_pack_path(dev, label, stats)
+    log(f"[phase] 18: {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": [stats.entry(k, launches[k])
+                                for k in LP_KERNELS]}))
     return 0
 
 
@@ -1912,6 +1955,297 @@ def maxwell_from_archive(dev, label: str) -> int:
                     ndof=m["ndof"]).make_step(E)})
     del state, geom
     torch.cuda.empty_cache()
+    return launches
+
+
+# phase 18's rows: the rows of the shipped archive's lane-pack facts (div
+# and grad at ndof 4, 10 and 20, face-mass at 35/15, matvec at 20, vecmat
+# at 35) and mass and curl at ndof 35, each with its space and the packed
+# points (lane_pack_g) it tunes and times: the g the reference's guards
+# admit (8-aligned lanes, at most 4096) whose resident fits a Hopper block
+LP_KERNELS = ("lane_pack_dg_f32", "lane_pack_dg_3xtf32")
+LP_TIMED_G = 3          # the packed point whose kernel times enter the line
+
+
+def lane_pack_rows() -> list:
+    """``(name, einsum, space, lane_pack_g values)`` of phase 18."""
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import suite as S
+    vecmat = ft.einsum("ej,j->e", ft.array("A", ("E", 35), "float32"),
+                       ft.array("x", (35,), "float32"))
+    dg = (3, 4, 5)
+    return ([(f"dg_div_ndof{n}", S.make_div(n), "dg_div_v0", dg)
+             for n in (4, 10, 20)]
+            + [(f"dg_grad_ndof{n}", S.make_grad(n), "dg_grad_v0", dg)
+               for n in (4, 10, 20)]
+            + [("dg_face_mass", S.make_face_mass(), "face_mass_v0", dg),
+               ("dg_mass_ndof35", S.make_mass(35), "mass_v0", dg),
+               ("dg_curl_ndof35", S.make_curl(35), "curl_3d_v0", dg),
+               ("matvec_ndof20", S.make_matvec(20), "mass_v0", (1, 2, 3)),
+               ("vecmat_ndof35", vecmat, "mass_v0", (3,))])
+
+
+def _packed_flops(program, length: int) -> float:
+    """The packed program's own flops (its schedule's, dense kron dots
+    included) at *length* elements."""
+    from feinsum_tpu_torch.measure import evaluate_giga_op_map, \
+        get_giga_op_map
+    return 1e9 * sum(evaluate_giga_op_map(get_giga_op_map(
+        program.einsum, program.schedule),
+        length * program.descriptor.rowcat // program.descriptor.lane_pack
+    ).values())
+
+
+def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
+    """Phase 18, the lane-pack path: (1) ``lane_pack_dg_f32`` and its 3x
+    variant against their plain versions on the packed DG rows at E = 1M;
+    (2) counters reset, every shipped TPU lane-pack fact (a copy of the
+    shipped archive, read through its device key) bound and replayed as an
+    H100 program at E = 1M, the two champions among them, each against the
+    plain per-step route, or refused naming ``fold``, ``mfold`` or shared
+    memory; (3) the rows tuned with ``lane_pack_g`` searched into a fresh
+    archive, which rows chose a packed point; (4) each packed point timed
+    in turns against the row's unpacked champion and one ``torch.einsum``
+    of the logical einsum.  Adds the kernels' times at g = 8 to *stats*;
+    returns the launches of step (2) and of the champions' replays."""
+    import shutil
+
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import sql_utils
+    from feinsum_tpu_torch.codegen.program import (
+        generate_program_with_opt_einsum_schedule, get_index_lengths,
+        stored_lengths)
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        evaluate_giga_op_map, generate_input_arrays, get_giga_op_map
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.lane_pack import expand_residents
+    from feinsum_tpu_torch.suite import candidate_transforms, space_point
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    def program_of(space, e, **knobs):
+        return get_transform_func_from_module_path(space).bind_args(
+            e, **space_point(space, e, **knobs))(ft.generate_program(e))
+
+    def planned(program, arrays):
+        """(plan, kernel operands) of *program* on stored *arrays*."""
+        plan = plan_cuda_launch(program, stored_lengths(
+            program, get_index_lengths(program.einsum, E_FULL)))
+        return plan, plan.operands(expand_residents(program, arrays))
+
+    def per_step_check(name, e, program, logical, outs) -> float:
+        """*outs* of *program* against the plain per-step route of *e*;
+        the largest error over max|per-step|."""
+        wants = ft.build_executable(
+            generate_program_with_opt_einsum_schedule(e),
+            long_dim_length=E_FULL, device=dev)(logical)
+        if program.descriptor.rowcat > 1:
+            outs = list(ft.unpack_output(program, outs[0],
+                                         tuple(wants[0].shape)))
+        else:
+            outs = [ft.unpack_output(program, o, tuple(w.shape))
+                    for o, w in zip(outs, wants)]
+        worst = 0.0
+        for got, want in zip(outs, wants):
+            worst = max(worst, max_err(got, want)[1])
+        if worst > RTOL:
+            raise SmokeFailure(f"{name}: the packed replay differs from the"
+                               f" per-step route by {worst:.2e}")
+        return worst
+
+    rows = lane_pack_rows()
+
+    # (1) the kernels against their plain versions
+    for name, e, space, lgs in rows:
+        for split in (False, True):
+            program = program_of(space, e, lane_pack_g=LP_TIMED_G,
+                                 precision_3x=split)
+            arrays = apply_layouts(program, generate_input_arrays(
+                e, long_dim_length=E_FULL, seed=1, device=dev))
+            plan, operands = planned(program, arrays)
+            if plan.kernel not in LP_KERNELS:
+                break
+            if plan.kernel != LP_KERNELS[split]:
+                raise SmokeFailure(f"{name} plans onto {plan.kernel}")
+            got = plan.run(operands)
+            want = plan.plain(operands)
+            terms = plan.plain(magnitudes(operands))
+            torch.cuda.synchronize()
+            K = max(operands[0].u.shape[2], operands[0].J.shape[2])
+            for g_, w, t in zip(got, want, terms):
+                _, rel = max_err(g_, w)
+                over = note_error(plan.kernel, g_, w, t)
+                tol = split_tolerance(K)
+                ok = over <= tol if split else rel <= RTOL
+                log(f"[compare] {plan.kernel} {name} g ="
+                    f" {2 ** LP_TIMED_G} E={E_FULL}: max|kernel-plain| ="
+                    f" {rel:.2e} of max|plain|, {over:.2e} of the terms'"
+                    f" magnitudes (tolerance"
+                    f" {tol if split else RTOL:.2e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SmokeFailure(f"{plan.kernel} disagrees with its"
+                                       f" plain version on {name}")
+            del got, want, terms, operands, arrays
+        torch.cuda.empty_cache()
+
+    # (2) the shipped TPU lane-pack facts replayed as H100 programs
+    shipped = HERE / "build" / "chip_smoke" / "tpu_archive.sqlite"
+    shipped.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(HERE / "feinsum_tpu" / "data"
+                / "transform_archive_v1_tpu.sqlite", shipped)
+    tpu = ft.FakeDevice("TPU_v5_lite")
+    kernels.reset_launch_counts()
+    outcomes = {"built": 0, "fold": 0, "mfold": 0, "shared memory": 0}
+    t0 = time.perf_counter()
+    for e in sql_utils.get_timed_einsums_in_db(db_path=str(shipped)):
+        facts = sql_utils.query(e, tpu, db_path=str(shipped),
+                                err_if_no_results=False)
+        packed = [q for q in facts
+                  if dict(q.transform_params).get("lane_pack_g")]
+        if not packed:
+            continue
+        champion = sql_utils.aggregate_reconfirmations(facts)[0]
+        logical = generate_input_arrays(e, long_dim_length=E_FULL,
+                                        device=dev)
+        for q in packed:
+            params = dict(q.transform_params)
+            try:
+                program = q.transform(ft.generate_program(e))
+                fn = ft.build_executable(program, long_dim_length=E_FULL,
+                                         device=dev)
+            except ft.InvalidParameterError as err:
+                why = next(w for w in ("mfold", "fold", "shared memory")
+                           if w in str(err))
+                outcomes[why] += 1
+                continue
+            outcomes["built"] += 1
+            before = dict(kernels.launch_counts)
+            outs = fn(apply_layouts(program, logical))
+            torch.cuda.synchronize()
+            ran = [k for k, n in kernels.launch_counts.items()
+                   if n != before[k]]
+            rel = per_step_check(e.get_subscripts(), e, program, logical,
+                                 outs)
+            is_champion = (q.transform_id, q.transform_params) == (
+                champion.transform_id, champion.transform_params)
+            log(f"[lane-pack] TPU fact {q.transform_id} {e.get_subscripts()}"
+                f" g = {2 ** params['lane_pack_g']}"
+                f"{' (the champion)' if is_champion else ''}"
+                f"{' bf16_3x' if params.get('precision_3x') else ''}: ran"
+                f" {ran} at E={E_FULL}, max|replay-per-step| = {rel:.2e}"
+                f" of max|per-step|")
+            del outs
+        del logical
+        torch.cuda.empty_cache()
+    launches = {k: kernels.launch_counts[k] for k in LP_KERNELS}
+    log(f"[lane-pack] the 104 shipped lane-pack facts: {outcomes}; launch"
+        f" counts over the replays: {dict(kernels.launch_counts)}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    if outcomes != {"built": 70, "fold": 7, "mfold": 2, "shared memory": 25}:
+        raise SmokeFailure(f"the shipped lane-pack facts bound as {outcomes}")
+    for k, n in launches.items():
+        if n < 1:
+            raise SmokeFailure(f"{k} was not launched by the replays")
+
+    # (3) tune with lane_pack_g searched into a fresh archive
+    db = HERE / "build" / "chip_smoke" / "lane_pack_archive.sqlite"
+    db.unlink(missing_ok=True)
+    chose = {}
+    for name, e, space, lgs in rows:
+        seeds = [space_point(space, e)] + [
+            space_point(space, e, lane_pack_g=lg) for lg in lgs]
+        t0 = time.perf_counter()
+        ft.autotune(e, space, db_path=str(db), device=dev,
+                    long_dim_length=E_FULL, test_limit=len(seeds),
+                    seed_configs=seeds)
+        facts = sql_utils.aggregate_reconfirmations(
+            ft.query(e, dev, db_path=str(db)))
+        winner = next(candidate_transforms(name, e, db_path=str(db),
+                                           device=dev))
+        chose[name] = dict(winner.fact.transform_params)["lane_pack_g"]
+        log(f"[tune] {name}: {len(facts)} facts in"
+            f" {time.perf_counter() - t0:.1f} s, champion lane_pack_g ="
+            f" {chose[name]}; " + "; ".join(
+                f"g = {2 ** dict(q.transform_params)['lane_pack_g']}:"
+                f" {q.runtime_in_sec * 1e3:.4f} ms" for q in facts)
+            + f" {label}")
+        if len(facts) != len(seeds):
+            raise SmokeFailure(f"{name}: expected {len(seeds)} facts")
+    log(f"[tune] rows whose champion is a packed point:"
+        f" {sorted(k for k, v in chose.items() if v)}; unpacked:"
+        f" {sorted(k for k, v in chose.items() if not v)} {label}")
+
+    # (4) each packed point in turns against the unpacked champion and the
+    # library call, at the same width; the kernels' times at g = 8
+    for name, e, space, lgs in rows:
+        unpacked = sql_utils.retrieve(
+            e, dev, db_path=str(db),
+            filter_in=lambda q: not dict(q.transform_params)["lane_pack_g"])
+        base = unpacked(ft.generate_program(e))
+        logical = generate_input_arrays(e, long_dim_length=E_FULL,
+                                        device=dev)
+        subs = e.get_subscripts().replace(" ", "")
+        t_bytes, t_ops = row_bound(e, E_FULL)
+        flops = 1e9 * sum(evaluate_giga_op_map(get_giga_op_map(e),
+                                               E_FULL).values())
+        for lg in lgs:
+            program = program_of(space, e, lane_pack_g=lg)
+            arrays = apply_layouts(program, logical)
+            routes = {"packed": ft.build_executable(
+                          program, long_dim_length=E_FULL, device=dev),
+                      "unpacked": ft.build_executable(
+                          base, long_dim_length=E_FULL, device=dev),
+                      "library": lambda a, e=e: [
+                          torch.einsum(subs, *[a[x.name] for x in row])
+                          for row in e.args]}
+            args = {"packed": arrays, "unpacked": apply_layouts(base, logical),
+                    "library": logical}
+            kernel = None
+            if lg == LP_TIMED_G and e.n == 3:
+                plan, operands = planned(program, arrays)
+                split = program_of(space, e, lane_pack_g=lg,
+                                   precision_3x=True)
+                plan3, _ = planned(split, arrays)
+                kernel = plan.kernel
+                expanded = expand_residents(program, arrays)
+                routes.update({
+                    "kernel": lambda a, plan=plan: plan.run(plan.operands(a)),
+                    "plain": lambda a, plan=plan: plan.plain(
+                        plan.operands(a)),
+                    "3x kernel": lambda a, plan=plan3: plan.run(
+                        plan.operands(a)),
+                    "3x plain": lambda a, plan=plan3: plan.plain(
+                        plan.operands(a))})
+                args.update({k: expanded for k in ("kernel", "plain",
+                                                   "3x kernel", "3x plain")})
+                del operands
+            times = timed_in_turns(routes, args)
+            ms = {k: sum(v) / len(v) for k, v in times.items()}
+            log(f"[lane-pack] {name} g = {2 ** lg}: packed point"
+                f" {ms['packed']:.4f} ms, unpacked champion"
+                f" {ms['unpacked']:.4f} ms, torch.einsum"
+                f" {ms['library']:.4f} ms; bound"
+                f" {max(t_bytes, t_ops):.4f} ms"
+                f" ({'bytes' if t_bytes >= t_ops else 'operations'}) of the"
+                f" logical einsum, packed program"
+                f" {_packed_flops(program, E_FULL) / 1e9:.1f} GFLOP (dense)"
+                f" against the logical {flops / 1e9:.1f} GFLOP (runs"
+                f" {times}) {label}")
+            if kernel is not None:
+                log(f"[lane-pack] {name} g = {2 ** lg}: {kernel}"
+                    f" {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms;"
+                    f" lane_pack_dg_3xtf32 {ms['3x kernel']:.4f} ms, plain"
+                    f" {ms['3x plain']:.4f} ms {label}")
+                stats.add("lane_pack_dg_f32", e, E_FULL, ms["kernel"],
+                          ms["plain"], ms["library"])
+                stats.add("lane_pack_dg_3xtf32", e, E_FULL,
+                          ms["3x kernel"], ms["3x plain"], ms["library"],
+                          None, "bf16_3x", flops)
+            del arrays, args, routes
+            torch.cuda.empty_cache()
+        del logical
     return launches
 
 

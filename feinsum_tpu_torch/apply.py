@@ -70,15 +70,21 @@ def _per_call_relayout_seconds(program, idx_lengths):
     """Estimated seconds per call that *program*'s storage contract costs
     when it is applied to the caller's tensors: ``arg_layouts``,
     ``out_layout`` and ``pre_layouts`` at the permute-copy rate, ``rowcat``
-    stacking and ``dd_pairs`` splitting at the streaming rate."""
+    stacking and ``dd_pairs`` splitting at the streaming rate.  Lane
+    packing costs nothing: (E, d) -> (E/g, g·d) is a view of the caller's
+    row-major tensor, where the reference charges it as a retile under the
+    TPU's (8, 128) tiling, which has no Hopper meaning.  The kron-expanded
+    residents are a few MB built once per call and are not charged; the
+    ``rowcat`` and ``dofmajor`` copies of a packed program are, at their
+    packed sizes."""
     from .codegen.program import output_dtype
     from .einsum import SizeParam
 
     e = program.einsum
     desc = program.descriptor
-    # build_executable stretches every SizeParam axis by rowcat
-    rc = desc.rowcat or 1
-    stretched = {ix: (int(ln) * rc if isinstance(
+    # build_executable stretches every SizeParam axis by rowcat and divides
+    # it by lane_pack
+    stretched = {ix: (int(ln) * desc.rowcat // desc.lane_pack if isinstance(
         e.index_to_dim_length.get(ix), SizeParam) else int(ln))
         for ix, ln in idx_lengths.items()}
     sizes = {}

@@ -148,14 +148,40 @@ class ScheduleDescriptor:
         With ``backend="xla"`` it raises.
     :attr interpret: ``None`` or ``False``; ``True`` raises (a CUDA kernel
         has no interpret mode; CPU tensors take the plain versions).
+    :attr lane_pack, lane_pack_args, kron_args, lane_pack_expand: the
+        lane-pack rewrites' storage contract (``tuning/impls/_common.py::
+        rewrite_lane_pack`` and ``rewrite_lane_pack_dg``): the program's
+        einsum is rewritten so that ``lane_pack`` = g consecutive elements
+        share one packed row.  On the card this means:
+
+        * storage: each ``lane_pack_args`` operand (an entry is a name, or
+          ``(name, n_lead)`` with the long axis after *n_lead* leading
+          axes) is stored (lead..., E/g, g·rest), a free view of the
+          row-major tensor (:func:`~feinsum_tpu_torch.measure.
+          apply_layouts`), and so is the output (:func:`~feinsum_tpu_torch.
+          ops.layouts.unpack_output`; the vecmat variant's is (E/g, g));
+          :func:`~feinsum_tpu_torch.codegen.program.build_executable`
+          divides the long axis by g and raises when g does not divide it;
+        * residents: each ``kron_args`` operand (a name, or ``(name,
+          perm)``) arrives in its logical shape and is expanded on the
+          card once per call, transposed by *perm*, to the block-diagonal
+          kron(I_g, ·) over its last two axes (a vector x to kron(I_g,
+          x[:, None])); each ``lane_pack_expand`` entry ``(name, "P", g,
+          d, dtype)`` or ``(name, "A", g, s, d, dtype)`` is a 0/1
+          expansion matrix built there too.  Callers never pass them;
+        * schedule: the packed matvec and vecmat are two-operand matvecs
+          over g·d, rows of ``dg_rows_f32`` (``dg_rows_3xtf32`` at
+          ``bf16_3x``); the packed DG program runs its three-step schedule
+          (``V = u'·T``, ``W = J'·EXP``, the product summed over the shared
+          axes) on ``lane_pack_dg_f32`` (``lane_pack_dg_3xtf32``), which
+          does the dense kron dots the TPU kernel does, g times the
+          multiply-adds of the unpacked row.
     :attr flags: free-form, carried and ignored.
 
-    Fields that raise at any value but their default, with the ROADMAP.md
-    item that will bring them: ``lane_pack``, ``lane_pack_args``,
-    ``kron_args`` and ``lane_pack_expand`` (the lane-pack rewrites, queue 2
-    K1 remainder).  ``fold_long``, ``preblock_args``, ``mfold`` and
-    ``vmem_limit_bytes`` describe the TPU's (8, 128) tiling, its MXU and its
-    VMEM; a Hopper analog, if one pays, is tuner work.
+    Fields that raise at any value but their default: ``fold_long``,
+    ``preblock_args``, ``mfold`` and ``vmem_limit_bytes`` describe the
+    TPU's (8, 128) tiling, its MXU and its VMEM; a Hopper analog, if one
+    pays, is tuner work.
 
     The DG spaces' knobs (``tuning/impls/_common.py::make_dg_space``) on
     the card: ``log2_block``/``blkc128`` set ``block_long``; ``dofmajor``,
@@ -165,8 +191,9 @@ class ScheduleDescriptor:
     same launch (pinned); ``vmem_idx`` is accepted and ignored, as in
     ``dd_pallas_v0`` and ``tc_gemm_v0`` (no ``vmem_limit_bytes``);
     ``precision_3x`` sets ``precision="bf16_3x"`` (searched where the row
-    reaches ``dg_rows_3xtf32``); ``fold``, ``preblock``, ``mfold`` and
-    ``lane_pack_g > 0`` raise (pinned off).
+    reaches ``dg_rows_3xtf32``); ``lane_pack_g`` applies a lane-pack
+    rewrite with g = 2**lane_pack_g (searched where the reference searches
+    it); ``fold``, ``preblock`` and ``mfold`` raise (pinned off).
     """
 
     backend: str = "xla"
@@ -220,10 +247,6 @@ class ScheduleDescriptor:
 
 # field -> ROADMAP.md item that will bring a non-default value
 _UNPORTED = {
-    "lane_pack": "queue 2 K1 remainder (lane-pack rewrites)",
-    "lane_pack_args": "queue 2 K1 remainder (lane-pack rewrites)",
-    "kron_args": "queue 2 K1 remainder (lane-pack rewrites)",
-    "lane_pack_expand": "queue 2 K1 remainder (lane-pack rewrites)",
     "fold_long": "North star: a TPU (8, 128) tiling knob",
     "preblock_args": "North star: a TPU (8, 128) tiling knob",
     "mfold": "North star: a TPU MXU row-packing knob",
@@ -293,3 +316,9 @@ def check_supported(desc: ScheduleDescriptor) -> None:
         raise InvalidParameterError(
             f"rowcat={desc.rowcat} needs rowcat_args (and they need"
             " rowcat > 1)")
+    if desc.lane_pack < 1 or (desc.lane_pack > 1) != bool(
+            desc.lane_pack_args) or (desc.lane_pack == 1 and (
+                desc.kron_args or desc.lane_pack_expand)):
+        raise InvalidParameterError(
+            f"lane_pack={desc.lane_pack} needs lane_pack_args (and they,"
+            " kron_args and lane_pack_expand need lane_pack > 1)")

@@ -196,6 +196,18 @@ def _xla_chunked_fn(program: EinsumProgram, index_to_length: dict,
 def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
                              device: Optional[torch.device]):
     check_supported(program.descriptor)
+    if program.descriptor.kron_args or program.descriptor.lane_pack_expand:
+        # the lane-pack contract: residents arrive in their logical shape
+        # and are expanded on the operands' device once per call, on every
+        # route; callers never pass the expansion matrices
+        from ..ops.lane_pack import expand_residents
+        packed = _build_executable_cached(
+            program.with_descriptor(kron_args=(), lane_pack_expand=()),
+            lengths_key, device)
+
+        def expanded(arrays_by_name: dict):
+            return packed(expand_residents(program, arrays_by_name))
+        return expanded
     if program.descriptor.dd_pairs:
         from ..ops.dd_emitter import build_dd_executable
         inner = build_dd_executable(program, dict(lengths_key))
@@ -229,6 +241,27 @@ def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
     return on_device
 
 
+def stored_lengths(program: EinsumProgram, index_to_length: dict) -> dict:
+    """The index lengths *program*'s kernels see for the caller's
+    *index_to_length*: ``bind_lengths`` override, the long axis stretched
+    by ``rowcat`` and then divided by ``lane_pack``; raises
+    :class:`InvalidParameterError` when g does not divide it."""
+    desc = program.descriptor
+    out = dict(index_to_length)
+    for ix, ln in desc.bind_lengths:
+        out[ix] = int(ln)
+    for ix, ln in program.einsum.index_to_dim_length.items():
+        if not isinstance(ln, SizeParam):
+            continue
+        out[ix] *= desc.rowcat
+        if out[ix] % desc.lane_pack:
+            raise InvalidParameterError(
+                f"lane_pack={desc.lane_pack} requires the long axis length"
+                f" ({out[ix]}) divisible by it")
+        out[ix] //= desc.lane_pack
+    return out
+
+
 def build_executable(program: EinsumProgram, *,
                      long_dim_length: int = 100_000,
                      index_to_length: Optional[dict] = None,
@@ -239,19 +272,15 @@ def build_executable(program: EinsumProgram, *,
     apply_layouts`).  With *device*, the executable refuses tensors that lie
     elsewhere.  Executables are cached on (program, lengths, device).  The
     descriptor's ``bind_lengths`` override the caller's lengths: they fix
-    the axes of a rewritten program to the original einsum's, and a
+    the axes of a rewritten program to the original einsum's, a
     row-concatenation rewrite (``descriptor.rowcat`` = b) stretches the long
-    axis b-fold: its rows lie end to end."""
+    axis b-fold (its rows lie end to end) and a lane-pack rewrite
+    (``descriptor.lane_pack`` = g) divides it by g, in that order
+    (:func:`stored_lengths`)."""
     if index_to_length is None:
         index_to_length = get_index_lengths(program.einsum, long_dim_length)
-    index_to_length = dict(index_to_length)
-    for ix, ln in program.descriptor.bind_lengths:
-        index_to_length[ix] = int(ln)
-    if program.descriptor.rowcat > 1:
-        for ix, ln in program.einsum.index_to_dim_length.items():
-            if isinstance(ln, SizeParam):
-                index_to_length[ix] *= program.descriptor.rowcat
-    lengths_key = tuple(sorted(index_to_length.items()))
+    lengths_key = tuple(sorted(stored_lengths(program,
+                                              index_to_length).items()))
     dev = None
     if device is not None:
         dev = torch.device(device)

@@ -41,7 +41,11 @@ from .contraction_schedule import (
 )
 from .data.device_info import DEV_TO_PEAK_BW, DEV_TO_PEAK_GFLOPS, \
     get_device_key
-from .diagnostics import NoDevicePeaksInfoError, TransformValidationError
+from .diagnostics import (
+    InvalidParameterError,
+    NoDevicePeaksInfoError,
+    TransformValidationError,
+)
 from .einsum import BatchedEinsum, SizeParam
 
 DTYPE_TO_RTOL = {
@@ -95,8 +99,10 @@ def apply_layouts(program: EinsumProgram, arrays: dict) -> dict:
     """Pack logical (einsum-shaped) tensors into *program*'s stored layout,
     in the reference's order: first each ``rowcat_args`` group, the rows'
     streamed operands stacked end to end along their leading long axis
-    into the rewritten program's operand, then each ``pre_layouts``
-    grouping (a
+    into the rewritten program's operand, then each ``lane_pack_args``
+    operand packed, (lead..., E, rest...) -> (lead..., E/g, g·rest) (a
+    view of a contiguous tensor; :class:`InvalidParameterError` when g does
+    not divide E), then each ``pre_layouts`` grouping (a
     rewritten program's operands, e.g. a tensor-contraction operand stored
     as a GEMM-natural 2D matrix, :func:`~feinsum_tpu_torch.ops.layouts.
     apply_nested_layout`), then each ``arg_layouts`` permutation, both
@@ -113,6 +119,16 @@ def apply_layouts(program: EinsumProgram, arrays: dict) -> dict:
         out[new_name] = (np.concatenate(stack, axis=0)
                          if isinstance(stack[0], np.ndarray)
                          else torch.cat(stack, dim=0))
+    g = program.descriptor.lane_pack
+    for entry in program.descriptor.lane_pack_args:
+        name, n_lead = entry if isinstance(entry, tuple) else (entry, 0)
+        arr = out[name]
+        if arr.shape[n_lead] % g:
+            raise InvalidParameterError(
+                f"lane_pack={g} requires {name}'s long axis"
+                f" ({arr.shape[n_lead]}) divisible by it")
+        out[name] = arr.reshape(tuple(arr.shape[:n_lead])
+                                + (arr.shape[n_lead] // g, -1))
     for name, nested in program.descriptor.pre_layouts:
         out[name] = apply_nested_layout(out[name], nested)
     for name, perm in program.descriptor.arg_layouts_map.items():
@@ -269,12 +285,16 @@ def validate_batched_einsum_transform(
     """Run the transformed program on *device* and compare against
     numpy.einsum; raises :class:`TransformValidationError` on mismatch
     (the rule of ``feinsum_tpu.measure.validate_batched_einsum_transform``:
-    ``allclose`` at the dtype's rtol with atol = rtol * max|ref|)."""
+    ``allclose`` at the dtype's rtol with atol = rtol * max|ref|).  A
+    lane-packed program is validated at *long_dim_length* rounded up to a
+    multiple of g, as in the reference."""
     program = generate_program(einsum)
     if transform is not None:
         program = transform(program)
         if not isinstance(program, EinsumProgram):
             raise TypeError("transform must return an EinsumProgram")
+    lane_g = program.descriptor.lane_pack
+    long_dim_length += -long_dim_length % lane_g
 
     np_arrays = generate_input_arrays(einsum, long_dim_length=long_dim_length,
                                       seed=seed, as_numpy=True)
@@ -304,6 +324,11 @@ def validate_batched_einsum_transform(
             # a rewritten program's output is grouped (e.g. GEMM-natural 2D)
             from .ops.layouts import apply_nested_layout
             ref = apply_nested_layout(ref, pre_out)
+        if lane_g > 1:
+            # packed: (lead..., E/g, g·d), and (E/g, g) for the 1-D vecmat
+            ref = (ref.reshape(ref.shape[0] // lane_g, -1) if ref.ndim == 1
+                   else ref.reshape(ref.shape[:-2]
+                                    + (ref.shape[-2] // lane_g, -1)))
         if out_layout is not None:
             ref = np.transpose(ref, tuple(int(p) for p in out_layout))
         tol = rtol if rtol is not None else DTYPE_TO_RTOL.get(

@@ -35,7 +35,7 @@ from ..codegen.program import (
     generate_program,
     generate_program_with_opt_einsum_schedule,
 )
-from ..diagnostics import NoFactInDatabaseError
+from ..diagnostics import InvalidParameterError, NoFactInDatabaseError
 from ..make_einsum import array, batched_einsum, einsum
 from ..ops.layouts import dofmajor_layouts
 from ..suite import BLOCK_LONG
@@ -66,7 +66,10 @@ def archived_or_default(e, *, db_path, device, use_pallas: bool,
     precision carry over, the archive's storage choices do not: the fact is
     bound with its :data:`STORAGE_KNOBS` off (the reference resets the
     ``fold_long`` and ``preblock_args`` they set), so a fact that sets them
-    replays here too."""
+    replays here too.  A lane-pack fact (``lane_pack_g`` > 0) rewrites the
+    einsum itself to packed operands, which the models' dof-major state is
+    not: it raises :class:`InvalidParameterError` here, where the
+    reference's models bind it and fail in their step on the shapes."""
     program = generate_program(e)
     fact = None
     if db_path is not None:
@@ -79,6 +82,12 @@ def archived_or_default(e, *, db_path, device, use_pallas: bool,
         params = tuple((k, False if k in STORAGE_KNOBS else v)
                        for k, v in fact.transform_params)
         program = replace(fact, transform_params=params).transform(program)
+        if program.descriptor.lane_pack > 1:
+            raise InvalidParameterError(
+                f"the archived {fact.transform_id} fact for"
+                f" {e.get_subscripts()} sets lane_pack_g (g ="
+                f" {program.descriptor.lane_pack}): its packed operands do"
+                " not fit the model's dof-major state")
     else:
         program = _default_transform(program, use_pallas=use_pallas,
                                      block_long=block_long)

@@ -62,6 +62,12 @@ _SIGNATURES = (
     ("tc_grid_3xtf32", _I, (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P)),
     ("tc_grid_3xtf32_tile_rows", _I, (_I,)),
     ("tc_grid_3xtf32_tile_cols", _I, (_I,)),
+    ("lane_pack_dg_f32", _I, (_I, _PP, _I64P, _I64P, _IP, _I, _I, _I, _I,
+                              _I64, _I, _I, _I, _I, _P)),
+    ("lane_pack_dg_3xtf32", _I, (_I, _PP, _I64P, _I64P, _IP, _I, _I, _I, _I,
+                                 _I64, _I, _I, _I, _I, _P)),
+    ("lane_pack_dg_smem_bytes", ctypes.c_size_t, (_I, _I)),
+    ("lane_pack_dg_max_rows", _I, ()),
 )
 
 # what the last build printed (nvcc's -Xptxas -v register and shared-memory

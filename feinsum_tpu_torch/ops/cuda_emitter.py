@@ -30,11 +30,16 @@ launch:
   merged output letters as its ``i`` (``ops/dg_rows.py::
   plan_restrict_row``);
 * a row in the DG family (``ops/dg_rows.py::plan_row``) goes to
-  ``dg_rows_f32``.
+  ``dg_rows_f32``, and so do the lane-packed matvec and vecmat (plain
+  matvecs over g·d, their resident the kron-expanded one);
+* a lane-packed DG program (four operands J', EXP, T, u' in the rewrite's
+  three-step schedule, ``ops/lane_pack.py::plan_lane_pack_dg``) goes to
+  ``lane_pack_dg_f32``.
 
 At ``precision="bf16_3x"`` the rows that go to ``dg_rows_f32`` (DG rows and
 restriction rows) go to its 3xTF32 variant ``dg_rows_3xtf32`` instead: the
-j-dot in three TF32 tensor-core passes.  The other kernels have no 3x
+j-dot in three TF32 tensor-core passes; a packed DG program goes to
+``lane_pack_dg_3xtf32``, both dots split.  The other kernels have no 3x
 variant, since the reference applies the split only to its dots; a
 ``bf16_3x`` row planned onto one of them runs it in f32 and counts under
 its name in ``kernels.launch_counts``.
@@ -66,6 +71,7 @@ from .dg_rows import (
 )
 from .kernels import (
     DGRow,
+    LanePackDGRow,
     LongReduceRow,
     LongReduceShape,
     ReduceRow,
@@ -77,10 +83,22 @@ from .kernels import (
     ew_flat_f32,
     ew_product_f32,
     ew_product_plain,
+    lane_pack_dg_3x_plain,
+    lane_pack_dg_3xtf32,
+    lane_pack_dg_f32,
+    lane_pack_dg_plain,
     long_reduce_f32,
     long_reduce_plain,
     row_reduce_f32,
     row_reduce_plain,
+)
+from .lane_pack import (
+    EXP_POS,
+    J_POS,
+    T_POS,
+    U_POS,
+    lane_pack_dg_shape,
+    plan_lane_pack_dg,
 )
 from .layouts import stored_arg_layouts, stored_out_letters
 
@@ -354,6 +372,8 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
                     f" {stored[name]} needs {shape}")
         return arrays_by_name
 
+    if desc.lane_pack > 1 and e.n == 4:
+        return _plan_lane_pack_dg(program, lengths, checked)
     if _is_pure_product(program):
         return KernelPlan(
             kernel="ew_product_f32",
@@ -529,6 +549,61 @@ def _plan_restrict(program, lengths: dict, checked: Callable) -> KernelPlan:
             rows, out_order=out_order, block_long=desc.block_long,
             one_launch=desc.multiple_results_in_one_kernel)),
         plain=lambda rows: stored_outputs(plain(rows, out_order)))
+
+
+def _plan_lane_pack_dg(program, lengths: dict, checked: Callable
+                       ) -> KernelPlan:
+    """A lane-packed DG program onto ``lane_pack_dg_f32`` (its 3x variant
+    at ``bf16_3x``): each operand as a view in role order with its leading
+    letters flattened into one axis, the output allocated in the stored
+    order and viewed back in the stored letters."""
+    e = program.einsum
+    desc = program.descriptor
+    p = plan_lane_pack_dg(e)
+    split = is_split(desc)
+    shape = lane_pack_dg_shape(e, split)
+    stored = stored_arg_layouts(program)
+    out_letters = stored_out_letters(program)
+    el, i, j, pk = p.e_letter, p.i_letter, p.j_letter, p.pk_letter
+    nchi = len(p.chi)
+    if out_letters[:nchi] != p.chi:
+        raise InvalidParameterError(
+            f"lane_pack_dg_f32 writes the output letters {p.chi} leading;"
+            f" the stored output is {out_letters}")
+    out_order = (0,) + ((1, 2) if out_letters[nchi:] == (el, i) else (2, 1))
+    out_shape = tuple(lengths[ix] for ix in out_letters)
+
+    def lead_view(t, letters, lead, tail):
+        v = _role_view(t, letters, lead + tail)
+        return v.flatten(0, len(lead) - 1) if lead else v.unsqueeze(0)
+
+    def operands(arrays_by_name: dict) -> list:
+        arrays = checked(arrays_by_name)
+        rows = []
+        for row in e.args:
+            views = [lead_view(arrays[a.name], stored[a.name], lead, tail)
+                     for a, lead, tail in zip(
+                         row, (p.lam_j, p.exp_lead, p.m, p.lam_u),
+                         ((el, pk), (pk, i), (i, j), (el, j)))]
+            rows.append(LanePackDGRow(u=views[U_POS], T=views[T_POS],
+                                      J=views[J_POS], EXP=views[EXP_POS]))
+        return rows
+
+    def stored_outputs(outs: list) -> list:
+        return [o.view(out_shape) for o in outs]
+
+    if split:
+        kernel, launch, plain = ("lane_pack_dg_3xtf32", lane_pack_dg_3xtf32,
+                                 lane_pack_dg_3x_plain)
+    else:
+        kernel, launch, plain = ("lane_pack_dg_f32", lane_pack_dg_f32,
+                                 lane_pack_dg_plain)
+    return KernelPlan(
+        kernel=kernel, operands=operands,
+        run=lambda rows: stored_outputs(launch(
+            rows, shape, block_long=desc.block_long, out_order=out_order,
+            one_launch=desc.multiple_results_in_one_kernel)),
+        plain=lambda rows: stored_outputs(plain(rows, shape, out_order)))
 
 
 def build_cuda_executable(program, index_to_length: dict):

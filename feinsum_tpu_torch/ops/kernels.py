@@ -59,6 +59,16 @@ hi·lo + hi·hi`` (:func:`tf32_split`, :func:`einsum_3x`):
   tables and tiles with the tile's inner product on the same MMAs (K2 at
   ``bf16_3x``).
 
+The last runs K1's schedule of a packed DG program (the lane-pack rewrite,
+``tuning/impls/_common.py::rewrite_lane_pack_dg``; its plan is
+:mod:`~feinsum_tpu_torch.ops.lane_pack`'s):
+
+* ``lane_pack_dg_f32`` (``csrc/lane_pack_dg.cu``) — ``V = u'·T`` and ``W =
+  J'·EXP`` as tiled dots over the kron-expanded T and the 0/1 EXP, and
+  ``out[o] = Σ V[m]·W[w]`` over the terms of :class:`LanePackDGShape`; V
+  and W stay in registers.  At ``bf16_3x`` the two dots take the 3xTF32
+  split on the CUDA cores (``lane_pack_dg_3xtf32``, counted apart).
+
 A wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; it runs the plain version only for tensors that lie on the
 CPU.  There is no fallback from a CUDA tensor to the plain version.  Each
@@ -95,13 +105,23 @@ MAX_REDUCE_J = 8192
 # the shared memory per block its staged tiles fill (48 KB, in floats)
 LR_THREADS = 256
 LR_SMEM_FLOATS = 12 * 1024
+# csrc/lane_pack_dg.cu: threads per block (kThreads), k per staged chunk
+# (kKC), and the most T slices, W slices, outputs and terms a program has
+# (kMaxM, kMaxW, kMaxOut, kMaxTerms)
+LP_THREADS = 256
+LP_KC = 16
+LP_MAX_M = 4
+LP_MAX_W = 16
+LP_MAX_OUT = 4
+LP_MAX_TERMS = 16
 
 # launches by kernel; a ``bf16_3x`` row planned onto a kernel with no 3x
 # variant (``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32``,
 # ``long_reduce_f32``, ``dd_rows``) runs it in f32 and counts under its name
 launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
                  "row_reduce_f32": 0, "long_reduce_f32": 0, "dd_rows": 0,
-                 "tc_grid_f32": 0, "dg_rows_3xtf32": 0, "tc_grid_3xtf32": 0}
+                 "tc_grid_f32": 0, "dg_rows_3xtf32": 0, "tc_grid_3xtf32": 0,
+                 "lane_pack_dg_f32": 0, "lane_pack_dg_3xtf32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1134,5 +1154,224 @@ def _tc_launch(name: str, A: torch.Tensor, B: torch.Tensor, step: TCStep
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
     return C
+
+# }}}
+
+
+# {{{ lane_pack_dg_f32
+
+@dataclass(frozen=True)
+class LanePackDGRow:
+    """One packed DG row's operands as views in role order, each with one
+    (flattened) leading axis: ``u`` (NU, E, GJ), ``T`` (M, GI, GJ), ``J``
+    (NJ, E, PK) and ``EXP`` (NX, PK, GI); E counts packed rows."""
+
+    u: torch.Tensor
+    T: torch.Tensor
+    J: torch.Tensor
+    EXP: torch.Tensor
+
+
+@dataclass(frozen=True)
+class LanePackDGShape:
+    """The index maps of a packed DG program: for each T slice m the u
+    slice it contracts (``u_of_m``), for each W slice w the J and EXP
+    slices (``j_of_w``, ``exp_of_w``), the terms ``(m, w, o)`` of ``out[o]
+    += V[m] · W[w]`` ordered by m, the number of output slices ``n_out``
+    and the packed output width ``gi``."""
+
+    u_of_m: tuple
+    j_of_w: tuple
+    exp_of_w: tuple
+    pairs: tuple
+    n_out: int
+    gi: int
+
+
+def lane_pack_dg_tile(gi: int) -> tuple:
+    """``(packed rows, output lanes)`` of one block's tile of
+    ``lane_pack_dg_f32``: 64 x 64, or 128 x 32 when the packed output has
+    at most 32 lanes (the kernel's variants; 256 threads, 4 x 4 outputs
+    each)."""
+    return (128, 32) if gi <= 32 else (64, 64)
+
+
+def lane_pack_dg_smem_bytes(gi: int, split: bool = False) -> int:
+    """Shared memory one block of ``lane_pack_dg_f32`` needs, in bytes: one
+    k chunk of the row tile and of the lane tile, each padded by 4 floats
+    per k, twice over (hi and lo) at ``bf16_3x`` (the formula of
+    ``csrc/lane_pack_dg.cu``).  It does not grow with g·d: the kernel walks
+    the contracted lanes in chunks of ``LP_KC``."""
+    te, ti = lane_pack_dg_tile(gi)
+    return 4 * (2 if split else 1) * LP_KC * ((te + 4) + (ti + 4))
+
+
+def check_lane_pack_dg_shape(shape: LanePackDGShape, split: bool = False
+                             ) -> None:
+    """Raise :class:`InvalidParameterError` for a packed DG program
+    ``lane_pack_dg_f32`` does not take: more T slices, W slices, output
+    slices or terms than its register arrays hold, or a tile over the
+    shared memory of a block."""
+    for what, n, cap in (("T slices", len(shape.u_of_m), LP_MAX_M),
+                         ("W slices", len(shape.j_of_w), LP_MAX_W),
+                         ("output slices", shape.n_out, LP_MAX_OUT),
+                         ("terms", len(shape.pairs), LP_MAX_TERMS)):
+        if n > cap:
+            raise InvalidParameterError(
+                f"lane_pack_dg_f32 takes at most {cap} {what}, the program"
+                f" has {n}")
+    smem = lane_pack_dg_smem_bytes(shape.gi, split)
+    if smem > MAX_SMEM_BYTES:
+        raise InvalidParameterError(
+            f"lane_pack_dg_f32 needs {smem} bytes of shared memory per"
+            f" block; a Hopper block has {MAX_SMEM_BYTES}")
+
+
+def _lp_dims(rows: Sequence[LanePackDGRow], shape: LanePackDGShape
+             ) -> tuple:
+    """(E, GI, GJ, PK), with every operand and the index maps checked."""
+    r0 = rows[0]
+    NU, E, GJ = r0.u.shape
+    M, GI, _ = r0.T.shape
+    NJ, _, PK = r0.J.shape
+    NX = r0.EXP.shape[0]
+    device = r0.u.device
+    nw = len(shape.j_of_w)
+    if (len(shape.u_of_m) != M or len(shape.exp_of_w) != nw
+            or shape.gi != GI
+            or not all(0 <= k < NU for k in shape.u_of_m)
+            or not all(0 <= k < NJ for k in shape.j_of_w)
+            or not all(0 <= k < NX for k in shape.exp_of_w)
+            or not all(0 <= m < M and 0 <= w < nw and 0 <= o < shape.n_out
+                       for m, w, o in shape.pairs)
+            or list(shape.pairs) != sorted(shape.pairs)):
+        raise ValueError(f"index maps {shape} do not match the operands"
+                         f" (NU={NU}, M={M}, NJ={NJ}, NX={NX}, GI={GI})")
+    for k, row in enumerate(rows):
+        _check_operand(f"row {k} u", row.u, device, (NU, E, GJ))
+        _check_operand(f"row {k} T", row.T, device, (M, GI, GJ))
+        _check_operand(f"row {k} J", row.J, device, (NJ, E, PK))
+        _check_operand(f"row {k} EXP", row.EXP, device, (NX, PK, GI))
+    return E, GI, GJ, PK
+
+
+def _lp_plain(rows: Sequence[LanePackDGRow], shape: LanePackDGShape,
+              out_order: tuple, contract) -> list:
+    outs = []
+    for row in rows:
+        V = contract("mej,mij->mei", row.u[list(shape.u_of_m)], row.T)
+        W = contract("wek,wki->wei", row.J[list(shape.j_of_w)],
+                     row.EXP[list(shape.exp_of_w)])
+        out = torch.stack([
+            sum(V[m] * W[w] for m, w, oo in shape.pairs if oo == o)
+            for o in range(shape.n_out)])
+        outs.append(out.permute(*out_order).contiguous())
+    return outs
+
+
+def lane_pack_dg_plain(rows: Sequence[LanePackDGRow],
+                       shape: LanePackDGShape, out_order: tuple = (0, 1, 2)
+                       ) -> list:
+    """The plain PyTorch version of ``lane_pack_dg_f32``: per row the three
+    steps, ``V = u'·T`` and ``W = J'·EXP`` by ``torch.einsum``, then
+    ``out[o] = Σ V[m] W[w]`` over the terms; outputs contiguous in the
+    stored order *out_order* (a permutation of the (n_out, E, GI) axes)."""
+    return _lp_plain(rows, shape, out_order, torch.einsum)
+
+
+def lane_pack_dg_3x_plain(rows: Sequence[LanePackDGRow],
+                          shape: LanePackDGShape,
+                          out_order: tuple = (0, 1, 2)) -> list:
+    """The plain PyTorch version of ``lane_pack_dg_3xtf32``:
+    ``lane_pack_dg_plain`` with both dots in three passes over the TF32
+    split (:func:`einsum_split`); the sum of the terms in f32."""
+    return _lp_plain(rows, shape, out_order, einsum_split)
+
+
+def lane_pack_dg_f32(rows: Sequence[LanePackDGRow], shape: LanePackDGShape,
+                     *, block_long: int, out_order: tuple = (0, 1, 2),
+                     one_launch: bool = True) -> list:
+    """Packed DG rows (K1's lane-pack schedule): each row's ``out[o, e,
+    gi]``, allocated contiguous in the stored order *out_order*.  All rows
+    go in one launch (up to the kernel's row limit) unless *one_launch* is
+    false; a thread block covers *block_long* packed rows (rounded up to
+    its tile) of one tile of output lanes."""
+    return _lp_launch("lane_pack_dg_f32", rows, shape, block_long,
+                      out_order, one_launch)
+
+
+def lane_pack_dg_3xtf32(rows: Sequence[LanePackDGRow],
+                        shape: LanePackDGShape, *, block_long: int,
+                        out_order: tuple = (0, 1, 2),
+                        one_launch: bool = True) -> list:
+    """``lane_pack_dg_f32`` with both dots in three passes over the TF32
+    split (``lo·hi + hi·lo + hi·hi``, on the CUDA cores: the products of
+    TF32 halves are exact in f32): the ``bf16_3x`` precision; the same
+    arguments and outputs."""
+    return _lp_launch("lane_pack_dg_3xtf32", rows, shape, block_long,
+                      out_order, one_launch)
+
+
+def _lp_launch(name: str, rows: Sequence[LanePackDGRow],
+               shape: LanePackDGShape, block_long: int, out_order: tuple,
+               one_launch: bool) -> list:
+    """Launch ``lane_pack_dg_f32`` or its 3x variant (*name*; the plain
+    version for CPU tensors)."""
+    if not rows:
+        return []
+    E, GI, GJ, PK = _lp_dims(rows, shape)
+    device = rows[0].u.device
+    split = name == "lane_pack_dg_3xtf32"
+    if sorted(out_order) != [0, 1, 2]:
+        raise ValueError(f"out_order {out_order} is not a permutation of 3")
+    if device.type == "cpu":
+        return (lane_pack_dg_3x_plain if split else lane_pack_dg_plain)(
+            rows, shape, out_order)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    check_lane_pack_dg_shape(shape, split)
+    if block_long < 1:
+        raise InvalidParameterError(
+            f"block_long must be positive, got {block_long}")
+
+    from ._build import load_library
+    lib = load_library()
+    M, NW, NO = len(shape.u_of_m), len(shape.j_of_w), shape.n_out
+    dims = (NO, E, GI)
+    inverse = tuple(sorted(range(3), key=lambda k: out_order[k]))
+    outs = [torch.empty(tuple(dims[k] for k in out_order),
+                        dtype=torch.float32, device=device) for _ in rows]
+    pairs = (ctypes.c_int * (3 * len(shape.pairs)))(
+        *[v for term in shape.pairs for v in term])
+    n_off = 2 * M + 2 * NW + NO
+    per_launch = lib.lane_pack_dg_max_rows() if one_launch else 1
+    with torch.cuda.device(device):
+        for idx in _chunks(range(len(rows)), per_launch):
+            ptrs = (ctypes.c_void_p * (5 * len(idx)))()
+            strides = (ctypes.c_int64 * (10 * len(idx)))()
+            offsets = (ctypes.c_int64 * (n_off * len(idx)))()
+            for n, k in enumerate(idx):
+                row, out = rows[k], outs[k].permute(*inverse)
+                ptrs[5 * n:5 * n + 5] = [
+                    row.u.data_ptr(), row.T.data_ptr(), row.J.data_ptr(),
+                    row.EXP.data_ptr(), out.data_ptr()]
+                strides[10 * n:10 * n + 10] = [
+                    *row.u.stride()[1:], *row.T.stride()[1:],
+                    *row.J.stride()[1:], *row.EXP.stride()[1:],
+                    *out.stride()[1:]]
+                offsets[n_off * n:n_off * (n + 1)] = [
+                    *(k_ * row.u.stride(0) for k_ in shape.u_of_m),
+                    *(m * row.T.stride(0) for m in range(M)),
+                    *(k_ * row.J.stride(0) for k_ in shape.j_of_w),
+                    *(k_ * row.EXP.stride(0) for k_ in shape.exp_of_w),
+                    *(o * out.stride(0) for o in range(NO))]
+            err = getattr(lib, name)(
+                len(idx), ptrs, strides, offsets, pairs, M, NW, NO,
+                len(shape.pairs), E, GI, GJ, PK, int(block_long),
+                _stream_of(device))
+            if err:
+                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            launch_counts[name] += 1
+    return outs
 
 # }}}

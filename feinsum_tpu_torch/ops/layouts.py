@@ -106,10 +106,12 @@ def apply_nested_layout(arr, nested):
 def unpack_output(program, arr, logical_shape):
     """Invert the descriptor's output storage contract: stored row output
     tensor ``arr`` -> the logical einsum output of shape *logical_shape*.
-    The forward chain is ``pre_out_layout`` -> ``out_layout`` -> dd pairs
-    (the reference's order), so this undoes them in reverse: a ``dd_pairs``
-    output's (2, ...) float32 pairs are recombined into float64 (a new
-    tensor), the ``out_layout`` permutation is undone (a view), and a
+    The forward chain is ``pre_out_layout`` -> ``lane_pack`` ->
+    ``out_layout`` -> dd pairs (the reference's order), so this undoes them
+    in reverse: a ``dd_pairs`` output's (2, ...) float32 pairs are
+    recombined into float64 (a new tensor), the ``out_layout`` permutation
+    is undone (a view), a lane-packed (lead..., E/g, g·d) output becomes
+    (lead..., E, d) (the vecmat's (E/g, g) becomes (E,)), and a
     ``pre_out_layout`` grouping is split back into its source axes and
     transposed to the logical order.  A ``rowcat`` = b program's one
     output holds the b rows' outputs end to end along the leading long
@@ -121,6 +123,12 @@ def unpack_output(program, arr, logical_shape):
         arr = combine_pairs(arr)
     if desc.out_layout is not None:
         arr = arr.permute(*(int(i) for i in np.argsort(desc.out_layout)))
+    if desc.lane_pack > 1:
+        g = desc.lane_pack
+        arr = arr.reshape(*arr.shape[:-2], arr.shape[-2] * g,
+                          arr.shape[-1] // g)
+        if len(logical_shape) == 1:
+            arr = arr.reshape(-1)
     if desc.pre_out_layout is not None:
         flat = [int(p) for g in desc.pre_out_layout for p in g]
         arr = arr.reshape(tuple(int(logical_shape[p]) for p in flat))

@@ -84,9 +84,15 @@ def guard_smem(einsum, kernel: str = "dd_rows") -> None:
     demand depends on the row shape only, not on the block length.
 
     *kernel* is ``"dd_rows"`` (the fp64 DG rows), ``"dg_rows_f32"``, the
-    float32 fused route, or ``"dg_rows_3xtf32"``, that route at
-    ``bf16_3x``; on the fused route each row goes to the kernel that will
-    run it:
+    float32 fused route, ``"dg_rows_3xtf32"``, that route at ``bf16_3x``,
+    or ``"lane_pack_dg_f32"``/``"lane_pack_dg_3xtf32"``, a packed DG
+    program (:func:`rewrite_lane_pack_dg`), whose shared memory holds a
+    fixed tile of each operand however wide g·d is, so that what the guard
+    checks are the kernel's limits on the rewrite's structure
+    (:func:`~feinsum_tpu_torch.ops.kernels.check_lane_pack_dg_shape`).  A
+    packed matvec (:func:`rewrite_lane_pack`) is a plain matvec over g·d
+    and is checked as one, with R the kron-expanded (g·di, g·dj) resident.
+    On the fused route each row goes to the kernel that will run it:
     a contraction-free row to ``ew_product_f32`` (no shared memory), a row
     whose output is the long axis alone to ``row_reduce_f32`` (its weight
     w, at most ``MAX_REDUCE_J`` values), and the others to ``dg_rows_f32``
@@ -100,6 +106,10 @@ def guard_smem(einsum, kernel: str = "dd_rows") -> None:
     from ...ops.kernels import MAX_REDUCE_J, MAX_SMEM_BYTES, \
         dd_rows_smem_bytes, dg_rows_3x_smem_bytes, dg_rows_smem_bytes
 
+    if kernel.startswith("lane_pack_dg"):
+        from ...ops.lane_pack import lane_pack_dg_shape
+        lane_pack_dg_shape(einsum, kernel.endswith("3xtf32"))
+        return
     smem_bytes = {"dd_rows": lambda X, *a: dd_rows_smem_bytes(*a),
                   "dg_rows_f32": lambda X, *a: dg_rows_smem_bytes(*a),
                   "dg_rows_3xtf32": dg_rows_3x_smem_bytes}[kernel]
@@ -224,9 +234,11 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
                          prereduce: bool = False, vmem_idx=None,
                          split_rows: bool = False, accum_f32: bool = False,
                          host_hoist: bool = True, mfold: bool = False,
-                         **desc):
+                         keep_schedule: bool = False, **desc):
     """``feinsum_tpu``'s core DG schedule on the fused kernels
-    (``backend="pallas"``): the schedule (``jfold``'s outer-product-first
+    (``backend="pallas"``): the schedule (the program's own with
+    *keep_schedule*, which a packed DG program carries from
+    :func:`rewrite_lane_pack_dg`; else ``jfold``'s outer-product-first
     one, the optimal path with ``hoist``, else the trivial one), resident
     pre-reduction (``prereduce``), *block_long* elements per thread block,
     *parallel_grid* as ``dimension_semantics``, *dofmajor* layouts, one
@@ -255,7 +267,9 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
         if on:
             raise InvalidParameterError(f"{why} has no Hopper meaning")
     e = program.einsum
-    if jfold:
+    if keep_schedule:
+        schedule = program.schedule
+    elif jfold:
         from ...algebraic import \
             extract_multiplicative_terms_in_sum_reduction_as_subst
         from ...codegen.program import generate_program
@@ -271,7 +285,7 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
         schedule = get_opt_einsum_contraction_schedule(e)
     else:
         schedule = get_trivial_contraction_schedule(e)
-    if prereduce and not jfold:
+    if prereduce and not jfold and not keep_schedule:
         reduced = prereduce_resident_private(e, schedule)
         if reduced is schedule:
             raise InvalidParameterError(
@@ -300,7 +314,8 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
         dimension_semantics="parallel" if parallel_grid else "arbitrary",
         **desc)
     guard_smem(hoist_resident_steps(p2)[0].einsum,
-               "dg_rows_3xtf32" if precision_3x else "dg_rows_f32")
+               ("lane_pack_dg" if keep_schedule else "dg_rows")
+               + ("_3xtf32" if precision_3x else "_f32"))
     return p2
 
 
@@ -316,18 +331,23 @@ def make_dg_space(*, log2_block_max: int = 18):
     * searched: ``log2_block``/``blkc128`` (``block_long``), ``dofmajor``
       (where it changes a layout), ``prereduce`` (where a resident operand
       has private indices: curl), ``rowcat`` (where rows can be stacked:
-      div, curl), ``split_rows`` (b > 1) and ``precision_3x`` (where the
+      div, curl), ``split_rows`` (b > 1), ``precision_3x`` (where the
       rows go to ``dg_rows_f32``, whose 3xTF32 variant it selects:
       :func:`has_dg_dot`; elsewhere pinned at 0, and a fact with it on
-      binds and runs the f32 kernel);
+      binds and runs the f32 kernel) and ``lane_pack_g`` in [0, 5] where
+      the reference searches it (:func:`lane_packable` or
+      :func:`lane_pack_dg_applicable`): g = 2**lane_pack_g elements per
+      packed row, after ``rowcat`` when both are on (the rewrites and
+      their guards are the reference's, see :func:`rewrite_lane_pack` and
+      :func:`rewrite_lane_pack_dg`; the DG variant refuses ``hoist``,
+      ``jfold``, ``mfold`` and ``prereduce``);
     * pinned, accepted at any value: ``parallel_grid`` (1),
       ``vmem_idx`` (2, ignored), ``host_hoist`` (1), ``hoist`` and
       ``jfold`` (0: they build the reference's schedules, and
       ``dg_rows_f32`` computes each row's value whatever the step order;
       no DG row's optimal path has a resident-only step, and ``jfold``'s
       pre-reduction on curl is ``prereduce``'s launch);
-    * pinned at 0, raising at 1: ``fold``, ``preblock``, ``mfold`` and
-      ``lane_pack_g`` (the lane-pack rewrites are not ported yet);
+    * pinned at 0, raising at 1: ``fold``, ``preblock`` and ``mfold``;
       ``accum_f32`` is gated off for 32-bit inputs, as in the reference."""
     from ...ops.layouts import dofmajor_layouts
     from .. import BoolParameter, IntParameter, transform_param
@@ -350,7 +370,9 @@ def make_dg_space(*, log2_block_max: int = 18):
     @transform_param("mfold", pinned(0))
     @transform_param("prereduce", lambda e: gate(
         has_resident_private_indices(e)))
-    @transform_param("lane_pack_g", pinned(0))
+    @transform_param("lane_pack_g", lambda e: (
+        IntParameter(0, 5) if lane_packable(e) or lane_pack_dg_applicable(e)
+        else IntParameter(0, 0)))
     @transform_param("rowcat", lambda e: gate(rowcat_applicable(e)))
     @transform_param("parallel_grid", pinned(1))
     @transform_param("vmem_idx", pinned(2))
@@ -369,19 +391,19 @@ def make_dg_space(*, log2_block_max: int = 18):
                 raise InvalidParameterError(
                     "rowcat merges rows; split_rows contradicts it")
             program, extras = rewrite_rowcat(program)
+        keep_schedule = False
         if lane_pack_g:
-            e = program.einsum
-            if not lane_packable(e) and (hoist or jfold or mfold
-                                         or prereduce):
-                raise InvalidParameterError(
-                    "lane_pack (DG variant) fixes its own schedule;"
-                    " hoist/jfold/mfold/prereduce do not compose")
-            kind = ("lane_pack" if lane_packable(e) else
-                    "lane_pack (DG variant)" if lane_pack_dg_applicable(e)
-                    else "no lane_pack")
-            raise InvalidParameterError(
-                f"lane_pack_g={lane_pack_g}: the {kind} rewrite is not"
-                " ported (ROADMAP queue 2 K1 remainder)")
+            g = 2 ** int(lane_pack_g)
+            if lane_packable(program.einsum):
+                program, ex = rewrite_lane_pack(program, g)
+            else:
+                if hoist or jfold or mfold or prereduce:
+                    raise InvalidParameterError(
+                        "lane_pack (DG variant) fixes its own schedule;"
+                        " hoist/jfold/mfold/prereduce do not compose")
+                program, ex = rewrite_lane_pack_dg(program, g)
+                keep_schedule = True
+            extras.update(ex)
         p2 = fused_pallas_program(
             program, block_long=resolve_block(log2_block, blkc128),
             hoist=bool(hoist), parallel_grid=parallel_grid,
@@ -389,7 +411,7 @@ def make_dg_space(*, log2_block_max: int = 18):
             precision_3x=precision_3x, jfold=bool(jfold), mfold=bool(mfold),
             prereduce=bool(prereduce), vmem_idx=vmem_idx,
             split_rows=bool(split_rows), accum_f32=bool(accum_f32),
-            host_hoist=bool(host_hoist))
+            host_hoist=bool(host_hoist), keep_schedule=keep_schedule)
         return p2.with_descriptor(**extras) if extras else p2
 
     return transform
@@ -490,6 +512,182 @@ def lane_pack_dg_applicable(einsum):
     if not cands:
         return None
     return max(cands, key=lambda c: int(e.index_to_dim_length[c["j"]]))
+
+
+def _check_packed_dims(g: int, di: int, dj: int) -> None:
+    """The reference's guards on the packed dof widths, part of the space:
+    g·di and g·dj multiples of 8 and at most 4096."""
+    if (g * di) % 8 or (g * dj) % 8:
+        raise InvalidParameterError(
+            f"lane_pack={g}: packed dims ({g}*{di}, {g}*{dj}) must be"
+            f" 8-sublane-aligned")
+    if g * max(di, dj) > 4096:
+        raise InvalidParameterError(
+            f"lane_pack={g}: packed dim {g * max(di, dj)} exceeds the 4096"
+            f" resident cap")
+
+
+def rewrite_lane_pack(program, g: int):
+    """Rewrite a matvec-class program (:func:`lane_packable`) for
+    ``lane_pack=g``, as ``feinsum_tpu`` does: the einsum becomes the same
+    class with d -> g·d and E -> E/g; the streamed operand and the output
+    are stored packed (free views of the row-major tensors) and the
+    resident matrix becomes kron(I_g, D), built on the card once per call
+    (``descriptor.kron_args``).  The vecmat variant ``ej,j->e`` gains an
+    output axis of length g (its resident kron(I_g, x[:, None])).
+
+    The guards are the reference's and define the space (they are not
+    Hopper limits): g·di and g·dj multiples of 8, at most 4096.  Returns
+    ``(rewritten_program, descriptor_extras)``; raises
+    :class:`InvalidParameterError` when the shape does not qualify."""
+    from ...contraction_schedule import get_trivial_contraction_schedule
+    from ...make_einsum import array, einsum
+
+    e = program.einsum
+    info = lane_packable(e)
+    if info is None:
+        raise InvalidParameterError(
+            "lane_pack applies only to matvec-class einsums"
+            " (streamed (e,j) x resident (i,j) -> (e,i))")
+    el, i, j, s_name, r_name, r_idx = info
+    if i is None:
+        # vecmat: the group axis becomes the new output dof axis
+        i = next(c for c in "abcdefghijklmnopqrstuvwxyz"
+                 if c not in (el, j) and c not in e.arg_to_shape)
+        di = 1
+        r_idx = (j, i)
+    else:
+        di = int(e.index_to_dim_length[i])
+    dj = int(e.index_to_dim_length[j])
+    _check_packed_dims(g, di, dj)
+    sizes = {i: g * di, j: g * dj}
+    e2 = einsum(
+        f"{el}{j},{''.join(r_idx)}->{el}{i}",
+        array(s_name, (f"N{el}_", g * dj), e.arg_to_dtype[s_name].name),
+        array(r_name, tuple(sizes[ix] for ix in r_idx),
+              e.arg_to_dtype[r_name].name))
+    extras = dict(lane_pack=int(g), lane_pack_args=(s_name,),
+                  kron_args=(r_name,))
+    return program.copy(einsum=e2,
+                        schedule=get_trivial_contraction_schedule(e2)), extras
+
+
+def rewrite_lane_pack_dg(program, g: int):
+    """Rewrite a DG-class program (:func:`lane_pack_dg_applicable`) for
+    ``lane_pack=g``, as ``feinsum_tpu`` does: g consecutive elements share
+    one packed dof row.
+
+    * the main streamed ``u`` is stored (lam_u..., E/g, g·dj) and the scale
+      streamed ``J`` (E/g, g·s) (variant A, div) or (lam_j..., E/g, g)
+      (variant B), free views (``descriptor.lane_pack_args``);
+    * the resident ``R`` becomes ``T[m] = kron(I_g, R[m])`` and a 0/1
+      expansion matrix ``EXP`` spreads each element's scale over its di
+      output lanes, both built on the card once per call
+      (``kron_args``, ``lane_pack_expand``);
+    * the schedule is three steps: ``V = u'·T`` (per m), ``W = J'·EXP``,
+      then the product summed over the shared concrete axes not in the
+      output, the schedule ``lane_pack_dg_f32`` runs.
+
+    The guards are the reference's and define the space: g·di, g·dj and the
+    packed scale lanes multiples of 8, g·max(di, dj) at most 4096.  Returns
+    ``(rewritten_program, descriptor_extras)``."""
+    from ...contraction_schedule import (
+        ContractionSchedule,
+        EinsumOperand,
+        IntermediateResult,
+    )
+    from ...make_einsum import array, batched_einsum
+
+    e = program.einsum
+    info = lane_pack_dg_applicable(e)
+    if info is None:
+        raise InvalidParameterError(
+            "lane_pack (DG variant) applies only to 3-operand classes with"
+            " one resident, one (.., e, j) streamed and one scale streamed"
+            " operand")
+    el, i, j = info["el"], info["i"], info["j"]
+    di = int(e.index_to_dim_length[i])
+    dj = int(e.index_to_dim_length[j])
+    _check_packed_dims(g, di, dj)
+    used = set(e.index_to_dim_length) | set("".join(e.arg_to_shape))
+    fresh = (c for c in "abcdefghijklmnopqrstuvwxyz" if c not in used)
+    exp_name = "_lp_exp0"
+    long_name = f"N{el}_"
+
+    m, lam_u, lam_j = info["m"], info["lam_u"], info["lam_j"]
+    chi, rho = info["chi"], info["rho"]
+    sizes = {c: int(e.index_to_dim_length[c])
+             for c in set(rho) | set(lam_j) if c != el}
+    sizes[i] = g * di
+    sizes[j] = g * dj
+    s_lanes = g * (int(e.index_to_dim_length[info["s_ax"]])
+                   if info["variant"] == "A" else 1)
+    if s_lanes % 8:
+        raise InvalidParameterError(
+            f"lane_pack={g}: packed scale lanes ({s_lanes}) must be"
+            f" 8-sublane-aligned")
+
+    jdt = e.args[0][info["jp"]].dtype.name
+    pk = next(fresh)
+    if info["variant"] == "A":
+        s_ax = info["s_ax"]
+        s_len = int(e.index_to_dim_length[s_ax])
+        sizes[pk] = g * s_len                  # packed J lanes (g*s)
+        j_sub = el + pk
+        exp_sub = s_ax + pk + i
+        exp_shape = (s_len, g * s_len, g * di)
+        expand = ((exp_name, "A", g, s_len, di, jdt),)
+        n_lead_j = 0
+        w_sub = s_ax + el + i
+    else:
+        sizes[pk] = g                          # the group axis
+        j_sub = "".join(lam_j) + el + pk
+        exp_sub = pk + i
+        exp_shape = (g, g * di)
+        expand = ((exp_name, "P", g, di, jdt),)
+        n_lead_j = len(lam_j)
+        w_sub = "".join(lam_j) + el + i
+
+    t_sub = "".join(m) + i + j
+    u_sub = "".join(lam_u) + el + j
+    v_sub = "".join(m) + el + i
+    out_sub = "".join(chi) + el + i
+
+    def shp(sub):
+        return tuple(long_name if c == el else sizes[c] for c in sub)
+
+    rows = []
+    for r in range(e.b):
+        jarr = e.args[r][info["jp"]]
+        rarr = e.args[r][info["rp"]]
+        uarr = e.args[r][info["up"]]
+        rows.append([array(jarr.name, shp(j_sub), jarr.dtype.name),
+                     array(exp_name, exp_shape, jdt),
+                     array(rarr.name, shp(t_sub), rarr.dtype.name),
+                     array(uarr.name, shp(u_sub), uarr.dtype.name)])
+    e2 = batched_einsum(f"{j_sub},{exp_sub},{t_sub},{u_sub}->{out_sub}",
+                        rows)
+    schedule = ContractionSchedule(
+        subscripts=(f"{u_sub},{t_sub}->{v_sub}",
+                    f"{j_sub},{exp_sub}->{w_sub}",
+                    f"{v_sub},{w_sub}->{out_sub}"),
+        result_names=("_lp_v", "_lp_w", "_fe_out"),
+        arguments=((EinsumOperand(3), EinsumOperand(2)),
+                   (EinsumOperand(0), EinsumOperand(1)),
+                   (IntermediateResult("_lp_v"),
+                    IntermediateResult("_lp_w"))))
+
+    # the kron perm: the resident's logical axes -> (m..., i, j)
+    perm = tuple(rho.index(c) for c in m + (i, j))
+    pack_args = {(e.args[r][info["jp"]].name, n_lead_j) for r in range(e.b)}
+    pack_args |= {(e.args[r][info["up"]].name, len(lam_u))
+                  for r in range(e.b)}
+    kron_args = {(e.args[r][info["rp"]].name, perm) for r in range(e.b)}
+    extras = dict(lane_pack=int(g),
+                  lane_pack_args=tuple(sorted(pack_args)),
+                  kron_args=tuple(sorted(kron_args)),
+                  lane_pack_expand=expand)
+    return program.copy(einsum=e2, schedule=schedule), extras
 
 
 def rowcat_applicable(einsum) -> bool:

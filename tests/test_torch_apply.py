@@ -31,7 +31,8 @@ import feinsum_tpu_torch as ft
 from feinsum_tpu_torch import apply as apply_mod
 from feinsum_tpu_torch import measure, sql_utils
 from feinsum_tpu_torch import suite as S
-from feinsum_tpu_torch.codegen.program import get_index_lengths
+from feinsum_tpu_torch.codegen.program import get_index_lengths, \
+    stored_lengths
 from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
 
 SHIPPED = (Path(__file__).resolve().parents[1] / "feinsum_tpu" / "data"
@@ -319,26 +320,52 @@ def test_default_spot_check_skips_corrupted_archive_row(tmp_path):
     _close(good(u, M), _user(u, M).numpy())
 
 
-def test_lane_pack_champion_falls_through_the_ladder(tmp_path):
-    """An archived lane-pack champion (a rewrite the port does not carry
-    yet) is passed over: the plan falls to the plain program, whose output
-    is the function's."""
+def _lane_pack_champion(tmp_path):
+    """An archive whose one matvec fact is the shipped archive's matvec
+    champion, g = 4 (``lane_pack_g`` 2)."""
     db = str(tmp_path / "scratch.sqlite")
     params = {"log2_block": 10, "blkc128": 0, "dofmajor": True,
               "fold": False, "preblock": False, "precision_3x": False,
               "hoist": False, "jfold": False, "mfold": False,
-              "prereduce": False, "lane_pack_g": 4, "parallel_grid": True,
+              "prereduce": False, "lane_pack_g": 2, "parallel_grid": True,
               "vmem_idx": 2, "split_rows": False, "accum_f32": False,
               "host_hoist": True}
     sql_utils.record_facts(_matvec20(), transform_id="mass_v0.py",
                            transform_params=params, runtime_in_sec=1e-4,
                            device=ft.FakeDevice(TPU), db_path=db,
                            long_dim_length=2048)
-    u, M = _matvec_args(7)
+    return db
+
+
+def test_lane_pack_champion_falls_through_the_ladder(tmp_path):
+    """An archived lane-pack champion at a length g does not divide (2046
+    elements, g = 4) is passed over, as the reference passes over it: the
+    plan falls to the plain program, whose output is the function's."""
+    db = _lane_pack_champion(tmp_path)
+    rng = np.random.default_rng(7)
+    u, M = _t([rng.random((2046, 20), np.float32),
+               rng.random((20, 20), np.float32)])
     fn2 = ft.compile_fn_with_archive(_user, [u, M], db_path=db,
                                      device=ft.FakeDevice(TPU),
                                      long_dim_length=500)
     assert fn2.plans[0][2].descriptor.backend == "xla"
+    _close(fn2(u, M), _user(u, M).numpy())
+
+
+def test_lane_pack_champion_is_served(tmp_path):
+    """At a length g divides (2048 elements), the lane-pack champion is
+    served on the fused route: the packed matvec over g·d = 80 on
+    ``dg_rows_f32``, its output the function's."""
+    db = _lane_pack_champion(tmp_path)
+    u, M = _matvec_args(7)
+    fn2 = ft.compile_fn_with_archive(_user, [u, M], db_path=db,
+                                     device=ft.FakeDevice(TPU),
+                                     long_dim_length=500)
+    ((_, einsum, program),) = fn2.plans
+    assert program.descriptor.backend == "pallas"
+    assert program.descriptor.lane_pack == 4
+    assert plan_cuda_launch(program, stored_lengths(program, get_index_lengths(
+        program.einsum, 2048))).kernel == "dg_rows_f32"
     _close(fn2(u, M), _user(u, M).numpy())
 
 

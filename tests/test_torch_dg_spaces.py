@@ -6,12 +6,17 @@
   points of the reference's space the port's program (schedule, einsum and
   descriptor, carried across by ``interop``) equals the reference's, or the
   port raises ``InvalidParameterError`` for a knob the descriptor's ruling
-  refuses (``fold``, ``preblock``, ``mfold``, ``lane_pack_g``); the port
-  does not set ``vmem_limit_bytes`` (``vmem_idx`` is accepted and ignored);
-  ``precision_3x`` sets ``precision="bf16_3x"``, as in the reference;
+  refuses (``fold``, ``preblock``, ``mfold``) or for a Hopper block's
+  shared memory; the port does not set ``vmem_limit_bytes`` (``vmem_idx``
+  is accepted and ignored); ``precision_3x`` sets ``precision="bf16_3x"``
+  and ``lane_pack_g`` the lane-pack rewrites, as in the reference;
 * every shipped TPU fact of those seven transform ids binds: it builds, or
-  raises naming a refused knob; the 102 that set ``precision_3x`` and no
-  refused knob build;
+  raises naming a refused knob or shared memory; the 102 that set
+  ``precision_3x`` and no refused knob build, and of the 104 that set
+  ``lane_pack_g`` 70 build (the DG ones onto ``lane_pack_dg_f32`` or its
+  3x variant, the matvec and vecmat ones onto ``dg_rows_f32`` or
+  ``dg_rows_3xtf32``), 7 raise naming ``fold``, 2 ``mfold`` and 25 (packed
+  matvecs over g·d up to 1120) shared memory;
 * outputs equal the reference's from the same numpy-seeded inputs within
   2e-5 (f32) and 1e-12 (f64): vecmat and rowsum through ``mass_v0``, curl
   with ``prereduce`` (the hoisted pre-reduction), div with ``rowcat``,
@@ -44,12 +49,14 @@ from feinsum_tpu_torch import sql_utils, suite as S
 from feinsum_tpu_torch.algebraic import \
     extract_multiplicative_terms_in_sum_reduction_as_subst
 from feinsum_tpu_torch.codegen.descriptor import ScheduleDescriptor
-from feinsum_tpu_torch.codegen.program import get_index_lengths
+from feinsum_tpu_torch.codegen.program import get_index_lengths, \
+    stored_lengths
 from feinsum_tpu_torch.interop import arrays_from_numpy, \
     program_from_reference
 from feinsum_tpu_torch.measure import apply_layouts, generate_input_arrays
 from feinsum_tpu_torch.ops import kernels
 from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+from feinsum_tpu_torch.ops.lane_pack import expand_residents
 from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
 from feinsum_tpu_torch.tuning.impls import _common
 
@@ -62,7 +69,9 @@ DG_SPACES = ("dg_div_v0", "dg_grad_v0", "face_mass_v0", "mass_v0",
              "curl_3d_v0")
 SPACES = DG_SPACES + ("elementwise_v1", "xla_v0")
 # what the port refuses by the descriptor's rulings
-RULED = ("fold", "preblock", "mfold", "lane_pack")
+RULED = ("fold", "preblock", "mfold")
+# what the port refuses for a Hopper block (a packed matvec's resident)
+HOPPER_GUARDS = ("shared memory",)
 # what the reference refuses for the TPU alone
 TPU_GUARDS = ("VMEM", "MiB")
 
@@ -165,21 +174,25 @@ def _compare(space, key, params):
 @pytest.mark.parametrize("space,key", [(s, k) for s in SPACES
                                        for k in sorted(ROWS[s])])
 def test_programs_match_reference(space, key):
-    """At 60 seeded points of the reference's space, and at each with the
-    ruled knobs off: the same schedule, einsum and descriptor (but
-    ``vmem_limit_bytes``), or a ruled raise."""
+    """At 60 seeded points of the reference's space, at each with the ruled
+    knobs off, and at each with them and ``lane_pack_g`` off: the same
+    schedule, einsum and descriptor (but ``vmem_limit_bytes``), or a ruled
+    raise or a raise for a Hopper block's shared memory."""
     r = to_reference(ROWS[space][key])
     ref_params = ref_space(space).get_param_space(r)
-    ruled_off = {k: 0 if k == "lane_pack_g" else False for k in (
-        "fold", "preblock", "mfold", "lane_pack_g") if k in ref_params}
+    ruled_off = {k: False for k in ("fold", "preblock", "mfold")
+                 if k in ref_params}
+    unpacked = {"lane_pack_g": 0} if "lane_pack_g" in ref_params else {}
     n_compared = 0
     for sampled in _sample_params(ref_params, 60, seed=len(space + key)):
-        for params in (sampled, {**sampled, **ruled_off}):
+        for params in (sampled, {**sampled, **ruled_off},
+                       {**sampled, **ruled_off, **unpacked}):
             e, want, got = _compare(space, key, params)
             if isinstance(want, Exception) and isinstance(got, Exception):
                 continue
             if isinstance(got, Exception):
-                assert any(w in str(got) for w in RULED), (params, got)
+                assert any(w in str(got) for w in RULED + HOPPER_GUARDS), \
+                    (params, got)
                 continue
             if isinstance(want, Exception):
                 assert any(w in str(want) for w in TPU_GUARDS), \
@@ -226,9 +239,21 @@ def test_searched_points_match_reference(space, key, params):
 @pytest.mark.parametrize("knob,value", [
     ("fold", 1), ("preblock", 1), ("mfold", 1), ("lane_pack_g", 2)])
 def test_ruled_knobs_raise(knob, value):
+    """``fold``, ``preblock`` and ``mfold`` raise naming the knob;
+    ``lane_pack_g`` builds the reference's program (matvec at g = 4)."""
+    if knob == "lane_pack_g":
+        params = S.space_point("mass_v0", ROWS["mass_v0"]["matvec"],
+                               lane_pack_g=value)
+        _, want, got = _compare("mass_v0", "matvec", params)
+        assert got.descriptor.lane_pack == 4
+        assert (got.schedule, got.einsum, got.descriptor) == (
+            want.schedule, want.einsum,
+            want.descriptor.copy(vmem_limit_bytes=None))
+        ft.build_executable(got, long_dim_length=E, device="cpu")
+        return
     e = ROWS["mass_v0"]["mass"]
     params = S.space_point("mass_v0", e, **{knob: value})
-    with pytest.raises(ft.InvalidParameterError, match=knob.split("_g")[0]):
+    with pytest.raises(ft.InvalidParameterError, match=knob):
         get_transform_func_from_module_path("mass_v0").bind_args(
             e, **params)(ft.generate_program(e))
 
@@ -252,10 +277,11 @@ def test_searched_knobs_change_the_launch(space, key):
         knobs it reads."""
         p = get_transform_func_from_module_path(space).bind_args(
             e, **params)(ft.generate_program(e))
-        plan = plan_cuda_launch(p, get_index_lengths(
-            p.einsum, E * p.descriptor.rowcat))
-        rows = plan.operands(apply_layouts(p, generate_input_arrays(
-            e, long_dim_length=E, seed=SEED, device="cpu")))
+        plan = plan_cuda_launch(p, stored_lengths(
+            p, get_index_lengths(p.einsum, E)))
+        rows = plan.operands(expand_residents(p, apply_layouts(
+            p, generate_input_arrays(e, long_dim_length=E, seed=SEED,
+                                     device="cpu"))))
         args = [tuple((tuple(t.shape), t.stride()) for t in (
             row if isinstance(row, list)
             else [v for v in vars(row).values() if v is not None]))
@@ -332,16 +358,16 @@ def shipped_facts(tmp_path_factory):
     ("xla_v0.py", 26)])
 def test_tpu_facts_bind(shipped_facts, space_id, count):
     """Every fact binds: its program builds on the port, or the bind or
-    the build raises naming a knob the ruling refuses."""
+    the build raises naming a knob the ruling refuses or shared memory."""
     n_built = n_ruled = 0
     for e, q in shipped_facts.get(space_id, []):
         try:
             prog = q.transform(ft.generate_program(e))
-            ft.build_executable(prog, long_dim_length=8, device="cpu")
+            ft.build_executable(prog, long_dim_length=64, device="cpu")
             n_built += 1
         except ft.InvalidParameterError as err:
-            assert any(w in str(err) for w in RULED + ("flatten",)), \
-                (dict(q.transform_params), err)
+            assert any(w in str(err) for w in RULED + HOPPER_GUARDS
+                       + ("flatten",)), (dict(q.transform_params), err)
             n_ruled += 1
     assert n_built + n_ruled == count
     assert n_built > 0
@@ -371,6 +397,42 @@ def test_tpu_facts_that_set_precision_3x_bind(shipped_facts, space_id,
                 == "dg_rows_3xtf32"
         n += 1
     assert n == count
+
+
+
+@pytest.mark.parametrize("space_id,built,fold,mfold,smem", [
+    ("dg_div_v0.py", 21, 3, 0, 0), ("dg_grad_v0.py", 14, 2, 0, 0),
+    ("face_mass_v0.py", 2, 0, 0, 0), ("mass_v0.py", 33, 2, 2, 25)])
+def test_tpu_lane_pack_facts_bind(shipped_facts, space_id, built, fold,
+                                  mfold, smem):
+    """The 104 shipped facts that set ``lane_pack_g``: each builds, the DG
+    ones onto ``lane_pack_dg_f32`` (``lane_pack_dg_3xtf32`` with
+    ``precision_3x``) and the packed matvecs and vecmats onto
+    ``dg_rows_f32`` (``dg_rows_3xtf32``), or raises naming ``fold``,
+    ``mfold`` or shared memory (a packed matvec whose kron resident exceeds
+    a Hopper block's)."""
+    counts = {"built": 0, "fold": 0, "mfold": 0, "smem": 0}
+    for e, q in shipped_facts.get(space_id, []):
+        params = dict(q.transform_params)
+        if not params.get("lane_pack_g"):
+            continue
+        try:
+            prog = q.transform(ft.generate_program(e))
+            ft.build_executable(prog, long_dim_length=64, device="cpu")
+        except ft.InvalidParameterError as err:
+            key = ("mfold" if "mfold" in str(err) else "fold"
+                   if "fold" in str(err) else "smem"
+                   if "shared memory" in str(err) else str(err))
+            counts[key] += 1
+            continue
+        counts["built"] += 1
+        kernel = plan_cuda_launch(prog, stored_lengths(
+            prog, get_index_lengths(prog.einsum, 64))).kernel
+        family = "dg_rows" if space_id == "mass_v0.py" else "lane_pack_dg"
+        assert kernel == family + ("_3xtf32" if params.get("precision_3x")
+                                   else "_f32"), (params, kernel)
+    assert counts == {"built": built, "fold": fold, "mfold": mfold,
+                      "smem": smem}
 
 # }}}
 

@@ -2,8 +2,9 @@
 operand checks and plain versions on CPU tensors, and, in the tests marked
 ``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``
 and its flatten route ``ew_flat_f32``, ``row_reduce_f32``,
-``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32`` and the 3xTF32 kernels
-``dg_rows_3xtf32`` and ``tc_grid_3xtf32``) against their plain versions on
+``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32``, ``lane_pack_dg_f32``
+and the 3xTF32 kernels ``dg_rows_3xtf32``, ``tc_grid_3xtf32`` and
+``lane_pack_dg_3xtf32``) against their plain versions on
 the card; the TF32 rounding the 3x kernels and their plain versions share;
 and the default device of the helpers that make tensors (the card, or an
 error, unless the caller names the CPU).  This file
@@ -1083,6 +1084,222 @@ def test_tc_spaces_validate_on_card_at_bf16_3x(cuda_device, space, params):
 # }}}
 
 
+# {{{ lane_pack_dg_f32 (the packed DG programs)
+
+# (space, einsum, lane_pack_g): packed DG programs of each variant and
+# leading-letter structure (div: variant A; grad: W over (x, r) and three
+# outputs; face: u' over f; curl: one W slice for three T slices; mass)
+LP_CASES = {
+    "div": ("dg_div_v0", lambda: S.make_div(4), 3),
+    "div_g32": ("dg_div_v0", lambda: S.make_div(4), 5),
+    "grad": ("dg_grad_v0", lambda: S.make_grad(10), 3),
+    "face": ("face_mass_v0", lambda: S.make_face_mass(35, 15), 3),
+    "curl": ("curl_3d_v0", lambda: S.make_curl(4), 4),
+    "mass": ("mass_v0", lambda: S.make_mass(20), 3),
+}
+
+
+def _lp_plan(name, device, E, dofmajor, precision_3x=False, seed=40):
+    """(plan, rows) of LP_CASES[name] at E elements, its operands in the
+    stored layout on *device*."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths, \
+        stored_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.lane_pack import expand_residents
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    space, make, lg = LP_CASES[name]
+    e = make()
+    prog = get_transform_func_from_module_path(space).bind_args(
+        e, **S.space_point(space, e, lane_pack_g=lg, dofmajor=dofmajor,
+                           precision_3x=precision_3x))(ft.generate_program(e))
+    plan = plan_cuda_launch(prog, stored_lengths(
+        prog, get_index_lengths(prog.einsum, E)))
+    arrays = generate_input_arrays(e, long_dim_length=E, seed=seed,
+                                   device="cpu")
+    rows = plan.operands(expand_residents(prog, {
+        k: v.to(device) for k, v in apply_layouts(prog, arrays).items()}))
+    return plan, rows
+
+
+def _lp_abs(rows):
+    return [replace(r, u=r.u.abs(), T=r.T.abs(), J=r.J.abs(),
+                    EXP=r.EXP.abs()) for r in rows]
+
+
+def test_lane_pack_dg_plain_is_the_three_steps():
+    """``lane_pack_dg_plain`` (the CPU route of the wrapper) is V = u'T,
+    W = J'EXP and the sum of the terms, as numpy computes them."""
+    from feinsum_tpu_torch.ops.lane_pack import lane_pack_dg_shape
+    plan, rows = _lp_plan("grad", "cpu", 8 * 40, dofmajor=False)
+    assert plan.kernel == "lane_pack_dg_f32"
+    shape = kernels.LanePackDGShape(
+        u_of_m=(0, 0, 0), j_of_w=tuple(range(9)), exp_of_w=(0,) * 9,
+        pairs=tuple(sorted((r, 3 * x + r, x) for x in range(3)
+                           for r in range(3))), n_out=3, gi=80)
+    outs = kernels.lane_pack_dg_f32(rows, shape, block_long=64,
+                                    out_order=(1, 0, 2))
+    assert not kernels.launch_counts["lane_pack_dg_f32"]
+    (row,), (out,) = rows, outs
+    u, T, J, X = (t.double().numpy() for t in (row.u, row.T, row.J,
+                                                 row.EXP))
+    V = np.einsum("ej,mij->mei", u[0], T)
+    W = np.einsum("wek,ki->wei", J, X[0])
+    want = np.stack([sum(V[r] * W[3 * x + r] for r in range(3))
+                     for x in range(3)]).transpose(1, 0, 2)
+    assert out.is_contiguous() and out.shape == (40, 3, 80)
+    assert_close(out.numpy(), want)
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+    e = S.make_grad(10)
+    prog = get_transform_func_from_module_path("dg_grad_v0").bind_args(
+        e, **S.space_point("dg_grad_v0", e, lane_pack_g=3,
+                           dofmajor=False))(ft.generate_program(e))
+    assert lane_pack_dg_shape(prog.einsum) == shape
+
+
+def test_lane_pack_dg_checks_its_operands_and_limits():
+    _plan, rows = _lp_plan("div", "cpu", 8 * 20, dofmajor=True)
+    shape = kernels.LanePackDGShape(u_of_m=(0, 0, 0), j_of_w=(0, 0, 0),
+                                    exp_of_w=(0, 1, 2),
+                                    pairs=((0, 0, 0), (1, 1, 0), (2, 2, 0)),
+                                    n_out=1, gi=32)
+    kernels.lane_pack_dg_f32(rows, shape, block_long=8)
+    with pytest.raises(ValueError, match="index maps"):
+        kernels.lane_pack_dg_f32(rows, replace(shape, exp_of_w=(0, 1, 3)),
+                                 block_long=8)
+    with pytest.raises(ValueError, match="index maps"):
+        kernels.lane_pack_dg_f32(rows, replace(shape, pairs=(
+            (1, 1, 0), (0, 0, 0), (2, 2, 0))), block_long=8)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.lane_pack_dg_f32(
+            [replace(rows[0], T=rows[0].T[:, :, :-1])] + rows[1:], shape,
+            block_long=8)
+    with pytest.raises(ft.InvalidParameterError, match="at most 16 terms"):
+        kernels.check_lane_pack_dg_shape(replace(
+            shape, pairs=((0, 0, 0),) * 17))
+    with pytest.raises(ft.InvalidParameterError, match="at most 4 T"):
+        kernels.check_lane_pack_dg_shape(replace(shape, u_of_m=(0,) * 5))
+    assert kernels.lane_pack_dg_smem_bytes(32) == 4 * 16 * (132 + 36)
+    assert kernels.lane_pack_dg_smem_bytes(4096, True) \
+        == 2 * 4 * 16 * (68 + 68)
+
+
+def _lp_tol(rows):
+    """``RTOL_3X`` grown as sqrt(K / 64) for a contraction K over 64, as
+    for the other 3x kernels (the f32 sums of the two orders part by about
+    sqrt(K) ulps of the terms)."""
+    K = max(rows[0].u.shape[2], rows[0].J.shape[2])
+    return RTOL_3X * max(1.0, (K / 64) ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dofmajor", [False, True])
+@pytest.mark.parametrize("E_packed,block_long", [(77, 64), (1000, 300),
+                                                 (3, 1)])
+@pytest.mark.parametrize("name", sorted(LP_CASES))
+def test_lane_pack_dg_kernel_matches_plain(cuda_device, name, E_packed,
+                                           block_long, dofmajor):
+    """``lane_pack_dg_f32`` against its plain version on each packed
+    program, in both stored layouts, with ragged E/g tails (77 and 1000
+    packed rows against tiles of 64 or 128) and block lengths that are not
+    whole tiles."""
+    g = 2 ** LP_CASES[name][2]
+    plan, rows = _lp_plan(name, cuda_device, g * E_packed, dofmajor)
+    assert plan.kernel == "lane_pack_dg_f32"
+    from feinsum_tpu_torch.ops.lane_pack import lane_pack_dg_shape
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+    space, make, lg = LP_CASES[name]
+    e = make()
+    shape = lane_pack_dg_shape(get_transform_func_from_module_path(
+        space).bind_args(e, **S.space_point(space, e, lane_pack_g=lg))(
+        ft.generate_program(e)).einsum)
+    before = kernels.launch_counts["lane_pack_dg_f32"]
+    got = kernels.lane_pack_dg_f32(rows, shape, block_long=block_long,
+                                   out_order=(0, 2, 1) if dofmajor
+                                   else (0, 1, 2))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["lane_pack_dg_f32"] == before + 1
+    want = kernels.lane_pack_dg_plain(rows, shape, (0, 2, 1) if dofmajor
+                                      else (0, 1, 2))
+    for g_, w in zip(got, want):
+        assert g_.is_contiguous()
+        assert_close(g_.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dofmajor", [False, True])
+@pytest.mark.parametrize("name", sorted(LP_CASES))
+def test_lane_pack_dg_3x_kernel_matches_plain(cuda_device, name, dofmajor):
+    """``lane_pack_dg_3xtf32`` against its plain version relative to the
+    sum of the terms' magnitudes, on a ragged tail."""
+    g = 2 ** LP_CASES[name][2]
+    plan, rows = _lp_plan(name, cuda_device, g * 203, dofmajor,
+                          precision_3x=True)
+    assert plan.kernel == "lane_pack_dg_3xtf32"
+    before = kernels.launch_counts["lane_pack_dg_3xtf32"]
+    got = plan.run(rows)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["lane_pack_dg_3xtf32"] == before + 1
+    for g_, w, mag in zip(got, plan.plain(rows), plan.plain(_lp_abs(rows))):
+        _close_to_terms(g_.cpu(), w.cpu(), mag.cpu(),
+                        rtol=_lp_tol(rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_launch,launches", [(True, 2), (False, 5)])
+def test_lane_pack_dg_kernel_splits_rows(cuda_device, one_launch, launches):
+    """Five rows (div's three and two more) go in launches of at most the
+    kernel's four rows."""
+    _plan, rows = _lp_plan("div", cuda_device, 8 * 50, dofmajor=True)
+    rows = rows + rows[:2]
+    shape = kernels.LanePackDGShape(u_of_m=(0, 0, 0), j_of_w=(0, 0, 0),
+                                    exp_of_w=(0, 1, 2),
+                                    pairs=((0, 0, 0), (1, 1, 0), (2, 2, 0)),
+                                    n_out=1, gi=32)
+    before = kernels.launch_counts["lane_pack_dg_f32"]
+    got = kernels.lane_pack_dg_f32(rows, shape, block_long=64,
+                                   one_launch=one_launch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["lane_pack_dg_f32"] == before + launches
+    for g_, w in zip(got, kernels.lane_pack_dg_plain(rows, shape)):
+        assert_close(g_.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gi", [8, 32, 33, 4096])
+@pytest.mark.parametrize("split", [False, True])
+def test_lane_pack_dg_smem_formula_matches_the_kernel(cuda_device, gi,
+                                                      split):
+    assert _build.load_library().lane_pack_dg_smem_bytes(gi, int(split)) \
+        == kernels.lane_pack_dg_smem_bytes(gi, split)
+    assert _build.load_library().lane_pack_dg_max_rows() == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LP_CASES))
+@pytest.mark.parametrize("precision_3x", [False, True])
+def test_lane_pack_programs_validate_on_card(cuda_device, name,
+                                             precision_3x):
+    """A packed program through ``validate_batched_einsum_transform`` on
+    the card: apply_layouts, the residents built on the card, the kernel,
+    the packed output against the numpy oracle."""
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+    space, make, lg = LP_CASES[name]
+    e = make()
+    tr = get_transform_func_from_module_path(space).bind_args(
+        e, **S.space_point(space, e, lane_pack_g=lg,
+                           precision_3x=precision_3x))
+    kernel = "lane_pack_dg_3xtf32" if precision_3x else "lane_pack_dg_f32"
+    before = kernels.launch_counts[kernel]
+    ft.validate_batched_einsum_transform(e, tr, long_dim_length=2000,
+                                         device=cuda_device)
+    assert kernels.launch_counts[kernel] == before + 1
+
+# }}}
+
+
 # {{{ the default device
 
 def test_helpers_take_no_card_unless_asked_for_the_cpu(monkeypatch):
@@ -1134,4 +1351,5 @@ def test_library_name_follows_the_sources():
     assert path == _build.library_path()       # stable for unchanged sources
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu",
-        "row_reduce.cu", "long_reduce.cu", "dg_rows_3x.cu", "tc_grid_3x.cu"}
+        "row_reduce.cu", "long_reduce.cu", "dg_rows_3x.cu", "tc_grid_3x.cu",
+        "lane_pack_dg.cu"}

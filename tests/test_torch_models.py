@@ -7,7 +7,8 @@ reference's fused kernels run in Pallas interpret mode at one grid step
 versions at several thread blocks.  The models take their default block
 length from ``suite.BLOCK_LONG`` and bind an archived fact without its
 storage knobs (``fold``, ``preblock``), its precision carried over (the
-reference's own tests of both).  Also the face-restriction row
+reference's own tests of both); a lane-pack fact fails the reference's
+step and is refused by the port's model.  Also the face-restriction row
 ``fji,ei->fej``: it plans onto ``dg_rows_f32`` as a matvec over the merged
 (f, j), and any other stored order of those letters raises."""
 
@@ -207,3 +208,50 @@ def test_models_take_no_card_unless_asked_for_the_cpu(monkeypatch):
         ft.make_maxwell_state(E, ndof=NDOF)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         state_from_reference({}, {})
+
+
+@pytest.mark.parametrize("which", ["div", "grad", "face", "curl"])
+def test_models_refuse_lane_pack_facts(tmp_path, which):
+    """A lane-pack fact (``lane_pack_g`` 3, g = 8) for a model's einsum:
+    the reference's model binds it, keeps its packed operands, and its step
+    fails on the shapes of the dof-major state; the port's model refuses
+    the fact when it is built, naming ``lane_pack_g``."""
+    from feinsum_tpu import sql_utils as ref_sql
+    from feinsum_tpu_torch import sql_utils
+    params = {"log2_block": 9, "hoist": False, "parallel_grid": True,
+              "dofmajor": True, "lane_pack_g": 3}
+    space = {"div": "dg_div_v0.py", "grad": "dg_grad_v0.py",
+             "face": "face_mass_v0.py", "curl": "dg_div_v0.py"}[which]
+    if which == "curl":
+        ref_e = RefMaxwell(ndof=NDOF, use_pallas=False).curl_einsum
+        e = ft.MaxwellOperator3D(ndof=NDOF, use_pallas=False).curl_einsum
+    else:
+        ref_e = getattr(RefWave(ndof=NDOF, nfacedof=NFDOF, use_pallas=False),
+                        f"{which}_einsum")
+        e = getattr(ft.WaveOperator3D(ndof=NDOF, nfacedof=NFDOF,
+                                      use_pallas=False), f"{which}_einsum")
+    ref_db, db = str(tmp_path / "ref.sqlite"), str(tmp_path / "db.sqlite")
+    ref_sql.record_facts(ref_e, transform_id=space, transform_params=params,
+                         runtime_in_sec=1e-4, device="cpu", db_path=ref_db,
+                         long_dim_length=2048)
+    sql_utils.record_facts(e, transform_id=space, transform_params=params,
+                           runtime_in_sec=1e-4, device="cpu", db_path=db,
+                           long_dim_length=2048)
+    if which == "curl":
+        ref_op = RefMaxwell(ndof=NDOF, db_path=ref_db, device="cpu",
+                            block_long=E)
+        assert ref_op._program.descriptor.lane_pack == 8
+        state, geom = ref_maxwell_state(E, ndof=NDOF, seed=6)
+    else:
+        ref_op = RefWave(ndof=NDOF, nfacedof=NFDOF, db_path=ref_db,
+                         device="cpu", block_long=E)
+        assert ref_op._programs[which].descriptor.lane_pack == 8
+        state, geom = ref_wave_state(E, ndof=NDOF, nfacedof=NFDOF, seed=5)
+    with pytest.raises((TypeError, ValueError)):
+        ref_op.make_step(E)(state, geom)
+    with pytest.raises(ft.InvalidParameterError, match="lane_pack_g"):
+        if which == "curl":
+            ft.MaxwellOperator3D(ndof=NDOF, db_path=db, device="cpu")
+        else:
+            ft.WaveOperator3D(ndof=NDOF, nfacedof=NFDOF, db_path=db,
+                              device="cpu")
