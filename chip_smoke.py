@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --split-only       # phases 1 and 15-17 alone
     python3 chip_smoke.py --lane-pack-only   # phases 1 and 18 alone
+    python3 chip_smoke.py --step-only        # phases 1 and 19 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -118,7 +119,21 @@ Phases; any failure exits non-zero before the final line:
    archive under ``build/`` (which champions are packed); each packed point
    timed in turns against the row's unpacked champion and one
    ``torch.einsum`` of the logical einsum, beside the logical einsum's
-   bound and the packed program's dense flops.
+   bound and the packed program's dense flops;
+19. K1's general steps on ``step_block_f32``: the demo ``ij,ejk->eik`` at
+   ndof 35 tuned in ``demo_transform_space`` (two points at E = 1M) into a
+   fresh archive under ``build/``, its champion taken through
+   ``candidate_transforms`` and ``retrieve``; sum factorization on Q4
+   hexahedra ``ai,bj,ck,eabc->eijk`` (the three-step schedule and the
+   trivial one step, and b = 2), ``ej,e->ej`` and ``ej,j->`` at ndof 35
+   and the Gram matrix ``ei,ej->ij`` at ndof 120, built with
+   ``fused_pallas_program``; each validated against the numpy oracle at
+   E = 2000 and held against ``step_block_plain`` at E = 1M (the demo and
+   ``ej,j->`` also at E = 1,000,003) within 2e-5 of the sum of the terms'
+   magnitudes; counters reset; each replayed or built and run at E = 1M,
+   ``step_block_f32`` read from the counters; each timed in turns against
+   its plain version and one ``torch.einsum`` of the logical einsum, beside
+   its bound.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -129,10 +144,10 @@ and ``{"ok": true, "device": {...}}``.  The times of ``dg_rows_f32`` and
 ``ew_product_f32`` are phase 4's rows, those of ``row_reduce_f32`` and
 ``ew_flat_f32`` phase 10's, ``long_reduce_f32``'s phase 12's, the 3x
 kernels' phase 15's, the lane-pack kernels' phase 18's (g = 8, their
-bound that of the logical einsum); launches are counted over the main path
-(phase 3), the archive replays (phases 6, 8, 10, 16, 18), the consumer
-flow's calls (phase 13) and one step of each model (phases 14, 17).  It
-imports no JAX.
+bound that of the logical einsum), ``step_block_f32``'s phase 19's;
+launches are counted over the main path (phase 3), the archive replays
+(phases 6, 8, 10, 16, 18), the consumer flow's calls (phase 13), one step
+of each model (phases 14, 17) and phase 19's runs.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -179,7 +194,8 @@ REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "dd_rows": "feinsum_tpu/ops/dd_emitter.py:233",
             "tc_grid_f32": "feinsum_tpu/ops/pallas_emitter.py:268",
             "lane_pack_dg_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
-            "lane_pack_dg_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464"}
+            "lane_pack_dg_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "step_block_f32": "feinsum_tpu/ops/pallas_emitter.py:464"}
 SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
            "ew_flat_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
@@ -190,7 +206,8 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "dg_rows_3xtf32": "feinsum_tpu_torch/csrc/dg_rows_3x.cu",
            "tc_grid_3xtf32": "feinsum_tpu_torch/csrc/tc_grid_3x.cu",
            "lane_pack_dg_f32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
-           "lane_pack_dg_3xtf32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu"}
+           "lane_pack_dg_3xtf32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
+           "step_block_f32": "feinsum_tpu_torch/csrc/step_block.cu"}
 # the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W);
 # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_MS = 3.35e9
@@ -425,6 +442,8 @@ def main() -> int:
         return split_only(dev, card)
     if "--lane-pack-only" in sys.argv[1:]:
         return lane_pack_only(dev, card)
+    if "--step-only" in sys.argv[1:]:
+        return step_only(dev, card)
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -585,7 +604,10 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     t_phase = time.perf_counter()
     launches.update(lane_pack_path(dev, label, stats))
-    log(f"[phase] 18 (lane-pack path): {time.perf_counter() - t_phase:.1f} s;"
+    log(f"[phase] 18 (lane-pack path): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    launches["step_block_f32"] = step_block_path(dev, label, stats)
+    log(f"[phase] 19 (step_block_f32): {time.perf_counter() - t_phase:.1f} s;"
         f" all phases {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k]) for k in SOURCES]
@@ -643,6 +665,29 @@ def lane_pack_only(dev, card: str) -> int:
     log(card)
     log(json.dumps({"kernels": [stats.entry(k, launches[k])
                                 for k in LP_KERNELS]}))
+    return 0
+
+
+def step_only(dev, card: str) -> int:
+    """Phase 19 alone, for work on ``step_block_f32``: its build report,
+    checks, launches and times, and its entry of the ``kernels`` line.  It
+    prints no ``ok`` line."""
+    import torch
+
+    from feinsum_tpu_torch.ops import _build
+    label = (f"[{torch.cuda.get_device_name(0)}, power limit"
+             f" {card.split(',')[-1].strip()}]")
+    lines = _build.build_info["log"].splitlines()
+    for k, line in enumerate(lines):
+        if "step_block" in line and "entry function" in line:
+            for text in lines[k:k + 4]:
+                log("[build]", text.strip())
+    stats = KernelStats()
+    t0 = time.perf_counter()
+    launches = step_block_path(dev, label, stats)
+    log(f"[phase] 19: {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": [stats.entry("step_block_f32", launches)]}))
     return 0
 
 
@@ -2246,6 +2291,163 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
             del arrays, args, routes
             torch.cuda.empty_cache()
         del logical
+    return launches
+
+
+# the demo space's points phase 19 measures: log2_block 9 and 11
+DEMO_SEEDS = [{"log2_block": 9}, {"log2_block": 11}]
+
+
+def device_inputs(e, length: int, seed: int, dev) -> dict:
+    """Uniform [0, 1) float32 inputs of every operand of *e* in its logical
+    shape, made on the card (the numpy oracle checks use the package's own
+    seeded inputs)."""
+    import torch
+
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lengths = get_index_lengths(e, length)
+    idx = {a.name: s for row in e.args for a, s in zip(row, e.in_idx_sets)}
+    return {name: torch.rand(tuple(lengths[ix] for ix in idx[name]),
+                             generator=gen, device=dev)
+            for name in e.arg_to_shape}
+
+
+def step_block_path(dev, label: str, stats: KernelStats) -> int:
+    """Phase 19, K1's general steps: (1) the demo tuned in
+    ``demo_transform_space`` at E = 1M into a fresh archive, its champion
+    through ``candidate_transforms`` and ``retrieve``; (2) the demo's
+    archived program and phase 19's rows (``tools/step_block_mappings.py``,
+    built with ``fused_pallas_program``, dof-major) validated against the
+    numpy oracle at E = 2000 and held against ``step_block_plain`` at E = 1M (and 1,000,003
+    on the demo and ``ej,j->``) within 2e-5 of the sum of the terms'
+    magnitudes; (3) counters reset, each program replayed or built and run
+    at E = 1M, and the counters read; (4) each timed in turns against its
+    plain version and one ``torch.einsum`` of the logical einsum (into
+    *stats*).  An archived fact binds to the canonical einsum, whose long
+    letter its ``long_axis`` names, so the demo replays on that einsum's
+    program.  Returns the launches of step (3)."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import sql_utils
+    from feinsum_tpu_torch.canonicalization import canonicalize_einsum
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.layouts import stored_out_letters
+    from feinsum_tpu_torch.suite import candidate_transforms
+    from feinsum_tpu_torch.tools.step_block_mappings import demo_einsum, \
+        programs as layouts_of, step_block_rows
+
+    demo = demo_einsum()
+    canon = canonicalize_einsum(demo)
+
+    # (1) the demo space tuned into a fresh archive
+    db = HERE / "build" / "chip_smoke" / "demo_archive.sqlite"
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    ft.autotune(demo, "demo_transform_space", db_path=str(db), device=dev,
+                long_dim_length=E_FULL, test_limit=len(DEMO_SEEDS),
+                seed_configs=DEMO_SEEDS)
+    facts = sql_utils.aggregate_reconfirmations(
+        ft.query(demo, dev, db_path=str(db)))
+    log(f"[tune] demo ij,ejk->eik ndof 35: {len(facts)} facts in"
+        f" {time.perf_counter() - t0:.1f} s; " + "; ".join(
+            f"{dict(q.transform_params)}: {q.runtime_in_sec * 1e3:.4f} ms"
+            for q in facts) + f" {label}")
+    winner = next(candidate_transforms("demo", demo, db_path=str(db),
+                                       device=dev))
+    if len(facts) != len(DEMO_SEEDS) or winner.fact is None \
+            or winner.fact.transform_id != "demo_transform_space.py":
+        raise SmokeFailure(f"the demo archive holds {facts}")
+    champion = ft.retrieve(demo, dev, db_path=str(db))
+    programs = {"demo_ndof35": (canon, champion(ft.generate_program(canon)))}
+    log(f"[tune] demo champion {winner.label} -> block_long"
+        f" {programs['demo_ndof35'][1].descriptor.block_long}, replayed on"
+        f" the canonical einsum {canon.get_subscripts()}")
+    for name, e, hoist in step_block_rows():
+        programs[name] = (e, layouts_of(e, hoist)["dof-major"])
+
+    # (2) the oracle at E = 2000, then kernel against plain at full size
+    for name, (e, program) in programs.items():
+        ft.validate_batched_einsum_transform(
+            e, lambda p, program=program: program,
+            long_dim_length=E_VALIDATE, device=dev)
+        ragged = name in ("demo_ndof35", "resident_reduce_ndof35")
+        for length in (E_FULL, E_RAGGED) if ragged else (E_FULL,):
+            plan = plan_cuda_launch(program, get_index_lengths(e, length))
+            if plan.kernel != "step_block_f32":
+                raise SmokeFailure(f"{name} plans onto {plan.kernel}")
+            operands = plan.operands(apply_layouts(
+                program, device_inputs(e, length, 1, dev)))
+            got = plan.run(operands)
+            want = plan.plain(operands)
+            terms = plan.plain(magnitudes(operands))
+            torch.cuda.synchronize()
+            for g, w, t in zip(got, want, terms):
+                abs_err, rel = max_err(g, w)
+                over = note_error("step_block_f32", g, w, t)
+                ok = over <= RTOL
+                log(f"[compare] step_block_f32 {name} E={length}"
+                    f" ({program.schedule.nsteps} steps): max|kernel-plain|"
+                    f" {abs_err:.3e} = {rel:.2e} of max|plain|, {over:.2e}"
+                    f" of the terms' magnitudes (tolerance {RTOL})"
+                    f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SmokeFailure(f"step_block_f32 disagrees with its"
+                                       f" plain version on {name}")
+            del operands, got, want, terms
+            torch.cuda.empty_cache()
+        log(f"[oracle] {name}: validated on {dev} at E={E_VALIDATE}")
+
+    # (3) the main path of this phase, counted
+    kernels.reset_launch_counts()
+    for name, (e, program) in programs.items():
+        fn = ft.build_executable(program, long_dim_length=E_FULL, device=dev)
+        outs = fn(apply_layouts(program, device_inputs(e, E_FULL, 0, dev)))
+        torch.cuda.synchronize()
+        lengths = get_index_lengths(e, E_FULL)
+        want = tuple(lengths[ix] for ix in stored_out_letters(program))
+        for o in outs:
+            if tuple(o.shape) != want or not bool(o.isfinite().all()):
+                raise SmokeFailure(f"{name}: output {tuple(o.shape)}, want"
+                                   f" {want}, finite")
+        del outs
+    counts = dict(kernels.launch_counts)
+    log(f"[step] launch counts over phase 19's runs: {counts}")
+    launches = counts.pop("step_block_f32")
+    if launches < len(programs) or any(counts.values()):
+        raise SmokeFailure(f"phase 19 ran {launches} step_block_f32 launches"
+                           f" and {counts}")
+
+    # (4) times, in turns
+    for name, (e, program) in programs.items():
+        logical = device_inputs(e, E_FULL, 0, dev)
+        arrays = apply_layouts(program, logical)
+        plan = plan_cuda_launch(program, get_index_lengths(e, E_FULL))
+        subs = e.get_subscripts().replace(" ", "")
+        times = timed_in_turns(
+            {"kernel": ft.build_executable(program, long_dim_length=E_FULL,
+                                           device=dev),
+             "plain": lambda a, plan=plan: plan.plain(plan.operands(a)),
+             "library": lambda a, e=e, subs=subs: [
+                 torch.einsum(subs, *[a[x.name] for x in row])
+                 for row in e.args]},
+            {"kernel": arrays, "plain": arrays, "library": logical})
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        log(f"[time] step_block_f32 {name} E={E_FULL}"
+            f" ({program.schedule.nsteps} steps, block"
+            f" {program.descriptor.block_long}): kernel {ms['kernel']:.4f}"
+            f" ms, plain version {ms['plain']:.4f} ms, torch.einsum"
+            f" {ms['library']:.4f} ms, {bound_text(e, E_FULL, program)}"
+            f" (runs {times}) {label}")
+        stats.add("step_block_f32", e, E_FULL, ms["kernel"], ms["plain"],
+                  ms["library"], program)
+        del logical, arrays
+        torch.cuda.empty_cache()
     return launches
 
 

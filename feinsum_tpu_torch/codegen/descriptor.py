@@ -34,10 +34,12 @@ class ScheduleDescriptor:
         schedule step (what the reference hands to XLA).  ``"pallas"``: the
         hand-written CUDA kernels: with a tuple ``grid_index`` the tensor-
         contraction kernel (``ops/tc_emitter.py``), else the fused DG
-        kernels (``ops/cuda_emitter.py``).  The fused
-        kernels compute each row's value, not the schedule's step order: the
-        div schedule ``ej,es->ejs; ejs,sij->ei`` and the kernel's direct sum
-        ``Σ_s J[e,s] Σ_j R[s,i,j] u[e,j]`` agree up to rounding.
+        kernels (``ops/cuda_emitter.py``).  The row families' kernels
+        compute each row's value, not the schedule's step order: the div
+        schedule ``ej,es->ejs; ejs,sij->ei`` and the kernel's direct sum
+        ``Σ_s J[e,s] Σ_j R[s,i,j] u[e,j]`` agree up to rounding; a program
+        no row family takes runs its schedule step by step on
+        ``step_block_f32`` (``ops/step_block.py``).
     :attr grid_index: ``None`` or the unique parametric letter (the fused
         DG kernels), or a tuple of concrete output letters: with
         ``backend="pallas"`` the dense tensor-contraction kernel
@@ -117,8 +119,10 @@ class ScheduleDescriptor:
         operands share one result, and each row is planned on the einsum in
         which the hoisted results replace the operands they consumed (curl
         with ``prereduce``: ``R = Σ_r D`` once, then a mass-shaped
-        ``dg_rows_f32`` launch with S = 1).  ``False``: the kernels compute
-        each row's value from its own operands, whatever the step order.
+        ``dg_rows_f32`` launch with S = 1).  ``False``: the row families'
+        kernels compute each row's value from its own operands, whatever
+        the step order, and ``step_block_f32`` runs a resident-only step
+        once per thread block.
     :attr flatten: with ``backend="pallas"``, K3's route: a single-step,
         contraction-free program of 1-D operands that all carry the
         output's subscript, with no ``arg_layouts`` or ``out_layout``, runs

@@ -34,32 +34,48 @@ launch:
   matvecs over g·d, their resident the kron-expanded one);
 * a lane-packed DG program (four operands J', EXP, T, u' in the rewrite's
   three-step schedule, ``ops/lane_pack.py::plan_lane_pack_dg``) goes to
-  ``lane_pack_dg_f32``.
+  ``lane_pack_dg_f32``;
+* every other program goes to ``step_block_f32``, K1's general step
+  algebra (:func:`row_family` is ``None``): its schedule step by step, as
+  the reference runs it (``ops/step_block.py``).  These are the rows whose
+  output is not (x?, e, i) (the demo ``ij,ejk->eik``, sum factorization
+  ``ai,bj,ck,eabc->eijk``), contraction-free rows whose operands do not
+  share the output's stored layout (``ej,e->ej``), a contracted long axis
+  with a resident operand (``ej,j->``), two short letters per operand, or
+  more output entries than ``long_reduce_f32`` takes (the Gram matrix
+  above 64 x 64), and batch rows that plan differently.
+
+A row family takes a program by its structure alone: a program that one
+plans keeps that family's kernel, and that kernel's refusals (its shared
+memory, a restriction row's stored layouts) stay refusals.
 
 At ``precision="bf16_3x"`` the rows that go to ``dg_rows_f32`` (DG rows and
 restriction rows) go to its 3xTF32 variant ``dg_rows_3xtf32`` instead: the
 j-dot in three TF32 tensor-core passes; a packed DG program goes to
 ``lane_pack_dg_3xtf32``, both dots split.  The other kernels have no 3x
 variant, since the reference applies the split only to its dots; a
-``bf16_3x`` row planned onto one of them runs it in f32 and counts under
-its name in ``kernels.launch_counts``.
+``bf16_3x`` row planned onto one of them (``step_block_f32`` too) runs it
+in f32 and counts under its name in ``kernels.launch_counts``.
 
-Everything else raises :class:`InvalidParameterError` naming what is
-missing.  The executable takes and returns tensors in the descriptor's
+What no kernel takes raises :class:`InvalidParameterError` naming the
+limit.  The executable takes and returns tensors in the descriptor's
 stored layouts; CPU tensors run the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..codegen.descriptor import is_split
-from ..contraction_schedule import EinsumOperand, \
-    get_trivial_contraction_schedule
+from ..contraction_schedule import (
+    ContractionSchedule,
+    EinsumOperand,
+    IntermediateResult,
+)
 from ..diagnostics import InvalidParameterError
 from ..einsum import Array, BatchedEinsum, SizeParam
 from .dg_rows import (
@@ -89,8 +105,11 @@ from .kernels import (
     lane_pack_dg_plain,
     long_reduce_f32,
     long_reduce_plain,
+    long_reduce_limit,
     row_reduce_f32,
     row_reduce_plain,
+    step_block_f32,
+    step_block_plain,
 )
 from .lane_pack import (
     EXP_POS,
@@ -101,6 +120,7 @@ from .lane_pack import (
     plan_lane_pack_dg,
 )
 from .layouts import stored_arg_layouts, stored_out_letters
+from .step_block import plan_step_block
 
 
 def _role_view(t, stored: tuple, roles: tuple):
@@ -193,9 +213,12 @@ def hoist_resident_steps(program) -> tuple:
     every schedule step but the last whose operands carry no long axis,
     transitively, is hoisted.  Rows whose hoisted steps read the same
     operands share one result (``_host<k>``, in the step's output letters),
-    and ``program'`` is the single-step program over the einsum in which
-    each hoisted result replaces the operands it consumed.  Without hoisted
-    steps: ``(program, ())``."""
+    and ``program'`` is the program over the einsum in which each hoisted
+    result replaces the operands it consumed, its schedule the steps that
+    stay in the kernel (the last step and those it reads), each hoisted
+    result read as an operand.  The row families plan on that einsum alone;
+    ``step_block_f32`` runs the steps.  Without hoisted steps: ``(program,
+    ())``."""
     e = program.einsum
     sched = program.schedule
     if not program.descriptor.hoist_resident_steps:
@@ -271,8 +294,40 @@ def hoist_resident_steps(program) -> tuple:
         arg_layouts=tuple((n, p) for n, p in program.descriptor.arg_layouts
                           if n in kept))
     return (program.copy(einsum=derived, descriptor=desc,
-                         schedule=get_trivial_contraction_schedule(derived)),
+                         schedule=_kernel_schedule(steps, hoisted,
+                                                   kernel_leaves)),
             tuple(host_steps))
+
+
+def _kernel_schedule(steps: list, hoisted: set, kernel_leaves: list
+                     ) -> ContractionSchedule:
+    """The steps that stay in the kernel, in the schedule's order: the last
+    and every step it reads that is not hoisted, with each operand an
+    operand of the derived einsum (its position among *kernel_leaves*) or
+    an earlier kernel step's result."""
+    pos_of = {leaf: p for p, leaf in enumerate(kernel_leaves)}
+    by_name = {name: args for _, name, args in steps}
+    reached: set = set()
+
+    def visit(name):
+        reached.add(name)
+        for a in by_name[name]:
+            if isinstance(a, IntermediateResult) and a.name not in hoisted \
+                    and a.name not in reached:
+                visit(a.name)
+    visit(steps[-1][1])
+    subs, names, arguments = [], [], []
+    for sub, name, args in steps:
+        if name not in reached:
+            continue
+        subs.append(sub)
+        names.append(name)
+        arguments.append(tuple(
+            EinsumOperand(pos_of[("arg", a.position)])
+            if isinstance(a, EinsumOperand)
+            else EinsumOperand(pos_of[("host", a.name)])
+            if a.name in hoisted else a for a in args))
+    return ContractionSchedule(tuple(subs), tuple(names), tuple(arguments))
 
 
 def _host_values(program, host_steps: tuple, arrays_by_name: dict) -> dict:
@@ -351,8 +406,69 @@ def plan_cuda_launch(program, index_to_length: dict) -> KernelPlan:
                       plain=plan.plain)
 
 
+def _dg_plans(e: BatchedEinsum) -> Optional[list]:
+    """The rows' DG plans (:func:`~.dg_rows.plan_row`) when every row is in
+    the family and all plan alike, else ``None``."""
+    try:
+        plans = [plan_row(e, r) for r in range(e.b)]
+    except InvalidParameterError:
+        return None
+    p0 = plans[0]
+    if any((p.x_letter, p.s_letter, p.i_letter, p.j_letter, p.u_has_s,
+            p.F is None) != (p0.x_letter, p0.s_letter, p0.i_letter,
+                             p0.j_letter, p0.u_has_s, p0.F is None)
+           for p in plans):
+        return None
+    return plans
+
+
+def row_family(program, index_to_length: dict) -> Optional[str]:
+    """The row family that takes *program* (without hoisted steps) by its
+    structure: ``"lane_pack_dg"``, ``"ew_product"``, ``"long_reduce"``,
+    ``"row_reduce"``, ``"restrict"`` or ``"dg"``; ``None`` when none does,
+    and the program goes to ``step_block_f32``.  Structure is the einsum's
+    letters and ``long_reduce_f32``'s count of output entries; a family's
+    limits on shared memory, and a restriction row's stored layouts, are
+    its kernel's refusals, not another route."""
+    e = program.einsum
+    if program.descriptor.lane_pack > 1 and e.n == 4:
+        return "lane_pack_dg"
+    if _is_pure_product(program):
+        return "ew_product"
+    if not e.sum_indices:
+        return None
+    if _long_letter(e) not in e.out_idx_set:
+        try:
+            _, shape = long_reduce_shape(program, index_to_length,
+                                         check=False)
+        except InvalidParameterError:
+            return None
+        return "long_reduce" if long_reduce_limit(shape) is None else None
+    if len(e.out_idx_set) == 1:
+        try:
+            for r in range(e.b):
+                plan_reduce_row(e, r)
+        except InvalidParameterError:
+            return None
+        return "row_reduce"
+    if resident_carries_outputs(e):
+        stored = stored_arg_layouts(program)
+        out_letters = stored_out_letters(program)
+        (pos,) = [p for p in range(e.n)
+                  if _long_letter(e) not in e.in_idx_sets[p]]
+        try:
+            for r in range(e.b):
+                plan_restrict_row(e, r, stored[e.args[r][pos].name],
+                                  out_letters, check_layout=False)
+        except InvalidParameterError:
+            return None
+        return "restrict"
+    return None if _dg_plans(e) is None else "dg"
+
+
 def _plan_rows(program, lengths: dict) -> KernelPlan:
-    """Plan the rows of a program without hoisted steps."""
+    """Plan the rows of a program without hoisted steps onto the kernel of
+    its row family, or onto ``step_block_f32``."""
     e = program.einsum
     desc = program.descriptor
     stored = stored_arg_layouts(program)
@@ -372,24 +488,21 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
                     f" {stored[name]} needs {shape}")
         return arrays_by_name
 
-    if desc.lane_pack > 1 and e.n == 4:
+    family = row_family(program, lengths)
+    if family is None:
+        return _plan_step_block(program, lengths, checked)
+    if family == "lane_pack_dg":
         return _plan_lane_pack_dg(program, lengths, checked)
-    if _is_pure_product(program):
+    if family == "ew_product":
         return KernelPlan(
             kernel="ew_product_f32",
             operands=lambda arrays: [[checked(arrays)[a.name] for a in row]
                                      for row in e.args],
             run=lambda rows: ew_product_f32(rows, one_launch=one_launch),
             plain=ew_product_plain)
-    if not e.sum_indices:
-        raise InvalidParameterError(
-            "a contraction-free row whose operands do not all share the"
-            " output's stored layout has no fused CUDA kernel yet")
-
-    if _long_letter(e) not in e.out_idx_set:
+    if family == "long_reduce":
         return _plan_long_reduce(program, lengths, checked)
-
-    if len(e.out_idx_set) == 1:
+    if family == "row_reduce":
         reduce_plans = [plan_reduce_row(e, r) for r in range(e.b)]
         el, j = reduce_plans[0].e_letter, reduce_plans[0].j_letter
 
@@ -404,19 +517,13 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
             run=lambda rows: row_reduce_f32(rows, block_long=desc.block_long,
                                             one_launch=one_launch),
             plain=row_reduce_plain)
-
-    if resident_carries_outputs(e):
+    if family == "restrict":
         return _plan_restrict(program, lengths, checked)
 
-    plans = [plan_row(e, r) for r in range(e.b)]
+    plans = _dg_plans(e)
     p0 = plans[0]
     x, s, i, j, el = (p0.x_letter, p0.s_letter, p0.i_letter, p0.j_letter,
                       p0.e_letter)
-    if any((p.x_letter, p.s_letter, p.i_letter, p.j_letter, p.u_has_s,
-            p.F is None) != (x, s, i, j, p0.u_has_s, p0.F is None)
-           for p in plans):
-        raise InvalidParameterError("rows of the batched einsum plan"
-                                    " differently")
     S = lengths[s] if s is not None else 1
     u_roles = (s if p0.u_has_s else None, j, el)
     r_roles = (s, i, j)
@@ -462,10 +569,10 @@ def _dg_kernel(desc) -> tuple:
     return "dg_rows_f32", dg_rows_f32, dg_rows_plain
 
 
-def long_reduce_shape(program, lengths: dict) -> tuple:
+def long_reduce_shape(program, lengths: dict, check: bool = True) -> tuple:
     """``(row plans, LongReduceShape)`` of a program whose long axis is
     contracted; raises :class:`InvalidParameterError` when its rows plan
-    differently or ``long_reduce_f32`` does not take them."""
+    differently or, with *check*, ``long_reduce_f32`` does not take them."""
     e = program.einsum
     plans = [plan_long_reduce_row(e, r) for r in range(e.b)]
     p0 = plans[0]
@@ -484,7 +591,8 @@ def long_reduce_shape(program, lengths: dict) -> tuple:
         C=lengths[p0.c_letter] if p0.c_letter is not None else 1,
         c_batch=p0.c_batch,
         out_axes=tuple(role_of[ix] for ix in stored_out_letters(program)))
-    check_long_reduce_shape(shape)
+    if check:
+        check_long_reduce_shape(shape)
     return plans, shape
 
 
@@ -604,6 +712,27 @@ def _plan_lane_pack_dg(program, lengths: dict, checked: Callable
             rows, shape, block_long=desc.block_long, out_order=out_order,
             one_launch=desc.multiple_results_in_one_kernel)),
         plain=lambda rows: stored_outputs(plain(rows, shape, out_order)))
+
+
+def _plan_step_block(program, lengths: dict, checked: Callable
+                     ) -> KernelPlan:
+    """Any other program onto ``step_block_f32``: its step table
+    (``ops/step_block.py``), each operand a view of its stored tensor in
+    the einsum's axis order, the output allocated in the stored order."""
+    from ..codegen.program import _logical_arrays
+    e = program.einsum
+    desc = program.descriptor
+    table = plan_step_block(program, lengths)
+
+    def operands(arrays_by_name: dict) -> list:
+        logical = _logical_arrays(program, checked(arrays_by_name))
+        return [[logical[a.name] for a in row] for row in e.args]
+    return KernelPlan(
+        kernel="step_block_f32", operands=operands,
+        run=lambda rows: step_block_f32(
+            rows, table, block_long=desc.block_long,
+            one_launch=desc.multiple_results_in_one_kernel),
+        plain=lambda rows: step_block_plain(rows, table, desc.block_long))
 
 
 def build_cuda_executable(program, index_to_length: dict):

@@ -31,6 +31,9 @@ output letters: :func:`plan_restrict_row` classifies them for
 Rows whose long axis is contracted (the energy ``ej,ej->``, ``ej,ej->j``,
 the Gram matrix ``ei,ej->ij``) are planned by :func:`plan_long_reduce_row`
 for ``long_reduce_f32``.
+
+A row outside these families goes to ``step_block_f32``, which runs its
+schedule step by step (``ops/step_block.py``).
 """
 
 from __future__ import annotations
@@ -228,13 +231,14 @@ def _adjacent_in_order(letters: tuple, stored: tuple) -> bool:
 
 
 def plan_restrict_row(e: BatchedEinsum, row: int, r_stored: tuple,
-                      out_stored: tuple) -> RestrictRowPlan:
+                      out_stored: tuple, check_layout: bool = True
+                      ) -> RestrictRowPlan:
     """Classify batch row *row* of *e* as a matvec whose resident carries
     every output letter but e; *r_stored* and *out_stored* are the stored
     letters of the resident and of the output.  The merged letters must be
     adjacent and in the same order in both, so that each is one axis of a
-    view; raises :class:`InvalidParameterError` otherwise and outside the
-    family."""
+    view (checked with *check_layout*); raises
+    :class:`InvalidParameterError` otherwise and outside the family."""
     long_letters = [ix for ix, ln in e.index_to_dim_length.items()
                     if isinstance(ln, SizeParam)]
     if len(long_letters) != 1:
@@ -260,8 +264,8 @@ def plan_restrict_row(e: BatchedEinsum, row: int, r_stored: tuple,
             "restriction rows: the resident must carry every output letter"
             " but the long axis, and the contracted letter of the streamed"
             " operand")
-    if not (_adjacent_in_order(merged, out_stored)
-            and _adjacent_in_order(merged, r_stored)):
+    if check_layout and not (_adjacent_in_order(merged, out_stored)
+                             and _adjacent_in_order(merged, r_stored)):
         raise InvalidParameterError(
             f"restriction rows: the output letters {merged} must be adjacent"
             f" and in the same order in the stored output {out_stored} and"

@@ -69,6 +69,17 @@ The last runs K1's schedule of a packed DG program (the lane-pack rewrite,
   and W stay in registers.  At ``bf16_3x`` the two dots take the 3xTF32
   split on the CUDA cores (``lane_pack_dg_3xtf32``, counted apart).
 
+And one runs K1's general step algebra, every schedule step of a program
+that no row family above takes (a step table of
+:mod:`~feinsum_tpu_torch.ops.step_block`):
+
+* ``step_block_f32`` (``csrc/step_block.cu``) — per thread block of the
+  long axis, the residents staged in shared memory, then each step as
+  threads over (element, output entry), each summing its contracted entries
+  through offset tables built here (:func:`step_block_tables`); results
+  between steps stay in shared memory; a contracted long axis ends in
+  per-block partials summed by a second launch in a fixed order.
+
 A wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; it runs the plain version only for tensors that lie on the
 CPU.  There is no fallback from a CUDA tensor to the plain version.  Each
@@ -114,14 +125,33 @@ LP_MAX_M = 4
 LP_MAX_W = 16
 LP_MAX_OUT = 4
 LP_MAX_TERMS = 16
+# csrc/step_block.cu: threads per block (kThreads); the most steps, operands
+# per step and operands per row a launch takes (kMaxSteps, kMaxOps,
+# kMaxInputs); the most short letters per step (the offset tables' size,
+# ops/step_block.py); the most elements per sub-tile when steps hold
+# results in shared memory, and the shared memory per block the planner
+# aims below (three blocks per SM) before it takes up to MAX_SMEM_BYTES
+SB_THREADS = 256
+SB_MAX_STEPS = 8
+SB_MAX_OPS = 4
+SB_MAX_INPUTS = 8
+SB_MAX_LETTERS = 8
+SB_MAX_TE = 128
+SB_SMEM_TARGET = 64 * 1024
+# the streamed bytes of one sub-tile the planner keeps below, so that a
+# step's terms reread its operands from L1 (the SM's 256 KB less the
+# shared memory)
+SB_L1_TARGET = 96 * 1024
 
 # launches by kernel; a ``bf16_3x`` row planned onto a kernel with no 3x
 # variant (``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32``,
-# ``long_reduce_f32``, ``dd_rows``) runs it in f32 and counts under its name
+# ``long_reduce_f32``, ``step_block_f32``, ``dd_rows``) runs it in f32 and
+# counts under its name
 launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
                  "row_reduce_f32": 0, "long_reduce_f32": 0, "dd_rows": 0,
                  "tc_grid_f32": 0, "dg_rows_3xtf32": 0, "tc_grid_3xtf32": 0,
-                 "lane_pack_dg_f32": 0, "lane_pack_dg_3xtf32": 0}
+                 "lane_pack_dg_f32": 0, "lane_pack_dg_3xtf32": 0,
+                 "step_block_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -610,22 +640,30 @@ def long_reduce_tile(ra: int, rb: int) -> int:
     return te - te % 32 if te > 32 else te
 
 
-def check_long_reduce_shape(shape: LongReduceShape) -> None:
-    """Raise :class:`InvalidParameterError` for a row ``long_reduce_f32``
-    does not take: an outer product (the Gram matrix) of more than 256
-    4 x 4 tiles, any other row of more than 256 output entries, or short
-    letters too long for one staged element's rows."""
+def long_reduce_limit(shape: LongReduceShape) -> Optional[str]:
+    """Why ``long_reduce_f32`` does not take a row by its count of output
+    entries (an outer product, the Gram matrix, of more than 256 4 x 4
+    tiles, any other row of more than 256 entries), or ``None``: such rows
+    go to ``step_block_f32``."""
     if shape.a_role == "p" and shape.b_role == "q":
         tiles = -(-shape.P // 4) * -(-shape.Q // 4)
         if tiles > LR_THREADS:
-            raise InvalidParameterError(
-                f"long_reduce_f32 takes an outer product of at most"
-                f" {LR_THREADS} 4 x 4 tiles of output entries, the row has"
-                f" {tiles}")
+            return (f"long_reduce_f32 takes an outer product of at most"
+                    f" {LR_THREADS} 4 x 4 tiles of output entries, the row"
+                    f" has {tiles}")
     elif shape.entries > LR_THREADS:
-        raise InvalidParameterError(
-            f"long_reduce_f32 takes at most {LR_THREADS} output entries,"
-            f" the row has {shape.entries}")
+        return (f"long_reduce_f32 takes at most {LR_THREADS} output entries,"
+                f" the row has {shape.entries}")
+    return None
+
+
+def check_long_reduce_shape(shape: LongReduceShape) -> None:
+    """Raise :class:`InvalidParameterError` for a row ``long_reduce_f32``
+    does not take: too many output entries (:func:`long_reduce_limit`), or
+    short letters too long for one staged element's rows."""
+    limit = long_reduce_limit(shape)
+    if limit is not None:
+        raise InvalidParameterError(limit)
     ra = shape.length(shape.a_role)
     rb = shape.length(shape.b_role) if shape.b_role is not None else 1
     if long_reduce_tile(ra, rb) < 1:
@@ -1372,6 +1410,342 @@ def _lp_launch(name: str, rows: Sequence[LanePackDGRow],
             if err:
                 raise RuntimeError(f"{name} launch failed: CUDA error {err}")
             launch_counts[name] += 1
+    return outs
+
+# }}}
+
+
+# {{{ step_block_f32
+
+_SB_KIND = {"free": 0, "element": 1, "reduce": 2}
+
+
+def _sb_strides(letters: tuple, strides, el: str) -> tuple:
+    """``(stride per short letter, stride of the long axis)`` of a tensor
+    whose axes carry *letters*; a letter on several axes (a diagonal) sums
+    their strides."""
+    per: dict = {}
+    es = 0
+    for ix, st in zip(letters, strides):
+        if ix == el:
+            es += int(st)
+        else:
+            per[ix] = per.get(ix, 0) + int(st)
+    return per, es
+
+
+def _sb_offsets(order: tuple, length: dict, strides: dict) -> np.ndarray:
+    """The int64 offsets of the entries over *order* (slowest first, the
+    last letter fastest) in a tensor with *strides* per letter."""
+    off = np.zeros(1, dtype=np.int64)
+    for ix in order:
+        idx = np.arange(length[ix], dtype=np.int64) * strides.get(ix, 0)
+        off = (off[:, None] + idx[None, :]).ravel()
+    return off
+
+
+def _sb_order(letters, ref: dict) -> tuple:
+    """*letters* slowest first: by descending stride in the reference
+    tensor *ref*, the letters it lacks first, ties in the given order."""
+    return tuple(sorted(letters, key=lambda ix: -ref.get(ix, np.inf)))
+
+
+def _sb_reference(table, k: int, in_strides: tuple, out_st: tuple) -> dict:
+    """Strides per letter of step *k*'s reference tensor, which orders its
+    entries: the row's output for the last step, else the step's streamed
+    input with the most entries ({} when it reads none)."""
+    if k == len(table.steps) - 1:
+        return out_st[0]
+    step = table.steps[k]
+    best, best_n = {}, 0
+    for (kind, x), letters in zip(step.operands, step.letters):
+        if kind != "in" or table.el not in table.inputs[x]:
+            continue
+        n = int(np.prod([table.length[ix] for ix in set(letters)
+                         if ix != table.el], dtype=np.int64))
+        if n > best_n:
+            best = _sb_strides(letters, in_strides[x], table.el)[0]
+            best_n = n
+    return best
+
+
+def step_block_mode(table, in_strides: tuple, out_strides: tuple) -> bool:
+    """Whether ``step_block_f32``'s threads take consecutive elements
+    (element-fastest) rather than consecutive output entries: so when the
+    tensor that dominates the traffic, the row's output (its input with the
+    most entries for a contracted long axis), has the long axis at stride
+    1 (dof-major storage)."""
+    last = table.steps[-1]
+    if last.kind == "element":
+        _, es = _sb_strides(last.out, out_strides, table.el)
+        return es == 1
+    streamed = [(int(np.prod([table.length[ix] for ix in letters
+                              if ix != table.el], dtype=np.int64)), s)
+                for s, letters in enumerate(table.inputs)
+                if table.el in letters]
+    _, slot = max(streamed, key=lambda ns: (ns[0], -ns[1]))
+    return _sb_strides(table.inputs[slot], in_strides[slot], table.el)[1] == 1
+
+
+@functools.lru_cache(maxsize=64)
+def step_block_tables(table, in_strides: tuple, out_strides: tuple,
+                      elem_fastest: bool) -> tuple:
+    """``(tables, steps_i, steps_t)`` of ``step_block_f32`` for one row
+    whose input views and output view have these strides (elements per
+    axis, in the order of ``table.inputs`` and of the last step's
+    ``out``).  ``tables`` (int64) holds, per step, each operand's offsets
+    of the step's output entries, the result's, then each operand's offsets
+    of the contracted entries (none for a step that contracts at most one
+    letter, "affine": its offsets are c times the letter's stride);
+    ``steps_i`` gives per step (kind, operands, output entries, contracted
+    entries, the four operand sources, the result's float offset in shared
+    memory, its element stride there, the groups of a reduce step,
+    affine), ``steps_t`` per step the table offsets (the operands' and the
+    result's entry tables, then the operands' contracted tables, or their
+    strides of the contracted letter when affine).  A result held in shared memory is laid out [entry][element]
+    (element-fastest threads) or [element][entry]; a step's entries and
+    contracted entries run in the order of its reference tensor's strides
+    (:func:`_sb_reference`), the smallest stride fastest."""
+    el, length = table.el, table.length
+    last = len(table.steps) - 1
+    out_st = _sb_strides(table.steps[last].out, out_strides, el)
+    layout: dict = {}        # step -> (strides per letter, element stride)
+    chunks, steps_i, steps_t = [], [], []
+    cursor = 0
+
+    def add(arr: np.ndarray) -> int:
+        nonlocal cursor
+        chunks.append(arr)
+        cursor += len(arr)
+        return cursor - len(arr)
+
+    for k, step in enumerate(table.steps):
+        ref = _sb_reference(table, k, in_strides, out_st)
+        out_order = _sb_order([ix for ix in step.out if ix != el], ref)
+        sum_order = _sb_order(table.summed(step), ref)
+        n_out = table.n_out(step)
+        op_strides = []
+        for (kind, x), letters in zip(step.operands, step.letters):
+            if kind == "in":
+                src_strides = in_strides[x]
+            else:
+                prod_per, _ = layout[x]
+                src_strides = [prod_per.get(ix, 0) if ix != el else 0
+                               for ix in table.steps[x].out]
+            op_strides.append(_sb_strides(letters, src_strides, el)[0])
+        if k == last:
+            dst_per, es = out_st[0], 0
+        else:
+            mult = table.te if step.kind == "element" and elem_fastest else 1
+            dst_per, stride = {}, mult
+            for ix in reversed(out_order):
+                dst_per[ix] = stride
+                stride *= length[ix]
+            es = (0 if step.kind == "free"
+                  else 1 if elem_fastest else n_out)
+            layout[k] = (dst_per, es)
+        t_out = [add(_sb_offsets(out_order, length, st)) for st in op_strides]
+        t_out.append(add(_sb_offsets(out_order, length, dst_per)))
+        affine = len(sum_order) <= 1
+        if affine:
+            t_sum = [st.get(sum_order[0], 0) if sum_order else 0
+                     for st in op_strides]
+        else:
+            t_sum = [add(_sb_offsets(sum_order, length, st))
+                     for st in op_strides]
+        nops = len(step.operands)
+        if step.kind == "reduce":
+            groups = max(1, (SB_THREADS // 32 if elem_fastest else SB_THREADS)
+                         // n_out)
+        else:
+            groups = 1
+        src = [x if kind == "in" else -1 - x for kind, x in step.operands]
+        steps_i.append([_SB_KIND[step.kind], nops, n_out, table.n_sum(step),
+                        *(src + [0] * (SB_MAX_OPS - nops)), step.dst, es,
+                        groups, int(affine)])
+        steps_t.append([*t_out, *([0] * (SB_MAX_OPS - nops)),
+                        *t_sum, *([0] * (SB_MAX_OPS - nops))])
+    return np.concatenate(chunks), steps_i, steps_t
+
+
+def _sb_view_strides(rows, outs) -> tuple:
+    return tuple((tuple(tuple(t.stride()) for t in row), tuple(out.stride()))
+                 for row, out in zip(rows, outs))
+
+
+@functools.lru_cache(maxsize=32)
+def _sb_device_tables(table, row_strides: tuple, elem_fastest: bool,
+                      device: torch.device) -> tuple:
+    """The rows' tables end to end on *device*, and ``(steps_i, steps_t,
+    row_len)`` (equal across rows: the tables' offsets depend on the
+    shapes alone)."""
+    per_row = [step_block_tables(table, ins, out, elem_fastest)
+               for ins, out in row_strides]
+    tables = np.concatenate([t for t, _, _ in per_row])
+    _, steps_i, steps_t = per_row[0]
+    return (torch.from_numpy(tables).to(device), steps_i, steps_t,
+            len(per_row[0][0]))
+
+
+def _sb_check(rows, table) -> int:
+    """The long axis's length, with every operand checked against the
+    table's letters and lengths."""
+    el, length = table.el, table.length
+    for k, row in enumerate(rows):
+        if len(row) != len(table.inputs):
+            raise ValueError(f"row {k} has {len(row)} operands, the table"
+                             f" {len(table.inputs)}")
+    device = rows[0][0].device
+    s0 = next(s for s, letters in enumerate(table.inputs) if el in letters)
+    E = rows[0][s0].shape[table.inputs[s0].index(el)]
+    for k, row in enumerate(rows):
+        for s, (t, letters) in enumerate(zip(row, table.inputs)):
+            _check_operand(f"row {k} operand {s}", t, device,
+                           tuple(E if ix == el else length[ix]
+                                 for ix in letters))
+    return E
+
+
+def _sb_block_partials(vals: list, subs: list, out: tuple, el: str, E: int,
+                       block_long: int) -> torch.Tensor:
+    """A step that contracts the long axis as the kernel computes it: the
+    axis zero-padded to whole blocks of *block_long* (the tail mask), one
+    partial per block, then the partials summed in block order."""
+    nb = -(-E // block_long)
+    pad = nb * block_long - E
+    used = set("".join(subs)) | set(out)
+    blk = next(c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+               if c not in used)
+    ops, new_subs = [], []
+    for t, s in zip(vals, subs):
+        if el not in s:
+            ops.append(t)
+            new_subs.append(s)
+            continue
+        pos = s.index(el)
+        if pad:
+            shape = list(t.shape)
+            shape[pos] = pad
+            t = torch.cat([t, t.new_zeros(shape)], dim=pos)
+        ops.append(t.reshape(*t.shape[:pos], nb, block_long,
+                             *t.shape[pos + 1:]))
+        new_subs.append(s[:pos] + blk + s[pos:])
+    partials = torch.einsum(",".join(new_subs) + "->" + blk + "".join(out),
+                            *ops)
+    return partials.sum(0)
+
+
+def step_block_plain(rows, table, block_long: int) -> list:
+    """The plain PyTorch version of ``step_block_f32``: per row the same
+    step table, one ``torch.einsum`` per step over the whole long axis; a
+    step that contracts the long axis sums per-block partials (the tail
+    zero-padded) in block order; outputs contiguous in the stored order."""
+    E = _sb_check(rows, table)
+    last = len(table.steps) - 1
+    outs = []
+    for ops in rows:
+        env: dict = {}
+        for k, step in enumerate(table.steps):
+            vals = [ops[x] if kind == "in" else env[x]
+                    for kind, x in step.operands]
+            subs = ["".join(letters) for letters in step.letters]
+            out = table.stored_out if k == last else step.out
+            if step.kind == "reduce":
+                env[k] = _sb_block_partials(vals, subs, out, table.el, E,
+                                            int(block_long))
+            else:
+                env[k] = torch.einsum(",".join(subs) + "->" + "".join(out),
+                                      *vals)
+        outs.append(env[last].contiguous())
+    return outs
+
+
+def _is_flat(t: torch.Tensor) -> bool:
+    """Whether *t* fills its storage span exactly (a permutation of a
+    contiguous tensor without broadcast axes): the kernel stages a resident
+    by a flat copy of that span."""
+    return 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride())) \
+        == t.numel()
+
+
+def step_block_f32(rows, table, *, block_long: int,
+                   one_launch: bool = True) -> list:
+    """Each row's output of the step table *table*
+    (:class:`~feinsum_tpu_torch.ops.step_block.StepTable`) from its input
+    views (one per slot, axes in the order of ``table.inputs``), allocated
+    contiguous in the stored order ``table.stored_out``.  All rows go in
+    one launch (two for a contracted long axis; up to the kernel's row
+    limit) unless *one_launch* is false; *block_long* elements per thread
+    block."""
+    if not rows:
+        return []
+    E = _sb_check(rows, table)
+    device = rows[0][0].device
+    if device.type == "cpu":
+        return step_block_plain(rows, table, block_long)
+    if device.type != "cuda":
+        raise ValueError(f"step_block_f32: no kernel for device {device}")
+    if block_long < 1:
+        raise InvalidParameterError(
+            f"block_long must be positive, got {block_long}")
+    if table.smem_bytes > MAX_SMEM_BYTES:
+        raise InvalidParameterError(
+            f"step_block_f32 needs {table.smem_bytes} bytes of shared memory"
+            f" per block; an H100 block has {MAX_SMEM_BYTES}")
+
+    from ._build import load_library
+    lib = load_library()
+    el, length = table.el, table.length
+    last = table.steps[-1]
+    out_shape = tuple(E if ix == el else length[ix] for ix in table.stored_out)
+    perm = [table.stored_out.index(ix) for ix in last.out]
+    outs = [torch.empty(out_shape, dtype=torch.float32, device=device)
+            for _ in rows]
+    views = [o.permute(tuple(perm)) for o in outs]
+    rows = [[t if table.stage[s] < 0 or _is_flat(t) else t.contiguous()
+             for s, t in enumerate(row)] for row in rows]
+    elem_fastest = step_block_mode(
+        table, tuple(tuple(t.stride()) for t in rows[0]),
+        tuple(views[0].stride()))
+    ni, ns = len(table.inputs), len(table.steps)
+    stage = (ctypes.c_int * (2 * ni))(*[
+        v for s, letters in enumerate(table.inputs)
+        for v in (table.stage[s], 0 if table.stage[s] < 0 else int(np.prod(
+            [length[ix] for ix in letters], dtype=np.int64)))])
+    nblocks = -(-E // int(block_long))
+    per_launch = lib.step_block_f32_max_rows() if one_launch else 1
+    with torch.cuda.device(device):
+        for idx in _chunks(range(len(rows)), per_launch):
+            tables, steps_i, steps_t, row_len = _sb_device_tables(
+                table, _sb_view_strides([rows[k] for k in idx],
+                                        [views[k] for k in idx]),
+                elem_fastest, device)
+            ptrs = (ctypes.c_void_p * ((ni + 1) * len(idx)))()
+            es = (ctypes.c_int64 * ((ni + 1) * len(idx)))()
+            for n, k in enumerate(idx):
+                ptrs[(ni + 1) * n:(ni + 1) * (n + 1)] = [
+                    *(t.data_ptr() for t in rows[k]), views[k].data_ptr()]
+                es[(ni + 1) * n:(ni + 1) * (n + 1)] = [
+                    *(_sb_strides(letters, t.stride(), el)[1]
+                      for letters, t in zip(table.inputs, rows[k])),
+                    _sb_strides(last.out, views[k].stride(), el)[1]]
+            work = None
+            if last.kind == "reduce":
+                work = torch.empty(len(idx) * nblocks * table.n_out(last),
+                                   dtype=torch.float32, device=device)
+            err = lib.step_block_f32(
+                len(idx), ni, ptrs, es, ns,
+                (ctypes.c_int * (12 * ns))(*[v for s in steps_i for v in s]),
+                (ctypes.c_int64 * (9 * ns))(*[v for s in steps_t for v in s]),
+                stage, ctypes.c_void_p(tables.data_ptr()), row_len,
+                table.te, int(elem_fastest), E, int(block_long),
+                table.smem_floats,
+                ctypes.c_void_p(None if work is None else work.data_ptr()),
+                _stream_of(device))
+            if err:
+                raise RuntimeError(f"step_block_f32 launch failed: CUDA error"
+                                   f" {err}")
+            launch_counts["step_block_f32"] += 1
     return outs
 
 # }}}

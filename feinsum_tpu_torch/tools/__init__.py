@@ -9,7 +9,11 @@ a checkout as ``python -m feinsum_tpu_torch.tools.<name>``:
   share;
 * ``sweep_tc_grid``: ``tc_grid_f32``'s time on the rank >= 3 TCCG rows over
   a grid of ``tc_pallas_v1`` points (how ``chip_smoke.py``'s tuner seeds
-  were chosen).
+  were chosen);
+* ``step_block_mappings``: ``step_block_f32``'s time on the rows no row
+  family takes (``chip_smoke.py`` phase 19's), in both stored layouts and
+  under both of the kernel's thread mappings (how its mapping rule was
+  checked).
 
 Each prints the card's name and power limit first.
 """

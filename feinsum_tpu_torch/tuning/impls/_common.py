@@ -77,11 +77,12 @@ def resolve_block(log2_block: int, blkc128: int = 0) -> int:
     return 1024 * int(blkc128) if blkc128 else 2 ** int(log2_block)
 
 
-def guard_smem(einsum, kernel: str = "dd_rows") -> None:
+def guard_smem(einsum, kernel: str = "dd_rows", program=None) -> None:
     """Raise :class:`InvalidParameterError` when one thread block of the
     kernel that runs a row would need more shared memory than a Hopper
     block has (227 KB): the analog of ``feinsum_tpu``'s VMEM guard.  The
-    demand depends on the row shape only, not on the block length.
+    demand depends on the row shape only, not on the block length, except
+    for ``step_block_f32``.
 
     *kernel* is ``"dd_rows"`` (the fp64 DG rows), ``"dg_rows_f32"``, the
     float32 fused route, ``"dg_rows_3xtf32"``, that route at ``bf16_3x``,
@@ -100,12 +101,32 @@ def guard_smem(einsum, kernel: str = "dd_rows") -> None:
     ``long_reduce_f32`` (its output entries and staged rows) and a
     restriction row to ``dg_rows_f32`` as a matvec over its merged output
     letters (at ``bf16_3x`` on ``dg_rows_3xtf32``, whose shared memory
-    also holds a tile of the outputs, so X counts)."""
+    also holds a tile of the outputs, so X counts).
+
+    With *program* (the program the kernels run, after hoisting, whose
+    einsum is *einsum*), a fused program that no row family takes
+    (``ops/cuda_emitter.py::row_family``), or any program with *kernel*
+    ``"step_block_f32"``, is checked as ``step_block_f32`` runs it: its
+    steps' staged residents and results of one sub-tile of elements at its
+    block length, and the kernel's limits on steps, operands and letters
+    (:func:`~feinsum_tpu_torch.ops.step_block.plan_step_block`)."""
+    from ...codegen.program import get_index_lengths
+    from ...ops.cuda_emitter import row_family
     from ...ops.dg_rows import plan_reduce_row, plan_row, \
         resident_carries_outputs
     from ...ops.kernels import MAX_REDUCE_J, MAX_SMEM_BYTES, \
         dd_rows_smem_bytes, dg_rows_3x_smem_bytes, dg_rows_smem_bytes
+    from ...ops.step_block import plan_step_block
 
+    if program is not None and kernel != "dd_rows":
+        lengths = get_index_lengths(program.einsum, 1)
+        if kernel == "step_block_f32" or (
+                not kernel.startswith("lane_pack_dg")
+                and row_family(program, lengths) is None):
+            plan_step_block(program, lengths)
+            return
+    if kernel == "step_block_f32":
+        raise ValueError("guard_smem: step_block_f32 is checked on a program")
     if kernel.startswith("lane_pack_dg"):
         from ...ops.lane_pack import lane_pack_dg_shape
         lane_pack_dg_shape(einsum, kernel.endswith("3xtf32"))
@@ -251,7 +272,8 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
     (8, 128) tile blocks) and ``mfold`` (MXU row packing) raise;
     ``vmem_idx`` (the TPU's VMEM cap) is accepted and ignored.  Shared
     memory is guarded per row on the einsum the kernels run
-    (:func:`guard_smem`)."""
+    (:func:`guard_smem`); a program that no row family takes is guarded
+    as ``step_block_f32`` runs it."""
     from ...contraction_schedule import (
         get_opt_einsum_contraction_schedule,
         get_trivial_contraction_schedule,
@@ -313,9 +335,11 @@ def fused_pallas_program(program, *, block_long: int, hoist: bool,
         block_long=block_long,
         dimension_semantics="parallel" if parallel_grid else "arbitrary",
         **desc)
-    guard_smem(hoist_resident_steps(p2)[0].einsum,
+    kernel_program = hoist_resident_steps(p2)[0]
+    guard_smem(kernel_program.einsum,
                ("lane_pack_dg" if keep_schedule else "dg_rows")
-               + ("_3xtf32" if precision_3x else "_f32"))
+               + ("_3xtf32" if precision_3x else "_f32"),
+               program=kernel_program)
     return p2
 
 

@@ -171,20 +171,35 @@ def test_bf16_3x_builds_and_matches_on_both_routes(backend):
 
 
 @pytest.mark.parametrize("einsum", [
-    # a contracted long axis with a resident operand: still the reference's
-    # K1 alone (long_reduce_f32 takes streamed operands only)
+    # a contracted long axis with a resident operand (long_reduce_f32 takes
+    # streamed operands only): K1's general steps, step_block_f32
     ft.einsum("ej,j->", ft.array("A", ("E", 5), "float32"),
               ft.array("w", (5,), "float32")),
     ft.einsum("ij,ej->ei", ft.array("D", (4, 4), "float64"),
               ft.array("u", ("E", 4), "float64")),
+    # operands that do not share the output's layout: step_block_f32
     ft.einsum("ej,e->ej", ft.array("A", ("E", 5), "float32"),
               ft.array("w", ("E",), "float32")),
 ], ids=["contracted_long", "float64", "broadcast_product"])
 def test_unfused_rows_raise_on_fused_route(einsum):
+    """Rows outside the row families: float64 still raises on the fused
+    route (it runs on pair storage, ``dd_pairs``); the float32 rows build
+    on ``step_block_f32`` and match the reference's K1; the plain route
+    computes all three."""
     prog = S.default_transform(einsum)(ft.generate_program(einsum))
     prog = prog.with_descriptor(backend="pallas")
-    with pytest.raises(ft.InvalidParameterError):
-        ft.build_executable(prog, long_dim_length=E)
+    if "float64" in {str(dt) for dt in einsum.arg_to_dtype.values()}:
+        with pytest.raises(ft.InvalidParameterError, match="dd_pairs"):
+            ft.build_executable(prog, long_dim_length=E)
+    else:
+        assert plan_cuda_launch(prog, get_index_lengths(
+            einsum, E)).kernel == "step_block_f32"
+        ft.validate_batched_einsum_transform(einsum, lambda p: prog,
+                                             long_dim_length=E)
+        ref_prog = reference_program(einsum).with_descriptor(
+            dimension_semantics="arbitrary")
+        ref_outs, outs = run_both(ref_prog, seed=8)
+        assert_close(outs[0], ref_outs[0])
     # the plain route still computes them
     ft.validate_batched_einsum_transform(
         einsum, lambda p: p.with_descriptor(backend="xla"),

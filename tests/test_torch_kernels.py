@@ -2,10 +2,10 @@
 operand checks and plain versions on CPU tensors, and, in the tests marked
 ``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``
 and its flatten route ``ew_flat_f32``, ``row_reduce_f32``,
-``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32``, ``lane_pack_dg_f32``
-and the 3xTF32 kernels ``dg_rows_3xtf32``, ``tc_grid_3xtf32`` and
-``lane_pack_dg_3xtf32``) against their plain versions on
-the card; the TF32 rounding the 3x kernels and their plain versions share;
+``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32``, ``lane_pack_dg_f32``,
+``step_block_f32`` and the 3xTF32 kernels ``dg_rows_3xtf32``,
+``tc_grid_3xtf32`` and ``lane_pack_dg_3xtf32``) against their plain
+versions on the card; the TF32 rounding the 3x kernels and their plain versions share;
 and the default device of the helpers that make tensors (the card, or an
 error, unless the caller names the CPU).  This file
 imports no JAX, so it runs where only PyTorch is installed; on such a
@@ -1352,4 +1352,175 @@ def test_library_name_follows_the_sources():
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu",
         "row_reduce.cu", "long_reduce.cu", "dg_rows_3x.cu", "tc_grid_3x.cu",
-        "lane_pack_dg.cu"}
+        "lane_pack_dg.cu", "step_block.cu"}
+
+
+# {{{ step_block_f32
+
+def _sb_a(name, shape):
+    return ft.array(name, shape, "float32")
+
+
+# programs no row family takes: (einsum, optimal-path schedule)
+SB_CASES = {
+    "demo_ndof6": (ft.einsum("ij,ejk->eik", _sb_a("A", (6, 6)),
+                             _sb_a("B", ("E", 6, 6))), False),
+    "demo_ndof35": (ft.einsum("ij,ejk->eik", _sb_a("A", (35, 35)),
+                              _sb_a("B", ("E", 35, 35))), False),
+    "sumfact_q4": (ft.einsum("ai,bj,ck,eabc->eijk", _sb_a("Ax", (5, 5)),
+                             _sb_a("Ay", (5, 5)), _sb_a("Az", (5, 5)),
+                             _sb_a("u", ("E", 5, 5, 5))), True),
+    "sumfact_q4_one_step": (ft.einsum(
+        "ai,bj,ck,eabc->eijk", _sb_a("Ax", (5, 5)), _sb_a("Ay", (5, 5)),
+        _sb_a("Az", (5, 5)), _sb_a("u", ("E", 5, 5, 5))), False),
+    "broadcast_ndof35": (ft.einsum("ej,e->ej", _sb_a("A", ("E", 35)),
+                                   _sb_a("w", ("E",))), False),
+    "resident_reduce_ndof35": (ft.einsum("ej,j->", _sb_a("A", ("E", 35)),
+                                         _sb_a("w", (35,))), False),
+    "two_letter_reduce": (ft.einsum("eij,ejk->ik", _sb_a("P", ("E", 5, 6)),
+                                    _sb_a("Q", ("E", 6, 5))), False),
+    "gram_ndof120": (ft.einsum("ei,ej->ij", _sb_a("u", ("E", 120)),
+                               _sb_a("v", ("E", 120))), False),
+    "demo_b2": (ft.batched_einsum(
+        "ij,ejk->eik", [[_sb_a("A", (5, 5)), _sb_a("B", ("E", 5, 5))],
+                        [_sb_a("C", (5, 5)), _sb_a("D", ("E", 5, 5))]]),
+        False),
+}
+
+
+def _sb_case(name, device, E, block_long, dofmajor, seed=0):
+    """``(rows, table, logical inputs, einsum, program)`` of an SB case."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.cuda_emitter import hoist_resident_steps, \
+        plan_cuda_launch
+    from feinsum_tpu_torch.ops.step_block import plan_step_block
+    from feinsum_tpu_torch.tuning.impls._common import fused_pallas_program
+
+    e, hoist = SB_CASES[name]
+    prog = fused_pallas_program(ft.generate_program(e), block_long=block_long,
+                                hoist=hoist, dofmajor=dofmajor,
+                                parallel_grid=False)
+    plan = plan_cuda_launch(prog, get_index_lengths(e, E))
+    assert plan.kernel == "step_block_f32"
+    logical = ft.measure.generate_input_arrays(e, long_dim_length=E,
+                                               seed=seed, device=device)
+    rows = plan.operands(ft.apply_layouts(prog, logical))
+    kp = hoist_resident_steps(prog)[0]
+    table = plan_step_block(kp, get_index_lengths(kp.einsum, E))
+    return rows, table, logical, e, prog
+
+
+def test_step_block_on_cpu_runs_the_plain_version():
+    """CPU tensors take ``step_block_plain`` (no launch); the wrapper checks
+    its operands."""
+    rows, table, logical, e, prog = _sb_case("demo_ndof6", "cpu", 40, 16,
+                                             True)
+    kernels.reset_launch_counts()
+    (got,) = kernels.step_block_f32(rows, table, block_long=16)
+    assert kernels.launch_counts["step_block_f32"] == 0
+    assert_close(got.permute(2, 0, 1).numpy(), np.einsum(
+        "ij,ejk->eik", logical["A"].double().numpy(),
+        logical["B"].double().numpy()))
+    with pytest.raises(ValueError):
+        kernels.step_block_f32([rows[0][:1]], table, block_long=16)
+    with pytest.raises(ValueError):
+        kernels.step_block_f32([[rows[0][0], rows[0][1][:, :, :3]]], table,
+                               block_long=16)
+    with pytest.raises(ft.InvalidParameterError):
+        kernels.step_block_f32([[t.double() for t in rows[0]]], table,
+                               block_long=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dofmajor", [False, True])
+@pytest.mark.parametrize("E,block_long", [(37, 256), (1003, 64),
+                                          (100_003, 512)])
+@pytest.mark.parametrize("name", sorted(SB_CASES))
+def test_step_block_kernel_matches_plain(cuda_device, name, E, block_long,
+                                         dofmajor):
+    """Each case in both stored layouts (the kernel's two thread
+    mappings): E smaller than one block, a ragged tail, many blocks; against
+    ``step_block_plain`` within 2e-5 of max|plain| and the logical einsum
+    in float64."""
+    rows, table, logical, e, prog = _sb_case(name, cuda_device, E,
+                                             block_long, dofmajor, seed=31)
+    before = kernels.launch_counts["step_block_f32"]
+    got = kernels.step_block_f32(rows, table, block_long=block_long)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["step_block_f32"] == before + 1
+    subs = e.get_subscripts().replace(" ", "")
+    for r, (g, plain) in enumerate(zip(
+            got, kernels.step_block_plain(rows, table, block_long))):
+        assert g.is_contiguous() and g.shape == plain.shape
+        assert_close(g.cpu().numpy(), plain.cpu().numpy())
+        want = torch.einsum(subs, *[logical[a.name].double()
+                                    for a in e.args[r]])
+        if prog.descriptor.out_layout is not None:
+            want = want.permute(*prog.descriptor.out_layout)
+        assert_close(g.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_launch,launches", [(True, 2), (False, 9)])
+@pytest.mark.parametrize("reduce", [False, True])
+def test_step_block_kernel_splits_rows(cuda_device, one_launch, launches,
+                                       reduce):
+    """Nine rows: two launches of at most eight rows, or one per row."""
+    rows_args = []
+    for r in range(9):
+        if reduce:
+            rows_args.append([_sb_a(f"A{r}", ("E", 5)), _sb_a(f"w{r}", (5,))])
+        else:
+            rows_args.append([_sb_a(f"A{r}", (5, 5)),
+                              _sb_a(f"B{r}", ("E", 5, 5))])
+    e = ft.batched_einsum("ej,j->" if reduce else "ij,ejk->eik",
+                          rows_args)
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    prog = ft.generate_program(e).with_descriptor(
+        backend="pallas", block_long=128,
+        multiple_results_in_one_kernel=one_launch)
+    plan = plan_cuda_launch(prog, get_index_lengths(e, 999))
+    assert plan.kernel == "step_block_f32"
+    arrays = ft.measure.generate_input_arrays(e, long_dim_length=999,
+                                              seed=32, device=cuda_device)
+    rows = plan.operands(arrays)
+    before = kernels.launch_counts["step_block_f32"]
+    got = plan.run(rows)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["step_block_f32"] == before + launches
+    for g, want in zip(got, plan.plain(rows)):
+        assert_close(g.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_step_block_free_step_on_card(cuda_device):
+    """A resident-only step left in the kernel (no hoisting) runs once per
+    block in shared memory."""
+    from feinsum_tpu_torch.contraction_schedule import (
+        ContractionSchedule, EinsumOperand, IntermediateResult)
+    e = ft.einsum("rij,ejk->eik", _sb_a("D", (3, 5, 5)),
+                  _sb_a("u", ("E", 5, 4)))
+    sched = ContractionSchedule(
+        ("rij->ij", "ij,ejk->eik"), ("_pre", "_fe_out"),
+        ((EinsumOperand(0),), (IntermediateResult("_pre"),
+                               EinsumOperand(1))))
+    prog = ft.generate_program(e, schedule=sched).with_descriptor(
+        backend="pallas", hoist_resident_steps=False, block_long=64)
+    ft.validate_batched_einsum_transform(e, lambda p: prog,
+                                         long_dim_length=1001,
+                                         device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_step_block_shared_memory_guard(cuda_device):
+    """A resident over a block's shared memory is refused before launch."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    e = ft.einsum("ij,ejk->eik", _sb_a("R", (300, 300)),
+                  _sb_a("u", ("E", 300, 2)))
+    with pytest.raises(ft.InvalidParameterError, match="shared memory"):
+        plan_cuda_launch(ft.generate_program(e).with_descriptor(
+            backend="pallas"), get_index_lengths(e, 64))
+
+# }}}

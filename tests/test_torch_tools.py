@@ -60,3 +60,37 @@ def test_tc_sweep_covers_the_tuner_seeds():
         assert n_bound > len(points) // 2
         for seed in seeds:
             assert {**seed, "precision_idx": 0} in points, (name, seed)
+
+
+@pytest.mark.parametrize("layout", ["dof-major", "logical"])
+def test_step_block_mappings_rows_plan_onto_the_kernel(layout):
+    """Every row of ``step_block_mappings`` (``chip_smoke.py`` phase 19's),
+    in both stored layouts, plans onto ``step_block_f32`` and its plain
+    version meets the einsum on CPU tensors."""
+    import torch
+
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.tools import step_block_mappings as sbm
+
+    rows = [("demo", sbm.demo_einsum(), False)] + sbm.step_block_rows()
+    assert [n for n, _, _ in rows[1:]] == [
+        "sumfact_q4", "sumfact_q4_one_step", "sumfact_q4_b2",
+        "broadcast_ndof35", "resident_reduce_ndof35", "gram_ndof120"]
+    for name, e, hoist in rows:
+        program = sbm.programs(e, hoist)[layout]
+        plan = plan_cuda_launch(program, get_index_lengths(e, 40))
+        assert plan.kernel == "step_block_f32", name
+        logical = generate_input_arrays(e, long_dim_length=40, seed=1,
+                                        device="cpu")
+        outs = plan.plain(plan.operands(apply_layouts(program, logical)))
+        subs = e.get_subscripts().replace(" ", "")
+        for r, got in enumerate(outs):
+            want = torch.einsum(subs, *[logical[a.name].double()
+                                        for a in e.args[r]])
+            if program.descriptor.out_layout is not None:
+                want = want.permute(*program.descriptor.out_layout)
+            torch.testing.assert_close(got.double(), want, rtol=2e-5,
+                                       atol=2e-5 * float(want.abs().max()))
