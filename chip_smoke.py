@@ -5,6 +5,7 @@
     python3 chip_smoke.py --split-only       # phases 1 and 15-17 alone
     python3 chip_smoke.py --lane-pack-only   # phases 1 and 18 alone
     python3 chip_smoke.py --step-only        # phases 1 and 19 alone
+    python3 chip_smoke.py --tc-steps-only    # phases 1 and 20 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -133,7 +134,24 @@ Phases; any failure exits non-zero before the final line:
    magnitudes; counters reset; each replayed or built and run at E = 1M,
    ``step_block_f32`` read from the counters; each timed in turns against
    its plain version and one ``torch.einsum`` of the logical einsum, beside
-   its bound.
+   its bound;
+20. K2's multi-step dense schedules on ``tc_steps_f32``: the kernel against
+   ``tc_steps_plain`` (2e-5 of max|plain|, and over the sum of the terms'
+   magnitudes) on ragged extents (3, 5, 7), a block on a batch letter,
+   stored permutations of the operands and the output, a b = 2 row and the
+   trivial one-step schedule of four operands; the three rows of
+   ``suite.tc_steps_suite()`` (sum factorization at E = 1M, the triple
+   product at ndof 35 and E = 100,000, two operators on one mode) tuned in
+   ``tc_pallas_v0`` and ``tc_pallas_v1`` (the seeds of
+   ``suite.TC_STEPS_SEEDS``) into a fresh archive under ``build/``; each
+   champion taken through ``candidate_transforms``, validated against the
+   numpy oracle on the card (E = 2000 for the two rows with an element
+   axis, two operators at full size); counters reset; each replayed at full
+   size and ``tc_steps_f32`` read from the counters; each output held to
+   ``tc_steps_plain`` within 2e-5; each timed in turns against its plain
+   version and one ``torch.einsum`` of the whole einsum (sum factorization
+   also on phase 19's ``step_block_f32`` route, E a long axis), beside its
+   bound.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -144,10 +162,11 @@ and ``{"ok": true, "device": {...}}``.  The times of ``dg_rows_f32`` and
 ``ew_product_f32`` are phase 4's rows, those of ``row_reduce_f32`` and
 ``ew_flat_f32`` phase 10's, ``long_reduce_f32``'s phase 12's, the 3x
 kernels' phase 15's, the lane-pack kernels' phase 18's (g = 8, their
-bound that of the logical einsum), ``step_block_f32``'s phase 19's;
-launches are counted over the main path (phase 3), the archive replays
-(phases 6, 8, 10, 16, 18), the consumer flow's calls (phase 13), one step
-of each model (phases 14, 17) and phase 19's runs.  It imports no JAX.
+bound that of the logical einsum), ``step_block_f32``'s phase 19's,
+``tc_steps_f32``'s phase 20's; launches are counted over the main path
+(phase 3), the archive replays (phases 6, 8, 10, 16, 18, 20), the consumer
+flow's calls (phase 13), one step of each model (phases 14, 17) and phase
+19's runs.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -195,7 +214,8 @@ REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "tc_grid_f32": "feinsum_tpu/ops/pallas_emitter.py:268",
             "lane_pack_dg_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "lane_pack_dg_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464",
-            "step_block_f32": "feinsum_tpu/ops/pallas_emitter.py:464"}
+            "step_block_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "tc_steps_f32": "feinsum_tpu/ops/pallas_emitter.py:268"}
 SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
            "ew_flat_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
@@ -207,7 +227,8 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "tc_grid_3xtf32": "feinsum_tpu_torch/csrc/tc_grid_3x.cu",
            "lane_pack_dg_f32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
            "lane_pack_dg_3xtf32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
-           "step_block_f32": "feinsum_tpu_torch/csrc/step_block.cu"}
+           "step_block_f32": "feinsum_tpu_torch/csrc/step_block.cu",
+           "tc_steps_f32": "feinsum_tpu_torch/csrc/tc_steps.cu"}
 # the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W);
 # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_MS = 3.35e9
@@ -444,6 +465,8 @@ def main() -> int:
         return lane_pack_only(dev, card)
     if "--step-only" in sys.argv[1:]:
         return step_only(dev, card)
+    if "--tc-steps-only" in sys.argv[1:]:
+        return tc_steps_only(dev, card)
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -607,7 +630,11 @@ def main() -> int:
     log(f"[phase] 18 (lane-pack path): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     launches["step_block_f32"] = step_block_path(dev, label, stats)
-    log(f"[phase] 19 (step_block_f32): {time.perf_counter() - t_phase:.1f} s;"
+    log(f"[phase] 19 (step_block_f32): {time.perf_counter() - t_phase:.1f}"
+        " s")
+    t_phase = time.perf_counter()
+    launches["tc_steps_f32"] = tc_steps_path(dev, label, stats)
+    log(f"[phase] 20 (tc_steps_f32): {time.perf_counter() - t_phase:.1f} s;"
         f" all phases {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k]) for k in SOURCES]
@@ -688,6 +715,29 @@ def step_only(dev, card: str) -> int:
     log(f"[phase] 19: {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [stats.entry("step_block_f32", launches)]}))
+    return 0
+
+
+def tc_steps_only(dev, card: str) -> int:
+    """Phase 20 alone, for work on ``tc_steps_f32``: its build report,
+    checks, tuning, launches and times, and its entry of the ``kernels``
+    line.  It prints no ``ok`` line."""
+    import torch
+
+    from feinsum_tpu_torch.ops import _build
+    label = (f"[{torch.cuda.get_device_name(0)}, power limit"
+             f" {card.split(',')[-1].strip()}]")
+    lines = _build.build_info["log"].splitlines()
+    for k, line in enumerate(lines):
+        if "tc_steps" in line and "entry function" in line:
+            for text in lines[k:k + 4]:
+                log("[build]", text.strip())
+    stats = KernelStats()
+    t0 = time.perf_counter()
+    launches = tc_steps_path(dev, label, stats)
+    log(f"[phase] 20: {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": [stats.entry("tc_steps_f32", launches)]}))
     return 0
 
 
@@ -2447,6 +2497,217 @@ def step_block_path(dev, label: str, stats: KernelStats) -> int:
         stats.add("step_block_f32", e, E_FULL, ms["kernel"], ms["plain"],
                   ms["library"], program)
         del logical, arrays
+        torch.cuda.empty_cache()
+    return launches
+
+
+# phase 20's kernel checks: (subscripts, shapes, grid letters, blocks,
+# stored reversed, rows, optimal path)
+TS_CHECKS = {
+    "ragged_chain": ("abc,cd,de->abe", ((3, 5, 7), (7, 5), (5, 3)), "ab",
+                     (("b", 5),), False, 1, True),
+    "batch_block_triple": ("eij,ejk,ekl->eil",
+                           ((1200, 3, 5), (1200, 5, 7), (1200, 7, 3)), "e",
+                           (("e", 4),), False, 1, True),
+    "permuted_sumfact": ("ai,bj,ck,eabc->eijk",
+                         ((3, 5), (5, 7), (7, 3), (6000, 3, 5, 7)), "ei",
+                         (("e", 2),), True, 1, True),
+    "b2_two_operators": ("abcd,de,ef->abcf",
+                         ((8, 6, 5, 7), (7, 3), (3, 6)), "ab", (("a", 2),),
+                         True, 2, True),
+    "trivial_four_operands": ("ai,bj,ck,eabc->eijk",
+                              ((3, 5), (5, 7), (7, 3), (400, 3, 5, 7)), "e",
+                              (), False, 1, False),
+}
+
+
+def ts_check_program(subs, shapes, grid, blocks, permuted, rows, opt):
+    """``(einsum, program)`` of a TS_CHECKS row on ``tc_steps_f32``."""
+    import feinsum_tpu_torch as ft
+    names = [[f"{chr(ord('A') + p)}{r}" for p in range(len(shapes))]
+             for r in range(rows)]
+    e = ft.batched_einsum(subs, [[ft.array(n, sh, "float32")
+                                  for n, sh in zip(row, shapes)]
+                                 for row in names])
+    prog = (ft.generate_program_with_opt_einsum_schedule(e) if opt
+            else ft.generate_program(e)).with_descriptor(
+        backend="pallas", grid_index=tuple(grid), grid_blocks=tuple(blocks))
+    if permuted:
+        prog = prog.with_descriptor(
+            arg_layouts=tuple((a.name, tuple(reversed(range(len(idx)))))
+                              for row in e.args
+                              for a, idx in zip(row, e.in_idx_sets)),
+            out_layout=tuple(reversed(range(len(e.out_idx_set)))))
+    return e, prog
+
+
+def tc_steps_path(dev, label: str, stats: KernelStats) -> int:
+    """Phase 20, K2's multi-step dense schedules: (a) ``tc_steps_f32``
+    against ``tc_steps_plain`` on TS_CHECKS; (b) the rows of
+    ``tc_steps_suite()`` tuned in ``tc_pallas_v0`` and ``tc_pallas_v1``
+    into a fresh archive, each champion through ``candidate_transforms``
+    and validated against the numpy oracle (E = 2000 for the rows with an
+    element axis); (c) counters reset, each champion replayed at full size,
+    the counters read, each output held to ``tc_steps_plain``; (d) each
+    timed in turns against its plain version, one ``torch.einsum`` of the
+    whole einsum and, for sum factorization, phase 19's ``step_block_f32``
+    route (into *stats*).  Returns the launches of step (c)."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import sql_utils
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.layouts import stored_out_letters
+    from feinsum_tpu_torch.ops.tc_emitter import plan_tc_launch
+    from feinsum_tpu_torch.ops.tc_steps import plan_tc_steps
+    from feinsum_tpu_torch.suite import TC_STEPS_SEEDS, \
+        candidate_transforms, make_sum_factorization, make_triple_product, \
+        tc_steps_suite
+    from feinsum_tpu_torch.tools.step_block_mappings import \
+        programs as layouts_of, step_block_rows
+
+    def compare(name, plan, operands):
+        got = plan.run(operands)
+        want = plan.plain(operands)
+        terms = plan.plain(magnitudes(operands))
+        torch.cuda.synchronize()
+        for g, w, t in zip(got, want, terms):
+            abs_err, rel = max_err(g, w)
+            over = note_error("tc_steps_f32", g, w, t)
+            ok = rel <= RTOL
+            log(f"[compare] tc_steps_f32 {name}:"
+                f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
+                f" max|plain| (tolerance {RTOL}), {over:.2e} of the terms'"
+                f" magnitudes {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SmokeFailure(f"tc_steps_f32 disagrees with its plain"
+                                   f" version on {name}")
+
+    # (a) the kernel against its plain version
+    for name, spec in TS_CHECKS.items():
+        e, prog = ts_check_program(*spec)
+        plan = plan_tc_launch(prog, get_index_lengths(e, 1))
+        if plan.kernel != "tc_steps_f32":
+            raise SmokeFailure(f"{name} plans onto {plan.kernel}")
+        operands = plan.operands(apply_layouts(prog, device_inputs(
+            e, 1, 3, dev)))
+        compare(f"{name} ({prog.schedule.nsteps} steps, b={e.b})", plan,
+                operands)
+
+    # (b) tuned into a fresh archive, champions validated
+    db = HERE / "build" / "chip_smoke" / "tc_steps_archive.sqlite"
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    small = {"sumfact_q4": make_sum_factorization(E=E_VALIDATE),
+             "triple_product_ndof35": make_triple_product(E=E_VALIDATE)}
+    programs = {}
+    for name, e in tc_steps_suite():
+        t_tune = time.perf_counter()
+        for space, seeds in TC_STEPS_SEEDS[name].items():
+            ft.autotune(e, space, db_path=str(db), device=dev,
+                        test_limit=len(seeds), seed_configs=seeds)
+        facts = sql_utils.aggregate_reconfirmations(
+            ft.query(e, dev, db_path=str(db)))
+        log(f"[tune] {name}: {len(facts)} facts in"
+            f" {time.perf_counter() - t_tune:.1f} s; " + "; ".join(
+                f"{q.transform_id} {dict(q.transform_params)}:"
+                f" {q.runtime_in_sec * 1e3:.4f} ms" for q in facts)
+            + f" {label}")
+        if len(facts) != sum(map(len, TC_STEPS_SEEDS[name].values())):
+            raise SmokeFailure(f"{name}: the archive holds {len(facts)}"
+                               " facts")
+        winner = next(candidate_transforms(name, e, db_path=str(db),
+                                           device=dev))
+        log(f"[replay] {winner.label}")
+        if winner.fact is None or winner.fact.transform_id not in (
+                "tc_pallas_v0.py", "tc_pallas_v1.py"):
+            raise SmokeFailure(f"{name}: the winner is not an archived TC"
+                               " fact")
+        check = small.get(name, e)
+        ft.validate_batched_einsum_transform(check, winner.transform,
+                                             device=dev)
+        log(f"[oracle] {name}: the champion validated on {dev} against the"
+            f" numpy oracle at {tuple(int(d) for d in check.shape)}")
+        program = winner.transform(ft.generate_program(e))
+        table = plan_tc_steps(program, get_index_lengths(e, 1))
+        log(f"[replay] {name}: {program.schedule.subscripts}, grid"
+            f" {program.descriptor.grid_index} blocks"
+            f" {program.descriptor.grid_blocks}: {table.ncells} cells,"
+            f" {table.threads} threads, {table.smem_bytes} B of shared"
+            f" memory, {table.terms()} terms")
+        programs[name] = (e, program)
+
+    # (c) the replays, counted, held to the plain version
+    kernels.reset_launch_counts()
+    outputs = {}
+    for name, (e, program) in programs.items():
+        fn = ft.build_executable(program, device=dev)
+        arrays = apply_layouts(program, device_inputs(e, 1, 0, dev))
+        outputs[name] = fn(arrays)
+        torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    log(f"[steps] launch counts over phase 20's replays: {counts}")
+    launches = counts.pop("tc_steps_f32")
+    if launches < len(programs) or any(counts.values()):
+        raise SmokeFailure(f"phase 20 ran {launches} tc_steps_f32 launches"
+                           f" and {counts}")
+    for name, (e, program) in programs.items():
+        arrays = apply_layouts(program, device_inputs(e, 1, 0, dev))
+        plan = plan_tc_launch(program, get_index_lengths(e, 1))
+        operands = plan.operands(arrays)
+        want = tuple(get_index_lengths(e, 1)[ix]
+                     for ix in stored_out_letters(program))
+        for got, plain, terms in zip(outputs.pop(name), plan.plain(operands),
+                                     plan.plain(magnitudes(operands))):
+            if tuple(got.shape) != want:
+                raise SmokeFailure(f"{name}: output {tuple(got.shape)}, want"
+                                   f" {want}")
+            abs_err, rel = max_err(got, plain)
+            over = note_error("tc_steps_f32", got, plain, terms)
+            log(f"[compare] tc_steps_f32 {name} replayed at full size:"
+                f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
+                f" max|plain|, {over:.2e} of the terms' magnitudes"
+                f" (tolerance {RTOL}) {'ok' if rel <= RTOL else 'FAIL'}")
+            if rel > RTOL:
+                raise SmokeFailure(f"{name}: the replay differs from"
+                                   f" tc_steps_plain by {rel:.2e}")
+        del arrays, operands
+        torch.cuda.empty_cache()
+
+    # (d) times, in turns
+    for name, (e, program) in programs.items():
+        logical = device_inputs(e, 1, 0, dev)
+        arrays = apply_layouts(program, logical)
+        plan = plan_tc_launch(program, get_index_lengths(e, 1))
+        subs = e.get_subscripts().replace(" ", "")
+        routes = {
+            "kernel": ft.build_executable(program, device=dev),
+            "plain": lambda a, plan=plan: plan.plain(plan.operands(a)),
+            "library": lambda a, e=e, subs=subs: [
+                torch.einsum(subs, *[a[x.name] for x in row])
+                for row in e.args]}
+        arrays_of = {"kernel": arrays, "plain": arrays, "library": logical}
+        if name == "sumfact_q4":
+            (long_e, hoist), = [(le, h) for n, le, h in step_block_rows()
+                                if n == "sumfact_q4"]
+            long_prog = layouts_of(long_e, hoist)["dof-major"]
+            routes["step_block_f32"] = ft.build_executable(
+                long_prog, long_dim_length=E_FULL, device=dev)
+            arrays_of["step_block_f32"] = apply_layouts(
+                long_prog, device_inputs(long_e, E_FULL, 0, dev))
+        times = timed_in_turns(routes, arrays_of)
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        extra = (f", step_block_f32 (E a long axis) {ms['step_block_f32']:.4f}"
+                 " ms" if "step_block_f32" in ms else "")
+        log(f"[time] tc_steps_f32 {name} ({program.schedule.nsteps} steps):"
+            f" kernel {ms['kernel']:.4f} ms, plain version"
+            f" {ms['plain']:.4f} ms, torch.einsum {ms['library']:.4f} ms"
+            f"{extra}, {bound_text(e, 1, program)} (runs {times}) {label}")
+        stats.add("tc_steps_f32", e, 1, ms["kernel"], ms["plain"],
+                  ms["library"], program)
+        del logical, arrays, arrays_of, routes
         torch.cuda.empty_cache()
     return launches
 

@@ -42,32 +42,47 @@ class ScheduleDescriptor:
         ``step_block_f32`` (``ops/step_block.py``).
     :attr grid_index: ``None`` or the unique parametric letter (the fused
         DG kernels), or a tuple of concrete output letters: with
-        ``backend="pallas"`` the dense tensor-contraction kernel
-        ``tc_grid_f32`` (``ops/tc_emitter.py``, the port of K2 in
-        ROADMAP.md).  Its CUDA grid walks the combinations of these letters
-        (each combination one "cell") and tiles each cell's remaining output
-        as an M x N matrix of thread-block tiles; each output element is
-        computed and written once, in place, in the stored layout.  The
-        plain route (``backend="xla"``) has no grid and ignores the tuple,
-        as the reference's XLA route does; ``dd_pairs`` with a tuple
+        ``backend="pallas"`` the dense tensor-contraction kernels
+        (``ops/tc_emitter.py``, the port of K2 in ROADMAP.md).  Their CUDA
+        grid walks the combinations of these letters (each combination one
+        "cell"), and each output element is computed and written once, in
+        place, in the stored layout.  A schedule of one step of two einsum
+        operands in the einsum's own letters runs on ``tc_grid_f32``, which
+        tiles each cell's remaining output as an M x N matrix of
+        thread-block tiles.  Any other schedule (several steps, a step of
+        one or of three or more operands, step subscripts that rename
+        letters) runs on ``tc_steps_f32`` (``ops/tc_steps.py``): one thread
+        block per cell evaluates every step in order, as the reference's
+        cell does in VMEM, intermediates in shared memory (a cell whose
+        intermediates exceed a Hopper block's 227 KB raises), the last step
+        written into the cell's tile; no step may contract a grid letter.
+        The plain route (``backend="xla"``) has no grid and ignores the
+        tuple, as the reference's XLA route does; ``dd_pairs`` with a tuple
         raises.
     :attr grid_blocks: with a tuple ``grid_index`` only: ``(letter, blk)``
         puts *blk* consecutive indices of the grid letter into one cell
-        (default 1; *blk* must divide the length).  The cell's in-cell
-        extent of the letter joins its tile axis, so the block decides the
-        cell's M x N shape, the tile shape and the number of cells.  A
-        batch letter (carried by both operands and the output) is walked one
-        index per cell; a block > 1 on it raises.
+        (default 1; *blk* must divide the length).  On ``tc_grid_f32`` the
+        cell's in-cell extent of the letter joins its tile axis, so the
+        block decides the cell's M x N shape, the tile shape and the number
+        of cells; that kernel walks a batch letter (carried by both
+        operands and the output) one index per cell, so a two-operand step
+        with a block > 1 on one runs on ``tc_steps_f32``, where a block on
+        any grid letter is an in-cell extent of every step.
     :attr grid_m: with a tuple ``grid_index`` only: an output letter with
-        in-cell extent > 1.  The operand that carries it is the tile's row
-        (M) operand, and the letter runs fastest along the tile's M axis,
-        which sets the access order of that operand and of the output.
-        ``None``: the step's first operand gives the rows, and each side's
-        letters are ordered by the strides of its larger tensor.
+        in-cell extent > 1 (else it raises, as in the reference).  On
+        ``tc_grid_f32`` the operand that carries it is the tile's row (M)
+        operand, and the letter runs fastest along the tile's M axis, which
+        sets the access order of that operand and of the output.  ``None``:
+        the step's first operand gives the rows, and each side's letters
+        are ordered by the strides of its larger tensor.  It moves nothing
+        on ``tc_steps_f32``, whose steps order their entries by strides.
     :attr mstack: with a tuple ``grid_index`` only; accepted at both values
-        and without effect.  It stacked unrolled output slices into the TPU
-        MXU's M dimension; ``tc_grid_f32``'s tile already spans all of a
-        cell's M letters.
+        and without effect on either kernel (it moves nothing on Hopper).
+        It stacked unrolled output slices into the TPU MXU's M dimension,
+        in ``_build_multigrid``'s one-step and multi-step lowering alike
+        (``ops/kernel_lowering.py::lower_step``); ``tc_grid_f32``'s tile
+        already spans all of a cell's M letters, and ``tc_steps_f32`` runs
+        each step as threads over all of its entries.
     :attr pre_layouts, pre_out_layout: storage contracts of a rewritten
         program (the TC-as-GEMM rewrite of ``tc_gemm_v0``): per operand,
         and for every output, a grouping of the logical axes into merged
@@ -105,7 +120,11 @@ class ScheduleDescriptor:
         rows on ``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32`` and
         ``long_reduce_f32``, the ``Σ_s F t`` combine of a DG row, hoisted
         resident steps (the reference runs them at HIGHEST), and float64
-        (``dd_rows``).
+        (``dd_rows``).  A program on ``step_block_f32`` or ``tc_steps_f32``
+        (the general step algebra of K1, and K2's schedules other than one
+        step of two operands) runs in f32 at ``bf16_3x``, under the
+        kernel's f32 name: each step's entries are summed one term at a
+        time on the CUDA cores, not as a tiled dot.
     :attr dimension_semantics: both ``"parallel"`` and ``"arbitrary"`` are
         accepted; thread blocks always run in parallel.  ``"parallel"`` with
         a contracted long axis raises, as in the reference.

@@ -80,6 +80,17 @@ that no row family above takes (a step table of
   between steps stay in shared memory; a contracted long axis ends in
   per-block partials summed by a second launch in a fixed order.
 
+And one runs K2's whole schedule, every step of a dense program with a
+tuple ``grid_index`` that ``tc_grid_f32`` does not take (a cell table of
+:mod:`~feinsum_tpu_torch.ops.tc_steps`):
+
+* ``tc_steps_f32`` (``csrc/tc_steps.cu``) — one thread block per grid cell,
+  each step as threads over its output entries, each summing its contracted
+  entries through int32 offset tables built on the host
+  (:func:`~feinsum_tpu_torch.ops.tc_steps.tc_steps_tables`); intermediates
+  stay in shared memory; the last step writes the cell's tile of the output
+  in its stored layout.
+
 A wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; it runs the plain version only for tensors that lie on the
 CPU.  There is no fallback from a CUDA tensor to the plain version.  Each
@@ -143,15 +154,28 @@ SB_SMEM_TARGET = 64 * 1024
 # shared memory)
 SB_L1_TARGET = 96 * 1024
 
+# csrc/tc_steps.cu: threads per block (kThreads, the most; the planner
+# takes fewer for a narrow cell); the most steps, operands per step,
+# operands per row and grid letters a launch takes (kMaxSteps, kMaxOps,
+# kMaxInputs, kMaxGrid); the most letters per step and offset-table entries
+# of a cell the planner builds (ops/tc_steps.py)
+TS_THREADS = 256
+TS_MAX_STEPS = 8
+TS_MAX_OPS = 6
+TS_MAX_INPUTS = 8
+TS_MAX_GRID = 8
+TS_MAX_LETTERS = 16
+TS_MAX_TABLE = 2 ** 26
+
 # launches by kernel; a ``bf16_3x`` row planned onto a kernel with no 3x
 # variant (``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32``,
-# ``long_reduce_f32``, ``step_block_f32``, ``dd_rows``) runs it in f32 and
-# counts under its name
+# ``long_reduce_f32``, ``step_block_f32``, ``tc_steps_f32``, ``dd_rows``)
+# runs it in f32 and counts under its name
 launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
                  "row_reduce_f32": 0, "long_reduce_f32": 0, "dd_rows": 0,
                  "tc_grid_f32": 0, "dg_rows_3xtf32": 0, "tc_grid_3xtf32": 0,
                  "lane_pack_dg_f32": 0, "lane_pack_dg_3xtf32": 0,
-                 "step_block_f32": 0}
+                 "step_block_f32": 0, "tc_steps_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1747,5 +1771,98 @@ def step_block_f32(rows, table, *, block_long: int,
                                    f" {err}")
             launch_counts["step_block_f32"] += 1
     return outs
+
+# }}}
+
+
+# {{{ tc_steps_f32
+
+def _ts_check(ops, table) -> torch.device:
+    """The device of *ops*, each checked against the table's logical letters
+    and lengths."""
+    if len(ops) != len(table.inputs):
+        raise ValueError(f"{len(ops)} operands, the table has"
+                         f" {len(table.inputs)}")
+    device = ops[0].device
+    length = table.length
+    for k, (t, letters) in enumerate(zip(ops, table.inputs)):
+        _check_operand(f"operand {k}", t, device,
+                       tuple(length[ix] for ix in letters))
+    return device
+
+
+def tc_steps_plain(ops, table) -> torch.Tensor:
+    """The plain PyTorch version of ``tc_steps_f32``: the table's steps as
+    full-fp32 ``torch.einsum`` calls over the operands' views (their logical
+    letters are their axes), the last step into the output's stored letter
+    order, the result contiguous."""
+    from ..codegen.program import check_full_fp32_matmul
+    check_full_fp32_matmul()
+    _ts_check(ops, table)
+    env: list = []
+    last = len(table.steps) - 1
+    for k, step in enumerate(table.steps):
+        vals = [ops[x] if kind == "in" else env[x]
+                for kind, x in step.operands]
+        out = table.stored_out if k == last else step.out
+        env.append(torch.einsum(
+            ",".join("".join(s) for s in step.letters) + "->"
+            + "".join(out), *vals))
+    return env[last].contiguous()
+
+
+@functools.lru_cache(maxsize=32)
+def _ts_device_tables(table, in_strides: tuple, out_strides: tuple,
+                      device: torch.device) -> tuple:
+    from .tc_steps import tc_steps_tables
+    tables, steps_i, steps_t, grid = tc_steps_tables(table, in_strides,
+                                                     out_strides)
+    return torch.from_numpy(tables).to(device), steps_i, steps_t, grid
+
+
+def tc_steps_f32(ops, table) -> torch.Tensor:
+    """The output of the cell table *table*
+    (:class:`~feinsum_tpu_torch.ops.tc_steps.TCStepsTable`) for one row
+    from its operands (one per einsum position, axes in the logical order
+    ``table.inputs``; views of the stored tensors), allocated contiguous in
+    the stored order ``table.stored_out``: one launch, one thread block per
+    cell."""
+    device = _ts_check(ops, table)
+    if device.type == "cpu":
+        return tc_steps_plain(ops, table)
+    if device.type != "cuda":
+        raise ValueError(f"tc_steps_f32: no kernel for device {device}")
+    if table.smem_bytes > MAX_SMEM_BYTES:
+        raise InvalidParameterError(
+            f"tc_steps_f32 needs {table.smem_bytes} bytes of shared memory"
+            f" per block; an H100 block has {MAX_SMEM_BYTES}")
+
+    from ._build import load_library
+    lib = load_library()
+    length = table.length
+    out = torch.empty(tuple(length[ix] for ix in table.stored_out),
+                      dtype=torch.float32, device=device)
+    view = out.permute(tuple(table.stored_out.index(ix) for ix in table.out))
+    tables, steps_i, steps_t, grid = _ts_device_tables(
+        table, tuple(tuple(t.stride()) for t in ops), tuple(view.stride()),
+        device)
+    ns = len(table.steps)
+    with torch.cuda.device(device):
+        err = lib.tc_steps_f32(
+            len(ops), (ctypes.c_void_p * len(ops))(*[t.data_ptr()
+                                                    for t in ops]),
+            view.data_ptr(), ns,
+            (ctypes.c_int * (ns * (5 + TS_MAX_OPS)))(
+                *[v for s in steps_i for v in s]),
+            (ctypes.c_int * (ns * (2 * TS_MAX_OPS + 1)))(
+                *[v for s in steps_t for v in s]),
+            len(grid), (ctypes.c_int64 * sum(map(len, grid)))(
+                *[v for g in grid for v in g]),
+            ctypes.c_void_p(tables.data_ptr()), table.ncells, table.threads,
+            table.smem_floats, _stream_of(device))
+    if err:
+        raise RuntimeError(f"tc_steps_f32 launch failed: CUDA error {err}")
+    launch_counts["tc_steps_f32"] += 1
+    return out
 
 # }}}

@@ -124,6 +124,65 @@ class StepTable:
         return 4 * self.smem_floats
 
 
+@dataclass(frozen=True)
+class ScheduleStep:
+    """One step of a schedule as the kernels read it: ``operands`` are
+    ``("in", position)`` (an einsum operand) or ``("tmp", k)`` (step k's
+    result), ``letters`` the step's letters for each operand's axes, in the
+    operand's axis order (an einsum operand's is its logical order, a
+    result's the order of its producer's ``out``), and ``out`` the result's
+    letters.  A step may name an axis by another letter than the einsum
+    or the producing step does."""
+
+    operands: tuple
+    letters: tuple
+    out: tuple
+    subs: str
+
+
+def read_schedule(schedule, inputs: tuple, kernel: str,
+                  max_ops: int) -> tuple:
+    """The steps of *schedule* (:class:`ScheduleStep`) over einsum operands
+    whose letters are *inputs*; raises :class:`InvalidParameterError` (naming
+    *kernel*) for a step of more than *max_ops* operands, an operand whose
+    rank its subscript does not match, and an output letter that no operand
+    of the step carries."""
+    step_of: dict = {}
+    steps: list = []
+    for subs, name, args in zip(schedule.subscripts, schedule.result_names,
+                                schedule.arguments):
+        ins, out = subs.replace(" ", "").split("->")
+        ins = ins.split(",")
+        if len(args) > max_ops:
+            raise InvalidParameterError(
+                f"{kernel} takes at most {max_ops} operands per"
+                f" step, step {subs!r} has {len(args)}")
+        operands = tuple(("in", a.position) if isinstance(a, EinsumOperand)
+                         else ("tmp", step_of[a.name]) for a in args)
+        for op, s in zip(operands, ins):
+            axes = operand_axes(steps, inputs, op)
+            if len(s) != len(axes):
+                raise InvalidParameterError(
+                    f"{kernel}: step {subs!r} gives an operand of rank"
+                    f" {len(axes)} the subscript {s!r}")
+        if not set(out) <= set("".join(ins)):
+            raise InvalidParameterError(
+                f"{kernel}: step {subs!r} has an output letter that no"
+                " operand carries")
+        step_of[name] = len(steps)
+        steps.append(ScheduleStep(operands=operands,
+                                  letters=tuple(tuple(s) for s in ins),
+                                  out=tuple(out), subs=subs))
+    return tuple(steps)
+
+
+def operand_axes(steps, inputs: tuple, operand: tuple) -> tuple:
+    """The letters of *operand*'s axes where it is made: an einsum
+    operand's own, a result's its step's ``out``."""
+    kind, x = operand
+    return tuple(inputs[x]) if kind == "in" else steps[x].out
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
@@ -170,58 +229,31 @@ def plan_step_block(program, index_to_length: dict,
                 f"step_block_f32: letter {letter!r} has lengths"
                 f" {length[letter]} and {axis_len} in the schedule")
 
-    step_of: dict = {}
     carries: list = []
     drafts: list = []
-    for k, (subs, name, args) in enumerate(zip(
-            sched.subscripts, sched.result_names, sched.arguments)):
-        ins, out = subs.replace(" ", "").split("->")
-        ins = ins.split(",")
-        if len(args) > SB_MAX_OPS:
-            raise InvalidParameterError(
-                f"step_block_f32 takes at most {SB_MAX_OPS} operands per"
-                f" step, step {subs!r} has {len(args)}")
-        operands, letters, carry = [], [], False
-        for a, s in zip(args, ins):
-            if isinstance(a, EinsumOperand):
-                axes = inputs[a.position]
-                ref = [(ix == el, length.get(ix)) for ix in axes]
-                operands.append(("in", a.position))
-                carry |= el in axes
-            else:
-                j = step_of[a.name]
-                axes = drafts[j][2]
-                ref = [(ix == el, length.get(ix)) for ix in axes]
-                operands.append(("tmp", j))
-                carry |= carries[j]
-            if len(s) != len(axes):
-                raise InvalidParameterError(
-                    f"step_block_f32: step {subs!r} gives an operand of rank"
-                    f" {len(axes)} the subscript {s!r}")
-            for ix, (is_long, n) in zip(s, ref):
-                bind(ix, n, is_long)
-            letters.append(tuple(s))
-        out = tuple(out)
-        used = {ix for s in letters for ix in s}
-        if not set(out) <= used:
-            raise InvalidParameterError(
-                f"step_block_f32: step {subs!r} has an output letter that no"
-                " operand carries")
+    read = read_schedule(sched, inputs, "step_block_f32", SB_MAX_OPS)
+    for st in read:
+        carry = False
+        for op, s in zip(st.operands, st.letters):
+            axes = operand_axes(read, inputs, op)
+            carry |= el in axes if op[0] == "in" else carries[op[1]]
+            for ix, ax in zip(s, axes):
+                bind(ix, length.get(ax), ax == el)
+        used = {ix for s in st.letters for ix in s}
         short = used - {el}
         if len(short) > SB_MAX_LETTERS:
             raise InvalidParameterError(
                 f"step_block_f32 takes at most {SB_MAX_LETTERS} letters per"
-                f" step besides the long axis, step {subs!r} has"
+                f" step besides the long axis, step {st.subs!r} has"
                 f" {len(short)}")
         if not carry:
             kind = "free"
-        elif el in out:
+        elif el in st.out:
             kind = "element"
         else:
             kind = "reduce"
-        step_of[name] = k
         carries.append(carry)
-        drafts.append((kind, tuple(operands), out, tuple(letters), subs))
+        drafts.append((kind, st.operands, st.out, st.letters, st.subs))
 
     last = len(drafts) - 1
     for k, (kind, _ops, out, _letters, subs) in enumerate(drafts):

@@ -8,8 +8,10 @@ archived rows): div, grad, face-mass and mass at ndof 35, matvec at ndof 20
 and a copy, each over a long element axis ``E``; its extended rows
 (:func:`extended_suite`); a 1-D product for K3's flatten route
 (:func:`make_scale_flat`); ``bench.py``'s fp64 rows (:func:`fp64_suite`);
-and ``bench.py``'s TCCG sample of dense tensor contractions
-(:func:`tccg_suite`).  :data:`F32_SPACES` names the space that tunes each
+``bench.py``'s TCCG sample of dense tensor contractions
+(:func:`tccg_suite`); and dense contractions of three or more operands
+(:func:`tc_steps_suite`, with the tuner's first points
+:data:`TC_STEPS_SEEDS`).  :data:`F32_SPACES` names the space that tunes each
 float32 row, and :func:`f32_seed_configs` the tuner's first points.
 
 The consumer flow of ``examples/compile_user_rhs.py`` is here in torch
@@ -324,6 +326,71 @@ def tccg_suite() -> list:
     from .utils import get_tccg_benchmark
     return [(f"tccg_{i:02d}", get_tccg_benchmark(i, dtype="float32"))
             for i in TCCG_SAMPLE]
+
+
+def make_sum_factorization(n: int = 5, E: int = 1_000_000,
+                           dtype: str = "float32"):
+    """Sum factorization on Q4 hexahedra, ``ai,bj,ck,eabc->eijk``: one n x n
+    matrix per direction applied to every element's n**3 values, E a
+    concrete axis (the TC spaces take concrete einsums only)."""
+    return einsum("ai,bj,ck,eabc->eijk", array("Ax", (n, n), dtype),
+                  array("Ay", (n, n), dtype), array("Az", (n, n), dtype),
+                  array("u", (E, n, n, n), dtype))
+
+
+def make_triple_product(ndof: int = 35, E: int = 100_000,
+                        dtype: str = "float32"):
+    """The batched triple product ``eij,ejk,ekl->eil`` of ndof x ndof
+    matrices per element."""
+    return einsum("eij,ejk,ekl->eil", *[array(n, (E, ndof, ndof), dtype)
+                                        for n in "PQR"])
+
+
+def make_two_operators(dtype: str = "float32"):
+    """Two operators applied to one mode of a rank-4 tensor,
+    ``abcd,de,ef->abcf`` at (64, 64, 64, 256), (256, 64), (64, 256)."""
+    return einsum("abcd,de,ef->abcf", array("T", (64, 64, 64, 256), dtype),
+                  array("C", (256, 64), dtype), array("D", (64, 256), dtype))
+
+
+def tc_steps_suite() -> list:
+    """``(name, einsum)`` of the dense contractions of three or more
+    operands whose TC-space points run their schedules on ``tc_steps_f32``:
+    sum factorization at E = 1M, the triple product at ndof 35 and
+    E = 100,000, and two operators on one mode."""
+    return [("sumfact_q4", make_sum_factorization()),
+            ("triple_product_ndof35", make_triple_product()),
+            ("two_operators", make_two_operators())]
+
+
+# the tuner's first points per tc_steps_suite() row and TC space, on the
+# canonical einsum (autotune canonicalizes): the optimal path, and cells
+# whose intermediates fit a Hopper block's shared memory (sum factorization
+# 1 or 8 elements per cell, the triple product 1 or 4, two operators a
+# 1 x 4 or 2 x 2 block of (a, b))
+TC_STEPS_SEEDS = {
+    "sumfact_q4": {
+        "tc_pallas_v0": [dict(n_grid=1, precision_idx=0,
+                              use_opt_path=True)],
+        "tc_pallas_v1": [dict(n_grid=1, blk0_idx=4, blk1_idx=0, m_pos=3,
+                              precision_idx=0, use_opt_path=True),
+                         dict(n_grid=1, blk0_idx=0, blk1_idx=0, m_pos=3,
+                              precision_idx=0, use_opt_path=True)]},
+    "triple_product_ndof35": {
+        "tc_pallas_v0": [dict(n_grid=1, precision_idx=0,
+                              use_opt_path=True)],
+        "tc_pallas_v1": [dict(n_grid=1, blk0_idx=2, blk1_idx=0, m_pos=1,
+                              precision_idx=0, use_opt_path=True),
+                         dict(n_grid=1, blk0_idx=0, blk1_idx=0, m_pos=1,
+                              precision_idx=0, use_opt_path=True)]},
+    "two_operators": {
+        "tc_pallas_v0": [dict(n_grid=2, precision_idx=0,
+                              use_opt_path=True)],
+        "tc_pallas_v1": [dict(n_grid=2, blk0_idx=0, blk1_idx=2, m_pos=3,
+                              precision_idx=0, use_opt_path=True),
+                         dict(n_grid=2, blk0_idx=1, blk1_idx=1, m_pos=3,
+                              precision_idx=0, use_opt_path=True)]},
+}
 
 
 def default_transform(einsum):

@@ -123,7 +123,8 @@ ParameterT = Any  # IntParameter | BoolParameter | TupleParameter | Permutation
 
 def transform_param(name: str, func: Callable[[BatchedEinsum], ParameterT]):
     """Declare a tuning parameter of the decorated transform; *func* maps the
-    einsum to the parameter's space."""
+    einsum to the parameter's space, or to ``None`` where the parameter
+    changes nothing on that einsum and is not searched."""
     def wrapper(fn):
         pt = _as_parametrized(fn)
         pt.transform_params[name] = func
@@ -150,8 +151,12 @@ class ParametrizedTransform:
         self.transform_params: dict = {}
 
     def get_param_space(self, einsum: BatchedEinsum) -> dict:
-        return {name: func(einsum)
-                for name, func in self.transform_params.items()}
+        """The searched parameters on *einsum*; a declaration whose function
+        gives ``None`` is not searched there (the transform's default
+        holds)."""
+        space = {name: func(einsum)
+                 for name, func in self.transform_params.items()}
+        return {name: p for name, p in space.items() if p is not None}
 
     def bind_args(self, einsum: BatchedEinsum, **params):
         """A ``TransformT`` (program -> program) with everything bound."""

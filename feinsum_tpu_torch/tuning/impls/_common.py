@@ -187,13 +187,18 @@ def _guard_long_reduce(einsum) -> None:
 
 
 def guard_tc_grid(program) -> None:
-    """Raise :class:`InvalidParameterError` when ``tc_grid_f32`` cannot take
-    *program* (a tuple ``grid_index``): the Hopper kernel's own limits in
-    place of ``feinsum_tpu``'s VMEM and Mosaic guards.  The kernel needs no
-    shared memory or unrolling that grows with the cell (it tiles every
-    cell), so what it refuses is structural (see
-    :func:`~feinsum_tpu_torch.ops.kernels.tc_classify`) or a launch of more
-    than 2**31 - 1 blocks."""
+    """Raise :class:`InvalidParameterError` when the contraction kernels
+    cannot take *program* (a tuple ``grid_index``): the Hopper kernels' own
+    limits in place of ``feinsum_tpu``'s VMEM and Mosaic guards.  It plans
+    through :func:`~feinsum_tpu_torch.ops.tc_emitter.plan_tc_launch`, which
+    routes the program: one step of two einsum operands to ``tc_grid_f32``,
+    which tiles every cell and needs no shared memory or unrolling that
+    grows with it (it refuses what is structural, see
+    :func:`~feinsum_tpu_torch.ops.kernels.tc_classify`, or a launch of more
+    than 2**31 - 1 blocks); every other schedule to ``tc_steps_f32``, which
+    refuses a cell whose intermediates exceed a Hopper block's shared
+    memory, or more steps, operands per step or letters per step than it
+    takes (:func:`~feinsum_tpu_torch.ops.tc_steps.plan_tc_steps`)."""
     from ...codegen.program import get_index_lengths
     from ...ops.tc_emitter import plan_tc_launch
 

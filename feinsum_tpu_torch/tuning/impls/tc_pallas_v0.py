@@ -1,14 +1,16 @@
 """
-Transform space of dense 2-operand tensor contractions on the hand-written
-kernel ``tc_grid_f32`` (the port of K2): a CUDA grid over the leading
-``n_grid`` output letters, one cell per index combination, each cell's
-output tiled and written in place in the stored layout.
+Transform space of dense tensor contractions on the hand-written kernels
+(the port of K2): a CUDA grid over the leading ``n_grid`` output letters,
+one cell per index combination, each cell's output written in place in the
+stored layout, by ``tc_grid_f32`` (one step of two operands, tiled) or
+``tc_steps_f32`` (any other schedule, step by step per cell).
 
 The file name, parameters and descriptor fields are those of
 ``feinsum_tpu``'s space, so its facts bind and replay here.  ``n_grid``
 sets the grid letters; ``use_opt_path`` picks the optimal-path or trivial
-schedule (one step either way; the optimal path lists the operands in
-another order, which swaps the tile's row and column operands);
+schedule (on two operands one step either way, the optimal path listing
+the operands in another order, which swaps the tile's row and column
+operands; on more, a step per pair against one step over all);
 ``precision_idx`` indexes ``("default", "bf16_3x")``: ``tc_grid_f32``, or
 ``tc_grid_3xtf32`` (three TF32 tensor-core passes).
 

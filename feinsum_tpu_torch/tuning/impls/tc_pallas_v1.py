@@ -1,7 +1,9 @@
 """
-Second transform space of dense 2-operand tensor contractions on
-``tc_grid_f32`` (the port of K2): a CUDA grid over the leading ``n_grid``
-output letters with per-letter blocks, and an explicit row letter.
+Second transform space of dense tensor contractions on the hand-written
+kernels (the port of K2): a CUDA grid over the leading ``n_grid`` output
+letters with per-letter blocks, and an explicit row letter.  One step of
+two operands runs on ``tc_grid_f32``, any other schedule per cell on
+``tc_steps_f32`` (``ops/tc_emitter.py``).
 
 The file name, parameters and descriptor fields are those of
 ``feinsum_tpu``'s space, so each of its facts binds and replays here.  The
@@ -17,21 +19,27 @@ search space declares only what changes the launched kernel on Hopper:
   and of the output);
 * ``precision_idx``: ``("default", "bf16_3x")``: ``tc_grid_f32`` in IEEE
   f32, or ``tc_grid_3xtf32``, the tile's inner product in three TF32
-  tensor-core passes over an f32 hi/lo split.
+  tensor-core passes over an f32 hi/lo split (a ``tc_steps_f32`` program
+  runs f32 at either);
+* ``use_opt_path`` on an einsum of three or more operands only: the
+  optimal-path schedule (a step per pair of operands, the terms it was
+  chosen for) or the trivial one (one step over all operands).
 
 Accepted and not searched, because they do not change the kernel:
 ``mstack`` (stacking output slices into the TPU MXU's M dimension; the
-descriptor carries it and the kernel ignores it) and ``use_opt_path`` (the
-schedule is one step either way, and ``grid_m`` fixes the row operand).
+descriptor carries it and the kernels ignore it) and, on two operands,
+``use_opt_path`` (the schedule is one step either way, and ``grid_m`` fixes
+the row operand).
 
 What changed for Hopper: the reference's VMEM guard, its unrolled-body
 guard and its Mosaic refusals (a gridded letter among an operand's or the
 output's last two stored dims; an operand carrying all of M, K and N) do not
-bind a CUDA kernel that tiles every cell; the kernel's own limits take
-their place (:func:`._common.guard_tc_grid`), and no ``vmem_limit_bytes``
-is set.  The stored layouts are the reference's: grid letters lead (free for
-a kernel that takes a stride per letter) and each operand's dot axis (K, or
-N for a K-free operand) trails, so the staged loads run along stride-1 k.
+bind a CUDA kernel that tiles every cell or keeps a cell's intermediates in
+shared memory; the kernels' own limits take their place
+(:func:`._common.guard_tc_grid`), and no ``vmem_limit_bytes`` is set.  The
+stored layouts are the reference's: grid letters lead (free for a kernel
+that takes a stride per letter) and each operand's dot axis (K, or N for a
+K-free operand) trails, so the staged loads run along stride-1 k.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ from feinsum_tpu_torch.contraction_schedule import (
 )
 from feinsum_tpu_torch.diagnostics import InvalidParameterError
 from feinsum_tpu_torch.einsum import SizeParam
-from feinsum_tpu_torch.tuning import IntParameter, transform_param
+from feinsum_tpu_torch.tuning import BoolParameter, IntParameter, \
+    transform_param
 from feinsum_tpu_torch.tuning.impls._common import fp32_precision, \
     guard_tc_grid
 
@@ -64,6 +73,8 @@ def _divisors(n: int) -> list:
 @transform_param("m_pos",
                  lambda e: IntParameter(0, len(e.out_idx_set) - 1))
 @transform_param("precision_idx", lambda e: IntParameter(0, 1))
+@transform_param("use_opt_path",
+                 lambda e: BoolParameter() if e.n > 2 else None)
 def transform(program, n_grid, blk0_idx, blk1_idx, m_pos, precision_idx,
               mstack=False, use_opt_path=False):
     e = program.einsum

@@ -3,7 +3,8 @@ operand checks and plain versions on CPU tensors, and, in the tests marked
 ``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``
 and its flatten route ``ew_flat_f32``, ``row_reduce_f32``,
 ``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32``, ``lane_pack_dg_f32``,
-``step_block_f32`` and the 3xTF32 kernels ``dg_rows_3xtf32``,
+``step_block_f32``, ``tc_steps_f32`` and the 3xTF32 kernels
+``dg_rows_3xtf32``,
 ``tc_grid_3xtf32`` and ``lane_pack_dg_3xtf32``) against their plain
 versions on the card; the TF32 rounding the 3x kernels and their plain versions share;
 and the default device of the helpers that make tensors (the card, or an
@@ -1352,7 +1353,7 @@ def test_library_name_follows_the_sources():
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu",
         "row_reduce.cu", "long_reduce.cu", "dg_rows_3x.cu", "tc_grid_3x.cu",
-        "lane_pack_dg.cu", "step_block.cu"}
+        "lane_pack_dg.cu", "step_block.cu", "tc_steps.cu"}
 
 
 # {{{ step_block_f32
@@ -1522,5 +1523,136 @@ def test_step_block_shared_memory_guard(cuda_device):
     with pytest.raises(ft.InvalidParameterError, match="shared memory"):
         plan_cuda_launch(ft.generate_program(e).with_descriptor(
             backend="pallas"), get_index_lengths(e, 64))
+
+# }}}
+
+
+# {{{ tc_steps_f32
+
+def _ts_program(subs, shapes, grid, blocks=(), permuted=False, rows=1,
+                opt=True):
+    """A dense program of *rows* rows on ``tc_steps_f32``: the optimal path
+    (or the trivial one-step schedule) gridded over *grid* with *blocks*;
+    *permuted* stores every operand and the output reversed."""
+    names = [[f"{chr(ord('A') + p)}{r}" for p in range(len(shapes))]
+             for r in range(rows)]
+    e = ft.batched_einsum(subs, [[ft.array(n, s, "float32")
+                                  for n, s in zip(row, shapes)]
+                                 for row in names])
+    prog = (ft.generate_program_with_opt_einsum_schedule(e) if opt
+            else ft.generate_program(e)).with_descriptor(
+        backend="pallas", grid_index=tuple(grid), grid_blocks=tuple(blocks))
+    if permuted:
+        prog = prog.with_descriptor(
+            arg_layouts=tuple((a.name, tuple(reversed(range(len(idx)))))
+                              for row in e.args
+                              for a, idx in zip(row, e.in_idx_sets)),
+            out_layout=tuple(reversed(range(len(e.out_idx_set)))))
+    return e, prog
+
+
+# ragged extents, a block on a batch letter, stored permutations, b = 2,
+# the trivial one-step schedule of four operands, and two suite rows at
+# widths the card runs in a moment
+TS_CASES = {
+    "ragged_chain": ("abc,cd,de->abe", ((3, 5, 7), (7, 5), (5, 3)), "ab",
+                     (("b", 5),), False, 1, True),
+    "batch_block_triple": ("eij,ejk,ekl->eil",
+                           ((120, 3, 5), (120, 5, 7), (120, 7, 3)), "e",
+                           (("e", 4),), False, 1, True),
+    "permuted_sumfact": ("ai,bj,ck,eabc->eijk",
+                         ((3, 5), (5, 7), (7, 3), (600, 3, 5, 7)), "ei",
+                         (("e", 2),), True, 1, True),
+    "b2_two_operators": ("abcd,de,ef->abcf",
+                         ((8, 6, 5, 7), (7, 3), (3, 6)), "ab", (("a", 2),),
+                         True, 2, True),
+    "trivial_four_operands": ("ai,bj,ck,eabc->eijk",
+                              ((3, 5), (5, 7), (7, 3), (40, 3, 5, 7)), "e",
+                              (), False, 1, False),
+    "sumfact_q4": ("ai,bj,ck,eabc->eijk",
+                   ((5, 5), (5, 5), (5, 5), (20_000, 5, 5, 5)), "e",
+                   (("e", 8),), False, 1, True),
+    "two_operators": ("abcd,de,ef->abcf",
+                      ((16, 16, 64, 256), (256, 64), (64, 256)), "ab",
+                      (("b", 4),), False, 1, True),
+}
+
+
+def test_tc_steps_on_cpu_runs_the_plain_version():
+    """CPU tensors take ``tc_steps_plain`` (no launch); the wrapper checks
+    its operands."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.tc_emitter import plan_tc_launch
+    from feinsum_tpu_torch.ops.tc_steps import plan_tc_steps
+    e, prog = _ts_program(*TS_CASES["ragged_chain"])
+    table = plan_tc_steps(prog, get_index_lengths(e, 1))
+    plan = plan_tc_launch(prog, get_index_lengths(e, 1))
+    logical = ft.measure.generate_input_arrays(e, long_dim_length=1, seed=5,
+                                               device="cpu")
+    (ops,) = plan.operands(ft.apply_layouts(prog, logical))
+    kernels.reset_launch_counts()
+    got = kernels.tc_steps_f32(ops, table)
+    assert kernels.launch_counts["tc_steps_f32"] == 0
+    assert got.is_contiguous()
+    assert_close(got.numpy(), np.einsum(
+        "abc,cd,de->abe", *[logical[a.name].double().numpy()
+                            for a in e.args[0]]))
+    with pytest.raises(ValueError):
+        kernels.tc_steps_f32(ops[:2], table)
+    with pytest.raises(ValueError):
+        kernels.tc_steps_f32([ops[0][:, :, :3], *ops[1:]], table)
+    with pytest.raises(ft.InvalidParameterError):
+        kernels.tc_steps_f32([t.double() for t in ops], table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TS_CASES))
+def test_tc_steps_kernel_matches_plain(cuda_device, name):
+    """Each case on the card against ``tc_steps_plain`` within 2e-5 of
+    max|plain| and against the logical einsum in float64; one launch per
+    row."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.tc_emitter import plan_tc_launch
+    e, prog = _ts_program(*TS_CASES[name])
+    plan = plan_tc_launch(prog, get_index_lengths(e, 1))
+    assert plan.kernel == "tc_steps_f32"
+    logical = ft.measure.generate_input_arrays(e, long_dim_length=1,
+                                               seed=33, device=cuda_device)
+    rows = plan.operands(ft.apply_layouts(prog, logical))
+    before = kernels.launch_counts["tc_steps_f32"]
+    got = plan.run(rows)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["tc_steps_f32"] == before + e.b
+    subs = e.get_subscripts().replace(" ", "")
+    for r, (g, plain) in enumerate(zip(got, plan.plain(rows))):
+        assert g.is_contiguous() and g.shape == plain.shape
+        assert_close(g.cpu().numpy(), plain.cpu().numpy())
+        want = torch.einsum(subs, *[logical[a.name].double()
+                                    for a in e.args[r]])
+        if prog.descriptor.out_layout is not None:
+            want = want.permute(*prog.descriptor.out_layout)
+        assert_close(g.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_tc_steps_spaces_validate_on_card(cuda_device):
+    """A point of each TC space on sum factorization and two operators
+    validates on the card against the numpy oracle through
+    ``tc_steps_f32``."""
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+    for e, space, params in (
+            (S.make_sum_factorization(E=2000), "tc_pallas_v0",
+             dict(n_grid=1, precision_idx=0, use_opt_path=True)),
+            (S.make_sum_factorization(E=2000), "tc_pallas_v1",
+             dict(n_grid=1, blk0_idx=4, blk1_idx=0, m_pos=3,
+                  precision_idx=0, use_opt_path=True)),
+            (S.make_two_operators(), "tc_pallas_v1",
+             dict(n_grid=2, blk0_idx=0, blk1_idx=2, m_pos=3,
+                  precision_idx=0, use_opt_path=True))):
+        tr = get_transform_func_from_module_path(space).bind_args(e,
+                                                                  **params)
+        before = kernels.launch_counts["tc_steps_f32"]
+        ft.validate_batched_einsum_transform(e, tr, device=cuda_device)
+        assert kernels.launch_counts["tc_steps_f32"] == before + 1
 
 # }}}

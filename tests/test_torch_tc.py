@@ -353,15 +353,27 @@ def test_rulings_on_the_multigrid_fields():
                    {"fold_long": 8}):
         with pytest.raises(ft.InvalidParameterError):
             ft.build_executable(prog.with_descriptor(**change))
-    # a dense contraction of three operands has a two-step schedule
+    # a dense contraction of three operands has a two-step schedule: it
+    # runs per cell on tc_steps_f32 and gives the reference's K2 output
     e3 = ft.einsum("ab,bc,cd->abd", *[ft.array(n, (3, 4), "float32")
                                       if n == "A" else
                                       ft.array(n, (4, 4), "float32")
                                       for n in "ABC"])
+    r3 = fr.einsum("ab,bc,cd->abd", *[fr.array(n, (3, 4), "float32")
+                                      if n == "A" else
+                                      fr.array(n, (4, 4), "float32")
+                                      for n in "ABC"])
     p3 = ft.generate_program_with_opt_einsum_schedule(e3).with_descriptor(
         backend="pallas", grid_index=("a",))
-    with pytest.raises(ft.InvalidParameterError, match="multi-step"):
-        ft.build_executable(p3)
+    ref_p3 = fr.generate_program_with_opt_einsum_schedule(
+        r3).with_descriptor(backend="pallas", grid_index=("a",))
+    assert p3 == program_from_reference(ref_p3)
+    assert p3.schedule.nsteps == 2
+    assert plan_tc_launch(p3, get_index_lengths(e3, 1)).kernel \
+        == "tc_steps_f32"
+    (got,) = _run_port(e3, p3, SEED)
+    (want,) = _run_reference(r3, ref_p3, SEED)
+    assert_close(got, want)
 
 
 def test_builtin_default_raises_on_a_dense_contraction():
