@@ -6,6 +6,7 @@
     python3 chip_smoke.py --lane-pack-only   # phases 1 and 18 alone
     python3 chip_smoke.py --step-only        # phases 1 and 19 alone
     python3 chip_smoke.py --tc-steps-only    # phases 1 and 20 alone
+    python3 chip_smoke.py --probes-only      # phases 1 and 21 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -151,7 +152,19 @@ Phases; any failure exits non-zero before the final line:
    ``tc_steps_plain`` within 2e-5; each timed in turns against its plain
    version and one ``torch.einsum`` of the whole einsum (sum factorization
    also on phase 19's ``step_block_f32`` route, E a long axis), beside its
-   bound.
+   bound;
+21. the TPU probes as Hopper probes (``feinsum_tpu_torch/probes/``):
+   ``probe_stream_f32``, ``probe_apply_f32`` and ``probe_apply_3xtf32``
+   against their plain versions at E = 777 (776 under the folded mapping
+   I) and E = 2**20 on every storage (copies, both transposing copies, the
+   matvec element-major, dof-major and folded, the div with b = 3, the
+   kron matvec with jac, lane-reshape C at K = 640), f32 within 2e-5 of
+   max|plain|, 3x within ``split_tolerance`` of the terms; counters reset;
+   every case of the eight probe modules at its first block size (the
+   kernels' defaults) driven once, the counters read; each case then
+   checked against its plain version and timed in turns against it and one
+   PyTorch call of the same function, beside its bound (the lane-reshape
+   cases also as CUDA graphs, the device's time without the host's).
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -163,10 +176,11 @@ and ``{"ok": true, "device": {...}}``.  The times of ``dg_rows_f32`` and
 ``ew_flat_f32`` phase 10's, ``long_reduce_f32``'s phase 12's, the 3x
 kernels' phase 15's, the lane-pack kernels' phase 18's (g = 8, their
 bound that of the logical einsum), ``step_block_f32``'s phase 19's,
-``tc_steps_f32``'s phase 20's; launches are counted over the main path
-(phase 3), the archive replays (phases 6, 8, 10, 16, 18, 20), the consumer
-flow's calls (phase 13), one step of each model (phases 14, 17) and phase
-19's runs.  It imports no JAX.
+``tc_steps_f32``'s phase 20's, the probe kernels' phase 21's (summed over
+its cases); launches are counted over the main path (phase 3), the archive
+replays (phases 6, 8, 10, 16, 18, 20), the consumer flow's calls (phase
+13), one step of each model (phases 14, 17), phase 19's runs and phase
+21's one drive of each probe case.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -215,7 +229,29 @@ REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "lane_pack_dg_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "lane_pack_dg_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "step_block_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
-            "tc_steps_f32": "feinsum_tpu/ops/pallas_emitter.py:268"}
+            "tc_steps_f32": "feinsum_tpu/ops/pallas_emitter.py:268",
+            "probe_stream_f32": "scripts/tpu_layout_probe.py:75;"
+                                " scripts/tpu_fold_probe.py:84, :96;"
+                                " scripts/tpu_lane_reshape_probe.py:52 (A,"
+                                " B)",
+            "probe_apply_f32": "scripts/tpu_layout_probe.py:101, :119;"
+                               " scripts/tpu_fold_probe.py:117, :162;"
+                               " scripts/tpu_fold_probe2.py:102, :123,"
+                               " :191; scripts/tpu_fold_probe3.py:95,"
+                               " :109, :122, :158, :183;"
+                               " scripts/tpu_fold_probe4.py:95, :110,"
+                               " :144, :163; scripts/tpu_fold_probe5.py:87,"
+                               " :102, :133, :151;"
+                               " scripts/tpu_kron_probe.py:62, :90;"
+                               " scripts/tpu_lane_reshape_probe.py:52 (C,"
+                               " D)",
+            "probe_apply_3xtf32": "scripts/tpu_fold_probe.py:162;"
+                                  " scripts/tpu_fold_probe2.py:102, :123,"
+                                  " :191; scripts/tpu_fold_probe4.py:95,"
+                                  " :110, :144, :163, :201;"
+                                  " scripts/tpu_fold_probe5.py:87, :102,"
+                                  " :133, :151, :187;"
+                                  " scripts/tpu_kron_probe.py:62"}
 SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
            "ew_flat_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
@@ -228,7 +264,10 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "lane_pack_dg_f32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
            "lane_pack_dg_3xtf32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
            "step_block_f32": "feinsum_tpu_torch/csrc/step_block.cu",
-           "tc_steps_f32": "feinsum_tpu_torch/csrc/tc_steps.cu"}
+           "tc_steps_f32": "feinsum_tpu_torch/csrc/tc_steps.cu",
+           "probe_stream_f32": "feinsum_tpu_torch/csrc/probe_stream.cu",
+           "probe_apply_f32": "feinsum_tpu_torch/csrc/probe_apply.cu",
+           "probe_apply_3xtf32": "feinsum_tpu_torch/csrc/probe_apply.cu"}
 # the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W);
 # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_MS = 3.35e9
@@ -377,6 +416,19 @@ class KernelStats:
         row["ops_ms"] += t_ops
         row["bound_ms"] += max(t_bytes, t_ops)
 
+    def add_bound(self, kernel: str, ms: float, plain_ms: float,
+                  library_ms, bytes_ms: float, ops_ms: float) -> None:
+        """One case's times and its bound's two parts, as given."""
+        row = self.rows[kernel]
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["library_ms"] = (None if library_ms is None
+                             or row["library_ms"] is None
+                             else row["library_ms"] + library_ms)
+        row["bytes_ms"] += bytes_ms
+        row["ops_ms"] += ops_ms
+        row["bound_ms"] += max(bytes_ms, ops_ms)
+
     def entry(self, kernel: str, launches: int) -> dict:
         row = self.rows[kernel]
         return {"name": kernel, "route": "cuda", "source": SOURCES[kernel],
@@ -467,6 +519,8 @@ def main() -> int:
         return step_only(dev, card)
     if "--tc-steps-only" in sys.argv[1:]:
         return tc_steps_only(dev, card)
+    if "--probes-only" in sys.argv[1:]:
+        return probes_only(dev, card)
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -634,7 +688,10 @@ def main() -> int:
         " s")
     t_phase = time.perf_counter()
     launches["tc_steps_f32"] = tc_steps_path(dev, label, stats)
-    log(f"[phase] 20 (tc_steps_f32): {time.perf_counter() - t_phase:.1f} s;"
+    log(f"[phase] 20 (tc_steps_f32): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    launches.update(probe_path(dev, label, stats))
+    log(f"[phase] 21 (the probes): {time.perf_counter() - t_phase:.1f} s;"
         f" all phases {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k]) for k in SOURCES]
@@ -738,6 +795,30 @@ def tc_steps_only(dev, card: str) -> int:
     log(f"[phase] 20: {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [stats.entry("tc_steps_f32", launches)]}))
+    return 0
+
+
+def probes_only(dev, card: str) -> int:
+    """Phase 21 alone, for work on the probe kernels: their build report,
+    checks, launches and times, and their entries of the ``kernels`` line.
+    It prints no ``ok`` line."""
+    import torch
+
+    from feinsum_tpu_torch.ops import _build
+    label = (f"[{torch.cuda.get_device_name(0)}, power limit"
+             f" {card.split(',')[-1].strip()}]")
+    lines = _build.build_info["log"].splitlines()
+    for k, line in enumerate(lines):
+        if "probe_" in line and "entry function" in line:
+            for text in lines[k:k + 4]:
+                log("[build]", text.strip())
+    stats = KernelStats()
+    t0 = time.perf_counter()
+    launches = probe_path(dev, label, stats)
+    log(f"[phase] 21: {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": [stats.entry(k, launches[k])
+                                for k in PROBE_KERNELS]}))
     return 0
 
 
@@ -2709,6 +2790,167 @@ def tc_steps_path(dev, label: str, stats: KernelStats) -> int:
                   ms["library"], program)
         del logical, arrays, arrays_of, routes
         torch.cuda.empty_cache()
+    return launches
+
+
+PROBE_KERNELS = ("probe_stream_f32", "probe_apply_f32",
+                 "probe_apply_3xtf32")
+E_PROBE = 1 << 20
+
+
+def probe_kernel_checks(dev) -> None:
+    """Phase 21 (a): each probe kernel against its plain version at E = 777
+    (776 under the folded mapping I) and E = 2**20 on every storage, into
+    ERRORS."""
+    import numpy as np
+    import torch
+
+    from feinsum_tpu_torch.ops import probe_kernels as pk
+    from feinsum_tpu_torch.probes import draw, fold, kron_eye, \
+        split_tolerance
+
+    def check(kernel, label, got, want, terms, rtol):
+        torch.cuda.synchronize()
+        for g, w, t in zip(got, want, terms):
+            abs_err, rel = max_err(g, w)
+            over = note_error(kernel, g, w, t)
+            ok = (over if kernel.endswith("3xtf32") else rel) <= rtol
+            log(f"[compare] {kernel} {label}: max|kernel-plain| {abs_err:.3e}"
+                f" = {rel:.2e} of max|plain|, {over:.2e} of the terms'"
+                f" magnitudes (tolerance {rtol:.2e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SmokeFailure(f"{kernel} disagrees with its plain"
+                                   f" version on {label}")
+
+    rng = np.random.default_rng(21)
+    for E in (E_SMALL, E_PROBE):
+        # the streams
+        streams = {
+            "copy (E,35)": ([draw(rng, (E, 35), dev), draw(rng, (E, 35),
+                                                            dev)], 1.0),
+            "transpose (E,35)->(35,E)": ([draw(rng, (E, 35), dev).t()], 1.0),
+            "transpose (35,E)->(E,35)": ([draw(rng, (35, E), dev).t()], 1.0),
+            "lane B d=10 g=16": ([draw(rng, (E, 160), dev).view(E, 16, 10),
+                                  draw(rng, (E, 16), dev)[:, :, None]
+                                  .expand(E, 16, 10)], 1.0),
+            "scale 2x (E,64)": ([draw(rng, (E, 64), dev)], 2.0)}
+        for label, (ops, alpha) in streams.items():
+            got = pk.probe_stream_f32(ops, alpha=alpha)
+            want = pk.probe_stream_plain(ops, alpha=alpha)
+            terms = pk.probe_stream_plain([o.abs() for o in ops],
+                                          alpha=abs(alpha))
+            check("probe_stream_f32", f"{label} E={E}", [got], [want],
+                  [terms], RTOL)
+        del streams
+        # the contractions: (label, rows, R, runs, element-major out)
+        Ef = E // 8 * 8
+        D = draw(rng, (35, 35), dev)
+        cases = {
+            "matvec dof-major nd 35": (
+                [pk.ApplyRow(u=draw(rng, (35, E), dev))], D[None], 1, False),
+            "matvec element-major nd 35": (
+                [pk.ApplyRow(u=draw(rng, (E, 35), dev).t())], D[None], 1,
+                True),
+            "matvec folded I nd 35": (
+                [pk.ApplyRow(u=draw(rng, (35, Ef), dev))], D[None], 8,
+                False),
+            "div b=3 S=3": (
+                [pk.ApplyRow(u=draw(rng, (35, E), dev),
+                             J=draw(rng, (3, E), dev)) for _ in range(3)],
+                draw(rng, (3, 35, 35), dev), 1, False),
+            "kron 280 with jac": (
+                [pk.ApplyRow(u=fold(draw(rng, (35, Ef), dev)).reshape(
+                    280, Ef // 8), sigma=draw(rng, (8, Ef // 8), dev)[None]
+                    .expand(35, 8, Ef // 8))], kron_eye(D)[None], 1, False),
+            "lane C K=640": (
+                [pk.ApplyRow(u=draw(rng, (E // 64, 640), dev).t(),
+                             sigma=draw(rng, (E // 64, 64), dev).t()[
+                                 :, None, :].expand(64, 10, E // 64))],
+                draw(rng, (1, 640, 640), dev), 1, True)}
+        for label, (rows, R, runs, out_em) in cases.items():
+            mags = [replace(r, u=r.u.abs(),
+                            J=None if r.J is None else r.J.abs(),
+                            sigma=None if r.sigma is None
+                            else r.sigma.abs()) for r in rows]
+            terms = pk.probe_apply_plain(mags, R.abs(),
+                                         out_elem_major=out_em)
+            S, _, K = R.shape
+            for kernel, plain, tol in (
+                    (pk.probe_apply_f32, pk.probe_apply_plain, RTOL),
+                    (pk.probe_apply_3xtf32, pk.probe_apply_3x_plain,
+                     split_tolerance(S * K))):
+                got = kernel(rows, R, runs=runs, out_elem_major=out_em)
+                want = plain(rows, R, out_elem_major=out_em)
+                check(kernel.__name__, f"{label} E={rows[0].u.shape[1]}",
+                      got, want, terms, tol)
+            del rows, mags, terms
+        torch.cuda.empty_cache()
+
+
+def probe_path(dev, label: str, stats: KernelStats) -> dict:
+    """Phase 21, the TPU probes: (a) :func:`probe_kernel_checks`; (b)
+    counters reset, every case of the eight probe modules at its first
+    block size driven once, the probe kernels' counters read (the
+    checks and timings after each drive are not counted); (c) each case
+    checked against its plain version and timed in turns against it and
+    its library call (into *stats*).  Returns the launches of (b)."""
+    import importlib
+
+    import torch
+
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.probes import Case
+
+    probe_kernel_checks(dev)
+    kernels.reset_launch_counts()
+    launches = {k: 0 for k in PROBE_KERNELS}
+    # per (the TPU probes' kernel, Hopper kernel): cases, launches, ms,
+    # plain ms, library ms, bound ms
+    families: dict = {}
+    n_cases = 0
+    for name in ("layout_probe", "fold_probe", "fold_probe2", "fold_probe3",
+                 "fold_probe4", "fold_probe5", "kron_probe",
+                 "lane_reshape_probe"):
+        module = importlib.import_module(f"feinsum_tpu_torch.probes.{name}")
+        t_mod = time.perf_counter()
+        for case in module.cases(dev, 0, first_block_only=True):
+            if not isinstance(case, Case):
+                continue
+            before = dict(kernels.launch_counts)
+            case.fn(case.arrays)
+            torch.cuda.synchronize()
+            drive = {k: n - before[k]
+                     for k, n in kernels.launch_counts.items()}
+            for k in PROBE_KERNELS:
+                launches[k] += drive[k]
+            res = case.run()
+            n_cases += 1
+            fam = families.setdefault((case.family, case.kernel),
+                                      [0, 0, 0.0, 0.0, 0.0, 0.0])
+            for k, v in enumerate((1, drive[case.kernel], res.ms,
+                                   res.plain_ms, res.library_ms or 0.0,
+                                   res.bound)):
+                fam[k] += v
+            if case.kernel in PROBE_KERNELS:
+                stats.add_bound(case.kernel, res.ms, res.plain_ms,
+                                res.library_ms, res.bytes_ms, res.ops_ms)
+                err = ERRORS[case.kernel]
+                err["abs"] = max(err["abs"], res.max_abs_err)
+                if res.over_terms is not None:
+                    err["terms"] = max(err["terms"], res.over_terms)
+            del case
+        log(f"[probe] {name}: {time.perf_counter() - t_mod:.1f} s {label}")
+        torch.cuda.empty_cache()
+    for (family, kernel), (n, runs, ms, plain_ms, lib_ms, bound) in sorted(
+            families.items()):
+        log(f"[probe] {family} on {kernel}: {n} cases, {runs} launches,"
+            f" {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f}"
+            f" ms, bound {bound:.4f} ms {label}")
+    log(f"[probe] launch counts over phase 21's {n_cases} drives:"
+        f" {launches}")
+    for k, n in launches.items():
+        if n < 1:
+            raise SmokeFailure(f"{k} was not launched on the probe path")
     return launches
 
 

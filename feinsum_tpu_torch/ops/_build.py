@@ -73,6 +73,15 @@ _SIGNATURES = (
     ("step_block_f32_max_rows", _I, ()),
     ("tc_steps_f32", _I, (_I, _PP, _P, _I, _IP, _IP, _I, _I64P, _P, _I64,
                           _I, _I, _P)),
+    ("probe_stream_f32", _I, (_I, _PP, _I64P, _P, _I64P, _I64P,
+                              ctypes.c_float, _I, _I, _I64, _P)),
+    ("probe_apply_f32", _I, (_I, _PP, _PP, _PP, _PP, _P, _I, _I, _I, _I64P,
+                             _I, _I64, _I, _I, _I, _P)),
+    ("probe_apply_3xtf32", _I, (_I, _PP, _PP, _PP, _PP, _P, _I, _I, _I,
+                                _I64P, _I, _I64, _I, _I, _I, _P)),
+    ("probe_apply_max_rows", _I, ()),
+    ("probe_apply_max_s", _I, ()),
+    ("probe_apply_max_dim", _I, ()),
 )
 
 # what the last build printed (nvcc's -Xptxas -v register and shared-memory

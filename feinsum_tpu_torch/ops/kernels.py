@@ -167,15 +167,18 @@ TS_MAX_GRID = 8
 TS_MAX_LETTERS = 16
 TS_MAX_TABLE = 2 ** 26
 
-# launches by kernel; a ``bf16_3x`` row planned onto a kernel with no 3x
-# variant (``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32``,
+# launches by kernel (the probe kernels of ``ops/probe_kernels.py`` too); a
+# ``bf16_3x`` row planned onto a kernel with no 3x variant
+# (``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32``,
 # ``long_reduce_f32``, ``step_block_f32``, ``tc_steps_f32``, ``dd_rows``)
 # runs it in f32 and counts under its name
 launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
                  "row_reduce_f32": 0, "long_reduce_f32": 0, "dd_rows": 0,
                  "tc_grid_f32": 0, "dg_rows_3xtf32": 0, "tc_grid_3xtf32": 0,
                  "lane_pack_dg_f32": 0, "lane_pack_dg_3xtf32": 0,
-                 "step_block_f32": 0, "tc_steps_f32": 0}
+                 "step_block_f32": 0, "tc_steps_f32": 0,
+                 "probe_stream_f32": 0, "probe_apply_f32": 0,
+                 "probe_apply_3xtf32": 0}
 
 
 def reset_launch_counts() -> None:

@@ -3,9 +3,10 @@ operand checks and plain versions on CPU tensors, and, in the tests marked
 ``cuda``, the hand-written kernels (``dg_rows_f32``, ``ew_product_f32``
 and its flatten route ``ew_flat_f32``, ``row_reduce_f32``,
 ``long_reduce_f32``, ``dd_rows``, ``tc_grid_f32``, ``lane_pack_dg_f32``,
-``step_block_f32``, ``tc_steps_f32`` and the 3xTF32 kernels
-``dg_rows_3xtf32``,
-``tc_grid_3xtf32`` and ``lane_pack_dg_3xtf32``) against their plain
+``step_block_f32``, ``tc_steps_f32``, the probe kernels
+``probe_stream_f32`` and ``probe_apply_f32`` and the 3xTF32 kernels
+``dg_rows_3xtf32``, ``tc_grid_3xtf32``, ``lane_pack_dg_3xtf32`` and
+``probe_apply_3xtf32``) against their plain
 versions on the card; the TF32 rounding the 3x kernels and their plain versions share;
 and the default device of the helpers that make tensors (the card, or an
 error, unless the caller names the CPU).  This file
@@ -1353,7 +1354,8 @@ def test_library_name_follows_the_sources():
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu",
         "row_reduce.cu", "long_reduce.cu", "dg_rows_3x.cu", "tc_grid_3x.cu",
-        "lane_pack_dg.cu", "step_block.cu", "tc_steps.cu"}
+        "lane_pack_dg.cu", "step_block.cu", "tc_steps.cu",
+        "probe_stream.cu", "probe_apply.cu"}
 
 
 # {{{ step_block_f32
@@ -1654,5 +1656,171 @@ def test_tc_steps_spaces_validate_on_card(cuda_device):
         before = kernels.launch_counts["tc_steps_f32"]
         ft.validate_batched_einsum_transform(e, tr, device=cuda_device)
         assert kernels.launch_counts["tc_steps_f32"] == before + 1
+
+# }}}
+
+
+# {{{ the probe kernels
+
+def _probe_tensor(rng, shape, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device)
+
+
+def _probe_apply_rows(device, storage, b, S_, I, K, E, sigma, seed=0):
+    """``(rows, R, runs, out_elem_major)`` of the contraction probe: u
+    dof-major (K, E), element-major (E, K) viewed (K, E), or dof-major
+    under the folded mapping I (runs = 8); J (S, E) for S > 1; sigma
+    (I1, I2, E) broadcast over I1 (the kron matvec's jac) or over I2 (the
+    lane-reshape probe's j)."""
+    from feinsum_tpu_torch.ops.probe_kernels import ApplyRow
+    rng = np.random.default_rng(seed)
+    R = _probe_tensor(rng, (S_, I, K), device)
+    I2 = {35: 7, 280: 8, 640: 10, 20: 5}[I]
+    rows = []
+    for _ in range(b):
+        if storage == "element-major":
+            u = _probe_tensor(rng, (E, K), device).t()
+        else:
+            u = _probe_tensor(rng, (K, E), device)
+        J = _probe_tensor(rng, (S_, E), device) if S_ > 1 else None
+        sg = None
+        if sigma == "jac":
+            sg = _probe_tensor(rng, (I2, E), device)[None].expand(
+                I // I2, I2, E)
+        elif sigma == "lane":
+            sg = _probe_tensor(rng, (E, I // I2), device).t()[:, None,
+                                                            :].expand(
+                I // I2, I2, E)
+        rows.append(ApplyRow(u=u, J=J, sigma=sg))
+    return (rows, R, 8 if storage == "folded I" else 1,
+            storage == "element-major")
+
+
+PROBE_APPLY_SHAPES = {"div35": (3, 35, 35), "mv20": (1, 20, 20),
+                      "kron280": (1, 280, 280), "lane640": (1, 640, 640)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "3x"])
+@pytest.mark.parametrize("sigma", [None, "jac", "lane"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("shape", sorted(PROBE_APPLY_SHAPES))
+@pytest.mark.parametrize("storage", ["dof-major", "element-major",
+                                     "folded I"])
+def test_probe_apply_kernel_matches_plain(cuda_device, storage, shape, b,
+                                          sigma, precision):
+    """``probe_apply_f32`` / ``probe_apply_3xtf32`` against their plain
+    versions on ragged E (777; 776 = 8 x 97 under the folded mapping I), in
+    every storage, b = 1 and 3 rows, with sigma and without: f32 within
+    2e-5 of max|plain|, 3x within 1e-6 (times sqrt(S K / 64)) of the sum of
+    the terms' magnitudes."""
+    from feinsum_tpu_torch.ops import probe_kernels as pk
+    S_, I, K = PROBE_APPLY_SHAPES[shape]
+    E = 776 if storage == "folded I" else 777
+    rows, R, runs, out_em = _probe_apply_rows(cuda_device, storage, b, S_,
+                                              I, K, E, sigma)
+    kern, plain = ((pk.probe_apply_3xtf32, pk.probe_apply_3x_plain)
+                   if precision == "3x"
+                   else (pk.probe_apply_f32, pk.probe_apply_plain))
+    before = kernels.launch_counts[kern.__name__]
+    got = kern(rows, R, runs=runs, out_elem_major=out_em)
+    assert kernels.launch_counts[kern.__name__] == before + 1
+    want = plain(rows, R, out_elem_major=out_em)
+    torch.cuda.synchronize()
+    mags = [replace(r, u=r.u.abs(), J=None if r.J is None else r.J.abs(),
+                    sigma=None if r.sigma is None else r.sigma.abs())
+            for r in rows]
+    terms = pk.probe_apply_plain(mags, R.abs(), out_elem_major=out_em)
+    assert len(got) == b
+    for g, w, t in zip(got, want, terms):
+        assert g.shape == (I, E)
+        assert g.stride() == w.stride()
+        if precision == "f32":
+            assert_close(g.cpu().numpy(), w.cpu().numpy())
+        else:
+            over = float(((g - w).abs().double()
+                          / t.double().clamp_min(1e-300)).max())
+            assert over <= 1e-6 * max(1.0, (S_ * K / 64) ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs,block_elems", [(1, 0), (1, 512), (1, 8192),
+                                               (8, 0), (8, 2048)])
+def test_probe_apply_kernel_tilings(cuda_device, runs, block_elems):
+    """The element tilings (elements per thread block, mapping I and III)
+    give the plain version's result on the folded div."""
+    from feinsum_tpu_torch.ops import probe_kernels as pk
+    rows, R, _, _ = _probe_apply_rows(cuda_device, "dof-major", 1, 3, 35,
+                                      35, 8 * 1000, None)
+    got = pk.probe_apply_f32(rows, R, runs=runs, block_elems=block_elems)
+    want = pk.probe_apply_plain(rows, R)
+    torch.cuda.synchronize()
+    assert_close(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+def _stream_ops(case, device, E=777, seed=0):
+    """``(ops, alpha)`` of a stream case."""
+    rng = np.random.default_rng(seed)
+    if case == "copy":
+        return [_probe_tensor(rng, (E, 35), device),
+                _probe_tensor(rng, (E, 35), device)], 1.0
+    if case == "copy_aligned":
+        return [_probe_tensor(rng, (E + 3, 35), device)[:(E + 3) // 4 * 4],
+                _probe_tensor(rng, (E + 3, 35), device)[:(E + 3) // 4 * 4]
+                ], 1.0
+    if case == "copy_offset":
+        a = _probe_tensor(rng, (E * 35 + 1,), device)[1:].view(E, 35)
+        return [a, _probe_tensor(rng, (E, 35), device)], 1.0
+    if case == "copy_offset_flat":
+        a = _probe_tensor(rng, (780 * 35 + 1,), device)[1:].view(780, 35)
+        return [a, _probe_tensor(rng, (780, 35), device)], 1.0
+    if case == "transpose_long":
+        return [_probe_tensor(rng, (300, 200), device).t()], 1.0
+    if case == "batched_transpose":
+        return [_probe_tensor(rng, (3, E, 35), device).permute(0, 2, 1)], 1.0
+    if case == "to_dof_major":
+        return [_probe_tensor(rng, (E, 35), device).t()], 1.0
+    if case == "to_element_major":
+        return [_probe_tensor(rng, (35, E), device).t()], 1.0
+    if case == "scale":
+        return [_probe_tensor(rng, (E, 64), device)], 2.0
+    if case.startswith("lane_b"):
+        d = int(case[len("lane_b"):])
+        rows, g = E, 16
+        x = _probe_tensor(rng, (rows, g * d), device).view(rows, g, d)
+        j = _probe_tensor(rng, (rows, g), device)[:, :, None].expand(
+            rows, g, d)
+        return [x, j], 1.0
+    if case == "transposed_times_broadcast":
+        a = _probe_tensor(rng, (E, 35), device).t()
+        w = _probe_tensor(rng, (E,), device)[None].expand(35, E)
+        return [a, w], 1.0
+    raise KeyError(case)
+
+
+PROBE_STREAM_CASES = ("copy", "copy_aligned", "copy_offset",
+                      "copy_offset_flat", "transpose_long",
+                      "batched_transpose", "to_dof_major",
+                      "to_element_major", "scale", "lane_b4", "lane_b10",
+                      "transposed_times_broadcast")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_elems", [0, 4096])
+@pytest.mark.parametrize("case", PROBE_STREAM_CASES)
+def test_probe_stream_kernel_matches_plain(cuda_device, case, block_elems):
+    """``probe_stream_f32`` equals its plain version exactly (the same
+    products in the same order) on every path: flat4, scalar (ragged and
+    misaligned) and the transposing tile, broadcasts by stride 0."""
+    from feinsum_tpu_torch.ops import probe_kernels as pk
+    ops, alpha = _stream_ops(case, cuda_device)
+    before = kernels.launch_counts["probe_stream_f32"]
+    got = pk.probe_stream_f32(ops, alpha=alpha, block_elems=block_elems)
+    assert kernels.launch_counts["probe_stream_f32"] == before + 1
+    want = pk.probe_stream_plain(ops, alpha=alpha)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want)
 
 # }}}
