@@ -102,7 +102,12 @@ Phases; any failure exits non-zero before the final line:
    champion replayed through ``candidate_transforms`` (which rows chose 3x
    is printed) and, where it is f32, the row's best bf16_3x fact
    (``sql_utils.retrieve`` with a filter), each against the plain per-step
-   route within 2e-5;
+   route within 2e-5; the four shipped ``tc_gemm_v0`` facts at bf16_3x whose
+   resident factor exceeds ``dg_rows_3xtf32``'s shared memory, on
+   ``probe_apply_3xtf32`` against its plain version and the numpy oracle,
+   then counters set to 0, the four replayed through ``build_executable``
+   and ``probe_apply_3xtf32`` read from the counters, then each timed in
+   turns against its plain version and one ``torch.einsum``;
 17. Maxwell at E = 65,536 built from an archive whose curl fact (a
    ``dg_div_v0.py`` point) sets ``precision_3x``, ``fold`` and
    ``preblock``: the model drops the storage knobs, its curl runs on
@@ -115,8 +120,11 @@ Phases; any failure exits non-zero before the final line:
    plain versions on the packed DG rows at g = 8 (2e-5 of max|plain|; the 3x
    within ``split_tolerance`` of the terms); counters reset; each of the
    104 shipped TPU lane-pack facts bound and replayed as an H100 program
-   (70, the two champions among them, against the plain per-step route
-   within 2e-5; 7 refused naming ``fold``, 2 ``mfold``, 25 shared memory);
+   (95, the two champions among them, against the plain per-step route
+   within 2e-5, the 25 whose kron resident exceeds ``dg_rows_f32``'s shared
+   memory on ``probe_apply_f32``, also against its plain version and timed
+   in turns against it and one ``torch.einsum``; 7 refused naming
+   ``fold``, 2 ``mfold``);
    counters read; the rows tuned with ``lane_pack_g`` searched into a fresh
    archive under ``build/`` (which champions are packed); each packed point
    timed in turns against the row's unpacked champion and one
@@ -135,7 +143,13 @@ Phases; any failure exits non-zero before the final line:
    magnitudes; counters reset; each replayed or built and run at E = 1M,
    ``step_block_f32`` read from the counters; each timed in turns against
    its plain version and one ``torch.einsum`` of the logical einsum, beside
-   its bound;
+   its bound; and K1's grid letter: the demo's champion applied to the
+   demo's own spelling (its bound grid_index names i there), an einsum with
+   two long letters, the demo fully concrete at E = 4096 (gridded over its
+   longest output letter) and at 32 (no grid), each against the numpy
+   oracle and ``step_block_plain`` and run once among the counted runs;
+   the Gram matrix at ndof 165 (more register tiles than a block has
+   threads) against the numpy oracle and ``step_block_plain``;
 20. K2's multi-step dense schedules on ``tc_steps_f32``: the kernel against
    ``tc_steps_plain`` (2e-5 of max|plain|, and over the sum of the terms'
    magnitudes) on ragged extents (3, 5, 7), a block on a batch letter,
@@ -317,12 +331,42 @@ def magnitudes(operands) -> list:
     from dataclasses import fields, is_dataclass
 
     def mag(row):
+        if isinstance(row, torch.Tensor):
+            return row.abs()
         if is_dataclass(row):
             return replace(row, **{
                 f.name: getattr(row, f.name).abs() for f in fields(row)
                 if isinstance(getattr(row, f.name), torch.Tensor)})
-        return type(row)(t.abs() for t in row)
+        return type(row)(mag(t) for t in row)
     return [mag(row) for row in operands]
+
+
+def kernel_check(plan, operands, name: str, launches: dict) -> None:
+    """*plan*'s kernel against its plain version on *operands* (a 3x kernel
+    relative to the sum of the terms' magnitudes, its tolerance by K), the
+    launch counters put back to *launches* afterwards, so that the
+    comparison adds no launch to the path's."""
+    import torch
+
+    from feinsum_tpu_torch.ops import kernels
+    got = plan.run(operands)
+    want = plan.plain(operands)
+    terms = plan.plain(magnitudes(operands))
+    torch.cuda.synchronize()
+    kernels.launch_counts.update(launches)
+    split = plan.kernel.endswith("3xtf32")
+    K = operands[0][1].shape[-1] if split else 0
+    for g, w, t in zip(got, want, terms):
+        _, rel = max_err(g, w)
+        over = note_error(plan.kernel, g, w, t)
+        tol = split_tolerance(K) if split else RTOL
+        ok = (over if split else rel) <= tol
+        log(f"[compare] {plan.kernel} {name}: max|kernel-plain| = {rel:.2e}"
+            f" of max|plain|, {over:.2e} of the terms' magnitudes"
+            f" (tolerance {tol:.2e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"{plan.kernel} disagrees with its plain"
+                               f" version on {name}")
 
 
 def max_err(got, want) -> tuple:
@@ -368,7 +412,8 @@ def split_flops(rows) -> float:
     """The flops of the 3x kernels' dots at their padded tile sizes: per
     DG row (``DGRow``) 2 S x pad8(I) x pad8(J) x E (an m16n8k8 tile over
     M = e, N = i, K = j; the x outputs share the dot), per TC step (a
-    ``TCShape``) 2 pad16(Mc) x pad8(Nc) x pad8(K) per cell."""
+    ``TCShape``) 2 pad16(Mc) x pad8(Nc) x pad8(K) per cell, per
+    ``probe_apply`` row (``(ApplyRow, R)``) 2 pad8(I) x pad8(J) x E."""
     from feinsum_tpu_torch.ops.kernels import DGRow
 
     def pad(n, m):
@@ -378,6 +423,10 @@ def split_flops(rows) -> float:
         if isinstance(row, DGRow):
             S, I, J = row.R.shape
             total += 2.0 * S * pad(I, 8) * pad(J, 8) * row.u.shape[2]
+        elif isinstance(row, tuple):
+            u, R = row
+            S, I, J = R.shape
+            total += 2.0 * S * pad(I, 8) * pad(J, 8) * u.u.shape[-1]
         else:
             total += (2.0 * pad(row.Mc, 16) * pad(row.Nc, 8) * pad(row.K, 8)
                       * row.ncells)
@@ -667,8 +716,8 @@ def main() -> int:
         " s")
     t_phase = time.perf_counter()
     split_launches = {k: 0 for k in SPLIT_KERNELS}
-    for k, n in split_archive_path(dev, label).items():
-        split_launches[k] += n
+    for k, n in split_archive_path(dev, label, stats).items():
+        split_launches[k] = split_launches.get(k, 0) + n
     log(f"[phase] 16 (bf16_3x archive path):"
         f" {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -680,7 +729,8 @@ def main() -> int:
             raise SmokeFailure(f"{k} was not launched on the bf16_3x path")
         launches[k] = launches.get(k, 0) + n
     t_phase = time.perf_counter()
-    launches.update(lane_pack_path(dev, label, stats))
+    for k, n in lane_pack_path(dev, label, stats).items():
+        launches[k] = launches.get(k, 0) + n
     log(f"[phase] 18 (lane-pack path): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     launches["step_block_f32"] = step_block_path(dev, label, stats)
@@ -690,7 +740,8 @@ def main() -> int:
     launches["tc_steps_f32"] = tc_steps_path(dev, label, stats)
     log(f"[phase] 20 (tc_steps_f32): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    launches.update(probe_path(dev, label, stats))
+    for k, n in probe_path(dev, label, stats).items():
+        launches[k] = launches.get(k, 0) + n
     log(f"[phase] 21 (the probes): {time.perf_counter() - t_phase:.1f} s;"
         f" all phases {time.perf_counter() - t0:.1f} s")
 
@@ -726,12 +777,13 @@ def split_only(dev, card: str) -> int:
     stats = KernelStats()
     t0 = time.perf_counter()
     split_kernel_check(dev, label, stats)
-    launches = split_archive_path(dev, label)
+    launches = split_archive_path(dev, label, stats)
     launches["dg_rows_3xtf32"] += maxwell_from_archive(dev, label)
     log(f"[phase] 15-17: {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [stats.entry(k, launches[k])
-                                for k in SPLIT_KERNELS]}))
+                                for k in SPLIT_KERNELS
+                                + ("probe_apply_3xtf32",)]}))
     return 0
 
 
@@ -748,7 +800,8 @@ def lane_pack_only(dev, card: str) -> int:
     log(f"[phase] 18: {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [stats.entry(k, launches[k])
-                                for k in LP_KERNELS]}))
+                                for k in LP_KERNELS
+                                + ("probe_apply_f32",)]}))
     return 0
 
 
@@ -1976,13 +2029,15 @@ def _is_split_fact(q) -> bool:
         q.transform_id == "tc_pallas_v1.py" and params["precision_idx"] == 1)
 
 
-def split_archive_path(dev, label: str) -> dict:
+def split_archive_path(dev, label: str, stats: KernelStats) -> dict:
     """Phase 16: the five suite DG rows tuned in their spaces with
     ``precision_3x`` off and on, and the five rank >= 3 TCCG rows in
     ``tc_pallas_v1`` with ``precision_idx`` 0 and 1, into a fresh archive;
     counters reset; each row's champion replayed through the ladder and,
     where it is f32, the row's best bf16_3x fact, each checked against the
-    plain per-step route.  Returns the launches of the replays by kernel."""
+    plain per-step route; then the wide ``tc_gemm_v0`` facts
+    (:func:`wide_gemm_facts`).  Returns the launches of the replays by
+    kernel."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -2072,6 +2127,115 @@ def split_archive_path(dev, label: str) -> dict:
     launches = {k: kernels.launch_counts[k] for k in SPLIT_KERNELS}
     log(f"[replay] launch counts over the bf16_3x replays:"
         f" {dict(kernels.launch_counts)}")
+    launches["probe_apply_3xtf32"] = wide_gemm_facts(dev, label, stats)
+    return launches
+
+
+def wide_gemm_facts(dev, label: str, stats: KernelStats) -> int:
+    """The shipped ``tc_gemm_v0`` facts at ``bf16_3x`` whose resident factor
+    exceeds ``dg_rows_3xtf32``'s shared memory (a copy of the shipped
+    archive, read through its device key), on ``probe_apply_3xtf32`` at
+    their sizes.  There are four; these used to be refused.  Each is held
+    to its plain version and, through ``validate_batched_einsum_transform``,
+    to the numpy oracle (neither counted); then the counters are set to 0
+    and the four are replayed through ``build_executable`` (the counted
+    run), the counters put back; then each is timed in turns against its
+    plain version and one ``torch.einsum`` of its einsum (into *stats*).
+    Returns the launches of the counted run."""
+    import shutil
+
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import sql_utils
+    from feinsum_tpu_torch.codegen.program import get_index_lengths, \
+        stored_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+
+    shipped = HERE / "build" / "chip_smoke" / "tpu_archive.sqlite"
+    shipped.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(HERE / "feinsum_tpu" / "data"
+                / "transform_archive_v1_tpu.sqlite", shipped)
+    tpu = ft.FakeDevice("TPU_v5_lite")
+    facts = []
+    for e in sql_utils.get_timed_einsums_in_db(db_path=str(shipped)):
+        for q in sql_utils.query(e, tpu, db_path=str(shipped),
+                                 err_if_no_results=False):
+            params = dict(q.transform_params)
+            if q.transform_id != "tc_gemm_v0.py" \
+                    or not params["backend_pallas"] or params["fold"] \
+                    or params["precision_idx"] != 1:
+                continue
+            program = q.transform(ft.generate_program(e))
+            plan = plan_cuda_launch(program, stored_lengths(
+                program, get_index_lengths(program.einsum, 1)))
+            if plan.kernel == "probe_apply_3xtf32":
+                facts.append((f"tc_gemm_v0 {e.get_subscripts()} {params}",
+                              e, q.transform, program, plan))
+    if len(facts) != 4:
+        raise SmokeFailure(f"{len(facts)} shipped tc_gemm_v0 facts ran on"
+                           " probe_apply_3xtf32, expected 4")
+    for name, e, transform, program, plan in facts:
+        operands = plan.operands(apply_layouts(
+            program, generate_input_arrays(e, long_dim_length=1,
+                                           device=dev)))
+        before = dict(kernels.launch_counts)
+        kernel_check(plan, operands, name, launches=before)
+        ft.validate_batched_einsum_transform(e, transform, device=dev)
+        kernels.launch_counts.update(before)
+        log(f"[replay] {name}: on {plan.kernel}, validated against the"
+            " numpy oracle")
+
+    # the counted run
+    before = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    inputs = []
+    for name, e, _, program, _ in facts:
+        logical = device_inputs(e, 1, 0, dev)
+        outs = ft.build_executable(program, long_dim_length=1, device=dev)(
+            apply_layouts(program, logical))
+        torch.cuda.synchronize()
+        if not all(bool(o.isfinite().all()) for o in outs):
+            raise SmokeFailure(f"{name}: non-finite output")
+        inputs.append(logical)
+        del outs
+    counts = dict(kernels.launch_counts)
+    kernels.launch_counts.update(before)
+    log(f"[replay] launch counts over the wide tc_gemm_v0 replays: {counts}")
+    launches = counts.pop("probe_apply_3xtf32")
+    if launches < len(facts) or any(counts.values()):
+        raise SmokeFailure(f"the wide tc_gemm_v0 replays ran {launches}"
+                           f" probe_apply_3xtf32 launches and {counts}")
+
+    # times, in turns (not counted)
+    before = dict(kernels.launch_counts)
+    for (name, e, _, program, plan), logical in zip(facts, inputs):
+        arrays = apply_layouts(program, logical)
+        operands = plan.operands(arrays)
+        subs = e.get_subscripts().replace(" ", "")
+        times = timed_in_turns({
+            "kernel": lambda a, plan=plan, ops=operands: plan.run(ops),
+            "plain": lambda a, plan=plan, ops=operands: plan.plain(ops),
+            "library": lambda a, e=e, subs=subs: [
+                torch.einsum(subs, *[a[x.name] for x in row])
+                for row in e.args]},
+            {"kernel": arrays, "plain": arrays, "library": logical})
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        padded = split_flops(operands)
+        log(f"[time] {plan.kernel} {name}: kernel {ms['kernel']:.4f} ms,"
+            f" plain version {ms['plain']:.4f} ms, torch.einsum (f32)"
+            f" {ms['library']:.4f} ms,"
+            f" {bound_text(e, 1, None, 'bf16_3x', padded)} (runs {times})"
+            f" {label}")
+        stats.add(plan.kernel, e, 1, ms["kernel"], ms["plain"],
+                  ms["library"], None, "bf16_3x", padded)
+        del arrays, operands
+    kernels.launch_counts.update(before)
+    del inputs
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2182,8 +2346,10 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
     memory; (3) the rows tuned with ``lane_pack_g`` searched into a fresh
     archive, which rows chose a packed point; (4) each packed point timed
     in turns against the row's unpacked champion and one ``torch.einsum``
-    of the logical einsum.  Adds the kernels' times at g = 8 to *stats*;
-    returns the launches of step (2) and of the champions' replays."""
+    of the logical einsum.  Adds the kernels' times at g = 8, and each
+    wide fact's on ``probe_apply_f32`` (timed against its plain version and
+    ``torch.einsum``), to *stats*; returns the launches of step (2) and of
+    the champions' replays."""
     import shutil
 
     import torch
@@ -2231,6 +2397,30 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
                                f" per-step route by {worst:.2e}")
         return worst
 
+    def wide_check(plan, operands, name, e, logical) -> None:
+        """A wide-resident row on ``probe_apply``: the kernel against its
+        plain version, then timed in turns against its plain version and
+        one ``torch.einsum`` of the logical einsum (into *stats*); none of
+        these launches is counted."""
+        before = dict(kernels.launch_counts)
+        kernel_check(plan, operands, name, launches=before)
+        subs = e.get_subscripts().replace(" ", "")
+        times = timed_in_turns({
+            "kernel": lambda a: plan.run(operands),
+            "plain": lambda a: plan.plain(operands),
+            "library": lambda a: [torch.einsum(subs, *[a[x.name]
+                                                       for x in row])
+                                  for row in e.args]},
+            {k: logical for k in ("kernel", "plain", "library")})
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        log(f"[time] {plan.kernel} {name} E={E_FULL}: kernel"
+            f" {ms['kernel']:.4f} ms, plain version {ms['plain']:.4f} ms,"
+            f" torch.einsum {ms['library']:.4f} ms,"
+            f" {bound_text(e, E_FULL)} (runs {times}) {label}")
+        stats.add(plan.kernel, e, E_FULL, ms["kernel"], ms["plain"],
+                  ms["library"])
+        kernels.launch_counts.update(before)
+
     rows = lane_pack_rows()
 
     # (1) the kernels against their plain versions
@@ -2274,6 +2464,7 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
     tpu = ft.FakeDevice("TPU_v5_lite")
     kernels.reset_launch_counts()
     outcomes = {"built": 0, "fold": 0, "mfold": 0, "shared memory": 0}
+    wide: dict = {}
     t0 = time.perf_counter()
     for e in sql_utils.get_timed_einsums_in_db(db_path=str(shipped)):
         facts = sql_utils.query(e, tpu, db_path=str(shipped),
@@ -2298,12 +2489,20 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
                 continue
             outcomes["built"] += 1
             before = dict(kernels.launch_counts)
-            outs = fn(apply_layouts(program, logical))
+            arrays = apply_layouts(program, logical)
+            outs = fn(arrays)
             torch.cuda.synchronize()
             ran = [k for k, n in kernels.launch_counts.items()
                    if n != before[k]]
             rel = per_step_check(e.get_subscripts(), e, program, logical,
                                  outs)
+            plan, operands = planned(program, arrays)
+            if plan.kernel.startswith("probe_apply"):
+                # a kron resident over dg_rows' shared memory (these facts
+                # were refused before the probe kernels took them)
+                wide[plan.kernel] = wide.get(plan.kernel, 0) + 1
+                wide_check(plan, operands, e.get_subscripts(), e, logical)
+            del arrays, operands
             is_champion = (q.transform_id, q.transform_params) == (
                 champion.transform_id, champion.transform_params)
             log(f"[lane-pack] TPU fact {q.transform_id} {e.get_subscripts()}"
@@ -2315,12 +2514,15 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
             del outs
         del logical
         torch.cuda.empty_cache()
-    launches = {k: kernels.launch_counts[k] for k in LP_KERNELS}
-    log(f"[lane-pack] the 104 shipped lane-pack facts: {outcomes}; launch"
-        f" counts over the replays: {dict(kernels.launch_counts)}"
-        f" ({time.perf_counter() - t0:.1f} s)")
-    if outcomes != {"built": 70, "fold": 7, "mfold": 2, "shared memory": 25}:
-        raise SmokeFailure(f"the shipped lane-pack facts bound as {outcomes}")
+    launches = {k: kernels.launch_counts[k] for k in LP_KERNELS
+                + ("probe_apply_f32",)}
+    log(f"[lane-pack] the 104 shipped lane-pack facts: {outcomes}, on"
+        f" probe_apply {wide}; launch counts over the replays:"
+        f" {dict(kernels.launch_counts)} ({time.perf_counter() - t0:.1f} s)")
+    if outcomes != {"built": 95, "fold": 7, "mfold": 2, "shared memory": 0} \
+            or sum(wide.values()) != 25:
+        raise SmokeFailure(f"the shipped lane-pack facts bound as {outcomes},"
+                           f" {wide} on probe_apply")
     for k, n in launches.items():
         if n < 1:
             raise SmokeFailure(f"{k} was not launched by the replays")
@@ -2444,6 +2646,34 @@ def device_inputs(e, length: int, seed: int, dev) -> dict:
             for name in e.arg_to_shape}
 
 
+def grid_letter_cases(champion, demo) -> dict:
+    """Phase 19's grid-letter cases, ``name -> (einsum, program, length)``,
+    each gridded as the reference's K1 grids it: the demo's archived
+    champion applied to the demo's own spelling, whose bound grid_index is
+    i there (e, another long letter, is then staged whole: 32 elements); a
+    einsum with two long letters (an output one is the grid letter; F at
+    its bound length, 512); the demo fully concrete at E = 4096 (the grid
+    letter is its longest output letter, at least 2048 long) and at E = 32
+    (no grid: one block of one element)."""
+    import feinsum_tpu_torch as ft
+
+    def a(name, shape):
+        return ft.array(name, shape, "float32")
+
+    def concrete(length):
+        return ft.einsum("ij,ejk->eik", a("A", (35, 35)),
+                         a("B", (length, 35, 35)))
+    two = ft.einsum("ij,ejf->eif", a("A", (35, 35)), a("B", ("E", 35, "F")))
+    cases = {"demo_other_spelling": (demo, champion(ft.generate_program(
+        demo)), 32)}
+    for name, e, length in (("two_long_letters", two, 512),
+                            ("concrete_4096", concrete(4096), 1),
+                            ("concrete_32", concrete(32), 1)):
+        cases[name] = (e, ft.generate_program(e).with_descriptor(
+            backend="pallas", block_long=512), length)
+    return cases
+
+
 def step_block_path(dev, label: str, stats: KernelStats) -> int:
     """Phase 19, K1's general steps: (1) the demo tuned in
     ``demo_transform_space`` at E = 1M into a fresh archive, its champion
@@ -2466,7 +2696,8 @@ def step_block_path(dev, label: str, stats: KernelStats) -> int:
     from feinsum_tpu_torch.codegen.program import get_index_lengths
     from feinsum_tpu_torch.measure import apply_layouts
     from feinsum_tpu_torch.ops import kernels
-    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.cuda_emitter import grid_letter, \
+        plan_cuda_launch
     from feinsum_tpu_torch.ops.layouts import stored_out_letters
     from feinsum_tpu_torch.suite import candidate_transforms
     from feinsum_tpu_torch.tools.step_block_mappings import demo_einsum, \
@@ -2534,13 +2765,49 @@ def step_block_path(dev, label: str, stats: KernelStats) -> int:
             torch.cuda.empty_cache()
         log(f"[oracle] {name}: validated on {dev} at E={E_VALIDATE}")
 
+    # (2b) the grid-letter cases: the oracle, then kernel against plain
+    grid = grid_letter_cases(champion, demo)
+    for name, (e, program, length) in grid.items():
+        ft.validate_batched_einsum_transform(
+            e, lambda p, program=program: program, long_dim_length=length,
+            device=dev)
+        plan = plan_cuda_launch(program, get_index_lengths(e, length))
+        if plan.kernel != "step_block_f32":
+            raise SmokeFailure(f"{name} plans onto {plan.kernel}")
+        kernel_check(plan, plan.operands(apply_layouts(
+            program, device_inputs(e, length, 1, dev))),
+            f"{name} (grid {grid_letter(program, get_index_lengths(e, length))!r},"
+            f" length {length})", launches=dict(kernels.launch_counts))
+        log(f"[oracle] {name}: validated on {dev} at length {length}")
+        torch.cuda.empty_cache()
+
+    # (2c) a dense reduce of more register tiles than a block has threads
+    # (the Gram matrix at ndof 165: 21 x 21 tiles of 8 x 8, two rounds)
+    e = ft.einsum("ei,ej->ij", ft.array("u", ("E", 165), "float32"),
+                  ft.array("v", ("E", 165), "float32"))
+    program = layouts_of(e, False)["dof-major"]
+    ft.validate_batched_einsum_transform(
+        e, lambda p: program, long_dim_length=E_VALIDATE, device=dev)
+    plan = plan_cuda_launch(program, get_index_lengths(e, E_FULL))
+    if plan.kernel != "step_block_f32":
+        raise SmokeFailure(f"gram_ndof165 plans onto {plan.kernel}")
+    kernel_check(plan, plan.operands(apply_layouts(
+        program, device_inputs(e, E_FULL, 1, dev))),
+        f"gram_ndof165 E={E_FULL}", launches=dict(kernels.launch_counts))
+    log(f"[oracle] gram_ndof165: validated on {dev} at E={E_VALIDATE}")
+    torch.cuda.empty_cache()
+
     # (3) the main path of this phase, counted
     kernels.reset_launch_counts()
-    for name, (e, program) in programs.items():
-        fn = ft.build_executable(program, long_dim_length=E_FULL, device=dev)
-        outs = fn(apply_layouts(program, device_inputs(e, E_FULL, 0, dev)))
+    runs = [(name, e, program, E_FULL)
+            for name, (e, program) in programs.items()] + [
+        (name, e, program, length)
+        for name, (e, program, length) in grid.items()]
+    for name, e, program, length in runs:
+        fn = ft.build_executable(program, long_dim_length=length, device=dev)
+        outs = fn(apply_layouts(program, device_inputs(e, length, 0, dev)))
         torch.cuda.synchronize()
-        lengths = get_index_lengths(e, E_FULL)
+        lengths = get_index_lengths(e, length)
         want = tuple(lengths[ix] for ix in stored_out_letters(program))
         for o in outs:
             if tuple(o.shape) != want or not bool(o.isfinite().all()):
@@ -2550,7 +2817,7 @@ def step_block_path(dev, label: str, stats: KernelStats) -> int:
     counts = dict(kernels.launch_counts)
     log(f"[step] launch counts over phase 19's runs: {counts}")
     launches = counts.pop("step_block_f32")
-    if launches < len(programs) or any(counts.values()):
+    if launches < len(runs) or any(counts.values()):
         raise SmokeFailure(f"phase 19 ran {launches} step_block_f32 launches"
                            f" and {counts}")
 

@@ -40,8 +40,17 @@ class ScheduleDescriptor:
         ``Σ_s J[e,s] Σ_j R[s,i,j] u[e,j]`` agree up to rounding; a program
         no row family takes runs its schedule step by step on
         ``step_block_f32`` (``ops/step_block.py``).
-    :attr grid_index: ``None`` or the unique parametric letter (the fused
-        DG kernels), or a tuple of concrete output letters: with
+    :attr grid_index: ``None`` or any letter of the einsum (the fused
+        kernels grid over it, as the reference's K1 does; ``None`` picks
+        the reference's letter, ``ops/cuda_emitter.py::pick_grid_index``:
+        the unique parametric letter, else an output one of several, else
+        on a concrete einsum its longest output letter when that is at
+        least 2048 long, else no grid, one block of one element).  The row
+        families take a program whose every other letter is concrete;
+        any other runs on ``step_block_f32``, every other parametric letter
+        a short letter at its bound length, and refuses, naming the limit,
+        what exceeds a block's shared memory (an operand without the grid
+        letter is staged whole).  Or a tuple of concrete output letters: with
         ``backend="pallas"`` the dense tensor-contraction kernels
         (``ops/tc_emitter.py``, the port of K2 in ROADMAP.md).  Their CUDA
         grid walks the combinations of these letters (each combination one

@@ -68,8 +68,8 @@ _SIGNATURES = (
                                  _I64, _I, _I, _I, _I, _P)),
     ("lane_pack_dg_smem_bytes", ctypes.c_size_t, (_I, _I)),
     ("lane_pack_dg_max_rows", _I, ()),
-    ("step_block_f32", _I, (_I, _I, _PP, _I64P, _I, _IP, _I64P, _IP, _P,
-                            _I64, _I, _I, _I64, _I, _I, _P, _P)),
+    ("step_block_f32", _I, (_I, _I, _PP, _I64P, _I, _IP, _I64P, _IP, _I64P,
+                            _P, _I64, _I, _I, _I64, _I, _I, _P, _P)),
     ("step_block_f32_max_rows", _I, ()),
     ("tc_steps_f32", _I, (_I, _PP, _P, _I, _IP, _IP, _I, _I64P, _P, _I64,
                           _I, _I, _P)),

@@ -4,9 +4,12 @@ CUDA emitter: lower an :class:`EinsumProgram` onto the hand-written kernels.
 The port of ``feinsum_tpu/ops/pallas_emitter.py::build_pallas_executable``
 (K1) and of its flatten route ``_try_build_flat_elementwise`` (K3).  Where
 K1 runs every schedule step inside one Pallas kernel gridded over blocks of
-the long axis, this emitter plans each row of the batched einsum and
+its grid letter, this emitter plans each row of the batched einsum and
 launches a kernel that computes the row's value directly, all rows in one
-launch:
+launch.  The grid letter is the reference's (:func:`pick_grid_index`): the
+descriptor's ``grid_index``, else the unique long (``SizeParam``) letter,
+else an output one of several, else on a concrete einsum its longest
+output letter when that is at least 2048 long, else none (one block):
 
 * schedule steps that read no long-axis operand, transitively, are hoisted
   (``descriptor.hoist_resident_steps``, the reference's ``:690-784``): each
@@ -31,7 +34,11 @@ launch:
   plan_restrict_row``);
 * a row in the DG family (``ops/dg_rows.py::plan_row``) goes to
   ``dg_rows_f32``, and so do the lane-packed matvec and vecmat (plain
-  matvecs over g·d, their resident the kron-expanded one);
+  matvecs over g·d, their resident the kron-expanded one); a plain matvec
+  whose resident exceeds that kernel's shared memory (a packed one at g·d
+  = 640, the ``tc_gemm_v0`` rows of a large resident factor) goes to
+  ``probe_apply_f32``, which streams R through a ring of chunks
+  (:func:`apply_route`);
 * a lane-packed DG program (four operands J', EXP, T, u' in the rewrite's
   three-step schedule, ``ops/lane_pack.py::plan_lane_pack_dg``) goes to
   ``lane_pack_dg_f32``;
@@ -43,7 +50,8 @@ launch:
   share the output's stored layout (``ej,e->ej``), a contracted long axis
   with a resident operand (``ej,j->``), two short letters per operand, or
   more output entries than ``long_reduce_f32`` takes (the Gram matrix
-  above 64 x 64), and batch rows that plan differently.
+  above 64 x 64), batch rows that plan differently, and programs without
+  a grid or with a long letter besides the grid letter.
 
 A row family takes a program by its structure alone: a program that one
 plans keeps that family's kernel, and that kernel's refusals (its shared
@@ -51,7 +59,8 @@ memory, a restriction row's stored layouts) stay refusals.
 
 At ``precision="bf16_3x"`` the rows that go to ``dg_rows_f32`` (DG rows and
 restriction rows) go to its 3xTF32 variant ``dg_rows_3xtf32`` instead: the
-j-dot in three TF32 tensor-core passes; a packed DG program goes to
+j-dot in three TF32 tensor-core passes (``probe_apply_3xtf32`` for a wide
+resident); a packed DG program goes to
 ``lane_pack_dg_3xtf32``, both dots split.  The other kernels have no 3x
 variant, since the reference applies the split only to its dots; a
 ``bf16_3x`` row planned onto one of them (``step_block_f32`` too) runs it
@@ -86,6 +95,7 @@ from .dg_rows import (
     resident_carries_outputs,
 )
 from .kernels import (
+    MAX_SMEM_BYTES,
     DGRow,
     LanePackDGRow,
     LongReduceRow,
@@ -93,9 +103,11 @@ from .kernels import (
     ReduceRow,
     check_long_reduce_shape,
     dg_rows_3x_plain,
+    dg_rows_3x_smem_bytes,
     dg_rows_3xtf32,
     dg_rows_f32,
     dg_rows_plain,
+    dg_rows_smem_bytes,
     ew_flat_f32,
     ew_product_f32,
     ew_product_plain,
@@ -120,6 +132,14 @@ from .lane_pack import (
     plan_lane_pack_dg,
 )
 from .layouts import stored_arg_layouts, stored_out_letters
+from .probe_kernels import (
+    PA_MAX_DIM,
+    ApplyRow,
+    probe_apply_3x_plain,
+    probe_apply_3xtf32,
+    probe_apply_f32,
+    probe_apply_plain,
+)
 from .step_block import plan_step_block
 
 
@@ -137,31 +157,71 @@ def _role_view(t, stored: tuple, roles: tuple):
     return v
 
 
-def _long_letter(e: BatchedEinsum) -> str:
-    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
-                    if isinstance(ln, SizeParam)]
-    if len(long_letters) != 1:
+def pick_grid_index(program, index_to_length: dict) -> Optional[str]:
+    """The letter the fused route grids over, as the reference chooses it
+    (``feinsum_tpu/ops/pallas_emitter.py::_pick_grid_index``): the
+    descriptor's ``grid_index``; else the unique long (``SizeParam``)
+    letter; else, with several, the first that is an output letter (its
+    blocks are independent), or the first; else, on a fully concrete
+    einsum, its longest output letter when that is at least 2048 long, and
+    ``None`` (no grid: one block) otherwise."""
+    desc = program.descriptor
+    e = program.einsum
+    if desc.grid_index is not None:
+        return desc.grid_index
+    params = [ix for ix, ln in e.index_to_dim_length.items()
+              if isinstance(ln, SizeParam)]
+    if len(params) == 1:
+        return params[0]
+    if len(params) > 1:
+        out_params = [ix for ix in e.out_idx_set if ix in params]
+        return (out_params or params)[0]
+    candidates = sorted(e.out_idx_set, key=lambda ix: -index_to_length[ix])
+    if candidates and index_to_length[candidates[0]] >= 2 * 1024:
+        return candidates[0]
+    return None
+
+
+def grid_letter(program, index_to_length: Optional[dict] = None
+                ) -> Optional[str]:
+    """:func:`pick_grid_index` of *program*, checked to name a letter of its
+    einsum; the lengths default to the einsum's concrete ones (all that a
+    fully concrete einsum's choice reads)."""
+    e = program.einsum
+    if index_to_length is None:
+        index_to_length = {ix: int(ln) for ix, ln
+                           in e.index_to_dim_length.items()
+                           if not isinstance(ln, SizeParam)}
+    el = pick_grid_index(program, index_to_length)
+    if el is not None and el not in e.index_to_dim_length:
         raise InvalidParameterError(
-            "the fused CUDA route needs exactly one long (SizeParam) axis,"
-            f" found {long_letters}")
-    return long_letters[0]
+            f"grid_index {el!r} names no letter of the einsum"
+            f" {e.get_subscripts()}")
+    return el
+
+
+def _family_letter(program, index_to_length: dict) -> Optional[str]:
+    """The grid letter when the row families can take the program on it:
+    every other letter is concrete (the families classify rows by one long
+    letter); else ``None``, and the program goes to ``step_block_f32``."""
+    el = grid_letter(program, index_to_length)
+    if el is None or any(isinstance(ln, SizeParam) and ix != el for ix, ln
+                         in program.einsum.index_to_dim_length.items()):
+        return None
+    return el
 
 
 def _check_routable(program, lengths: dict) -> None:
     """Refuse what the fused route does not carry."""
     e = program.einsum
-    desc = program.descriptor
     bad = {str(dt) for dt in e.arg_to_dtype.values()} - {"float32"}
     if bad:
         raise InvalidParameterError(
             f"the fused CUDA route takes float32 only, got {sorted(bad)}"
             " (float64 runs on pair storage: descriptor.dd_pairs)")
-    el = _long_letter(e)
-    if desc.grid_index not in (None, el):
-        raise InvalidParameterError(
-            f"grid_index {desc.grid_index!r} is not the long axis {el!r}")
-    if lengths[el] < 1:
-        raise InvalidParameterError(f"long axis length {lengths[el]} < 1")
+    el = grid_letter(program, lengths)
+    if el is not None and lengths[el] < 1:
+        raise InvalidParameterError(f"grid axis length {lengths[el]} < 1")
 
 
 def _check_flat(program) -> None:
@@ -185,9 +245,10 @@ def _check_long_axis_kept(program, lengths: dict) -> None:
     the blocks' partials in a second launch (``long_reduce_f32``), so the
     rule is kept for parity, not for a race."""
     e = program.einsum
-    el = _long_letter(e)
+    el = grid_letter(program, lengths)
     desc = program.descriptor
-    if el not in e.out_idx_set and lengths[el] > desc.block_long \
+    if el is not None and el not in e.out_idx_set \
+            and lengths[el] > desc.block_long \
             and desc.dimension_semantics == "parallel":
         raise InvalidParameterError(
             "cannot use 'parallel' grid semantics when the grid axis is"
@@ -210,8 +271,9 @@ class HostStep:
 
 def hoist_resident_steps(program) -> tuple:
     """``(program', host_steps)``: with ``descriptor.hoist_resident_steps``,
-    every schedule step but the last whose operands carry no long axis,
-    transitively, is hoisted.  Rows whose hoisted steps read the same
+    every schedule step but the last whose operands carry no grid letter
+    (:func:`grid_letter`), transitively, is hoisted, as in the reference
+    (no step is, without a grid).  Rows whose hoisted steps read the same
     operands share one result (``_host<k>``, in the step's output letters),
     and ``program'`` is the program over the einsum in which each hoisted
     result replaces the operands it consumed, its schedule the steps that
@@ -223,7 +285,9 @@ def hoist_resident_steps(program) -> tuple:
     sched = program.schedule
     if not program.descriptor.hoist_resident_steps:
         return program, ()
-    el = _long_letter(e)
+    el = grid_letter(program)
+    if el is None:
+        return program, ()
     steps = list(zip(sched.subscripts, sched.result_names, sched.arguments))
     carries: dict = {}
     for _, name, args in steps:
@@ -406,11 +470,12 @@ def plan_cuda_launch(program, index_to_length: dict) -> KernelPlan:
                       plain=plan.plain)
 
 
-def _dg_plans(e: BatchedEinsum) -> Optional[list]:
-    """The rows' DG plans (:func:`~.dg_rows.plan_row`) when every row is in
-    the family and all plan alike, else ``None``."""
+def _dg_plans(e: BatchedEinsum, el: str) -> Optional[list]:
+    """The rows' DG plans (:func:`~.dg_rows.plan_row`) over the long letter
+    *el* when every row is in the family and all plan alike, else
+    ``None``."""
     try:
-        plans = [plan_row(e, r) for r in range(e.b)]
+        plans = [plan_row(e, r, el) for r in range(e.b)]
     except InvalidParameterError:
         return None
     p0 = plans[0]
@@ -424,20 +489,28 @@ def _dg_plans(e: BatchedEinsum) -> Optional[list]:
 
 def row_family(program, index_to_length: dict) -> Optional[str]:
     """The row family that takes *program* (without hoisted steps) by its
-    structure: ``"lane_pack_dg"``, ``"ew_product"``, ``"long_reduce"``,
-    ``"row_reduce"``, ``"restrict"`` or ``"dg"``; ``None`` when none does,
-    and the program goes to ``step_block_f32``.  Structure is the einsum's
-    letters and ``long_reduce_f32``'s count of output entries; a family's
-    limits on shared memory, and a restriction row's stored layouts, are
-    its kernel's refusals, not another route."""
+    structure on its grid letter (:func:`grid_letter`): ``"lane_pack_dg"``,
+    ``"ew_product"``, ``"long_reduce"``, ``"row_reduce"``, ``"restrict"``
+    or ``"dg"``; ``None`` when none does, and the program goes to
+    ``step_block_f32``.  The families classify rows by one long letter: a
+    program without a grid, or with a long (``SizeParam``) letter other
+    than its grid letter, goes to ``step_block_f32``.  Structure is the
+    einsum's letters and ``long_reduce_f32``'s count of output entries; a
+    family's limits on shared memory, and a restriction row's stored
+    layouts, are its kernel's refusals, not another route (a DG matvec
+    whose resident is wider than ``dg_rows_f32``'s shared memory goes to
+    ``probe_apply_f32``, whose ring streams it: :func:`apply_route`)."""
     e = program.einsum
+    el = _family_letter(program, index_to_length)
+    if el is None:
+        return None
     if program.descriptor.lane_pack > 1 and e.n == 4:
         return "lane_pack_dg"
     if _is_pure_product(program):
         return "ew_product"
     if not e.sum_indices:
         return None
-    if _long_letter(e) not in e.out_idx_set:
+    if el not in e.out_idx_set:
         try:
             _, shape = long_reduce_shape(program, index_to_length,
                                          check=False)
@@ -447,23 +520,22 @@ def row_family(program, index_to_length: dict) -> Optional[str]:
     if len(e.out_idx_set) == 1:
         try:
             for r in range(e.b):
-                plan_reduce_row(e, r)
+                plan_reduce_row(e, r, el)
         except InvalidParameterError:
             return None
         return "row_reduce"
-    if resident_carries_outputs(e):
+    if resident_carries_outputs(e, el):
         stored = stored_arg_layouts(program)
         out_letters = stored_out_letters(program)
-        (pos,) = [p for p in range(e.n)
-                  if _long_letter(e) not in e.in_idx_sets[p]]
+        (pos,) = [p for p in range(e.n) if el not in e.in_idx_sets[p]]
         try:
             for r in range(e.b):
                 plan_restrict_row(e, r, stored[e.args[r][pos].name],
-                                  out_letters, check_layout=False)
+                                  out_letters, check_layout=False, el=el)
         except InvalidParameterError:
             return None
         return "restrict"
-    return None if _dg_plans(e) is None else "dg"
+    return None if _dg_plans(e, el) is None else "dg"
 
 
 def _plan_rows(program, lengths: dict) -> KernelPlan:
@@ -491,6 +563,7 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
     family = row_family(program, lengths)
     if family is None:
         return _plan_step_block(program, lengths, checked)
+    el = grid_letter(program, lengths)
     if family == "lane_pack_dg":
         return _plan_lane_pack_dg(program, lengths, checked)
     if family == "ew_product":
@@ -501,10 +574,10 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
             run=lambda rows: ew_product_f32(rows, one_launch=one_launch),
             plain=ew_product_plain)
     if family == "long_reduce":
-        return _plan_long_reduce(program, lengths, checked)
+        return _plan_long_reduce(program, lengths, checked, el)
     if family == "row_reduce":
-        reduce_plans = [plan_reduce_row(e, r) for r in range(e.b)]
-        el, j = reduce_plans[0].e_letter, reduce_plans[0].j_letter
+        reduce_plans = [plan_reduce_row(e, r, el) for r in range(e.b)]
+        j = reduce_plans[0].j_letter
 
         def reduce_operands(arrays_by_name: dict) -> list:
             arrays = checked(arrays_by_name)
@@ -518,12 +591,13 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
                                             one_launch=one_launch),
             plain=row_reduce_plain)
     if family == "restrict":
-        return _plan_restrict(program, lengths, checked)
+        return _plan_restrict(program, lengths, checked, el)
 
-    plans = _dg_plans(e)
+    plans = _dg_plans(e, el)
+    if apply_route(plans[0], lengths, is_split(desc)):
+        return _plan_apply(program, checked, plans)
     p0 = plans[0]
-    x, s, i, j, el = (p0.x_letter, p0.s_letter, p0.i_letter, p0.j_letter,
-                      p0.e_letter)
+    x, s, i, j = p0.x_letter, p0.s_letter, p0.i_letter, p0.j_letter
     S = lengths[s] if s is not None else 1
     u_roles = (s if p0.u_has_s else None, j, el)
     r_roles = (s, i, j)
@@ -561,6 +635,59 @@ def _plan_rows(program, lengths: dict) -> KernelPlan:
         plain=lambda rows: stored_outputs(plain(rows, out_order)))
 
 
+def apply_route(plan, lengths: dict, split: bool) -> bool:
+    """Whether a DG row goes to ``probe_apply_f32`` (``probe_apply_3xtf32``
+    with *split*) instead of ``dg_rows_f32``: a plain matvec ``out[e, i] =
+    Σ_j R[i, j] u[e, j]`` (no s, x or streamed factor) whose resident is
+    wider than a Hopper block of the DG kernel holds (the packed matvecs
+    and vecmats with a kron-expanded resident, the ``tc_gemm_v0`` rows with
+    a large resident factor), and at most ``PA_MAX_DIM`` on each side:
+    ``probe_apply`` streams R through a ring of chunks."""
+    if plan.x_letter is not None or plan.s_letter is not None \
+            or plan.F is not None or plan.u_has_s:
+        return False
+    I, J = int(lengths[plan.i_letter]), int(lengths[plan.j_letter])
+    need = (dg_rows_3x_smem_bytes(1, 1, I, J, False) if split
+            else dg_rows_smem_bytes(1, I, J, False))
+    return need > MAX_SMEM_BYTES and I <= PA_MAX_DIM and J <= PA_MAX_DIM
+
+
+def _plan_apply(program, checked: Callable, plans: list) -> KernelPlan:
+    """A wide-resident matvec onto ``probe_apply_f32`` (its 3x variant at
+    ``bf16_3x``): u as a (j, e) view, R as a contiguous (1, i, j) copy, one
+    launch per row; the (i, e) output stored dof-major, or element-major as
+    the transpose of a contiguous (e, i) tensor."""
+    desc = program.descriptor
+    stored = stored_arg_layouts(program)
+    out_letters = stored_out_letters(program)
+    p0 = plans[0]
+    el, i, j = p0.e_letter, p0.i_letter, p0.j_letter
+    elem_major = out_letters.index(el) < out_letters.index(i)
+    if is_split(desc):
+        kernel, launch, plain = ("probe_apply_3xtf32", probe_apply_3xtf32,
+                                 probe_apply_3x_plain)
+    else:
+        kernel, launch, plain = ("probe_apply_f32", probe_apply_f32,
+                                 probe_apply_plain)
+
+    def operands(arrays_by_name: dict) -> list:
+        arrays = checked(arrays_by_name)
+        return [(ApplyRow(u=_role_view(arrays[p.u.name], stored[p.u.name],
+                                       (j, el))),
+                 _role_view(arrays[p.R.name], stored[p.R.name],
+                            (None, i, j)).contiguous()) for p in plans]
+
+    def stored_output(o):
+        return o.t() if elem_major else o
+
+    return KernelPlan(
+        kernel=kernel, operands=operands,
+        run=lambda rows: [stored_output(launch(
+            [row], R, out_elem_major=elem_major)[0]) for row, R in rows],
+        plain=lambda rows: [stored_output(plain(
+            [row], R, out_elem_major=elem_major)[0]) for row, R in rows])
+
+
 def _dg_kernel(desc) -> tuple:
     """``(name, wrapper, plain version)`` of the DG row kernel for the
     descriptor's precision."""
@@ -569,12 +696,16 @@ def _dg_kernel(desc) -> tuple:
     return "dg_rows_f32", dg_rows_f32, dg_rows_plain
 
 
-def long_reduce_shape(program, lengths: dict, check: bool = True) -> tuple:
-    """``(row plans, LongReduceShape)`` of a program whose long axis is
-    contracted; raises :class:`InvalidParameterError` when its rows plan
-    differently or, with *check*, ``long_reduce_f32`` does not take them."""
+def long_reduce_shape(program, lengths: dict, check: bool = True,
+                      el: Optional[str] = None) -> tuple:
+    """``(row plans, LongReduceShape)`` of a program whose long axis (*el*,
+    by default its grid letter) is contracted; raises
+    :class:`InvalidParameterError` when its rows plan differently or, with
+    *check*, ``long_reduce_f32`` does not take them."""
     e = program.einsum
-    plans = [plan_long_reduce_row(e, r) for r in range(e.b)]
+    if el is None:
+        el = grid_letter(program, lengths)
+    plans = [plan_long_reduce_row(e, r, el) for r in range(e.b)]
     p0 = plans[0]
     key = (p0.a_letter, p0.b_letter, p0.p_letter, p0.q_letter, p0.c_letter,
            p0.c_batch, p0.b is None)
@@ -596,13 +727,12 @@ def long_reduce_shape(program, lengths: dict, check: bool = True) -> tuple:
     return plans, shape
 
 
-def _plan_long_reduce(program, lengths: dict, checked: Callable
-                      ) -> KernelPlan:
+def _plan_long_reduce(program, lengths: dict, checked: Callable,
+                      el: str) -> KernelPlan:
     """A contracted long axis onto ``long_reduce_f32``."""
     desc = program.descriptor
     stored = stored_arg_layouts(program)
-    plans, shape = long_reduce_shape(program, lengths)
-    el = plans[0].e_letter
+    plans, shape = long_reduce_shape(program, lengths, el=el)
 
     def operands(arrays_by_name: dict) -> list:
         arrays = checked(arrays_by_name)
@@ -620,7 +750,8 @@ def _plan_long_reduce(program, lengths: dict, checked: Callable
         plain=lambda rows: long_reduce_plain(rows, shape))
 
 
-def _plan_restrict(program, lengths: dict, checked: Callable) -> KernelPlan:
+def _plan_restrict(program, lengths: dict, checked: Callable,
+                   el: str) -> KernelPlan:
     """A matvec whose resident carries every output letter but e onto
     ``dg_rows_f32``: the merged output letters are the kernel's ``i``, as
     views of the stored resident and output (no copies)."""
@@ -628,10 +759,10 @@ def _plan_restrict(program, lengths: dict, checked: Callable) -> KernelPlan:
     desc = program.descriptor
     stored = stored_arg_layouts(program)
     out_letters = stored_out_letters(program)
-    (pos,) = [p for p in range(e.n) if _long_letter(e) not in e.in_idx_sets[p]]
-    plans = [plan_restrict_row(e, r, stored[e.args[r][pos].name], out_letters)
-             for r in range(e.b)]
-    el, j, merged = plans[0].e_letter, plans[0].j_letter, plans[0].merged
+    (pos,) = [p for p in range(e.n) if el not in e.in_idx_sets[p]]
+    plans = [plan_restrict_row(e, r, stored[e.args[r][pos].name], out_letters,
+                               el=el) for r in range(e.b)]
+    j, merged = plans[0].j_letter, plans[0].merged
     I, J = int(np.prod([lengths[ix] for ix in merged])), lengths[j]
     out_order = ((0, 1, 2) if out_letters.index(merged[0])
                  < out_letters.index(el) else (0, 2, 1))

@@ -65,14 +65,25 @@ class RowPlan:
     u_has_s: bool
 
 
-def plan_row(e: BatchedEinsum, row: int) -> RowPlan:
-    """Classify batch row *row* of *e*; raises
-    :class:`InvalidParameterError` outside the family."""
+def long_letter(e: BatchedEinsum, el: Optional[str], message: str) -> str:
+    """*el*, the letter a caller grids over, or else the einsum's unique
+    long (``SizeParam``) letter; raises :class:`InvalidParameterError` with
+    *message* when there is no such letter."""
+    if el is not None:
+        return el
     long_letters = [ix for ix, ln in e.index_to_dim_length.items()
                     if isinstance(ln, SizeParam)]
     if len(long_letters) != 1:
-        raise InvalidParameterError("DG rows need exactly one long axis")
-    el = long_letters[0]
+        raise InvalidParameterError(message)
+    return long_letters[0]
+
+
+def plan_row(e: BatchedEinsum, row: int,
+             el: Optional[str] = None) -> RowPlan:
+    """Classify batch row *row* of *e* over its long letter *el* (default:
+    the unique ``SizeParam`` letter); raises
+    :class:`InvalidParameterError` outside the family."""
+    el = long_letter(e, el, "DG rows need exactly one long axis")
     out = tuple(e.out_idx_set)
     if len(out) == 2 and out[0] == el:
         x_letter, i = None, out[1]
@@ -174,15 +185,15 @@ class ReduceRowPlan:
     j_letter: str
 
 
-def plan_reduce_row(e: BatchedEinsum, row: int) -> ReduceRowPlan:
-    """Classify batch row *row* of *e* as ``out[e] = Σ_j w[j] u[e, j]``;
-    raises :class:`InvalidParameterError` outside that family."""
-    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
-                    if isinstance(ln, SizeParam)]
-    if len(long_letters) != 1 or tuple(e.out_idx_set) != (long_letters[0],):
-        raise InvalidParameterError(
-            "reduce rows need the output to be the long axis alone")
-    el = long_letters[0]
+def plan_reduce_row(e: BatchedEinsum, row: int,
+                    el: Optional[str] = None) -> ReduceRowPlan:
+    """Classify batch row *row* of *e* as ``out[e] = Σ_j w[j] u[e, j]``
+    (*el* as in :func:`plan_row`); raises :class:`InvalidParameterError`
+    outside that family."""
+    message = "reduce rows need the output to be the long axis alone"
+    el = long_letter(e, el, message)
+    if tuple(e.out_idx_set) != (el,):
+        raise InvalidParameterError(message)
     streams, resident = [], []
     for arg, idx in zip(e.args[row], e.in_idx_sets):
         (streams if el in idx else resident).append((arg, tuple(idx)))
@@ -214,12 +225,15 @@ class RestrictRowPlan:
     merged: tuple
 
 
-def resident_carries_outputs(e: BatchedEinsum) -> bool:
-    """Whether the rows' single resident operand carries more than one
-    output letter: the rows :func:`plan_restrict_row` takes and
-    :func:`plan_row` refuses."""
-    long_letters = {ix for ix, ln in e.index_to_dim_length.items()
-                    if isinstance(ln, SizeParam)}
+def resident_carries_outputs(e: BatchedEinsum,
+                             el: Optional[str] = None) -> bool:
+    """Whether the rows' single resident operand (one without *el*, by
+    default without any long letter) carries more than one output letter:
+    the rows :func:`plan_restrict_row` takes and :func:`plan_row`
+    refuses."""
+    long_letters = ({el} if el is not None else
+                    {ix for ix, ln in e.index_to_dim_length.items()
+                     if isinstance(ln, SizeParam)})
     resident = [idx for idx in e.in_idx_sets if not set(idx) & long_letters]
     return (len(resident) == 1
             and len(set(resident[0]) & set(e.out_idx_set)) > 1)
@@ -231,19 +245,16 @@ def _adjacent_in_order(letters: tuple, stored: tuple) -> bool:
 
 
 def plan_restrict_row(e: BatchedEinsum, row: int, r_stored: tuple,
-                      out_stored: tuple, check_layout: bool = True
-                      ) -> RestrictRowPlan:
+                      out_stored: tuple, check_layout: bool = True,
+                      el: Optional[str] = None) -> RestrictRowPlan:
     """Classify batch row *row* of *e* as a matvec whose resident carries
     every output letter but e; *r_stored* and *out_stored* are the stored
     letters of the resident and of the output.  The merged letters must be
     adjacent and in the same order in both, so that each is one axis of a
     view (checked with *check_layout*); raises
-    :class:`InvalidParameterError` otherwise and outside the family."""
-    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
-                    if isinstance(ln, SizeParam)]
-    if len(long_letters) != 1:
-        raise InvalidParameterError("restriction rows need one long axis")
-    el = long_letters[0]
+    :class:`InvalidParameterError` otherwise and outside the family (*el*
+    as in :func:`plan_row`)."""
+    el = long_letter(e, el, "restriction rows need one long axis")
     out = tuple(e.out_idx_set)
     if el not in out:
         raise InvalidParameterError(
@@ -302,16 +313,14 @@ class LongReduceRowPlan:
         return role(self.a_letter, "p"), role(self.b_letter, "q")
 
 
-def plan_long_reduce_row(e: BatchedEinsum, row: int) -> LongReduceRowPlan:
+def plan_long_reduce_row(e: BatchedEinsum, row: int,
+                         el: Optional[str] = None) -> LongReduceRowPlan:
     """Classify batch row *row* of *e*, whose long axis is contracted, as
     ``out[p?, q?, c?] = Σ_e Σ_c A[e, p?, c?] B[e, q?, c?]``: one or two
     operands, each over the long axis and at most one short letter.
-    Raises :class:`InvalidParameterError` outside that family."""
-    long_letters = [ix for ix, ln in e.index_to_dim_length.items()
-                    if isinstance(ln, SizeParam)]
-    if len(long_letters) != 1:
-        raise InvalidParameterError("long-axis reductions need one long axis")
-    el = long_letters[0]
+    Raises :class:`InvalidParameterError` outside that family (*el* as in
+    :func:`plan_row`)."""
+    el = long_letter(e, el, "long-axis reductions need one long axis")
     out = tuple(e.out_idx_set)
     if el in out:
         raise InvalidParameterError("the long axis is not contracted")

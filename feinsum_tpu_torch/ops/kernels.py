@@ -74,11 +74,14 @@ that no row family above takes (a step table of
 :mod:`~feinsum_tpu_torch.ops.step_block`):
 
 * ``step_block_f32`` (``csrc/step_block.cu``) — per thread block of the
-  long axis, the residents staged in shared memory, then each step as
-  threads over (element, output entry), each summing its contracted entries
+  grid letter, the residents staged in shared memory and each streamed
+  input's sub-tile copied there by ``cp.async`` (two buffers); a dense step
+  as register tiles of RM x RN results per thread, any other as threads
+  over (element, RT output entries), each summing its contracted entries
   through offset tables built here (:func:`step_block_tables`); results
   between steps stay in shared memory; a contracted long axis ends in
-  per-block partials summed by a second launch in a fixed order.
+  per-block partials (a dense one as a split-K product) summed by a second
+  launch in a fixed order.
 
 And one runs K2's whole schedule, every step of a dense program with a
 tuple ``grid_index`` that ``tc_grid_f32`` does not take (a cell table of
@@ -139,20 +142,24 @@ LP_MAX_TERMS = 16
 # csrc/step_block.cu: threads per block (kThreads); the most steps, operands
 # per step and operands per row a launch takes (kMaxSteps, kMaxOps,
 # kMaxInputs); the most short letters per step (the offset tables' size,
-# ops/step_block.py); the most elements per sub-tile when steps hold
-# results in shared memory, and the shared memory per block the planner
-# aims below (three blocks per SM) before it takes up to MAX_SMEM_BYTES
+# ops/step_block.py); the most elements per sub-tile; the register tiles
+# (RM, RN) of a dense step the kernel is built for (the SB_DENSE cases);
+# the shared memory of one SM and the blocks its registers hold
+# (__launch_bounds__), which bound the blocks that run on it
 SB_THREADS = 256
 SB_MAX_STEPS = 8
 SB_MAX_OPS = 4
 SB_MAX_INPUTS = 8
 SB_MAX_LETTERS = 8
-SB_MAX_TE = 128
-SB_SMEM_TARGET = 64 * 1024
-# the streamed bytes of one sub-tile the planner keeps below, so that a
-# step's terms reread its operands from L1 (the SM's 256 KB less the
-# shared memory)
-SB_L1_TARGET = 96 * 1024
+SB_MAX_TE = 256
+SB_TILES = tuple((rm, rn) for rm in (1, 2, 4, 8)
+                 for rn in (1, 2, 4, 8)) + ((5, 5), (7, 1))
+SB_SM_SMEM_BYTES = 233_472
+SB_SM_BLOCKS = 2
+# the ints and table offsets per step, and the ints per input, of a launch
+SB_STEP_INTS = 24
+SB_STEP_TABLES = 18
+SB_STAGE_INTS = 8
 
 # csrc/tc_steps.cu: threads per block (kThreads, the most; the planner
 # takes fewer for a narrow cell); the most steps, operands per step,
@@ -1503,7 +1510,7 @@ def step_block_mode(table, in_strides: tuple, out_strides: tuple) -> bool:
     most entries for a contracted long axis), has the long axis at stride
     1 (dof-major storage)."""
     last = table.steps[-1]
-    if last.kind == "element":
+    if last.kind != "reduce":
         _, es = _sb_strides(last.out, out_strides, table.el)
         return es == 1
     streamed = [(int(np.prod([table.length[ix] for ix in letters
@@ -1514,85 +1521,224 @@ def step_block_mode(table, in_strides: tuple, out_strides: tuple) -> bool:
     return _sb_strides(table.inputs[slot], in_strides[slot], table.el)[1] == 1
 
 
+def _sb_sub_tile(letters: tuple, strides, el: str, length: dict,
+                 te: int) -> tuple:
+    """How a tensor over *letters* with these strides is held per sub-tile
+    in shared memory: ``(strides per letter there, compact order, entries,
+    pitch, element-fastest)``: its entries in the order of its own strides,
+    [entry][element] with an odd pitch of at least *te* when it stores the
+    long axis at stride 1, else [element][entry] with an odd pitch of at
+    least its entries."""
+    per, es = _sb_strides(letters, strides, el)
+    order = _sb_order(per, per)
+    n = int(np.prod([length[ix] for ix in order], dtype=np.int64))
+    efast = es == 1
+    pitch = (te | 1) if efast else (n | 1)
+    compact, stride = {}, 1
+    for ix in reversed(order):
+        compact[ix] = stride * (pitch if efast else 1)
+        stride *= length[ix]
+    return compact, order, n, pitch, efast
+
+
+def _sb_entries(order: tuple, length: dict, per: dict) -> tuple:
+    """``(affine, offsets)`` of the entries over *order* in a tensor with
+    strides *per*: their stride when they are evenly spaced, else their
+    offsets."""
+    off = _sb_offsets(order, length, per)
+    step = int(off[1] - off[0]) if len(off) > 1 else 0
+    if np.array_equal(off, np.arange(len(off), dtype=np.int64) * step):
+        return True, step
+    return False, off
+
+
 @functools.lru_cache(maxsize=64)
 def step_block_tables(table, in_strides: tuple, out_strides: tuple,
                       elem_fastest: bool) -> tuple:
-    """``(tables, steps_i, steps_t)`` of ``step_block_f32`` for one row
-    whose input views and output view have these strides (elements per
-    axis, in the order of ``table.inputs`` and of the last step's
-    ``out``).  ``tables`` (int64) holds, per step, each operand's offsets
-    of the step's output entries, the result's, then each operand's offsets
-    of the contracted entries (none for a step that contracts at most one
-    letter, "affine": its offsets are c times the letter's stride);
+    """``(tables, steps_i, steps_t, stage_i, stage_t)`` of
+    ``step_block_f32`` for one row whose input views and output view have
+    these strides (elements per axis, in the order of ``table.inputs`` and
+    of the last step's ``out``).
+
+    ``tables`` (int64) holds the offset tables.  A general step has each
+    operand's offsets of the step's output entries, the result's, then each
+    operand's offsets of the contracted entries (none when it contracts at
+    most one letter, "affine": its offsets are c times the letter's
+    stride); its entries run with its tile letter slowest, so that entry
+    ``o + r * n_out / RT`` is a thread's r-th, and the operand that carries
+    the tile letter goes last.  A dense step has A's offsets over M, K and
+    B, B's over N, K and B (K's as strides when it is at most one letter,
+    affine), and the result's over M, N and B (over the reduce step's
+    partial sums for a contracted long axis, whose result-entry table maps
+    them to the output).  A staged input's offsets
+    are those of its copy in shared memory (:func:`_sb_staged`), whose
+    table gives each entry's offset in the input.
+
     ``steps_i`` gives per step (kind, operands, output entries, contracted
     entries, the four operand sources, the result's float offset in shared
-    memory, its element stride there, the groups of a reduce step,
-    affine), ``steps_t`` per step the table offsets (the operands' and the
-    result's entry tables, then the operands' contracted tables, or their
-    strides of the contracted letter when affine).  A result held in shared memory is laid out [entry][element]
-    (element-fastest threads) or [element][entry]; a step's entries and
-    contracted entries run in the order of its reference tensor's strides
+    memory, its element stride there, the groups of a reduce step, affine,
+    mode (1: dense), RT, entries per tile row, RM, RN, M, N, K and B
+    entries, M and N tiles, the int offset of a dense step's tables in
+    shared memory, where the kernel stages them), ``steps_t`` the table
+    offsets (the general
+    operands' and result's entry tables, their contracted tables or
+    strides, then the dense tables A_m, A_k, A_b, B_n, B_k, B_b, D_m, D_n,
+    D_b).  ``stage_i`` per input, then for the output's sub-tile (resident
+    offset and floats, staged buffer offset and floats, entries, pitch,
+    element-fastest, evenly spaced entries) and ``stage_t`` its entries'
+    table offset, or their stride when evenly spaced.  A result held in shared memory
+    is laid out [entry][element] (element-fastest threads) or
+    [element][entry], at an odd pitch; a step's entries and contracted
+    entries run in the order of its reference tensor's strides
     (:func:`_sb_reference`), the smallest stride fastest."""
     el, length = table.el, table.length
+    te = table.te
     last = len(table.steps) - 1
     out_st = _sb_strides(table.steps[last].out, out_strides, el)
     layout: dict = {}        # step -> (strides per letter, element stride)
     chunks, steps_i, steps_t = [], [], []
     cursor = 0
 
-    def add(arr: np.ndarray) -> int:
+    def add(arr) -> int:
         nonlocal cursor
+        arr = np.asarray(arr, dtype=np.int64)
         chunks.append(arr)
         cursor += len(arr)
         return cursor - len(arr)
 
+    def entries(order, per):
+        affine, off = _sb_entries(order, length, per)
+        return int(affine), off if affine else add(off)
+
+    axis_strides, stage_i, stage_t = [], [], []
+    for slot, letters in enumerate(table.inputs):
+        n_res = (0 if table.stage[slot] < 0 else int(np.prod(
+            [length[ix] for ix in letters], dtype=np.int64)))
+        if not table.sin or table.sin[slot] < 0:
+            axis_strides.append(in_strides[slot])
+            stage_i.append([table.stage[slot], n_res, -1, 0, 0, 0, 0, 0])
+            stage_t.append(0)
+            continue
+        compact, order, n, pitch, efast = _sb_sub_tile(
+            letters, in_strides[slot], el, length, te)
+        axis_strides.append(tuple((1 if efast else pitch) if ix == el
+                                  else compact[ix] for ix in letters))
+        gaff, goff = entries(order, _sb_strides(letters, in_strides[slot],
+                                                el)[0])
+        stage_i.append([table.stage[slot], n_res, table.sin[slot],
+                        table.sin_floats[slot], n, pitch, int(efast), gaff])
+        stage_t.append(goff)
+    if table.sout >= 0:
+        compact, order, n, pitch, efast = _sb_sub_tile(
+            table.steps[last].out, out_strides, el, length, te)
+        out_sub = compact
+        gaff, goff = entries(order, out_st[0])
+        stage_i.append([-1, 0, table.sout, table.sout_floats, n, pitch,
+                        int(efast), gaff])
+        stage_t.append(goff)
+    else:
+        stage_i.append([-1, 0, -1, 0, 0, 0, 0, 0])
+        stage_t.append(0)
+
     for k, step in enumerate(table.steps):
         ref = _sb_reference(table, k, in_strides, out_st)
         out_order = _sb_order([ix for ix in step.out if ix != el], ref)
+        if step.tile_letter is not None:
+            out_order = (step.tile_letter,) + tuple(
+                ix for ix in out_order if ix != step.tile_letter)
         sum_order = _sb_order(table.summed(step), ref)
         n_out = table.n_out(step)
         op_strides = []
         for (kind, x), letters in zip(step.operands, step.letters):
             if kind == "in":
-                src_strides = in_strides[x]
+                src_strides = axis_strides[x]
             else:
                 prod_per, _ = layout[x]
                 src_strides = [prod_per.get(ix, 0) if ix != el else 0
                                for ix in table.steps[x].out]
             op_strides.append(_sb_strides(letters, src_strides, el)[0])
-        if k == last:
+        compact, stride = {}, 1
+        for ix in reversed(out_order):
+            compact[ix] = stride
+            stride *= length[ix]
+        if k == last and table.sout >= 0:
+            dst_per, es = out_sub, 0
+        elif k == last:
             dst_per, es = out_st[0], 0
-        else:
-            mult = table.te if step.kind == "element" and elem_fastest else 1
-            dst_per, stride = {}, mult
-            for ix in reversed(out_order):
-                dst_per[ix] = stride
-                stride *= length[ix]
-            es = (0 if step.kind == "free"
-                  else 1 if elem_fastest else n_out)
+        elif step.kind == "element":
+            pitch = (te | 1) if elem_fastest else (n_out | 1)
+            dst_per = {ix: c * (pitch if elem_fastest else 1)
+                       for ix, c in compact.items()}
+            es = 1 if elem_fastest else pitch
             layout[k] = (dst_per, es)
-        t_out = [add(_sb_offsets(out_order, length, st)) for st in op_strides]
-        t_out.append(add(_sb_offsets(out_order, length, dst_per)))
-        affine = len(sum_order) <= 1
-        if affine:
-            t_sum = [st.get(sum_order[0], 0) if sum_order else 0
-                     for st in op_strides]
         else:
-            t_sum = [add(_sb_offsets(sum_order, length, st))
-                     for st in op_strides]
+            dst_per, es = compact, 0
+            layout[k] = (dst_per, es)
         nops = len(step.operands)
-        if step.kind == "reduce":
+        order = list(range(nops))
+        if step.tile_letter is not None:
+            (carrier,) = [q for q in order
+                          if step.tile_letter in step.letters[q]]
+            order = [q for q in order if q != carrier] + [carrier]
+        rt = step.tile[0] if step.mode == "general" else 1
+        dense = [0] * 9
+        dims = [0] * 8
+        if step.mode == "dense":
+            M, N, K, B = step.split
+            res = compact if step.kind == "reduce" else dst_per
+            M = _sb_order(M, res)
+            N = _sb_order(N, res)
+            sa, sb = op_strides
+            affine = len(K) <= 1
+            within = [_sb_offsets(g, length, st) for g, st in (
+                (M, sa), (K, sa), (B, sa), (N, sb), (K, sb), (B, sb))] + [
+                _sb_offsets(g, length, res) for g in (M, N, B)]
+            if max(int(np.abs(w).max()) for w in within) >= 2 ** 31:
+                raise InvalidParameterError(
+                    "step_block_f32: a dense step's offsets within an"
+                    " element exceed 32 bits")
+            dense = [add(w) for w in within]
+            if affine:
+                dense[1] = sa.get(K[0], 0) if K else 0
+                dense[4] = sb.get(K[0], 0) if K else 0
+            rm, rn = step.tile
+            nm, nn = (int(np.prod([length[ix] for ix in g], dtype=np.int64))
+                      for g in (M, N))
+            dims = [rm, rn, nm, nn,
+                    int(np.prod([length[ix] for ix in K], dtype=np.int64)),
+                    int(np.prod([length[ix] for ix in B], dtype=np.int64)),
+                    -(-nm // rm), -(-nn // rn)]
+            t_out = [0] * nops + [add(_sb_offsets(
+                out_order, length, out_st[0] if k == last else dst_per))]
+            t_sum = [0] * nops
+        else:
+            t_out = [add(_sb_offsets(out_order, length, op_strides[q]))
+                     for q in order]
+            t_out.append(add(_sb_offsets(out_order, length, dst_per)))
+            affine = len(sum_order) <= 1
+            if affine:
+                t_sum = [op_strides[q].get(sum_order[0], 0) if sum_order
+                         else 0 for q in order]
+            else:
+                t_sum = [add(_sb_offsets(sum_order, length, op_strides[q]))
+                         for q in order]
+        if step.kind == "reduce" and step.mode == "dense":
+            groups = max(1, SB_THREADS // (dims[6] * dims[7]))
+        elif step.kind == "reduce":
             groups = max(1, (SB_THREADS // 32 if elem_fastest else SB_THREADS)
                          // n_out)
         else:
             groups = 1
-        src = [x if kind == "in" else -1 - x for kind, x in step.operands]
+        src = [step.operands[q][1] if step.operands[q][0] == "in"
+               else -1 - step.operands[q][1] for q in order]
         steps_i.append([_SB_KIND[step.kind], nops, n_out, table.n_sum(step),
                         *(src + [0] * (SB_MAX_OPS - nops)), step.dst, es,
-                        groups, int(affine)])
+                        groups, int(affine), int(step.mode == "dense"), rt,
+                        n_out // rt, *dims, step.dsm])
         steps_t.append([*t_out, *([0] * (SB_MAX_OPS - nops)),
-                        *t_sum, *([0] * (SB_MAX_OPS - nops))])
-    return np.concatenate(chunks), steps_i, steps_t
+                        *t_sum, *([0] * (SB_MAX_OPS - nops)), *dense])
+    tables = np.concatenate(chunks) if chunks else np.zeros(1, np.int64)
+    return tables, steps_i, steps_t, stage_i, stage_t
 
 
 def _sb_view_strides(rows, outs) -> tuple:
@@ -1604,27 +1750,29 @@ def _sb_view_strides(rows, outs) -> tuple:
 def _sb_device_tables(table, row_strides: tuple, elem_fastest: bool,
                       device: torch.device) -> tuple:
     """The rows' tables end to end on *device*, and ``(steps_i, steps_t,
-    row_len)`` (equal across rows: the tables' offsets depend on the
-    shapes alone)."""
+    stage_i, stage_t, row_len)`` (equal across rows: the tables' offsets
+    depend on the shapes alone)."""
     per_row = [step_block_tables(table, ins, out, elem_fastest)
                for ins, out in row_strides]
-    tables = np.concatenate([t for t, _, _ in per_row])
-    _, steps_i, steps_t = per_row[0]
-    return (torch.from_numpy(tables).to(device), steps_i, steps_t,
-            len(per_row[0][0]))
+    tables = np.concatenate([t[0] for t in per_row])
+    _, steps_i, steps_t, stage_i, stage_t = per_row[0]
+    return (torch.from_numpy(tables).to(device), steps_i, steps_t, stage_i,
+            stage_t, len(per_row[0][0]))
 
 
 def _sb_check(rows, table) -> int:
-    """The long axis's length, with every operand checked against the
-    table's letters and lengths."""
+    """The grid letter's length (1 without a grid: the whole program is one
+    block of one element), with every operand checked against the table's
+    letters and lengths."""
     el, length = table.el, table.length
     for k, row in enumerate(rows):
         if len(row) != len(table.inputs):
             raise ValueError(f"row {k} has {len(row)} operands, the table"
                              f" {len(table.inputs)}")
     device = rows[0][0].device
-    s0 = next(s for s, letters in enumerate(table.inputs) if el in letters)
-    E = rows[0][s0].shape[table.inputs[s0].index(el)]
+    s0 = next((s for s, letters in enumerate(table.inputs) if el in letters),
+              None)
+    E = 1 if s0 is None else rows[0][s0].shape[table.inputs[s0].index(el)]
     for k, row in enumerate(rows):
         for s, (t, letters) in enumerate(zip(row, table.inputs)):
             _check_operand(f"row {k} operand {s}", t, device,
@@ -1735,15 +1883,12 @@ def step_block_f32(rows, table, *, block_long: int,
         table, tuple(tuple(t.stride()) for t in rows[0]),
         tuple(views[0].stride()))
     ni, ns = len(table.inputs), len(table.steps)
-    stage = (ctypes.c_int * (2 * ni))(*[
-        v for s, letters in enumerate(table.inputs)
-        for v in (table.stage[s], 0 if table.stage[s] < 0 else int(np.prod(
-            [length[ix] for ix in letters], dtype=np.int64)))])
     nblocks = -(-E // int(block_long))
     per_launch = lib.step_block_f32_max_rows() if one_launch else 1
     with torch.cuda.device(device):
         for idx in _chunks(range(len(rows)), per_launch):
-            tables, steps_i, steps_t, row_len = _sb_device_tables(
+            tables, steps_i, steps_t, stage_i, stage_t, row_len = \
+                _sb_device_tables(
                 table, _sb_view_strides([rows[k] for k in idx],
                                         [views[k] for k in idx]),
                 elem_fastest, device)
@@ -1762,9 +1907,14 @@ def step_block_f32(rows, table, *, block_long: int,
                                    dtype=torch.float32, device=device)
             err = lib.step_block_f32(
                 len(idx), ni, ptrs, es, ns,
-                (ctypes.c_int * (12 * ns))(*[v for s in steps_i for v in s]),
-                (ctypes.c_int64 * (9 * ns))(*[v for s in steps_t for v in s]),
-                stage, ctypes.c_void_p(tables.data_ptr()), row_len,
+                (ctypes.c_int * (SB_STEP_INTS * ns))(
+                    *[v for s in steps_i for v in s]),
+                (ctypes.c_int64 * (SB_STEP_TABLES * ns))(
+                    *[v for s in steps_t for v in s]),
+                (ctypes.c_int * (SB_STAGE_INTS * (ni + 1)))(
+                    *[v for s in stage_i for v in s]),
+                (ctypes.c_int64 * (ni + 1))(*stage_t),
+                ctypes.c_void_p(tables.data_ptr()), row_len,
                 table.te, int(elem_fastest), E, int(block_long),
                 table.smem_floats,
                 ctypes.c_void_p(None if work is None else work.data_ptr()),

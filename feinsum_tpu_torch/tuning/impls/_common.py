@@ -97,8 +97,13 @@ def guard_smem(einsum, kernel: str = "dd_rows", program=None) -> None:
     a contraction-free row to ``ew_product_f32`` (no shared memory), a row
     whose output is the long axis alone to ``row_reduce_f32`` (its weight
     w, at most ``MAX_REDUCE_J`` values), and the others to ``dg_rows_f32``
-    (R and one u column per thread); a row whose long axis is contracted to
-    ``long_reduce_f32`` (its output entries and staged rows) and a
+    (R and one u column per thread), except a plain matvec whose R is wider
+    than that kernel's shared memory, which goes to ``probe_apply_f32`` (at
+    ``bf16_3x`` ``probe_apply_3xtf32``; its ring streams R up to
+    ``PA_MAX_DIM`` on each side, ``ops/cuda_emitter.py::apply_route``): the
+    packed matvecs and vecmats and the ``tc_gemm_v0`` rows; a row whose
+    long axis is contracted to ``long_reduce_f32`` (its output entries and
+    staged rows) and a
     restriction row to ``dg_rows_f32`` as a matvec over its merged output
     letters (at ``bf16_3x`` on ``dg_rows_3xtf32``, whose shared memory
     also holds a tile of the outputs, so X counts).
@@ -111,7 +116,7 @@ def guard_smem(einsum, kernel: str = "dd_rows", program=None) -> None:
     block length, and the kernel's limits on steps, operands and letters
     (:func:`~feinsum_tpu_torch.ops.step_block.plan_step_block`)."""
     from ...codegen.program import get_index_lengths
-    from ...ops.cuda_emitter import row_family
+    from ...ops.cuda_emitter import apply_route, row_family
     from ...ops.dg_rows import plan_reduce_row, plan_row, \
         resident_carries_outputs
     from ...ops.kernels import MAX_REDUCE_J, MAX_SMEM_BYTES, \
@@ -170,6 +175,8 @@ def guard_smem(einsum, kernel: str = "dd_rows", program=None) -> None:
         X = int(lengths[p.x_letter]) if p.x_letter is not None else 1
         need = smem_bytes(X, S, int(lengths[p.i_letter]),
                           int(lengths[p.j_letter]), p.u_has_s)
+        if fused and apply_route(p, lengths, kernel == "dg_rows_3xtf32"):
+            continue
         if need > MAX_SMEM_BYTES:
             raise InvalidParameterError(
                 f"{kernel} needs {need} bytes of shared memory per block;"

@@ -587,6 +587,43 @@ def test_relayout_cost_model_accounting():
     assert np.isclose(floor, (2 * u_bytes + d * d * 4) / 3350e9)
 
 
+def test_transposed_resident_replays_an_archived_champion(tmp_path):
+    """The transposed-operand class ``xre,rji,xej->ei`` (the reference's
+    ``xre_rji_xej_to_ei_v0``, an operator stored (r, j, i), a distinct
+    canonical class): tuned into a fresh archive on the CPU in the port's
+    ``dg_div_v0``, both packages' matchers resolve a user function of that
+    layout to the archived champion and replay it (the reference's K1 in
+    interpret mode at one grid step), and agree within 2e-5."""
+    db = str(tmp_path / "rji.sqlite")
+    E, nd = 256, 10
+    e = ft.einsum("xre,rji,xej->ei", ft.array("J", (3, 3, "E"), "float32"),
+                  ft.array("D", (3, nd, nd), "float32"),
+                  ft.array("u", (3, "E", nd), "float32"))
+    space = "dg_div_v0"
+    ft.autotune(e, space, db_path=db, device="cpu", long_dim_length=E,
+                test_limit=2, seed_configs=[
+                    S.space_point(space, e, log2_block=8),
+                    S.space_point(space, e, dofmajor=False, log2_block=8)])
+    assert {q.transform_id for q in ft.query(e, "cpu", db_path=db)} \
+        == {"dg_div_v0.py"}
+    rng = np.random.default_rng(4)
+    arrays = [rng.random((3, 3, E), np.float32),
+              rng.random((3, nd, nd), np.float32),
+              rng.random((3, E, nd), np.float32)]
+    ref2, ours2 = compile_both(
+        lambda J, D, u: jnp.einsum("xre,rji,xej->ei", J, D, u),
+        lambda J, D, u: torch.einsum("xre,rji,xej->ei", J, D, u),
+        arrays, db_path=db, device=ft.FakeDevice("cpu"), long_dim_length=E)
+    ((_, einsum, program),) = ours2.plans
+    ((_, _, ref_program),) = ref2.plans
+    assert program.descriptor.backend == ref_program.descriptor.backend \
+        == "pallas"
+    assert program.descriptor.block_long \
+        == ref_program.descriptor.block_long == 256
+    assert plan_cuda_launch(program, get_index_lengths(
+        einsum, E)).kernel in ("dg_rows_f32", "step_block_f32")
+
+
 def _consumer_archive(tmp_path, E, sizes):
     db = str(tmp_path / "consumer.sqlite")
     for name, e in S.consumer_rows(**sizes):

@@ -1384,6 +1384,8 @@ SB_CASES = {
                                     _sb_a("Q", ("E", 6, 5))), False),
     "gram_ndof120": (ft.einsum("ei,ej->ij", _sb_a("u", ("E", 120)),
                                _sb_a("v", ("E", 120))), False),
+    "gram_ndof165": (ft.einsum("ei,ej->ij", _sb_a("u", ("E", 165)),
+                               _sb_a("v", ("E", 165))), False),
     "demo_b2": (ft.batched_einsum(
         "ij,ejk->eik", [[_sb_a("A", (5, 5)), _sb_a("B", ("E", 5, 5))],
                         [_sb_a("C", (5, 5)), _sb_a("D", ("E", 5, 5))]]),
@@ -1516,6 +1518,40 @@ def test_step_block_free_step_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("E,block_long", [(37, 256), (100_003, 512)])
+def test_step_block_reduce_after_element_step(cuda_device, E, block_long):
+    """``ij,ejk->eik`` then ``eik,ek->i``: a reduce after an element step
+    on the same sub-tiles (through its offset tables); against
+    ``step_block_plain`` and the einsum in float64."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.contraction_schedule import (
+        ContractionSchedule, EinsumOperand, IntermediateResult)
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.step_block import plan_step_block
+    e = ft.einsum("ij,ejk,ek->i", _sb_a("A", (35, 35)),
+                  _sb_a("B", ("E", 35, 20)), _sb_a("w", ("E", 20)))
+    sched = ContractionSchedule(
+        ("ij,ejk->eik", "eik,ek->i"), ("_t", "_fe_out"),
+        ((EinsumOperand(0), EinsumOperand(1)),
+         (IntermediateResult("_t"), EinsumOperand(2))))
+    prog = ft.generate_program(e, schedule=sched).with_descriptor(
+        backend="pallas", hoist_resident_steps=False, block_long=block_long)
+    table = plan_step_block(prog, get_index_lengths(e, E))
+    assert [(s.kind, s.mode) for s in table.steps] == [
+        ("element", "dense"), ("reduce", "general")]
+    logical = ft.measure.generate_input_arrays(e, long_dim_length=E,
+                                               seed=5, device=cuda_device)
+    rows = plan_cuda_launch(prog, get_index_lengths(e, E)).operands(
+        ft.apply_layouts(prog, logical))
+    (got,) = kernels.step_block_f32(rows, table, block_long=block_long)
+    (plain,) = kernels.step_block_plain(rows, table, block_long)
+    assert_close(got.cpu().numpy(), plain.cpu().numpy())
+    want = torch.einsum("ij,ejk,ek->i", *[logical[n].double()
+                                          for n in ("A", "B", "w")])
+    assert_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
 def test_step_block_shared_memory_guard(cuda_device):
     """A resident over a block's shared memory is refused before launch."""
     from feinsum_tpu_torch.codegen.program import get_index_lengths
@@ -1525,6 +1561,129 @@ def test_step_block_shared_memory_guard(cuda_device):
     with pytest.raises(ft.InvalidParameterError, match="shared memory"):
         plan_cuda_launch(ft.generate_program(e).with_descriptor(
             backend="pallas"), get_index_lengths(e, 64))
+
+# }}}
+
+
+# {{{ the grid letter on step_block_f32 and the row families
+
+# (subscripts, shapes, block, grid_index, kernel): the grid-letter cases of
+# tests/test_torch_step_block.py on the card, over several blocks
+SB_GRID_CASES = {
+    "grid_index_other_letter": ("ij,ejk->eik", ((40, 6), ("E", 6, 6)), 16,
+                                "i", "step_block_f32"),
+    "two_size_params": ("ij,ejf->eif", ((6, 6), ("E", 6, "F")), 64, None,
+                        "step_block_f32"),
+    "concrete_4096": ("ij,ejk->eik", ((6, 6), (4096, 6, 6)), 512, None,
+                      "step_block_f32"),
+    "concrete_4096_matvec": ("ej,ij->ei", ((4096, 6), (5, 6)), 512, None,
+                             "dg_rows_f32"),
+    "concrete_64": ("ij,ejk->eik", ((6, 6), (64, 6, 6)), 64, None,
+                    "step_block_f32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SB_GRID_CASES))
+def test_grid_letter_runs_on_card(cuda_device, name):
+    """A program gridded over another letter than its long one, over one of
+    two long letters, over a concrete letter, or without a grid runs on its
+    kernel against the plain version and the einsum in float64."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    subs, shapes, block, grid, kernel = SB_GRID_CASES[name]
+    e = ft.einsum(subs, *[_sb_a(n, s) for n, s in zip("AB", shapes)])
+    prog = ft.generate_program(e).with_descriptor(
+        backend="pallas", block_long=block, grid_index=grid)
+    plan = plan_cuda_launch(prog, get_index_lengths(e, 300))
+    assert plan.kernel == kernel
+    logical = ft.measure.generate_input_arrays(e, long_dim_length=300,
+                                               seed=33, device=cuda_device)
+    rows = plan.operands(ft.apply_layouts(prog, logical))
+    before = kernels.launch_counts[kernel]
+    (got,) = plan.run(rows)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[kernel] == before + 1
+    (want,) = plan.plain(rows)
+    assert_close(got.cpu().numpy(), want.cpu().numpy())
+    assert_close(got.cpu().numpy(), torch.einsum(subs, *[
+        logical[a.name].double() for a in e.args[0]]).cpu().numpy())
+
+# }}}
+
+
+# {{{ wide-resident matvecs on probe_apply
+
+# (space, einsum, lane_pack_g): packed matvecs and a vecmat whose kron
+# resident exceeds dg_rows_f32's shared memory (g·d = 640 and 560), a
+# tc_gemm_v0 row whose resident factor does
+WIDE_CASES = {
+    "matvec20_g32": (lambda: S.make_matvec(20), 5),
+    "vecmat35_g16": (lambda: ft.einsum(
+        "ej,j->e", ft.array("A", ("E", 35), "float32"),
+        ft.array("x", (35,), "float32")), 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision_3x", [False, True])
+@pytest.mark.parametrize("dofmajor", [False, True])
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_wide_resident_runs_on_probe_apply(cuda_device, name, dofmajor,
+                                           precision_3x):
+    """A packed matvec whose kron resident exceeds ``dg_rows_f32``'s shared
+    memory runs on ``probe_apply_f32`` (``probe_apply_3xtf32`` at
+    ``bf16_3x``), against its plain version, in both stored layouts."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths, \
+        stored_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, \
+        generate_input_arrays
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.lane_pack import expand_residents
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+
+    make, lg = WIDE_CASES[name]
+    e = make()
+    prog = get_transform_func_from_module_path("mass_v0").bind_args(
+        e, **S.space_point("mass_v0", e, lane_pack_g=lg, dofmajor=dofmajor,
+                           precision_3x=precision_3x))(ft.generate_program(e))
+    E = 2 ** lg * 1001
+    plan = plan_cuda_launch(prog, stored_lengths(
+        prog, get_index_lengths(prog.einsum, E)))
+    kernel = "probe_apply_3xtf32" if precision_3x else "probe_apply_f32"
+    assert plan.kernel == kernel
+    arrays = generate_input_arrays(e, long_dim_length=E, seed=34,
+                                   device="cpu")
+    rows = plan.operands(expand_residents(prog, {
+        k: v.to(cuda_device) for k, v in apply_layouts(prog,
+                                                        arrays).items()}))
+    before = kernels.launch_counts[kernel]
+    got = plan.run(rows)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[kernel] == before + 1
+    for g_, w in zip(got, plan.plain(rows)):
+        assert g_.shape == w.shape
+        assert_close(g_.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+def test_tc_gemm_wide_resident_on_probe_apply(cuda_device):
+    """A ``tc_gemm_v0`` row whose (300, 400) resident factor exceeds
+    ``dg_rows_f32``'s shared memory validates on ``probe_apply_f32``."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths, \
+        stored_lengths
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
+    e = ft.einsum("ik,kj->ij", ft.array("A", (4096, 400), "float32"),
+                  ft.array("B", (400, 300), "float32"))
+    tr = get_transform_func_from_module_path("tc_gemm_v0").bind_args(
+        e, log2_block=8, backend_pallas=True, precision_idx=0, swap=False)
+    prog = tr(ft.generate_program(e))
+    assert plan_cuda_launch(prog, stored_lengths(prog, get_index_lengths(
+        prog.einsum, 1))).kernel == "probe_apply_f32"
+    before = kernels.launch_counts["probe_apply_f32"]
+    ft.validate_batched_einsum_transform(e, tr, device=cuda_device)
+    assert kernels.launch_counts["probe_apply_f32"] > before
 
 # }}}
 

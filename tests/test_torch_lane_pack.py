@@ -7,15 +7,19 @@ inputs agree within 2e-5 of max|ref|, the reference's K1 in Pallas
 interpret mode at one grid step (``block_long`` >= E/g; ROADMAP fault F3),
 the port's packed programs on the kernels' plain versions
 (``lane_pack_dg_plain``, ``dg_rows_plain``).  Where the port refuses a
-point the reference builds, it says why: ``fold`` (no Hopper meaning) or a
-Hopper block's shared memory (a packed matvec over g·d = 640 or 560);
-the rewrite is then held to the reference's through the plain route.
-Also: the guards (alignment, the 4096 cap, the packed scale lanes, a long
+point the reference builds, it says why: ``fold`` or ``mfold`` (no Hopper
+meaning).  A packed matvec whose kron resident exceeds ``dg_rows_f32``'s
+shared memory (g·d = 640 or 560) runs on ``probe_apply_f32``.  Every
+shipped TPU lane-pack fact but those rulings builds and matches the
+reference's output.  Also: the guards (alignment, the 4096 cap, the packed scale lanes, a long
 axis g does not divide), the refused schedule knobs, the ``unpack_output``
 round trip, ``lane_pack_dg_plain`` against the logical einsum, and the
 relayout price of a packed program."""
 
 from __future__ import annotations
+
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,6 +34,7 @@ from feinsum_tpu.measure import (
 from feinsum_tpu.tuning import get_transform_func_from_module_path as ref_space
 from feinsum_tpu.tuning.impls import _common as ref_common
 from feinsum_tpu_torch import apply as apply_mod
+from feinsum_tpu_torch import sql_utils
 from feinsum_tpu_torch.codegen.program import get_index_lengths, \
     stored_lengths
 from feinsum_tpu_torch.interop import arrays_from_numpy, \
@@ -43,6 +48,9 @@ from feinsum_tpu_torch.tuning.impls import _common
 
 SEED = 11
 RTOL = 2e-5
+SHIPPED = (Path(__file__).resolve().parents[1] / "feinsum_tpu" / "data"
+           / "transform_archive_v1_tpu.sqlite")
+TPU = "TPU v5 lite"
 
 
 def matvec(ndof=20):
@@ -182,40 +190,19 @@ MATVEC_CASES = {
 def test_matvec_rewrite_matches_reference(case):
     """The packed matvec, rectangular, transposed and vecmat residents:
     the reference's program and outputs on ``dg_rows_f32``'s route; a
-    packed resident over a Hopper block's shared memory (g·d = 640 at g =
-    32, 560 for the vecmat at g = 16) is refused on the fused route, and
-    the rewrite is held to the reference's on the plain route."""
+    packed resident over a Hopper block's shared memory of that kernel
+    (g·d = 640 at g = 32, 560 for the vecmat at g = 16) goes to
+    ``probe_apply_f32``, whose ring streams R, with the reference's program
+    and outputs all the same."""
     make, knobs = MATVEC_CASES[case]
     e = make()
     params = dict(log2_block=10, parallel_grid=True, **knobs)
     E = 2048
-    try:
-        _check_against_reference("mass_v0", e, params, E,
-                                 kernel="dg_rows_f32")
-        assert case not in ("matvec_g32", "matvec_g32_dofmajor",
-                            "vecmat_g16_dofmajor")
-        return
-    except ft.InvalidParameterError as err:
-        assert "shared memory" in str(err), err
-        assert case in ("matvec_g32", "matvec_g32_dofmajor",
-                        "vecmat_g16_dofmajor")
-    g = 2 ** knobs["lane_pack_g"]
-    r = to_reference(e)
-    want, want_extras = ref_common.rewrite_lane_pack(fr.generate_program(r),
-                                                     g)
-    got, extras = _common.rewrite_lane_pack(ft.generate_program(e), g)
-    assert got.einsum == program_from_reference(want).einsum
-    assert got.schedule == program_from_reference(want).schedule
-    assert extras == want_extras
-    plain = got.with_descriptor(**extras)
-    logical = generate_input_arrays(e, long_dim_length=E, seed=SEED,
-                                    as_numpy=True)
-    (out,) = ft.build_executable(plain, long_dim_length=E, device="cpu")(
-        arrays_from_numpy(apply_layouts(plain, logical), "cpu"))
-    assert_close(ft.unpack_output(plain, out, _logical_out(e, E)).numpy(),
-                 np.einsum(e.get_subscripts().replace(" ", ""),
-                           *[logical[a.name].astype(np.float64)
-                             for a in e.args[0]]))
+    wide = case in ("matvec_g32", "matvec_g32_dofmajor",
+                    "vecmat_g16_dofmajor")
+    _check_against_reference(
+        "mass_v0", e, params, E,
+        kernel="probe_apply_f32" if wide else "dg_rows_f32")
 
 
 def test_lane_pack_gates_by_class():
@@ -504,3 +491,79 @@ def test_lane_packing_costs_nothing_in_the_relayout_price():
     assert secs(dofmajor=True) > 0
     assert np.isclose(secs(dofmajor=True, lane_pack_g=3),
                       secs(dofmajor=True))
+
+
+# {{{ every shipped lane-pack fact
+
+def shipped_facts_of(tmp_path, keep) -> list:
+    """``(canonical einsum, fact)`` of the shipped archive (a copy) for the
+    TPU whose fact passes *keep*."""
+    db = tmp_path / "archive.sqlite"
+    shutil.copy(SHIPPED, db)
+    return [(e, q) for e in sql_utils.get_timed_einsums_in_db(db_path=str(db))
+            for q in sql_utils.query(e, ft.FakeDevice(TPU), db_path=str(db),
+                                     err_if_no_results=False)
+            if keep(q)]
+
+
+def run_fact_in_both(e, q, length: int, ref_block: int = 0) -> tuple:
+    """The fact *q* bound on the canonical einsum *e* in both packages, on
+    the same seeded inputs: ``(port outputs, reference outputs, port
+    program)``.  The reference runs its K1 in interpret mode at one grid
+    step (its block raised to *ref_block* where given, ROADMAP fault F3)."""
+    params = dict(q.transform_params)
+    space = q.transform_id.removesuffix(".py")
+    r = to_reference(e)
+    prog = get_transform_func_from_module_path(space).bind_args(
+        e, **params)(ft.generate_program(e))
+    gots = ft.build_executable(prog, long_dim_length=length, device="cpu")(
+        arrays_from_numpy(apply_layouts(prog, generate_input_arrays(
+            e, long_dim_length=length, seed=SEED, as_numpy=True)), "cpu"))
+    try:
+        ref_prog = ref_space(space).bind_args(r, **params)(
+            fr.generate_program(r))
+    except fr.InvalidParameterError as err:
+        # the reference's VMEM guard (a TPU limit) refuses the point at its
+        # block: the JAX package's plain program on the same inputs, and
+        # the port's outputs unpacked to the logical layout
+        assert "VMEM" in str(err), err
+        ref_prog = fr.generate_program(r)
+        gots = [ft.unpack_output(prog, g, _logical_out(e, length))
+                for g in gots]
+    if ref_block:
+        ref_prog = ref_prog.copy(descriptor=ref_prog.descriptor.copy(
+            block_long=ref_block))
+    ref_stored = ref_apply_layouts(ref_prog, ref_generate_input_arrays(
+        r, long_dim_length=length, seed=SEED, as_numpy=True))
+    wants = fr.build_executable(ref_prog, long_dim_length=length)(ref_stored)
+    return ([g.numpy() for g in gots], [np.asarray(w) for w in wants], prog)
+
+
+@pytest.mark.parametrize("space_id,count", [
+    ("dg_div_v0.py", 21), ("dg_grad_v0.py", 14), ("face_mass_v0.py", 2),
+    ("mass_v0.py", 58)])
+def test_shipped_lane_pack_facts_match_reference(tmp_path, space_id, count):
+    """Every shipped lane-pack fact but the ``fold``/``mfold`` rulings (9
+    of 104) builds and matches the JAX package's output on the CPU; the 25
+    packed matvecs and vecmats whose kron resident exceeds ``dg_rows_f32``'s
+    shared memory (which used to raise) plan onto ``probe_apply``."""
+    facts = shipped_facts_of(tmp_path, lambda q: q.transform_id == space_id
+                             and dict(q.transform_params).get("lane_pack_g"))
+    n = n_wide = 0
+    for e, q in facts:
+        params = dict(q.transform_params)
+        if params.get("fold") or params.get("mfold"):
+            with pytest.raises(ft.InvalidParameterError, match="fold"):
+                q.transform(ft.generate_program(e))
+            continue
+        gots, wants, prog = run_fact_in_both(e, q, 64)
+        for got, want in zip(gots, wants):
+            assert_close(got, want)
+        kernel = plan_cuda_launch(prog, stored_lengths(
+            prog, get_index_lengths(prog.einsum, 64))).kernel
+        n_wide += kernel.startswith("probe_apply")
+        n += 1
+    assert n == count
+    assert n_wide == (25 if space_id == "mass_v0.py" else 0)
+
+# }}}

@@ -41,8 +41,8 @@ from feinsum_tpu_torch.interop import arrays_from_numpy, \
     program_from_reference
 from feinsum_tpu_torch.measure import apply_layouts, generate_input_arrays
 from feinsum_tpu_torch.ops import kernels
-from feinsum_tpu_torch.ops.cuda_emitter import hoist_resident_steps, \
-    plan_cuda_launch, row_family
+from feinsum_tpu_torch.ops.cuda_emitter import grid_letter, \
+    hoist_resident_steps, plan_cuda_launch, row_family
 from feinsum_tpu_torch.ops.step_block import plan_step_block
 from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
 from feinsum_tpu_torch.tuning.impls import _common
@@ -78,6 +78,10 @@ CASES = {
                                     _a("Q", ("E", 6, 5))), False),
     "gram_ndof70x66": (ft.einsum("ei,ej->ij", _a("u", ("E", 70)),
                                  _a("v", ("E", 66))), False),
+    # more register tiles than a block has threads (21 x 21 tiles of 8 x
+    # 8): the kernel takes them in rounds
+    "gram_ndof165": (ft.einsum("ei,ej->ij", _a("u", ("E", 165)),
+                               _a("v", ("E", 165))), False),
     # (d) b = 2: both rows in one launch, with their own operands
     "demo_b2": (ft.batched_einsum(
         "ij,ejk->eik", [[_a("A", (5, 5)), _a("B", ("E", 5, 5))],
@@ -108,14 +112,14 @@ def port_program(e, hoist: bool, dofmajor: bool = False,
         dofmajor=dofmajor, parallel_grid=False)
 
 
-def run_both(ref_prog, seed=0):
+def run_both(ref_prog, seed=0, length=E):
     stored = ref_apply_layouts(ref_prog, ref_generate_input_arrays(
-        ref_prog.einsum, long_dim_length=E, seed=seed, as_numpy=True))
-    ref_fn = fr.build_executable(ref_prog, long_dim_length=E)
+        ref_prog.einsum, long_dim_length=length, seed=seed, as_numpy=True))
+    ref_fn = fr.build_executable(ref_prog, long_dim_length=length)
     ref_outs = [np.asarray(o) for o in ref_fn(
         {k: np.asarray(v) for k, v in stored.items()})]
     fn = ft.build_executable(program_from_reference(ref_prog),
-                             long_dim_length=E, device="cpu")
+                             long_dim_length=length, device="cpu")
     outs = [o.numpy() for o in fn(arrays_from_numpy(stored, "cpu"))]
     return ref_outs, outs
 
@@ -132,11 +136,16 @@ def emulate(rows, table, block_long: int) -> list:
     """``step_block_f32`` as ``csrc/step_block.cu`` computes it, in float64
     on the CPU: the tables, step descriptions and staging offsets the
     wrapper hands the kernel, the residents copied flat into a shared-memory
-    array, each step over the sub-tiles of each block, a contracted long
-    axis summed per block and then across blocks."""
+    array and the streamed inputs' sub-tiles into their two buffers, each
+    step over the sub-tiles of each block (a dense step through its M, N,
+    K and batch tables, a general one through its entry tables), a
+    contracted long axis summed into per-block partial sums (a dense
+    reduce's by the kernel's register tiles, every tile of every round)
+    and then across blocks."""
     el = table.el
-    s0 = next(s for s, letters in enumerate(table.inputs) if el in letters)
-    E_ = rows[0][s0].shape[table.inputs[s0].index(el)]
+    s0 = next((s for s, letters in enumerate(table.inputs) if el in letters),
+              None)
+    E_ = 1 if s0 is None else rows[0][s0].shape[table.inputs[s0].index(el)]
     last = table.steps[-1]
     perm = [table.stored_out.index(ix) for ix in last.out]
     outs = []
@@ -147,8 +156,9 @@ def emulate(rows, table, block_long: int) -> list:
         view = out.permute(tuple(perm))
         in_strides = tuple(tuple(t.stride()) for t in row)
         mode = kernels.step_block_mode(table, in_strides, view.stride())
-        tabs, steps_i, steps_t = kernels.step_block_tables(
-            table, in_strides, tuple(view.stride()), mode)
+        tabs, steps_i, steps_t, stage_i, stage_t = \
+            kernels.step_block_tables(table, in_strides, tuple(view.stride()),
+                                      mode)
         flat = []
         for t in row:
             span = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
@@ -160,64 +170,137 @@ def emulate(rows, table, block_long: int) -> list:
         out_flat = out.view(-1).numpy()
         out_es = kernels._sb_strides(last.out, view.stride(), el)[1]
         smem = np.zeros(max(1, table.smem_floats))
-        for s, letters in enumerate(table.inputs):
-            if table.stage[s] >= 0:
-                n = int(np.prod([table.length[ix] for ix in letters]))
-                smem[table.stage[s]:table.stage[s] + n] = flat[s][:n]
-        total = None
+        for s, (res, res_n, *_rest) in enumerate(stage_i[:-1]):
+            if res >= 0:
+                smem[res:res + res_n] = flat[s][:res_n]
 
-        def run(k, e0, n):
-            kind, nops, n_out, n_sum = steps_i[k][:4]
-            src, dst, des = steps_i[k][4:4 + nops], steps_i[k][8], \
-                steps_i[k][9]
-            t_out, t_sum = steps_t[k][:5], steps_t[k][5:]
-            affine = steps_i[k][11]
+        def tab(off, n):
+            return tabs[off:off + n]
+
+        def sub_tile(s, n):
+            """(entries' offsets in the tensor, shared-memory index of each
+            (entry, element)) of row *s* of stage_i for n elements."""
+            _res, _rn, buf, _bn, ns, pitch, efast, gaff = stage_i[s]
+            le, x = np.arange(n), np.arange(ns)
+            go = x * stage_t[s] if gaff else tab(stage_t[s], ns)
+            idx = (x[:, None] * pitch + le[None, :] if efast
+                   else le[None, :] * pitch + x[:, None])
+            return go, idx
+
+        def stage_copy(e0, n, parity):
             le = np.arange(n)
+            for s in range(len(stage_i) - 1):
+                buf, buf_n = stage_i[s][2:4]
+                if buf < 0:
+                    continue
+                go, idx = sub_tile(s, n)
+                smem[buf + parity * buf_n + idx] = flat[s][
+                    (e0 + le)[None, :] * es[s] + go[:, None]]
+
+        def copy_out(e0, n):
+            le = np.arange(n)
+            go, idx = sub_tile(len(stage_i) - 1, n)
+            out_flat[(e0 + le)[None, :] * out_es + go[:, None]] = smem[
+                stage_i[-1][2] + idx]
+
+        def operand(src, e0, parity):
+            if src >= 0:
+                res, _n, buf, buf_n, _ns, pitch, efast, _g = stage_i[src]
+                if res >= 0:
+                    return smem, res, 0
+                if buf >= 0:
+                    return smem, buf + parity * buf_n, 1 if efast else pitch
+                return flat[src], e0 * es[src], es[src]
+            pk = steps_i[-1 - src]
+            return smem, pk[8], pk[9] if pk[0] == 1 else 0
+
+        def run(k, e0, n, parity):
+            si, tt = steps_i[k], steps_t[k]
+            kind, nops, n_out, n_sum = si[:4]
+            src, dst, des, groups, affine, dense = (si[4:4 + nops], si[8],
+                                                    si[9], si[10], si[11],
+                                                    si[12])
+            nM, nN, nK, nB = si[17:21]
+            if kind == 2:
+                dmem, dbase, des = red, 0, 0
+            elif dst >= 0:
+                dmem, dbase, des = smem, dst, des if kind == 1 else 0
+            elif kind == 1 and stage_i[-1][2] >= 0:
+                _r, _rn, buf, _bn, _ns, pitch, efast, _g = stage_i[-1]
+                dmem, dbase, des = smem, buf, 1 if efast else pitch
+            else:
+                dmem, dbase, des = out_flat, e0 * out_es, out_es
+            le = np.arange(n)
+            if dense:
+                (ma, ba, ea), (mb, bb, eb) = (operand(x, e0, parity)
+                                              for x in src)
+                Am, Ak, Ab, Bn, Bk, Bb, Dm, Dn, Db = (
+                    np.arange(m) * tt[9 + q] if affine and q in (1, 4)
+                    else tab(tt[9 + q], m) for q, m in enumerate(
+                        (nM, nK, nB, nN, nK, nB, nM, nN, nB)))
+                av = ma[ba + le[:, None, None, None] * ea
+                        + Ab[None, :, None, None] + Am[None, None, :, None]
+                        + Ak[None, None, None, :]]
+                bv = mb[bb + le[:, None, None, None] * eb
+                        + Bb[None, :, None, None] + Bn[None, None, :, None]
+                        + Bk[None, None, None, :]]
+                val = np.einsum("xbmk,xbnk->xbmn", av, bv)
+                if kind == 2:
+                    # the kernel's units (tile, group), in rounds of
+                    # SB_THREADS: tile (tm, tn) holds the entries m = tm +
+                    # tM * r, n = tn + tN * c of the result
+                    rm, rn, tM, tN = si[15], si[16], si[21], si[22]
+                    for u in range(tM * tN * groups):
+                        tile, g = u % (tM * tN), u // (tM * tN)
+                        ms = (tile % tM + tM * np.arange(rm))
+                        ns = (tile // tM + tN * np.arange(rn))
+                        ms, ns = ms[ms < nM], ns[ns < nN]
+                        part = val[le % groups == g].sum(0)[0]
+                        dmem[dbase + g * n_out + Dm[ms][:, None]
+                             + Dn[ns][None, :]] += part[np.ix_(ms, ns)]
+                    return
+                dmem[dbase + le[:, None, None, None] * des
+                     + Db[None, :, None, None] + Dm[None, None, :, None]
+                     + Dn[None, None, None, :]] = val
+                return
             prodv = np.ones((n_out, n, n_sum))
             for q in range(nops):
-                o_tab = tabs[t_out[q]:t_out[q] + n_out]
-                c_tab = (np.arange(n_sum) * t_sum[q] if affine
-                         else tabs[t_sum[q]:t_sum[q] + n_sum])
-                if src[q] >= 0 and table.stage[src[q]] < 0:
-                    mem, base, e_st = flat[src[q]], e0 * es[src[q]], \
-                        es[src[q]]
-                elif src[q] >= 0:
-                    mem, base, e_st = smem, table.stage[src[q]], 0
-                else:
-                    pk = steps_i[-1 - src[q]]
-                    mem, base = smem, pk[8]
-                    e_st = pk[9] if pk[0] == 1 else 0
-                idx = (base + le[None, :, None] * e_st
-                       + o_tab[:, None, None] + c_tab[None, None, :])
-                prodv = prodv * mem[idx]
+                o_tab = tab(tt[q], n_out)
+                c_tab = (np.arange(n_sum) * tt[5 + q] if affine
+                         else tab(tt[5 + q], n_sum))
+                mem, base, e_st = operand(src[q], e0, parity)
+                prodv = prodv * mem[base + le[None, :, None] * e_st
+                                    + o_tab[:, None, None]
+                                    + c_tab[None, None, :]]
             val = prodv.sum(2)
             if kind == 2:
-                return val.sum(1)
-            d_tab = tabs[t_out[nops]:t_out[nops] + n_out]
-            if dst >= 0:
-                smem[dst + le[None, :] * (des if kind == 1 else 0)
-                     + d_tab[:, None]] = val
-            else:
-                out_flat[(e0 + le[None, :]) * out_es + d_tab[:, None]] = val
-            return None
+                dmem[dbase + np.arange(n_out)] += val.sum(1)
+                return
+            dmem[dbase + le[None, :] * des + tab(tt[nops], n_out)[:, None]] \
+                = val
 
+        total = None
+        si_last = steps_i[-1]
+        red = np.zeros(si_last[2] * si_last[10])
         for b0 in range(0, E_, block_long):
+            red[:] = 0
             for k, st in enumerate(table.steps):
                 if st.kind == "free":
-                    run(k, 0, 1)
-            part = 0.0
-            for e0 in range(b0, min(E_, b0 + block_long), table.te):
-                n = min(table.te, min(E_, b0 + block_long) - e0)
+                    run(k, 0, 1, 0)
+            e_end = min(E_, b0 + block_long)
+            for sub, e0 in enumerate(range(b0, e_end, table.te)):
+                n = min(table.te, e_end - e0)
+                stage_copy(e0, n, sub % 2)
                 for k, st in enumerate(table.steps):
                     if st.kind != "free":
-                        r = run(k, e0, n)
-                        if r is not None:
-                            part = part + r
+                        run(k, e0, n, sub % 2)
+                if stage_i[-1][2] >= 0:
+                    copy_out(e0, n)
             if last.kind == "reduce":
+                part = red.reshape(si_last[10], -1).sum(0)
                 total = part if total is None else total + part
         if last.kind == "reduce":
-            d = steps_t[-1][steps_i[-1][1]]
-            out_flat[tabs[d:d + steps_i[-1][2]]] = total
+            out_flat[tab(steps_t[-1][si_last[1]], si_last[2])] = total
         outs.append(out)
     return outs
 
@@ -365,10 +448,20 @@ def test_demo_space_validates_and_tunes_on_the_cpu(tmp_path):
                                    *[arrays[a.name].double()
                                      for a in c.args[0]]))
     assert kernels.launch_counts["step_block_f32"] == 0
-    # on another spelling the bound grid_index is not the long axis
-    with pytest.raises(ft.InvalidParameterError, match="grid_index"):
-        ft.build_executable(tr(ft.generate_program(e)),
-                            long_dim_length=300, device="cpu")
+    # on another spelling the bound grid_index names another letter (the
+    # canonical long letter is i there): both packages grid over it, and
+    # the port's output is the reference's (one grid step, i is 6 long)
+    other = tr(ft.generate_program(e))
+    assert other.descriptor.grid_index == "i"
+    assert plan_cuda_launch(other, get_index_lengths(
+        e, 300)).kernel == "step_block_f32"
+    log2_block = other.descriptor.block_long.bit_length() - 1
+    ref_prog = ref_space("demo_transform_space").bind_args(
+        to_reference(c), log2_block=log2_block)(
+            fr.generate_program(to_reference(e)))
+    assert program_from_reference(ref_prog) == other
+    (want,), (got,) = run_both(ref_prog, seed=3, length=300)
+    assert_close(got, want)
 
 
 def test_demo_validates_at_full_width_in_both_packages():
@@ -382,6 +475,146 @@ def test_demo_validates_at_full_width_in_both_packages():
     fr.validate_batched_einsum_transform(
         r, ref_space("demo_transform_space").bind_args(r, log2_block=8),
         long_dim_length=200)
+
+
+# {{{ the grid letter
+
+def _grid_case(subs, shapes, block_long, grid_index=None):
+    """The JAX package's fused program of *subs* at one grid step (its
+    block at least the grid letter's length), and the port's."""
+    e = ft.einsum(subs, *[_a(n, s) for n, s in zip("ABC", shapes)])
+    r = to_reference(e)
+    ref_prog = fr.generate_program(r).with_descriptor(
+        backend="pallas", block_long=block_long, grid_index=grid_index)
+    return e, ref_prog
+
+
+# the reference's grid choice (pallas_emitter.py::_pick_grid_index): a
+# grid_index on another letter than the long one, two SizeParam letters
+# (an output one preferred), a concrete einsum gridded over its longest
+# output letter (2048) and one run without a grid (64); (einsum, shapes,
+# block, grid_index, grid letter, kernel)
+GRID_CASES = {
+    "grid_index_other_letter": ("ij,ejk->eik", ((6, 6), ("E", 6, 6)), 64,
+                                "i", "i", "step_block_f32"),
+    "two_size_params": ("ij,ejf->eif", ((6, 6), ("E", 6, "F")), E, None, "e",
+                        "step_block_f32"),
+    "concrete_2048": ("ij,ejk->eik", ((6, 6), (2048, 6, 6)), 2048, None, "e",
+                      "step_block_f32"),
+    "concrete_2048_matvec": ("ej,ij->ei", ((2048, 6), (5, 6)), 2048, None,
+                             "e", "dg_rows_f32"),
+    "concrete_64": ("ij,ejk->eik", ((6, 6), (64, 6, 6)), 64, None, None,
+                    "step_block_f32"),
+    "concrete_64_matvec": ("ej,ij->ei", ((64, 6), (5, 6)), 64, None, None,
+                           "step_block_f32"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRID_CASES))
+def test_grid_letter_matches_reference_k1(name):
+    """Each grid-letter case (the fused route used to refuse all of them)
+    plans on the reference's grid letter, onto ``step_block_f32`` or a row
+    family, and matches the JAX package's K1 in interpret mode at one grid
+    step within 2e-5 of max|ref|."""
+    subs, shapes, block, grid_index, letter, kernel = GRID_CASES[name]
+    e, ref_prog = _grid_case(subs, shapes, block, grid_index)
+    prog = program_from_reference(ref_prog)
+    lengths = get_index_lengths(e, E)
+    assert grid_letter(prog, lengths) == letter
+    assert plan_cuda_launch(prog, lengths).kernel == kernel
+    if kernel == "step_block_f32":
+        table = plan_step_block(prog, lengths)
+        assert table.el == letter
+        if letter is None:
+            assert {s.kind for s in table.steps} == {"free"}
+    ref_outs, outs = run_both(ref_prog, seed=5)
+    for got, ref in zip(outs, ref_outs):
+        assert_close(got, ref)
+
+
+def test_grid_letter_tables_match_the_einsum():
+    """The kernel's tables (:func:`emulate`) on a grid over another letter
+    than the long one, over several blocks of it, and without a grid."""
+    for subs, shapes, block, grid_index in (
+            ("ij,ejk->eik", ((12, 6), ("E", 6, 6)), 4, "i"),
+            ("ij,ejk->eik", ((6, 6), (40, 6, 6)), 64, None)):
+        e, ref_prog = _grid_case(subs, shapes, block, grid_index)
+        prog = program_from_reference(ref_prog)
+        lengths = get_index_lengths(e, 30)
+        plan = plan_cuda_launch(prog, lengths)
+        logical = generate_input_arrays(e, long_dim_length=30, seed=6,
+                                        device="cpu")
+        rows = plan.operands(apply_layouts(prog, logical))
+        table = plan_step_block(prog, lengths)
+        want = torch.einsum(subs, *[logical[a.name].double()
+                                    for a in e.args[0]])
+        (emu,) = emulate(rows, table, block)
+        (got,) = plan.plain(rows)
+        assert_close(emu, want, rtol=1e-12)
+        assert_close(got, want)
+
+# }}}
+
+
+# {{{ the thread tilings
+
+def _planned(e, hoist):
+    prog = port_program(e, hoist, dofmajor=True, block_long=512)
+    kp = hoist_resident_steps(prog)[0]
+    return prog, plan_step_block(kp, get_index_lengths(kp.einsum, 1000))
+
+
+def test_dense_steps_plan_register_tiles():
+    """The demo, each sum-factorization step and the Gram matrix plan as
+    dense products with register tiles of at least 4 x 4 where M and N
+    allow (the Gram matrix's reduce step splits K = e); the one-step sum
+    factorization plans 5 entries per thread along i, which only Ax
+    carries; ``step_block_plain`` of each matches the einsum in float64."""
+    demo = ft.einsum("ij,ejk->eik", _a("A", (35, 35)), _a("B", ("E", 35, 35)))
+    gram = ft.einsum("ei,ej->ij", _a("u", ("E", 120)), _a("v", ("E", 120)))
+    sumfact, _ = CASES["sumfact_q4"]
+    _, t = _planned(demo, False)
+    (st,) = t.steps
+    assert (st.kind, st.mode, st.split) == (
+        "element", "dense", (("i",), ("k",), ("j",), ()))
+    assert min(st.tile) >= 4
+    _, t = _planned(gram, False)
+    (st,) = t.steps
+    assert (st.kind, st.mode, st.tile, st.split) == (
+        "reduce", "dense", (8, 8), (("i",), ("j",), (), ()))
+    _, t = _planned(sumfact, True)
+    assert [(st.mode, st.split[2], st.split[1]) for st in t.steps] == [
+        ("dense", ("a",), ("i",)), ("dense", ("b",), ("j",)),
+        ("dense", ("c",), ("k",))]
+    assert all(min(st.tile) >= 4 for st in t.steps)
+    _, t = _planned(sumfact, False)
+    (st,) = t.steps
+    assert (st.mode, st.tile, st.tile_letter) == ("general", (5,), "i")
+    for e, hoist in ((demo, False), (gram, False), (sumfact, True),
+                     (sumfact, False)):
+        prog, table = _planned(e, hoist)
+        plan = plan_cuda_launch(prog, get_index_lengths(e, 40))
+        logical = generate_input_arrays(e, long_dim_length=40, seed=7,
+                                        device="cpu")
+        (got,) = plan.plain(plan.operands(apply_layouts(prog, logical)))
+        want = torch.einsum(e.get_subscripts().replace(" ", ""),
+                            *[logical[a.name].double() for a in e.args[0]])
+        if prog.descriptor.out_layout is not None:
+            want = want.permute(*prog.descriptor.out_layout)
+        assert_close(got, want)
+
+
+def test_sub_tile_fits_shared_memory():
+    """The planner sizes the sub-tile so that the residents, the streamed
+    inputs' two buffers and the steps' results fit a Hopper block, and
+    stages every streamed input."""
+    for name, (e, hoist) in sorted(CASES.items()):
+        _, t = _planned(e, hoist)
+        assert 1 <= t.te <= 256 and t.smem_bytes <= kernels.MAX_SMEM_BYTES
+        assert all((x >= 0) == (t.el in letters)
+                   for x, letters in zip(t.sin, t.inputs)), name
+
+# }}}
 
 
 # {{{ refusals
@@ -474,6 +707,44 @@ def test_free_steps_run_once_per_block():
     assert len(host) == 1 and kp.schedule.nsteps == 1
     ft.validate_batched_einsum_transform(e, lambda p: hoisted,
                                          long_dim_length=40)
+
+
+def element_then_reduce(n: int, m: int, block_long: int):
+    """``ij,ejk,ek->i`` in two steps, ``ij,ejk->eik`` (a dense element
+    step) then ``eik,ek->i`` (a reduce over e and k), at widths *n*,
+    *m*."""
+    e = ft.einsum("ij,ejk,ek->i", _a("A", (n, n)), _a("B", ("E", n, m)),
+                  _a("w", ("E", m)))
+    sched = ContractionSchedule(
+        ("ij,ejk->eik", "eik,ek->i"), ("_t", "_fe_out"),
+        ((EinsumOperand(0), EinsumOperand(1)),
+         (IntermediateResult("_t"), EinsumOperand(2))))
+    return e, ft.generate_program(e, schedule=sched).with_descriptor(
+        backend="pallas", hoist_resident_steps=False, block_long=block_long)
+
+
+def test_reduce_after_an_element_step_is_general():
+    """A reduce that is not the only step on the elements runs through
+    its offset tables (the kernel keeps a dense reduce's register tiles
+    across a block's sub-tiles, which needs the elements to itself), over
+    several blocks with a ragged tail; ``step_block_plain`` and the
+    kernel's tables (:func:`emulate`) against the einsum in float64."""
+    e, prog = element_then_reduce(6, 5, 16)
+    length = 101
+    table = plan_step_block(prog, get_index_lengths(e, length))
+    assert [(s.kind, s.mode) for s in table.steps] == [
+        ("element", "dense"), ("reduce", "general")]
+    plan = plan_cuda_launch(prog, get_index_lengths(e, length))
+    assert plan.kernel == "step_block_f32"
+    logical = generate_input_arrays(e, long_dim_length=length, seed=9,
+                                    device="cpu")
+    rows = plan.operands(apply_layouts(prog, logical))
+    want = torch.einsum("ij,ejk,ek->i", *[logical[n].double()
+                                          for n in ("A", "B", "w")])
+    (got,) = plan.plain(rows)
+    assert_close(got, want)
+    (emu,) = emulate(rows, table, 16)
+    assert_close(emu, want, rtol=1e-12)
 
 
 def test_guard_smem_refuses_step_block_points():

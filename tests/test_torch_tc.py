@@ -20,17 +20,21 @@ import torch
 
 import feinsum_tpu as fr
 import feinsum_tpu_torch as ft
+from feinsum_tpu.codegen.program import \
+    generate_program_with_opt_einsum_schedule as ref_opt_program
 from feinsum_tpu.measure import (
     apply_layouts as ref_apply_layouts,
     generate_input_arrays as ref_generate_input_arrays,
 )
 from feinsum_tpu.ops.layouts import (
     apply_nested_layout as ref_apply_nested_layout,
+    dofmajor_layouts as ref_dofmajor_layouts,
     unpack_output as ref_unpack_output,
 )
 from feinsum_tpu.tuning import get_transform_func_from_module_path as ref_space
 from feinsum_tpu_torch import sql_utils, suite as S, utils
-from feinsum_tpu_torch.codegen.program import get_index_lengths
+from feinsum_tpu_torch.codegen.program import get_index_lengths, \
+    stored_lengths
 from feinsum_tpu_torch.interop import (
     arrays_from_numpy,
     einsum_from_reference,
@@ -38,6 +42,7 @@ from feinsum_tpu_torch.interop import (
 )
 from feinsum_tpu_torch.measure import apply_layouts, generate_input_arrays
 from feinsum_tpu_torch.ops import kernels
+from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
 from feinsum_tpu_torch.ops.layouts import apply_nested_layout
 from feinsum_tpu_torch.ops.tc_emitter import plan_tc_launch
 from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
@@ -377,20 +382,55 @@ def test_rulings_on_the_multigrid_fields():
 
 
 def test_builtin_default_raises_on_a_dense_contraction():
-    e, _ = make_pair("tccg02_small")
+    """The built-in default on a fully concrete contraction used to raise
+    (the fused route took one long axis only; the name is that of the
+    refusal it once checked); it now grids as the reference's K1 does,
+    over the longest output letter when that is at least 2048 long, else
+    in one block, on ``step_block_f32``, and matches the JAX package's K1
+    on the same program (interpret mode, one grid step) within 2e-5."""
+    e, r = make_pair("tccg02_small")
     (only,) = S.candidate_transforms("tccg02", e, device="cpu",
                                      db_path="/nonexistent/x.sqlite")
-    with pytest.raises(ft.InvalidParameterError):
-        ft.build_executable(only.transform(ft.generate_program(e)))
+    prog = only.transform(ft.generate_program(e))
+    assert plan_cuda_launch(prog, get_index_lengths(
+        e, 1)).kernel == "step_block_f32"
+    layouts, out_perm = ref_dofmajor_layouts(r)
+    ref_prog = ref_opt_program(r)
+    ref_prog = ref_prog.copy(descriptor=ref_prog.descriptor.copy(
+        backend="pallas", block_long=S.BLOCK_LONG,
+        dimension_semantics="parallel", arg_layouts=layouts,
+        out_layout=out_perm))
+    assert program_from_reference(ref_prog) == prog
+    (want,) = _run_reference(r, ref_prog, SEED)
+    (got,) = _run_port(e, prog, SEED)
+    assert_close(got, want)
 
 
 def test_tc_gemm_resident_factor_over_shared_memory_raises():
+    """A ``tc_gemm_v0`` point whose resident factor exceeds
+    ``dg_rows_f32``'s shared memory used to raise (the name is that of
+    the refusal it once checked); it now runs on ``probe_apply_f32``,
+    whose ring streams the factor, and matches the JAX package's K1 on
+    the same point (interpret mode, one grid step) within 2e-5.  The
+    fold-8 storage stays a ruling."""
     e = ft.einsum("ik,kj->ij", ft.array("A", (64, 400), "float32"),
                   ft.array("B", (400, 300), "float32"))
+    r = fr.einsum("ik,kj->ij", fr.array("A", (64, 400), "float32"),
+                  fr.array("B", (400, 300), "float32"))
+    params = dict(log2_block=8, backend_pallas=True, precision_idx=0,
+                  swap=False)
     tr = get_transform_func_from_module_path("tc_gemm_v0").bind_args(
-        e, log2_block=8, backend_pallas=True, precision_idx=0, swap=False)
-    with pytest.raises(ft.InvalidParameterError, match="shared memory"):
-        tr(ft.generate_program(e))
+        e, **params)
+    prog = tr(ft.generate_program(e))
+    assert plan_cuda_launch(prog, stored_lengths(prog, get_index_lengths(
+        prog.einsum, 1))).kernel == "probe_apply_f32"
+    ref_prog = ref_space("tc_gemm_v0").bind_args(r, **params)(
+        fr.generate_program(r))
+    ref_prog = ref_prog.copy(descriptor=ref_prog.descriptor.copy(
+        block_long=2 ** 20))
+    (want,) = _run_reference(r, ref_prog, SEED)
+    (got,) = _run_port(e, prog, SEED)
+    assert_close(got, want)
     with pytest.raises(ft.InvalidParameterError, match="fold"):
         get_transform_func_from_module_path("tc_gemm_v0").bind_args(
             e, log2_block=8, backend_pallas=True, precision_idx=0,
@@ -437,12 +477,13 @@ BF16_3X_FACTS = {"tc_xla_v0.py": (134, 2), "ttgt_v0.py": (127, 2),
 @pytest.mark.parametrize("space_id", sorted(BF16_3X_FACTS))
 def test_tpu_facts_that_set_bf16_3x_bind(archive, space_id):
     """The shipped facts that set ``bf16_3x`` (353 of the six TC spaces')
-    bind and build at that precision but eight of ``tc_gemm_v0``: four
-    that also set ``fold`` raise naming it, and four whose resident factor
-    (R split into hi and lo) exceeds a Hopper block of ``dg_rows_3xtf32``
-    raise naming its shared memory."""
+    bind and build at that precision but four of ``tc_gemm_v0`` that also
+    set ``fold``, which raise naming it; four whose resident factor (R
+    split into hi and lo) exceeds a Hopper block of ``dg_rows_3xtf32`` go
+    to ``probe_apply_3xtf32``, whose ring streams R (they used to raise
+    naming the shared memory)."""
     count, index = BF16_3X_FACTS[space_id]
-    n = n_fold = n_smem = 0
+    n = n_fold = n_smem = n_apply = 0
     for e in sql_utils.get_timed_einsums_in_db(db_path=archive):
         for q in sql_utils.query(e, ft.FakeDevice(TPU), db_path=archive,
                                  err_if_no_results=False):
@@ -462,8 +503,55 @@ def test_tpu_facts_that_set_bf16_3x_bind(archive, space_id):
                 continue
             assert prog.descriptor.precision == "bf16_3x"
             ft.build_executable(prog, device="cpu")
+            if prog.descriptor.backend == "pallas" \
+                    and not isinstance(prog.descriptor.grid_index, tuple):
+                n_apply += plan_cuda_launch(prog, stored_lengths(
+                    prog, get_index_lengths(prog.einsum, 1))).kernel \
+                    == "probe_apply_3xtf32"
     assert n == count
-    assert n_fold == n_smem == (4 if space_id == "tc_gemm_v0.py" else 0)
+    assert n_fold == n_apply == (4 if space_id == "tc_gemm_v0.py" else 0)
+    assert n_smem == 0
+
+
+def test_shipped_tc_gemm_facts_match_reference(archive):
+    """Every shipped ``tc_gemm_v0`` fact (83) but the six that set ``fold``
+    (four of them at ``bf16_3x``), a ruling, builds; the 17 on the fused
+    route, the four whose resident factor exceeds ``dg_rows_3xtf32``'s
+    shared memory (which used to raise) among them, run on the CPU against
+    the JAX package's output of the same fact (its K1 in interpret mode,
+    its block raised to one grid step, ROADMAP fault F3) within 2e-5."""
+    n_built = n_fold = n_run = n_apply = 0
+    for e in sql_utils.get_timed_einsums_in_db(db_path=archive):
+        for q in sql_utils.query(e, ft.FakeDevice(TPU), db_path=archive,
+                                 err_if_no_results=False):
+            if q.transform_id != "tc_gemm_v0.py":
+                continue
+            params = dict(q.transform_params)
+            if params["fold"]:
+                with pytest.raises(ft.InvalidParameterError, match="fold"):
+                    q.transform(ft.generate_program(e))
+                n_fold += 1
+                continue
+            prog = q.transform(ft.generate_program(e))
+            ft.build_executable(prog, device="cpu")
+            n_built += 1
+            if not params["backend_pallas"]:
+                continue
+            n_apply += plan_cuda_launch(prog, stored_lengths(
+                prog, get_index_lengths(prog.einsum, 1))).kernel \
+                .startswith("probe_apply")
+            r = fr.batched_einsum(e.get_subscripts(), [[
+                fr.array(a.name, tuple(int(d) for d in a.shape), a.dtype)
+                for a in row] for row in e.args])
+            ref_prog = ref_space("tc_gemm_v0").bind_args(r, **params)(
+                fr.generate_program(r))
+            ref_prog = ref_prog.copy(descriptor=ref_prog.descriptor.copy(
+                block_long=2 ** 20))
+            (want,) = _run_reference(r, ref_prog, SEED)
+            (got,) = _run_port(e, prog, SEED)
+            assert_close(got, want)
+            n_run += 1
+    assert (n_built, n_fold, n_run, n_apply) == (77, 6, 17, 4)
 
 
 def test_archive_path_on_cpu(tmp_path):
