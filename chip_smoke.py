@@ -107,7 +107,8 @@ Phases; any failure exits non-zero before the final line:
    ``probe_apply_3xtf32`` against its plain version and the numpy oracle,
    then counters set to 0, the four replayed through ``build_executable``
    and ``probe_apply_3xtf32`` read from the counters, then each timed in
-   turns against its plain version and one ``torch.einsum``;
+   turns against its plain version and one ``torch.einsum``, and the device
+   time of its pre-pass beside its main kernel's (``torch.profiler``);
 17. Maxwell at E = 65,536 built from an archive whose curl fact (a
    ``dg_div_v0.py`` point) sets ``precision_3x``, ``fold`` and
    ``preblock``: the model drops the storage knobs, its curl runs on
@@ -123,8 +124,11 @@ Phases; any failure exits non-zero before the final line:
    (95, the two champions among them, against the plain per-step route
    within 2e-5, the 25 whose kron resident exceeds ``dg_rows_f32``'s shared
    memory on ``probe_apply_f32``, also against its plain version and timed
-   in turns against it and one ``torch.einsum``; 7 refused naming
-   ``fold``, 2 ``mfold``);
+   in turns against it and one ``torch.einsum``, bounded by the logical
+   einsum (the bytes of u, out and the resident, 2 d² flops per element)
+   with the packed program's bound beside it, and the device time of the
+   pre-pass beside the main kernel's; 7 refused naming ``fold``, 2
+   ``mfold``);
    counters read; the rows tuned with ``lane_pack_g`` searched into a fresh
    archive under ``build/`` (which champions are packed); each packed point
    timed in turns against the row's unpacked champion and one
@@ -172,13 +176,17 @@ Phases; any failure exits non-zero before the final line:
    against their plain versions at E = 777 (776 under the folded mapping
    I) and E = 2**20 on every storage (copies, both transposing copies, the
    matvec element-major, dof-major and folded, the div with b = 3, the
-   kron matvec with jac, lane-reshape C at K = 640), f32 within 2e-5 of
+   kron matvec with jac, lane-reshape C at K = 640, the lane-pack facts'
+   block-diagonal kron(I_g, D) at g d = 560 and 1120, whose zero chunks the
+   pre-pass skips, the div with one all-zero R[s]), f32 within 2e-5 of
    max|plain|, 3x within ``split_tolerance`` of the terms; counters reset;
    every case of the eight probe modules at its first block size (the
    kernels' defaults) driven once, the counters read; each case then
    checked against its plain version and timed in turns against it and one
    PyTorch call of the same function, beside its bound (the lane-reshape
-   cases also as CUDA graphs, the device's time without the host's).
+   cases also as CUDA graphs, the device's time without the host's), and
+   each ``probe_apply`` case's pre-pass and main kernel device times
+   (``torch.profiler``), summed per family.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -2232,7 +2240,10 @@ def wide_gemm_facts(dev, label: str, stats: KernelStats) -> int:
             f" {label}")
         stats.add(plan.kernel, e, 1, ms["kernel"], ms["plain"],
                   ms["library"], None, "bf16_3x", padded)
+        prepass_share(plan.kernel, "phase 16's wide tc_gemm_v0 facts",
+                      lambda plan=plan, ops=operands: plan.run(ops), label)
         del arrays, operands
+    log_prepass(label)
     kernels.launch_counts.update(before)
     del inputs
     torch.cuda.empty_cache()
@@ -2397,11 +2408,15 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
                                f" per-step route by {worst:.2e}")
         return worst
 
-    def wide_check(plan, operands, name, e, logical) -> None:
+    def wide_check(plan, operands, name, e, logical, program) -> None:
         """A wide-resident row on ``probe_apply``: the kernel against its
         plain version, then timed in turns against its plain version and
-        one ``torch.einsum`` of the logical einsum (into *stats*); none of
-        these launches is counted."""
+        one ``torch.einsum`` of the logical einsum (into *stats*, bounded
+        by the logical einsum: the bytes of u, out and the resident, 2 d²
+        flops per element, which is what the kernel's skip of the kron's
+        zero chunks leaves; the packed program's bound, whose dense kron
+        counts g times the flops, is printed beside it); none of these
+        launches is counted."""
         before = dict(kernels.launch_counts)
         kernel_check(plan, operands, name, launches=before)
         subs = e.get_subscripts().replace(" ", "")
@@ -2413,12 +2428,18 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
                                   for row in e.args]},
             {k: logical for k in ("kernel", "plain", "library")})
         ms = {k: sum(v) / len(v) for k, v in times.items()}
+        t_bytes, _ = row_bound(e, E_FULL)
+        packed = max(t_bytes, _packed_flops(program, E_FULL)
+                     / PEAK_OPS_PER_MS["float32"])
         log(f"[time] {plan.kernel} {name} E={E_FULL}: kernel"
             f" {ms['kernel']:.4f} ms, plain version {ms['plain']:.4f} ms,"
             f" torch.einsum {ms['library']:.4f} ms,"
-            f" {bound_text(e, E_FULL)} (runs {times}) {label}")
+            f" {bound_text(e, E_FULL)} of the logical einsum (the packed"
+            f" program's {packed:.4f} ms) (runs {times}) {label}")
         stats.add(plan.kernel, e, E_FULL, ms["kernel"], ms["plain"],
                   ms["library"])
+        prepass_share(plan.kernel, "phase 18's wide facts",
+                      lambda: plan.run(operands), label)
         kernels.launch_counts.update(before)
 
     rows = lane_pack_rows()
@@ -2501,7 +2522,8 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
                 # a kron resident over dg_rows' shared memory (these facts
                 # were refused before the probe kernels took them)
                 wide[plan.kernel] = wide.get(plan.kernel, 0) + 1
-                wide_check(plan, operands, e.get_subscripts(), e, logical)
+                wide_check(plan, operands, e.get_subscripts(), e, logical,
+                           program)
             del arrays, operands
             is_champion = (q.transform_id, q.transform_params) == (
                 champion.transform_id, champion.transform_params)
@@ -2514,6 +2536,7 @@ def lane_pack_path(dev, label: str, stats: KernelStats) -> dict:
             del outs
         del logical
         torch.cuda.empty_cache()
+    log_prepass(label)
     launches = {k: kernels.launch_counts[k] for k in LP_KERNELS
                 + ("probe_apply_f32",)}
     log(f"[lane-pack] the 104 shipped lane-pack facts: {outcomes}, on"
@@ -3060,6 +3083,61 @@ def tc_steps_path(dev, label: str, stats: KernelStats) -> int:
     return launches
 
 
+# device ms per call of the probe_apply kernels' pre-pass and main kernel,
+# summed per family (prepass_share)
+PREPASS = {}
+
+
+def prepass_share(kernel: str, family: str, call, label: str,
+                  calls: int = 3) -> tuple:
+    """Device ms per call of ``probe_apply_ranges`` (the pre-pass) and of
+    the main kernel in *call*, one launch of a ``probe_apply`` entry, read
+    from ``torch.profiler``'s device events over *calls* calls (not
+    counted); added to ``PREPASS[(kernel, family)]``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from feinsum_tpu_torch.ops import kernels
+    before = dict(kernels.launch_counts)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    kernels.launch_counts.update(before)
+    pre = main = 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.end - ev.time_range.start
+        if "probe_apply_ranges" in ev.name:
+            pre += us
+        elif "probe_apply" in ev.name:
+            main += us
+    pre, main = pre / calls / 1e3, main / calls / 1e3
+    acc = PREPASS.setdefault((kernel, family), [0, 0, 0.0, 0.0])
+    acc[0] += 1
+    if main > 0.0:  # else the profiler lost this window's device events
+        acc[1] += 1
+        acc[2] += pre
+        acc[3] += main
+    return pre, main
+
+
+def log_prepass(label: str) -> None:
+    """Print and clear ``PREPASS``."""
+    for (kernel, family), (n, seen, pre, main) in sorted(PREPASS.items()):
+        share = (f"{100 * pre / (pre + main):.1f}%" if seen
+                 else "not measured")
+        log(f"[prepass] {family} on {kernel}: {n} cases ({seen} seen by the"
+            f" profiler), pre-pass probe_apply_ranges {pre:.4f} ms, main"
+            f" kernel {main:.4f} ms ({share} of the device time) {label}")
+    PREPASS.clear()
+
+
 PROBE_KERNELS = ("probe_stream_f32", "probe_apply_f32",
                  "probe_apply_3xtf32")
 E_PROBE = 1 << 20
@@ -3112,6 +3190,8 @@ def probe_kernel_checks(dev) -> None:
         # the contractions: (label, rows, R, runs, element-major out)
         Ef = E // 8 * 8
         D = draw(rng, (35, 35), dev)
+        R_zero = draw(rng, (3, 35, 35), dev)
+        R_zero[1] = 0.0
         cases = {
             "matvec dof-major nd 35": (
                 [pk.ApplyRow(u=draw(rng, (35, E), dev))], D[None], 1, False),
@@ -3133,7 +3213,18 @@ def probe_kernel_checks(dev) -> None:
                 [pk.ApplyRow(u=draw(rng, (E // 64, 640), dev).t(),
                              sigma=draw(rng, (E // 64, 64), dev).t()[
                                  :, None, :].expand(64, 10, E // 64))],
-                draw(rng, (1, 640, 640), dev), 1, True)}
+                draw(rng, (1, 640, 640), dev), 1, True),
+            # the lane-pack facts' block-diagonal kron(I_g, D) over E / g
+            # packed columns: the pre-pass skips the zero chunks
+            "kron(I16, D35) 560": (
+                [pk.ApplyRow(u=draw(rng, (560, E // 16), dev))],
+                torch.block_diag(*[D] * 16)[None], 1, False),
+            "kron(I32, D35) 1120 element-major": (
+                [pk.ApplyRow(u=draw(rng, (E // 32, 1120), dev).t())],
+                torch.block_diag(*[D] * 32)[None], 1, True),
+            "div b=1 S=3, R[1] all zero": (
+                [pk.ApplyRow(u=draw(rng, (35, E), dev),
+                             J=draw(rng, (3, E), dev))], R_zero, 1, False)}
         for label, (rows, R, runs, out_em) in cases.items():
             mags = [replace(r, u=r.u.abs(),
                             J=None if r.J is None else r.J.abs(),
@@ -3198,6 +3289,9 @@ def probe_path(dev, label: str, stats: KernelStats) -> dict:
                                    res.plain_ms, res.library_ms or 0.0,
                                    res.bound)):
                 fam[k] += v
+            if case.kernel.startswith("probe_apply"):
+                prepass_share(case.kernel, case.family,
+                              lambda case=case: case.fn(case.arrays), label)
             if case.kernel in PROBE_KERNELS:
                 stats.add_bound(case.kernel, res.ms, res.plain_ms,
                                 res.library_ms, res.bytes_ms, res.ops_ms)
@@ -3213,6 +3307,7 @@ def probe_path(dev, label: str, stats: KernelStats) -> dict:
         log(f"[probe] {family} on {kernel}: {n} cases, {runs} launches,"
             f" {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f}"
             f" ms, bound {bound:.4f} ms {label}")
+    log_prepass(label)
     log(f"[probe] launch counts over phase 21's {n_cases} drives:"
         f" {launches}")
     for k, n in launches.items():

@@ -76,9 +76,12 @@ _SIGNATURES = (
     ("probe_stream_f32", _I, (_I, _PP, _I64P, _P, _I64P, _I64P,
                               ctypes.c_float, _I, _I, _I64, _P)),
     ("probe_apply_f32", _I, (_I, _PP, _PP, _PP, _PP, _P, _I, _I, _I, _I64P,
-                             _I, _I64, _I, _I, _I, _P)),
+                             _I, _I64, _I, _I, _I, _P, _I, _P, _I64, _P)),
     ("probe_apply_3xtf32", _I, (_I, _PP, _PP, _PP, _PP, _P, _I, _I, _I,
-                                _I64P, _I, _I64, _I, _I, _I, _P)),
+                                _I64P, _I, _I64, _I, _I, _I, _P, _I, _P,
+                                _I64, _P)),
+    ("probe_apply_tile_rows", _I, (_I, _I, _I)),
+    ("probe_apply_tile_elems", _I, (_I, _I, _I)),
     ("probe_apply_max_rows", _I, ()),
     ("probe_apply_max_s", _I, ()),
     ("probe_apply_max_dim", _I, ()),

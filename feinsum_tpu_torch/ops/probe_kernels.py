@@ -18,10 +18,15 @@ of the card through them.
   u_b[j, e]`` over strided (row, element) views of u, J, sigma and out: the
   matvec in every storage, the kron matvec (``R = kron(D, I_8)``, ``sigma =
   jac``), the div (S = 3) and lane-reshape C and D (``R = K^T``).  R and u
-  are tiled through shared memory, so R may be 640 x 640.
+  are tiled through shared memory, so R may be 2048 x 2048.  Each launch
+  first runs a pre-pass that finds, per (s, row tile), the chunks of j
+  holding R's nonzeros (:func:`probe_apply_ranges_plain`); the kernel
+  multiplies only those, so a block-diagonal R costs its band.
 * ``probe_apply_3xtf32`` — the same with the dot in three TF32
   tensor-core passes over the hi/lo split (the port's ``bf16_3x``,
-  :func:`~feinsum_tpu_torch.ops.kernels.einsum_3x` in its plain version).
+  :func:`~feinsum_tpu_torch.ops.kernels.einsum_3x` in its plain version);
+  its pre-pass also splits R once, into the planes
+  :func:`~feinsum_tpu_torch.ops.kernels.tf32_split` gives.
 
 As for every kernel of the port, a wrapper launches its kernel for CUDA
 tensors and raises on what it cannot take; it runs the plain version only
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 
 from ..diagnostics import InvalidParameterError
-from .kernels import _stream_of, einsum_3x, launch_counts
+from .kernels import _stream_of, einsum_3x, launch_counts, tf32_split
 
 # csrc/probe_stream.cu: the most operands (kMaxOps), axes and elements of a
 # stream
@@ -47,11 +52,14 @@ PS_MAX_OPS = 2
 PS_MAX_AXES = 3
 PS_MAX_ELEMENTS = 2 ** 31 - 1
 # csrc/probe_apply.cu: rows per launch (kMaxRows), the most s (kMaxS), the
-# most rows and j's of R (kMaxDim), elements per sub-tile (kTE) and the flags
+# most rows and j's of R (kMaxDim), j's per chunk (kKC), the default
+# elements per block where no tile is given, and the flags
 PA_MAX_ROWS = 3
 PA_MAX_S = 3
 PA_MAX_DIM = 2048
+PA_KC = 16
 PA_TE = 128
+PA_PRE_COLS = 32   # the pre-pass's j's per block (kPreCols)
 _U_VEC, _U_K_FAST, _OUT_ELEM_MAJOR, _OUT_VEC, _HAS_J, _HAS_SIGMA = (
     1, 2, 4, 8, 16, 32)
 
@@ -231,12 +239,39 @@ class ApplyRow:
     sigma: Optional[torch.Tensor] = None
 
 
-def apply_geometry(E: int, runs: int, block_elems: int) -> tuple:
-    """``(run, n)``: the elements per run and per run per thread block when
-    a block takes *block_elems* elements (0: one sub-tile, ``PA_TE``) from
-    each of *runs* runs of ``E / runs`` elements (runs = 1: a contiguous
-    range; runs = 8 on the folded view: mapping I)."""
-    per = block_elems or PA_TE
+def apply_tile(I: int, split: bool, S: int = 1) -> tuple:
+    """``(rows, elements)`` of the kernel's item for R (S, I, K): a row
+    tile and an element sub-tile (``csrc/probe_apply.cu``'s ``f32_tile``
+    and ``x3_tile``).  ``probe_apply_f32``: RG row groups of TM rows by 8
+    elements per group of the 256 / RG threads (a multiple of 4, at most
+    64): TM = 8 and RG 16, 12 or 8, whichever pads I least (the larger on
+    a tie), where I > 64 at S = 1; else TM = 4 and row tiles of at most 64
+    rows, as even as can be.  ``probe_apply_3xtf32`` (*split*): 8 ceil(I /
+    8) rows by 256 elements up to I = 64, else even tiles of a multiple of
+    16 rows, at most 128, by 128 elements."""
+    if split:
+        if I <= 64:
+            return 8 * -(-I // 8), 256
+        tiles = -(-I // 128)
+        return 16 * -(-(-(-I // tiles)) // 16), 128
+    if I > 64 and S == 1:      # TM = 8: 16, 12 or 8 row groups
+        rg = min((16, 12, 8), key=lambda g: (-(-I // (8 * g)) * 8 * g, -g))
+        return 8 * rg, 8 * min(64, 256 // rg // 4 * 4)
+    tiles = -(-I // 64)
+    rg = -(-(-(-I // tiles)) // 4)
+    return 4 * rg, 8 * min(64, 256 // rg // 4 * 4)
+
+
+def apply_geometry(E: int, runs: int, block_elems: int,
+                   sub: int = PA_TE) -> tuple:
+    """``(run, n)``: the elements per run and per run per element block when
+    a block takes *block_elems* elements (0: one sub-tile of *sub*, the
+    kernel's :func:`apply_tile`) from each of *runs* runs of ``E / runs``
+    elements (runs = 1: a contiguous range; runs = 8 on the folded view:
+    mapping I).  The kernel's items are (row tile, element block, sub-tile)
+    and its persistent blocks walk them; the elements an item takes do not
+    depend on the grid."""
+    per = block_elems or sub
     if runs < 1 or E % runs:
         raise InvalidParameterError(
             f"probe_apply: E = {E} is not a multiple of runs = {runs}")
@@ -343,6 +378,33 @@ def probe_apply_3x_plain(rows: Sequence[ApplyRow], R: torch.Tensor, *,
     return _apply_plain(rows, R, out_elem_major, einsum_3x)
 
 
+def probe_apply_ranges_plain(R: torch.Tensor, tile_rows: int) -> torch.Tensor:
+    """The plain version of the kernels' pre-pass: an (S, tiles, 2) int32
+    tensor, per s and tile of *tile_rows* rows of R the first chunk of
+    ``PA_KC`` j's that holds a nonzero of R and one past the last, (0, 0)
+    where there is none.  A NaN counts as nonzero, ±0 does not.  The kernel
+    sums only these chunks: a chunk whose R is all ±0 adds exactly 0 to
+    every finite sum (the one difference from the dense product is 0 * Inf
+    where u holds an Inf: the logical einsum's 0, where the dense product
+    gives NaN)."""
+    S, I, K = R.shape
+    tiles = -(-I // tile_rows)
+    nz = torch.zeros(S, tiles * tile_rows, K, dtype=torch.bool,
+                     device=R.device)
+    nz[:, :I] = R != 0
+    nk = -(-K // PA_KC)
+    chunks = torch.zeros(S, tiles, nk * PA_KC, dtype=torch.bool,
+                         device=R.device)
+    chunks[..., :K] = nz.view(S, tiles, tile_rows, K).any(2)
+    hit = chunks.view(S, tiles, nk, PA_KC).any(3)
+    idx = torch.arange(nk, device=R.device)
+    first = torch.where(hit, idx, nk).min(2).values
+    last = torch.where(hit, idx, -1).max(2).values
+    none = last < 0
+    return torch.stack([torch.where(none, 0, first),
+                        torch.where(none, 0, last + 1)], 2).to(torch.int32)
+
+
 def apply_flags(rows: Sequence[ApplyRow], outs: Sequence[torch.Tensor],
                 run: int, n: int, out_elem_major: bool) -> int:
     """The kernel's flags for these rows and outputs: 16-byte staging of u
@@ -369,10 +431,18 @@ def apply_flags(rows: Sequence[ApplyRow], outs: Sequence[torch.Tensor],
 
 
 def _apply_launch(name: str, rows, R, runs, block_elems, out_elem_major,
-                  plain) -> list:
+                  plain, tables) -> list:
     device, S, I, K, E = _apply_check(rows, R)
-    run, n = apply_geometry(E, runs, block_elems)
+    split = name == "probe_apply_3xtf32"
+    tile_rows, sub = apply_tile(I, split, S)
+    run, n = apply_geometry(E, runs, block_elems, sub)
     if device.type == "cpu":
+        if tables is not None:
+            tables["ranges"] = probe_apply_ranges_plain(R, tile_rows)
+            if split:
+                tables["hi"], tables["lo"] = tf32_split(R)
+            else:
+                tables["R"] = R
         return plain(rows, R, out_elem_major=out_elem_major)
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
@@ -393,6 +463,16 @@ def _apply_launch(name: str, rows, R, runs, block_elems, out_elem_major,
     def ptrs(ts):
         return (ctypes.c_void_p * nb)(*[0 if t is None else t.data_ptr()
                                         for t in ts])
+    # the pre-pass's scratch, one allocation: R j-major over whole row tiles
+    # (at 3x its split, hi and lo), then the least and the greatest j of
+    # R's nonzeros per (s, row tile, column block)
+    tiles = -(-I // tile_rows)
+    ncb = -(-K // PA_PRE_COLS)
+    nplane = (2 if split else 1) * S * K * tiles * tile_rows
+    scratch = torch.empty(nplane + 2 * S * tiles * ncb, dtype=torch.float32,
+                          device=device)
+    planes = scratch[:nplane].view(-1, S, K, tiles * tile_rows)
+    ranges = scratch[nplane:].view(torch.int32)
     from ._build import load_library
     lib = load_library()
     with torch.cuda.device(device):
@@ -401,30 +481,54 @@ def _apply_launch(name: str, rows, R, runs, block_elems, out_elem_major,
             ptrs([r.sigma for r in rows]), ptrs(outs),
             ctypes.c_void_p(R.data_ptr()), S, I, K,
             (ctypes.c_int64 * 9)(*strides), I2, run, runs, n, flags,
+            ctypes.c_void_p(ranges.data_ptr()), ranges.numel(),
+            ctypes.c_void_p(planes.data_ptr()), planes.numel(),
             _stream_of(device))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
+    if tables is not None:
+        # the kernel's range table from the pre-pass's least and greatest
+        # j of R's nonzeros per (s, row tile, column block)
+        part = ranges.view(2, S, tiles, ncb).long()
+        mn, mx = part[0].min(2).values, part[1].max(2).values
+        none = mx < 0
+        tables["ranges"] = torch.stack([
+            torch.where(none, 0, mn // PA_KC),
+            torch.where(none, 0, mx // PA_KC + 1)], 2).to(torch.int32)
+        rows_of = [p[:, :, :I].transpose(1, 2) for p in planes]
+        if split:
+            tables["hi"], tables["lo"] = rows_of
+        else:
+            tables["R"] = rows_of[0]
     return outs
 
 
 def probe_apply_f32(rows: Sequence[ApplyRow], R: torch.Tensor, *,
                     runs: int = 1, block_elems: int = 0,
-                    out_elem_major: bool = False) -> list:
+                    out_elem_major: bool = False,
+                    tables: Optional[dict] = None) -> list:
     """``out_b = sigma * Σ_s J_b[s] * (R[s] @ u_b)`` for each row, one
-    launch: each output a new (I, E) tensor, dof-major in storage or, with
-    *out_elem_major*, element-major.  A thread block takes *block_elems*
-    elements (0: 128) from each of *runs* runs (:func:`apply_geometry`)."""
+    launch (the pre-pass and the kernel): each output a new (I, E) tensor,
+    dof-major in storage or, with *out_elem_major*, element-major.  An
+    element block takes *block_elems* elements (0: one sub-tile of
+    :func:`apply_tile`) from each of *runs* runs (:func:`apply_geometry`).
+    Only the chunks of j that hold R's nonzeros are summed
+    (:func:`probe_apply_ranges_plain`: exact for finite u).  *tables*, a
+    dict, receives the pre-pass's range table (``"ranges"``) and its copy
+    of R (``"R"``, an (S, I, K) view of the j-major scratch)."""
     return _apply_launch("probe_apply_f32", rows, R, runs, block_elems,
-                         out_elem_major, probe_apply_plain)
+                         out_elem_major, probe_apply_plain, tables)
 
 
 def probe_apply_3xtf32(rows: Sequence[ApplyRow], R: torch.Tensor, *,
                        runs: int = 1, block_elems: int = 0,
-                       out_elem_major: bool = False) -> list:
+                       out_elem_major: bool = False,
+                       tables: Optional[dict] = None) -> list:
     """``probe_apply_f32`` with the j-dot in three TF32 tensor-core passes
-    over the hi/lo split (the port's ``bf16_3x``)."""
+    over the hi/lo split (the port's ``bf16_3x``); R is split once, by the
+    pre-pass (*tables* also receives the planes, ``"hi"`` and ``"lo"``)."""
     return _apply_launch("probe_apply_3xtf32", rows, R, runs, block_elems,
-                         out_elem_major, probe_apply_3x_plain)
+                         out_elem_major, probe_apply_3x_plain, tables)
 
 # }}}

@@ -1826,16 +1826,24 @@ def _probe_tensor(rng, shape, device):
         np.float32)).to(device)
 
 
-def _probe_apply_rows(device, storage, b, S_, I, K, E, sigma, seed=0):
+def _probe_apply_rows(device, storage, b, S_, I, K, E, sigma, seed=0,
+                      g=0, zero_s=None):
     """``(rows, R, runs, out_elem_major)`` of the contraction probe: u
     dof-major (K, E), element-major (E, K) viewed (K, E), or dof-major
     under the folded mapping I (runs = 8); J (S, E) for S > 1; sigma
     (I1, I2, E) broadcast over I1 (the kron matvec's jac) or over I2 (the
-    lane-reshape probe's j)."""
+    lane-reshape probe's j).  R is dense, or block-diagonal kron(I_g, D)
+    (the lane-pack facts' resident) with *g*; R[zero_s] is all zero."""
     from feinsum_tpu_torch.ops.probe_kernels import ApplyRow
     rng = np.random.default_rng(seed)
-    R = _probe_tensor(rng, (S_, I, K), device)
-    I2 = {35: 7, 280: 8, 640: 10, 20: 5}[I]
+    if g:
+        R = torch.block_diag(*[_probe_tensor(rng, (I // g, K // g), device)]
+                             * g)[None]
+    else:
+        R = _probe_tensor(rng, (S_, I, K), device)
+    if zero_s is not None:
+        R[zero_s] = 0.0
+    I2 = {35: 7, 280: 8, 640: 10, 20: 5, 320: 16, 560: 16, 1120: 32}[I]
     rows = []
     for _ in range(b):
         if storage == "element-major":
@@ -1856,8 +1864,19 @@ def _probe_apply_rows(device, storage, b, S_, I, K, E, sigma, seed=0):
             storage == "element-major")
 
 
+# (S, I, K), then g of a block-diagonal kron(I_g, D) or the s of an
+# all-zero R[s]
 PROBE_APPLY_SHAPES = {"div35": (3, 35, 35), "mv20": (1, 20, 20),
-                      "kron280": (1, 280, 280), "lane640": (1, 640, 640)}
+                      "kron280": (1, 280, 280), "lane640": (1, 640, 640),
+                      "bd320": (1, 320, 320, 16), "bd560": (1, 560, 560, 16),
+                      "bd1120": (1, 1120, 1120, 32),
+                      "div35_zero_s": (3, 35, 35, 0, 1)}
+
+
+def _shape_kw(shape):
+    S_, I, K, *extra = PROBE_APPLY_SHAPES[shape]
+    g, zero_s = (extra + [0, None])[:2]
+    return S_, I, K, dict(g=g, zero_s=zero_s)
 
 
 @pytest.mark.cuda
@@ -1871,14 +1890,15 @@ def test_probe_apply_kernel_matches_plain(cuda_device, storage, shape, b,
                                           sigma, precision):
     """``probe_apply_f32`` / ``probe_apply_3xtf32`` against their plain
     versions on ragged E (777; 776 = 8 x 97 under the folded mapping I), in
-    every storage, b = 1 and 3 rows, with sigma and without: f32 within
-    2e-5 of max|plain|, 3x within 1e-6 (times sqrt(S K / 64)) of the sum of
-    the terms' magnitudes."""
+    every storage, b = 1 and 3 rows, with sigma and without, on dense,
+    block-diagonal (the pre-pass skips the zero chunks) and zero-s R: f32
+    within 2e-5 of max|plain|, 3x within 1e-6 (times sqrt(S K / 64)) of the
+    sum of the terms' magnitudes."""
     from feinsum_tpu_torch.ops import probe_kernels as pk
-    S_, I, K = PROBE_APPLY_SHAPES[shape]
+    S_, I, K, kw = _shape_kw(shape)
     E = 776 if storage == "folded I" else 777
     rows, R, runs, out_em = _probe_apply_rows(cuda_device, storage, b, S_,
-                                              I, K, E, sigma)
+                                              I, K, E, sigma, **kw)
     kern, plain = ((pk.probe_apply_3xtf32, pk.probe_apply_3x_plain)
                    if precision == "3x"
                    else (pk.probe_apply_f32, pk.probe_apply_plain))
@@ -1904,18 +1924,113 @@ def test_probe_apply_kernel_matches_plain(cuda_device, storage, shape, b,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["div35", "kron280", "lane640", "bd1120"])
 @pytest.mark.parametrize("runs,block_elems", [(1, 0), (1, 512), (1, 8192),
                                                (8, 0), (8, 2048)])
-def test_probe_apply_kernel_tilings(cuda_device, runs, block_elems):
-    """The element tilings (elements per thread block, mapping I and III)
-    give the plain version's result on the folded div."""
+def test_probe_apply_kernel_tilings(cuda_device, runs, block_elems, shape):
+    """The element tilings (elements per element block, mapping I and III;
+    each block of the persistent grid walks several items) give the plain
+    version's result on the folded div and at I = 280, 640 and 1120 (one
+    and several row tiles, dense and block-diagonal), both kernels."""
     from feinsum_tpu_torch.ops import probe_kernels as pk
-    rows, R, _, _ = _probe_apply_rows(cuda_device, "dof-major", 1, 3, 35,
-                                      35, 8 * 1000, None)
+    S_, I, K, kw = _shape_kw(shape)
+    rows, R, _, _ = _probe_apply_rows(cuda_device, "dof-major", 1, S_, I,
+                                      K, 8 * 1000, None, **kw)
     got = pk.probe_apply_f32(rows, R, runs=runs, block_elems=block_elems)
     want = pk.probe_apply_plain(rows, R)
+    got3 = pk.probe_apply_3xtf32(rows, R, runs=runs, block_elems=block_elems)
+    want3 = pk.probe_apply_3x_plain(rows, R)
+    terms = pk.probe_apply_plain([pk.ApplyRow(
+        u=r.u.abs(), J=None if r.J is None else r.J.abs()) for r in rows],
+        R.abs())
     torch.cuda.synchronize()
     assert_close(got[0].cpu().numpy(), want[0].cpu().numpy())
+    over = float(((got3[0] - want3[0]).abs().double()
+                  / terms[0].double().clamp_min(1e-300)).max())
+    assert over <= 1e-6 * max(1.0, (S_ * K / 64) ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "3x"])
+@pytest.mark.parametrize("case", ["bd320", "bd560", "bd1120", "kron280",
+                                  "div35_zero_s", "nan", "vecmat"])
+def test_probe_apply_prepass_tables_match_plain(cuda_device, case,
+                                                precision):
+    """The pre-pass's range table equals its plain version
+    (``probe_apply_ranges_plain`` at the kernel's row tile) on
+    block-diagonal, dense, zero-s, NaN and packed-vecmat R; its j-major
+    copy of R is R bit for bit, at 3x its split planes ``tf32_split(R)``."""
+    from feinsum_tpu_torch.ops import probe_kernels as pk
+    rng = np.random.default_rng(8)
+    if case == "nan":
+        _, R, _, _ = _probe_apply_rows(cuda_device, "dof-major", 1, 1, 320,
+                                       320, 64, None, g=16)
+        R[0, 5, 300] = float("nan")
+    elif case == "vecmat":
+        R = torch.block_diag(*[_probe_tensor(rng, (1, 35), cuda_device)]
+                             * 16)[None]
+    else:
+        S_, I, K, kw = _shape_kw(case)
+        _, R, _, _ = _probe_apply_rows(cuda_device, "dof-major", 1, S_, I, K,
+                                       64, None, **kw)
+    S_, I, K = R.shape
+    rows = [pk.ApplyRow(u=_probe_tensor(rng, (K, 64), cuda_device),
+                        J=_probe_tensor(rng, (S_, 64), cuda_device)
+                        if S_ > 1 else None)]
+    split = precision == "3x"
+    kern = pk.probe_apply_3xtf32 if split else pk.probe_apply_f32
+    tables: dict = {}
+    kern(rows, R, tables=tables)
+    torch.cuda.synchronize()
+    want = pk.probe_apply_ranges_plain(R, pk.apply_tile(I, split, S_)[0])
+    assert torch.equal(tables["ranges"].cpu(), want.cpu())
+    pairs = (zip((tables["hi"], tables["lo"]), kernels.tf32_split(R))
+             if split else [(tables["R"], R)])
+    for got, ref in pairs:
+        assert got.shape == ref.shape
+        assert torch.equal(got.contiguous().view(torch.int32).cpu(),
+                           ref.contiguous().view(torch.int32).cpu())
+
+
+@pytest.mark.cuda
+def test_probe_apply_tile_matches_the_kernel(cuda_device):
+    """``apply_tile`` (which the wrapper sizes the scratch and the default
+    block by) is the kernel's own tile for every I it takes."""
+    from feinsum_tpu_torch.ops import probe_kernels as pk
+    lib = _build.load_library()
+    for I in range(1, pk.PA_MAX_DIM + 1):
+        for split, S_ in ((False, 1), (False, 3), (True, 1), (True, 3)):
+            assert pk.apply_tile(I, split, S_) == (
+                lib.probe_apply_tile_rows(I, int(split), S_),
+                lib.probe_apply_tile_elems(I, int(split), S_)), (I, split,
+                                                                 S_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "3x"])
+def test_probe_apply_skipped_chunk_meets_inf_as_the_logical_einsum(
+        cuda_device, precision):
+    """The exactness ruling: an Inf in u where a row tile's R is all zero
+    gives that tile the logical einsum's answer (its own block only), where
+    the dense product gives NaN; rows whose R meets the Inf give Inf or
+    NaN, as the plain version does."""
+    from feinsum_tpu_torch.ops import probe_kernels as pk
+    rng = np.random.default_rng(9)
+    D = _probe_tensor(rng, (128, 128), cuda_device)
+    R = torch.block_diag(D, D)[None]
+    u = _probe_tensor(rng, (256, 777), cuda_device)
+    u[200, 5] = float("inf")
+    rows = [pk.ApplyRow(u=u)]
+    kern = pk.probe_apply_3xtf32 if precision == "3x" else pk.probe_apply_f32
+    (got,) = kern(rows, R)
+    (plain,) = pk.probe_apply_plain(rows, R)
+    torch.cuda.synchronize()
+    assert bool(plain[:128, 5].isnan().all())
+    assert bool(got[:128].isfinite().all())
+    ref = (D.double() @ u[:128].double()).float()
+    tol = 2e-5 if precision == "f32" else 1e-5
+    assert_close(got[:128].cpu().numpy(), ref.cpu().numpy(), rtol=tol)
+    assert not bool(got[128:, 5].isfinite().any())
 
 
 def _stream_ops(case, device, E=777, seed=0):

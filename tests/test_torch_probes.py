@@ -735,17 +735,25 @@ def test_folded_storage_is_a_view_of_dof_major():
         probes.fold(torch.zeros(35, 100))
 
 
-def _elements_taken(E_, runs, block_elems):
-    """Every element of every thread block of a probe_apply launch, as the
-    kernel's ``elem`` maps (element block, local index) to an element."""
-    run, n = pk.apply_geometry(E_, runs, block_elems)
+def _elements_taken(E_, runs, block_elems, sub=pk.PA_TE, tiles=1, grid=0):
+    """Every (row tile, element) of a probe_apply launch in the order its
+    persistent blocks take them: block b walks the items b, b + grid, ...
+    (*grid* 0: one block per item); an item (row tile fastest, then the
+    sub-tile of *sub* elements, then the element block) maps its local
+    indices to elements as the kernel's ``item_of`` and ``elem`` do."""
+    run, n = pk.apply_geometry(E_, runs, block_elems, sub)
+    nsub = -(-(runs * n) // sub)
+    nitems = tiles * nsub * -(-run // n)
     taken = []
-    for eb in range(-(-run // n)):
-        for l in range(runs * n):
-            f, c = divmod(l, n)
-            c += eb * n
-            if c < run:
-                taken.append(f * run + c)
+    for b in range(grid or nitems):
+        for w in range(b, nitems, grid or nitems):
+            r, ti = divmod(w, tiles)
+            eb, st = divmod(r, nsub)
+            for l in range(st * sub, min((st + 1) * sub, runs * n)):
+                f, c = divmod(l, n)
+                c += eb * n
+                if c < run:
+                    taken.append((ti, f * run + c))
     return taken
 
 
@@ -753,8 +761,19 @@ def _elements_taken(E_, runs, block_elems):
     (777, 1, 0), (777, 1, 300), (776, 8, 0), (776, 8, 16), (4096, 8, 2048),
     (4096, 1, 32768), (1000, 8, 8 * 125)])
 def test_apply_tiling_takes_every_element_once(E_, runs, block_elems):
-    taken = _elements_taken(E_, runs, block_elems)
-    assert sorted(taken) == list(range(E_))
+    """Each (row tile, element) is taken exactly once, whatever the
+    sub-tile (the kernels' 128, 224, 256 and 512), the number of row tiles
+    and the persistent grid (one block, a few, a card's worth, one per
+    item)."""
+    assert sorted(_elements_taken(E_, runs, block_elems)) == [
+        (0, e) for e in range(E_)]
+    for sub in (128, 224, 256, 512):
+        for tiles in (1, 3):
+            for grid in (1, 7, 264, 0):
+                taken = _elements_taken(E_, runs, block_elems, sub, tiles,
+                                        grid)
+                assert sorted(taken) == [(t, e) for t in range(tiles)
+                                         for e in range(E_)]
 
 
 def test_apply_mapping_I_takes_each_run_in_a_block():
@@ -762,9 +781,229 @@ def test_apply_mapping_I_takes_each_run_in_a_block():
     (runs = 1) from one contiguous range."""
     run, n = pk.apply_geometry(4096, 8, 128)
     assert (run, n) == (512, 16)
-    first = _elements_taken(4096, 8, 128)[:128]
+    first = [e for _, e in _elements_taken(4096, 8, 128)[:128]]
     assert sorted({e // 512 for e in first}) == list(range(8))
-    assert _elements_taken(4096, 1, 128)[:128] == list(range(128))
+    assert [e for _, e in _elements_taken(4096, 1, 128)[:128]] == list(
+        range(128))
+
+
+def test_apply_default_block_is_one_sub_tile_of_the_kernel():
+    """The default element block is one sub-tile of the kernel's tile
+    (:func:`apply_tile`), so no item is cut short; an explicit block keeps
+    its meaning."""
+    for I, split in ((35, False), (20, False), (16, False), (640, False),
+                     (35, True), (280, True)):
+        _, sub = pk.apply_tile(I, split)
+        assert pk.apply_geometry(2 ** 20, 8, 0, sub) == (2 ** 17, sub // 8)
+        assert pk.apply_geometry(2 ** 20, 8, 2048, sub) == (2 ** 17, 256)
+
+
+def _pitch(n, m):
+    return n + ((m - n) % 32 + 32) % 32
+
+
+@pytest.mark.parametrize("split,S_", [(False, 1), (False, 3), (True, 1),
+                                      (True, 3)])
+def test_apply_tile_fits_a_block(split, S_):
+    """For every I the kernel takes, the tile (``csrc/probe_apply.cu``'s
+    ``f32_tile`` / ``x3_tile``) covers I in as few row tiles of at most 128
+    rows as it can (all of I up to 64: one tile; 64 where J weights S > 1
+    f32 partials; at most 32), as even as the row quantum allows, with
+    float4-aligned rows, element sub-tiles that split into 8 runs of a
+    multiple of 4, at most 256 threads, and a four-stage ring of 16 j's
+    within a block's 227 KB (R's slabs of every s in one f32 chunk at S >
+    1)."""
+    for I in range(1, pk.PA_MAX_DIM + 1):
+        rows, elems = pk.apply_tile(I, split, S_)
+        assert rows % (8 if split else 4) == 0 and elems % 32 == 0
+        widest = 64 if S_ > 1 and not split else 128
+        tiles = -(-I // rows)
+        assert rows <= widest and tiles <= 32
+        assert tiles == 1 if I <= 64 else tiles in (-(-I // widest),
+                                                    -(-I // 96),
+                                                    -(-I // 64))
+        if split or I <= 64 or S_ > 1:          # as even as can be
+            quantum = 8 if split and I <= 64 else 16 if split else 4
+            assert rows - -(-I // tiles) < quantum
+        else:                           # 64, 96 or 128, the least padded
+            assert rows * tiles == min(-(-I // r) * r for r in (64, 96, 128))
+        # u's chunk [j][l], or [l][j] with an element's pitch 20 (j-fast)
+        if split:
+            stage = 16 * 2 * _pitch(rows, 8) + max(16 * _pitch(elems, 8),
+                                                   20 * elems)
+        else:
+            tm = 4 if I <= 64 or S_ > 1 else 8
+            assert (rows // tm) * (elems // 8) <= 256
+            # at S > 1 a chunk holds R's slab of every s
+            stage = S_ * 16 * _pitch(rows, 4) + max(16 * _pitch(elems, 4),
+                                                    20 * elems)
+        assert 4 * stage * 4 <= 227 * 1024
+
+
+def _kron_eye_left(D: torch.Tensor, g: int) -> torch.Tensor:
+    """kron(I_g, D): the lane-pack facts' block-diagonal resident."""
+    return torch.block_diag(*[D] * g)
+
+
+def _ranges_by_scan(R: torch.Tensor, tile_rows: int) -> np.ndarray:
+    """The range table by a direct scan of each (s, row tile) of R."""
+    a = R.numpy()
+    S, I, _ = a.shape
+    tiles = -(-I // tile_rows)
+    out = np.zeros((S, tiles, 2), np.int32)
+    for s in range(S):
+        for t in range(tiles):
+            cols = np.nonzero(a[s, t * tile_rows:(t + 1) * tile_rows]
+                              != 0)[1]
+            if cols.size:
+                out[s, t] = cols.min() // pk.PA_KC, cols.max() // pk.PA_KC + 1
+    return out
+
+
+def _range_cases():
+    """(label, R): block-diagonal kron(I_g, D) whose band edges fall on
+    neither a 16-j chunk nor a row tile, the packed vecmat's kron(I_16,
+    x^T), a dense R, an all-zero R[s] at S = 3, a NaN in R."""
+    rng = np.random.default_rng(5)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+    cases = {f"kron(I{g}, D{d})": _kron_eye_left(t(d, d), g)[None]
+             for g, d in ((16, 20), (16, 35), (32, 35))}
+    cases["vecmat kron(I16, x^T)"] = _kron_eye_left(t(1, 35), 16)[None]
+    cases["dense 35"] = t(1, 35, 35)
+    zero_s = t(3, 35, 35)
+    zero_s[1] = 0.0
+    zero_s[2, :, 20:] = -0.0
+    cases["S = 3, R[1] zero"] = zero_s
+    nan = _kron_eye_left(t(20, 20), 16)[None].clone()
+    nan[0, 5, 300] = float("nan")
+    cases["NaN"] = nan
+    return cases
+
+
+@pytest.mark.parametrize("label", sorted(_range_cases()))
+def test_range_table_matches_a_direct_scan(label):
+    """The plain version of the kernels' pre-pass against a direct scan,
+    at both kernels' row tiles and at 36 and 40 rows; a dense R keeps every
+    chunk, an all-zero R[s] none, ±0 counts as zero and a NaN as nonzero."""
+    R = _range_cases()[label]
+    S, I, K = R.shape
+    for tile_rows in {pk.apply_tile(I, False, S)[0],
+                      pk.apply_tile(I, True, S)[0], 36, 40}:
+        got = pk.probe_apply_ranges_plain(R, tile_rows)
+        assert got.dtype == torch.int32
+        assert got.shape == (S, -(-I // tile_rows), 2)
+        assert np.array_equal(got.numpy(), _ranges_by_scan(R, tile_rows))
+    full = pk.probe_apply_ranges_plain(R, 36)
+    nk = -(-K // pk.PA_KC)
+    if label == "dense 35":
+        assert full.tolist() == [[[0, nk]]]
+    if label.startswith("S = 3"):
+        assert full[1].tolist() == [[0, 0]]
+        assert full[2].tolist() == [[0, 2]]     # -0.0 past j = 20 is zero
+    if label == "NaN":
+        tiles = pk.probe_apply_ranges_plain(R, 128)
+        assert tiles[0, 0].tolist() == [0, 300 // pk.PA_KC + 1]
+    if label.startswith("kron(I16, D20)"):
+        # a 128-row tile of a d = 20 band meets 140 j's, 9 chunks of 40
+        assert pk.probe_apply_ranges_plain(R, 128)[0].tolist() == [
+            [0, 9], [7, 17], [15, 20]]
+
+
+def _ranged_apply(rows, R, tile_rows, out_elem_major=False):
+    """The kernels' sum, chunk by chunk in the range table's order, over
+    the ranged chunks only, in float64."""
+    ranges = pk.probe_apply_ranges_plain(R, tile_rows)
+    S, I, K = R.shape
+    outs = []
+    for row in rows:
+        E_ = row.u.shape[1]
+        out = torch.zeros(I, E_, dtype=torch.float64)
+        for t in range(ranges.shape[1]):
+            rs = slice(t * tile_rows, min(I, (t + 1) * tile_rows))
+            for s in range(S):
+                part = torch.zeros(rs.stop - rs.start, E_,
+                                   dtype=torch.float64)
+                for c in range(*ranges[s, t].tolist()):
+                    js = slice(c * pk.PA_KC, min(K, (c + 1) * pk.PA_KC))
+                    part += R[s, rs, js].double() @ row.u[js].double()
+                out[rs] += part * (row.J[s].double() if row.J is not None
+                                   else 1.0)
+        if row.sigma is not None:
+            out = out * row.sigma.reshape(I, E_).double()
+        outs.append(out.float())
+    return outs
+
+
+@pytest.mark.parametrize("label", sorted(_range_cases()))
+def test_ranged_sum_equals_the_plain_version(label):
+    """Summing only the ranged chunks gives ``probe_apply_plain`` exactly:
+    on integer-valued data (every sum exact in float32) with R's zeros where
+    the case has them, J at S = 3, sigma broadcast as the kron probe's jac;
+    a NaN in R stays a NaN."""
+    R = _range_cases()[label]
+    R = torch.where(R == 0, R, torch.round(R * 2).clamp(-3, 3))
+    R[R != R] = float("nan")
+    S, I, K = R.shape
+    rng = np.random.default_rng(6)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-4, 5, shape).astype(
+            np.float32))
+    E_ = 48
+    rows = [pk.ApplyRow(u=ints(K, E_), J=ints(S, E_) if S > 1 else None,
+                        sigma=ints(1, E_)[None].expand(I, 1, E_))
+            for _ in range(2)]
+    for split in (False, True):
+        tile_rows = pk.apply_tile(I, split, S)[0]
+        for got, want in zip(_ranged_apply(rows, R, tile_rows),
+                             pk.probe_apply_plain(rows, R)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+def _kernel_tf32_round(x: np.ndarray) -> np.ndarray:
+    """``csrc/probe_apply.cu``'s ``tf32_round`` on the bit pattern: add
+    0x1000 and clear the low 13 bits unless the exponent is all ones."""
+    u = x.astype(np.float32).view(np.uint32).copy()
+    finite = (u & 0x7f800000) != 0x7f800000
+    u[finite] = (u[finite] + np.uint32(0x1000)) & np.uint32(0xffffe000)
+    return u.view(np.float32)
+
+
+def test_prepass_split_planes_equal_tf32_split():
+    """The pre-pass's split as the kernel writes it (hi = tf32_round(x),
+    lo = tf32_round(x - hi)) equals ``tf32_split`` bit for bit, on normal
+    values, ties, subnormals, values that round to infinity, ±0, ±inf and
+    NaN; the wrapper's CPU path hands the same planes to *tables*."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(4096).astype(np.float32)
+    bits = rng.integers(0, 2 ** 32, 4096, dtype=np.uint64).astype(np.uint32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -3e-39,
+                        3.4e38, -3.4028235e38, 1.0 + 2 ** -11,
+                        1.0 + 2 ** -11 + 2 ** -23], np.float32)
+    ties = (rng.integers(0, 2 ** 19, 512, dtype=np.uint64).astype(np.uint32)
+            << 13 | 0x1000).astype(np.uint32).view(np.float32)
+    x = np.concatenate([x, bits.view(np.float32), special, ties])
+    hi = _kernel_tf32_round(x)
+    with np.errstate(invalid="ignore"):
+        lo = _kernel_tf32_round(x - hi)
+    t_hi, t_lo = kernels.tf32_split(torch.from_numpy(x))
+    for mine, theirs in ((hi, t_hi.numpy()), (lo, t_lo.numpy())):
+        nan = np.isnan(mine)
+        assert np.array_equal(nan, np.isnan(theirs))
+        assert np.array_equal(mine.view(np.uint32)[~nan],
+                              theirs.view(np.uint32)[~nan])
+    R = torch.from_numpy(rng.standard_normal((3, 35, 35)).astype(np.float32))
+    rows = [pk.ApplyRow(u=torch.zeros(35, 64), J=torch.zeros(3, 64))]
+    tables: dict = {}
+    pk.probe_apply_3xtf32(rows, R, tables=tables)
+    assert torch.equal(tables["hi"], kernels.tf32_split(R)[0])
+    assert torch.equal(tables["lo"], kernels.tf32_split(R)[1])
+    assert torch.equal(tables["ranges"], pk.probe_apply_ranges_plain(
+        R, pk.apply_tile(35, True)[0]))
 
 
 def test_apply_flags_follow_the_storage():

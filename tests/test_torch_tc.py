@@ -381,10 +381,10 @@ def test_rulings_on_the_multigrid_fields():
     assert_close(got, want)
 
 
-def test_builtin_default_raises_on_a_dense_contraction():
+def test_builtin_default_grids_a_dense_contraction_as_the_reference():
     """The built-in default on a fully concrete contraction used to raise
-    (the fused route took one long axis only; the name is that of the
-    refusal it once checked); it now grids as the reference's K1 does,
+    (the fused route took one long axis only); it now grids as the
+    reference's K1 does,
     over the longest output letter when that is at least 2048 long, else
     in one block, on ``step_block_f32``, and matches the JAX package's K1
     on the same program (interpret mode, one grid step) within 2e-5."""
@@ -406,10 +406,10 @@ def test_builtin_default_raises_on_a_dense_contraction():
     assert_close(got, want)
 
 
-def test_tc_gemm_resident_factor_over_shared_memory_raises():
+def test_tc_gemm_resident_factor_over_shared_memory_runs_on_probe_apply():
     """A ``tc_gemm_v0`` point whose resident factor exceeds
-    ``dg_rows_f32``'s shared memory used to raise (the name is that of
-    the refusal it once checked); it now runs on ``probe_apply_f32``,
+    ``dg_rows_f32``'s shared memory used to raise; it now runs on
+    ``probe_apply_f32``,
     whose ring streams the factor, and matches the JAX package's K1 on
     the same point (interpret mode, one grid step) within 2e-5.  The
     fold-8 storage stays a ruling."""
