@@ -3095,10 +3095,10 @@ def prepass_share(kernel: str, family: str, call, label: str,
     from ``torch.profiler``'s device events over *calls* calls (not
     counted); added to ``PREPASS[(kernel, family)]``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.tools.profile_suite import is_device_op
     before = dict(kernels.launch_counts)
     call()
     torch.cuda.synchronize()
@@ -3110,7 +3110,7 @@ def prepass_share(kernel: str, family: str, call, label: str,
     kernels.launch_counts.update(before)
     pre = main = 0.0
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        if not is_device_op(ev):  # the feinsum.kernel span's shadow too
             continue
         us = ev.time_range.end - ev.time_range.start
         if "probe_apply_ranges" in ev.name:

@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..contraction_schedule import (
     FALLBACK_LONG_DIM_LENGTH,
     ContractionSchedule,
@@ -195,13 +196,28 @@ def _xla_chunked_fn(program: EinsumProgram, index_to_length: dict,
 @functools.lru_cache(maxsize=512)
 def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
                              device: Optional[torch.device]):
+    """A build (the set-up span ``feinsum.executable.build``); each call of
+    the executable is the span ``feinsum.exec:<subscripts>``."""
+    with tracing.setup("feinsum.executable.build"):
+        fn = _executable(program, lengths_key, device)
+    name = f"feinsum.exec:{program.einsum.get_subscripts()}"
+
+    def executable(arrays_by_name: dict):
+        with tracing.span(name):
+            return fn(arrays_by_name)
+
+    return executable
+
+
+def _executable(program: EinsumProgram, lengths_key: tuple,
+                device: Optional[torch.device]):
     check_supported(program.descriptor)
     if program.descriptor.kron_args or program.descriptor.lane_pack_expand:
         # the lane-pack contract: residents arrive in their logical shape
         # and are expanded on the operands' device once per call, on every
         # route; callers never pass the expansion matrices
         from ..ops.lane_pack import expand_residents
-        packed = _build_executable_cached(
+        packed = _executable(
             program.with_descriptor(kron_args=(), lane_pack_expand=()),
             lengths_key, device)
 

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..cl_utils import default_device
 from ..codegen.program import build_executable
 from ..make_einsum import array, batched_einsum
@@ -73,11 +74,14 @@ class MaxwellOperator3D(torch.nn.Module):
                                 rows[2] - rows[3],
                                 rows[4] - rows[5]])
 
+        name = f"feinsum.step:{type(self).__name__}"
+
         def step(state, geom):
-            e, h = state["E"], state["H"]
-            new_e = e + dt * curl(h, geom)
-            new_h = h - dt * curl(e, geom)
-            return {"E": new_e, "H": new_h}
+            with tracing.span(name):
+                e, h = state["E"], state["H"]
+                new_e = e + dt * curl(h, geom)
+                new_h = h - dt * curl(e, geom)
+                return {"E": new_e, "H": new_h}
 
         return step
 

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import sql_utils
+from .. import sql_utils, tracing
 from ..cl_utils import default_device
 from ..codegen.program import (
     EinsumProgram,
@@ -149,22 +149,25 @@ class WaveOperator3D(torch.nn.Module):
         (P, E), v (3, P, E); geometry as :func:`make_wave_state` lays it
         out."""
         fns = self.executables(n_elements)
+        name = f"feinsum.step:{type(self).__name__}"
 
         def step(state, geom):
-            u, v = state["u"], state["v"]
-            (grad_u,) = fns["grad"]({"J": geom["J"], "D": geom["D"], "u": u})
-            vx, vy, vz = fns["div"]({
-                "Jx": geom["Jx"], "Jy": geom["Jy"], "Jz": geom["Jz"],
-                "D": geom["D"], "vx": v[0], "vy": v[1], "vz": v[2]})
-            div_v = vx + vy + vz                      # (P, E)
-            # the flux from the state, stored (F, Pf, E): the layout the
-            # face program streams
-            (flux,) = fns["restrict"]({"R": geom["Rface"], "u": u})
-            (lift,) = fns["face"]({"L": geom["L"], "Fj": geom["Fj"],
-                                   "flux": flux})
-            new_v = v + dt * grad_u                   # grad out: (x, P, E)
-            new_u = u + dt * (div_v + lift)
-            return {"u": new_u, "v": new_v}
+            with tracing.span(name):
+                u, v = state["u"], state["v"]
+                (grad_u,) = fns["grad"]({"J": geom["J"], "D": geom["D"],
+                                         "u": u})
+                vx, vy, vz = fns["div"]({
+                    "Jx": geom["Jx"], "Jy": geom["Jy"], "Jz": geom["Jz"],
+                    "D": geom["D"], "vx": v[0], "vy": v[1], "vz": v[2]})
+                div_v = vx + vy + vz                      # (P, E)
+                # the flux from the state, stored (F, Pf, E): the layout the
+                # face program streams
+                (flux,) = fns["restrict"]({"R": geom["Rface"], "u": u})
+                (lift,) = fns["face"]({"L": geom["L"], "Fj": geom["Fj"],
+                                       "flux": flux})
+                new_v = v + dt * grad_u                   # grad out: (x, P, E)
+                new_u = u + dt * (div_v + lift)
+                return {"u": new_u, "v": new_v}
 
         return step
 

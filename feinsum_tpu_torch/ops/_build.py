@@ -24,6 +24,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "feinsum_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -167,13 +169,15 @@ def _compile(target: Path) -> None:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built first if needed.  A failed build
-    raises; nothing falls back."""
+    raises; nothing falls back.  The load after the build is the set-up
+    span ``feinsum.library.load``."""
     target = library_path()
     if not target.exists():
         _compile(target)
-    lib = ctypes.CDLL(str(target))
-    for name, restype, argtypes in _SIGNATURES:
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = list(argtypes)
+    with tracing.setup("feinsum.library.load"):
+        lib = ctypes.CDLL(str(target))
+        for name, restype, argtypes in _SIGNATURES:
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = list(argtypes)
     return lib

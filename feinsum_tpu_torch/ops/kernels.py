@@ -98,7 +98,8 @@ A wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; it runs the plain version only for tensors that lie on the
 CPU.  There is no fallback from a CUDA tensor to the plain version.  Each
 launch adds one to :data:`launch_counts`, so a run can show that it went
-through the kernels.
+through the kernels, and a wrapper's CUDA branch is the span
+``feinsum.kernel:<kernel>`` (:mod:`~feinsum_tpu_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -111,6 +112,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..diagnostics import InvalidParameterError
 
 # shared memory a Hopper thread block can use (227 KB of the SM's 256 KB)
@@ -174,18 +176,8 @@ TS_MAX_GRID = 8
 TS_MAX_LETTERS = 16
 TS_MAX_TABLE = 2 ** 26
 
-# launches by kernel (the probe kernels of ``ops/probe_kernels.py`` too); a
-# ``bf16_3x`` row planned onto a kernel with no 3x variant
-# (``ew_product_f32``, ``ew_flat_f32``, ``row_reduce_f32``,
-# ``long_reduce_f32``, ``step_block_f32``, ``tc_steps_f32``, ``dd_rows``)
-# runs it in f32 and counts under its name
-launch_counts = {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
-                 "row_reduce_f32": 0, "long_reduce_f32": 0, "dd_rows": 0,
-                 "tc_grid_f32": 0, "dg_rows_3xtf32": 0, "tc_grid_3xtf32": 0,
-                 "lane_pack_dg_f32": 0, "lane_pack_dg_3xtf32": 0,
-                 "step_block_f32": 0, "tc_steps_f32": 0,
-                 "probe_stream_f32": 0, "probe_apply_f32": 0,
-                 "probe_apply_3xtf32": 0}
+# launches by kernel: the package's counter (``tracing.counters``)
+launch_counts = tracing.counters["launches"]
 
 
 def reset_launch_counts() -> None:
@@ -424,44 +416,47 @@ def _dg_launch(name: str, rows: Sequence[DGRow], block_long: int,
     if device.type == "cpu":
         return (dg_rows_3x_plain if name == "dg_rows_3xtf32"
                 else dg_rows_plain)(rows, out_order)
-    if device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {device}")
+    with tracing.span(f"feinsum.kernel:{name}"):
+        if device.type != "cuda":
+            raise ValueError(f"{name}: no kernel for device {device}")
 
-    from ._build import load_library
-    lib = load_library()
-    if name == "dg_rows_3xtf32":
-        smem = lib.dg_rows_3xtf32_smem_bytes(X, S, I, J, int(u_has_s))
-    else:
-        smem = lib.dg_rows_f32_smem_bytes(S, I, J, int(u_has_s))
-    if smem > MAX_SMEM_BYTES:
-        raise InvalidParameterError(
-            f"{name} needs {smem} bytes of shared memory per block;"
-            f" an H100 block has {MAX_SMEM_BYTES}")
-    dims = (X, I, E)
-    inverse = tuple(sorted(range(3), key=lambda k: out_order[k]))
-    outs = [torch.empty(tuple(dims[k] for k in out_order),
-                        dtype=torch.float32, device=device) for _ in rows]
-    per_launch = getattr(lib, f"{name}_max_rows")() if one_launch else 1
-    with torch.cuda.device(device):
-        for idx in _chunks(range(len(rows)), per_launch):
-            ptrs = (ctypes.c_void_p * (4 * len(idx)))()
-            strides = (ctypes.c_int64 * (12 * len(idx)))()
-            for n, k in enumerate(idx):
-                row, out = rows[k], outs[k].permute(*inverse)
-                f_ptr = row.F.data_ptr() if has_f else None
-                ptrs[4 * n:4 * n + 4] = [row.u.data_ptr(), row.R.data_ptr(),
-                                         f_ptr, out.data_ptr()]
-                f_strides = row.F.stride() if has_f else (0, 0, 0)
-                strides[12 * n:12 * n + 12] = [
-                    *row.u.stride(), *row.R.stride(), *f_strides,
-                    *out.stride()]
-            err = getattr(lib, name)(len(idx), ptrs, strides, X, S, I, J, E,
-                                     int(u_has_s), int(block_long),
-                                     _stream_of(device))
-            if err:
-                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-            launch_counts[name] += 1
-    return outs
+        from ._build import load_library
+        lib = load_library()
+        if name == "dg_rows_3xtf32":
+            smem = lib.dg_rows_3xtf32_smem_bytes(X, S, I, J, int(u_has_s))
+        else:
+            smem = lib.dg_rows_f32_smem_bytes(S, I, J, int(u_has_s))
+        if smem > MAX_SMEM_BYTES:
+            raise InvalidParameterError(
+                f"{name} needs {smem} bytes of shared memory per block;"
+                f" an H100 block has {MAX_SMEM_BYTES}")
+        dims = (X, I, E)
+        inverse = tuple(sorted(range(3), key=lambda k: out_order[k]))
+        outs = [torch.empty(tuple(dims[k] for k in out_order),
+                            dtype=torch.float32, device=device) for _ in rows]
+        per_launch = getattr(lib, f"{name}_max_rows")() if one_launch else 1
+        with torch.cuda.device(device):
+            for idx in _chunks(range(len(rows)), per_launch):
+                ptrs = (ctypes.c_void_p * (4 * len(idx)))()
+                strides = (ctypes.c_int64 * (12 * len(idx)))()
+                for n, k in enumerate(idx):
+                    row, out = rows[k], outs[k].permute(*inverse)
+                    f_ptr = row.F.data_ptr() if has_f else None
+                    ptrs[4 * n:4 * n + 4] = [
+                        row.u.data_ptr(), row.R.data_ptr(), f_ptr,
+                        out.data_ptr()]
+                    f_strides = row.F.stride() if has_f else (0, 0, 0)
+                    strides[12 * n:12 * n + 12] = [
+                        *row.u.stride(), *row.R.stride(), *f_strides,
+                        *out.stride()]
+                err = getattr(lib, name)(len(idx), ptrs, strides, X, S, I, J,
+                                         E, int(u_has_s), int(block_long),
+                                         _stream_of(device))
+                if err:
+                    raise RuntimeError(f"{name} launch failed: CUDA error"
+                                       f" {err}")
+                tracing.count_launch(name)
+        return outs
 
 # }}}
 
@@ -495,33 +490,34 @@ def _ew_launch(rows: Sequence[Sequence[torch.Tensor]], block_long: int,
     device = rows[0][0].device
     if device.type == "cpu":
         return ew_product_plain(rows)
-    if device.type != "cuda":
-        raise ValueError(f"ew_product_f32: no kernel for device {device}")
+    with tracing.span(f"feinsum.kernel:{counter}"):
+        if device.type != "cuda":
+            raise ValueError(f"ew_product_f32: no kernel for device {device}")
 
-    from ._build import load_library
-    lib = load_library()
-    nops = len(rows[0])
-    if nops > lib.ew_product_f32_max_ops():
-        raise InvalidParameterError(
-            f"ew_product_f32 takes at most {lib.ew_product_f32_max_ops()}"
-            f" operands, got {nops}")
-    n = rows[0][0].numel()
-    outs = [torch.empty(shape, dtype=torch.float32, device=device)
-            for _ in rows]
-    per_launch = lib.ew_product_f32_max_rows() if one_launch else 1
-    with torch.cuda.device(device):
-        for idx in _chunks(range(len(rows)), per_launch):
-            ins = (ctypes.c_void_p * (nops * len(idx)))(
-                *[t.data_ptr() for k in idx for t in rows[k]])
-            out_ptrs = (ctypes.c_void_p * len(idx))(
-                *[outs[k].data_ptr() for k in idx])
-            err = lib.ew_product_f32(len(idx), nops, ins, out_ptrs, n,
-                                     block_long, _stream_of(device))
-            if err:
-                raise RuntimeError(f"ew_product_f32 launch failed: CUDA"
-                                   f" error {err}")
-            launch_counts[counter] += 1
-    return outs
+        from ._build import load_library
+        lib = load_library()
+        nops = len(rows[0])
+        if nops > lib.ew_product_f32_max_ops():
+            raise InvalidParameterError(
+                f"ew_product_f32 takes at most {lib.ew_product_f32_max_ops()}"
+                f" operands, got {nops}")
+        n = rows[0][0].numel()
+        outs = [torch.empty(shape, dtype=torch.float32, device=device)
+                for _ in rows]
+        per_launch = lib.ew_product_f32_max_rows() if one_launch else 1
+        with torch.cuda.device(device):
+            for idx in _chunks(range(len(rows)), per_launch):
+                ins = (ctypes.c_void_p * (nops * len(idx)))(
+                    *[t.data_ptr() for k in idx for t in rows[k]])
+                out_ptrs = (ctypes.c_void_p * len(idx))(
+                    *[outs[k].data_ptr() for k in idx])
+                err = lib.ew_product_f32(len(idx), nops, ins, out_ptrs, n,
+                                         block_long, _stream_of(device))
+                if err:
+                    raise RuntimeError(f"ew_product_f32 launch failed: CUDA"
+                                       f" error {err}")
+                tracing.count_launch(counter)
+        return outs
 
 
 def ew_product_f32(rows: Sequence[Sequence[torch.Tensor]], *,
@@ -589,35 +585,36 @@ def row_reduce_f32(rows: Sequence[ReduceRow], *, block_long: int,
                 raise ValueError(f"row {k} w is not contiguous")
     if device.type == "cpu":
         return row_reduce_plain(rows)
-    if device.type != "cuda":
-        raise ValueError(f"row_reduce_f32: no kernel for device {device}")
+    with tracing.span("feinsum.kernel:row_reduce_f32"):
+        if device.type != "cuda":
+            raise ValueError(f"row_reduce_f32: no kernel for device {device}")
 
-    if J > MAX_REDUCE_J:
-        raise InvalidParameterError(
-            f"row_reduce_f32 takes at most {MAX_REDUCE_J} values of j, got"
-            f" {J}")
-    from ._build import load_library
-    lib = load_library()
-    outs = [torch.empty((E,), dtype=torch.float32, device=device)
-            for _ in rows]
-    per_launch = lib.row_reduce_f32_max_rows() if one_launch else 1
-    with torch.cuda.device(device):
-        for idx in _chunks(range(len(rows)), per_launch):
-            ptrs = (ctypes.c_void_p * (3 * len(idx)))()
-            strides = (ctypes.c_int64 * (2 * len(idx)))()
-            for n, k in enumerate(idx):
-                row = rows[k]
-                ptrs[3 * n:3 * n + 3] = [
-                    row.u.data_ptr(), row.w.data_ptr() if has_w else None,
-                    outs[k].data_ptr()]
-                strides[2 * n:2 * n + 2] = list(row.u.stride())
-            err = lib.row_reduce_f32(len(idx), ptrs, strides, J, E,
-                                     int(block_long), _stream_of(device))
-            if err:
-                raise RuntimeError(f"row_reduce_f32 launch failed: CUDA"
-                                   f" error {err}")
-            launch_counts["row_reduce_f32"] += 1
-    return outs
+        if J > MAX_REDUCE_J:
+            raise InvalidParameterError(
+                f"row_reduce_f32 takes at most {MAX_REDUCE_J} values of j, got"
+                f" {J}")
+        from ._build import load_library
+        lib = load_library()
+        outs = [torch.empty((E,), dtype=torch.float32, device=device)
+                for _ in rows]
+        per_launch = lib.row_reduce_f32_max_rows() if one_launch else 1
+        with torch.cuda.device(device):
+            for idx in _chunks(range(len(rows)), per_launch):
+                ptrs = (ctypes.c_void_p * (3 * len(idx)))()
+                strides = (ctypes.c_int64 * (2 * len(idx)))()
+                for n, k in enumerate(idx):
+                    row = rows[k]
+                    ptrs[3 * n:3 * n + 3] = [
+                        row.u.data_ptr(), row.w.data_ptr() if has_w else None,
+                        outs[k].data_ptr()]
+                    strides[2 * n:2 * n + 2] = list(row.u.stride())
+                err = lib.row_reduce_f32(len(idx), ptrs, strides, J, E,
+                                         int(block_long), _stream_of(device))
+                if err:
+                    raise RuntimeError(f"row_reduce_f32 launch failed: CUDA"
+                                       f" error {err}")
+                tracing.count_launch("row_reduce_f32")
+        return outs
 
 # }}}
 
@@ -787,54 +784,55 @@ def long_reduce_f32(rows: Sequence[LongReduceRow], shape: LongReduceShape,
     device = rows[0].a.device
     if device.type == "cpu":
         return long_reduce_plain(rows, shape)
-    if device.type != "cuda":
-        raise ValueError(f"long_reduce_f32: no kernel for device {device}")
-    check_long_reduce_shape(shape)
-    if block_long < 1:
-        raise InvalidParameterError(
-            f"block_long must be positive, got {block_long}")
+    with tracing.span("feinsum.kernel:long_reduce_f32"):
+        if device.type != "cuda":
+            raise ValueError(f"long_reduce_f32: no kernel for device {device}")
+        check_long_reduce_shape(shape)
+        if block_long < 1:
+            raise InvalidParameterError(
+                f"block_long must be positive, got {block_long}")
 
-    from ._build import load_library
-    lib = load_library()
-    roles = {None: 0, "p": 1, "q": 1, "c": 2}
-    role_arr = (ctypes.c_int * 2)(roles[shape.a_role],
-                                  roles[shape.b_role if has_b else None])
-    nblocks = -(-E // int(block_long))
-    # B is staged unless it is A itself in every row (the energy)
-    b_staged = has_b and not all(
-        r.b.data_ptr() == r.a.data_ptr() and r.b.stride() == r.a.stride()
-        and r.b.shape == r.a.shape for r in rows)
-    te = long_reduce_tile(shape.length(shape.a_role),
-                          shape.length(shape.b_role) if b_staged else 0)
-    outs = [torch.empty(shape.out_shape, dtype=torch.float32, device=device)
-            for _ in rows]
-    per_launch = lib.long_reduce_f32_max_rows() if one_launch else 1
-    with torch.cuda.device(device):
-        for idx in _chunks(range(len(rows)), per_launch):
-            work = torch.empty(len(idx) * nblocks * shape.entries,
-                               dtype=torch.float32, device=device)
-            ptrs = (ctypes.c_void_p * (3 * len(idx)))()
-            strides = (ctypes.c_int64 * (7 * len(idx)))()
-            for n, k in enumerate(idx):
-                row, out = rows[k], outs[k]
-                out_stride = dict(zip(shape.out_axes, out.stride()))
-                ptrs[3 * n:3 * n + 3] = [
-                    row.a.data_ptr(), row.b.data_ptr() if has_b else None,
-                    out.data_ptr()]
-                b_strides = row.b.stride() if has_b else (0, 0)
-                strides[7 * n:7 * n + 7] = [
-                    *row.a.stride(), *b_strides,
-                    *(out_stride.get(r, 0) for r in ("p", "q", "c"))]
-            err = lib.long_reduce_f32(
-                len(idx), ptrs, strides, role_arr, shape.P, shape.Q,
-                shape.C, int(shape.c_batch), E, int(block_long), te,
-                int(b_staged), ctypes.c_void_p(work.data_ptr()),
-                _stream_of(device))
-            if err:
-                raise RuntimeError(f"long_reduce_f32 launch failed: CUDA"
-                                   f" error {err}")
-            launch_counts["long_reduce_f32"] += 1
-    return outs
+        from ._build import load_library
+        lib = load_library()
+        roles = {None: 0, "p": 1, "q": 1, "c": 2}
+        role_arr = (ctypes.c_int * 2)(roles[shape.a_role],
+                                      roles[shape.b_role if has_b else None])
+        nblocks = -(-E // int(block_long))
+        # B is staged unless it is A itself in every row (the energy)
+        b_staged = has_b and not all(
+            r.b.data_ptr() == r.a.data_ptr() and r.b.stride() == r.a.stride()
+            and r.b.shape == r.a.shape for r in rows)
+        te = long_reduce_tile(shape.length(shape.a_role),
+                              shape.length(shape.b_role) if b_staged else 0)
+        outs = [torch.empty(shape.out_shape, dtype=torch.float32,
+                            device=device) for _ in rows]
+        per_launch = lib.long_reduce_f32_max_rows() if one_launch else 1
+        with torch.cuda.device(device):
+            for idx in _chunks(range(len(rows)), per_launch):
+                work = torch.empty(len(idx) * nblocks * shape.entries,
+                                   dtype=torch.float32, device=device)
+                ptrs = (ctypes.c_void_p * (3 * len(idx)))()
+                strides = (ctypes.c_int64 * (7 * len(idx)))()
+                for n, k in enumerate(idx):
+                    row, out = rows[k], outs[k]
+                    out_stride = dict(zip(shape.out_axes, out.stride()))
+                    ptrs[3 * n:3 * n + 3] = [
+                        row.a.data_ptr(), row.b.data_ptr() if has_b else None,
+                        out.data_ptr()]
+                    b_strides = row.b.stride() if has_b else (0, 0)
+                    strides[7 * n:7 * n + 7] = [
+                        *row.a.stride(), *b_strides,
+                        *(out_stride.get(r, 0) for r in ("p", "q", "c"))]
+                err = lib.long_reduce_f32(
+                    len(idx), ptrs, strides, role_arr, shape.P, shape.Q,
+                    shape.C, int(shape.c_batch), E, int(block_long), te,
+                    int(b_staged), ctypes.c_void_p(work.data_ptr()),
+                    _stream_of(device))
+                if err:
+                    raise RuntimeError(f"long_reduce_f32 launch failed: CUDA"
+                                       f" error {err}")
+                tracing.count_launch("long_reduce_f32")
+        return outs
 
 # }}}
 
@@ -918,40 +916,42 @@ def dd_rows(rows: Sequence[DDRow], *, block_long: int,
     device = rows[0].u.device
     if device.type == "cpu":
         return dd_rows_plain(rows)
-    if device.type != "cuda":
-        raise ValueError(f"dd_rows: no kernel for device {device}")
+    with tracing.span("feinsum.kernel:dd_rows"):
+        if device.type != "cuda":
+            raise ValueError(f"dd_rows: no kernel for device {device}")
 
-    from ._build import load_library
-    lib = load_library()
-    smem = lib.dd_rows_smem_bytes(S, I, J, int(u_has_s))
-    if smem > MAX_SMEM_BYTES:
-        raise InvalidParameterError(
-            f"dd_rows needs {smem} bytes of shared memory per block; an"
-            f" H100 block has {MAX_SMEM_BYTES}")
-    outs = [torch.empty((2, X, I, E), dtype=torch.float32, device=device)
-            for _ in rows]
-    per_launch = lib.dd_rows_max_rows() if one_launch else 1
-    with torch.cuda.device(device):
-        for idx in _chunks(range(len(rows)), per_launch):
-            ptrs = (ctypes.c_void_p * (4 * len(idx)))()
-            strides = (ctypes.c_int64 * (16 * len(idx)))()
-            for n, k in enumerate(idx):
-                row, out = rows[k], outs[k]
-                f_ptr = row.F.data_ptr() if has_f else None
-                ptrs[4 * n:4 * n + 4] = [row.u.data_ptr(), row.R.data_ptr(),
-                                         f_ptr, out.data_ptr()]
-                f_strides = row.F.stride() if has_f else (0, 0, 0, 0)
-                strides[16 * n:16 * n + 16] = [
-                    *row.u.stride(), *row.R.stride(), *f_strides,
-                    *out.stride()]
-            err = lib.dd_rows(len(idx), ptrs, strides, X, S, I, J, E,
-                              int(u_has_s), int(block_long),
-                              _stream_of(device))
-            if err:
-                raise RuntimeError(f"dd_rows launch failed: CUDA error"
-                                   f" {err}")
-            launch_counts["dd_rows"] += 1
-    return outs
+        from ._build import load_library
+        lib = load_library()
+        smem = lib.dd_rows_smem_bytes(S, I, J, int(u_has_s))
+        if smem > MAX_SMEM_BYTES:
+            raise InvalidParameterError(
+                f"dd_rows needs {smem} bytes of shared memory per block; an"
+                f" H100 block has {MAX_SMEM_BYTES}")
+        outs = [torch.empty((2, X, I, E), dtype=torch.float32, device=device)
+                for _ in rows]
+        per_launch = lib.dd_rows_max_rows() if one_launch else 1
+        with torch.cuda.device(device):
+            for idx in _chunks(range(len(rows)), per_launch):
+                ptrs = (ctypes.c_void_p * (4 * len(idx)))()
+                strides = (ctypes.c_int64 * (16 * len(idx)))()
+                for n, k in enumerate(idx):
+                    row, out = rows[k], outs[k]
+                    f_ptr = row.F.data_ptr() if has_f else None
+                    ptrs[4 * n:4 * n + 4] = [
+                        row.u.data_ptr(), row.R.data_ptr(), f_ptr,
+                        out.data_ptr()]
+                    f_strides = row.F.stride() if has_f else (0, 0, 0, 0)
+                    strides[16 * n:16 * n + 16] = [
+                        *row.u.stride(), *row.R.stride(), *f_strides,
+                        *out.stride()]
+                err = lib.dd_rows(len(idx), ptrs, strides, X, S, I, J, E,
+                                  int(u_has_s), int(block_long),
+                                  _stream_of(device))
+                if err:
+                    raise RuntimeError(f"dd_rows launch failed: CUDA error"
+                                       f" {err}")
+                tracing.count_launch("dd_rows")
+        return outs
 
 # }}}
 
@@ -1206,26 +1206,27 @@ def _tc_launch(name: str, A: torch.Tensor, B: torch.Tensor, step: TCStep
     if device.type == "cpu":
         return (tc_grid_3x_plain if name == "tc_grid_3xtf32"
                 else tc_grid_plain)(A, B, step)
-    if device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {device}")
+    with tracing.span(f"feinsum.kernel:{name}"):
+        if device.type != "cuda":
+            raise ValueError(f"{name}: no kernel for device {device}")
 
-    from ._build import load_library
-    lib = load_library()
-    C = torch.empty(tuple(lengths[l] for l in step.c), dtype=torch.float32,
-                    device=device)
-    tables, flags = _tc_device_tables(step, tuple(A.stride()),
-                                      tuple(B.stride()), tuple(C.stride()),
-                                      device)
-    rows, cols = (B, A) if shape.swap else (A, B)
-    with torch.cuda.device(device):
-        err = getattr(lib, name)(rows.data_ptr(), cols.data_ptr(),
-                                 C.data_ptr(), tables.data_ptr(), shape.Mc,
-                                 shape.Nc, shape.K, shape.ncells, flags,
-                                 shape.variant, _stream_of(device))
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
-    return C
+        from ._build import load_library
+        lib = load_library()
+        C = torch.empty(tuple(lengths[l] for l in step.c), dtype=torch.float32,
+                        device=device)
+        tables, flags = _tc_device_tables(step, tuple(A.stride()),
+                                          tuple(B.stride()), tuple(C.stride()),
+                                          device)
+        rows, cols = (B, A) if shape.swap else (A, B)
+        with torch.cuda.device(device):
+            err = getattr(lib, name)(rows.data_ptr(), cols.data_ptr(),
+                                     C.data_ptr(), tables.data_ptr(), shape.Mc,
+                                     shape.Nc, shape.K, shape.ncells, flags,
+                                     shape.variant, _stream_of(device))
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        tracing.count_launch(name)
+        return C
 
 # }}}
 
@@ -1399,52 +1400,54 @@ def _lp_launch(name: str, rows: Sequence[LanePackDGRow],
     if device.type == "cpu":
         return (lane_pack_dg_3x_plain if split else lane_pack_dg_plain)(
             rows, shape, out_order)
-    if device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {device}")
-    check_lane_pack_dg_shape(shape, split)
-    if block_long < 1:
-        raise InvalidParameterError(
-            f"block_long must be positive, got {block_long}")
+    with tracing.span(f"feinsum.kernel:{name}"):
+        if device.type != "cuda":
+            raise ValueError(f"{name}: no kernel for device {device}")
+        check_lane_pack_dg_shape(shape, split)
+        if block_long < 1:
+            raise InvalidParameterError(
+                f"block_long must be positive, got {block_long}")
 
-    from ._build import load_library
-    lib = load_library()
-    M, NW, NO = len(shape.u_of_m), len(shape.j_of_w), shape.n_out
-    dims = (NO, E, GI)
-    inverse = tuple(sorted(range(3), key=lambda k: out_order[k]))
-    outs = [torch.empty(tuple(dims[k] for k in out_order),
-                        dtype=torch.float32, device=device) for _ in rows]
-    pairs = (ctypes.c_int * (3 * len(shape.pairs)))(
-        *[v for term in shape.pairs for v in term])
-    n_off = 2 * M + 2 * NW + NO
-    per_launch = lib.lane_pack_dg_max_rows() if one_launch else 1
-    with torch.cuda.device(device):
-        for idx in _chunks(range(len(rows)), per_launch):
-            ptrs = (ctypes.c_void_p * (5 * len(idx)))()
-            strides = (ctypes.c_int64 * (10 * len(idx)))()
-            offsets = (ctypes.c_int64 * (n_off * len(idx)))()
-            for n, k in enumerate(idx):
-                row, out = rows[k], outs[k].permute(*inverse)
-                ptrs[5 * n:5 * n + 5] = [
-                    row.u.data_ptr(), row.T.data_ptr(), row.J.data_ptr(),
-                    row.EXP.data_ptr(), out.data_ptr()]
-                strides[10 * n:10 * n + 10] = [
-                    *row.u.stride()[1:], *row.T.stride()[1:],
-                    *row.J.stride()[1:], *row.EXP.stride()[1:],
-                    *out.stride()[1:]]
-                offsets[n_off * n:n_off * (n + 1)] = [
-                    *(k_ * row.u.stride(0) for k_ in shape.u_of_m),
-                    *(m * row.T.stride(0) for m in range(M)),
-                    *(k_ * row.J.stride(0) for k_ in shape.j_of_w),
-                    *(k_ * row.EXP.stride(0) for k_ in shape.exp_of_w),
-                    *(o * out.stride(0) for o in range(NO))]
-            err = getattr(lib, name)(
-                len(idx), ptrs, strides, offsets, pairs, M, NW, NO,
-                len(shape.pairs), E, GI, GJ, PK, int(block_long),
-                _stream_of(device))
-            if err:
-                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-            launch_counts[name] += 1
-    return outs
+        from ._build import load_library
+        lib = load_library()
+        M, NW, NO = len(shape.u_of_m), len(shape.j_of_w), shape.n_out
+        dims = (NO, E, GI)
+        inverse = tuple(sorted(range(3), key=lambda k: out_order[k]))
+        outs = [torch.empty(tuple(dims[k] for k in out_order),
+                            dtype=torch.float32, device=device) for _ in rows]
+        pairs = (ctypes.c_int * (3 * len(shape.pairs)))(
+            *[v for term in shape.pairs for v in term])
+        n_off = 2 * M + 2 * NW + NO
+        per_launch = lib.lane_pack_dg_max_rows() if one_launch else 1
+        with torch.cuda.device(device):
+            for idx in _chunks(range(len(rows)), per_launch):
+                ptrs = (ctypes.c_void_p * (5 * len(idx)))()
+                strides = (ctypes.c_int64 * (10 * len(idx)))()
+                offsets = (ctypes.c_int64 * (n_off * len(idx)))()
+                for n, k in enumerate(idx):
+                    row, out = rows[k], outs[k].permute(*inverse)
+                    ptrs[5 * n:5 * n + 5] = [
+                        row.u.data_ptr(), row.T.data_ptr(), row.J.data_ptr(),
+                        row.EXP.data_ptr(), out.data_ptr()]
+                    strides[10 * n:10 * n + 10] = [
+                        *row.u.stride()[1:], *row.T.stride()[1:],
+                        *row.J.stride()[1:], *row.EXP.stride()[1:],
+                        *out.stride()[1:]]
+                    offsets[n_off * n:n_off * (n + 1)] = [
+                        *(k_ * row.u.stride(0) for k_ in shape.u_of_m),
+                        *(m * row.T.stride(0) for m in range(M)),
+                        *(k_ * row.J.stride(0) for k_ in shape.j_of_w),
+                        *(k_ * row.EXP.stride(0) for k_ in shape.exp_of_w),
+                        *(o * out.stride(0) for o in range(NO))]
+                err = getattr(lib, name)(
+                    len(idx), ptrs, strides, offsets, pairs, M, NW, NO,
+                    len(shape.pairs), E, GI, GJ, PK, int(block_long),
+                    _stream_of(device))
+                if err:
+                    raise RuntimeError(f"{name} launch failed: CUDA error"
+                                       f" {err}")
+                tracing.count_launch(name)
+        return outs
 
 # }}}
 
@@ -1858,72 +1861,74 @@ def step_block_f32(rows, table, *, block_long: int,
     device = rows[0][0].device
     if device.type == "cpu":
         return step_block_plain(rows, table, block_long)
-    if device.type != "cuda":
-        raise ValueError(f"step_block_f32: no kernel for device {device}")
-    if block_long < 1:
-        raise InvalidParameterError(
-            f"block_long must be positive, got {block_long}")
-    if table.smem_bytes > MAX_SMEM_BYTES:
-        raise InvalidParameterError(
-            f"step_block_f32 needs {table.smem_bytes} bytes of shared memory"
-            f" per block; an H100 block has {MAX_SMEM_BYTES}")
+    with tracing.span("feinsum.kernel:step_block_f32"):
+        if device.type != "cuda":
+            raise ValueError(f"step_block_f32: no kernel for device {device}")
+        if block_long < 1:
+            raise InvalidParameterError(
+                f"block_long must be positive, got {block_long}")
+        if table.smem_bytes > MAX_SMEM_BYTES:
+            raise InvalidParameterError(
+                f"step_block_f32 needs {table.smem_bytes} bytes of shared"
+                f" memory per block; an H100 block has {MAX_SMEM_BYTES}")
 
-    from ._build import load_library
-    lib = load_library()
-    el, length = table.el, table.length
-    last = table.steps[-1]
-    out_shape = tuple(E if ix == el else length[ix] for ix in table.stored_out)
-    perm = [table.stored_out.index(ix) for ix in last.out]
-    outs = [torch.empty(out_shape, dtype=torch.float32, device=device)
-            for _ in rows]
-    views = [o.permute(tuple(perm)) for o in outs]
-    rows = [[t if table.stage[s] < 0 or _is_flat(t) else t.contiguous()
-             for s, t in enumerate(row)] for row in rows]
-    elem_fastest = step_block_mode(
-        table, tuple(tuple(t.stride()) for t in rows[0]),
-        tuple(views[0].stride()))
-    ni, ns = len(table.inputs), len(table.steps)
-    nblocks = -(-E // int(block_long))
-    per_launch = lib.step_block_f32_max_rows() if one_launch else 1
-    with torch.cuda.device(device):
-        for idx in _chunks(range(len(rows)), per_launch):
-            tables, steps_i, steps_t, stage_i, stage_t, row_len = \
-                _sb_device_tables(
-                table, _sb_view_strides([rows[k] for k in idx],
-                                        [views[k] for k in idx]),
-                elem_fastest, device)
-            ptrs = (ctypes.c_void_p * ((ni + 1) * len(idx)))()
-            es = (ctypes.c_int64 * ((ni + 1) * len(idx)))()
-            for n, k in enumerate(idx):
-                ptrs[(ni + 1) * n:(ni + 1) * (n + 1)] = [
-                    *(t.data_ptr() for t in rows[k]), views[k].data_ptr()]
-                es[(ni + 1) * n:(ni + 1) * (n + 1)] = [
-                    *(_sb_strides(letters, t.stride(), el)[1]
-                      for letters, t in zip(table.inputs, rows[k])),
-                    _sb_strides(last.out, views[k].stride(), el)[1]]
-            work = None
-            if last.kind == "reduce":
-                work = torch.empty(len(idx) * nblocks * table.n_out(last),
-                                   dtype=torch.float32, device=device)
-            err = lib.step_block_f32(
-                len(idx), ni, ptrs, es, ns,
-                (ctypes.c_int * (SB_STEP_INTS * ns))(
-                    *[v for s in steps_i for v in s]),
-                (ctypes.c_int64 * (SB_STEP_TABLES * ns))(
-                    *[v for s in steps_t for v in s]),
-                (ctypes.c_int * (SB_STAGE_INTS * (ni + 1)))(
-                    *[v for s in stage_i for v in s]),
-                (ctypes.c_int64 * (ni + 1))(*stage_t),
-                ctypes.c_void_p(tables.data_ptr()), row_len,
-                table.te, int(elem_fastest), E, int(block_long),
-                table.smem_floats,
-                ctypes.c_void_p(None if work is None else work.data_ptr()),
-                _stream_of(device))
-            if err:
-                raise RuntimeError(f"step_block_f32 launch failed: CUDA error"
-                                   f" {err}")
-            launch_counts["step_block_f32"] += 1
-    return outs
+        from ._build import load_library
+        lib = load_library()
+        el, length = table.el, table.length
+        last = table.steps[-1]
+        out_shape = tuple(E if ix == el else length[ix]
+                          for ix in table.stored_out)
+        perm = [table.stored_out.index(ix) for ix in last.out]
+        outs = [torch.empty(out_shape, dtype=torch.float32, device=device)
+                for _ in rows]
+        views = [o.permute(tuple(perm)) for o in outs]
+        rows = [[t if table.stage[s] < 0 or _is_flat(t) else t.contiguous()
+                 for s, t in enumerate(row)] for row in rows]
+        elem_fastest = step_block_mode(
+            table, tuple(tuple(t.stride()) for t in rows[0]),
+            tuple(views[0].stride()))
+        ni, ns = len(table.inputs), len(table.steps)
+        nblocks = -(-E // int(block_long))
+        per_launch = lib.step_block_f32_max_rows() if one_launch else 1
+        with torch.cuda.device(device):
+            for idx in _chunks(range(len(rows)), per_launch):
+                tables, steps_i, steps_t, stage_i, stage_t, row_len = \
+                    _sb_device_tables(
+                    table, _sb_view_strides([rows[k] for k in idx],
+                                            [views[k] for k in idx]),
+                    elem_fastest, device)
+                ptrs = (ctypes.c_void_p * ((ni + 1) * len(idx)))()
+                es = (ctypes.c_int64 * ((ni + 1) * len(idx)))()
+                for n, k in enumerate(idx):
+                    ptrs[(ni + 1) * n:(ni + 1) * (n + 1)] = [
+                        *(t.data_ptr() for t in rows[k]), views[k].data_ptr()]
+                    es[(ni + 1) * n:(ni + 1) * (n + 1)] = [
+                        *(_sb_strides(letters, t.stride(), el)[1]
+                          for letters, t in zip(table.inputs, rows[k])),
+                        _sb_strides(last.out, views[k].stride(), el)[1]]
+                work = None
+                if last.kind == "reduce":
+                    work = torch.empty(len(idx) * nblocks * table.n_out(last),
+                                       dtype=torch.float32, device=device)
+                err = lib.step_block_f32(
+                    len(idx), ni, ptrs, es, ns,
+                    (ctypes.c_int * (SB_STEP_INTS * ns))(
+                        *[v for s in steps_i for v in s]),
+                    (ctypes.c_int64 * (SB_STEP_TABLES * ns))(
+                        *[v for s in steps_t for v in s]),
+                    (ctypes.c_int * (SB_STAGE_INTS * (ni + 1)))(
+                        *[v for s in stage_i for v in s]),
+                    (ctypes.c_int64 * (ni + 1))(*stage_t),
+                    ctypes.c_void_p(tables.data_ptr()), row_len,
+                    table.te, int(elem_fastest), E, int(block_long),
+                    table.smem_floats,
+                    ctypes.c_void_p(None if work is None else work.data_ptr()),
+                    _stream_of(device))
+                if err:
+                    raise RuntimeError(f"step_block_f32 launch failed: CUDA"
+                                       f" error {err}")
+                tracing.count_launch("step_block_f32")
+        return outs
 
 # }}}
 
@@ -1983,39 +1988,41 @@ def tc_steps_f32(ops, table) -> torch.Tensor:
     device = _ts_check(ops, table)
     if device.type == "cpu":
         return tc_steps_plain(ops, table)
-    if device.type != "cuda":
-        raise ValueError(f"tc_steps_f32: no kernel for device {device}")
-    if table.smem_bytes > MAX_SMEM_BYTES:
-        raise InvalidParameterError(
-            f"tc_steps_f32 needs {table.smem_bytes} bytes of shared memory"
-            f" per block; an H100 block has {MAX_SMEM_BYTES}")
+    with tracing.span("feinsum.kernel:tc_steps_f32"):
+        if device.type != "cuda":
+            raise ValueError(f"tc_steps_f32: no kernel for device {device}")
+        if table.smem_bytes > MAX_SMEM_BYTES:
+            raise InvalidParameterError(
+                f"tc_steps_f32 needs {table.smem_bytes} bytes of shared memory"
+                f" per block; an H100 block has {MAX_SMEM_BYTES}")
 
-    from ._build import load_library
-    lib = load_library()
-    length = table.length
-    out = torch.empty(tuple(length[ix] for ix in table.stored_out),
-                      dtype=torch.float32, device=device)
-    view = out.permute(tuple(table.stored_out.index(ix) for ix in table.out))
-    tables, steps_i, steps_t, grid = _ts_device_tables(
-        table, tuple(tuple(t.stride()) for t in ops), tuple(view.stride()),
-        device)
-    ns = len(table.steps)
-    with torch.cuda.device(device):
-        err = lib.tc_steps_f32(
-            len(ops), (ctypes.c_void_p * len(ops))(*[t.data_ptr()
-                                                    for t in ops]),
-            view.data_ptr(), ns,
-            (ctypes.c_int * (ns * (5 + TS_MAX_OPS)))(
-                *[v for s in steps_i for v in s]),
-            (ctypes.c_int * (ns * (2 * TS_MAX_OPS + 1)))(
-                *[v for s in steps_t for v in s]),
-            len(grid), (ctypes.c_int64 * sum(map(len, grid)))(
-                *[v for g in grid for v in g]),
-            ctypes.c_void_p(tables.data_ptr()), table.ncells, table.threads,
-            table.smem_floats, _stream_of(device))
-    if err:
-        raise RuntimeError(f"tc_steps_f32 launch failed: CUDA error {err}")
-    launch_counts["tc_steps_f32"] += 1
-    return out
+        from ._build import load_library
+        lib = load_library()
+        length = table.length
+        out = torch.empty(tuple(length[ix] for ix in table.stored_out),
+                          dtype=torch.float32, device=device)
+        view = out.permute(tuple(table.stored_out.index(ix)
+                                 for ix in table.out))
+        tables, steps_i, steps_t, grid = _ts_device_tables(
+            table, tuple(tuple(t.stride()) for t in ops), tuple(view.stride()),
+            device)
+        ns = len(table.steps)
+        with torch.cuda.device(device):
+            err = lib.tc_steps_f32(
+                len(ops), (ctypes.c_void_p * len(ops))(*[t.data_ptr()
+                                                        for t in ops]),
+                view.data_ptr(), ns,
+                (ctypes.c_int * (ns * (5 + TS_MAX_OPS)))(
+                    *[v for s in steps_i for v in s]),
+                (ctypes.c_int * (ns * (2 * TS_MAX_OPS + 1)))(
+                    *[v for s in steps_t for v in s]),
+                len(grid), (ctypes.c_int64 * sum(map(len, grid)))(
+                    *[v for g in grid for v in g]),
+                ctypes.c_void_p(tables.data_ptr()), table.ncells,
+                table.threads, table.smem_floats, _stream_of(device))
+        if err:
+            raise RuntimeError(f"tc_steps_f32 launch failed: CUDA error {err}")
+        tracing.count_launch("tc_steps_f32")
+        return out
 
 # }}}

@@ -31,7 +31,8 @@ of the card through them.
 As for every kernel of the port, a wrapper launches its kernel for CUDA
 tensors and raises on what it cannot take; it runs the plain version only
 for tensors that lie on the CPU.  Each launch adds one to
-:data:`~feinsum_tpu_torch.ops.kernels.launch_counts`.
+:data:`~feinsum_tpu_torch.ops.kernels.launch_counts`, and a wrapper's CUDA
+branch is the span ``feinsum.kernel:<kernel>``.
 """
 
 from __future__ import annotations
@@ -43,8 +44,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..diagnostics import InvalidParameterError
-from .kernels import _stream_of, einsum_3x, launch_counts, tf32_split
+from .kernels import _stream_of, einsum_3x, tf32_split
 
 # csrc/probe_stream.cu: the most operands (kMaxOps), axes and elements of a
 # stream
@@ -199,29 +201,31 @@ def probe_stream_f32(ops: Sequence[torch.Tensor], *, alpha: float = 1.0,
             f" 32-bit index takes at most {PS_MAX_ELEMENTS}")
     if device.type == "cpu":
         return probe_stream_plain(ops, alpha=alpha)
-    if device.type != "cuda":
-        raise ValueError(f"probe_stream_f32: no kernel for device {device}")
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    plan = plan_stream(shape, [t.stride() for t in ops], out.stride(),
-                       block_elems=block_elems,
-                       aligned=[_aligned(t) for t in [out, *ops]])
-    from ._build import load_library
-    lib = load_library()
-    nops = len(ops)
-    with torch.cuda.device(device):
-        err = lib.probe_stream_f32(
-            nops, (ctypes.c_void_p * nops)(*[t.data_ptr() for t in ops]),
-            (ctypes.c_int64 * (3 * nops))(*[s for st in plan.in_strides
-                                            for s in st]),
-            out.data_ptr(), (ctypes.c_int64 * 3)(*plan.out_strides),
-            (ctypes.c_int64 * 3)(*plan.shape), float(alpha),
-            _STREAM_MODES[plan.mode], plan.mask, plan.per_block,
-            _stream_of(device))
-    if err:
-        raise RuntimeError(f"probe_stream_f32 launch failed: CUDA error"
-                           f" {err}")
-    launch_counts["probe_stream_f32"] += 1
-    return out
+    with tracing.span("feinsum.kernel:probe_stream_f32"):
+        if device.type != "cuda":
+            raise ValueError(f"probe_stream_f32: no kernel for device"
+                             f" {device}")
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        plan = plan_stream(shape, [t.stride() for t in ops], out.stride(),
+                           block_elems=block_elems,
+                           aligned=[_aligned(t) for t in [out, *ops]])
+        from ._build import load_library
+        lib = load_library()
+        nops = len(ops)
+        with torch.cuda.device(device):
+            err = lib.probe_stream_f32(
+                nops, (ctypes.c_void_p * nops)(*[t.data_ptr() for t in ops]),
+                (ctypes.c_int64 * (3 * nops))(*[s for st in plan.in_strides
+                                                for s in st]),
+                out.data_ptr(), (ctypes.c_int64 * 3)(*plan.out_strides),
+                (ctypes.c_int64 * 3)(*plan.shape), float(alpha),
+                _STREAM_MODES[plan.mode], plan.mask, plan.per_block,
+                _stream_of(device))
+        if err:
+            raise RuntimeError(f"probe_stream_f32 launch failed: CUDA error"
+                               f" {err}")
+        tracing.count_launch("probe_stream_f32")
+        return out
 
 # }}}
 
@@ -444,64 +448,65 @@ def _apply_launch(name: str, rows, R, runs, block_elems, out_elem_major,
             else:
                 tables["R"] = R
         return plain(rows, R, out_elem_major=out_elem_major)
-    if device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {device}")
-    outs = [torch.empty((E, I), dtype=torch.float32, device=device).t()
-            if out_elem_major
-            else torch.empty((I, E), dtype=torch.float32, device=device)
-            for _ in rows]
-    flags = apply_flags(rows, outs, run, n, out_elem_major)
-    first = rows[0]
-    sigma = first.sigma
-    strides = (*first.u.stride(),
-               *(first.J.stride() if first.J is not None else (0, 0)),
-               *(sigma.stride() if sigma is not None else (0, 0, 0)),
-               *outs[0].stride())
-    I2 = sigma.shape[1] if sigma is not None else 1
-    nb = len(rows)
+    with tracing.span(f"feinsum.kernel:{name}"):
+        if device.type != "cuda":
+            raise ValueError(f"{name}: no kernel for device {device}")
+        outs = [torch.empty((E, I), dtype=torch.float32, device=device).t()
+                if out_elem_major
+                else torch.empty((I, E), dtype=torch.float32, device=device)
+                for _ in rows]
+        flags = apply_flags(rows, outs, run, n, out_elem_major)
+        first = rows[0]
+        sigma = first.sigma
+        strides = (*first.u.stride(),
+                   *(first.J.stride() if first.J is not None else (0, 0)),
+                   *(sigma.stride() if sigma is not None else (0, 0, 0)),
+                   *outs[0].stride())
+        I2 = sigma.shape[1] if sigma is not None else 1
+        nb = len(rows)
 
-    def ptrs(ts):
-        return (ctypes.c_void_p * nb)(*[0 if t is None else t.data_ptr()
-                                        for t in ts])
-    # the pre-pass's scratch, one allocation: R j-major over whole row tiles
-    # (at 3x its split, hi and lo), then the least and the greatest j of
-    # R's nonzeros per (s, row tile, column block)
-    tiles = -(-I // tile_rows)
-    ncb = -(-K // PA_PRE_COLS)
-    nplane = (2 if split else 1) * S * K * tiles * tile_rows
-    scratch = torch.empty(nplane + 2 * S * tiles * ncb, dtype=torch.float32,
-                          device=device)
-    planes = scratch[:nplane].view(-1, S, K, tiles * tile_rows)
-    ranges = scratch[nplane:].view(torch.int32)
-    from ._build import load_library
-    lib = load_library()
-    with torch.cuda.device(device):
-        err = getattr(lib, name)(
-            nb, ptrs([r.u for r in rows]), ptrs([r.J for r in rows]),
-            ptrs([r.sigma for r in rows]), ptrs(outs),
-            ctypes.c_void_p(R.data_ptr()), S, I, K,
-            (ctypes.c_int64 * 9)(*strides), I2, run, runs, n, flags,
-            ctypes.c_void_p(ranges.data_ptr()), ranges.numel(),
-            ctypes.c_void_p(planes.data_ptr()), planes.numel(),
-            _stream_of(device))
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
-    if tables is not None:
-        # the kernel's range table from the pre-pass's least and greatest
+        def ptrs(ts):
+            return (ctypes.c_void_p * nb)(*[0 if t is None else t.data_ptr()
+                                            for t in ts])
+        # the pre-pass's scratch, one allocation: R j-major over whole row
+        # tiles (at 3x its split, hi and lo), then the least and the greatest
         # j of R's nonzeros per (s, row tile, column block)
-        part = ranges.view(2, S, tiles, ncb).long()
-        mn, mx = part[0].min(2).values, part[1].max(2).values
-        none = mx < 0
-        tables["ranges"] = torch.stack([
-            torch.where(none, 0, mn // PA_KC),
-            torch.where(none, 0, mx // PA_KC + 1)], 2).to(torch.int32)
-        rows_of = [p[:, :, :I].transpose(1, 2) for p in planes]
-        if split:
-            tables["hi"], tables["lo"] = rows_of
-        else:
-            tables["R"] = rows_of[0]
-    return outs
+        tiles = -(-I // tile_rows)
+        ncb = -(-K // PA_PRE_COLS)
+        nplane = (2 if split else 1) * S * K * tiles * tile_rows
+        scratch = torch.empty(nplane + 2 * S * tiles * ncb,
+                              dtype=torch.float32, device=device)
+        planes = scratch[:nplane].view(-1, S, K, tiles * tile_rows)
+        ranges = scratch[nplane:].view(torch.int32)
+        from ._build import load_library
+        lib = load_library()
+        with torch.cuda.device(device):
+            err = getattr(lib, name)(
+                nb, ptrs([r.u for r in rows]), ptrs([r.J for r in rows]),
+                ptrs([r.sigma for r in rows]), ptrs(outs),
+                ctypes.c_void_p(R.data_ptr()), S, I, K,
+                (ctypes.c_int64 * 9)(*strides), I2, run, runs, n, flags,
+                ctypes.c_void_p(ranges.data_ptr()), ranges.numel(),
+                ctypes.c_void_p(planes.data_ptr()), planes.numel(),
+                _stream_of(device))
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        tracing.count_launch(name)
+        if tables is not None:
+            # the kernel's range table from the pre-pass's least and greatest
+            # j of R's nonzeros per (s, row tile, column block)
+            part = ranges.view(2, S, tiles, ncb).long()
+            mn, mx = part[0].min(2).values, part[1].max(2).values
+            none = mx < 0
+            tables["ranges"] = torch.stack([
+                torch.where(none, 0, mn // PA_KC),
+                torch.where(none, 0, mx // PA_KC + 1)], 2).to(torch.int32)
+            rows_of = [p[:, :, :I].transpose(1, 2) for p in planes]
+            if split:
+                tables["hi"], tables["lo"] = rows_of
+            else:
+                tables["R"] = rows_of[0]
+        return outs
 
 
 def probe_apply_f32(rows: Sequence[ApplyRow], R: torch.Tensor, *,

@@ -36,6 +36,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from . import tracing
 from .canonicalization import canonicalize_einsum
 from .data.device_info import get_device_key
 from .diagnostics import NoFactInDatabaseError
@@ -203,40 +204,42 @@ def query(einsum: BatchedEinsum, device=None, *,
           err_if_no_results: bool = True) -> list:
     """All archived facts for (canonical *einsum*, *device*), in the
     archive's row order.  A missing archive file holds no facts (and is not
-    created)."""
+    created).  A lookup is the set-up span ``feinsum.archive.query``."""
     if db_path is None:
         db_path = DEFAULT_DB
-    e = canonicalize_einsum(einsum)
-    device_name = get_device_key(device)
-    rows = []
-    if os.path.exists(db_path):
-        conn = _connect(db_path)
-        try:
-            rows = conn.execute(
-                f"SELECT transform_id, transform_params, runtime_in_sec,"
-                f" compiler_version, giga_op_info FROM {TIMINGS_TABLENAME}"
-                f" WHERE subscripts = ? AND index_to_length = ? AND args = ?"
-                f" AND arg_to_dtype = ? AND device_name = ?",
-                (e.get_subscripts(), dump_index_to_length(e),
-                 dump_arg_names(e), dump_arg_to_dtype(e),
-                 device_name)).fetchall()
-        finally:
-            conn.close()
-    if not rows and err_if_no_results:
-        raise NoFactInDatabaseError(
-            f"No facts for '{e.get_subscripts()}' on '{device_name}' in"
-            f" {db_path}")
-    return [
-        QueryInfo(
-            transform_id=tid,
-            transform_params=tuple(sorted(
-                load_transform_params(tparams).items())),
-            runtime_in_sec=rt,
-            compiler_version=cver,
-            giga_op_info_json=ginfo,
-            device_name=device_name,
-            _einsum=e)
-        for tid, tparams, rt, cver, ginfo in rows]
+    with tracing.setup("feinsum.archive.query"):
+        e = canonicalize_einsum(einsum)
+        device_name = get_device_key(device)
+        rows = []
+        if os.path.exists(db_path):
+            conn = _connect(db_path)
+            try:
+                rows = conn.execute(
+                    f"SELECT transform_id, transform_params, runtime_in_sec,"
+                    f" compiler_version, giga_op_info FROM"
+                    f" {TIMINGS_TABLENAME} WHERE subscripts = ? AND"
+                    f" index_to_length = ? AND args = ? AND arg_to_dtype = ?"
+                    f" AND device_name = ?",
+                    (e.get_subscripts(), dump_index_to_length(e),
+                     dump_arg_names(e), dump_arg_to_dtype(e),
+                     device_name)).fetchall()
+            finally:
+                conn.close()
+        if not rows and err_if_no_results:
+            raise NoFactInDatabaseError(
+                f"No facts for '{e.get_subscripts()}' on '{device_name}' in"
+                f" {db_path}")
+        return [
+            QueryInfo(
+                transform_id=tid,
+                transform_params=tuple(sorted(
+                    load_transform_params(tparams).items())),
+                runtime_in_sec=rt,
+                compiler_version=cver,
+                giga_op_info_json=ginfo,
+                device_name=device_name,
+                _einsum=e)
+            for tid, tparams, rt, cver, ginfo in rows]
 
 
 def aggregate_reconfirmations(qs: list) -> list:

@@ -12,9 +12,10 @@ sizes, and the routes are ``tc_grid_f32`` at the row's first tuner seed
 For each row and route, ``CALLS`` back-to-back calls are timed twice: once
 on the host clock without the profiler (wall), and once under
 ``torch.profiler`` to read the device's busy time, the union of the
-intervals of its kernel, copy and set events (CPU-side operator events are
-left out: they carry the device time of the kernels they launch, and
-counting them too would count that time twice).  The idle share is
+intervals of its kernel, copy and set events (CPU-side operator events and
+the device-side shadows of ``record_function`` spans are left out: they
+carry the device time of the kernels they launch, and counting them too
+would count that time twice).  The idle share is
 ``1 - busy / wall``; the host's own time per call (to the return of the
 call, before the card finishes) is printed beside the wall time.
 """
@@ -35,11 +36,22 @@ CALLS = 10
 WARMUP_CALLS = 3
 
 
+def is_device_op(ev) -> bool:
+    """Whether the profiler ``FunctionEvent`` *ev* is an operation on the
+    device: a kernel, copy or set, and not the device-side shadow that a
+    ``record_function`` span (the program's ``feinsum.*`` spans among them)
+    leaves over the operations it launched."""
+    return (ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.name.startswith("feinsum."))
+
+
 def device_busy_us(events) -> float:
-    """Microseconds in the union of the time ranges of the events that ran
-    on the device, among profiler ``FunctionEvent``s."""
+    """Microseconds in the union of the time ranges of the operations that
+    ran on the device (:func:`is_device_op`), among profiler
+    ``FunctionEvent``s."""
     spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events
-                   if ev.device_type == DeviceType.CUDA)
+                   if is_device_op(ev))
     busy, end = 0.0, float("-inf")
     for lo, hi in spans:
         if hi > end:
@@ -70,7 +82,7 @@ def report(name: str, route: str, fn, arrays) -> None:
         _calls(fn, arrays)
     events = prof.events()
     busy_ms = device_busy_us(events) / 1e3 / CALLS
-    n_dev = sum(ev.device_type == DeviceType.CUDA for ev in events)
+    n_dev = sum(map(is_device_op, events))
     print(f"[profile] {name} {route}: wall {wall_ms:.4f} ms/call (host"
           f" {host_ms:.4f}),"
           f" device busy {busy_ms:.4f} ms/call,"

@@ -1,0 +1,110 @@
+"""
+The port's spans and counters: its only tracing code.
+
+:func:`span` marks a stretch of host time for the torch profiler that the
+caller runs.  While a profiler records, it enters
+``torch.profiler.record_function``; otherwise it does nothing beyond
+checking that, so a span costs a flag check when no one traces.  The
+profiler holds the spans, writes them out and puts them on the clock of its
+device trace; nothing here exports, stores or switches anything.
+
+The spans, each at one boundary of the package:
+
+* ``feinsum.step:<class>`` — the body of a model's step closure
+  (``models/wave.py``, ``models/maxwell.py``);
+* ``feinsum.exec:<subscripts>`` — each call of an executable that
+  :func:`~feinsum_tpu_torch.codegen.program.build_executable` returns;
+* ``feinsum.kernel:<kernel>`` — a kernel wrapper of ``ops/kernels.py`` or
+  ``ops/probe_kernels.py`` on its CUDA branch: the checks, the outputs'
+  allocation, the ctypes packing and its one or more launches;
+* ``feinsum.executable.build``, ``feinsum.library.load`` and
+  ``feinsum.archive.query`` — the set-up work (:func:`setup`).
+
+:data:`counters` holds every counter: ``"launches"``, the launches by
+kernel (``ops.kernels.launch_counts`` is the same dict), and for each piece
+of set-up work a count and its seconds, timed on every call (the paths are
+cold):
+
+* ``executable_builds``, ``executable_build_s`` — builds of an executable,
+  each a miss of ``build_executable``'s cache;
+* ``library_loads``, ``library_load_s`` — the first load of the kernels'
+  library, without its ``nvcc`` build (``ops._build.build_info`` keeps
+  that);
+* ``archive_queries``, ``archive_query_s`` — archive lookups
+  (``sql_utils.query``), canonicalisation included.
+
+A count that grows after set-up means something was built or loaded again
+on the main path.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+_recording = torch._C._autograd._profiler_enabled
+
+
+class _Off:
+    """The span while no profiler records.  Its enter and exit are each one
+    C call: ``"".format`` takes any arguments and returns the falsy ``""``,
+    so an exception leaving the span passes on (a ``nullcontext`` costs two
+    Python calls more)."""
+
+    __slots__ = ()
+    __enter__ = __exit__ = "".format
+
+
+_OFF = _Off()
+
+counters = {
+    # launches by kernel (the probe kernels too); a ``bf16_3x`` row planned
+    # onto a kernel with no 3x variant (``ew_product_f32``, ``ew_flat_f32``,
+    # ``row_reduce_f32``, ``long_reduce_f32``, ``step_block_f32``,
+    # ``tc_steps_f32``, ``dd_rows``) runs it in f32 and counts under its
+    # name
+    "launches": {"dg_rows_f32": 0, "ew_product_f32": 0, "ew_flat_f32": 0,
+                 "row_reduce_f32": 0, "long_reduce_f32": 0, "dd_rows": 0,
+                 "tc_grid_f32": 0, "dg_rows_3xtf32": 0, "tc_grid_3xtf32": 0,
+                 "lane_pack_dg_f32": 0, "lane_pack_dg_3xtf32": 0,
+                 "step_block_f32": 0, "tc_steps_f32": 0,
+                 "probe_stream_f32": 0, "probe_apply_f32": 0,
+                 "probe_apply_3xtf32": 0},
+    "executable_builds": 0, "executable_build_s": 0.0,
+    "library_loads": 0, "library_load_s": 0.0,
+    "archive_queries": 0, "archive_query_s": 0.0}
+
+# each set-up span's count and seconds in :data:`counters`
+_SETUP = {"feinsum.executable.build": ("executable_builds",
+                                       "executable_build_s"),
+          "feinsum.library.load": ("library_loads", "library_load_s"),
+          "feinsum.archive.query": ("archive_queries", "archive_query_s")}
+
+
+def span(name: str):
+    """A context manager: ``record_function(name)`` while a torch profiler
+    records, else one that does nothing."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count_launch(kernel: str) -> None:
+    """Count one launch of *kernel* (a key of ``counters["launches"]``)."""
+    counters["launches"][kernel] += 1
+
+
+@contextlib.contextmanager
+def setup(name: str):
+    """The set-up span *name* (a key of ``_SETUP``): a span, one more in
+    its count, and its seconds added to its time."""
+    count, seconds = _SETUP[name]
+    t0 = time.perf_counter()
+    try:
+        with span(name):
+            yield
+    finally:
+        counters[count] += 1
+        counters[seconds] += time.perf_counter() - t0

@@ -191,6 +191,36 @@ def test_dg_rows_kernel_splits_rows(cuda_device, one_launch, launches):
 
 
 @pytest.mark.cuda
+def test_dg_rows_launch_is_counted_and_spanned_on_the_device_clock(
+        cuda_device):
+    """One call: one launch counted and one ``feinsum.kernel`` span, and
+    the kernel starts on the device after the span starts on the host (one
+    clock for both)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from feinsum_tpu_torch.tools.profile_suite import is_device_op
+
+    rows = _dg_rows(cuda_device, seed=6)
+    kernels.dg_rows_f32(rows, block_long=32)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts["dg_rows_f32"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kernels.dg_rows_f32(rows, block_long=32)
+        torch.cuda.synchronize()
+    assert kernels.launch_counts["dg_rows_f32"] == before + 1
+    spans = [ev for ev in prof.events()
+             if ev.name == "feinsum.kernel:dg_rows_f32"
+             and ev.device_type != DeviceType.CUDA]
+    assert len(spans) == 1
+    launched = [ev for ev in prof.events()
+                if is_device_op(ev) and "dg_rows" in ev.name]
+    assert len(launched) == 1
+    assert launched[0].time_range.start > spans[0].time_range.start
+
+
+@pytest.mark.cuda
 def test_dg_rows_kernel_without_factor(cuda_device):
     rows = [kernels.DGRow(u=r.u, R=r.R, F=None)
             for r in _dg_rows(cuda_device, u_has_s=True, seed=5)]

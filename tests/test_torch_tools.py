@@ -11,9 +11,10 @@ from torch.autograd import DeviceType
 from feinsum_tpu_torch.tools import profile_suite, sweep_block_long
 
 
-def _ev(device_type, start, end):
-    return SimpleNamespace(device_type=device_type,
-                           time_range=SimpleNamespace(start=start, end=end))
+def _ev(device_type, start, end, name="kernel", **annotation):
+    return SimpleNamespace(device_type=device_type, name=name,
+                           time_range=SimpleNamespace(start=start, end=end),
+                           **annotation)
 
 
 @pytest.mark.parametrize("events,busy", [
@@ -23,9 +24,21 @@ def _ev(device_type, start, end):
     ([_ev(DeviceType.CUDA, 50, 70), _ev(DeviceType.CUDA, 0, 20),
       _ev(DeviceType.CUDA, 10, 30), _ev(DeviceType.CUDA, 55, 60)], 50),
     ([_ev(DeviceType.CPU, 0, 5)], 0),
+    # a span's shadow on the device covers the gap between the launches it
+    # holds; it is no device operation (marked, or by the program's prefix)
+    ([_ev(DeviceType.CUDA, 0, 10), _ev(DeviceType.CUDA, 20, 30),
+      _ev(DeviceType.CUDA, 0, 30, "feinsum.kernel:probe_apply_f32",
+          is_user_annotation=True)], 20),
+    ([_ev(DeviceType.CUDA, 0, 10), _ev(DeviceType.CUDA, 20, 30),
+      _ev(DeviceType.CUDA, 0, 30, "feinsum.exec:ei,ij->ej")], 20),
+    ([_ev(DeviceType.CUDA, 0, 30, "bench.step", is_user_annotation=True)],
+     0),
 ])
 def test_device_busy_counts_device_intervals_once(events, busy):
     assert profile_suite.device_busy_us(events) == busy
+    assert sum(map(profile_suite.is_device_op, events)) == sum(
+        ev.device_type == DeviceType.CUDA and ev.name == "kernel"
+        for ev in events)
 
 
 def test_sweep_covers_the_suite_value():

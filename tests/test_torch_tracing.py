@@ -1,0 +1,215 @@
+"""The port's spans and counters (``feinsum_tpu_torch/tracing.py``) on the
+CPU: the spans a model's step records under the torch profiler, nothing
+entered without one, the set-up counters, the launch counter, and the
+benchmark's readers of the spans and counters
+(``benchmark_torch/metrics/``) on synthetic runs.  This file imports no
+JAX."""
+
+from __future__ import annotations
+
+import contextlib
+import importlib.util
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import feinsum_tpu_torch as ft
+from feinsum_tpu_torch import sql_utils, tracing
+from feinsum_tpu_torch.models.maxwell import make_maxwell_state
+from feinsum_tpu_torch.models.wave import make_wave_state
+from feinsum_tpu_torch.ops import kernels
+
+BENCH = Path(__file__).resolve().parents[1] / "benchmark_torch"
+E = 64
+# each model, its input draw and its executables in the order a step calls
+# them
+MODELS = {"wave": (ft.WaveOperator3D, make_wave_state,
+                   ("grad", "div", "restrict", "face")),
+          "maxwell": (ft.MaxwellOperator3D, make_maxwell_state,
+                      ("curl", "curl"))}
+
+
+def _model(key):
+    cls, make_state, execs = MODELS[key]
+    op = cls()
+    state, geom = make_state(E, seed=1, device="cpu")
+    return op, op.make_step(E), state, geom
+
+
+def _subscripts(op, name):
+    program = op.program if name == "curl" else op.programs[name]
+    return program.einsum.get_subscripts()
+
+
+def _spans(prof, prefix):
+    return [(ev.name, ev.time_range.start, ev.time_range.end)
+            for ev in prof.events() if ev.name.startswith(prefix)]
+
+
+@pytest.mark.parametrize("key", sorted(MODELS))
+def test_a_step_records_its_step_and_executable_spans(key):
+    op, step, state, geom = _model(key)
+    step(state, geom)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, geom)
+    (s_name, s_lo, s_hi), = _spans(prof, "feinsum.step:")
+    assert s_name == f"feinsum.step:{type(op).__name__}"
+    execs = sorted(_spans(prof, "feinsum.exec:"), key=lambda s: s[1])
+    assert [name for name, _, _ in execs] == [
+        f"feinsum.exec:{_subscripts(op, n)}" for n in MODELS[key][2]]
+    assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in execs)
+    # CPU tensors take the kernels' plain versions: no wrapper span
+    assert not _spans(prof, "feinsum.kernel:")
+
+
+@pytest.mark.parametrize("key", sorted(MODELS))
+def test_no_profiler_enters_no_span_and_changes_no_output(key, monkeypatch):
+    _, step, state, geom = _model(key)
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    untraced = step(state, geom)
+    monkeypatch.undo()
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = step(state, geom)
+    assert untraced.keys() == traced.keys()
+    for k in untraced:
+        assert torch.equal(untraced[k], traced[k])
+
+
+@pytest.mark.parametrize("recording", [False, True])
+def test_an_exception_passes_through_a_span(recording):
+    with contextlib.ExitStack() as stack:
+        if recording:
+            stack.enter_context(profile(activities=[ProfilerActivity.CPU]))
+        with pytest.raises(KeyError):
+            with tracing.span("feinsum.kernel:dg_rows_f32"):
+                raise KeyError("inside")
+
+
+def test_build_and_lookup_counters(tmp_path):
+    c = tracing.counters
+    op = ft.WaveOperator3D()
+    builds, seconds = c["executable_builds"], c["executable_build_s"]
+    ft.build_executable(op.programs["grad"], long_dim_length=4321)
+    assert c["executable_builds"] == builds + 1
+    assert c["executable_build_s"] > seconds
+    step = op.make_step(E)
+    state, geom = make_wave_state(E, seed=2, device="cpu")
+    after_setup = (c["executable_builds"], c["library_loads"])
+    ft.build_executable(op.programs["grad"], long_dim_length=4321)
+    step = op.make_step(E)
+    for _ in range(10):
+        state = step(state, geom)
+    assert (c["executable_builds"], c["library_loads"]) == after_setup
+
+    db = str(tmp_path / "archive.sqlite")
+    sql_utils.record_facts(op.restrict_einsum, transform_id="t",
+                           transform_params={}, runtime_in_sec=1e-3,
+                           device="cpu", db_path=db)
+    queries, seconds = c["archive_queries"], c["archive_query_s"]
+    assert len(sql_utils.query(op.restrict_einsum, "cpu", db_path=db)) == 1
+    assert c["archive_queries"] == queries + 1
+    assert c["archive_query_s"] > seconds
+
+
+@pytest.mark.parametrize("name", ["feinsum.executable.build",
+                                  "feinsum.library.load",
+                                  "feinsum.archive.query"])
+def test_a_set_up_span_counts_and_times_itself(name):
+    count, seconds = tracing._SETUP[name]
+    c = tracing.counters
+    before = c[count], c[seconds]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        with tracing.setup(name):
+            time.sleep(0.01)
+        took = time.perf_counter() - t0
+    assert c[count] == before[0] + 1
+    assert 0.01 <= c[seconds] - before[1] <= took
+    (_, lo, hi), = _spans(prof, name)
+    assert hi - lo >= 1e4                      # microseconds
+
+
+def test_launch_counter_is_the_one_dict_and_resets():
+    assert kernels.launch_counts is tracing.counters["launches"]
+    saved = dict(kernels.launch_counts)
+    try:
+        for name in kernels.launch_counts:
+            tracing.count_launch(name)
+        assert all(n >= 1 for n in kernels.launch_counts.values())
+        kernels.reset_launch_counts()
+        assert set(kernels.launch_counts.values()) == {0}
+    finally:
+        kernels.launch_counts.update(saved)
+
+
+# {{{ the benchmark's readers
+
+def _reader(name):
+    if str(BENCH) not in sys.path:
+        sys.path.insert(0, str(BENCH))
+    spec = importlib.util.spec_from_file_location(
+        f"metric_{name}", BENCH / "metrics" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+HOST_READERS = ("glue_host_ms_per_step", "exec_host_ms_per_step",
+                "kernel_host_ms_per_step")
+
+
+def _step_spans(t0):
+    """One step at *t0* (seconds): 10 ms, two executables of 3 and 2 ms
+    holding kernel wrappers of 1 and 0.5 ms, a wrapper span outside any
+    executable (glue), other host operations around."""
+    return [("feinsum.step:Op", t0, t0 + 0.010),
+            ("aten::add", t0 + 0.0005, t0 + 0.0006),
+            ("feinsum.exec:a", t0 + 0.001, t0 + 0.004),
+            ("feinsum.kernel:k", t0 + 0.002, t0 + 0.003),
+            ("aten::empty", t0 + 0.0021, t0 + 0.0022),
+            ("feinsum.exec:b", t0 + 0.005, t0 + 0.007),
+            ("feinsum.kernel:k", t0 + 0.0055, t0 + 0.006),
+            ("feinsum.kernel:k", t0 + 0.008, t0 + 0.0085)]
+
+
+def _run(host, steps):
+    return SimpleNamespace(trace=SimpleNamespace(host=host, steps=steps))
+
+
+def test_host_readers_split_the_step_span():
+    host = _step_spans(1.0) + _step_spans(2.0)
+    # an executable outside any step (set-up) is no step's
+    host += [("feinsum.exec:a", 3.0, 3.5), ("feinsum.kernel:k", 3.1, 3.2)]
+    got = {name: _reader(name)(_run(host, 2)) for name in HOST_READERS}
+    assert got["kernel_host_ms_per_step"] == pytest.approx(1.5)
+    assert got["exec_host_ms_per_step"] == pytest.approx(2.0 + 1.5)
+    assert got["glue_host_ms_per_step"] == pytest.approx(10 - 5)
+    assert sum(got.values()) == pytest.approx(10.0)
+
+
+@pytest.mark.parametrize("host,steps", [
+    ([], 2),                                   # the parent: no spans
+    ([("bench.step", 1.0, 1.01)], 1),
+    (_step_spans(1.0), 2),                     # a count that does not match
+    (_step_spans(1.0) + _step_spans(2.0), 1),
+])
+def test_host_readers_read_nothing_without_one_span_per_step(host, steps):
+    for name in HOST_READERS:
+        assert _reader(name)(_run(host, steps)) is None
+        assert _reader(name)(SimpleNamespace(trace=None)) is None
+
+
+def test_setup_program_s_reads_the_counters():
+    c = tracing.counters
+    want = c["executable_build_s"] + c["library_load_s"] + c["archive_query_s"]
+    assert _reader("setup_program_s")(_run([], 1)) == want
+
+# }}}
