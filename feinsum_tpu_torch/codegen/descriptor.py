@@ -105,7 +105,9 @@ class ScheduleDescriptor:
         build_executable`: the axes of a rewritten program whose lengths the
         original einsum fixes (the flattened M axis of a TC-as-GEMM
         rewrite).
-    :attr block_long: elements of the long axis per CUDA thread block.
+    :attr block_long: elements of the long axis per CUDA thread block
+        (``dg_rows_f32``'s tiled path: per block of elements, a thread
+        block taking a run of whole blocks).
     :attr accum_dtype, compute_dtype: ``None`` or ``"float32"``: the kernels
         run IEEE fp32 on the CUDA cores.  Anything else raises.
     :attr arg_layouts, out_layout: per-arg / output axis permutations of the

@@ -38,8 +38,11 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 _IP = ctypes.POINTER(ctypes.c_int)
 _I, _I64 = ctypes.c_int, ctypes.c_int64
 _SIGNATURES = (
-    ("dg_rows_f32", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _P)),
+    ("dg_rows_f32", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _I,
+                         _P)),
     ("dg_rows_f32_smem_bytes", ctypes.c_size_t, (_I, _I, _I, _I)),
+    ("dg_rows_f32_tiled_smem_bytes", ctypes.c_size_t,
+     (_I, _I, _I, _I, _I, _I)),
     ("dg_rows_f32_max_rows", _I, ()),
     ("ew_product_f32", _I, (_I, _I, _PP, _PP, _I64, _I64, _P)),
     ("ew_product_f32_max_rows", _I, ()),

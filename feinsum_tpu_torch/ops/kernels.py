@@ -9,9 +9,11 @@ batched einsum in one fused kernel gridded over the long element axis:
 * ``dg_rows_f32`` (``csrc/dg_rows.cu``) — the contraction rows,
   ``out[x, i, e] = Σ_s F[x, s, e] Σ_j R[s, i, j] u[s?, j, e]`` as planned by
   :mod:`~feinsum_tpu_torch.ops.dg_rows`.  On an H100 such a row sits near
-  the fp32 CUDA-core ridge (about 20 flop per byte); the simple design is
-  bound by shared-memory loads, and the source's header says what the
-  design does about it.
+  the fp32 CUDA-core ridge (about 20 flop per byte).  Its tiled path keeps
+  register tiles over (i, e) and stages u and F by TMA bulk copies in a
+  ring; other stored layouts take its general path (:func:`dg_rows_path`).  The
+  source's header says what bounds each row and what the design does
+  about it.
 * ``ew_product_f32`` (``csrc/ew_product.cu``) — the contraction-free rows,
   an elementwise product of same-layout operands.  It is bound by HBM
   bytes; the design streams 16 bytes per thread and step.
@@ -119,8 +121,15 @@ from ..diagnostics import InvalidParameterError
 MAX_SMEM_BYTES = 232_448
 # register-array bounds of csrc/dg_rows.cu and csrc/dd_rows.cu (kMaxX, kMaxS)
 MAX_X = MAX_S = 4
-# threads per block of csrc/dd_rows.cu and csrc/dg_rows.cu (kThreads)
+# threads per block of csrc/dd_rows.cu and of csrc/dg_rows.cu's general
+# path (kThreads)
 DD_THREADS = DG_THREADS = 128
+# csrc/dg_rows.cu's tiled path: elements per tile (kTE); its ring's stages
+# in the order tried, each with the most shared memory it may take
+# (kTwoBlockSmem: two blocks to an SM; kOneBlockSmem)
+DG_TILE_E = 128
+DG_TILED_STAGES = tuple((n, 112 * 1024) for n in (4, 3, 2)) + tuple(
+    (n, MAX_SMEM_BYTES - 64) for n in (3, 2))
 # csrc/dg_rows_3x.cu: elements per warp tile (kTE: one m16 tile) and warps
 # per block (kWarps)
 DG3X_ELEMENTS = 16
@@ -181,8 +190,11 @@ launch_counts = tracing.counters["launches"]
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counts and ``dg_rows_f32``'s launches by path."""
     for name in launch_counts:
         launch_counts[name] = 0
+    for path in tracing.counters["dg_rows_f32_path"]:
+        tracing.counters["dg_rows_f32_path"][path] = 0
 
 
 def _is_dense_permutation(t: torch.Tensor) -> bool:
@@ -306,11 +318,57 @@ class DGRow:
 
 
 def dg_rows_smem_bytes(S: int, I: int, J: int, u_has_s: bool) -> int:
-    """Shared memory one block of ``dg_rows_f32`` needs, in bytes: R (i
-    padded to a multiple of 4) and one u column per thread (the formula of
-    ``csrc/dg_rows.cu``)."""
+    """Shared memory one block of ``dg_rows_f32``'s general path needs, in
+    bytes: R (i padded to a multiple of 4) and one u column per thread (the
+    formula of ``csrc/dg_rows.cu``).  The kernel takes a shape when this
+    fits in a Hopper block, whichever path runs it."""
     return 4 * (S * J * (-(-I // 4) * 4)
                 + (S if u_has_s else 1) * J * DG_THREADS)
+
+
+def dg_rows_tiled_smem_bytes(X: int, S: int, I: int, J: int,
+                             u_has_s: bool, has_f: bool) -> int:
+    """Shared memory one block of ``dg_rows_f32``'s tiled path needs, in
+    bytes: R (i padded to a multiple of 4) and a ring of stages, each one
+    tile of u (S_u x J) and F (X x S) over ``DG_TILE_E`` elements: the
+    most stages (4, 3 or 2) with which two blocks fit on an SM, else the
+    most (3 or 2) with which one block fits; 0 where no ring fits (the
+    formula of ``csrc/dg_rows.cu``)."""
+    r = S * J * (-(-I // 4) * 4)
+    stage = ((S if u_has_s else 1) * J + (X * S if has_f else 0)) * DG_TILE_E
+    for stages, limit in DG_TILED_STAGES:
+        if 4 * (r + stages * stage) <= limit:
+            return 4 * (r + stages * stage)
+    return 0
+
+
+def _tileable(t: torch.Tensor) -> bool:
+    """Whether the tiled path can copy the (a, b, E) view *t* in 16-byte
+    pieces: e at stride 1 and every row of it starting on 16 bytes."""
+    (a, b, _), (sa, sb, se) = t.shape, t.stride()
+    return (se == 1 and t.data_ptr() % 16 == 0 and (a == 1 or sa % 4 == 0)
+            and (b == 1 or sb % 4 == 0))
+
+
+def dg_rows_path(rows: Sequence[DGRow], *, block_long: int,
+                 out_order: tuple = (0, 1, 2)) -> str:
+    """The path a launch of ``dg_rows_f32`` on *rows* takes: ``"tiled"``
+    where u, F and the output (allocated in the stored order *out_order*)
+    store e at stride 1 with every row on 16 bytes, E and *block_long* are
+    multiples of 4 and the ring fits in a block; else ``"general"``."""
+    return _dg_path(rows, _dg_dims(rows), block_long, out_order)
+
+
+def _dg_path(rows: Sequence[DGRow], dims: tuple, block_long: int,
+             out_order: tuple) -> str:
+    X, S, I, J, E, u_has_s, has_f = dims
+    if (out_order[2] != 2 or E % 4 or block_long % 4
+            or not dg_rows_tiled_smem_bytes(X, S, I, J, u_has_s, has_f)):
+        return "general"
+    for row in rows:
+        if not _tileable(row.u) or (has_f and not _tileable(row.F)):
+            return "general"
+    return "tiled"
 
 
 def _dg_dims(rows: Sequence[DGRow]) -> tuple:
@@ -389,7 +447,10 @@ def dg_rows_f32(rows: Sequence[DGRow], *, block_long: int,
     """Fused DG rows: each row's ``out[x, i, e]``, allocated contiguous in
     the stored order *out_order* (a permutation of the (X, I, E) axes).
     All rows go in one launch (up to the kernel's row limit per launch)
-    unless *one_launch* is false; *block_long* elements per thread block."""
+    unless *one_launch* is false; *block_long* elements per thread block
+    (per block of elements on the tiled path, :func:`dg_rows_path`, where
+    a thread block takes a run of whole blocks).  Each launch counts in
+    ``tracing.counters["dg_rows_f32_path"]`` under its path."""
     return _dg_launch("dg_rows_f32", rows, block_long, out_order, one_launch)
 
 
@@ -409,7 +470,7 @@ def _dg_launch(name: str, rows: Sequence[DGRow], block_long: int,
     version for CPU tensors)."""
     if not rows:
         return []
-    X, S, I, J, E, u_has_s, has_f = _dg_dims(rows)
+    dims = X, S, I, J, E, u_has_s, has_f = _dg_dims(rows)
     device = rows[0].u.device
     if sorted(out_order) != [0, 1, 2]:
         raise ValueError(f"out_order {out_order} is not a permutation of 3")
@@ -424,8 +485,11 @@ def _dg_launch(name: str, rows: Sequence[DGRow], block_long: int,
         lib = load_library()
         if name == "dg_rows_3xtf32":
             smem = lib.dg_rows_3xtf32_smem_bytes(X, S, I, J, int(u_has_s))
+            path_args = ()
         else:
             smem = lib.dg_rows_f32_smem_bytes(S, I, J, int(u_has_s))
+            path = _dg_path(rows, dims, block_long, out_order)
+            path_args = (int(path == "tiled"),)
         if smem > MAX_SMEM_BYTES:
             raise InvalidParameterError(
                 f"{name} needs {smem} bytes of shared memory per block;"
@@ -451,11 +515,13 @@ def _dg_launch(name: str, rows: Sequence[DGRow], block_long: int,
                         *out.stride()]
                 err = getattr(lib, name)(len(idx), ptrs, strides, X, S, I, J,
                                          E, int(u_has_s), int(block_long),
-                                         _stream_of(device))
+                                         *path_args, _stream_of(device))
                 if err:
                     raise RuntimeError(f"{name} launch failed: CUDA error"
                                        f" {err}")
                 tracing.count_launch(name)
+                if path_args:
+                    tracing.counters["dg_rows_f32_path"][path] += 1
         return outs
 
 # }}}

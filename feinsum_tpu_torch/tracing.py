@@ -21,7 +21,8 @@ The spans, each at one boundary of the package:
   ``feinsum.archive.query`` — the set-up work (:func:`setup`).
 
 :data:`counters` holds every counter: ``"launches"``, the launches by
-kernel (``ops.kernels.launch_counts`` is the same dict), and for each piece
+kernel (``ops.kernels.launch_counts`` is the same dict),
+``"dg_rows_f32_path"``, that kernel's launches by path, and for each piece
 of set-up work a count and its seconds, timed on every call (the paths are
 cold):
 
@@ -72,6 +73,9 @@ counters = {
                  "step_block_f32": 0, "tc_steps_f32": 0,
                  "probe_stream_f32": 0, "probe_apply_f32": 0,
                  "probe_apply_3xtf32": 0},
+    # dg_rows_f32's launches by path: the tiled path (dof-major operands on
+    # 16 bytes) or the general one (any other stored layout)
+    "dg_rows_f32_path": {"tiled": 0, "general": 0},
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,
     "archive_queries": 0, "archive_query_s": 0.0}

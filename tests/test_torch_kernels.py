@@ -123,6 +123,123 @@ def test_dg_rows_plain_is_the_row_formula(u_has_s):
         assert_close(out.numpy(), want)
 
 
+# (X, S, I, J, u_has_s, F): the template instances of dg_rows_f32's tiled
+# path that the row families use, F stored as (x, s, e) (grad's), (s, e)
+# (div's, the face lift's), (e,) broadcast over x and s (mass's) or absent
+DG_FAMILIES = {
+    "grad": (3, 3, 35, 35, False, "xse"),
+    "div": (1, 3, 35, 35, False, "se"),
+    "face": (1, 4, 35, 15, True, "se"),
+    "restriction": (1, 1, 60, 35, False, None),
+    "mass": (1, 1, 35, 35, False, "e"),
+    "matvec": (1, 1, 5, 7, False, None),
+    "one_block": (2, 2, 35, 160, False, "xse"),    # one block to an SM
+    "wide_j": (1, 1, 24, 312, False, None),        # no ring fits a block
+}
+# the tiled path's shared memory of each family, from the formula by hand:
+# 4 * (S J I4 + stages * ((S_u J + X S) * 128)), 4 stages (3 for the face
+# lift) within 112 KB, two stages of one block, or 0
+DG_TILED_SMEM = {"grad": 105_232, "div": 92_944, "face": 106_944,
+                 "restriction": 80_080, "mass": 78_768, "matvec": 14_560,
+                 "one_block": 214_016, "wide_j": 0}
+# (E, block_long): a whole tile, E ragged against the block and the tile,
+# one block wider than E, a block narrower than a tile, E odd, E below 4
+DG_EXTENTS = [(4096, 512), (1000, 512), (4100, 8192), (4096, 8), (33, 512),
+              (3, 8)]
+
+
+def _family_rows(device, name, E, seed, layout="dof-major"):
+    """Two rows of family *name* at *E* elements, dof-major unless *layout*
+    names another stored form of u ("u element-major", "u offset") or F
+    ("F element-major")."""
+    X, S_, I, J, u_has_s, f = DG_FAMILIES[name]
+    Su = S_ if u_has_s else 1
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(device)
+    rows = []
+    for _ in range(2):
+        u = {"u element-major": lambda: t(E, Su, J).permute(1, 2, 0),
+             "u offset": lambda: t(Su * J * E + 1)[1:].view(Su, J, E)}.get(
+                 layout, lambda: t(Su, J, E))()
+        F = None if f is None else {
+            "xse": lambda: (t(E, X, S_).permute(1, 2, 0)
+                            if layout == "F element-major" else t(X, S_, E)),
+            "se": lambda: t(S_, E)[None],
+            "e": lambda: t(E)[None, None].expand(X, S_, E)}[f]()
+        rows.append(kernels.DGRow(u=u, R=t(S_, I, J), F=F))
+    return rows
+
+
+def _family_path(name, E) -> str:
+    return "general" if E % 4 or not DG_TILED_SMEM[name] else "tiled"
+
+
+@pytest.mark.parametrize("name", sorted(DG_FAMILIES))
+def test_dg_rows_tiled_smem_formula(name):
+    X, S_, I, J, u_has_s, f = DG_FAMILIES[name]
+    got = kernels.dg_rows_tiled_smem_bytes(X, S_, I, J, u_has_s,
+                                           f is not None)
+    assert got == DG_TILED_SMEM[name] and got <= kernels.MAX_SMEM_BYTES
+    # every family is taken: the general path's block fits
+    assert kernels.dg_rows_smem_bytes(S_, I, J, u_has_s) \
+        <= kernels.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("E,block_long", DG_EXTENTS)
+@pytest.mark.parametrize("name", sorted(DG_FAMILIES))
+def test_dg_rows_path_choice(name, E, block_long):
+    """The wrapper's choice from what it sees: tiled for contiguous
+    dof-major views at E % 4 = 0 where the ring fits, general otherwise."""
+    rows = _family_rows("cpu", name, E, seed=40)
+    assert kernels.dg_rows_path(rows, block_long=block_long) \
+        == _family_path(name, E)
+
+
+@pytest.mark.parametrize("layout,out_order,block_long", [
+    ("u element-major", (0, 1, 2), 512), ("u offset", (0, 1, 2), 512),
+    ("F element-major", (0, 1, 2), 512), ("dof-major", (2, 0, 1), 512),
+    ("dof-major", (1, 0, 2), 512), ("dof-major", (0, 1, 2), 100),
+    ("dof-major", (0, 1, 2), 6)])
+def test_dg_rows_path_choice_by_layout(layout, out_order, block_long):
+    """Element-major or offset operands, an output that stores e last but
+    one, or a block length off 4 take the general path; an output with x
+    and i swapped keeps e at stride 1 and the tiled path."""
+    rows = _family_rows("cpu", "grad", 4096, seed=41, layout=layout)
+    tiled = (layout == "dof-major" and out_order[2] == 2
+             and block_long % 4 == 0)
+    assert kernels.dg_rows_path(rows, block_long=block_long,
+                                out_order=out_order) \
+        == ("tiled" if tiled else "general")
+
+
+@pytest.mark.parametrize("model", ["wave", "maxwell"])
+def test_model_steps_take_the_tiled_path(monkeypatch, model):
+    """Every dg_rows_f32 launch of the benchmark's steps (dof-major state,
+    E a multiple of 4, the default block) would take the tiled path: the
+    path chosen on the CPU rows the plans hand to the wrapper."""
+    paths = []
+    launch = kernels._dg_launch
+
+    def spy(name, rows, block_long, out_order, one_launch):
+        if name == "dg_rows_f32":
+            paths.append(kernels.dg_rows_path(rows, block_long=block_long,
+                                              out_order=out_order))
+        return launch(name, rows, block_long, out_order, one_launch)
+    monkeypatch.setattr(kernels, "_dg_launch", spy)
+    E = 256
+    if model == "wave":
+        op = ft.WaveOperator3D()
+        state, geom = ft.make_wave_state(E, seed=3, device="cpu")
+    else:
+        op = ft.MaxwellOperator3D()
+        state, geom = ft.make_maxwell_state(E, seed=3, device="cpu")
+    op.make_step(E)(state, geom)
+    assert paths and set(paths) == {"tiled"}
+
+
 @pytest.mark.parametrize("u_has_s,with_f", [(False, True), (True, True),
                                              (True, False)])
 def test_dd_rows_plain_is_the_row_formula(u_has_s, with_f):
@@ -237,6 +354,50 @@ def test_dg_rows_shared_memory_guard(cuda_device):
         kernels.dg_rows_f32(rows, block_long=32)
 
 
+def _run_dg_path(rows, want_path, **kw):
+    """Launch dg_rows_f32 on *rows*, check the path counter moved by one
+    launch on *want_path*, and the outputs against the plain version."""
+    from feinsum_tpu_torch import tracing
+    counts = tracing.counters["dg_rows_f32_path"]
+    before = dict(counts)
+    got = kernels.dg_rows_f32(rows, **kw)
+    torch.cuda.synchronize()
+    assert counts == {p: before[p] + (p == want_path) for p in before}
+    for g, want in zip(got, kernels.dg_rows_plain(
+            rows, kw.get("out_order", (0, 1, 2)))):
+        assert g.shape == want.shape
+        assert_close(g.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,block_long", DG_EXTENTS)
+@pytest.mark.parametrize("name", sorted(DG_FAMILIES))
+def test_dg_rows_paths_match_plain(cuda_device, name, E, block_long):
+    """Every template instance the families use, I not a multiple of 4, J
+    from 7 to 312, E ragged against the tile, below 4 and odd, blocks of 8
+    to 8192: the path the counter shows, the outputs the plain version's."""
+    _run_dg_path(_family_rows(cuda_device, name, E, seed=42),
+                 _family_path(name, E), block_long=block_long)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,out_order", [
+    ("u element-major", (0, 1, 2)), ("u offset", (0, 1, 2)),
+    ("F element-major", (0, 1, 2)), ("dof-major", (2, 0, 1)),
+    ("dof-major", (1, 0, 2))])
+@pytest.mark.parametrize("name", ["grad", "face"])
+def test_dg_rows_general_layouts_match_plain(cuda_device, name, layout,
+                                             out_order):
+    """Stored layouts the tiled path does not copy run on the general
+    path; an output with x and i swapped stays tiled."""
+    if layout == "F element-major" and name != "grad":
+        layout = "dof-major"
+    rows = _family_rows(cuda_device, name, 1000, seed=43, layout=layout)
+    tiled = layout == "dof-major" and out_order[2] == 2
+    _run_dg_path(rows, "tiled" if tiled else "general", block_long=512,
+                 out_order=out_order)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,offset", [(4096, 0), (4097, 0), (4096, 1)])
 def test_ew_product_kernel_matches_plain(cuda_device, n, offset):
@@ -306,13 +467,19 @@ def test_dd_rows_smem_formula_matches_the_kernel(cuda_device, S_, I, J,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S_,I,J,u_has_s", [(1, 24, 312, False),
-                                            (4, 35, 15, True)])
-def test_dg_rows_smem_formula_matches_the_kernel(cuda_device, S_, I, J,
-                                                 u_has_s):
+@pytest.mark.parametrize("name", sorted(DG_FAMILIES))
+def test_dg_rows_smem_formula_matches_the_kernel(cuda_device, name):
+    """Both paths' shared memory: the general path's (which decides what
+    the kernel takes) and the tiled path's ring."""
     from feinsum_tpu_torch.ops._build import load_library
-    assert load_library().dg_rows_f32_smem_bytes(S_, I, J, int(u_has_s)) \
+    X, S_, I, J, u_has_s, f = DG_FAMILIES[name]
+    lib = load_library()
+    assert lib.dg_rows_f32_smem_bytes(S_, I, J, int(u_has_s)) \
         == kernels.dg_rows_smem_bytes(S_, I, J, u_has_s)
+    assert lib.dg_rows_f32_tiled_smem_bytes(
+        X, S_, I, J, int(u_has_s), int(f is not None)) \
+        == kernels.dg_rows_tiled_smem_bytes(X, S_, I, J, u_has_s,
+                                            f is not None)
 
 
 # the fp64 suite's rows, replayed from the dd transform space

@@ -566,4 +566,78 @@ def test_shipped_lane_pack_facts_match_reference(tmp_path, space_id, count):
     assert n == count
     assert n_wide == (25 if space_id == "mass_v0.py" else 0)
 
+
+
+# {{{ the routes dg_rows_f32's tiled path must leave as they were
+
+# the kernel each f32 suite row and each model row plans onto at its
+# default point (guard_smem passing), pinned from before dg_rows_f32 had
+# its tiled path: the general path's shared memory still decides what the
+# kernel takes
+ROUTES = {
+    "dg_div_ndof35": "dg_rows_f32", "dg_grad_ndof35": "dg_rows_f32",
+    "dg_face_mass": "dg_rows_f32", "dg_mass_ndof35": "dg_rows_f32",
+    "matvec_ndof20": "dg_rows_f32", "copy_ndof35": "ew_product_f32",
+    "dg_div_single_ndof35": "dg_rows_f32",
+    "dg_div_ndof20_P3": "dg_rows_f32", "dg_div_ndof10_P2": "dg_rows_f32",
+    "dg_div_ndof4_P1": "dg_rows_f32", "dg_grad_ndof20_P3": "dg_rows_f32",
+    "dg_grad_ndof10_P2": "dg_rows_f32", "dg_grad_ndof4_P1": "dg_rows_f32",
+    "dg_curl_ndof35": "dg_rows_f32", "vecmat_ndof35": "row_reduce_f32",
+    "rowsum_ndof35": "row_reduce_f32", "scale_flat": "ew_product_f32",
+    "wave_grad": "dg_rows_f32", "wave_div": "dg_rows_f32",
+    "wave_face": "dg_rows_f32", "wave_restrict": "dg_rows_f32",
+    "maxwell_curl": "dg_rows_f32"}
+# (subscripts, lane_pack_g, precision_3x, kernel): the shipped mass_v0
+# lane-pack facts but the fold rulings, by route; the 25 whose kron
+# resident exceeds the general path's block go to probe_apply_f32
+FACT_ROUTES = {
+    ("ik,jk -> ij", 2, False, "dg_rows_f32"): 11,
+    ("ik,jk -> ij", 2, True, "dg_rows_3xtf32"): 2,
+    ("ik,jk -> ij", 3, False, "dg_rows_f32"): 7,
+    ("ik,jk -> ij", 4, False, "probe_apply_f32"): 8,
+    ("ik,jk -> ij", 5, False, "probe_apply_f32"): 6,
+    ("j,ij -> i", 3, False, "dg_rows_f32"): 13,
+    ("j,ij -> i", 4, False, "probe_apply_f32"): 9,
+    ("j,ij -> i", 5, False, "probe_apply_f32"): 2}
+
+
+def _route_rows() -> dict:
+    from feinsum_tpu_torch import suite
+    rows = dict(suite.f32_rows())
+    wave = ft.WaveOperator3D()
+    rows.update({f"wave_{k}": p.einsum for k, p in wave.programs.items()})
+    rows["maxwell_curl"] = ft.MaxwellOperator3D().program.einsum
+    return rows
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_row_routes_are_pinned(name):
+    from feinsum_tpu_torch import suite
+    e = _route_rows()[name]
+    _common.guard_smem(e, "dg_rows_f32")
+    prog = suite.default_transform(e)(ft.generate_program(e))
+    assert plan_cuda_launch(prog, stored_lengths(
+        prog, get_index_lengths(prog.einsum, 64))).kernel == ROUTES[name]
+
+
+def test_lane_pack_fact_routes_are_pinned(tmp_path):
+    """apply_route (inside the plan) and guard_smem give every shipped
+    mass_v0 lane-pack fact the route it had."""
+    facts = shipped_facts_of(tmp_path, lambda q: q.transform_id ==
+                             "mass_v0.py"
+                             and dict(q.transform_params).get("lane_pack_g"))
+    routes = {}
+    for e, q in facts:
+        params = dict(q.transform_params)
+        if params.get("fold") or params.get("mfold"):
+            continue
+        prog = get_transform_func_from_module_path("mass_v0").bind_args(
+            e, **params)(ft.generate_program(e))
+        kernel = plan_cuda_launch(prog, stored_lengths(
+            prog, get_index_lengths(prog.einsum, 64))).kernel
+        key = (e.get_subscripts(), params["lane_pack_g"],
+               bool(params.get("precision_3x")), kernel)
+        routes[key] = routes.get(key, 0) + 1
+    assert routes == FACT_ROUTES
+
 # }}}
