@@ -179,7 +179,11 @@ class ScheduleDescriptor:
         operand and output as a (2, ...) float32 [hi, lo] pair
         (``ops/dd_emitter.py``) and runs the ``dd_rows`` kernel, which
         computes in native FP64 on the card; every operand must be float64.
-        With ``backend="xla"`` it raises.
+        With ``backend="xla"`` it raises.  The models (``models/wave.py``,
+        ``models/maxwell.py``) take it by default at float64: their default
+        plan sets it on every einsum, the face restriction included, and
+        their steps convert the float64 state to pairs and back at their
+        boundary.
     :attr interpret: ``None`` or ``False``; ``True`` raises (a CUDA kernel
         has no interpret mode; CPU tensors take the plain versions).
     :attr lane_pack, lane_pack_args, kron_args, lane_pack_expand: the

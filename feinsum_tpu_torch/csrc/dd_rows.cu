@@ -41,6 +41,15 @@
 // tiling over several elements per thread, or DMMA (the FP64 tensor-core
 // mma), is later work.
 //
+// Restriction rows.  The wave model's face restriction fji,ei->fej, a
+// matvec whose resident carries every output letter but e, comes here as a
+// row with S = 1, X = 1 and no F: ops/dd_emitter.py merges the output
+// letters (f, j) into i as views of the pair tensors (R a (2, 1, F*Pf, P)
+// view, the output a (2, 1, F*Pf, E) view of (2, F, Pf, E)), so the kernel
+// needs no case of its own.  At ndof 35 and 4 x 15 face dofs, i = 60: R is
+// 60 x 35 doubles (16.8 KB) beside the u columns (35.8 KB), 52.6 KB of
+// shared memory a block, taken through cudaFuncSetAttribute.
+//
 // All rows of a batched einsum run in one launch: blockIdx.y is the row,
 // and the rows' pointers and strides travel by value (at most kMaxRows).
 

@@ -16,7 +16,10 @@ one batched einsum with six div-class rows (+y z, -z y, +z x, -x z, +x y,
 streams every operand once per curl and the +/- pairing happens on the
 outputs.  As in the wave model, the archive is consulted (``db_path``) with
 the reference's default otherwise (``suite.BLOCK_LONG`` elements per
-thread block), and state and geometry are dof-major.
+thread block), and state and geometry are dof-major.  At float64 the curl
+runs on pair storage (``dd_rows``) as the wave model's einsums do: the step
+splits E and H into pairs once each and combines the six rows into the
+float64 update.
 """
 
 from __future__ import annotations
@@ -31,7 +34,14 @@ from ..cl_utils import default_device
 from ..codegen.program import build_executable
 from ..make_einsum import array, batched_einsum
 from ..suite import BLOCK_LONG
-from .wave import _to_device, archived_or_default
+from .wave import (
+    GeometryPairs,
+    _to_device,
+    archived_or_default,
+    from_pairs,
+    on_pairs,
+    to_pairs,
+)
 
 # six rows of the cross product: (metric column, source component); rows
 # 2k / 2k+1 are the +/- halves of curl component k (x, y, z)
@@ -60,11 +70,16 @@ class MaxwellOperator3D(torch.nn.Module):
         self.program = archived_or_default(
             self.curl_einsum, db_path=db_path, device=device,
             use_pallas=use_pallas, block_long=block_long)
+        self.pairs = on_pairs([self.program])
 
     def make_step(self, n_elements: int, dt: float = 1e-3):
         """``step(state, geom) -> state`` advancing (E, H) one
-        explicit-Euler step, on dof-major tensors: E/H (3, P, E)."""
+        explicit-Euler step, on dof-major tensors: E/H (3, P, E); on pair
+        storage the same, in float64 (module docstring)."""
         fn = build_executable(self.program, long_dim_length=n_elements)
+        name = f"feinsum.step:{type(self).__name__}"
+        if self.pairs:
+            return self._pair_step(fn, name, dt)
 
         def curl(field, geom):
             rows = fn({"Jx": geom["Jx"], "Jy": geom["Jy"],
@@ -74,13 +89,36 @@ class MaxwellOperator3D(torch.nn.Module):
                                 rows[2] - rows[3],
                                 rows[4] - rows[5]])
 
-        name = f"feinsum.step:{type(self).__name__}"
-
         def step(state, geom):
             with tracing.span(name):
+                tracing.counters["model_steps"] += 1
                 e, h = state["E"], state["H"]
                 new_e = e + dt * curl(h, geom)
                 new_h = h - dt * curl(e, geom)
+                return {"E": new_e, "H": new_h}
+
+        return step
+
+    def _pair_step(self, fn, name: str, dt: float):
+        """The step on pair storage: float64 state and glue, the curl's
+        rows on pairs."""
+        geom_pairs = GeometryPairs(("Jx", "Jy", "Jz", "D"))
+
+        def curl(pairs, g):
+            rows = [from_pairs(r) for r in fn({
+                "Jx": g["Jx"], "Jy": g["Jy"], "Jz": g["Jz"], "D": g["D"],
+                "Fx": pairs[:, 0], "Fy": pairs[:, 1], "Fz": pairs[:, 2]})]
+            return torch.stack([rows[0] - rows[1],
+                                rows[2] - rows[3],
+                                rows[4] - rows[5]])
+
+        def step(state, geom):
+            with tracing.span(name):
+                tracing.counters["model_steps"] += 1
+                e, h = state["E"], state["H"]
+                g = geom_pairs(geom)
+                new_e = e + dt * curl(to_pairs(h), g)
+                new_h = h - dt * curl(to_pairs(e), g)
                 return {"E": new_e, "H": new_h}
 
         return step

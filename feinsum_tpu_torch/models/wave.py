@@ -49,13 +49,75 @@ def _default_transform(program: EinsumProgram, *, use_pallas: bool,
                        block_long: int) -> EinsumProgram:
     """The reference's default: the optimal-path schedule on the fused
     kernels (``backend="pallas"``), *block_long* elements per thread block
-    and ``"parallel"`` semantics; with ``use_pallas=False`` the plain
-    per-step route."""
+    and ``"parallel"`` semantics, on pair storage (``dd_pairs``, the
+    ``dd_rows`` kernel) when every operand is float64; with
+    ``use_pallas=False`` the plain per-step route."""
     p = generate_program_with_opt_einsum_schedule(program.einsum)
     if use_pallas:
+        f64 = {str(dt) for dt in p.einsum.arg_to_dtype.values()} \
+            == {"float64"}
         p = p.with_descriptor(backend="pallas", block_long=block_long,
-                              dimension_semantics="parallel")
+                              dimension_semantics="parallel", dd_pairs=f64)
     return p
+
+
+def on_pairs(programs) -> bool:
+    """Whether a model's programs run on pair storage (``dd_pairs``): all
+    of them or none, since a step converts its state at one boundary;
+    raises :class:`InvalidParameterError` for a mix (an archive with pair
+    facts for only some of the model's einsums)."""
+    kinds = {p.descriptor.dd_pairs for p in programs}
+    if len(kinds) != 1:
+        raise InvalidParameterError(
+            "the model's programs mix pair storage (dd_pairs) with other"
+            " routes; its step converts the state at one boundary")
+    return kinds.pop()
+
+
+def to_pairs(t: torch.Tensor) -> torch.Tensor:
+    """*t* (float64) as its (2, ...) float32 hi/lo pair: the span
+    ``feinsum.pairs:split``, and 16 bytes an entry (the float64 read, the
+    pair written) added to ``tracing.counters["pair_bytes"]``."""
+    # imported here, as ``build_executable`` imports the emitters, so that
+    # importing the package does not import them
+    from ..ops.dd_emitter import split_to_pairs
+    with tracing.span("feinsum.pairs:split"):
+        out = split_to_pairs(t)
+    tracing.counters["pair_bytes"] += 16 * t.numel()
+    return out
+
+
+def from_pairs(p: torch.Tensor) -> torch.Tensor:
+    """The float64 values of the pair *p*: the span
+    ``feinsum.pairs:combine``, and 16 bytes an entry (the pair read, the
+    float64 written) added to ``tracing.counters["pair_bytes"]``."""
+    from ..ops.dd_emitter import combine_pairs
+    with tracing.span("feinsum.pairs:combine"):
+        out = combine_pairs(p)
+    tracing.counters["pair_bytes"] += 8 * p.numel()    # 2 x 8 an entry
+    return out
+
+
+class GeometryPairs:
+    """The geometry's pairs for a step on pair storage, split once: a
+    geometry tensor is split again only when the step is given another
+    tensor under its name, or the same one written in place (its
+    ``_version`` moved).  It holds the last tensor split under each name
+    and its pair."""
+
+    def __init__(self, names: tuple) -> None:
+        self.names = names
+        self._held: dict = {}
+
+    def __call__(self, geom: dict) -> dict:
+        out = {}
+        for name in self.names:
+            t = geom[name]
+            held = self._held.get(name)
+            if held is None or held[0] is not t or held[1] != t._version:
+                held = self._held[name] = (t, t._version, to_pairs(t))
+            out[name] = held[2]
+        return out
 
 
 def archived_or_default(e, *, db_path, device, use_pallas: bool,
@@ -138,6 +200,7 @@ class WaveOperator3D(torch.nn.Module):
                             ("div", self.div_einsum),
                             ("face", self.face_einsum),
                             ("restrict", self.restrict_einsum)]}
+        self.pairs = on_pairs(self.programs.values())
 
     def executables(self, n_elements: int) -> dict:
         return {name: build_executable(p, long_dim_length=n_elements)
@@ -147,12 +210,15 @@ class WaveOperator3D(torch.nn.Module):
         """``step(state, geom) -> state`` advancing (u, v) one
         explicit-Euler step of the wave system, on dof-major tensors: u
         (P, E), v (3, P, E); geometry as :func:`make_wave_state` lays it
-        out."""
+        out.  On pair storage the same, in float64 (module docstring)."""
         fns = self.executables(n_elements)
         name = f"feinsum.step:{type(self).__name__}"
+        if self.pairs:
+            return self._pair_step(fns, name, dt)
 
         def step(state, geom):
             with tracing.span(name):
+                tracing.counters["model_steps"] += 1
                 u, v = state["u"], state["v"]
                 (grad_u,) = fns["grad"]({"J": geom["J"], "D": geom["D"],
                                          "u": u})
@@ -167,6 +233,33 @@ class WaveOperator3D(torch.nn.Module):
                                        "flux": flux})
                 new_v = v + dt * grad_u                   # grad out: (x, P, E)
                 new_u = u + dt * (div_v + lift)
+                return {"u": new_u, "v": new_v}
+
+        return step
+
+    def _pair_step(self, fns: dict, name: str, dt: float):
+        """The step on pair storage: float64 state and glue, the einsums on
+        pairs (module docstring)."""
+        geom_pairs = GeometryPairs(("J", "Jx", "Jy", "Jz", "D", "L", "Fj",
+                                    "Rface"))
+
+        def step(state, geom):
+            with tracing.span(name):
+                tracing.counters["model_steps"] += 1
+                u, v = state["u"], state["v"]
+                g = geom_pairs(geom)
+                up, vp = to_pairs(u), to_pairs(v)   # (2, P, E), (2, 3, P, E)
+                (grad_u,) = fns["grad"]({"J": g["J"], "D": g["D"], "u": up})
+                vx, vy, vz = fns["div"]({
+                    "Jx": g["Jx"], "Jy": g["Jy"], "Jz": g["Jz"],
+                    "D": g["D"], "vx": vp[:, 0], "vy": vp[:, 1],
+                    "vz": vp[:, 2]})
+                (flux,) = fns["restrict"]({"R": g["Rface"], "u": up})
+                (lift,) = fns["face"]({"L": g["L"], "Fj": g["Fj"],
+                                       "flux": flux})
+                div_v = from_pairs(vx) + from_pairs(vy) + from_pairs(vz)
+                new_v = v + dt * from_pairs(grad_u)
+                new_u = u + dt * (div_v + from_pairs(lift))
                 return {"u": new_u, "v": new_v}
 
         return step

@@ -212,7 +212,11 @@ def _is_dense_permutation(t: torch.Tensor) -> bool:
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
-                   shape: tuple) -> None:
+                   shape: tuple, pair: bool = False) -> None:
+    """Refuse *t* unless it lies on *device*, is float32 of *shape* and is
+    a permutation of a contiguous layout; with *pair*, a (2, ...) hi/lo
+    pair whose planes each are, any distance apart (a component's view of
+    a pair tensor, ``v_pairs[:, x]``)."""
     if t.device != device:
         raise ValueError(f"{name} lies on {t.device}, expected {device}")
     if t.dtype != torch.float32:
@@ -220,7 +224,7 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device,
                                     " take float32 (or float32 pairs) only")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not _is_dense_permutation(t):
+    if not _is_dense_permutation(t[0] if pair else t):
         raise ValueError(f"{name}: strides {t.stride()} are not a"
                          " permutation of a contiguous layout")
 
@@ -947,10 +951,12 @@ def _dd_dims(rows: Sequence[DDRow]) -> tuple:
         if (row.F is not None) != has_f:
             raise ValueError("rows disagree on the streamed factor F")
         _check_operand(f"row {k} u", row.u, device,
-                       (2, S if u_has_s else 1, J, E))
-        _check_operand(f"row {k} R", row.R, device, (2, S, I, J))
+                       (2, S if u_has_s else 1, J, E), pair=True)
+        _check_operand(f"row {k} R", row.R, device, (2, S, I, J),
+                       pair=True)
         if has_f:
-            _check_operand(f"row {k} F", row.F, device, (2, X, S, E))
+            _check_operand(f"row {k} F", row.F, device, (2, X, S, E),
+                           pair=True)
     return X, S, I, J, E, u_has_s, has_f
 
 

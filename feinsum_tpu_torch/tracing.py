@@ -17,14 +17,21 @@ The spans, each at one boundary of the package:
 * ``feinsum.kernel:<kernel>`` — a kernel wrapper of ``ops/kernels.py`` or
   ``ops/probe_kernels.py`` on its CUDA branch: the checks, the outputs'
   allocation, the ctypes packing and its one or more launches;
+* ``feinsum.pairs:split`` and ``feinsum.pairs:combine`` — a model step on
+  pair storage converting a float64 tensor to its (2, ...) float32 hi/lo
+  pair or back (``models/wave.py``, ``to_pairs`` and ``from_pairs``),
+  inside its ``feinsum.step`` span;
 * ``feinsum.executable.build``, ``feinsum.library.load`` and
   ``feinsum.archive.query`` — the set-up work (:func:`setup`).
 
 :data:`counters` holds every counter: ``"launches"``, the launches by
 kernel (``ops.kernels.launch_counts`` is the same dict),
-``"dg_rows_f32_path"``, that kernel's launches by path, and for each piece
-of set-up work a count and its seconds, timed on every call (the paths are
-cold):
+``"dg_rows_f32_path"``, that kernel's launches by path, ``"model_steps"``,
+the calls of a model's step, ``"pair_bytes"``, the bytes the steps' pair
+conversions read and write (16 an entry: 8 of float64 and 2 x 4 of pair,
+one read and one written), so that ``pair_bytes / model_steps`` is the
+conversions' bytes per step, and for each piece of set-up work a count and
+its seconds, timed on every call (the paths are cold):
 
 * ``executable_builds``, ``executable_build_s`` — builds of an executable,
   each a miss of ``build_executable``'s cache;
@@ -76,6 +83,7 @@ counters = {
     # dg_rows_f32's launches by path: the tiled path (dof-major operands on
     # 16 bytes) or the general one (any other stored layout)
     "dg_rows_f32_path": {"tiled": 0, "general": 0},
+    "model_steps": 0, "pair_bytes": 0,
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,
     "archive_queries": 0, "archive_query_s": 0.0}

@@ -10,7 +10,11 @@ lo half of its pairs (about 1e-7 of max|oracle|, where the port and the
 reference's one-step run hold 1e-14).  Both sides are recombined to
 float64 and compared within 1e-12 of max|reference| (the float64 oracle's
 tolerance).  This file is on its own because the reference's dd path turns
-``jax_enable_x64`` on for the whole process."""
+``jax_enable_x64`` on for the whole process.  Restriction rows (the wave
+model's face restriction), which the reference's K4 refuses, are held to
+the float64 numpy oracle in the resident orders the float32 route takes,
+and the orders that the pair contract or the merged (f, j) rule out
+raise."""
 
 from __future__ import annotations
 
@@ -27,11 +31,16 @@ from feinsum_tpu.measure import (
 from feinsum_tpu.ops.dd_emitter import split_to_pairs as ref_split
 from feinsum_tpu.tuning import \
     get_transform_func_from_module_path as ref_space_of
+from feinsum_tpu_torch.codegen.program import get_index_lengths
 from feinsum_tpu_torch.interop import arrays_from_numpy, \
     program_from_reference
 from feinsum_tpu_torch.measure import apply_layouts, generate_input_arrays
 from feinsum_tpu_torch.ops import kernels
-from feinsum_tpu_torch.ops.dd_emitter import combine_pairs, split_to_pairs
+from feinsum_tpu_torch.ops.dd_emitter import (
+    combine_pairs,
+    plan_dd_launch,
+    split_to_pairs,
+)
 from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
 
 E = 1000
@@ -191,3 +200,70 @@ def test_dd_refuses_float32_operands_and_wrong_pair_shapes():
     arrays["u"] = arrays["u"][0]             # the hi plane alone
     with pytest.raises(ft.InvalidParameterError, match="pair layout"):
         fn(arrays)
+
+
+# {{{ restriction rows
+
+def _restriction(b, r_perm, u_perm=(1, 0), out_perm=(0, 2, 1)):
+    """The wave model's face restriction ``fji,ei->fej`` (4 faces x 6 face
+    dofs, ndof 9) in *b* rows, on pair storage in the given stored
+    orders."""
+    f64 = "float64"
+    e = ft.batched_einsum("fji,ei->fej", [
+        [ft.array(f"R{r}", (4, 6, 9), f64), ft.array(f"u{r}", ("E", 9), f64)]
+        for r in range(b)])
+    layouts = tuple(pair for r in range(b)
+                    for pair in ((f"R{r}", r_perm), (f"u{r}", u_perm)))
+    return e, ft.generate_program(e).with_descriptor(
+        backend="pallas", dd_pairs=True, block_long=128,
+        arg_layouts=layouts, out_layout=out_perm)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("r_perm", [(0, 1, 2), (2, 0, 1)])
+def test_dd_restriction_rows_match_the_oracle(b, r_perm):
+    """Restriction rows on ``dd_rows`` (the plain version on CPU tensors),
+    in the resident orders the float32 route takes, (f, j, i) and
+    (i, f, j): (f, j) merged into the kernel's i as views of the pairs,
+    against the float64 numpy oracle within 1e-12 of its largest
+    magnitude."""
+    e, program = _restriction(b, r_perm)
+    plan = plan_dd_launch(program, get_index_lengths(e, E))
+    assert plan.kernel == "dd_rows"
+    logical = generate_input_arrays(e, long_dim_length=E, seed=SEED,
+                                    device="cpu")
+    stored = apply_layouts(program, logical)
+    rows = plan.operands(stored)
+    assert all(row.R.data_ptr() == stored[f"R{r}"].data_ptr()  # views
+               for r, row in enumerate(rows))
+    outs = ft.build_executable(program, long_dim_length=E, device="cpu")(
+        stored)
+    assert len(outs) == b
+    for r, got in enumerate(outs):
+        assert tuple(got.shape) == (2, 4, 6, E)
+        want = np.einsum("fji,ei->fej", logical[f"R{r}"].numpy(),
+                         logical[f"u{r}"].numpy())
+        scale = float(np.max(np.abs(want)))
+        np.testing.assert_allclose(
+            ft.unpack_output(program, got, want.shape).numpy(), want,
+            rtol=RTOL, atol=RTOL * scale)
+
+
+@pytest.mark.parametrize("r_perm,u_perm,out_perm,match", [
+    ((1, 0, 2), (1, 0), (0, 2, 1), "restriction rows"),  # R (j, f, i)
+    ((0, 2, 1), (1, 0), (0, 2, 1), "restriction rows"),  # R (f, i, j)
+    ((0, 1, 2), (1, 0), (0, 1, 2), "trailing"),          # out (f, e, j)
+    ((0, 1, 2), (1, 0), (1, 0, 2), "trailing"),          # out (e, f, j)
+    ((0, 1, 2), (0, 1), (0, 2, 1), "trailing"),          # u (e, i)
+])
+def test_dd_restriction_rows_refuse_other_orders(r_perm, u_perm, out_perm,
+                                                 match):
+    """Orders that split or reorder (f, j) raise as on the float32 route;
+    so do an element-major u and an output with e before (f, j), which the
+    float32 route takes and the pair contract does not (streamed operands
+    and the output store the long axis trailing)."""
+    e, program = _restriction(1, r_perm, u_perm, out_perm)
+    with pytest.raises(ft.InvalidParameterError, match=match):
+        plan_dd_launch(program, get_index_lengths(e, E))
+
+# }}}

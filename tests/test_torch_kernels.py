@@ -467,6 +467,60 @@ def test_dd_rows_smem_formula_matches_the_kernel(cuda_device, S_, I, J,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("E", [777, 1 << 20])
+def test_dd_rows_restriction_rows_match_plain(cuda_device, E):
+    """The wave model's face restriction at float64 (ndof 35, 4 x 15 face
+    dofs) on ``dd_rows``: (f, j) merged into the kernel's i = 60, against
+    the plain version, one launch."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.dd_emitter import plan_dd_launch, \
+        split_to_pairs
+    program = ft.WaveOperator3D(dtype="float64").programs["restrict"]
+    plan = plan_dd_launch(program, get_index_lengths(program.einsum, E))
+    gen = torch.Generator(device=cuda_device).manual_seed(E)
+    arrays = {"R": torch.randn(4, 15, 35, dtype=torch.float64,
+                               device=cuda_device, generator=gen),
+              "u": torch.randn(35, E, dtype=torch.float64,
+                               device=cuda_device, generator=gen)}
+    rows = plan.operands({k: split_to_pairs(t) for k, t in arrays.items()})
+    assert tuple(rows[0].R.shape) == (2, 1, 60, 35)
+    before = kernels.launch_counts["dd_rows"]
+    (got,) = plan.run(rows)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dd_rows"] == before + 1
+    (want,) = plan.plain(rows)
+    assert got.shape == want.shape == (2, 4, 15, E)
+    assert_close(_unpair(got), _unpair(want), rtol=DD_RTOL)
+
+
+@pytest.mark.cuda
+# wave: grad, div, restrict, face; Maxwell: two curls of six rows, each in
+# launches of at most four rows
+@pytest.mark.parametrize("model,launches", [("wave", 4), ("maxwell", 4)])
+def test_fp64_model_steps_match_the_plain_route(cuda_device, model,
+                                                launches):
+    """A float64 step of each model with its default plan (every einsum on
+    ``dd_rows``, the counted launches) against the same model on the plain
+    float64 route, increment against increment."""
+    E = 4099
+    if model == "wave":
+        cls, make_state = ft.WaveOperator3D, ft.make_wave_state
+    else:
+        cls, make_state = ft.MaxwellOperator3D, ft.make_maxwell_state
+    state, geom = make_state(E, dtype="float64", seed=5,
+                             device=cuda_device)
+    before = kernels.launch_counts["dd_rows"]
+    got = cls(dtype="float64").make_step(E)(state, geom)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dd_rows"] == before + launches
+    want = cls(dtype="float64", use_pallas=False).make_step(E)(state, geom)
+    for k, old in state.items():
+        assert got[k].dtype == torch.float64
+        assert_close((got[k] - old).cpu().numpy(),
+                     (want[k] - old).cpu().numpy(), rtol=DD_RTOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(DG_FAMILIES))
 def test_dg_rows_smem_formula_matches_the_kernel(cuda_device, name):
     """Both paths' shared memory: the general path's (which decides what

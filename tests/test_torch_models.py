@@ -10,10 +10,23 @@ storage knobs (``fold``, ``preblock``), its precision carried over (the
 reference's own tests of both); a lane-pack fact fails the reference's
 step and is refused by the port's model.  Also the face-restriction row
 ``fji,ei->fej``: it plans onto ``dg_rows_f32`` as a matvec over the merged
-(f, j), and any other stored order of those letters raises."""
+(f, j), and any other stored order of those letters raises.
+
+At float64 both models take pair storage by default (every einsum on
+``dd_rows``, none on the plain route; the float32 plans unchanged): a step
+is held to the reference's float64 run at one grid step (``jax_enable_x64``
+for that run alone, the inputs drawn as numpy float64 arrays, so that
+nothing is downcast on the way: ROADMAP fault F4) within 1e-12 of max|ref|,
+and the wave step to the benchmark's plain float64 reference
+(``benchmark_torch/configs/wave3d_p4_f64.py``) within its limit."""
 
 from __future__ import annotations
 
+import importlib.util
+import json
+from pathlib import Path
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,9 +36,15 @@ from feinsum_tpu.models import MaxwellOperator3D as RefMaxwell
 from feinsum_tpu.models import WaveOperator3D as RefWave
 from feinsum_tpu.models import make_maxwell_state as ref_maxwell_state
 from feinsum_tpu.models import make_wave_state as ref_wave_state
-from feinsum_tpu_torch.codegen.program import get_index_lengths
+from feinsum_tpu_torch.codegen.program import (
+    generate_program_with_opt_einsum_schedule,
+    get_index_lengths,
+)
 from feinsum_tpu_torch.models import state_from_reference
+from feinsum_tpu_torch.ops import kernels
 from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+from feinsum_tpu_torch.ops.dd_emitter import plan_dd_launch
+from feinsum_tpu_torch.ops.layouts import dofmajor_layouts
 
 E = 256
 NDOF, NFDOF = 10, 6
@@ -255,3 +274,123 @@ def test_models_refuse_lane_pack_facts(tmp_path, which):
         else:
             ft.WaveOperator3D(ndof=NDOF, nfacedof=NFDOF, db_path=db,
                               device="cpu")
+
+
+# {{{ float64: pair storage on dd_rows
+
+F64_RTOL = 1e-12
+MODELS_F64 = {
+    "wave": (ft.WaveOperator3D, RefWave, ft.make_wave_state,
+             {"ndof": NDOF, "nfacedof": NFDOF}),
+    "maxwell": (ft.MaxwellOperator3D, RefMaxwell, ft.make_maxwell_state,
+                {"ndof": NDOF})}
+
+
+def _programs(op) -> dict:
+    return op.programs if hasattr(op, "programs") else {"curl": op.program}
+
+
+@pytest.mark.parametrize("model", sorted(MODELS_F64))
+def test_fp64_models_match_the_reference(model):
+    """P1: the models at float64 with their default plan, against the
+    reference's float64 run at one grid step, within 1e-12 of max|ref|."""
+    cls, ref_cls, make_state, widths = MODELS_F64[model]
+    st, gm = make_state(E, dtype="float64", seed=7, device="cpu", **widths)
+    with jax.enable_x64(True):
+        ref_op = ref_cls(dtype="float64", block_long=E, **widths)
+        want = ref_op.make_step(E)({k: t.numpy() for k, t in st.items()},
+                                   {k: t.numpy() for k, t in gm.items()})
+        want = _np(want)
+    op = cls(dtype="float64", block_long=64, **widths)
+    got = op.make_step(E)(st, gm)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert want[k].dtype == np.float64 and got[k].dtype == torch.float64
+        scale = float(np.max(np.abs(want[k])))
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=F64_RTOL,
+                                   atol=F64_RTOL * scale)
+
+
+@pytest.mark.parametrize("model", sorted(MODELS_F64))
+def test_fp64_plans_take_dd_rows_and_no_plain_route(model, monkeypatch):
+    """At float64 every einsum of the model is planned onto ``dd_rows`` on
+    pair storage; a step calls the kernel's plain version (CPU tensors)
+    once per einsum and never the plain per-step route."""
+    cls, _, make_state, widths = MODELS_F64[model]
+    op = cls(dtype="float64", **widths)
+    programs = _programs(op)
+    for name, program in programs.items():
+        desc = program.descriptor
+        assert desc.dd_pairs and desc.backend == "pallas", name
+        assert plan_dd_launch(program, get_index_lengths(
+            program.einsum, E)).kernel == "dd_rows", name
+    calls = []
+    plain = kernels.dd_rows_plain
+
+    def counted(rows):
+        calls.append(len(rows))
+        return plain(rows)
+
+    def refuse(*args):
+        raise AssertionError("a float64 einsum took the plain route")
+    monkeypatch.setattr(kernels, "dd_rows_plain", counted)
+    monkeypatch.setattr(ft.codegen.program, "_xla_row", refuse)
+    st, gm = make_state(E, dtype="float64", seed=3, device="cpu", **widths)
+    out = op.make_step(E)(st, gm)
+    assert all(t.dtype == torch.float64 for t in out.values())
+    # wave: grad, div (3 rows), restrict, face; Maxwell: the curl twice
+    assert calls == ([1, 3, 1, 1] if model == "wave" else [6, 6])
+
+
+@pytest.mark.parametrize("model", sorted(MODELS_F64))
+def test_f32_plans_are_unchanged(model):
+    """At float32 the default programs are the reference's default schedule
+    on the fused kernels, exactly as before pair storage: no ``dd_pairs``,
+    every einsum on ``dg_rows_f32``."""
+    cls, _, _, widths = MODELS_F64[model]
+    op = cls(**widths)
+    for name, program in _programs(op).items():
+        layouts, out_perm = dofmajor_layouts(program.einsum)
+        want = generate_program_with_opt_einsum_schedule(
+            program.einsum).with_descriptor(
+                backend="pallas", block_long=512,
+                dimension_semantics="parallel", arg_layouts=layouts,
+                out_layout=out_perm)
+        assert program == want, name
+        assert plan_cuda_launch(program, get_index_lengths(
+            program.einsum, E)).kernel == "dg_rows_f32", name
+
+
+def test_a_model_refuses_programs_that_mix_pair_storage():
+    from feinsum_tpu_torch.models.wave import on_pairs
+    op = ft.WaveOperator3D(ndof=NDOF, nfacedof=NFDOF, dtype="float64")
+    mixed = dict(op.programs, grad=op.programs["grad"].with_descriptor(
+        dd_pairs=False))
+    assert on_pairs(op.programs.values()) is True
+    with pytest.raises(ft.InvalidParameterError, match="dd_pairs"):
+        on_pairs(mixed.values())
+
+
+def test_fp64_wave_step_matches_the_benchmark_reference():
+    """The float64 wave step at ndof 35 (E = 96) against the benchmark's
+    plain float64 reference: the widest gap between the new state and the
+    old plus the reference's increment, over the largest increment, within
+    the configuration's ``increment_gap_limit``."""
+    bench = Path(__file__).resolve().parents[1] / "benchmark_torch"
+    spec = importlib.util.spec_from_file_location(
+        "reference_wave3d_p4_f64", bench / "configs" / "wave3d_p4_f64.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    cfg = json.loads((bench / "configs" / "wave3d_p4_f64.json").read_text())
+    n = 96
+    state, geom = ref.make_inputs(
+        cfg, n, torch.Generator().manual_seed(2 ** 33 + 3), "cpu")
+    op = ft.WaveOperator3D(**cfg["operator"]["kwargs"])
+    new = op.make_step(n, dt=cfg["dt"])(state, geom)
+    inc = ref.increments(cfg, state, geom)
+    for k in ("u", "v"):
+        gap = float((new[k] - (state[k] + inc[k])).abs().max()
+                    / inc[k].abs().max())
+        assert gap < cfg["check"]["increment_gap_limit"], (k, gap)
+
+# }}}

@@ -1,14 +1,16 @@
 """The port's spans and counters (``feinsum_tpu_torch/tracing.py``) on the
 CPU: the spans a model's step records under the torch profiler, nothing
-entered without one, the set-up counters, the launch counter, and the
-benchmark's readers of the spans and counters
-(``benchmark_torch/metrics/``) on synthetic runs.  This file imports no
-JAX."""
+entered without one, the set-up counters, the launch counter, the pair
+conversions of a float64 step (their spans inside the step's, their bytes
+and the steps counted by hand), and the benchmark's readers of the spans
+and counters (``benchmark_torch/metrics/``) on synthetic runs.  This file
+imports no JAX."""
 
 from __future__ import annotations
 
 import contextlib
 import importlib.util
+import json
 import sys
 import time
 from pathlib import Path
@@ -150,6 +152,68 @@ def test_launch_counter_is_the_one_dict_and_resets():
         kernels.launch_counts.update(saved)
 
 
+# {{{ pair conversions of a float64 step
+
+P, PF, NF = 35, 15, 4
+# entries a step converts, by hand: wave splits u (P) and v (3P) and
+# combines grad (3P), the three div rows (P each) and the lift (P); Maxwell
+# splits E and H (3P each) and combines the curl's six rows twice (P each)
+STEP_ENTRIES = {"wave": (4 * P + 7 * P), "maxwell": (6 * P + 12 * P)}
+# the geometry, split once: wave's J (9), Jx, Jy, Jz (3 each) and Fj (4)
+# an element, D, L and Rface; Maxwell's Jx, Jy, Jz and D
+GEOM_ENTRIES = {"wave": (22, 3 * P * P + 2 * NF * PF * P),
+                "maxwell": (9, 3 * P * P)}
+
+
+@pytest.mark.parametrize("key", sorted(MODELS))
+def test_pair_spans_nest_in_the_step_and_their_bytes_count(key):
+    """A float64 step on pair storage: every ``feinsum.pairs`` span lies
+    inside the ``feinsum.step`` span, and ``pair_bytes`` / ``model_steps``
+    equal the hand count at E = 96 (16 bytes an entry converted); the
+    geometry is split on the first step and again only for a tensor
+    written in place or replaced."""
+    n = 96
+    cls, make_state, _ = MODELS[key]
+    op = cls(dtype="float64")
+    state, geom = make_state(n, dtype="float64", seed=4, device="cpu")
+    step = op.make_step(n)
+    c = tracing.counters
+    start = c["pair_bytes"], c["model_steps"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state = step(state, geom)
+    (_, s_lo, s_hi), = _spans(prof, "feinsum.step:")
+    pairs = _spans(prof, "feinsum.pairs:")
+    per_elem, fixed = GEOM_ENTRIES[key]
+    n_geom = 8 if key == "wave" else 4
+    names = [name for name, _, _ in pairs]
+    assert names.count("feinsum.pairs:split") == n_geom + 2
+    assert names.count("feinsum.pairs:combine") == (5 if key == "wave"
+                                                    else 12)
+    assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in pairs)
+    step_bytes = 16 * STEP_ENTRIES[key] * n
+    geom_bytes = 16 * (per_elem * n + fixed)
+    assert c["pair_bytes"] - start[0] == geom_bytes + step_bytes
+    assert c["model_steps"] - start[1] == 1
+    state = step(state, geom)                  # the geometry's pairs held
+    assert c["pair_bytes"] - start[0] == geom_bytes + 2 * step_bytes
+    geom["Jx"].mul_(1.0)                       # written in place: split again
+    geom = dict(geom, D=geom["D"].clone())     # another tensor: split again
+    step(state, geom)
+    assert c["pair_bytes"] - start[0] == geom_bytes + 3 * step_bytes \
+        + 16 * (3 * n + 3 * P * P)
+    assert c["model_steps"] - start[1] == 3
+
+
+def test_a_float32_step_counts_steps_and_no_pair_bytes():
+    op, step, state, geom = _model("wave")
+    c = tracing.counters
+    start = c["pair_bytes"], c["model_steps"]
+    step(state, geom)
+    assert (c["pair_bytes"], c["model_steps"]) == (start[0], start[1] + 1)
+
+# }}}
+
+
 # {{{ the benchmark's readers
 
 def _reader(name):
@@ -211,5 +275,59 @@ def test_setup_program_s_reads_the_counters():
     c = tracing.counters
     want = c["executable_build_s"] + c["library_load_s"] + c["archive_query_s"]
     assert _reader("setup_program_s")(_run([], 1)) == want
+
+
+def _f64_run(device, steps=4):
+    """A synthetic traced run of the float64 cell at E = 1,000."""
+    cfg = json.loads((BENCH / "configs" / "wave3d_p4_f64.json").read_text())
+    peaks = {"flops": {"float32": 67e12, "float64": 34e12},
+             "bytes_per_s": 3.35e12}
+    return SimpleNamespace(cfg=cfg, n_elements=1000, peaks=peaks,
+                           step_s=0.002, trace=SimpleNamespace(
+                               device=device, steps=steps, host=[]))
+
+
+DD = "void (anonymous namespace)::dd_rows_kernel<false, 3>(DDRows, int)"
+ADD = "void at::native::vectorized_elementwise_kernel<4, add>(...)"
+
+
+def test_fp64_readers_on_a_synthetic_trace():
+    """``dd_rows_roofline`` (the einsums' float64 least time over the
+    ``dd_rows`` device time per step), ``fp64_glue_ms_per_step`` (PyTorch's
+    kernels), ``step_mfu_fp64`` (``step_mfu``'s arithmetic)."""
+    if str(BENCH) not in sys.path:
+        sys.path.insert(0, str(BENCH))
+    import yardstick
+    run = _f64_run([(DD, 0.0, 0.004), (ADD, 0.004, 0.010),
+                    ("memcpy HtoD", 0.010, 0.011), (DD, 0.011, 0.015)])
+    least = yardstick.einsums_least_time(run.cfg, 1000, run.peaks)
+    assert _reader("dd_rows_roofline")(run) == pytest.approx(
+        100 * least / (0.008 / 4))
+    assert _reader("fp64_glue_ms_per_step")(run) == pytest.approx(
+        1e3 * 0.007 / 4)
+    flops, nbytes = yardstick.step_counts(run.cfg, 1000)
+    assert flops == 1000 * 38805 and nbytes == 8 * (
+        2 * 140 * 1000 + 22 * 1000 + 3 * P * P + 2 * NF * PF * P)
+    assert _reader("step_mfu_fp64")(run) == pytest.approx(
+        100 * max(flops / 34e12, nbytes / 3.35e12) / 0.002)
+    assert _reader("step_mfu_fp64")(run) == _reader("step_mfu")(run)
+    no_dd = _f64_run([(ADD, 0.0, 0.001)])
+    assert _reader("dd_rows_roofline")(no_dd) is None
+    for name in ("dd_rows_roofline", "fp64_glue_ms_per_step",
+                 "step_mfu_fp64"):
+        assert _reader(name)(SimpleNamespace(trace=None, peaks=None)) is None
+
+
+def test_pair_bytes_per_step_reads_the_counters(monkeypatch):
+    read = _reader("pair_bytes_per_step")
+    monkeypatch.setattr(tracing, "counters",
+                        {"pair_bytes": 6000, "model_steps": 3})
+    assert read(_run([], 1)) == 2000
+    # the parent: no such counters, or no step yet
+    monkeypatch.setattr(tracing, "counters", {"launches": {}})
+    assert read(_run([], 1)) is None
+    monkeypatch.setattr(tracing, "counters",
+                        {"pair_bytes": 0, "model_steps": 0})
+    assert read(_run([], 1)) is None
 
 # }}}
