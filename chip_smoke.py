@@ -7,6 +7,7 @@
     python3 chip_smoke.py --step-only        # phases 1 and 19 alone
     python3 chip_smoke.py --tc-steps-only    # phases 1 and 20 alone
     python3 chip_smoke.py --probes-only      # phases 1 and 21 alone
+    python3 chip_smoke.py --update-only      # phases 1 and 22 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -186,7 +187,16 @@ Phases; any failure exits non-zero before the final line:
    PyTorch call of the same function, beside its bound (the lane-reshape
    cases also as CUDA graphs, the device's time without the host's), and
    each ``probe_apply`` case's pre-pass and main kernel device times
-   (``torch.profiler``), summed per family.
+   (``torch.profiler``), summed per family;
+22. the model steps' state update and pair split at the models' sizes
+   (``suite.MODEL_SIZES``): ``step_update`` against ``step_update_plain``
+   on the wave's u (four terms) and v (three groups of one term), Maxwell's
+   field (three groups of two terms, signs +1 and -1) and the wave's two
+   forms at float64 on pairs (the grad's pair planes apart,
+   ``grad[:, x]``), ``pairs_split`` against ``pairs_split_plain`` on the
+   wave's float64 v, each bit for bit; counters reset, each case launched
+   once and the counters read; each case timed in turns against its plain
+   version, beside its byte bound.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -199,10 +209,12 @@ and ``{"ok": true, "device": {...}}``.  The times of ``dg_rows_f32`` and
 kernels' phase 15's, the lane-pack kernels' phase 18's (g = 8, their
 bound that of the logical einsum), ``step_block_f32``'s phase 19's,
 ``tc_steps_f32``'s phase 20's, the probe kernels' phase 21's (summed over
-its cases); launches are counted over the main path (phase 3), the archive
-replays (phases 6, 8, 10, 16, 18, 20), the consumer flow's calls (phase
-13), one step of each model (phases 14, 17), phase 19's runs and phase
-21's one drive of each probe case.  It imports no JAX.
+its cases), ``step_update``'s and ``pairs_split``'s phase 22's (summed
+over its cases, no library call); launches are counted over the main path
+(phase 3), the archive replays (phases 6, 8, 10, 16, 18, 20), the consumer
+flow's calls (phase 13), one step of each model (phases 14, 17), phase
+19's runs, phase 21's one drive of each probe case and phase 22's of each
+update case.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -273,7 +285,10 @@ REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
                                   " :110, :144, :163, :201;"
                                   " scripts/tpu_fold_probe5.py:87, :102,"
                                   " :133, :151, :187;"
-                                  " scripts/tpu_kron_probe.py:62"}
+                                  " scripts/tpu_kron_probe.py:62",
+            "step_update": "feinsum_tpu/models/wave.py:137, :144-145;"
+                           " feinsum_tpu/models/maxwell.py:96-103",
+            "pairs_split": "feinsum_tpu/ops/dd_emitter.py:95"}
 SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "ew_product_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
            "ew_flat_f32": "feinsum_tpu_torch/csrc/ew_product.cu",
@@ -289,7 +304,9 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "tc_steps_f32": "feinsum_tpu_torch/csrc/tc_steps.cu",
            "probe_stream_f32": "feinsum_tpu_torch/csrc/probe_stream.cu",
            "probe_apply_f32": "feinsum_tpu_torch/csrc/probe_apply.cu",
-           "probe_apply_3xtf32": "feinsum_tpu_torch/csrc/probe_apply.cu"}
+           "probe_apply_3xtf32": "feinsum_tpu_torch/csrc/probe_apply.cu",
+           "step_update": "feinsum_tpu_torch/csrc/step_update.cu",
+           "pairs_split": "feinsum_tpu_torch/csrc/step_update.cu"}
 # the data-sheet peaks of the roofline bound (NVIDIA H100 SXM at 700 W);
 # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_MS = 3.35e9
@@ -578,6 +595,8 @@ def main() -> int:
         return tc_steps_only(dev, card)
     if "--probes-only" in sys.argv[1:]:
         return probes_only(dev, card)
+    if "--update-only" in sys.argv[1:]:
+        return update_only(dev, card)
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -750,8 +769,12 @@ def main() -> int:
     t_phase = time.perf_counter()
     for k, n in probe_path(dev, label, stats).items():
         launches[k] = launches.get(k, 0) + n
-    log(f"[phase] 21 (the probes): {time.perf_counter() - t_phase:.1f} s;"
-        f" all phases {time.perf_counter() - t0:.1f} s")
+    log(f"[phase] 21 (the probes): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    for k, n in update_path(dev, label, stats).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[phase] 22 (the state update): {time.perf_counter() - t_phase:.1f}"
+        f" s; all phases {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k]) for k in SOURCES]
     for entry in entries:
@@ -880,6 +903,31 @@ def probes_only(dev, card: str) -> int:
     log(card)
     log(json.dumps({"kernels": [stats.entry(k, launches[k])
                                 for k in PROBE_KERNELS]}))
+    return 0
+
+
+def update_only(dev, card: str) -> int:
+    """Phase 22 alone, for work on ``step_update`` and ``pairs_split``:
+    their build report, checks, launches and times, and their entries of
+    the ``kernels`` line.  It prints no ``ok`` line."""
+    import torch
+
+    from feinsum_tpu_torch.ops import _build
+    label = (f"[{torch.cuda.get_device_name(0)}, power limit"
+             f" {card.split(',')[-1].strip()}]")
+    lines = _build.build_info["log"].splitlines()
+    for k, line in enumerate(lines):
+        if any(n in line for n in UPDATE_KERNELS) \
+                and "entry function" in line:
+            for text in lines[k:k + 4]:
+                log("[build]", text.strip())
+    stats = KernelStats()
+    t0 = time.perf_counter()
+    launches = update_path(dev, label, stats)
+    log(f"[phase] 22: {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": [stats.entry(k, launches[k])
+                                for k in UPDATE_KERNELS]}))
     return 0
 
 
@@ -3313,6 +3361,121 @@ def probe_path(dev, label: str, stats: KernelStats) -> dict:
     for k, n in launches.items():
         if n < 1:
             raise SmokeFailure(f"{k} was not launched on the probe path")
+    return launches
+
+
+UPDATE_KERNELS = ("step_update", "pairs_split")
+
+
+def update_cases(dev) -> list:
+    """Phase 22's cases at ``suite.MODEL_SIZES``: ``(name, kernel, run,
+    plain, nbytes, arrays)``, *run* the wrapper's call and *plain* its
+    plain version's on the card tensors *arrays* (by name, so that
+    ``timeit_cuda`` sees the working set), *nbytes* what one call reads
+    and writes."""
+    import torch
+
+    from feinsum_tpu_torch import suite as S
+    from feinsum_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.rand(shape, generator=gen, dtype=torch.float64,
+                          device=dev).to(dtype)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def update(name, base, terms, dt, signs=None):
+        def run(_):
+            return kernels.step_update(base, terms, dt, signs=signs)
+
+        def plain(_):
+            return kernels.step_update_plain(base, terms, dt, signs=signs)
+        flat = [t for ts in terms for t in
+                (ts if isinstance(ts, (list, tuple)) else [ts])]
+        return (name, "step_update", run, plain,
+                2 * nbytes(base) + nbytes(*flat),
+                {f"t{k}": t for k, t in enumerate([base, *flat])})
+
+    w, m = S.MODEL_SIZES["wave"], S.MODEL_SIZES["maxwell"]
+    P, E = w["ndof"], w["n_elements"]
+    dt = 1e-3
+    cases = [
+        update(f"wave u (4 terms) E={E}", rand(P, E),
+               [rand(P, E) for _ in range(4)], dt),
+        update(f"wave v (3 groups x 1 term) E={E}", rand(3, P, E),
+               [rand(3, P, E).unbind(0)], dt)]
+    Pm, Em = m["ndof"], m["n_elements"]
+    rows = [rand(Pm, Em) for _ in range(6)]
+    for dt_f in (dt, -dt):
+        cases.append(update(f"maxwell field (3 groups x 2 terms, signs"
+                            f" +1 -1, dt {dt_f:+g}) E={Em}",
+                            rand(3, Pm, Em), [rows[0::2], rows[1::2]],
+                            dt_f, signs=(1, -1)))
+    f64 = torch.float64
+    pair = kernels.pairs_split_plain
+    cases += [
+        update(f"wave u on pairs (4 terms) E={E}", rand(P, E, dtype=f64),
+               [pair(rand(P, E, dtype=f64)) for _ in range(4)], dt),
+        update(f"wave v on pairs (3 groups x 1 term, planes apart) E={E}",
+               rand(3, P, E, dtype=f64),
+               [pair(rand(3, P, E, dtype=f64)).unbind(1)], dt)]
+    x = rand(3, P, E, dtype=f64) * 1e5
+    cases.append((f"wave v split E={E}", "pairs_split",
+                  lambda _: kernels.pairs_split(x),
+                  lambda _: kernels.pairs_split_plain(x), 2 * nbytes(x),
+                  {"x": x}))
+    return cases
+
+
+def update_path(dev, label: str, stats: KernelStats) -> dict:
+    """Phase 22, the model steps' state update and pair split
+    (:func:`update_cases`): each case against its plain version bit for
+    bit; counters reset, each case launched once, the counters read; each
+    case timed in turns against its plain version, beside the time of its
+    bytes at ``PEAK_BYTES_PER_MS`` (into *stats*).  Returns the launches."""
+    import torch
+
+    from feinsum_tpu_torch.ops import kernels
+
+    cases = update_cases(dev)
+    for name, kernel, run, plain, _, arrays in cases:
+        got, want = run(arrays), plain(arrays)
+        torch.cuda.synchronize()
+        same = got.shape == want.shape and got.dtype == want.dtype \
+            and bool(torch.equal(got, want))
+        log(f"[update] {kernel} {name}: bit for bit its plain version"
+            f" {'ok' if same else 'FAIL'}")
+        if not same:
+            raise SmokeFailure(f"{kernel} differs from its plain version on"
+                               f" {name}: max|diff|"
+                               f" {max_err(got, want)[0]:.3e}")
+        del got, want
+    kernels.reset_launch_counts()
+    for _, _, run, _, _, arrays in cases:
+        run(arrays)
+    torch.cuda.synchronize()
+    launches = {k: kernels.launch_counts[k] for k in UPDATE_KERNELS}
+    log(f"[update] launch counts over phase 22's {len(cases)} drives:"
+        f" {launches}")
+    for k, n in launches.items():
+        if n < 1:
+            raise SmokeFailure(f"{k} was not launched on the update path")
+    for name, kernel, run, plain, nb, arrays in cases:
+        times = timed_in_turns({"plain": plain, "kernel": run},
+                               {"plain": arrays, "kernel": arrays})
+        ms = sum(times["kernel"]) / 2
+        plain_ms = sum(times["plain"]) / 2
+        bytes_ms = nb / PEAK_BYTES_PER_MS
+        stats.add_bound(kernel, ms, plain_ms, None, bytes_ms, 0.0)
+        log(f"[update] {kernel} {name}: {ms:.4f} ms"
+            f" (runs {', '.join(f'{t:.4f}' for t in times['kernel'])}),"
+            f" {nb / (ms * 1e9):.3f} TB/s; plain {plain_ms:.4f} ms; bound"
+            f" {bytes_ms:.4f} ms ({nb / 1e9:.3f} GB) {label}")
+    del cases
+    torch.cuda.empty_cache()
     return launches
 
 

@@ -16,10 +16,13 @@ one batched einsum with six div-class rows (+y z, -z y, +z x, -x z, +x y,
 streams every operand once per curl and the +/- pairing happens on the
 outputs.  As in the wave model, the archive is consulted (``db_path``) with
 the reference's default otherwise (``suite.BLOCK_LONG`` elements per
-thread block), and state and geometry are dof-major.  At float64 the curl
-runs on pair storage (``dd_rows``) as the wave model's einsums do: the step
-splits E and H into pairs once each and combines the six rows into the
-float64 update.
+thread block), and state and geometry are dof-major.  Each field's update,
+``F ± dt (rows[2k] - rows[2k+1])`` for its three components, is one launch
+of ``ops.kernels.step_update`` writing the new (3, P, E) field (on the
+plain per-step route its plain version, ``wave.state_update``).  At float64
+the curl runs on pair storage (``dd_rows``) as the wave model's einsums do:
+the step splits E and H into pairs once each and the update reads the six
+rows' pairs.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ from .wave import (
     GeometryPairs,
     _to_device,
     archived_or_default,
-    from_pairs,
     on_pairs,
+    state_update,
     to_pairs,
 )
 
@@ -78,48 +81,31 @@ class MaxwellOperator3D(torch.nn.Module):
         storage the same, in float64 (module docstring)."""
         fn = build_executable(self.program, long_dim_length=n_elements)
         name = f"feinsum.step:{type(self).__name__}"
-        if self.pairs:
-            return self._pair_step(fn, name, dt)
+        geom_pairs = GeometryPairs(("Jx", "Jy", "Jz", "D")) \
+            if self.pairs else None
+        update = state_update([self.program])
 
-        def curl(field, geom):
-            rows = fn({"Jx": geom["Jx"], "Jy": geom["Jy"],
-                       "Jz": geom["Jz"], "D": geom["D"],
-                       "Fx": field[0], "Fy": field[1], "Fz": field[2]})
-            return torch.stack([rows[0] - rows[1],
-                                rows[2] - rows[3],
-                                rows[4] - rows[5]])
-
-        def step(state, geom):
-            with tracing.span(name):
-                tracing.counters["model_steps"] += 1
-                e, h = state["E"], state["H"]
-                new_e = e + dt * curl(h, geom)
-                new_h = h - dt * curl(e, geom)
-                return {"E": new_e, "H": new_h}
-
-        return step
-
-    def _pair_step(self, fn, name: str, dt: float):
-        """The step on pair storage: float64 state and glue, the curl's
-        rows on pairs."""
-        geom_pairs = GeometryPairs(("Jx", "Jy", "Jz", "D"))
-
-        def curl(pairs, g):
-            rows = [from_pairs(r) for r in fn({
-                "Jx": g["Jx"], "Jy": g["Jy"], "Jz": g["Jz"], "D": g["D"],
-                "Fx": pairs[:, 0], "Fy": pairs[:, 1], "Fz": pairs[:, 2]})]
-            return torch.stack([rows[0] - rows[1],
-                                rows[2] - rows[3],
-                                rows[4] - rows[5]])
+        def curl_update(base, field, g, dt):
+            """``base + dt * curl(field)``: the curl's six rows, then one
+            pass over the three components, rows 2k and 2k + 1 the +/-
+            terms of component k."""
+            if geom_pairs is None:
+                fs = list(field)
+            else:
+                fp = to_pairs(field)
+                fs = [fp[:, k] for k in range(3)]
+            rows = fn({"Jx": g["Jx"], "Jy": g["Jy"], "Jz": g["Jz"],
+                       "D": g["D"], "Fx": fs[0], "Fy": fs[1], "Fz": fs[2]})
+            return update(base, [rows[0::2], rows[1::2]], dt,
+                          signs=(1, -1))
 
         def step(state, geom):
             with tracing.span(name):
                 tracing.counters["model_steps"] += 1
                 e, h = state["E"], state["H"]
-                g = geom_pairs(geom)
-                new_e = e + dt * curl(to_pairs(h), g)
-                new_h = h - dt * curl(to_pairs(e), g)
-                return {"E": new_e, "H": new_h}
+                g = geom if geom_pairs is None else geom_pairs(geom)
+                return {"E": curl_update(e, h, g, dt),
+                        "H": curl_update(h, e, g, -dt)}
 
         return step
 

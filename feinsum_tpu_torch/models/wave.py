@@ -16,7 +16,9 @@ einsum (a matvec whose resident carries both output letters but e,
 transform-database machinery: the archive is consulted for the best
 schedule on the device (``db_path``), with the reference's default on the
 fused kernels otherwise (at ``suite.BLOCK_LONG`` elements per thread block,
-the H100's), and state and geometry stay dof-major end to end.
+the H100's), and state and geometry stay dof-major end to end.  Everything
+between the einsums' outputs and the new state is one pass per state
+tensor written (``ops.kernels.step_update``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..codegen.program import (
 )
 from ..diagnostics import InvalidParameterError, NoFactInDatabaseError
 from ..make_einsum import array, batched_einsum, einsum
+from ..ops import kernels
 from ..ops.layouts import dofmajor_layouts
 from ..suite import BLOCK_LONG
 
@@ -87,15 +90,14 @@ def to_pairs(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def from_pairs(p: torch.Tensor) -> torch.Tensor:
-    """The float64 values of the pair *p*: the span
-    ``feinsum.pairs:combine``, and 16 bytes an entry (the pair read, the
-    float64 written) added to ``tracing.counters["pair_bytes"]``."""
-    from ..ops.dd_emitter import combine_pairs
-    with tracing.span("feinsum.pairs:combine"):
-        out = combine_pairs(p)
-    tracing.counters["pair_bytes"] += 8 * p.numel()    # 2 x 8 an entry
-    return out
+def state_update(programs):
+    """The step's state update for a model with these programs:
+    ``kernels.step_update`` when an einsum runs on the fused kernels, else
+    (the plain per-step route) its plain version, so that route runs no
+    hand-written kernel."""
+    if any(p.descriptor.backend == "pallas" for p in programs):
+        return kernels.step_update
+    return kernels.step_update_plain
 
 
 class GeometryPairs:
@@ -210,57 +212,39 @@ class WaveOperator3D(torch.nn.Module):
         """``step(state, geom) -> state`` advancing (u, v) one
         explicit-Euler step of the wave system, on dof-major tensors: u
         (P, E), v (3, P, E); geometry as :func:`make_wave_state` lays it
-        out.  On pair storage the same, in float64 (module docstring)."""
+        out.  On pair storage the same, in float64: the einsums read u, v
+        and the geometry as pairs (the geometry split once), and the
+        update reads their outputs' pairs.  Each state tensor is written
+        by one pass of :func:`~feinsum_tpu_torch.ops.kernels.
+        step_update` (:func:`state_update`)."""
         fns = self.executables(n_elements)
         name = f"feinsum.step:{type(self).__name__}"
-        if self.pairs:
-            return self._pair_step(fns, name, dt)
-
-        def step(state, geom):
-            with tracing.span(name):
-                tracing.counters["model_steps"] += 1
-                u, v = state["u"], state["v"]
-                (grad_u,) = fns["grad"]({"J": geom["J"], "D": geom["D"],
-                                         "u": u})
-                vx, vy, vz = fns["div"]({
-                    "Jx": geom["Jx"], "Jy": geom["Jy"], "Jz": geom["Jz"],
-                    "D": geom["D"], "vx": v[0], "vy": v[1], "vz": v[2]})
-                div_v = vx + vy + vz                      # (P, E)
-                # the flux from the state, stored (F, Pf, E): the layout the
-                # face program streams
-                (flux,) = fns["restrict"]({"R": geom["Rface"], "u": u})
-                (lift,) = fns["face"]({"L": geom["L"], "Fj": geom["Fj"],
-                                       "flux": flux})
-                new_v = v + dt * grad_u                   # grad out: (x, P, E)
-                new_u = u + dt * (div_v + lift)
-                return {"u": new_u, "v": new_v}
-
-        return step
-
-    def _pair_step(self, fns: dict, name: str, dt: float):
-        """The step on pair storage: float64 state and glue, the einsums on
-        pairs (module docstring)."""
+        update = state_update(self.programs.values())
         geom_pairs = GeometryPairs(("J", "Jx", "Jy", "Jz", "D", "L", "Fj",
-                                    "Rface"))
+                                    "Rface")) if self.pairs else None
 
         def step(state, geom):
             with tracing.span(name):
                 tracing.counters["model_steps"] += 1
                 u, v = state["u"], state["v"]
-                g = geom_pairs(geom)
-                up, vp = to_pairs(u), to_pairs(v)   # (2, P, E), (2, 3, P, E)
-                (grad_u,) = fns["grad"]({"J": g["J"], "D": g["D"], "u": up})
+                if geom_pairs is None:
+                    g, us, vs = geom, u, list(v)
+                else:
+                    g, us, vp = geom_pairs(geom), to_pairs(u), to_pairs(v)
+                    vs = [vp[:, x] for x in range(3)]   # (2, P, E) each
+                (grad_u,) = fns["grad"]({"J": g["J"], "D": g["D"], "u": us})
                 vx, vy, vz = fns["div"]({
                     "Jx": g["Jx"], "Jy": g["Jy"], "Jz": g["Jz"],
-                    "D": g["D"], "vx": vp[:, 0], "vy": vp[:, 1],
-                    "vz": vp[:, 2]})
-                (flux,) = fns["restrict"]({"R": g["Rface"], "u": up})
+                    "D": g["D"], "vx": vs[0], "vy": vs[1], "vz": vs[2]})
+                # the flux from the state, stored (F, Pf, E): the layout the
+                # face program streams
+                (flux,) = fns["restrict"]({"R": g["Rface"], "u": us})
                 (lift,) = fns["face"]({"L": g["L"], "Fj": g["Fj"],
                                        "flux": flux})
-                div_v = from_pairs(vx) + from_pairs(vy) + from_pairs(vz)
-                new_v = v + dt * from_pairs(grad_u)
-                new_u = u + dt * (div_v + from_pairs(lift))
-                return {"u": new_u, "v": new_v}
+                # u + dt * (((vx + vy) + vz) + lift); v + dt * grad_u, the
+                # grad out (x, P, E), on pairs (2, x, P, E), split by x
+                return {"u": update(u, [vx, vy, vz, lift], dt),
+                        "v": update(v, [grad_u.unbind(-3)], dt)}
 
         return step
 

@@ -24,8 +24,8 @@ long axis trailing; other orders raise, naming the order.
 
 The float64 models (``models/wave.py``, ``models/maxwell.py``) take this
 route by default: their steps split the float64 state into pairs at their
-boundary and combine the row outputs back (:func:`split_to_pairs`,
-:func:`combine_pairs`).
+boundary (:func:`split_to_pairs`) and read the row outputs' pairs in their
+state update (``kernels.step_update``).
 """
 
 from __future__ import annotations
@@ -37,25 +37,22 @@ from ..diagnostics import InvalidParameterError
 from ..einsum import SizeParam
 from .cuda_emitter import KernelPlan, _role_view
 from .dg_rows import plan_restrict_row, plan_row, resident_carries_outputs
-from .kernels import DDRow, dd_rows, dd_rows_plain
+from .kernels import DDRow, dd_rows, dd_rows_plain, pairs_split
 from .layouts import stored_arg_layouts, stored_out_letters
 
 
 def split_to_pairs(arr):
     """A float64 array -> stacked (2, ...) float32 [hi, lo], hi the float32
     rounding of the value and lo that of the remainder (the bits of
-    ``feinsum_tpu.ops.dd_emitter.split_to_pairs``).  Numpy or torch."""
+    ``feinsum_tpu.ops.dd_emitter.split_to_pairs``).  Numpy or torch (a
+    float64 tensor, :func:`~feinsum_tpu_torch.ops.kernels.pairs_split`)."""
     if isinstance(arr, np.ndarray):
         hi = arr.astype(np.float32)
         lo = (arr - hi.astype(np.float64)).astype(np.float32)
         return np.stack([hi, lo])
-    # two passes: the rounding, then the remainder computed in float64 (it
-    # is exact there) and rounded into the lo plane
-    out = torch.empty((2, *arr.shape), dtype=torch.float32,
-                      device=arr.device)
-    out[0].copy_(arr)
-    torch.sub(arr, out[0], out=out[1])
-    return out
+    # one pass on the card (``pairs_split``), the same bits as its plain
+    # version's two on the CPU; another layout is made contiguous first
+    return pairs_split(arr.contiguous())
 
 
 def combine_pairs(arr):

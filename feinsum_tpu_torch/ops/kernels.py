@@ -96,6 +96,18 @@ tuple ``grid_index`` that ``tc_grid_f32`` does not take (a cell table of
   stay in shared memory; the last step writes the cell's tile of the output
   in its stored layout.
 
+Two more serve the model steps (``models/wave.py``, ``models/maxwell.py``)
+rather than an einsum:
+
+* ``step_update`` (``csrc/step_update.cu``) — everything between the
+  einsums' outputs and the new state, ``base + dt * (±t0 ± t1 ± ...)``,
+  in one pass per state tensor written, float32 or float64 on the
+  einsums' pair outputs, bit for bit the PyTorch glue it replaces (its
+  plain version ``step_update_plain`` is what the models' plain per-step
+  route runs);
+* ``pairs_split`` — a float64 tensor split into its float32 hi/lo pair in
+  one pass.
+
 A wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; it runs the plain version only for tensors that lie on the
 CPU.  There is no fallback from a CUDA tensor to the plain version.  Each
@@ -964,7 +976,7 @@ def dd_rows_plain(rows: Sequence[DDRow]) -> list:
     """The plain PyTorch version of ``dd_rows``: per row, the pairs
     recombined to float64, ``t = R @ u`` over j and ``Σ_s F t`` in float64,
     then split back into (2, X, I, E) pairs."""
-    from .dd_emitter import combine_pairs, split_to_pairs
+    from .dd_emitter import combine_pairs
     outs = []
     for row in rows:
         t = torch.matmul(combine_pairs(row.R), combine_pairs(row.u))
@@ -972,7 +984,7 @@ def dd_rows_plain(rows: Sequence[DDRow]) -> list:
             val = t.sum(0, keepdim=True)                    # (1, I, E)
         else:
             val = torch.einsum("xse,sie->xie", combine_pairs(row.F), t)
-        outs.append(split_to_pairs(val))
+        outs.append(pairs_split_plain(val))
     return outs
 
 
@@ -1024,6 +1036,227 @@ def dd_rows(rows: Sequence[DDRow], *, block_long: int,
                                        f" {err}")
                 tracing.count_launch("dd_rows")
         return outs
+
+# }}}
+
+
+# {{{ step_update, pairs_split
+
+# csrc/step_update.cu: groups of one launch (kMaxGroups), terms of a group
+# (kMaxTerms), and the launch's rows over all groups (gridDim.y)
+UPDATE_MAX_GROUPS = 3
+UPDATE_MAX_TERMS = 4
+UPDATE_MAX_ROWS = 65535
+
+
+def _check_view(name: str, t, device: torch.device, dtype: torch.dtype,
+                shape: tuple) -> None:
+    """Refuse *t* unless it is a tensor on *device* of *dtype* and *shape*
+    with unit stride along its last axis (E)."""
+    if not isinstance(t, torch.Tensor):
+        raise InvalidParameterError(f"{name}: {type(t).__name__}, expected"
+                                    " a tensor")
+    if t.device != device:
+        raise InvalidParameterError(f"{name} lies on {t.device}, the base"
+                                    f" on {device}")
+    if t.dtype != dtype:
+        raise InvalidParameterError(f"{name}: dtype {t.dtype}, expected"
+                                    f" {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise InvalidParameterError(f"{name}: shape {tuple(t.shape)},"
+                                    f" expected {tuple(shape)}")
+    if shape[-1] > 1 and t.stride(-1) != 1:
+        raise InvalidParameterError(f"{name}: stride {t.stride(-1)} along E,"
+                                    " expected 1")
+
+
+def _update_args(base: torch.Tensor, terms: Sequence, signs,
+                 kernel: bool) -> tuple:
+    """``(signs, groups, pairs)``, checked: per group its base and its
+    terms as (R, E) views (a term (2, R, E) on pairs); ``pairs`` when the
+    base is float64 and its terms float32 pairs.  *kernel*: refuse the
+    storage the kernel does not take (float64 terms)."""
+    signs = (1,) * len(terms) if signs is None else tuple(signs)
+    if len(signs) != len(terms) or any(s not in (1, -1) for s in signs):
+        raise InvalidParameterError(f"signs {signs}: one +1 or -1 per term"
+                                    f" of {len(terms)}")
+    if not isinstance(base, torch.Tensor) or base.dtype not in (
+            torch.float32, torch.float64):
+        raise InvalidParameterError(
+            f"base: {getattr(base, 'dtype', type(base).__name__)}, expected"
+            " float32 or float64 (on pairs)")
+    if base.ndim not in (2, 3):
+        raise InvalidParameterError(
+            f"base: shape {tuple(base.shape)}, expected (rows, E) or"
+            " (groups, rows, E)")
+    if not 1 <= len(terms) <= UPDATE_MAX_TERMS:
+        raise InvalidParameterError(f"step_update takes 1 to"
+                                    f" {UPDATE_MAX_TERMS} terms, got"
+                                    f" {len(terms)}")
+    bases = list(base.unbind(0)) if base.ndim == 3 else [base]
+    if len(bases) > UPDATE_MAX_GROUPS:
+        raise InvalidParameterError(f"step_update takes at most"
+                                    f" {UPDATE_MAX_GROUPS} groups, got"
+                                    f" {len(bases)}")
+    R, E = bases[0].shape
+    if len(bases) * R > UPDATE_MAX_ROWS:
+        raise InvalidParameterError(f"step_update takes at most"
+                                    f" {UPDATE_MAX_ROWS} rows, got"
+                                    f" {len(bases) * R}")
+    # per term, its view of each group: one view of a (R, E) base, a
+    # sequence of one per group of a (G, R, E) one
+    per_group = []
+    for k, t in enumerate(terms):
+        if base.ndim == 2:
+            per_group.append([t])
+        elif not isinstance(t, (list, tuple)) or len(t) != len(bases):
+            got = len(t) if isinstance(t, (list, tuple)) \
+                else f"a {type(t).__name__}"
+            raise InvalidParameterError(
+                f"term {k}: {got}, expected a sequence of {len(bases)}"
+                " tensors, one per group")
+        else:
+            per_group.append(list(t))
+    pairs = base.dtype == torch.float64 and getattr(
+        per_group[0][0], "dtype", None) == torch.float32
+    if kernel and base.dtype == torch.float64 and not pairs:
+        raise InvalidParameterError(
+            "term 0: a float64 base takes its terms as float32 hi/lo pairs"
+            " (step_update_plain takes float64 terms)")
+    lead = (2,) if pairs else ()
+    term_dtype = torch.float32 if pairs else base.dtype
+    groups = []
+    for g, b in enumerate(bases):
+        suffix = f" of group {g}" if base.ndim == 3 else ""
+        _check_view("base" + suffix, b, base.device, base.dtype, (R, E))
+        views = [ts[g] for ts in per_group]
+        for k, v in enumerate(views):
+            _check_view(f"term {k}{suffix}", v, base.device, term_dtype,
+                        lead + (R, E))
+        groups.append((b, views))
+    return signs, groups, pairs
+
+
+def _update_plain(base: torch.Tensor, groups: list, dt: float, signs: tuple,
+                  pairs: bool) -> torch.Tensor:
+    from .dd_emitter import combine_pairs
+    outs = []
+    for b, views in groups:
+        vals = [combine_pairs(v) if pairs else v for v in views]
+        acc = -vals[0] if signs[0] < 0 else vals[0]
+        for s, v in zip(signs[1:], vals[1:]):
+            acc = acc - v if s < 0 else acc + v
+        outs.append(b + dt * acc)
+    return outs[0] if base.ndim == 2 else torch.stack(outs)
+
+
+def step_update_plain(base: torch.Tensor, terms: Sequence, dt: float,
+                      signs: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``step_update``, on any device: the
+    glue the model steps ran before it, one PyTorch op at a time, with the
+    same arguments and checks, and one storage more, base and terms
+    float64 (the models' plain per-step route)."""
+    signs, groups, pairs = _update_args(base, terms, signs, kernel=False)
+    return _update_plain(base, groups, dt, signs, pairs)
+
+
+def step_update(base: torch.Tensor, terms: Sequence, dt: float,
+                signs: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """A model step's state update in one pass: ``base + dt * (((s0 t0 +
+    s1 t1) + s2 t2) + s3 t3)`` over one to four *terms* with *signs* (+1
+    or -1 each, all +1 by default), as a new contiguous tensor of the
+    base's shape and dtype.
+
+    *base* is (R, E), one group, with each term one tensor, or (G, R, E),
+    G <= 3 groups updated in one launch, ``base[g]`` each, with each term
+    a sequence of G tensors, one per group.  The storage follows the
+    operands: base and terms float32, or a float64 base with each term a
+    (2, R, E) float32 hi/lo pair (a ``dd_rows`` output; its planes may lie
+    any distance apart), read as ``hi + lo`` in float64 and counted in
+    ``pair_bytes`` at 8 bytes an entry.  Every view needs unit stride along
+    E; any row stride.  ``csrc/step_update.cu``'s header says why the
+    result is the plain version's bit for bit."""
+    signs, groups, pairs = _update_args(base, terms, signs, kernel=True)
+    if pairs:
+        tracing.counters["pair_bytes"] += 8 * len(terms) * base.numel()
+    device = base.device
+    if device.type == "cpu":
+        return _update_plain(base, groups, dt, signs, pairs)
+    with tracing.span("feinsum.kernel:step_update"):
+        if device.type != "cuda":
+            raise InvalidParameterError(f"step_update: no kernel for device"
+                                        f" {device}")
+        out = torch.empty(base.shape, dtype=base.dtype, device=device)
+        R, E = groups[0][0].shape
+        if R * E == 0:
+            return out
+        from ._build import load_library
+        lib = load_library()
+        K = UPDATE_MAX_TERMS
+        ptrs = (ctypes.c_void_p * (len(groups) * (2 + 2 * K)))()
+        strides = (ctypes.c_int64 * (len(groups) * (2 + K)))()
+        for g, ((b, views), o) in enumerate(zip(
+                groups, out.unbind(0) if base.ndim == 3 else [out])):
+            p, s = g * (2 + 2 * K), g * (2 + K)
+            ptrs[p], ptrs[p + 1] = b.data_ptr(), o.data_ptr()
+            strides[s], strides[s + 1] = b.stride(0), o.stride(0)
+            for k, v in enumerate(views):
+                hi = v[0] if pairs else v
+                ptrs[p + 2 + k] = hi.data_ptr()
+                if pairs:
+                    ptrs[p + 2 + K + k] = v[1].data_ptr()
+                strides[s + 2 + k] = hi.stride(0)
+        neg = sum(1 << k for k, s in enumerate(signs) if s < 0)
+        with torch.cuda.device(device):
+            err = lib.step_update(int(pairs), len(groups), len(terms), R, E,
+                                  ptrs, strides, neg, float(dt),
+                                  _stream_of(device))
+        if err:
+            raise RuntimeError(f"step_update launch failed: CUDA error {err}")
+        tracing.count_launch("step_update")
+        return out
+
+
+def pairs_split_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``pairs_split``, in two passes: the
+    rounding, then the remainder computed in float64 (it is exact there)
+    and rounded into the lo plane."""
+    out = torch.empty((2, *x.shape), dtype=torch.float32, device=x.device)
+    out[0].copy_(x)
+    torch.sub(x, out[0], out=out[1])
+    return out
+
+
+def pairs_split(x: torch.Tensor) -> torch.Tensor:
+    """*x* (float64, contiguous) as its (2, ...) float32 hi/lo pair, a new
+    contiguous tensor: hi the float32 rounding of the value, lo that of
+    the remainder, in one pass on the card."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float64:
+        raise InvalidParameterError(
+            f"x: {getattr(x, 'dtype', type(x).__name__)}, pairs_split takes"
+            " float64")
+    if not x.is_contiguous():
+        raise InvalidParameterError(f"x: strides {x.stride()}, pairs_split"
+                                    " takes a contiguous tensor")
+    if x.device.type == "cpu":
+        return pairs_split_plain(x)
+    with tracing.span("feinsum.kernel:pairs_split"):
+        if x.device.type != "cuda":
+            raise InvalidParameterError(f"pairs_split: no kernel for device"
+                                        f" {x.device}")
+        out = torch.empty((2, *x.shape), dtype=torch.float32,
+                          device=x.device)
+        if x.numel() == 0:
+            return out
+        from ._build import load_library
+        lib = load_library()
+        with torch.cuda.device(x.device):
+            err = lib.pairs_split(x.numel(), x.data_ptr(), out[0].data_ptr(),
+                                  out[1].data_ptr(), _stream_of(x.device))
+        if err:
+            raise RuntimeError(f"pairs_split launch failed: CUDA error {err}")
+        tracing.count_launch("pairs_split")
+        return out
 
 # }}}
 

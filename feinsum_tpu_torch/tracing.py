@@ -17,10 +17,11 @@ The spans, each at one boundary of the package:
 * ``feinsum.kernel:<kernel>`` — a kernel wrapper of ``ops/kernels.py`` or
   ``ops/probe_kernels.py`` on its CUDA branch: the checks, the outputs'
   allocation, the ctypes packing and its one or more launches;
-* ``feinsum.pairs:split`` and ``feinsum.pairs:combine`` — a model step on
-  pair storage converting a float64 tensor to its (2, ...) float32 hi/lo
-  pair or back (``models/wave.py``, ``to_pairs`` and ``from_pairs``),
-  inside its ``feinsum.step`` span;
+* ``feinsum.pairs:split`` — a model step on pair storage converting a
+  float64 tensor to its (2, ...) float32 hi/lo pair (``models/wave.py``,
+  ``to_pairs``), inside its ``feinsum.step`` span; the step's combines of
+  pairs back into float64 are fused into its state update
+  (``ops.kernels.step_update``) and lie in that kernel's span;
 * ``feinsum.executable.build``, ``feinsum.library.load`` and
   ``feinsum.archive.query`` — the set-up work (:func:`setup`).
 
@@ -28,9 +29,10 @@ The spans, each at one boundary of the package:
 kernel (``ops.kernels.launch_counts`` is the same dict),
 ``"dg_rows_f32_path"``, that kernel's launches by path, ``"model_steps"``,
 the calls of a model's step, ``"pair_bytes"``, the bytes the steps' pair
-conversions read and write (16 an entry: 8 of float64 and 2 x 4 of pair,
-one read and one written), so that ``pair_bytes / model_steps`` is the
-conversions' bytes per step, and for each piece of set-up work a count and
+conversions read and write (a split 16 an entry: 8 of float64 read, 2 x 4
+of pair written; a combine fused into the update 8 an entry, the pair
+read), so that ``pair_bytes / model_steps`` is the conversions' bytes per
+step, and for each piece of set-up work a count and
 its seconds, timed on every call (the paths are cold):
 
 * ``executable_builds``, ``executable_build_s`` — builds of an executable,
@@ -79,7 +81,8 @@ counters = {
                  "lane_pack_dg_f32": 0, "lane_pack_dg_3xtf32": 0,
                  "step_block_f32": 0, "tc_steps_f32": 0,
                  "probe_stream_f32": 0, "probe_apply_f32": 0,
-                 "probe_apply_3xtf32": 0},
+                 "probe_apply_3xtf32": 0, "step_update": 0,
+                 "pairs_split": 0},
     # dg_rows_f32's launches by path: the tiled path (dof-major operands on
     # 16 bytes) or the general one (any other stored layout)
     "dg_rows_f32_path": {"tiled": 0, "general": 0},

@@ -1606,7 +1606,7 @@ def test_library_name_follows_the_sources():
         "dg_rows.cu", "ew_product.cu", "dd_rows.cu", "tc_grid.cu",
         "row_reduce.cu", "long_reduce.cu", "dg_rows_3x.cu", "tc_grid_3x.cu",
         "lane_pack_dg.cu", "step_block.cu", "tc_steps.cu",
-        "probe_stream.cu", "probe_apply.cu"}
+        "probe_stream.cu", "probe_apply.cu", "step_update.cu"}
 
 
 # {{{ step_block_f32

@@ -1,0 +1,394 @@
+"""The model step's state update (``ops.kernels.step_update``) and the
+one-pass pair split (``ops.kernels.pairs_split``): on the CPU, the plain
+branch against the PyTorch glue the wave and Maxwell steps ran before it,
+bit for bit, the wrapper's refusals and the ``pair_bytes`` counts; in the
+tests marked ``cuda``, the kernels against their plain versions on the
+card bit for bit, and chained model steps against the same steps with the
+PyTorch glue.  This file imports no JAX; on a machine without it run
+
+    python -m pytest tests/test_torch_step_update.py --noconftest -m cuda
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+import feinsum_tpu_torch as ft
+from feinsum_tpu_torch import tracing
+from feinsum_tpu_torch.models import maxwell as maxwell_mod
+from feinsum_tpu_torch.models import wave as wave_mod
+from feinsum_tpu_torch.models.maxwell import make_maxwell_state
+from feinsum_tpu_torch.models.wave import make_wave_state
+from feinsum_tpu_torch.ops import dd_emitter, kernels
+from feinsum_tpu_torch.ops.dd_emitter import combine_pairs
+
+P = 35
+DT = 1e-3
+
+
+def _rand(*shape, dtype=torch.float32, device="cpu", seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return (2 * torch.rand(shape, generator=gen, dtype=torch.float64)
+            - 1).to(dtype).to(device)
+
+
+def _pair(*shape, device="cpu", seed=0):
+    """A (2, ...) hi/lo pair of random float64 values."""
+    return kernels.pairs_split_plain(_rand(*shape, dtype=torch.float64,
+                                           seed=seed)).to(device)
+
+
+def _same(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+# {{{ the plain branch against the glue it replaces
+
+def _wave_glue(u, v, rows, grad, lift, dt, conv):
+    """The wave steps' glue before ``step_update`` (``conv``: the identity,
+    or ``combine_pairs`` on pair storage)."""
+    vx, vy, vz = rows
+    div_v = conv(vx) + conv(vy) + conv(vz)
+    return u + dt * (div_v + conv(lift)), v + dt * conv(grad)
+
+
+def _curl_glue(rows, conv):
+    rows = [conv(r) for r in rows]
+    return torch.stack([rows[0] - rows[1], rows[2] - rows[3],
+                        rows[4] - rows[5]])
+
+
+# the storages: base and terms float32; both float64 (the models' plain
+# per-step route, ``step_update_plain`` alone); a float64 base and float32
+# pair terms
+STORAGES = {"float32": (torch.float32, False),
+            "float64": (torch.float64, False),
+            "pairs": (torch.float64, True)}
+KERNEL_STORAGES = ("float32", "pairs")
+
+
+def _updates(storage):
+    """The functions that take *storage*: the plain version, and the
+    wrapper where its kernel takes it."""
+    if storage in KERNEL_STORAGES:
+        return kernels.step_update_plain, kernels.step_update
+    return (kernels.step_update_plain,)
+
+
+@pytest.mark.parametrize("storage", sorted(STORAGES))
+@pytest.mark.parametrize("E", [1, 7, 64])
+def test_wave_forms_equal_the_glue(storage, E):
+    dtype, pairs = STORAGES[storage]
+    term = (lambda *s, seed: _pair(*s, seed=seed)) if pairs else \
+        (lambda *s, seed: _rand(*s, dtype=dtype, seed=seed))
+    conv = combine_pairs if pairs else (lambda t: t)
+    u, v = _rand(P, E, dtype=dtype, seed=1), _rand(3, P, E, dtype=dtype,
+                                                   seed=2)
+    rows = [term(P, E, seed=3 + x) for x in range(3)]
+    grad, lift = term(3, P, E, seed=6), term(P, E, seed=7)
+    want_u, want_v = _wave_glue(u, v, rows, grad, lift, DT, conv)
+    grads = [grad[:, x] if pairs else grad[x] for x in range(3)]
+    for update in _updates(storage):
+        _same(update(u, [*rows, lift], DT), want_u)
+        _same(update(v, [grads], DT), want_v)
+
+
+@pytest.mark.parametrize("storage", sorted(STORAGES))
+def test_maxwell_forms_equal_the_glue(storage):
+    E = 33
+    dtype, pairs = STORAGES[storage]
+    conv = combine_pairs if pairs else (lambda t: t)
+    e, h = (_rand(3, P, E, dtype=dtype, seed=s) for s in (1, 2))
+    rows = [_pair(P, E, seed=3 + k) if pairs
+            else _rand(P, E, dtype=dtype, seed=3 + k) for k in range(6)]
+    curl = _curl_glue(rows, conv)
+    for base, dt, want in ((e, DT, e + DT * curl), (h, -DT, h - DT * curl)):
+        for update in _updates(storage):
+            _same(update(base, [rows[0::2], rows[1::2]], dt, signs=(1, -1)),
+                  want)
+
+
+def test_a_leading_negative_sign_negates_the_first_term():
+    b, t0, t1 = (_rand(4, 9, seed=s) for s in range(3))
+    _same(kernels.step_update(b, [t0, t1], 0.25, signs=(-1, 1)),
+          b + 0.25 * (-t0 + t1))
+
+
+def test_the_models_steps_equal_their_glue_on_the_cpu():
+    """A chained float32 and float64 wave and Maxwell step, the float64 on
+    pairs and on the plain per-step route, against the same steps with the
+    glue put back."""
+    for cls, make_state in ((ft.WaveOperator3D, make_wave_state),
+                            (ft.MaxwellOperator3D, make_maxwell_state)):
+        for dtype, use_pallas in (("float32", True), ("float64", True),
+                                  ("float64", False)):
+            op = cls(dtype=dtype, use_pallas=use_pallas)
+            state, geom = make_state(96, dtype=dtype, seed=5, device="cpu")
+            got = want = state
+            step = op.make_step(96)
+            for _ in range(3):
+                got = step(got, geom)
+            with _glue_steps():
+                step = op.make_step(96)
+                for _ in range(3):
+                    want = step(want, geom)
+            for k in got:
+                _same(got[k], want[k])
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_the_plain_route_updates_with_the_plain_version(dtype, use_pallas):
+    """The plain per-step route runs no hand-written kernel, the update's
+    neither: its steps update with ``step_update_plain``, the fused
+    kernels' steps with ``step_update``."""
+    want = kernels.step_update if use_pallas else kernels.step_update_plain
+    wave = ft.WaveOperator3D(dtype=dtype, use_pallas=use_pallas)
+    curl = ft.MaxwellOperator3D(dtype=dtype, use_pallas=use_pallas)
+    assert wave_mod.state_update(wave.programs.values()) is want
+    assert wave_mod.state_update([curl.program]) is want
+
+# }}}
+
+
+# {{{ refusals
+
+def _bad_cases():
+    b, t = _rand(P, 16), _rand(P, 16)
+    b3 = _rand(3, P, 16)
+    wide = _rand(P, 32)
+    return {
+        "base dtype": (b.half(), [t], "base"),
+        "term dtype": (b, [t.double()], "term 0"),
+        "term not a pair": (b.double(), [t], "term 0"),
+        "term device": (b, [t.to("meta")], "term 0 lies on meta"),
+        "term shape": (b, [t[:, :8]], "term 0: shape"),
+        "base E stride": (wide[:, ::2], [t], "base: stride 2 along E"),
+        "term E stride": (b, [t.t().contiguous().t()], "term 0: stride"),
+        "group term a tensor": (b3, [_rand(3, P, 16)], "term 0: a Tensor"),
+        "group count": (b3, [[t, t]], "term 0: 2, expected"),
+        "float64 terms": (b.double(), [t.double()], "term 0: .* pairs"),
+        "group term": (b3, [[t, t, t[:, :3]]], "term 0 of group 2"),
+        "base axes": (b[0], [t[0]], "base: shape"),
+        "no term": (b, [], "1 to 4 terms"),
+        "five terms": (b, [t] * 5, "1 to 4 terms"),
+        "four groups": (_rand(4, P, 16), [_rand(4, P, 16)], "at most 3"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_cases()))
+def test_the_wrapper_refuses_naming_the_operand(case):
+    base, terms, match = _bad_cases()[case]
+    with pytest.raises(ft.InvalidParameterError, match=match):
+        kernels.step_update(base, terms, DT)
+
+
+@pytest.mark.parametrize("signs", [(1,), (1, 0), (2, -1)])
+def test_the_wrapper_refuses_bad_signs(signs):
+    b = _rand(P, 8)
+    with pytest.raises(ft.InvalidParameterError, match="signs"):
+        kernels.step_update(b, [b, b], DT, signs=signs)
+
+
+def test_pairs_split_refuses_what_is_not_float64():
+    with pytest.raises(ft.InvalidParameterError, match="float64"):
+        kernels.pairs_split(_rand(4, 8))
+
+
+def test_pairs_split_refuses_a_strided_tensor():
+    """``pairs_split`` takes a contiguous tensor; ``split_to_pairs`` makes
+    any other one contiguous first."""
+    x = _rand(4, 8, dtype=torch.float64)[:, ::2]
+    with pytest.raises(ft.InvalidParameterError, match="contiguous"):
+        kernels.pairs_split(x)
+    _same(dd_emitter.split_to_pairs(x), kernels.pairs_split_plain(x))
+
+# }}}
+
+
+# {{{ counts
+
+def test_pair_bytes_count_a_split_at_16_and_a_fused_combine_at_8():
+    c = tracing.counters
+    E = 40
+    start = c["pair_bytes"]
+    wave_mod.to_pairs(_rand(3, P, E, dtype=torch.float64))
+    assert c["pair_bytes"] - start == 16 * 3 * P * E
+    start = c["pair_bytes"]
+    kernels.step_update(_rand(P, E, dtype=torch.float64),
+                        [_pair(P, E), _pair(P, E, seed=1)], DT)
+    assert c["pair_bytes"] - start == 8 * 2 * P * E
+    start = c["pair_bytes"]
+    kernels.step_update(_rand(P, E), [_rand(P, E)], DT)   # float32: none
+    assert c["pair_bytes"] == start
+
+
+def test_pairs_split_plain_is_the_two_pass_split():
+    x = _rand(5, 77, dtype=torch.float64, seed=9) * 1e3
+    got = kernels.pairs_split(x)
+    _same(got[0], x.float())
+    _same(got[1], (x - x.float().double()).float())
+    _same(dd_emitter.split_to_pairs(x), got)
+
+# }}}
+
+
+# {{{ on the card
+
+class _glue_steps:
+    """The models' steps with the PyTorch glue put back: the update's and
+    the split's plain versions, on whatever device the tensors lie."""
+
+    def __enter__(self):
+        self.saved = (kernels.step_update, dd_emitter.pairs_split)
+        kernels.step_update = kernels.step_update_plain
+        dd_emitter.pairs_split = kernels.pairs_split_plain
+
+    def __exit__(self, *exc):
+        kernels.step_update, dd_emitter.pairs_split = self.saved
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is"
+                    " false)")
+    return torch.device("cuda")
+
+
+def _strided(t, pad):
+    """*t* (..., R, E) as a view with *pad* more entries between rows."""
+    wide = torch.zeros((*t.shape[:-1], t.shape[-1] + pad), dtype=t.dtype,
+                       device=t.device)
+    wide[..., :t.shape[-1]] = t
+    return wide[..., :t.shape[-1]]
+
+
+def _pad(E, layout):
+    """Entries between rows: none, enough for rows on 16 bytes (the
+    vector path, with a scalar tail where E % 4 > 0), or rows off 16
+    bytes (the scalar path)."""
+    return {"contiguous": 0, "row-strided": (-E) % 4 + 4,
+            "misaligned": 1 if (E + 1) % 4 else 2}[layout]
+
+
+@pytest.mark.cuda
+def test_the_library_takes_the_wrappers_limits(cuda_device):
+    from feinsum_tpu_torch.ops._build import load_library
+    lib = load_library()
+    assert lib.step_update_max_groups() == kernels.UPDATE_MAX_GROUPS
+    assert lib.step_update_max_terms() == kernels.UPDATE_MAX_TERMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "row-strided",
+                                    "misaligned"])
+@pytest.mark.parametrize("nterms", [1, 2, 3, 4])
+@pytest.mark.parametrize("storage", KERNEL_STORAGES)
+@pytest.mark.parametrize("E", [1, 3, 4099, 1000003])
+def test_step_update_equals_its_plain_version_on_the_card(
+        cuda_device, E, storage, nterms, layout):
+    """Bit for bit: one group and three groups, any signs, pair planes that
+    lie apart (``v_pairs[:, x]``), rows with padding between them (on 16
+    bytes, and not)."""
+    R = 5 if E > 10_000 else P
+    dtype, pairs = STORAGES[storage]
+    pad = _pad(E, layout)
+    signs = tuple((-1) ** (k * (k + 1) // 2) for k in range(nterms))
+
+    def cases(device):
+        """The same operands on *device*: one group, and three groups of
+        per-group views."""
+        base = _strided(_rand(3, R, E, dtype=dtype, seed=E).to(device), pad)
+        if pairs:
+            # (2, 3, R, E) pairs whose component x is a (2, R, E) view with
+            # planes 3 R (E + pad) apart
+            terms = [_strided(_pair(3, R, E, seed=k).to(device), pad)
+                     for k in range(nterms)]
+            one = [t[:, 1] for t in terms]
+            per_group = [[t[:, x] for x in range(3)] for t in terms]
+        else:
+            terms = [_strided(_rand(3, R, E, dtype=dtype,
+                                    seed=10 + k).to(device), pad)
+                     for k in range(nterms)]
+            one = [t[1] for t in terms]
+            per_group = [list(t) for t in terms]
+        return [(base[1], one), (base, per_group)]
+
+    for (b, ts), (b_dev, ts_dev) in zip(cases("cpu"), cases(cuda_device)):
+        want = kernels.step_update_plain(b, ts, -DT, signs=signs)
+        before = kernels.launch_counts["step_update"]
+        got = kernels.step_update(b_dev, ts_dev, -DT, signs=signs)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["step_update"] == before + 1
+        assert got.is_contiguous()
+        _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "row-strided"])
+@pytest.mark.parametrize("E", [1, 3, 4099, 1000003])
+def test_pairs_split_equals_its_plain_version_on_the_card(cuda_device, E,
+                                                          layout):
+    """Contiguous (the vector path where R E % 4 = 0), 8 bytes off 16 (the
+    scalar path), and row-strided, which ``split_to_pairs`` makes
+    contiguous and ``pairs_split`` refuses."""
+    R = 3 if E > 10_000 else P
+    x = _rand(R, E, dtype=torch.float64, seed=E) * 1e5
+    splits = [kernels.pairs_split, dd_emitter.split_to_pairs]
+    if layout == "offset":
+        buf = torch.empty(R * E + 1, dtype=torch.float64, device=cuda_device)
+        x_dev = buf[1:].view(R, E)
+        x_dev.copy_(x)
+    elif layout == "row-strided":
+        x_dev = _strided(x.to(cuda_device), _pad(E, layout))
+        with pytest.raises(ft.InvalidParameterError, match="contiguous"):
+            kernels.pairs_split(x_dev)
+        splits = [dd_emitter.split_to_pairs]
+    else:
+        x_dev = x.to(cuda_device)
+    for split in splits:
+        before = kernels.launch_counts["pairs_split"]
+        got = split(x_dev)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["pairs_split"] == before + 1
+        _same(got, kernels.pairs_split_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("model", ["wave", "maxwell"])
+def test_chained_steps_equal_the_glue_steps_on_the_card(cuda_device, model,
+                                                       dtype):
+    """8 chained steps of each model, at E = 5,003 (the kernels' scalar
+    paths) and 8,192, equal the same steps with the PyTorch glue, bit for
+    bit; each step launches ``step_update`` twice, and on pairs
+    ``pairs_split`` twice."""
+    cls, make_state = {"wave": (ft.WaveOperator3D, make_wave_state),
+                       "maxwell": (ft.MaxwellOperator3D,
+                                   make_maxwell_state)}[model]
+    op = cls(dtype=dtype)
+    for E in (5003, 8192):
+        state, geom = make_state(E, dtype=dtype, seed=E, device=cuda_device)
+        step = op.make_step(E)
+        step(state, geom)                # the geometry's pairs held
+        got = want = state
+        before = dict(kernels.launch_counts)
+        for _ in range(8):
+            got = step(got, geom)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["step_update"] \
+            - before["step_update"] == 16
+        assert kernels.launch_counts["pairs_split"] \
+            - before["pairs_split"] == (16 if dtype == "float64" else 0)
+        with _glue_steps():
+            glue_step = op.make_step(E)
+            for _ in range(8):
+                want = glue_step(want, geom)
+        torch.cuda.synchronize()
+        for k in got:
+            _same(got[k], want[k])
+
+# }}}

@@ -155,10 +155,11 @@ def test_launch_counter_is_the_one_dict_and_resets():
 # {{{ pair conversions of a float64 step
 
 P, PF, NF = 35, 15, 4
-# entries a step converts, by hand: wave splits u (P) and v (3P) and
-# combines grad (3P), the three div rows (P each) and the lift (P); Maxwell
-# splits E and H (3P each) and combines the curl's six rows twice (P each)
-STEP_ENTRIES = {"wave": (4 * P + 7 * P), "maxwell": (6 * P + 12 * P)}
+# entries a step converts, by hand, as (split, combined): wave splits u (P)
+# and v (3P), and its update combines grad (3P), the three div rows (P
+# each) and the lift (P); Maxwell splits E and H (3P each), and its updates
+# combine the curl's six rows twice (P each)
+STEP_ENTRIES = {"wave": (4 * P, 7 * P), "maxwell": (6 * P, 12 * P)}
 # the geometry, split once: wave's J (9), Jx, Jy, Jz (3 each) and Fj (4)
 # an element, D, L and Rface; Maxwell's Jx, Jy, Jz and D
 GEOM_ENTRIES = {"wave": (22, 3 * P * P + 2 * NF * PF * P),
@@ -168,10 +169,11 @@ GEOM_ENTRIES = {"wave": (22, 3 * P * P + 2 * NF * PF * P),
 @pytest.mark.parametrize("key", sorted(MODELS))
 def test_pair_spans_nest_in_the_step_and_their_bytes_count(key):
     """A float64 step on pair storage: every ``feinsum.pairs`` span lies
-    inside the ``feinsum.step`` span, and ``pair_bytes`` / ``model_steps``
-    equal the hand count at E = 96 (16 bytes an entry converted); the
-    geometry is split on the first step and again only for a tensor
-    written in place or replaced."""
+    inside the ``feinsum.step`` span, no combine is a conversion of its own
+    (the update reads the pairs), and ``pair_bytes`` / ``model_steps``
+    equal the hand count at E = 96 (16 bytes an entry split, 8 an entry
+    combined in the update); the geometry is split on the first step and
+    again only for a tensor written in place or replaced."""
     n = 96
     cls, make_state, _ = MODELS[key]
     op = cls(dtype="float64")
@@ -187,10 +189,10 @@ def test_pair_spans_nest_in_the_step_and_their_bytes_count(key):
     n_geom = 8 if key == "wave" else 4
     names = [name for name, _, _ in pairs]
     assert names.count("feinsum.pairs:split") == n_geom + 2
-    assert names.count("feinsum.pairs:combine") == (5 if key == "wave"
-                                                    else 12)
+    assert names.count("feinsum.pairs:combine") == 0
     assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in pairs)
-    step_bytes = 16 * STEP_ENTRIES[key] * n
+    split, combined = STEP_ENTRIES[key]
+    step_bytes = (16 * split + 8 * combined) * n
     geom_bytes = 16 * (per_elem * n + fixed)
     assert c["pair_bytes"] - start[0] == geom_bytes + step_bytes
     assert c["model_steps"] - start[1] == 1
@@ -316,6 +318,27 @@ def test_fp64_readers_on_a_synthetic_trace():
     for name in ("dd_rows_roofline", "fp64_glue_ms_per_step",
                  "step_mfu_fp64"):
         assert _reader(name)(SimpleNamespace(trace=None, peaks=None)) is None
+
+
+UPDATE = ("void (anonymous namespace)::step_update_kernel<double, 4, true>"
+          "((anonymous namespace)::UpdateArgs, double)")
+SPLIT = "void (anonymous namespace)::pairs_split_kernel<true>(double const*)"
+
+
+def test_update_ms_per_step_reads_the_update_kernels():
+    """``update_ms_per_step``: the device time per step of the
+    ``step_update`` and ``pairs_split`` launches, no other kernel's and no
+    span's shadow; nothing where neither ran (the parent)."""
+    run = _f64_run([(DD, 0.0, 0.004), (UPDATE, 0.004, 0.006),
+                    (SPLIT, 0.006, 0.0065), (ADD, 0.0065, 0.007),
+                    (UPDATE, 0.007, 0.008)], steps=2)
+    assert _reader("update_ms_per_step")(run) == pytest.approx(
+        1e3 * 0.0035 / 2)
+    assert _reader("update_ms_per_step")(_f64_run([(DD, 0.0, 0.004),
+                                                   (ADD, 0.004, 0.01)])) \
+        is None
+    assert _reader("update_ms_per_step")(SimpleNamespace(trace=None)) \
+        is None
 
 
 def test_pair_bytes_per_step_reads_the_counters(monkeypatch):
