@@ -19,7 +19,7 @@ the reference's default otherwise (``suite.BLOCK_LONG`` elements per
 thread block), and state and geometry are dof-major.  Each field's update,
 ``F ± dt (rows[2k] - rows[2k+1])`` for its three components, is one launch
 of ``ops.kernels.step_update`` writing the new (3, P, E) field (on the
-plain per-step route its plain version, ``wave.state_update``).  At float64
+plain per-step route its plain version, ``common.state_update``).  At float64
 the curl runs on pair storage (``dd_rows``) as the wave model's einsums do:
 the step splits E and H into pairs once each and the update reads the six
 rows' pairs.
@@ -37,14 +37,7 @@ from ..cl_utils import default_device
 from ..codegen.program import build_executable
 from ..make_einsum import array, batched_einsum
 from ..suite import BLOCK_LONG
-from .wave import (
-    GeometryPairs,
-    _to_device,
-    archived_or_default,
-    on_pairs,
-    state_update,
-    to_pairs,
-)
+from .common import StepStorage, archived_or_default, on_pairs, to_device
 
 # six rows of the cross product: (metric column, source component); rows
 # 2k / 2k+1 are the +/- halves of curl component k (x, y, z)
@@ -81,29 +74,23 @@ class MaxwellOperator3D(torch.nn.Module):
         storage the same, in float64 (module docstring)."""
         fn = build_executable(self.program, long_dim_length=n_elements)
         name = f"feinsum.step:{type(self).__name__}"
-        geom_pairs = GeometryPairs(("Jx", "Jy", "Jz", "D")) \
-            if self.pairs else None
-        update = state_update([self.program])
+        storage = StepStorage([self.program], ("Jx", "Jy", "Jz", "D"))
 
         def curl_update(base, field, g, dt):
             """``base + dt * curl(field)``: the curl's six rows, then one
             pass over the three components, rows 2k and 2k + 1 the +/-
             terms of component k."""
-            if geom_pairs is None:
-                fs = list(field)
-            else:
-                fp = to_pairs(field)
-                fs = [fp[:, k] for k in range(3)]
+            fs = storage.components(storage.state(field))
             rows = fn({"Jx": g["Jx"], "Jy": g["Jy"], "Jz": g["Jz"],
                        "D": g["D"], "Fx": fs[0], "Fy": fs[1], "Fz": fs[2]})
-            return update(base, [rows[0::2], rows[1::2]], dt,
-                          signs=(1, -1))
+            return storage.update(base, [rows[0::2], rows[1::2]], dt,
+                                  signs=(1, -1))
 
         def step(state, geom):
             with tracing.span(name):
                 tracing.counters["model_steps"] += 1
                 e, h = state["E"], state["H"]
-                g = geom if geom_pairs is None else geom_pairs(geom)
+                g = storage.geometry(geom)
                 return {"E": curl_update(e, h, g, dt),
                         "H": curl_update(h, e, g, -dt)}
 
@@ -131,4 +118,4 @@ def make_maxwell_state(n_elements: int, *, ndof: int = 35,
     state = {"E": arr(3, ndof, n_elements), "H": arr(3, ndof, n_elements)}
     geom = {"Jx": arr(3, n_elements), "Jy": arr(3, n_elements),
             "Jz": arr(3, n_elements), "D": arr(3, ndof, ndof)}
-    return (_to_device(state, dtype, device), _to_device(geom, dtype, device))
+    return (to_device(state, dtype, device), to_device(geom, dtype, device))

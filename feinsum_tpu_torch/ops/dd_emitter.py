@@ -24,8 +24,8 @@ long axis trailing; other orders raise, naming the order.
 
 The float64 models (``models/wave.py``, ``models/maxwell.py``) take this
 route by default: their steps split the float64 state into pairs at their
-boundary (:func:`split_to_pairs`) and read the row outputs' pairs in their
-state update (``kernels.step_update``).
+boundary (``models/common.py``, ``to_pairs``: ``kernels.pairs_split``) and
+read the row outputs' pairs in their state update (``kernels.step_update``).
 """
 
 from __future__ import annotations

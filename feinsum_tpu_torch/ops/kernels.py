@@ -108,12 +108,11 @@ rather than an einsum:
 * ``pairs_split`` — a float64 tensor split into its float32 hi/lo pair in
   one pass.
 
-A wrapper launches its kernel for CUDA tensors and raises on anything it
-cannot take; it runs the plain version only for tensors that lie on the
-CPU.  There is no fallback from a CUDA tensor to the plain version.  Each
-launch adds one to :data:`launch_counts`, so a run can show that it went
-through the kernels, and a wrapper's CUDA branch is the span
-``feinsum.kernel:<kernel>`` (:mod:`~feinsum_tpu_torch.tracing`).
+Every wrapper runs in one frame, :func:`launch_frame`: the plain version
+for tensors on the CPU, the kernel for CUDA tensors (there is no fallback
+from a CUDA tensor to the plain version), a refusal of any other device,
+the span ``feinsum.kernel:<kernel>`` and one count in
+:data:`launch_counts` per launch.
 """
 
 from __future__ import annotations
@@ -245,9 +244,51 @@ def _stream_of(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _chunks(seq: Sequence, n: int):
-    for k in range(0, len(seq), n):
-        yield seq[k:k + n]
+def _check_block_long(block_long: int) -> None:
+    if block_long < 1:
+        raise InvalidParameterError(
+            f"block_long must be positive, got {block_long}")
+
+
+def _check_smem(name: str, nbytes: int) -> None:
+    """Refuse a block of kernel *name* that needs more shared memory than
+    a Hopper block has."""
+    if nbytes > MAX_SMEM_BYTES:
+        raise InvalidParameterError(
+            f"{name} needs {nbytes} bytes of shared memory per block; an"
+            f" H100 block has {MAX_SMEM_BYTES}")
+
+
+def _launch_rows(n: int, one_launch: bool, max_rows) -> list:
+    """The indices of *n* rows in launches of at most ``max_rows()`` rows
+    (a function of the library), or of one row without *one_launch*."""
+    per = max_rows() if one_launch else 1
+    return [range(k, min(k + per, n)) for k in range(0, n, per)]
+
+
+def launch_frame(name: str, device: torch.device, plain, body):
+    """The frame of every kernel wrapper: ``plain()`` for tensors on the
+    CPU; on a CUDA device ``body(lib, launch)`` in the span
+    ``feinsum.kernel:<name>`` and the device's context, *lib* the loaded
+    library and ``launch(entry, *args)`` one launch of its function
+    *entry* on the device's current stream, its return code checked and
+    the launch counted under *name*; any other device raises
+    :class:`ValueError`."""
+    if device.type == "cpu":
+        return plain()
+    with tracing.span(f"feinsum.kernel:{name}"):
+        if device.type != "cuda":
+            raise ValueError(f"{name}: no kernel for device {device}")
+        from ._build import load_library
+        lib = load_library()
+
+        def launch(entry, *args) -> None:
+            err = entry(*args, _stream_of(device))
+            if err:
+                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            tracing.count_launch(name)
+        with torch.cuda.device(device):
+            return body(lib, launch)
 
 
 # {{{ the 3xTF32 split
@@ -467,7 +508,8 @@ def dg_rows_f32(rows: Sequence[DGRow], *, block_long: int,
     (per block of elements on the tiled path, :func:`dg_rows_path`, where
     a thread block takes a run of whole blocks).  Each launch counts in
     ``tracing.counters["dg_rows_f32_path"]`` under its path."""
-    return _dg_launch("dg_rows_f32", rows, block_long, out_order, one_launch)
+    return _dg_launch("dg_rows_f32", dg_rows_plain, rows, block_long,
+                      out_order, one_launch, tiled=True)
 
 
 def dg_rows_3xtf32(rows: Sequence[DGRow], *, block_long: int,
@@ -476,69 +518,57 @@ def dg_rows_3xtf32(rows: Sequence[DGRow], *, block_long: int,
     """``dg_rows_f32``'s rows with the j-dot in three TF32 passes on the
     tensor cores (``csrc/dg_rows_3x.cu``): the ``bf16_3x`` precision; the
     same arguments and outputs."""
-    return _dg_launch("dg_rows_3xtf32", rows, block_long, out_order,
-                      one_launch)
+    return _dg_launch("dg_rows_3xtf32", dg_rows_3x_plain, rows, block_long,
+                      out_order, one_launch)
 
 
-def _dg_launch(name: str, rows: Sequence[DGRow], block_long: int,
-               out_order: tuple, one_launch: bool) -> list:
-    """Launch ``dg_rows_f32`` or ``dg_rows_3xtf32`` (*name*; the plain
-    version for CPU tensors)."""
+def _dg_launch(name: str, plain, rows: Sequence[DGRow], block_long: int,
+               out_order: tuple, one_launch: bool, tiled: bool = False
+               ) -> list:
+    """Launch the kernel *name*: ``dg_rows_f32`` (*tiled*: it chooses its
+    path per launch) or ``dg_rows_3xtf32``; *plain* for CPU tensors."""
     if not rows:
         return []
     dims = X, S, I, J, E, u_has_s, has_f = _dg_dims(rows)
     device = rows[0].u.device
     if sorted(out_order) != [0, 1, 2]:
         raise ValueError(f"out_order {out_order} is not a permutation of 3")
-    if device.type == "cpu":
-        return (dg_rows_3x_plain if name == "dg_rows_3xtf32"
-                else dg_rows_plain)(rows, out_order)
-    with tracing.span(f"feinsum.kernel:{name}"):
-        if device.type != "cuda":
-            raise ValueError(f"{name}: no kernel for device {device}")
 
-        from ._build import load_library
-        lib = load_library()
-        if name == "dg_rows_3xtf32":
-            smem = lib.dg_rows_3xtf32_smem_bytes(X, S, I, J, int(u_has_s))
-            path_args = ()
-        else:
-            smem = lib.dg_rows_f32_smem_bytes(S, I, J, int(u_has_s))
+    def body(lib, launch):
+        if tiled:
+            _check_smem(name, lib.dg_rows_f32_smem_bytes(S, I, J,
+                                                         int(u_has_s)))
             path = _dg_path(rows, dims, block_long, out_order)
             path_args = (int(path == "tiled"),)
-        if smem > MAX_SMEM_BYTES:
-            raise InvalidParameterError(
-                f"{name} needs {smem} bytes of shared memory per block;"
-                f" an H100 block has {MAX_SMEM_BYTES}")
-        dims = (X, I, E)
-        inverse = tuple(sorted(range(3), key=lambda k: out_order[k]))
-        outs = [torch.empty(tuple(dims[k] for k in out_order),
-                            dtype=torch.float32, device=device) for _ in rows]
-        per_launch = getattr(lib, f"{name}_max_rows")() if one_launch else 1
-        with torch.cuda.device(device):
-            for idx in _chunks(range(len(rows)), per_launch):
-                ptrs = (ctypes.c_void_p * (4 * len(idx)))()
-                strides = (ctypes.c_int64 * (12 * len(idx)))()
-                for n, k in enumerate(idx):
-                    row, out = rows[k], outs[k].permute(*inverse)
-                    f_ptr = row.F.data_ptr() if has_f else None
-                    ptrs[4 * n:4 * n + 4] = [
-                        row.u.data_ptr(), row.R.data_ptr(), f_ptr,
-                        out.data_ptr()]
-                    f_strides = row.F.stride() if has_f else (0, 0, 0)
-                    strides[12 * n:12 * n + 12] = [
-                        *row.u.stride(), *row.R.stride(), *f_strides,
-                        *out.stride()]
-                err = getattr(lib, name)(len(idx), ptrs, strides, X, S, I, J,
-                                         E, int(u_has_s), int(block_long),
-                                         *path_args, _stream_of(device))
-                if err:
-                    raise RuntimeError(f"{name} launch failed: CUDA error"
-                                       f" {err}")
-                tracing.count_launch(name)
-                if path_args:
-                    tracing.counters["dg_rows_f32_path"][path] += 1
+        else:
+            _check_smem(name, lib.dg_rows_3xtf32_smem_bytes(
+                X, S, I, J, int(u_has_s)))
+            path_args = ()
+        shape = (X, I, E)
+        inverse = tuple(sorted(range(3), key=lambda a: out_order[a]))
+        outs = [torch.empty(tuple(shape[a] for a in out_order),
+                            dtype=torch.float32, device=device)
+                for _ in rows]
+        for idx in _launch_rows(len(rows), one_launch,
+                                getattr(lib, f"{name}_max_rows")):
+            ptrs = (ctypes.c_void_p * (4 * len(idx)))()
+            strides = (ctypes.c_int64 * (12 * len(idx)))()
+            for n, r in enumerate(idx):
+                row, out = rows[r], outs[r].permute(*inverse)
+                f_ptr = row.F.data_ptr() if has_f else None
+                ptrs[4 * n:4 * n + 4] = [
+                    row.u.data_ptr(), row.R.data_ptr(), f_ptr,
+                    out.data_ptr()]
+                f_strides = row.F.stride() if has_f else (0, 0, 0)
+                strides[12 * n:12 * n + 12] = [
+                    *row.u.stride(), *row.R.stride(), *f_strides,
+                    *out.stride()]
+            launch(getattr(lib, name), len(idx), ptrs, strides, X, S, I, J, E,
+                   int(u_has_s), int(block_long), *path_args)
+            if tiled:
+                tracing.counters["dg_rows_f32_path"][path] += 1
         return outs
+    return launch_frame(name, device, lambda: plain(rows, out_order), body)
 
 # }}}
 
@@ -570,14 +600,8 @@ def _ew_launch(rows: Sequence[Sequence[torch.Tensor]], block_long: int,
                one_launch: bool, counter: str) -> list:
     shape = _ew_check(rows)
     device = rows[0][0].device
-    if device.type == "cpu":
-        return ew_product_plain(rows)
-    with tracing.span(f"feinsum.kernel:{counter}"):
-        if device.type != "cuda":
-            raise ValueError(f"ew_product_f32: no kernel for device {device}")
 
-        from ._build import load_library
-        lib = load_library()
+    def body(lib, launch):
         nops = len(rows[0])
         if nops > lib.ew_product_f32_max_ops():
             raise InvalidParameterError(
@@ -586,20 +610,16 @@ def _ew_launch(rows: Sequence[Sequence[torch.Tensor]], block_long: int,
         n = rows[0][0].numel()
         outs = [torch.empty(shape, dtype=torch.float32, device=device)
                 for _ in rows]
-        per_launch = lib.ew_product_f32_max_rows() if one_launch else 1
-        with torch.cuda.device(device):
-            for idx in _chunks(range(len(rows)), per_launch):
-                ins = (ctypes.c_void_p * (nops * len(idx)))(
-                    *[t.data_ptr() for k in idx for t in rows[k]])
-                out_ptrs = (ctypes.c_void_p * len(idx))(
-                    *[outs[k].data_ptr() for k in idx])
-                err = lib.ew_product_f32(len(idx), nops, ins, out_ptrs, n,
-                                         block_long, _stream_of(device))
-                if err:
-                    raise RuntimeError(f"ew_product_f32 launch failed: CUDA"
-                                       f" error {err}")
-                tracing.count_launch(counter)
+        for idx in _launch_rows(len(rows), one_launch,
+                                lib.ew_product_f32_max_rows):
+            ins = (ctypes.c_void_p * (nops * len(idx)))(
+                *[t.data_ptr() for r in idx for t in rows[r]])
+            out_ptrs = (ctypes.c_void_p * len(idx))(
+                *[outs[r].data_ptr() for r in idx])
+            launch(lib.ew_product_f32, len(idx), nops, ins, out_ptrs, n,
+                   block_long)
         return outs
+    return launch_frame(counter, device, lambda: ew_product_plain(rows), body)
 
 
 def ew_product_f32(rows: Sequence[Sequence[torch.Tensor]], *,
@@ -621,9 +641,7 @@ def ew_flat_f32(rows: Sequence[Sequence[torch.Tensor]], *, block_long: int,
         return []
     if any(t.ndim != 1 for row in rows for t in row):
         raise ValueError("ew_flat_f32 takes 1-D operands")
-    if block_long < 1:
-        raise InvalidParameterError(
-            f"block_long must be positive, got {block_long}")
+    _check_block_long(block_long)
     return _ew_launch(rows, int(block_long), one_launch, "ew_flat_f32")
 
 # }}}
@@ -665,38 +683,29 @@ def row_reduce_f32(rows: Sequence[ReduceRow], *, block_long: int,
             _check_operand(f"row {k} w", row.w, device, (J,))
             if not row.w.is_contiguous():
                 raise ValueError(f"row {k} w is not contiguous")
-    if device.type == "cpu":
-        return row_reduce_plain(rows)
-    with tracing.span("feinsum.kernel:row_reduce_f32"):
-        if device.type != "cuda":
-            raise ValueError(f"row_reduce_f32: no kernel for device {device}")
 
+    def body(lib, launch):
         if J > MAX_REDUCE_J:
             raise InvalidParameterError(
                 f"row_reduce_f32 takes at most {MAX_REDUCE_J} values of j, got"
                 f" {J}")
-        from ._build import load_library
-        lib = load_library()
         outs = [torch.empty((E,), dtype=torch.float32, device=device)
                 for _ in rows]
-        per_launch = lib.row_reduce_f32_max_rows() if one_launch else 1
-        with torch.cuda.device(device):
-            for idx in _chunks(range(len(rows)), per_launch):
-                ptrs = (ctypes.c_void_p * (3 * len(idx)))()
-                strides = (ctypes.c_int64 * (2 * len(idx)))()
-                for n, k in enumerate(idx):
-                    row = rows[k]
-                    ptrs[3 * n:3 * n + 3] = [
-                        row.u.data_ptr(), row.w.data_ptr() if has_w else None,
-                        outs[k].data_ptr()]
-                    strides[2 * n:2 * n + 2] = list(row.u.stride())
-                err = lib.row_reduce_f32(len(idx), ptrs, strides, J, E,
-                                         int(block_long), _stream_of(device))
-                if err:
-                    raise RuntimeError(f"row_reduce_f32 launch failed: CUDA"
-                                       f" error {err}")
-                tracing.count_launch("row_reduce_f32")
+        for idx in _launch_rows(len(rows), one_launch,
+                                lib.row_reduce_f32_max_rows):
+            ptrs = (ctypes.c_void_p * (3 * len(idx)))()
+            strides = (ctypes.c_int64 * (2 * len(idx)))()
+            for n, r in enumerate(idx):
+                row = rows[r]
+                ptrs[3 * n:3 * n + 3] = [
+                    row.u.data_ptr(), row.w.data_ptr() if has_w else None,
+                    outs[r].data_ptr()]
+                strides[2 * n:2 * n + 2] = list(row.u.stride())
+            launch(lib.row_reduce_f32, len(idx), ptrs, strides, J, E,
+                   int(block_long))
         return outs
+    return launch_frame("row_reduce_f32", device,
+                        lambda: row_reduce_plain(rows), body)
 
 # }}}
 
@@ -864,18 +873,10 @@ def long_reduce_f32(rows: Sequence[LongReduceRow], shape: LongReduceShape,
         return []
     E, has_b = _long_reduce_dims(rows, shape)
     device = rows[0].a.device
-    if device.type == "cpu":
-        return long_reduce_plain(rows, shape)
-    with tracing.span("feinsum.kernel:long_reduce_f32"):
-        if device.type != "cuda":
-            raise ValueError(f"long_reduce_f32: no kernel for device {device}")
-        check_long_reduce_shape(shape)
-        if block_long < 1:
-            raise InvalidParameterError(
-                f"block_long must be positive, got {block_long}")
 
-        from ._build import load_library
-        lib = load_library()
+    def body(lib, launch):
+        check_long_reduce_shape(shape)
+        _check_block_long(block_long)
         roles = {None: 0, "p": 1, "q": 1, "c": 2}
         role_arr = (ctypes.c_int * 2)(roles[shape.a_role],
                                       roles[shape.b_role if has_b else None])
@@ -888,33 +889,29 @@ def long_reduce_f32(rows: Sequence[LongReduceRow], shape: LongReduceShape,
                               shape.length(shape.b_role) if b_staged else 0)
         outs = [torch.empty(shape.out_shape, dtype=torch.float32,
                             device=device) for _ in rows]
-        per_launch = lib.long_reduce_f32_max_rows() if one_launch else 1
-        with torch.cuda.device(device):
-            for idx in _chunks(range(len(rows)), per_launch):
-                work = torch.empty(len(idx) * nblocks * shape.entries,
-                                   dtype=torch.float32, device=device)
-                ptrs = (ctypes.c_void_p * (3 * len(idx)))()
-                strides = (ctypes.c_int64 * (7 * len(idx)))()
-                for n, k in enumerate(idx):
-                    row, out = rows[k], outs[k]
-                    out_stride = dict(zip(shape.out_axes, out.stride()))
-                    ptrs[3 * n:3 * n + 3] = [
-                        row.a.data_ptr(), row.b.data_ptr() if has_b else None,
-                        out.data_ptr()]
-                    b_strides = row.b.stride() if has_b else (0, 0)
-                    strides[7 * n:7 * n + 7] = [
-                        *row.a.stride(), *b_strides,
-                        *(out_stride.get(r, 0) for r in ("p", "q", "c"))]
-                err = lib.long_reduce_f32(
-                    len(idx), ptrs, strides, role_arr, shape.P, shape.Q,
-                    shape.C, int(shape.c_batch), E, int(block_long), te,
-                    int(b_staged), ctypes.c_void_p(work.data_ptr()),
-                    _stream_of(device))
-                if err:
-                    raise RuntimeError(f"long_reduce_f32 launch failed: CUDA"
-                                       f" error {err}")
-                tracing.count_launch("long_reduce_f32")
+        for idx in _launch_rows(len(rows), one_launch,
+                                lib.long_reduce_f32_max_rows):
+            work = torch.empty(len(idx) * nblocks * shape.entries,
+                               dtype=torch.float32, device=device)
+            ptrs = (ctypes.c_void_p * (3 * len(idx)))()
+            strides = (ctypes.c_int64 * (7 * len(idx)))()
+            for n, r in enumerate(idx):
+                row, out = rows[r], outs[r]
+                out_stride = dict(zip(shape.out_axes, out.stride()))
+                ptrs[3 * n:3 * n + 3] = [
+                    row.a.data_ptr(), row.b.data_ptr() if has_b else None,
+                    out.data_ptr()]
+                b_strides = row.b.stride() if has_b else (0, 0)
+                strides[7 * n:7 * n + 7] = [
+                    *row.a.stride(), *b_strides,
+                    *(out_stride.get(a, 0) for a in ("p", "q", "c"))]
+            launch(lib.long_reduce_f32, len(idx), ptrs, strides, role_arr,
+                   shape.P, shape.Q, shape.C, int(shape.c_batch), E,
+                   int(block_long), te, int(b_staged),
+                   ctypes.c_void_p(work.data_ptr()))
         return outs
+    return launch_frame("long_reduce_f32", device,
+                        lambda: long_reduce_plain(rows, shape), body)
 
 # }}}
 
@@ -998,44 +995,28 @@ def dd_rows(rows: Sequence[DDRow], *, block_long: int,
         return []
     X, S, I, J, E, u_has_s, has_f = _dd_dims(rows)
     device = rows[0].u.device
-    if device.type == "cpu":
-        return dd_rows_plain(rows)
-    with tracing.span("feinsum.kernel:dd_rows"):
-        if device.type != "cuda":
-            raise ValueError(f"dd_rows: no kernel for device {device}")
 
-        from ._build import load_library
-        lib = load_library()
-        smem = lib.dd_rows_smem_bytes(S, I, J, int(u_has_s))
-        if smem > MAX_SMEM_BYTES:
-            raise InvalidParameterError(
-                f"dd_rows needs {smem} bytes of shared memory per block; an"
-                f" H100 block has {MAX_SMEM_BYTES}")
+    def body(lib, launch):
+        _check_smem("dd_rows", lib.dd_rows_smem_bytes(S, I, J, int(u_has_s)))
         outs = [torch.empty((2, X, I, E), dtype=torch.float32, device=device)
                 for _ in rows]
-        per_launch = lib.dd_rows_max_rows() if one_launch else 1
-        with torch.cuda.device(device):
-            for idx in _chunks(range(len(rows)), per_launch):
-                ptrs = (ctypes.c_void_p * (4 * len(idx)))()
-                strides = (ctypes.c_int64 * (16 * len(idx)))()
-                for n, k in enumerate(idx):
-                    row, out = rows[k], outs[k]
-                    f_ptr = row.F.data_ptr() if has_f else None
-                    ptrs[4 * n:4 * n + 4] = [
-                        row.u.data_ptr(), row.R.data_ptr(), f_ptr,
-                        out.data_ptr()]
-                    f_strides = row.F.stride() if has_f else (0, 0, 0, 0)
-                    strides[16 * n:16 * n + 16] = [
-                        *row.u.stride(), *row.R.stride(), *f_strides,
-                        *out.stride()]
-                err = lib.dd_rows(len(idx), ptrs, strides, X, S, I, J, E,
-                                  int(u_has_s), int(block_long),
-                                  _stream_of(device))
-                if err:
-                    raise RuntimeError(f"dd_rows launch failed: CUDA error"
-                                       f" {err}")
-                tracing.count_launch("dd_rows")
+        for idx in _launch_rows(len(rows), one_launch, lib.dd_rows_max_rows):
+            ptrs = (ctypes.c_void_p * (4 * len(idx)))()
+            strides = (ctypes.c_int64 * (16 * len(idx)))()
+            for n, r in enumerate(idx):
+                row, out = rows[r], outs[r]
+                f_ptr = row.F.data_ptr() if has_f else None
+                ptrs[4 * n:4 * n + 4] = [
+                    row.u.data_ptr(), row.R.data_ptr(), f_ptr,
+                    out.data_ptr()]
+                f_strides = row.F.stride() if has_f else (0, 0, 0, 0)
+                strides[16 * n:16 * n + 16] = [
+                    *row.u.stride(), *row.R.stride(), *f_strides,
+                    *out.stride()]
+            launch(lib.dd_rows, len(idx), ptrs, strides, X, S, I, J, E,
+                   int(u_has_s), int(block_long))
         return outs
+    return launch_frame("dd_rows", device, lambda: dd_rows_plain(rows), body)
 
 # }}}
 
@@ -1179,19 +1160,12 @@ def step_update(base: torch.Tensor, terms: Sequence, dt: float,
     signs, groups, pairs = _update_args(base, terms, signs, kernel=True)
     if pairs:
         tracing.counters["pair_bytes"] += 8 * len(terms) * base.numel()
-    device = base.device
-    if device.type == "cpu":
-        return _update_plain(base, groups, dt, signs, pairs)
-    with tracing.span("feinsum.kernel:step_update"):
-        if device.type != "cuda":
-            raise InvalidParameterError(f"step_update: no kernel for device"
-                                        f" {device}")
-        out = torch.empty(base.shape, dtype=base.dtype, device=device)
+
+    def body(lib, launch):
+        out = torch.empty(base.shape, dtype=base.dtype, device=base.device)
         R, E = groups[0][0].shape
         if R * E == 0:
             return out
-        from ._build import load_library
-        lib = load_library()
         K = UPDATE_MAX_TERMS
         ptrs = (ctypes.c_void_p * (len(groups) * (2 + 2 * K)))()
         strides = (ctypes.c_int64 * (len(groups) * (2 + K)))()
@@ -1200,21 +1174,19 @@ def step_update(base: torch.Tensor, terms: Sequence, dt: float,
             p, s = g * (2 + 2 * K), g * (2 + K)
             ptrs[p], ptrs[p + 1] = b.data_ptr(), o.data_ptr()
             strides[s], strides[s + 1] = b.stride(0), o.stride(0)
-            for k, v in enumerate(views):
+            for t, v in enumerate(views):
                 hi = v[0] if pairs else v
-                ptrs[p + 2 + k] = hi.data_ptr()
+                ptrs[p + 2 + t] = hi.data_ptr()
                 if pairs:
-                    ptrs[p + 2 + K + k] = v[1].data_ptr()
-                strides[s + 2 + k] = hi.stride(0)
-        neg = sum(1 << k for k, s in enumerate(signs) if s < 0)
-        with torch.cuda.device(device):
-            err = lib.step_update(int(pairs), len(groups), len(terms), R, E,
-                                  ptrs, strides, neg, float(dt),
-                                  _stream_of(device))
-        if err:
-            raise RuntimeError(f"step_update launch failed: CUDA error {err}")
-        tracing.count_launch("step_update")
+                    ptrs[p + 2 + K + t] = v[1].data_ptr()
+                strides[s + 2 + t] = hi.stride(0)
+        neg = sum(1 << t for t, s in enumerate(signs) if s < 0)
+        launch(lib.step_update, int(pairs), len(groups), len(terms), R, E,
+               ptrs, strides, neg, float(dt))
         return out
+    return launch_frame("step_update", base.device,
+                        lambda: _update_plain(base, groups, dt, signs, pairs),
+                        body)
 
 
 def pairs_split_plain(x: torch.Tensor) -> torch.Tensor:
@@ -1238,25 +1210,17 @@ def pairs_split(x: torch.Tensor) -> torch.Tensor:
     if not x.is_contiguous():
         raise InvalidParameterError(f"x: strides {x.stride()}, pairs_split"
                                     " takes a contiguous tensor")
-    if x.device.type == "cpu":
-        return pairs_split_plain(x)
-    with tracing.span("feinsum.kernel:pairs_split"):
-        if x.device.type != "cuda":
-            raise InvalidParameterError(f"pairs_split: no kernel for device"
-                                        f" {x.device}")
+
+    def body(lib, launch):
         out = torch.empty((2, *x.shape), dtype=torch.float32,
                           device=x.device)
         if x.numel() == 0:
             return out
-        from ._build import load_library
-        lib = load_library()
-        with torch.cuda.device(x.device):
-            err = lib.pairs_split(x.numel(), x.data_ptr(), out[0].data_ptr(),
-                                  out[1].data_ptr(), _stream_of(x.device))
-        if err:
-            raise RuntimeError(f"pairs_split launch failed: CUDA error {err}")
-        tracing.count_launch("pairs_split")
+        launch(lib.pairs_split, x.numel(), x.data_ptr(), out[0].data_ptr(),
+               out[1].data_ptr())
         return out
+    return launch_frame("pairs_split", x.device,
+                        lambda: pairs_split_plain(x), body)
 
 # }}}
 
@@ -1488,7 +1452,7 @@ def tc_grid_f32(A: torch.Tensor, B: torch.Tensor, step: TCStep
                 ) -> torch.Tensor:
     """``C[c] = Σ A[a] B[b]`` for one :class:`TCStep`, ``C`` allocated
     contiguous in the output's stored letter order ``step.c``."""
-    return _tc_launch("tc_grid_f32", A, B, step)
+    return _tc_launch("tc_grid_f32", tc_grid_plain, A, B, step)
 
 
 def tc_grid_3xtf32(A: torch.Tensor, B: torch.Tensor, step: TCStep
@@ -1496,42 +1460,31 @@ def tc_grid_3xtf32(A: torch.Tensor, B: torch.Tensor, step: TCStep
     """``tc_grid_f32``'s step with the tile's inner product in three TF32
     passes on the tensor cores (``csrc/tc_grid_3x.cu``): the ``bf16_3x``
     precision; the same tables, tiles and output."""
-    return _tc_launch("tc_grid_3xtf32", A, B, step)
+    return _tc_launch("tc_grid_3xtf32", tc_grid_3x_plain, A, B, step)
 
 
-def _tc_launch(name: str, A: torch.Tensor, B: torch.Tensor, step: TCStep
-               ) -> torch.Tensor:
-    """Launch ``tc_grid_f32`` or ``tc_grid_3xtf32`` (*name*; the plain
-    version for CPU tensors)."""
+def _tc_launch(name: str, plain, A: torch.Tensor, B: torch.Tensor,
+               step: TCStep) -> torch.Tensor:
+    """Launch the kernel *name*, ``tc_grid_f32`` or ``tc_grid_3xtf32``;
+    *plain* for CPU tensors."""
     lengths = dict(step.lengths)
     device = A.device
     _check_operand("A", A, device, tuple(lengths[l] for l in step.a))
     _check_operand("B", B, device, tuple(lengths[l] for l in step.b))
     shape = tc_classify(step)
-    if device.type == "cpu":
-        return (tc_grid_3x_plain if name == "tc_grid_3xtf32"
-                else tc_grid_plain)(A, B, step)
-    with tracing.span(f"feinsum.kernel:{name}"):
-        if device.type != "cuda":
-            raise ValueError(f"{name}: no kernel for device {device}")
 
-        from ._build import load_library
-        lib = load_library()
+    def body(lib, launch):
         C = torch.empty(tuple(lengths[l] for l in step.c), dtype=torch.float32,
                         device=device)
         tables, flags = _tc_device_tables(step, tuple(A.stride()),
                                           tuple(B.stride()), tuple(C.stride()),
                                           device)
         rows, cols = (B, A) if shape.swap else (A, B)
-        with torch.cuda.device(device):
-            err = getattr(lib, name)(rows.data_ptr(), cols.data_ptr(),
-                                     C.data_ptr(), tables.data_ptr(), shape.Mc,
-                                     shape.Nc, shape.K, shape.ncells, flags,
-                                     shape.variant, _stream_of(device))
-        if err:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-        tracing.count_launch(name)
+        launch(getattr(lib, name), rows.data_ptr(), cols.data_ptr(),
+               C.data_ptr(), tables.data_ptr(), shape.Mc, shape.Nc, shape.K,
+               shape.ncells, flags, shape.variant)
         return C
+    return launch_frame(name, device, lambda: plain(A, B, step), body)
 
 # }}}
 
@@ -1598,11 +1551,7 @@ def check_lane_pack_dg_shape(shape: LanePackDGShape, split: bool = False
             raise InvalidParameterError(
                 f"lane_pack_dg_f32 takes at most {cap} {what}, the program"
                 f" has {n}")
-    smem = lane_pack_dg_smem_bytes(shape.gi, split)
-    if smem > MAX_SMEM_BYTES:
-        raise InvalidParameterError(
-            f"lane_pack_dg_f32 needs {smem} bytes of shared memory per"
-            f" block; a Hopper block has {MAX_SMEM_BYTES}")
+    _check_smem("lane_pack_dg_f32", lane_pack_dg_smem_bytes(shape.gi, split))
 
 
 def _lp_dims(rows: Sequence[LanePackDGRow], shape: LanePackDGShape
@@ -1674,8 +1623,8 @@ def lane_pack_dg_f32(rows: Sequence[LanePackDGRow], shape: LanePackDGShape,
     go in one launch (up to the kernel's row limit) unless *one_launch* is
     false; a thread block covers *block_long* packed rows (rounded up to
     its tile) of one tile of output lanes."""
-    return _lp_launch("lane_pack_dg_f32", rows, shape, block_long,
-                      out_order, one_launch)
+    return _lp_launch("lane_pack_dg_f32", lane_pack_dg_plain, rows, shape,
+                      block_long, out_order, one_launch)
 
 
 def lane_pack_dg_3xtf32(rows: Sequence[LanePackDGRow],
@@ -1686,73 +1635,58 @@ def lane_pack_dg_3xtf32(rows: Sequence[LanePackDGRow],
     split (``lo·hi + hi·lo + hi·hi``, on the CUDA cores: the products of
     TF32 halves are exact in f32): the ``bf16_3x`` precision; the same
     arguments and outputs."""
-    return _lp_launch("lane_pack_dg_3xtf32", rows, shape, block_long,
-                      out_order, one_launch)
+    return _lp_launch("lane_pack_dg_3xtf32", lane_pack_dg_3x_plain, rows,
+                      shape, block_long, out_order, one_launch, split=True)
 
 
-def _lp_launch(name: str, rows: Sequence[LanePackDGRow],
+def _lp_launch(name: str, plain, rows: Sequence[LanePackDGRow],
                shape: LanePackDGShape, block_long: int, out_order: tuple,
-               one_launch: bool) -> list:
-    """Launch ``lane_pack_dg_f32`` or its 3x variant (*name*; the plain
-    version for CPU tensors)."""
+               one_launch: bool, split: bool = False) -> list:
+    """Launch the kernel *name*, ``lane_pack_dg_f32`` or (*split*) its 3x
+    variant; *plain* for CPU tensors."""
     if not rows:
         return []
     E, GI, GJ, PK = _lp_dims(rows, shape)
     device = rows[0].u.device
-    split = name == "lane_pack_dg_3xtf32"
     if sorted(out_order) != [0, 1, 2]:
         raise ValueError(f"out_order {out_order} is not a permutation of 3")
-    if device.type == "cpu":
-        return (lane_pack_dg_3x_plain if split else lane_pack_dg_plain)(
-            rows, shape, out_order)
-    with tracing.span(f"feinsum.kernel:{name}"):
-        if device.type != "cuda":
-            raise ValueError(f"{name}: no kernel for device {device}")
-        check_lane_pack_dg_shape(shape, split)
-        if block_long < 1:
-            raise InvalidParameterError(
-                f"block_long must be positive, got {block_long}")
 
-        from ._build import load_library
-        lib = load_library()
+    def body(lib, launch):
+        check_lane_pack_dg_shape(shape, split)
+        _check_block_long(block_long)
         M, NW, NO = len(shape.u_of_m), len(shape.j_of_w), shape.n_out
         dims = (NO, E, GI)
-        inverse = tuple(sorted(range(3), key=lambda k: out_order[k]))
-        outs = [torch.empty(tuple(dims[k] for k in out_order),
+        inverse = tuple(sorted(range(3), key=lambda a: out_order[a]))
+        outs = [torch.empty(tuple(dims[a] for a in out_order),
                             dtype=torch.float32, device=device) for _ in rows]
         pairs = (ctypes.c_int * (3 * len(shape.pairs)))(
             *[v for term in shape.pairs for v in term])
         n_off = 2 * M + 2 * NW + NO
-        per_launch = lib.lane_pack_dg_max_rows() if one_launch else 1
-        with torch.cuda.device(device):
-            for idx in _chunks(range(len(rows)), per_launch):
-                ptrs = (ctypes.c_void_p * (5 * len(idx)))()
-                strides = (ctypes.c_int64 * (10 * len(idx)))()
-                offsets = (ctypes.c_int64 * (n_off * len(idx)))()
-                for n, k in enumerate(idx):
-                    row, out = rows[k], outs[k].permute(*inverse)
-                    ptrs[5 * n:5 * n + 5] = [
-                        row.u.data_ptr(), row.T.data_ptr(), row.J.data_ptr(),
-                        row.EXP.data_ptr(), out.data_ptr()]
-                    strides[10 * n:10 * n + 10] = [
-                        *row.u.stride()[1:], *row.T.stride()[1:],
-                        *row.J.stride()[1:], *row.EXP.stride()[1:],
-                        *out.stride()[1:]]
-                    offsets[n_off * n:n_off * (n + 1)] = [
-                        *(k_ * row.u.stride(0) for k_ in shape.u_of_m),
-                        *(m * row.T.stride(0) for m in range(M)),
-                        *(k_ * row.J.stride(0) for k_ in shape.j_of_w),
-                        *(k_ * row.EXP.stride(0) for k_ in shape.exp_of_w),
-                        *(o * out.stride(0) for o in range(NO))]
-                err = getattr(lib, name)(
-                    len(idx), ptrs, strides, offsets, pairs, M, NW, NO,
-                    len(shape.pairs), E, GI, GJ, PK, int(block_long),
-                    _stream_of(device))
-                if err:
-                    raise RuntimeError(f"{name} launch failed: CUDA error"
-                                       f" {err}")
-                tracing.count_launch(name)
+        for idx in _launch_rows(len(rows), one_launch,
+                                lib.lane_pack_dg_max_rows):
+            ptrs = (ctypes.c_void_p * (5 * len(idx)))()
+            strides = (ctypes.c_int64 * (10 * len(idx)))()
+            offsets = (ctypes.c_int64 * (n_off * len(idx)))()
+            for n, r in enumerate(idx):
+                row, out = rows[r], outs[r].permute(*inverse)
+                ptrs[5 * n:5 * n + 5] = [
+                    row.u.data_ptr(), row.T.data_ptr(), row.J.data_ptr(),
+                    row.EXP.data_ptr(), out.data_ptr()]
+                strides[10 * n:10 * n + 10] = [
+                    *row.u.stride()[1:], *row.T.stride()[1:],
+                    *row.J.stride()[1:], *row.EXP.stride()[1:],
+                    *out.stride()[1:]]
+                offsets[n_off * n:n_off * (n + 1)] = [
+                    *(k_ * row.u.stride(0) for k_ in shape.u_of_m),
+                    *(m * row.T.stride(0) for m in range(M)),
+                    *(k_ * row.J.stride(0) for k_ in shape.j_of_w),
+                    *(k_ * row.EXP.stride(0) for k_ in shape.exp_of_w),
+                    *(o * out.stride(0) for o in range(NO))]
+            launch(getattr(lib, name), len(idx), ptrs, strides, offsets, pairs,
+                   M, NW, NO, len(shape.pairs), E, GI, GJ, PK, int(block_long))
         return outs
+    return launch_frame(name, device, lambda: plain(rows, shape, out_order),
+                        body)
 
 # }}}
 
@@ -2164,21 +2098,10 @@ def step_block_f32(rows, table, *, block_long: int,
         return []
     E = _sb_check(rows, table)
     device = rows[0][0].device
-    if device.type == "cpu":
-        return step_block_plain(rows, table, block_long)
-    with tracing.span("feinsum.kernel:step_block_f32"):
-        if device.type != "cuda":
-            raise ValueError(f"step_block_f32: no kernel for device {device}")
-        if block_long < 1:
-            raise InvalidParameterError(
-                f"block_long must be positive, got {block_long}")
-        if table.smem_bytes > MAX_SMEM_BYTES:
-            raise InvalidParameterError(
-                f"step_block_f32 needs {table.smem_bytes} bytes of shared"
-                f" memory per block; an H100 block has {MAX_SMEM_BYTES}")
 
-        from ._build import load_library
-        lib = load_library()
+    def body(lib, launch):
+        _check_block_long(block_long)
+        _check_smem("step_block_f32", table.smem_bytes)
         el, length = table.el, table.length
         last = table.steps[-1]
         out_shape = tuple(E if ix == el else length[ix]
@@ -2187,53 +2110,50 @@ def step_block_f32(rows, table, *, block_long: int,
         outs = [torch.empty(out_shape, dtype=torch.float32, device=device)
                 for _ in rows]
         views = [o.permute(tuple(perm)) for o in outs]
-        rows = [[t if table.stage[s] < 0 or _is_flat(t) else t.contiguous()
-                 for s, t in enumerate(row)] for row in rows]
+        ins = [[t if table.stage[s] < 0 or _is_flat(t) else t.contiguous()
+                for s, t in enumerate(row)] for row in rows]
         elem_fastest = step_block_mode(
-            table, tuple(tuple(t.stride()) for t in rows[0]),
+            table, tuple(tuple(t.stride()) for t in ins[0]),
             tuple(views[0].stride()))
         ni, ns = len(table.inputs), len(table.steps)
         nblocks = -(-E // int(block_long))
-        per_launch = lib.step_block_f32_max_rows() if one_launch else 1
-        with torch.cuda.device(device):
-            for idx in _chunks(range(len(rows)), per_launch):
-                tables, steps_i, steps_t, stage_i, stage_t, row_len = \
-                    _sb_device_tables(
-                    table, _sb_view_strides([rows[k] for k in idx],
-                                            [views[k] for k in idx]),
-                    elem_fastest, device)
-                ptrs = (ctypes.c_void_p * ((ni + 1) * len(idx)))()
-                es = (ctypes.c_int64 * ((ni + 1) * len(idx)))()
-                for n, k in enumerate(idx):
-                    ptrs[(ni + 1) * n:(ni + 1) * (n + 1)] = [
-                        *(t.data_ptr() for t in rows[k]), views[k].data_ptr()]
-                    es[(ni + 1) * n:(ni + 1) * (n + 1)] = [
-                        *(_sb_strides(letters, t.stride(), el)[1]
-                          for letters, t in zip(table.inputs, rows[k])),
-                        _sb_strides(last.out, views[k].stride(), el)[1]]
-                work = None
-                if last.kind == "reduce":
-                    work = torch.empty(len(idx) * nblocks * table.n_out(last),
-                                       dtype=torch.float32, device=device)
-                err = lib.step_block_f32(
-                    len(idx), ni, ptrs, es, ns,
-                    (ctypes.c_int * (SB_STEP_INTS * ns))(
-                        *[v for s in steps_i for v in s]),
-                    (ctypes.c_int64 * (SB_STEP_TABLES * ns))(
-                        *[v for s in steps_t for v in s]),
-                    (ctypes.c_int * (SB_STAGE_INTS * (ni + 1)))(
-                        *[v for s in stage_i for v in s]),
-                    (ctypes.c_int64 * (ni + 1))(*stage_t),
-                    ctypes.c_void_p(tables.data_ptr()), row_len,
-                    table.te, int(elem_fastest), E, int(block_long),
-                    table.smem_floats,
-                    ctypes.c_void_p(None if work is None else work.data_ptr()),
-                    _stream_of(device))
-                if err:
-                    raise RuntimeError(f"step_block_f32 launch failed: CUDA"
-                                       f" error {err}")
-                tracing.count_launch("step_block_f32")
+        for idx in _launch_rows(len(ins), one_launch,
+                                lib.step_block_f32_max_rows):
+            tables, steps_i, steps_t, stage_i, stage_t, row_len = \
+                _sb_device_tables(
+                table, _sb_view_strides([ins[r] for r in idx],
+                                        [views[r] for r in idx]),
+                elem_fastest, device)
+            ptrs = (ctypes.c_void_p * ((ni + 1) * len(idx)))()
+            es = (ctypes.c_int64 * ((ni + 1) * len(idx)))()
+            for n, r in enumerate(idx):
+                ptrs[(ni + 1) * n:(ni + 1) * (n + 1)] = [
+                    *(t.data_ptr() for t in ins[r]), views[r].data_ptr()]
+                es[(ni + 1) * n:(ni + 1) * (n + 1)] = [
+                    *(_sb_strides(letters, t.stride(), el)[1]
+                      for letters, t in zip(table.inputs, ins[r])),
+                    _sb_strides(last.out, views[r].stride(), el)[1]]
+            work = None
+            if last.kind == "reduce":
+                work = torch.empty(len(idx) * nblocks * table.n_out(last),
+                                   dtype=torch.float32, device=device)
+            launch(lib.step_block_f32,
+                   len(idx), ni, ptrs, es, ns,
+                   (ctypes.c_int * (SB_STEP_INTS * ns))(
+                       *[v for s in steps_i for v in s]),
+                   (ctypes.c_int64 * (SB_STEP_TABLES * ns))(
+                       *[v for s in steps_t for v in s]),
+                   (ctypes.c_int * (SB_STAGE_INTS * (ni + 1)))(
+                       *[v for s in stage_i for v in s]),
+                   (ctypes.c_int64 * (ni + 1))(*stage_t),
+                   ctypes.c_void_p(tables.data_ptr()), row_len,
+                   table.te, int(elem_fastest), E, int(block_long),
+                   table.smem_floats,
+                   ctypes.c_void_p(None if work is None else work.data_ptr()))
         return outs
+    return launch_frame("step_block_f32", device,
+                        lambda: step_block_plain(rows, table, block_long),
+                        body)
 
 # }}}
 
@@ -2291,18 +2211,9 @@ def tc_steps_f32(ops, table) -> torch.Tensor:
     the stored order ``table.stored_out``: one launch, one thread block per
     cell."""
     device = _ts_check(ops, table)
-    if device.type == "cpu":
-        return tc_steps_plain(ops, table)
-    with tracing.span("feinsum.kernel:tc_steps_f32"):
-        if device.type != "cuda":
-            raise ValueError(f"tc_steps_f32: no kernel for device {device}")
-        if table.smem_bytes > MAX_SMEM_BYTES:
-            raise InvalidParameterError(
-                f"tc_steps_f32 needs {table.smem_bytes} bytes of shared memory"
-                f" per block; an H100 block has {MAX_SMEM_BYTES}")
 
-        from ._build import load_library
-        lib = load_library()
+    def body(lib, launch):
+        _check_smem("tc_steps_f32", table.smem_bytes)
         length = table.length
         out = torch.empty(tuple(length[ix] for ix in table.stored_out),
                           dtype=torch.float32, device=device)
@@ -2312,22 +2223,20 @@ def tc_steps_f32(ops, table) -> torch.Tensor:
             table, tuple(tuple(t.stride()) for t in ops), tuple(view.stride()),
             device)
         ns = len(table.steps)
-        with torch.cuda.device(device):
-            err = lib.tc_steps_f32(
-                len(ops), (ctypes.c_void_p * len(ops))(*[t.data_ptr()
-                                                        for t in ops]),
-                view.data_ptr(), ns,
-                (ctypes.c_int * (ns * (5 + TS_MAX_OPS)))(
-                    *[v for s in steps_i for v in s]),
-                (ctypes.c_int * (ns * (2 * TS_MAX_OPS + 1)))(
-                    *[v for s in steps_t for v in s]),
-                len(grid), (ctypes.c_int64 * sum(map(len, grid)))(
-                    *[v for g in grid for v in g]),
-                ctypes.c_void_p(tables.data_ptr()), table.ncells,
-                table.threads, table.smem_floats, _stream_of(device))
-        if err:
-            raise RuntimeError(f"tc_steps_f32 launch failed: CUDA error {err}")
-        tracing.count_launch("tc_steps_f32")
+        launch(lib.tc_steps_f32,
+               len(ops), (ctypes.c_void_p * len(ops))(*[t.data_ptr()
+                                                       for t in ops]),
+               view.data_ptr(), ns,
+               (ctypes.c_int * (ns * (5 + TS_MAX_OPS)))(
+                   *[v for s in steps_i for v in s]),
+               (ctypes.c_int * (ns * (2 * TS_MAX_OPS + 1)))(
+                   *[v for s in steps_t for v in s]),
+               len(grid), (ctypes.c_int64 * sum(map(len, grid)))(
+                   *[v for g in grid for v in g]),
+               ctypes.c_void_p(tables.data_ptr()), table.ncells,
+               table.threads, table.smem_floats)
         return out
+    return launch_frame("tc_steps_f32", device,
+                        lambda: tc_steps_plain(ops, table), body)
 
 # }}}

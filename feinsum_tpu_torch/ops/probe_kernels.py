@@ -28,11 +28,8 @@ of the card through them.
   its pre-pass also splits R once, into the planes
   :func:`~feinsum_tpu_torch.ops.kernels.tf32_split` gives.
 
-As for every kernel of the port, a wrapper launches its kernel for CUDA
-tensors and raises on what it cannot take; it runs the plain version only
-for tensors that lie on the CPU.  Each launch adds one to
-:data:`~feinsum_tpu_torch.ops.kernels.launch_counts`, and a wrapper's CUDA
-branch is the span ``feinsum.kernel:<kernel>``.
+Their wrappers run in the port's one launch frame,
+:func:`~feinsum_tpu_torch.ops.kernels.launch_frame`.
 """
 
 from __future__ import annotations
@@ -44,9 +41,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .. import tracing
 from ..diagnostics import InvalidParameterError
-from .kernels import _stream_of, einsum_3x, tf32_split
+from .kernels import einsum_3x, launch_frame, tf32_split
 
 # csrc/probe_stream.cu: the most operands (kMaxOps), axes and elements of a
 # stream
@@ -199,33 +195,23 @@ def probe_stream_f32(ops: Sequence[torch.Tensor], *, alpha: float = 1.0,
         raise InvalidParameterError(
             f"probe_stream_f32: {ops[0].numel()} elements; the kernel's"
             f" 32-bit index takes at most {PS_MAX_ELEMENTS}")
-    if device.type == "cpu":
-        return probe_stream_plain(ops, alpha=alpha)
-    with tracing.span("feinsum.kernel:probe_stream_f32"):
-        if device.type != "cuda":
-            raise ValueError(f"probe_stream_f32: no kernel for device"
-                             f" {device}")
+
+    def body(lib, launch):
         out = torch.empty(shape, dtype=torch.float32, device=device)
         plan = plan_stream(shape, [t.stride() for t in ops], out.stride(),
                            block_elems=block_elems,
                            aligned=[_aligned(t) for t in [out, *ops]])
-        from ._build import load_library
-        lib = load_library()
         nops = len(ops)
-        with torch.cuda.device(device):
-            err = lib.probe_stream_f32(
-                nops, (ctypes.c_void_p * nops)(*[t.data_ptr() for t in ops]),
-                (ctypes.c_int64 * (3 * nops))(*[s for st in plan.in_strides
-                                                for s in st]),
-                out.data_ptr(), (ctypes.c_int64 * 3)(*plan.out_strides),
-                (ctypes.c_int64 * 3)(*plan.shape), float(alpha),
-                _STREAM_MODES[plan.mode], plan.mask, plan.per_block,
-                _stream_of(device))
-        if err:
-            raise RuntimeError(f"probe_stream_f32 launch failed: CUDA error"
-                               f" {err}")
-        tracing.count_launch("probe_stream_f32")
+        launch(lib.probe_stream_f32,
+               nops, (ctypes.c_void_p * nops)(*[t.data_ptr() for t in ops]),
+               (ctypes.c_int64 * (3 * nops))(*[s for st in plan.in_strides
+                                               for s in st]),
+               out.data_ptr(), (ctypes.c_int64 * 3)(*plan.out_strides),
+               (ctypes.c_int64 * 3)(*plan.shape), float(alpha),
+               _STREAM_MODES[plan.mode], plan.mask, plan.per_block)
         return out
+    return launch_frame("probe_stream_f32", device,
+                        lambda: probe_stream_plain(ops, alpha=alpha), body)
 
 # }}}
 
@@ -434,13 +420,15 @@ def apply_flags(rows: Sequence[ApplyRow], outs: Sequence[torch.Tensor],
     return flags
 
 
-def _apply_launch(name: str, rows, R, runs, block_elems, out_elem_major,
-                  plain, tables) -> list:
+def _apply_launch(name: str, plain, rows, R, runs, block_elems,
+                  out_elem_major, tables, split: bool = False) -> list:
+    """Launch the kernel *name*, ``probe_apply_f32`` or (*split*) its 3x
+    variant; *plain* for CPU tensors."""
     device, S, I, K, E = _apply_check(rows, R)
-    split = name == "probe_apply_3xtf32"
     tile_rows, sub = apply_tile(I, split, S)
     run, n = apply_geometry(E, runs, block_elems, sub)
-    if device.type == "cpu":
+
+    def on_cpu():
         if tables is not None:
             tables["ranges"] = probe_apply_ranges_plain(R, tile_rows)
             if split:
@@ -448,9 +436,8 @@ def _apply_launch(name: str, rows, R, runs, block_elems, out_elem_major,
             else:
                 tables["R"] = R
         return plain(rows, R, out_elem_major=out_elem_major)
-    with tracing.span(f"feinsum.kernel:{name}"):
-        if device.type != "cuda":
-            raise ValueError(f"{name}: no kernel for device {device}")
+
+    def body(lib, launch):
         outs = [torch.empty((E, I), dtype=torch.float32, device=device).t()
                 if out_elem_major
                 else torch.empty((I, E), dtype=torch.float32, device=device)
@@ -478,20 +465,13 @@ def _apply_launch(name: str, rows, R, runs, block_elems, out_elem_major,
                               dtype=torch.float32, device=device)
         planes = scratch[:nplane].view(-1, S, K, tiles * tile_rows)
         ranges = scratch[nplane:].view(torch.int32)
-        from ._build import load_library
-        lib = load_library()
-        with torch.cuda.device(device):
-            err = getattr(lib, name)(
-                nb, ptrs([r.u for r in rows]), ptrs([r.J for r in rows]),
-                ptrs([r.sigma for r in rows]), ptrs(outs),
-                ctypes.c_void_p(R.data_ptr()), S, I, K,
-                (ctypes.c_int64 * 9)(*strides), I2, run, runs, n, flags,
-                ctypes.c_void_p(ranges.data_ptr()), ranges.numel(),
-                ctypes.c_void_p(planes.data_ptr()), planes.numel(),
-                _stream_of(device))
-        if err:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-        tracing.count_launch(name)
+        launch(getattr(lib, name),
+               nb, ptrs([r.u for r in rows]), ptrs([r.J for r in rows]),
+               ptrs([r.sigma for r in rows]), ptrs(outs),
+               ctypes.c_void_p(R.data_ptr()), S, I, K,
+               (ctypes.c_int64 * 9)(*strides), I2, run, runs, n, flags,
+               ctypes.c_void_p(ranges.data_ptr()), ranges.numel(),
+               ctypes.c_void_p(planes.data_ptr()), planes.numel())
         if tables is not None:
             # the kernel's range table from the pre-pass's least and greatest
             # j of R's nonzeros per (s, row tile, column block)
@@ -507,6 +487,7 @@ def _apply_launch(name: str, rows, R, runs, block_elems, out_elem_major,
             else:
                 tables["R"] = rows_of[0]
         return outs
+    return launch_frame(name, device, on_cpu, body)
 
 
 def probe_apply_f32(rows: Sequence[ApplyRow], R: torch.Tensor, *,
@@ -522,8 +503,8 @@ def probe_apply_f32(rows: Sequence[ApplyRow], R: torch.Tensor, *,
     (:func:`probe_apply_ranges_plain`: exact for finite u).  *tables*, a
     dict, receives the pre-pass's range table (``"ranges"``) and its copy
     of R (``"R"``, an (S, I, K) view of the j-major scratch)."""
-    return _apply_launch("probe_apply_f32", rows, R, runs, block_elems,
-                         out_elem_major, probe_apply_plain, tables)
+    return _apply_launch("probe_apply_f32", probe_apply_plain, rows, R, runs,
+                         block_elems, out_elem_major, tables)
 
 
 def probe_apply_3xtf32(rows: Sequence[ApplyRow], R: torch.Tensor, *,
@@ -533,7 +514,8 @@ def probe_apply_3xtf32(rows: Sequence[ApplyRow], R: torch.Tensor, *,
     """``probe_apply_f32`` with the j-dot in three TF32 tensor-core passes
     over the hi/lo split (the port's ``bf16_3x``); R is split once, by the
     pre-pass (*tables* also receives the planes, ``"hi"`` and ``"lo"``)."""
-    return _apply_launch("probe_apply_3xtf32", rows, R, runs, block_elems,
-                         out_elem_major, probe_apply_3x_plain, tables)
+    return _apply_launch("probe_apply_3xtf32", probe_apply_3x_plain, rows, R,
+                         runs, block_elems, out_elem_major, tables,
+                         split=True)
 
 # }}}

@@ -18,7 +18,7 @@ The spans, each at one boundary of the package:
   ``ops/probe_kernels.py`` on its CUDA branch: the checks, the outputs'
   allocation, the ctypes packing and its one or more launches;
 * ``feinsum.pairs:split`` — a model step on pair storage converting a
-  float64 tensor to its (2, ...) float32 hi/lo pair (``models/wave.py``,
+  float64 tensor to its (2, ...) float32 hi/lo pair (``models/common.py``,
   ``to_pairs``), inside its ``feinsum.step`` span; the step's combines of
   pairs back into float64 are fused into its state update
   (``ops.kernels.step_update``) and lie in that kernel's span;

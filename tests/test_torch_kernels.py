@@ -18,6 +18,7 @@ machine run it without the JAX-importing conftest:
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import replace
 
 import numpy as np
@@ -108,6 +109,85 @@ def test_wrappers_check_their_operands():
         kernels.ew_product_f32([[torch.ones(4, 3), torch.ones(3, 4)]])
     with pytest.raises(ValueError):
         kernels.ew_product_f32([[torch.ones(4, 3, device="meta")] * 2])
+
+
+FRAME_CASES = ("cpu", "meta", "failed launch", "counted in its span",
+               "rows by max rows", "one row a launch", "shared memory")
+
+
+@pytest.mark.parametrize("case", FRAME_CASES)
+def test_the_launch_frame(monkeypatch, case):
+    """``kernels.launch_frame`` over a fake library, with the device's
+    context and stream stubbed: CPU tensors run the plain version passed
+    in, another device is refused by name, a nonzero return raises, each
+    launch counts once in the kernel's span, rows go by the library's
+    most a launch (one a launch without ``one_launch``), and the
+    shared-memory guard refuses one byte over a block's."""
+    spans, launched, loads = [], [], []
+
+    class FakeLibrary:
+        @staticmethod
+        def k_max_rows():
+            return 2
+
+        @staticmethod
+        def k(rows, stream):
+            launched.append((rows, stream, list(spans)))
+            return 7 if case == "failed launch" else 0
+
+    def load_library():
+        loads.append(1)
+        return FakeLibrary
+
+    @contextlib.contextmanager
+    def span(name):
+        spans.append(name)
+        yield
+        spans.pop()
+    monkeypatch.setattr(_build, "load_library", load_library)
+    monkeypatch.setattr(kernels.tracing, "span", span)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(kernels, "_stream_of", lambda device: "stream")
+    monkeypatch.setitem(kernels.launch_counts, "k", 0)
+
+    def body(lib, launch):
+        if case == "shared memory":
+            kernels._check_smem("k", kernels.MAX_SMEM_BYTES)
+            kernels._check_smem("k", kernels.MAX_SMEM_BYTES + 1)
+        for idx in kernels._launch_rows(5, case != "one row a launch",
+                                        lib.k_max_rows):
+            launch(lib.k, list(idx))
+        return "kernel"
+    device = torch.device({"cpu": "cpu", "meta": "meta"}.get(case, "cuda"))
+
+    def frame():
+        return kernels.launch_frame("k", device, lambda: "plain", body)
+    if case == "cpu":
+        assert frame() == "plain"
+        assert not (loads or spans or launched)
+        assert kernels.launch_counts["k"] == 0
+        return
+    raises = {"meta": (ValueError, "k: no kernel for device meta"),
+              "failed launch": (RuntimeError,
+                                "k launch failed: CUDA error 7"),
+              "shared memory": (ft.InvalidParameterError,
+                                f"k needs {kernels.MAX_SMEM_BYTES + 1} bytes"
+                                " of shared memory")}
+    if case in raises:
+        cls, match = raises[case]
+        with pytest.raises(cls, match=match):
+            frame()
+        assert kernels.launch_counts["k"] == 0
+        assert len(launched) == (case == "failed launch")
+        return
+    assert frame() == "kernel" and loads == [1] and not spans
+    assert all(stream == "stream" and inside == ["feinsum.kernel:k"]
+               for _, stream, inside in launched)
+    assert kernels.launch_counts["k"] == len(launched)
+    assert [rows for rows, _, _ in launched] == (
+        [[0], [1], [2], [3], [4]] if case == "one row a launch"
+        else [[0, 1], [2, 3], [4]])
 
 
 @pytest.mark.parametrize("u_has_s", [False, True])
@@ -223,11 +303,12 @@ def test_model_steps_take_the_tiled_path(monkeypatch, model):
     paths = []
     launch = kernels._dg_launch
 
-    def spy(name, rows, block_long, out_order, one_launch):
+    def spy(name, plain, rows, block_long, out_order, one_launch, **kw):
         if name == "dg_rows_f32":
             paths.append(kernels.dg_rows_path(rows, block_long=block_long,
                                               out_order=out_order))
-        return launch(name, rows, block_long, out_order, one_launch)
+        return launch(name, plain, rows, block_long, out_order, one_launch,
+                      **kw)
     monkeypatch.setattr(kernels, "_dg_launch", spy)
     E = 256
     if model == "wave":

@@ -362,7 +362,7 @@ def test_f32_plans_are_unchanged(model):
 
 
 def test_a_model_refuses_programs_that_mix_pair_storage():
-    from feinsum_tpu_torch.models.wave import on_pairs
+    from feinsum_tpu_torch.models.common import on_pairs
     op = ft.WaveOperator3D(ndof=NDOF, nfacedof=NFDOF, dtype="float64")
     mixed = dict(op.programs, grad=op.programs["grad"].with_descriptor(
         dd_pairs=False))

@@ -16,8 +16,8 @@ import torch
 
 import feinsum_tpu_torch as ft
 from feinsum_tpu_torch import tracing
-from feinsum_tpu_torch.models import maxwell as maxwell_mod
-from feinsum_tpu_torch.models import wave as wave_mod
+from feinsum_tpu_torch.codegen.program import build_executable
+from feinsum_tpu_torch.models import common
 from feinsum_tpu_torch.models.maxwell import make_maxwell_state
 from feinsum_tpu_torch.models.wave import make_wave_state
 from feinsum_tpu_torch.ops import dd_emitter, kernels
@@ -138,6 +138,50 @@ def test_the_models_steps_equal_their_glue_on_the_cpu():
                 _same(got[k], want[k])
 
 
+@pytest.mark.parametrize("model", ["wave", "maxwell"])
+def test_a_float64_step_is_its_pair_formula(model):
+    """A float64 step, its storage chosen by ``common.StepStorage``, bit
+    for bit the step written out on pairs: state and geometry split, each
+    field's component x read as the view ``pair[:, x]``, and the glue on
+    the einsums' pair outputs."""
+    E = 64
+    split = kernels.pairs_split_plain
+    if model == "wave":
+        op = ft.WaveOperator3D(dtype="float64")
+        state, geom = make_wave_state(E, dtype="float64", seed=7,
+                                      device="cpu")
+        fns = op.executables(E)
+        g = {k: split(t) for k, t in geom.items()}
+        us, vp = split(state["u"]), split(state["v"])
+        (grad,) = fns["grad"]({"J": g["J"], "D": g["D"], "u": us})
+        rows = fns["div"]({"Jx": g["Jx"], "Jy": g["Jy"], "Jz": g["Jz"],
+                           "D": g["D"], "vx": vp[:, 0], "vy": vp[:, 1],
+                           "vz": vp[:, 2]})
+        (flux,) = fns["restrict"]({"R": g["Rface"], "u": us})
+        (lift,) = fns["face"]({"L": g["L"], "Fj": g["Fj"], "flux": flux})
+        want = dict(zip("uv", _wave_glue(state["u"], state["v"], rows, grad,
+                                         lift, DT, combine_pairs)))
+    else:
+        op = ft.MaxwellOperator3D(dtype="float64")
+        state, geom = make_maxwell_state(E, dtype="float64", seed=7,
+                                         device="cpu")
+        fn = build_executable(op.program, long_dim_length=E)
+        g = {k: split(t) for k, t in geom.items()}
+
+        def curl(field):
+            fp = split(field)
+            return _curl_glue(fn({"Jx": g["Jx"], "Jy": g["Jy"],
+                                  "Jz": g["Jz"], "D": g["D"],
+                                  "Fx": fp[:, 0], "Fy": fp[:, 1],
+                                  "Fz": fp[:, 2]}), combine_pairs)
+        e, h = state["E"], state["H"]
+        want = {"E": e + DT * curl(h), "H": h - DT * curl(e)}
+    got = op.make_step(E, dt=DT)(state, geom)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        _same(got[k], want[k])
+
+
 @pytest.mark.parametrize("use_pallas", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_the_plain_route_updates_with_the_plain_version(dtype, use_pallas):
@@ -147,8 +191,8 @@ def test_the_plain_route_updates_with_the_plain_version(dtype, use_pallas):
     want = kernels.step_update if use_pallas else kernels.step_update_plain
     wave = ft.WaveOperator3D(dtype=dtype, use_pallas=use_pallas)
     curl = ft.MaxwellOperator3D(dtype=dtype, use_pallas=use_pallas)
-    assert wave_mod.state_update(wave.programs.values()) is want
-    assert wave_mod.state_update([curl.program]) is want
+    assert common.state_update(wave.programs.values()) is want
+    assert common.state_update([curl.program]) is want
 
 # }}}
 
@@ -214,7 +258,7 @@ def test_pair_bytes_count_a_split_at_16_and_a_fused_combine_at_8():
     c = tracing.counters
     E = 40
     start = c["pair_bytes"]
-    wave_mod.to_pairs(_rand(3, P, E, dtype=torch.float64))
+    common.to_pairs(_rand(3, P, E, dtype=torch.float64))
     assert c["pair_bytes"] - start == 16 * 3 * P * E
     start = c["pair_bytes"]
     kernels.step_update(_rand(P, E, dtype=torch.float64),
@@ -242,12 +286,12 @@ class _glue_steps:
     the split's plain versions, on whatever device the tensors lie."""
 
     def __enter__(self):
-        self.saved = (kernels.step_update, dd_emitter.pairs_split)
+        self.saved = (kernels.step_update, kernels.pairs_split)
         kernels.step_update = kernels.step_update_plain
-        dd_emitter.pairs_split = kernels.pairs_split_plain
+        kernels.pairs_split = kernels.pairs_split_plain
 
     def __exit__(self, *exc):
-        kernels.step_update, dd_emitter.pairs_split = self.saved
+        kernels.step_update, kernels.pairs_split = self.saved
 
 
 @pytest.fixture
