@@ -8,6 +8,7 @@
     python3 chip_smoke.py --tc-steps-only    # phases 1 and 20 alone
     python3 chip_smoke.py --probes-only      # phases 1 and 21 alone
     python3 chip_smoke.py --update-only      # phases 1 and 22 alone
+    python3 chip_smoke.py --fp64-only        # phases 1 and 5-6 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -24,8 +25,12 @@ Phases; any failure exits non-zero before the final line:
    plain versions and the plain per-step route (CUDA events, median of 20
    launches), each against the card's data-sheet roofline;
 5. compare the fp64 kernel ``dd_rows`` with its plain version on the card
-   for the four fp64 DG rows (grad, div, mass, face-mass at ndof 35), at
-   E = 777 and E = 1M, within 1e-12 of max|plain| on the float64 values;
+   for the four fp64 DG rows (grad, div, mass, face-mass at ndof 35) and
+   the wave step's face restriction (i = 60), at E = 777 and E = 1M, and
+   for the face lift on pair planes apart (a model state's component
+   views) at E = 1M, within 1e-12 of max|plain| on the float64 values,
+   with the path each launch took; at E = 1M every launch must be tiled,
+   and each row is timed on the tiled path and on the general path;
 6. the archive path for the same rows: autotune the ``dd_pallas_v0`` space
    on the card into a fresh archive under ``build/`` (a few points per row,
    timed at E = 1M) and print the facts recorded; reset the launch counters;
@@ -597,6 +602,8 @@ def main() -> int:
         return probes_only(dev, card)
     if "--update-only" in sys.argv[1:]:
         return update_only(dev, card)
+    if "--fp64-only" in sys.argv[1:]:
+        return fp64_only(dev, card)
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -708,7 +715,7 @@ def main() -> int:
     log(f"[phase] 1-4 (build, f32 kernels, main path, times):"
         f" {time.perf_counter() - t0:.1f} s")
     t_phase = time.perf_counter()
-    fp64_kernel_check(dev)
+    fp64_kernel_check(dev, label)
     launches["dd_rows"] = fp64_archive_path(dev, label, stats)
     log(f"[phase] 5-6 (fp64): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -931,45 +938,139 @@ def update_only(dev, card: str) -> int:
     return 0
 
 
-def fp64_kernel_check(dev) -> None:
-    """Phase 5: ``dd_rows`` against ``dd_rows_plain`` on the four fp64
-    rows at E_SMALL and E_FULL, on the float64 values."""
+def fp64_only(dev, card: str) -> int:
+    """Phases 5 and 6 alone, for work on ``dd_rows``: its build report,
+    checks, paths and times, and its entry of the ``kernels`` line.  It
+    prints no ``ok`` line."""
+    import torch
+
+    label = (f"[{torch.cuda.get_device_name(0)}, power limit"
+             f" {card.split(',')[-1].strip()}]")
+    stats = KernelStats()
+    t0 = time.perf_counter()
+    fp64_kernel_check(dev, label)
+    launches = fp64_archive_path(dev, label, stats)
+    log(f"[phase] 5-6 (fp64): {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": [stats.entry("dd_rows", launches)]}))
+    return 0
+
+
+def fp64_kernel_check(dev, label: str = "") -> None:
+    """Phase 5: ``dd_rows`` against ``dd_rows_plain`` on the float64
+    values, with the path each launch took
+    (``tracing.counters["dd_rows_path"]``): the four fp64 rows and the wave
+    step's face restriction (i = 60, its own template instance) at E_SMALL
+    and E_FULL, and at E_FULL the face lift on a model state's component
+    views (u and F the x-th planes of larger pair tensors).  At E_FULL
+    every launch must be tiled, and each row is timed on the tiled path
+    and on the general path (the tiled path refused)."""
+    from unittest import mock
+
     import torch
 
     import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import tracing
     from feinsum_tpu_torch.codegen.program import get_index_lengths
     from feinsum_tpu_torch.measure import apply_layouts, \
-        generate_input_arrays
+        generate_input_arrays, timeit_cuda
+    from feinsum_tpu_torch.ops import kernels
     from feinsum_tpu_torch.ops.dd_emitter import combine_pairs, \
-        plan_dd_launch
+        plan_dd_launch, split_to_pairs
     from feinsum_tpu_torch.suite import fp64_suite
     from feinsum_tpu_torch.tuning import get_transform_func_from_module_path
 
+    counts = tracing.counters["dd_rows_path"]
+
+    def check(name, length, launch, plain, rows, arrays, e=None):
+        """One launch of *launch* on *arrays* against *plain* on *rows*,
+        the same operands as kernel rows; at E_FULL the tiled path required
+        and timed beside the general one."""
+        before = dict(counts)
+        got = launch(arrays)
+        want = plain(rows)
+        terms = plain(magnitudes(rows))
+        torch.cuda.synchronize()
+        path = max(counts, key=lambda p: counts[p] - before[p])
+        log(f"[path] dd_rows {name} E={length}: {path}"
+            f" ({ {p: counts[p] - before[p] for p in counts} })")
+        if length == E_FULL:
+            if path != "tiled":
+                raise SmokeFailure(f"dd_rows {name} at E={length} took the"
+                                   f" {path} path, not the tiled one")
+            ms = {path: timeit_cuda(launch, arrays)}
+            with mock.patch.object(kernels, "_dd_path",
+                                   lambda *a: "general"):
+                ms["general"] = timeit_cuda(launch, arrays)
+            bound = "" if e is None else f"; {bound_text(e, length)}"
+            log(f"[time] dd_rows {name} E={length} by path: "
+                + ", ".join(f"{p} {t:.4f} ms" for p, t in ms.items())
+                + f"{bound} {label}")
+        for g, w, t in zip(got, want, terms):
+            g, w = combine_pairs(g), combine_pairs(w)
+            abs_err, rel = max_err(g, w)
+            over = note_error("dd_rows", g, w, combine_pairs(t).abs())
+            ok = rel <= RTOL_F64
+            log(f"[compare] dd_rows {name} E={length}:"
+                f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
+                f" max|plain| (tolerance {RTOL_F64}), {over:.2e} of the"
+                f" terms' magnitudes {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SmokeFailure(f"dd_rows disagrees with its plain"
+                                   f" version on {name}")
+
     space = get_transform_func_from_module_path("dd_pallas_v0")
+    restrict = ft.WaveOperator3D(dtype="float64").programs["restrict"]
     for length in (E_SMALL, E_FULL):
         for name, e in fp64_suite():
             program = space.bind_args(e, log2_block=9)(ft.generate_program(e))
             plan = plan_dd_launch(program, get_index_lengths(e, length))
-            operands = plan.operands(apply_layouts(
-                program, generate_input_arrays(e, long_dim_length=length,
-                                               seed=1, device=dev)))
-            got = plan.run(operands)
-            want = plan.plain(operands)
-            terms = plan.plain(magnitudes(operands))
-            torch.cuda.synchronize()
-            for g, w, t in zip(got, want, terms):
-                g, w = combine_pairs(g), combine_pairs(w)
-                abs_err, rel = max_err(g, w)
-                over = note_error("dd_rows", g, w, combine_pairs(t).abs())
-                ok = rel <= RTOL_F64
-                log(f"[compare] dd_rows {name} E={length}:"
-                    f" max|kernel-plain| {abs_err:.3e} = {rel:.2e} of"
-                    f" max|plain| (tolerance {RTOL_F64}), {over:.2e} of the"
-                    f" terms' magnitudes {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise SmokeFailure(f"dd_rows disagrees with its plain"
-                                       f" version on {name}")
-            del operands, got, want, terms
+            arrays = apply_layouts(program, generate_input_arrays(
+                e, long_dim_length=length, seed=1, device=dev))
+
+            def run(a, plan=plan):
+                return plan.run(plan.operands(a))
+            check(name, length, run, plan.plain, plan.operands(arrays),
+                  arrays, e)
+            del arrays
+        # the wave step's restriction on pair storage, as the model runs it
+        plan = plan_dd_launch(restrict,
+                              get_index_lengths(restrict.einsum, length))
+        gen = torch.Generator(device=dev).manual_seed(length)
+        pairs = {k: split_to_pairs(torch.randn(
+                     *shape, dtype=torch.float64, device=dev, generator=gen))
+                 for k, shape in (("R", (4, 15, 35)), ("u", (35, length)))}
+        rows = plan.operands(pairs)
+        if tuple(rows[0].R.shape) != (2, 1, 60, 35):
+            raise SmokeFailure(f"the restriction's R row is"
+                               f" {tuple(rows[0].R.shape)}, not (2, 1, 60,"
+                               " 35)")
+
+        def run(a, plan=plan):
+            return plan.run(plan.operands(a))
+        check("restriction", length, run, plan.plain, rows, pairs)
+        del pairs, rows
+
+    # the face lift (S = 4, u over s, X = 1, I = 35, J = 15), two rows whose
+    # u and F are the x-th planes of (2, 3, ...) pair tensors
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def component(*shape):
+        return split_to_pairs(torch.randn(3, *shape, dtype=torch.float64,
+                                          device=dev, generator=gen))
+    arrays = {"u": component(4, 15, E_FULL), "F": component(1, 4, E_FULL)}
+    arrays.update({f"R{x}": split_to_pairs(torch.randn(
+        4, 35, 15, dtype=torch.float64, device=dev, generator=gen))
+        for x in range(2)})
+
+    def lift_rows(a):
+        return [kernels.DDRow(u=a["u"][:, x], R=a[f"R{x}"], F=a["F"][:, x])
+                for x in range(2)]
+
+    def lift(a):
+        return kernels.dd_rows(lift_rows(a), block_long=512)
+    check("face lift, planes apart", E_FULL, lift, kernels.dd_rows_plain,
+          lift_rows(arrays), arrays)
 
 
 def fp64_archive_path(dev, label: str, stats: KernelStats) -> int:
@@ -978,6 +1079,7 @@ def fp64_archive_path(dev, label: str, stats: KernelStats) -> int:
     import torch
 
     import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import tracing
     from feinsum_tpu_torch.codegen.program import get_index_lengths
     from feinsum_tpu_torch.data.device_info import get_device_key
     from feinsum_tpu_torch.measure import (
@@ -1039,7 +1141,8 @@ def fp64_archive_path(dev, label: str, stats: KernelStats) -> int:
             f" at E={E_FULL}: outputs {[tuple(o.shape) for o in outs]}")
     launches = kernels.launch_counts["dd_rows"]
     log(f"[replay] launch counts over the replays:"
-        f" {dict(kernels.launch_counts)}")
+        f" {dict(kernels.launch_counts)}; dd_rows by path"
+        f" {dict(tracing.counters['dd_rows_path'])}")
 
     for name, e in rows:
         program, logical, arrays, fn, outs = runs.pop(name)

@@ -47,8 +47,10 @@ _SIGNATURES = (
     ("ew_product_f32", _I, (_I, _I, _PP, _PP, _I64, _I64, _P)),
     ("ew_product_f32_max_rows", _I, ()),
     ("ew_product_f32_max_ops", _I, ()),
-    ("dd_rows", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _P)),
+    ("dd_rows", _I, (_I, _PP, _I64P, _I, _I, _I, _I, _I64, _I, _I, _I,
+                     _P)),
     ("dd_rows_smem_bytes", ctypes.c_size_t, (_I, _I, _I, _I)),
+    ("dd_rows_tiled_smem_bytes", ctypes.c_size_t, (_I, _I, _I, _I, _I, _I)),
     ("dd_rows_max_rows", _I, ()),
     ("tc_grid_f32", _I, (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P)),
     ("tc_grid_f32_tile_rows", _I, (_I,)),

@@ -39,7 +39,12 @@ The third replaces ``feinsum_tpu/ops/dd_emitter.py::build_dd_executable``
 
 * ``dd_rows`` (``csrc/dd_rows.cu``) — loads each pair as a float64 and
   computes the row in native FP64 on the card (the TPU has no FP64 units and
-  used pair arithmetic); the source's header says what bounds it.
+  used pair arithmetic).  Its tiled path keeps register tiles over (i, e),
+  stages u and F pairs by TMA tensor-map boxes in a ring and combines each
+  pair once; other stored layouts take its general path
+  (:func:`dd_rows_path`).
+  The source's header says what bounds each row and what the design does
+  about it.
 
 The fourth replaces ``feinsum_tpu/ops/pallas_emitter.py::_build_multigrid``
 (K2), the dense tensor-contraction kernel gridded over output letters:
@@ -132,8 +137,8 @@ from ..diagnostics import InvalidParameterError
 MAX_SMEM_BYTES = 232_448
 # register-array bounds of csrc/dg_rows.cu and csrc/dd_rows.cu (kMaxX, kMaxS)
 MAX_X = MAX_S = 4
-# threads per block of csrc/dd_rows.cu and of csrc/dg_rows.cu's general
-# path (kThreads)
+# threads per block of csrc/dd_rows.cu's and csrc/dg_rows.cu's general
+# paths (kThreads)
 DD_THREADS = DG_THREADS = 128
 # csrc/dg_rows.cu's tiled path: elements per tile (kTE); its ring's stages
 # in the order tried, each with the most shared memory it may take
@@ -141,6 +146,12 @@ DD_THREADS = DG_THREADS = 128
 DG_TILE_E = 128
 DG_TILED_STAGES = tuple((n, 112 * 1024) for n in (4, 3, 2)) + tuple(
     (n, MAX_SMEM_BYTES - 64) for n in (3, 2))
+# csrc/dd_rows.cu's tiled path: elements per tile (kTE); its ring's stages
+# in the order tried, and the most shared memory its one block to an SM may
+# take (kTiledSmem)
+DD_TILE_E = 128
+DD_TILED_STAGES = (4, 3, 2)
+DD_TILED_SMEM_BYTES = MAX_SMEM_BYTES - 128
 # csrc/dg_rows_3x.cu: elements per warp tile (kTE: one m16 tile) and warps
 # per block (kWarps)
 DG3X_ELEMENTS = 16
@@ -201,11 +212,13 @@ launch_counts = tracing.counters["launches"]
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts and ``dg_rows_f32``'s launches by path."""
+    """Zero the launch counts and ``dg_rows_f32``'s and ``dd_rows``'s
+    launches by path."""
     for name in launch_counts:
         launch_counts[name] = 0
-    for path in tracing.counters["dg_rows_f32_path"]:
-        tracing.counters["dg_rows_f32_path"][path] = 0
+    for counter in ("dg_rows_f32_path", "dd_rows_path"):
+        for path in tracing.counters[counter]:
+            tracing.counters[counter][path] = 0
 
 
 def _is_dense_permutation(t: torch.Tensor) -> bool:
@@ -937,6 +950,57 @@ def dd_rows_smem_bytes(S: int, I: int, J: int, u_has_s: bool) -> int:
                 + (S if u_has_s else 1) * J * DD_THREADS)
 
 
+def dd_rows_tiled_smem_bytes(X: int, S: int, I: int, J: int,
+                             u_has_s: bool, has_f: bool) -> int:
+    """Shared memory one block of ``dd_rows``'s tiled path needs, in bytes:
+    R as double (i padded to the register tile's i: 8 where the tile keeps
+    one s, 6 where it keeps three, 4 otherwise; the face lift, u over s at
+    X = 1, folds F into u and keeps one) and a ring of stages, each one
+    tile of u (S_u x J) and F (X x S) rows over ``DD_TILE_E`` elements, 8
+    bytes a pair: the most stages (4, 3 or 2) with which the one block to
+    an SM fits; 0 where no ring fits (the formula of
+    ``csrc/dd_rows.cu``)."""
+    tile_s = 1 if u_has_s and X == 1 else S
+    ib = {1: 8, 3: 6}.get(tile_s, 4)
+    r = -(-I // ib) * ib * S * J
+    stage = ((S if u_has_s else 1) * J + (X * S if has_f else 0)) * DD_TILE_E
+    for stages in DD_TILED_STAGES:
+        if 8 * (r + stages * stage) <= DD_TILED_SMEM_BYTES:
+            return 8 * (r + stages * stage)
+    return 0
+
+
+def _pair_tileable(t: torch.Tensor) -> bool:
+    """Whether the tiled path can copy the (2, a, b, E) pair view *t* by
+    TMA boxes: e at stride 1, and every row of each plane and the distance
+    between the planes on 16 bytes (no axis broadcast)."""
+    (_, a, b, _), (sp, sa, sb, se) = t.shape, t.stride()
+    return (se == 1 and t.data_ptr() % 16 == 0 and sp != 0 and sp % 4 == 0
+            and (a == 1 or (sa != 0 and sa % 4 == 0))
+            and (b == 1 or (sb != 0 and sb % 4 == 0)))
+
+
+def dd_rows_path(rows: Sequence[DDRow], *, block_long: int) -> str:
+    """The path a launch of ``dd_rows`` on *rows* takes: ``"tiled"`` where
+    u and F store e at stride 1 with every row and pair plane on 16 bytes,
+    E (below 2^31, a TMA coordinate) and *block_long* are multiples of 4
+    and the ring fits in a block; else ``"general"``.  (The outputs are
+    allocated contiguous.)"""
+    return _dd_path(rows, _dd_dims(rows), block_long)
+
+
+def _dd_path(rows: Sequence[DDRow], dims: tuple, block_long: int) -> str:
+    X, S, I, J, E, u_has_s, has_f = dims
+    if (E % 4 or block_long % 4 or E >= 2 ** 31
+            or not dd_rows_tiled_smem_bytes(X, S, I, J, u_has_s, has_f)):
+        return "general"
+    for row in rows:
+        if not _pair_tileable(row.u) or (has_f
+                                         and not _pair_tileable(row.F)):
+            return "general"
+    return "tiled"
+
+
 def _dd_dims(rows: Sequence[DDRow]) -> tuple:
     """(X, S, I, J, E, u_has_s, has_f), checked equal across rows."""
     r0 = rows[0]
@@ -990,14 +1054,18 @@ def dd_rows(rows: Sequence[DDRow], *, block_long: int,
     """Fused fp64 DG rows on pair storage: each row's ``out[x, i, e]`` as a
     contiguous (2, X, I, E) float32 hi/lo pair tensor.  All rows go in one
     launch (up to the kernel's row limit per launch) unless *one_launch* is
-    false; *block_long* elements per thread block."""
+    false; *block_long* elements per thread block (per block of elements on
+    the tiled path, :func:`dd_rows_path`, where a thread block takes a run
+    of whole blocks).  Each launch counts in
+    ``tracing.counters["dd_rows_path"]`` under its path."""
     if not rows:
         return []
-    X, S, I, J, E, u_has_s, has_f = _dd_dims(rows)
+    dims = X, S, I, J, E, u_has_s, has_f = _dd_dims(rows)
     device = rows[0].u.device
 
     def body(lib, launch):
         _check_smem("dd_rows", lib.dd_rows_smem_bytes(S, I, J, int(u_has_s)))
+        path = _dd_path(rows, dims, block_long)
         outs = [torch.empty((2, X, I, E), dtype=torch.float32, device=device)
                 for _ in rows]
         for idx in _launch_rows(len(rows), one_launch, lib.dd_rows_max_rows):
@@ -1014,7 +1082,8 @@ def dd_rows(rows: Sequence[DDRow], *, block_long: int,
                     *row.u.stride(), *row.R.stride(), *f_strides,
                     *out.stride()]
             launch(lib.dd_rows, len(idx), ptrs, strides, X, S, I, J, E,
-                   int(u_has_s), int(block_long))
+                   int(u_has_s), int(block_long), int(path == "tiled"))
+            tracing.counters["dd_rows_path"][path] += 1
         return outs
     return launch_frame("dd_rows", device, lambda: dd_rows_plain(rows), body)
 

@@ -27,11 +27,11 @@ The spans, each at one boundary of the package:
 
 :data:`counters` holds every counter: ``"launches"``, the launches by
 kernel (``ops.kernels.launch_counts`` is the same dict),
-``"dg_rows_f32_path"``, that kernel's launches by path, ``"model_steps"``,
-the calls of a model's step, ``"pair_bytes"``, the bytes the steps' pair
-conversions read and write (a split 16 an entry: 8 of float64 read, 2 x 4
-of pair written; a combine fused into the update 8 an entry, the pair
-read), so that ``pair_bytes / model_steps`` is the conversions' bytes per
+``"dg_rows_f32_path"`` and ``"dd_rows_path"``, those kernels' launches by
+path, ``"model_steps"``, the calls of a model's step, ``"pair_bytes"``, the
+bytes the steps' pair conversions read and write (a split 16 an entry: 8 of
+float64 read, 2 x 4 of pair written; a combine fused into the update 8 an
+entry, the pair read), so that ``pair_bytes / model_steps`` is the conversions' bytes per
 step, and for each piece of set-up work a count and
 its seconds, timed on every call (the paths are cold):
 
@@ -86,6 +86,8 @@ counters = {
     # dg_rows_f32's launches by path: the tiled path (dof-major operands on
     # 16 bytes) or the general one (any other stored layout)
     "dg_rows_f32_path": {"tiled": 0, "general": 0},
+    # dd_rows's launches by path, likewise
+    "dd_rows_path": {"tiled": 0, "general": 0},
     "model_steps": 0, "pair_bytes": 0,
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,

@@ -347,6 +347,130 @@ def test_dd_rows_checks_its_operands():
         kernels.dd_rows(_dd_rows("meta")[0], block_long=8)
 
 
+# (X, S, I, J, u_has_s, has_f): the four rows of the float64 wave step
+# (grad, div, the face lift, the face restriction at i = 60) and the other
+# template instances of dd_rows's tiled path: S 1-4, u over s or not, X 1-3,
+# F or not; "wide_j" fits no ring
+DD_FAMILIES = {
+    "grad": (3, 3, 35, 35, False, True),
+    "div": (1, 3, 35, 35, False, True),
+    "face": (1, 4, 35, 15, True, True),
+    "restriction": (1, 1, 60, 35, False, False),
+    "mass": (1, 1, 35, 35, False, True),
+    "s1_x3": (3, 1, 10, 7, False, True),
+    "s2_us_x2": (2, 2, 9, 7, True, True),
+    "s2_us_no_f": (1, 2, 9, 7, True, False),
+    "s3_no_f": (1, 3, 5, 7, False, False),
+    "s4_x2": (2, 4, 6, 5, False, True),
+    "wide_j": (1, 1, 24, 150, False, False),
+}
+# the tiled path's shared memory of each family, from the formula by hand:
+# 8 * (ceil(I / IB) IB S J + stages (S_u J + X S) 128), IB = 8 where the
+# register tile keeps one s (S = 1, or the lift's fold), 6 where it keeps
+# three, else 4, the most of 4, 3, 2 stages within 227 KB less 128 bytes (3
+# for the lift), or 0
+DD_TILED_SMEM = {"grad": 210_464, "div": 185_888, "face": 215_808,
+                 "restriction": 161_280, "mass": 158_656,
+                 "s1_x3": 41_856, "s2_us_x2": 75_072, "s2_us_no_f": 59_136,
+                 "s3_no_f": 29_680, "s4_x2": 54_528, "wide_j": 0}
+# (E, block_long): the benchmark's block at a whole number of tiles, E
+# ragged against the tile, the smallest block, E off 4
+DD_EXTENTS = [(4096, 512), (4100, 512), (4096, 4), (1000, 8), (33, 512)]
+
+
+def _dd_family_rows(device, name, E, seed, layout="dof-major"):
+    """Two rows of family *name* at *E* elements as pair views, dof-major
+    unless *layout* names another stored form: "u element-major", "u
+    offset" (every row of u one float off 16 bytes), "planes apart" (u and F
+    the x-th components of larger pair tensors, ``v_pairs[:, x]``, as a
+    model's state), "planes off 16" (u's lo plane one float further)."""
+    X, S_, I, J, u_has_s, has_f = DD_FAMILIES[name]
+    Su = S_ if u_has_s else 1
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(_pairs(rng.standard_normal(shape))).to(
+            device)
+    rows = []
+    for k in range(2):
+        n = Su * J * E
+        u = {"u element-major": lambda: t(E, Su, J).permute(0, 2, 3, 1),
+             "u offset": lambda: t(n + 1)[:, 1:].view(2, Su, J, E),
+             "planes apart": lambda: t(3, Su, J, E)[:, k],
+             "planes off 16": lambda: t(2 * n + 1).as_strided(
+                 (2, Su, J, E), (2 * n + 1, J * E, E, 1))}.get(
+                 layout, lambda: t(Su, J, E))()
+        F = None
+        if has_f:
+            F = t(3, X, S_, E)[:, k] if layout == "planes apart" \
+                else t(X, S_, E)
+        rows.append(kernels.DDRow(u=u, R=t(S_, I, J), F=F))
+    return rows
+
+
+def _dd_family_path(name, E, block_long=512) -> str:
+    return ("general" if E % 4 or block_long % 4 or not DD_TILED_SMEM[name]
+            else "tiled")
+
+
+@pytest.mark.parametrize("name", sorted(DD_FAMILIES))
+def test_dd_rows_tiled_smem_formula(name):
+    X, S_, I, J, u_has_s, has_f = DD_FAMILIES[name]
+    got = kernels.dd_rows_tiled_smem_bytes(X, S_, I, J, u_has_s, has_f)
+    assert got == DD_TILED_SMEM[name] and got <= kernels.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("E,block_long", DD_EXTENTS)
+@pytest.mark.parametrize("name", sorted(DD_FAMILIES))
+def test_dd_rows_path_choice(name, E, block_long):
+    """The wrapper's choice from what it sees: tiled for dof-major pair
+    views at E % 4 = 0 and a block of a multiple of 4 where the ring fits,
+    general otherwise."""
+    rows = _dd_family_rows("cpu", name, E, seed=50)
+    assert kernels.dd_rows_path(rows, block_long=block_long) \
+        == _dd_family_path(name, E, block_long)
+
+
+@pytest.mark.parametrize("layout,block_long", [
+    ("u element-major", 512), ("u offset", 512), ("planes apart", 512),
+    ("planes off 16", 512), ("dof-major", 6), ("dof-major", 100)])
+def test_dd_rows_path_choice_by_layout(layout, block_long):
+    """Element-major u, rows or pair planes off 16 bytes and a block off 4
+    take the general path; a model state's component views (pair planes
+    a multiple of 16 bytes apart) stay tiled."""
+    rows = _dd_family_rows("cpu", "div", 4096, seed=51, layout=layout)
+    tiled = layout in ("dof-major", "planes apart") and block_long % 4 == 0
+    assert kernels.dd_rows_path(rows, block_long=block_long) \
+        == ("tiled" if tiled else "general")
+
+
+@pytest.mark.parametrize("model", ["wave", "maxwell"])
+def test_fp64_model_steps_take_the_tiled_path(monkeypatch, model):
+    """Every dd_rows launch of a float64 step (dof-major pair state, E a
+    multiple of 4, the default block) would take the tiled path: the path
+    chosen on the CPU rows the plans hand to the wrapper."""
+    from feinsum_tpu_torch.ops import dd_emitter
+    paths = []
+
+    def spy(rows, *, block_long, **kw):
+        paths.append(kernels.dd_rows_path(rows, block_long=block_long))
+        return kernels.dd_rows(rows, block_long=block_long, **kw)
+    monkeypatch.setattr(dd_emitter, "dd_rows", spy)
+    E = 256
+    if model == "wave":
+        op = ft.WaveOperator3D(dtype="float64")
+        state, geom = ft.make_wave_state(E, dtype="float64", seed=3,
+                                         device="cpu")
+    else:
+        op = ft.MaxwellOperator3D(dtype="float64")
+        state, geom = ft.make_maxwell_state(E, dtype="float64", seed=3,
+                                            device="cpu")
+    op.make_step(E)(state, geom)
+    # wave: grad, div, restrict, face; Maxwell: its two six-row curls
+    assert len(paths) == {"wave": 4, "maxwell": 2}[model]
+    assert set(paths) == {"tiled"}
+
+
 # {{{ on the card
 
 @pytest.fixture
@@ -536,6 +660,106 @@ def test_dd_rows_shared_memory_guard(cuda_device):
         kernels.dd_rows(rows, block_long=32)
 
 
+def _run_dd_path(rows, want_path, block_long):
+    """Launch dd_rows on *rows*, check that the path counter moved by one
+    launch on *want_path* and the outputs against the plain version; the
+    outputs."""
+    from feinsum_tpu_torch import tracing
+    counts = tracing.counters["dd_rows_path"]
+    before = dict(counts)
+    got = kernels.dd_rows(rows, block_long=block_long)
+    torch.cuda.synchronize()
+    assert counts == {p: before[p] + (p == want_path) for p in before}
+    for g, want in zip(got, kernels.dd_rows_plain(rows)):
+        assert g.shape == want.shape and g.is_contiguous()
+        assert_close(_unpair(g), _unpair(want), rtol=DD_RTOL)
+    return got
+
+
+def _refuse_tiled(monkeypatch):
+    monkeypatch.setattr(kernels, "_dd_path",
+                        lambda rows, dims, block_long: "general")
+
+
+# every family at DD_EXTENTS; the float64 cell's rows at a million elements
+# with the benchmark's block and the smallest
+DD_CASES = [(name, E, block_long) for name in sorted(DD_FAMILIES)
+            for E, block_long in DD_EXTENTS] + [
+    (name, 1 << 20, block_long) for name in ("grad", "div", "face",
+                                             "restriction")
+    for block_long in (4, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,E,block_long", DD_CASES)
+def test_dd_rows_paths_match_plain(cuda_device, monkeypatch, name, E,
+                                   block_long):
+    """Every template instance the families use, on the path the counter
+    shows, against the plain version at 1e-12 of max|ref|; where the tiled
+    path keeps the general path's order (t keeps s: every family but the
+    folded lift's), bit for bit against the general path."""
+    rows = _dd_family_rows(cuda_device, name, E, seed=52)
+    path = _dd_family_path(name, E, block_long)
+    got = _run_dd_path(rows, path, block_long)
+    X, S_, I, J, u_has_s, has_f = DD_FAMILIES[name]
+    if path == "tiled" and not (u_has_s and X == 1):
+        _refuse_tiled(monkeypatch)
+        for g, w in zip(got, _run_dd_path(rows, "general", block_long)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["u element-major", "u offset",
+                                    "planes apart", "planes off 16"])
+@pytest.mark.parametrize("name", ["div", "face"])
+def test_dd_rows_layouts_take_their_path_on_the_card(cuda_device, name,
+                                                     layout):
+    """A model state's component views (pair planes apart) run tiled;
+    element-major u, rows or pair planes off 16 bytes run general."""
+    rows = _dd_family_rows(cuda_device, name, 4096, seed=53, layout=layout)
+    _run_dd_path(rows, "tiled" if layout == "planes apart" else "general",
+                 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["wave", "maxwell"])
+def test_fp64_chained_steps_match_the_general_path(cuda_device,
+                                                   monkeypatch, model):
+    """8 chained float64 steps at E = 8,192, every dd_rows launch on the
+    tiled path, against the same steps with the tiled path refused:
+    Maxwell's curl rows keep the general path's order and agree bit for
+    bit; wave's face lift folds F into u, so its states agree to 1e-12 of
+    the largest increment."""
+    from feinsum_tpu_torch import tracing
+    cls, make_state = {"wave": (ft.WaveOperator3D, ft.make_wave_state),
+                       "maxwell": (ft.MaxwellOperator3D,
+                                   ft.make_maxwell_state)}[model]
+    E = 8192
+    state, geom = make_state(E, dtype="float64", seed=E, device=cuda_device)
+    counts = tracing.counters["dd_rows_path"]
+    ends = {}
+    for path in ("tiled", "general"):
+        with monkeypatch.context() as m:
+            if path == "general":
+                _refuse_tiled(m)
+            step = cls(dtype="float64").make_step(E)
+            before = dict(counts)
+            ends[path] = state
+            for _ in range(8):
+                ends[path] = step(ends[path], geom)
+            torch.cuda.synchronize()
+        # 4 launches a step: wave's four einsums, Maxwell's two six-row
+        # curls in launches of at most four rows
+        assert counts == {p: before[p] + 32 * (p == path) for p in before}
+    for k, old in state.items():
+        got, want = ends["tiled"][k], ends["general"][k]
+        if model == "maxwell":
+            assert torch.equal(got, want)
+        else:
+            assert_close((got - old).cpu().numpy(),
+                         (want - old).cpu().numpy(), rtol=DD_RTOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S_,I,J,u_has_s", [(3, 35, 35, False),
                                             (4, 35, 15, True),
@@ -548,11 +772,23 @@ def test_dd_rows_smem_formula_matches_the_kernel(cuda_device, S_, I, J,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DD_FAMILIES))
+def test_dd_rows_tiled_smem_formula_matches_the_kernel(cuda_device, name):
+    from feinsum_tpu_torch.ops._build import load_library
+    X, S_, I, J, u_has_s, has_f = DD_FAMILIES[name]
+    assert load_library().dd_rows_tiled_smem_bytes(
+        X, S_, I, J, int(u_has_s), int(has_f)) \
+        == kernels.dd_rows_tiled_smem_bytes(X, S_, I, J, u_has_s, has_f)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("E", [777, 1 << 20])
 def test_dd_rows_restriction_rows_match_plain(cuda_device, E):
     """The wave model's face restriction at float64 (ndof 35, 4 x 15 face
     dofs) on ``dd_rows``: (f, j) merged into the kernel's i = 60, against
-    the plain version, one launch."""
+    the plain version, one launch, on the general path at E = 777 and the
+    tiled one at 2^20."""
+    from feinsum_tpu_torch import tracing
     from feinsum_tpu_torch.codegen.program import get_index_lengths
     from feinsum_tpu_torch.ops.dd_emitter import plan_dd_launch, \
         split_to_pairs
@@ -566,9 +802,12 @@ def test_dd_rows_restriction_rows_match_plain(cuda_device, E):
     rows = plan.operands({k: split_to_pairs(t) for k, t in arrays.items()})
     assert tuple(rows[0].R.shape) == (2, 1, 60, 35)
     before = kernels.launch_counts["dd_rows"]
+    paths = dict(tracing.counters["dd_rows_path"])
     (got,) = plan.run(rows)
     torch.cuda.synchronize()
     assert kernels.launch_counts["dd_rows"] == before + 1
+    path = "general" if E % 4 else "tiled"
+    assert tracing.counters["dd_rows_path"][path] == paths[path] + 1
     (want,) = plan.plain(rows)
     assert got.shape == want.shape == (2, 4, 15, E)
     assert_close(_unpair(got), _unpair(want), rtol=DD_RTOL)

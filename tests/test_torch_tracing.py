@@ -152,6 +152,22 @@ def test_launch_counter_is_the_one_dict_and_resets():
         kernels.launch_counts.update(saved)
 
 
+@pytest.mark.parametrize("counter", ["dg_rows_f32_path", "dd_rows_path"])
+def test_path_counters_reset_with_the_launches(counter):
+    """Each kernel's launches by path, one count a path, zeroed with the
+    launch counts."""
+    paths = tracing.counters[counter]
+    assert set(paths) == {"tiled", "general"}
+    saved = dict(paths)
+    try:
+        for path in paths:
+            paths[path] += 1
+        kernels.reset_launch_counts()
+        assert paths == {"tiled": 0, "general": 0}
+    finally:
+        paths.update(saved)
+
+
 # {{{ pair conversions of a float64 step
 
 P, PF, NF = 35, 15, 4
