@@ -9,6 +9,7 @@
     python3 chip_smoke.py --probes-only      # phases 1 and 21 alone
     python3 chip_smoke.py --update-only      # phases 1 and 22 alone
     python3 chip_smoke.py --fp64-only        # phases 1 and 5-6 alone
+    python3 chip_smoke.py --hex-only         # phases 1 and 23 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -201,7 +202,21 @@ Phases; any failure exits non-zero before the final line:
    ``grad[:, x]``), ``pairs_split`` against ``pairs_split_plain`` on the
    wave's float64 v, each bit for bit; counters reset, each case launched
    once and the counters read; each case timed in turns against its plain
-   version, beside its byte bound.
+   version, beside its byte bound;
+23. the spectral-element model ``HexWaveOperator3D`` at its benchmark
+   cell's size, E = 2,000,000 (250M nodes; G holds 2.25e9 floats, so its
+   flat offsets pass 2**31): each of the six executables ``make_step``
+   runs, built by ``op.executables(E)``, on inputs drawn on the card in the
+   shapes the step gives them (the metric products on the merged node
+   axis, the three-row grad on u, the one-axis derivatives on (5, 5, 5, E)
+   tensors), counters reset just before: one ``step_block_f32`` launch
+   each, counted under the mode ``"dense"``; each held against
+   ``step_block_plain`` on the same operands within 2e-5 of the sum of the
+   terms' magnitudes and timed in turns against it, beside its bound; then
+   one model step, counters reset: six ``step_block_f32`` launches, all
+   dense, two of ``step_update`` and nothing else, its increments against
+   the plain per-step route's (``use_pallas=False``) within 2e-5 of their
+   largest, and its time.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -218,8 +233,8 @@ its cases), ``step_update``'s and ``pairs_split``'s phase 22's (summed
 over its cases, no library call); launches are counted over the main path
 (phase 3), the archive replays (phases 6, 8, 10, 16, 18, 20), the consumer
 flow's calls (phase 13), one step of each model (phases 14, 17), phase
-19's runs, phase 21's one drive of each probe case and phase 22's of each
-update case.  It imports no JAX.
+19's runs, phase 21's one drive of each probe case, phase 22's of each
+update case and phase 23's executables and step.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -604,6 +619,8 @@ def main() -> int:
         return update_only(dev, card)
     if "--fp64-only" in sys.argv[1:]:
         return fp64_only(dev, card)
+    if "--hex-only" in sys.argv[1:]:
+        return hex_only(dev, card)
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -781,6 +798,11 @@ def main() -> int:
     for k, n in update_path(dev, label, stats).items():
         launches[k] = launches.get(k, 0) + n
     log(f"[phase] 22 (the state update): {time.perf_counter() - t_phase:.1f}"
+        " s")
+    t_phase = time.perf_counter()
+    for k, n in hex_model_path(dev, label).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[phase] 23 (the hexahedral model): {time.perf_counter() - t_phase:.1f}"
         f" s; all phases {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k]) for k in SOURCES]
@@ -935,6 +957,22 @@ def update_only(dev, card: str) -> int:
     log(card)
     log(json.dumps({"kernels": [stats.entry(k, launches[k])
                                 for k in UPDATE_KERNELS]}))
+    return 0
+
+
+def hex_only(dev, card: str) -> int:
+    """Phase 23 alone, for work on the hexahedral model or on
+    ``step_block_f32`` at its size: its checks, launches and times.  It
+    prints no ``ok`` line."""
+    import torch
+
+    label = (f"[{torch.cuda.get_device_name(0)}, power limit"
+             f" {card.split(',')[-1].strip()}]")
+    t0 = time.perf_counter()
+    launches = hex_model_path(dev, label)
+    log(f"[phase] 23: {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"hex_launches": launches}))
     return 0
 
 
@@ -3578,6 +3616,133 @@ def update_path(dev, label: str, stats: KernelStats) -> dict:
             f" {nb / (ms * 1e9):.3f} TB/s; plain {plain_ms:.4f} ms; bound"
             f" {bytes_ms:.4f} ms ({nb / 1e9:.3f} GB) {label}")
     del cases
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 23: the hexahedral model at its benchmark cell's size
+E_HEX = 2_000_000
+
+
+def _hex_counts(kernels, tracing) -> tuple:
+    """The launches and ``step_block_f32``'s modes counted since the last
+    reset, without the zeros."""
+    return ({k: n for k, n in kernels.launch_counts.items() if n},
+            dict(tracing.counters["step_block_mode"]))
+
+
+def hex_model_path(dev, label: str) -> dict:
+    """Phase 23 (module docstring): ``HexWaveOperator3D``'s six executables
+    at E = 2M, each against ``step_block_plain`` and timed beside its
+    bound, then one whole step against the plain per-step route.  Returns
+    the launches of the counted runs."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import tracing
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts, timeit_cuda
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+
+    E, n = E_HEX, 5
+    op = ft.HexWaveOperator3D(device=dev)
+    fns = op.executables(E)
+    launches: dict = {}
+    for name, program in op.programs.items():
+        e = program.einsum
+        length = n ** 3 * E if "metric" in name else E
+        lengths = get_index_lengths(e, length)
+        plan = plan_cuda_launch(program, lengths)
+        if plan.kernel != "step_block_f32":
+            raise SmokeFailure(f"hex {name} plans onto {plan.kernel}")
+        arrays = apply_layouts(program, device_inputs(e, length, 1, dev))
+        shapes = {k: tuple(t.shape) for k, t in arrays.items()}
+        kernels.reset_launch_counts()
+        (got,) = fns[name](arrays)
+        torch.cuda.synchronize()
+        counts, modes = _hex_counts(kernels, tracing)
+        log(f"[hex] {name} {e.get_subscripts()} E={E} (long axis {length},"
+            f" operands {shapes}): launches {counts}, step_block_mode"
+            f" {modes}")
+        if counts != {"step_block_f32": 1} \
+                or modes != {"dense": 1, "general": 0}:
+            raise SmokeFailure(f"hex {name} ran {counts}, modes {modes}")
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        operands = plan.operands(arrays)
+        (want,) = plan.plain(operands)
+        (terms,) = plan.plain(magnitudes(operands))
+        torch.cuda.synchronize()
+        abs_err, rel = max_err(got, want)
+        over = note_error("step_block_f32", got, want, terms)
+        ok = over <= RTOL
+        log(f"[compare] step_block_f32 hex {name} E={E}: max|kernel-plain|"
+            f" {abs_err:.3e} = {rel:.2e} of max|plain|, {over:.2e} of the"
+            f" terms' magnitudes (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"step_block_f32 disagrees with its plain"
+                               f" version on hex {name}")
+        del operands, got, want, terms
+        torch.cuda.empty_cache()
+        times = timed_in_turns(
+            {"kernel": fns[name],
+             "plain": lambda a, plan=plan: plan.plain(plan.operands(a))},
+            {"kernel": arrays, "plain": arrays})
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        log(f"[time] step_block_f32 hex {name} E={E}: kernel"
+            f" {ms['kernel']:.4f} ms, plain version {ms['plain']:.4f} ms,"
+            f" {bound_text(e, length, program)} (runs {times}) {label}")
+        del arrays
+        torch.cuda.empty_cache()
+
+    # one whole step, against the plain per-step route
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    state = {"u": rand(n, n, n, E), "v": rand(3, n, n, n, E)}
+    geom = {"G": rand(3, 3, n, n, n, E), "D": rand(n, n)}
+    dt = 0.1
+    step = op.make_step(E, dt=dt)
+    step(state, geom)                      # the axis factors made once
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = step(state, geom)
+    torch.cuda.synchronize()
+    counts, modes = _hex_counts(kernels, tracing)
+    log(f"[hex] one step at E={E}: launches {counts}, step_block_mode"
+        f" {modes}")
+    if counts != {"step_block_f32": 6, "step_update": 2} \
+            or modes != {"dense": 6, "general": 0}:
+        raise SmokeFailure(f"a hex step ran {counts}, modes {modes}")
+    for k, c in counts.items():
+        launches[k] = launches.get(k, 0) + c
+    want = ft.HexWaveOperator3D(use_pallas=False, device=dev).make_step(
+        E, dt=dt)(state, geom)
+    torch.cuda.synchronize()
+    for k, old in state.items():
+        # slice by slice along the first axis, in float64: the increments
+        # differ as the new states do
+        worst = largest = 0.0
+        for g, w, o in zip(got[k], want[k], old):
+            w64 = w.double()
+            worst = max(worst, float((g.double() - w64).abs().max()))
+            largest = max(largest, float((w64 - o.double()).abs().max()))
+        gap = worst / largest
+        ok = gap <= RTOL and got[k].shape == old.shape
+        log(f"[compare] hex step {k} E={E}: max|increment - plain route's|"
+            f" = {gap:.2e} of its largest (tolerance {RTOL})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"a hex step's {k} differs from the plain"
+                               f" route by {gap:.2e}")
+    del got, want
+    torch.cuda.empty_cache()
+    step_ms = timeit_cuda(lambda st: _tensors(step(st, geom)), state)
+    log(f"[time] hex step E={E}: {step_ms:.4f} ms, the median of single"
+        f" steps (6 step_block_f32 and 2 step_update launches) {label}")
+    del state, geom
     torch.cuda.empty_cache()
     return launches
 

@@ -14,8 +14,10 @@ replay the archived champion (``sql_utils``) onto the fp64 DG kernel of
 ``compile_fn_with_archive`` (a user's torch function, traced by
 ``torch.fx``, matched against the grammar and replayed from the archive)
 and the DG wave and Maxwell models (``models``).  Public names are those
-of ``feinsum_tpu``.  The package imports ``torch`` and never ``jax`` or
-``feinsum_tpu``.
+of ``feinsum_tpu``, and besides them the spectral-element wave model on
+hexahedra, which that package lacks (``HexWaveOperator3D``,
+``make_hexwave_state``).  The package imports ``torch`` and never ``jax``
+or ``feinsum_tpu``.
 """
 
 from .algebraic import hoist_cses_in_fn
@@ -88,8 +90,10 @@ from .sql_utils import (
     retrieve,
 )
 from .models import (
+    HexWaveOperator3D,
     MaxwellOperator3D,
     WaveOperator3D,
+    make_hexwave_state,
     make_maxwell_state,
     make_wave_state,
 )
@@ -121,6 +125,7 @@ __all__ = (
     "FakeCLDevice",
     "FakeDevice",
     "FreeAxis",
+    "HexWaveOperator3D",
     "InsnInfo",
     "IntParameter",
     "IntermediateResult",
@@ -164,6 +169,7 @@ __all__ = (
     "get_trivial_contraction_schedule",
     "hoist_cses_in_fn",
     "identify_as_einsum",
+    "make_hexwave_state",
     "make_maxwell_state",
     "make_wave_state",
     "map_names",

@@ -1,9 +1,10 @@
 """
-What the DG models share: each einsum's program (the archive's schedule,
-or the reference's default, pinned to dof-major storage) and the storage a
-step runs on, float32 or float64 on float32 hi/lo pairs (``dd_rows``),
-chosen once per step by :class:`StepStorage`, so that a model's step body
-holds its einsums and its update and no storage branch of its own.
+What the models share: each einsum's program (the archive's schedule, or
+the reference's default, pinned to dof-major storage) and the storage a
+step runs on, float32 or, in the DG models, float64 on float32 hi/lo pairs
+(``dd_rows``), chosen once per step by :class:`StepStorage`, so that a
+model's step body holds its einsums and its update and no storage branch of
+its own.
 """
 
 from __future__ import annotations
@@ -116,15 +117,17 @@ def state_update(programs):
     return kernels.step_update_plain
 
 
-class GeometryPairs:
-    """The geometry's pairs for a step on pair storage, split once: a
-    geometry tensor is split again only when the step is given another
-    tensor under its name, or the same one written in place (its
-    ``_version`` moved).  It holds the last tensor split under each name
-    and its pair."""
+class HeldGeometry:
+    """What a step derives from its geometry tensors under *names*
+    (``derive(t)``: a tensor's pair on pair storage, the hexahedral
+    model's axis factors), derived once: a geometry tensor is derived again
+    only when the step is given another tensor under its name, or the same
+    one written in place (its ``_version`` moved).  It holds the last
+    tensor derived under each name and what came of it."""
 
-    def __init__(self, names: tuple) -> None:
+    def __init__(self, names: tuple, derive) -> None:
         self.names = names
+        self._derive = derive
         self._held: dict = {}
 
     def __call__(self, geom: dict) -> dict:
@@ -133,7 +136,7 @@ class GeometryPairs:
             t = geom[name]
             held = self._held.get(name)
             if held is None or held[0] is not t or held[1] != t._version:
-                held = self._held[name] = (t, t._version, to_pairs(t))
+                held = self._held[name] = (t, t._version, self._derive(t))
             out[name] = held[2]
         return out
 
@@ -143,7 +146,7 @@ class StepStorage:
     (:func:`on_pairs`, :func:`state_update`) and read by the step body:
     the geometry and a state tensor as the einsums read them (themselves,
     or on pair storage their pairs, the geometry's split once by
-    :class:`GeometryPairs` under *geometry_names*), a state tensor's
+    :class:`HeldGeometry` under *geometry_names*), a state tensor's
     per-component views (``t[x]``, or ``pair[:, x]``), and the update
     (``update(base, terms, dt, signs=None)``), which takes the einsums'
     outputs in either storage."""
@@ -152,8 +155,8 @@ class StepStorage:
         programs = list(programs)
         self.pairs = on_pairs(programs)
         self.update = state_update(programs)
-        self._geometry = GeometryPairs(geometry_names) if self.pairs \
-            else None
+        self._geometry = HeldGeometry(geometry_names, to_pairs) \
+            if self.pairs else None
 
     def geometry(self, geom: dict) -> dict:
         return geom if self._geometry is None else self._geometry(geom)

@@ -212,11 +212,11 @@ launch_counts = tracing.counters["launches"]
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts and ``dg_rows_f32``'s and ``dd_rows``'s
-    launches by path."""
+    """Zero the launch counts, ``dg_rows_f32``'s and ``dd_rows``'s
+    launches by path and ``step_block_f32``'s by mode."""
     for name in launch_counts:
         launch_counts[name] = 0
-    for counter in ("dg_rows_f32_path", "dd_rows_path"):
+    for counter in ("dg_rows_f32_path", "dd_rows_path", "step_block_mode"):
         for path in tracing.counters[counter]:
             tracing.counters[counter][path] = 0
 
@@ -2162,7 +2162,8 @@ def step_block_f32(rows, table, *, block_long: int,
     contiguous in the stored order ``table.stored_out``.  All rows go in
     one launch (two for a contracted long axis; up to the kernel's row
     limit) unless *one_launch* is false; *block_long* elements per thread
-    block."""
+    block.  Each launch counts under its table's mode (``table.mode``) in
+    ``tracing.counters["step_block_mode"]``."""
     if not rows:
         return []
     E = _sb_check(rows, table)
@@ -2219,6 +2220,7 @@ def step_block_f32(rows, table, *, block_long: int,
                    table.te, int(elem_fastest), E, int(block_long),
                    table.smem_floats,
                    ctypes.c_void_p(None if work is None else work.data_ptr()))
+            tracing.counters["step_block_mode"][table.mode] += 1
         return outs
     return launch_frame("step_block_f32", device,
                         lambda: step_block_plain(rows, table, block_long),

@@ -68,7 +68,7 @@ in VMEM, and a Hopper block's 227 KB holds less.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from math import prod
 from typing import Optional
 
@@ -131,7 +131,10 @@ class StepTable:
     without staging), ``sin_floats`` the floats of each of its two
     buffers (:func:`region_floats`); ``sout`` the output's sub-tile in
     shared memory, which the last step writes and the block copies out
-    (-1: the last step writes the output), ``sout_floats`` its floats."""
+    (-1: the last step writes the output), ``sout_floats`` its floats.
+    ``mode``, set from the steps, is ``"dense"`` when every step is dense,
+    else ``"general"``: the key the table's launches count under in
+    ``tracing.counters["step_block_mode"]``."""
 
     el: Optional[str]
     lengths: tuple
@@ -145,6 +148,11 @@ class StepTable:
     sin_floats: tuple = ()
     sout: int = -1
     sout_floats: int = 0
+    mode: str = field(init=False)
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "mode", "dense" if all(
+            st.mode == "dense" for st in self.steps) else "general")
 
     @property
     def length(self) -> dict:

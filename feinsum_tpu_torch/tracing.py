@@ -11,7 +11,7 @@ device trace; nothing here exports, stores or switches anything.
 The spans, each at one boundary of the package:
 
 * ``feinsum.step:<class>`` — the body of a model's step closure
-  (``models/wave.py``, ``models/maxwell.py``);
+  (``models/wave.py``, ``models/maxwell.py``, ``models/hexwave.py``);
 * ``feinsum.exec:<subscripts>`` — each call of an executable that
   :func:`~feinsum_tpu_torch.codegen.program.build_executable` returns;
 * ``feinsum.kernel:<kernel>`` — a kernel wrapper of ``ops/kernels.py`` or
@@ -28,12 +28,15 @@ The spans, each at one boundary of the package:
 :data:`counters` holds every counter: ``"launches"``, the launches by
 kernel (``ops.kernels.launch_counts`` is the same dict),
 ``"dg_rows_f32_path"`` and ``"dd_rows_path"``, those kernels' launches by
-path, ``"model_steps"``, the calls of a model's step, ``"pair_bytes"``, the
-bytes the steps' pair conversions read and write (a split 16 an entry: 8 of
-float64 read, 2 x 4 of pair written; a combine fused into the update 8 an
-entry, the pair read), so that ``pair_bytes / model_steps`` is the conversions' bytes per
-step, and for each piece of set-up work a count and
-its seconds, timed on every call (the paths are cold):
+path, ``"step_block_mode"``, ``step_block_f32``'s launches by the mode of
+their step table (``"dense"`` when every step is dense, else
+``"general"``), ``"model_steps"``, the calls of a model's step,
+``"pair_bytes"``, the bytes the steps' pair conversions read and write
+(a split 16 an entry: 8 of float64 read, 2 x 4 of pair written; a combine
+fused into the update 8 an entry, the pair read), so that ``pair_bytes /
+model_steps`` is the conversions' bytes per step, and for each piece of
+set-up work a count and its seconds, timed on every call (the paths are
+cold):
 
 * ``executable_builds``, ``executable_build_s`` — builds of an executable,
   each a miss of ``build_executable``'s cache;
@@ -88,6 +91,9 @@ counters = {
     "dg_rows_f32_path": {"tiled": 0, "general": 0},
     # dd_rows's launches by path, likewise
     "dd_rows_path": {"tiled": 0, "general": 0},
+    # step_block_f32's launches by the mode of their step table: every step
+    # dense (register tiles), or any general one (offset tables)
+    "step_block_mode": {"dense": 0, "general": 0},
     "model_steps": 0, "pair_bytes": 0,
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,

@@ -2669,3 +2669,29 @@ def test_probe_stream_kernel_matches_plain(cuda_device, case, block_elems):
     assert torch.equal(got, want)
 
 # }}}
+
+
+@pytest.mark.cuda
+def test_hex_model_step_matches_the_plain_route(cuda_device):
+    """A float32 step of the hexahedral model with its default plan at a
+    ragged E (six ``step_block_f32`` launches, every table dense, and two
+    ``step_update`` launches, nothing else) against the same model on the
+    plain per-step route, increment against increment."""
+    from feinsum_tpu_torch import tracing
+    E, dt = 4099, 0.1
+    state, geom = ft.make_hexwave_state(E, seed=6, device=cuda_device)
+    launches = dict(kernels.launch_counts)
+    modes = dict(tracing.counters["step_block_mode"])
+    got = ft.HexWaveOperator3D().make_step(E, dt=dt)(state, geom)
+    torch.cuda.synchronize()
+    assert {k: n - launches[k] for k, n in kernels.launch_counts.items()
+            if n != launches[k]} == {"step_block_f32": 6, "step_update": 2}
+    assert {k: n - modes[k] for k, n
+            in tracing.counters["step_block_mode"].items()} \
+        == {"dense": 6, "general": 0}
+    want = ft.HexWaveOperator3D(use_pallas=False).make_step(E, dt=dt)(
+        state, geom)
+    for k, old in state.items():
+        assert got[k].shape == old.shape and got[k].is_contiguous()
+        assert_close((got[k].double() - old.double()).cpu().numpy(),
+                     (want[k].double() - old.double()).cpu().numpy())

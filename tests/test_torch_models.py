@@ -18,7 +18,13 @@ is held to the reference's float64 run at one grid step (``jax_enable_x64``
 for that run alone, the inputs drawn as numpy float64 arrays, so that
 nothing is downcast on the way: ROADMAP fault F4) within 1e-12 of max|ref|,
 and the wave step to the benchmark's plain float64 reference
-(``benchmark_torch/configs/wave3d_p4_f64.py``) within its limit."""
+(``benchmark_torch/configs/wave3d_p4_f64.py``) within its limit.
+
+The spectral-element wave operator on hexahedra (``HexWaveOperator3D``),
+which the JAX package lacks, is held to the benchmark's plain reference
+(``benchmark_torch/configs/hexwave3d_q4.py``), and that reference to the
+kron-expanded dense operator, computed here apart; its element operator is
+skew-symmetric, and every program it plans runs on ``step_block_f32``."""
 
 from __future__ import annotations
 
@@ -392,5 +398,191 @@ def test_fp64_wave_step_matches_the_benchmark_reference():
         gap = float((new[k] - (state[k] + inc[k])).abs().max()
                     / inc[k].abs().max())
         assert gap < cfg["check"]["increment_gap_limit"], (k, gap)
+
+# }}}
+
+
+# {{{ the spectral-element wave operator on hexahedra
+
+BENCH = Path(__file__).resolve().parents[1] / "benchmark_torch"
+HEX_CONFIG = "hexwave3d_q4"
+
+
+def _hex_reference():
+    """``(cfg, reference module)`` of the benchmark's hexahedral cell."""
+    import sys
+    if str(BENCH) not in sys.path:
+        sys.path.insert(0, str(BENCH))       # the reference imports plain
+    spec = importlib.util.spec_from_file_location(
+        f"reference_{HEX_CONFIG}", BENCH / "configs" / f"{HEX_CONFIG}.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    cfg = json.loads((BENCH / "configs" / f"{HEX_CONFIG}.json").read_text())
+    return cfg, ref
+
+
+def _hex_inputs(n_elements, seed, dtype=torch.float32):
+    cfg, ref = _hex_reference()
+    state, geom = ref.make_inputs(cfg, n_elements,
+                                  torch.Generator().manual_seed(seed), "cpu")
+    return (cfg, ref, {k: t.to(dtype) for k, t in state.items()},
+            {k: t.to(dtype) for k, t in geom.items()})
+
+
+@pytest.mark.parametrize("n_elements", [37, 64])
+def test_hex_step_matches_the_benchmark_reference(n_elements):
+    """A float32 step of the model with its default plan (CPU tensors: the
+    kernels' plain versions) against the plain reference's increments: the
+    widest gap between the new state and the old plus the increment, over
+    the largest increment, within the configuration's limit."""
+    cfg, ref, state, geom = _hex_inputs(n_elements, 2 ** 33 + n_elements)
+    op = ft.HexWaveOperator3D(**cfg["operator"]["kwargs"])
+    new = op.make_step(n_elements, dt=cfg["dt"])(state, geom)
+    inc = ref.increments(cfg, state, geom)
+    for k in ("u", "v"):
+        assert new[k].shape == state[k].shape and new[k].is_contiguous()
+        # beyond the half unit in the last place that storing costs, as the
+        # benchmark's check (run.gap_terms) counts it
+        half_ulp = 0.5 * (torch.nextafter(new[k].abs(), torch.tensor(
+            float("inf"))) - new[k].abs()).double()
+        excess = ((new[k].double() - (state[k].double() + inc[k].double()))
+                  .abs() - half_ulp).clamp_min(0)
+        gap = float(excess.max() / inc[k].abs().max())
+        assert gap < cfg["check"]["increment_gap_limit"], (k, gap)
+    # the module's forward is one step
+    for k, t in op(state, geom, dt=cfg["dt"]).items():
+        torch.testing.assert_close(t, new[k], rtol=0, atol=0)
+
+
+def test_hex_reference_equals_the_kron_expanded_operator():
+    """The reference's increments in float64 at E = 3 against the dense
+    operator built here apart: D_1 = D (x) I (x) I, D_2 = I (x) D (x) I,
+    D_3 = I (x) I (x) D over the 125 nodes (i slowest), g_x = sum_r G_xr
+    D_r u and d = sum_r D_r (sum_x G_xr v_x)."""
+    E3 = 3
+    cfg, ref, state, geom = _hex_inputs(E3, 11, torch.float64)
+    n = cfg["n"]
+    D, eye = geom["D"], torch.eye(n, dtype=torch.float64)
+    K = [torch.kron(torch.kron(D, eye), eye),
+         torch.kron(torch.kron(eye, D), eye),
+         torch.kron(torch.kron(eye, eye), D)]
+    U = state["u"].reshape(n ** 3, E3)
+    V = state["v"].reshape(3, n ** 3, E3)
+    G = geom["G"].reshape(3, 3, n ** 3, E3)
+    grad = torch.stack([sum(G[x, r] * (K[r] @ U) for r in range(3))
+                        for x in range(3)])
+    div = sum(K[r] @ sum(G[x, r] * V[x] for x in range(3))
+              for r in range(3))
+    inc = ref.increments(cfg, state, geom)
+    dt = cfg["dt"]
+    torch.testing.assert_close(inc["u"].reshape(n ** 3, E3), dt * div,
+                               rtol=1e-12, atol=1e-15)
+    torch.testing.assert_close(inc["v"].reshape(3, n ** 3, E3), dt * grad,
+                               rtol=1e-12, atol=1e-15)
+
+
+def test_hex_operator_is_skew_symmetric():
+    """With D skew (the configuration's draw) div = -grad^T, so <u, d> +
+    <v, g> vanishes: in float64 through the reference, and in float32
+    through the model's step, each against the sum of the terms'
+    magnitudes."""
+    cfg, ref, state, geom = _hex_inputs(40, 5, torch.float64)
+    torch.testing.assert_close(geom["D"], -geom["D"].T, rtol=0, atol=0)
+
+    def balance(inc_u, inc_v):
+        terms = torch.cat([(state["u"] * inc_u).flatten(),
+                           (state["v"] * inc_v).flatten()])
+        return float(terms.sum().abs() / terms.abs().sum())
+    inc = ref.increments(cfg, state, geom)
+    assert balance(inc["u"], inc["v"]) < 1e-13
+    s32 = {k: t.float() for k, t in state.items()}
+    g32 = {k: t.float() for k, t in geom.items()}
+    dt = 0.25       # an increment well above the state's rounding
+    new = ft.HexWaveOperator3D().make_step(40, dt=dt)(s32, g32)
+    got = [(new[k].double() - s32[k].double()) for k in ("u", "v")]
+    assert balance(*got) < 1e-5
+    assert balance(inc["u"], inc["v"] * 0) > 1e-3   # each half alone is not
+
+
+def test_hex_programs_run_on_step_block():
+    """Every program of the model runs on the fused route, each planned
+    onto ``step_block_f32`` with every step dense and no step hoisted: no
+    plain route, and no operand wider than D's stack (3, n, n) besides the
+    streamed ones (no kron-expanded derivative)."""
+    from feinsum_tpu_torch.ops.cuda_emitter import hoist_resident_steps
+    from feinsum_tpu_torch.ops.step_block import plan_step_block
+    op = ft.HexWaveOperator3D()
+    n_elements = 4099
+    for name, program in op.programs.items():
+        assert program.descriptor.backend == "pallas", name
+        long_len = 125 * n_elements if "metric" in name else n_elements
+        lengths = get_index_lengths(program.einsum, long_len)
+        assert plan_cuda_launch(program, lengths).kernel \
+            == "step_block_f32", name
+        kernel_program, hoisted = hoist_resident_steps(program)
+        assert hoisted == (), name
+        table = plan_step_block(kernel_program, lengths)
+        assert table.mode == "dense", name
+        for row in program.einsum.args:
+            for arg in row:
+                if all(isinstance(d, int) for d in arg.shape):
+                    assert np.prod(arg.shape) <= 3 * 5 * 5, (name, arg)
+    assert list(op.programs) == ["grad_axes", "grad_metric", "div_metric",
+                                 "div_1", "div_2", "div_3"]
+
+
+def test_hex_leaves_the_tet_plans_as_they_were():
+    """Building and stepping the hexahedral model changes no float32 plan
+    of the tetrahedral models: each program equals the one built before
+    it, on ``dg_rows_f32``."""
+    before = {cls: _programs(cls(**widths))
+              for cls, _, _, widths in MODELS_F64.values()}
+    cfg, _, state, geom = _hex_inputs(8, 3)
+    ft.HexWaveOperator3D().make_step(8)(state, geom)
+    for cls, _, _, widths in MODELS_F64.values():
+        after = _programs(cls(**widths))
+        assert after == before[cls]
+        for name, program in after.items():
+            assert plan_cuda_launch(program, get_index_lengths(
+                program.einsum, E)).kernel == "dg_rows_f32", name
+
+
+def test_hex_axis_factors_are_made_once_per_d(monkeypatch):
+    """The grad's factors (D, I, I), (I, D, I), (I, I, D) are made on the
+    first step and again only for another D or one written in place."""
+    from feinsum_tpu_torch.models import hexwave
+    made, axis_factors = [], hexwave.axis_factors
+
+    def counted(D):
+        made.append(D)
+        return axis_factors(D)
+    monkeypatch.setattr(hexwave, "axis_factors", counted)
+    cfg, ref, state, geom = _hex_inputs(5, 9)
+    step = ft.HexWaveOperator3D().make_step(5)
+    step(state, geom)
+    step(state, geom)
+    assert len(made) == 1
+    A, B, C = axis_factors(geom["D"])
+    eye = torch.eye(5)
+    for r, factor in enumerate((A, B, C)):
+        for s in range(3):
+            assert torch.equal(factor[s], geom["D"] if s == r else eye)
+    geom["D"].mul_(1.0)                        # written in place
+    step(state, geom)
+    step(state, dict(geom, D=geom["D"].clone()))   # another tensor
+    assert len(made) == 3
+
+
+def test_hex_model_refuses_float64_and_draws_its_state():
+    """The model runs float32 alone and takes no precision: a ``dtype``
+    is refused; its state is drawn in its layouts, the same for a seed."""
+    with pytest.raises(TypeError, match="dtype"):
+        ft.HexWaveOperator3D(dtype="float64")
+    state, geom = ft.make_hexwave_state(6, seed=2, device="cpu")
+    assert {k: tuple(t.shape) for k, t in {**state, **geom}.items()} == {
+        "u": (5, 5, 5, 6), "v": (3, 5, 5, 5, 6), "G": (3, 3, 5, 5, 5, 6),
+        "D": (5, 5)}
+    again, _ = ft.make_hexwave_state(6, seed=2, device="cpu")
+    assert all(torch.equal(state[k], again[k]) for k in state)
 
 # }}}

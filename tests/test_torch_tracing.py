@@ -2,9 +2,11 @@
 CPU: the spans a model's step records under the torch profiler, nothing
 entered without one, the set-up counters, the launch counter, the pair
 conversions of a float64 step (their spans inside the step's, their bytes
-and the steps counted by hand), and the benchmark's readers of the spans
-and counters (``benchmark_torch/metrics/``) on synthetic runs.  This file
-imports no JAX."""
+and the steps counted by hand), the hexahedral model's step (its spans,
+``step_block_f32``'s launches counted by table mode through a stand-in
+library), and the benchmark's readers of the spans and counters
+(``benchmark_torch/metrics/``) on synthetic runs.  This file imports no
+JAX."""
 
 from __future__ import annotations
 
@@ -368,5 +370,143 @@ def test_pair_bytes_per_step_reads_the_counters(monkeypatch):
     monkeypatch.setattr(tracing, "counters",
                         {"pair_bytes": 0, "model_steps": 0})
     assert read(_run([], 1)) is None
+
+# }}}
+
+
+# {{{ the hexahedral model
+
+HEX_EXECS = ("grad_axes", "grad_metric", "div_metric", "div_1", "div_2",
+             "div_3")
+
+
+def test_a_hex_step_nests_its_executable_spans_and_counts_itself():
+    op = ft.HexWaveOperator3D()
+    state, geom = ft.make_hexwave_state(E, seed=1, device="cpu")
+    step = op.make_step(E)
+    step(state, geom)
+    c = tracing.counters
+    steps = c["model_steps"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, geom)
+    assert c["model_steps"] == steps + 1
+    (s_name, s_lo, s_hi), = _spans(prof, "feinsum.step:")
+    assert s_name == "feinsum.step:HexWaveOperator3D"
+    execs = sorted(_spans(prof, "feinsum.exec:"), key=lambda s: s[1])
+    assert [name for name, _, _ in execs] == [
+        f"feinsum.exec:{op.programs[n].einsum.get_subscripts()}"
+        for n in HEX_EXECS]
+    assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in execs)
+    assert not _spans(prof, "feinsum.kernel:")
+
+
+def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
+    """Each ``step_block_f32`` launch counts once under its table's mode:
+    the hexahedral step's six, all dense, beside its two ``step_update``
+    launches; a table with a general step counts as general.  The wrappers
+    run their CUDA branch on CPU tensors against a stand-in library whose
+    every entry returns 0 (no kernel runs)."""
+    from feinsum_tpu_torch.ops.step_block import plan_step_block
+
+    class Library:
+        def __getattr__(self, entry):
+            return (lambda: 8) if entry.endswith("_max_rows") \
+                else (lambda *args: 0)
+
+    def frame(name, device, plain, body):
+        def launch(entry, *args):
+            assert entry(*args) == 0
+            tracing.count_launch(name)
+        return body(Library(), launch)
+    monkeypatch.setattr(kernels, "launch_frame", frame)
+    modes = tracing.counters["step_block_mode"]
+    saved = dict(kernels.launch_counts), dict(modes)
+    try:
+        kernels.reset_launch_counts()
+        op = ft.HexWaveOperator3D()
+        state, geom = ft.make_hexwave_state(E, seed=2, device="cpu")
+        op.make_step(E)(state, geom)
+        assert modes == {"dense": 6, "general": 0}
+        assert kernels.launch_counts["step_block_f32"] == 6
+        assert kernels.launch_counts["step_update"] == 2
+        # three operands in one step (the trivial schedule): general
+        e = ft.einsum("ai,bj,eab->eij", ft.array("X", (3, 4), "float32"),
+                      ft.array("Y", (3, 5), "float32"),
+                      ft.array("U", ("E", 3, 3), "float32"))
+        program = ft.generate_program(e).with_descriptor(backend="pallas")
+        table = plan_step_block(program, {"a": 3, "b": 3, "i": 4, "j": 5,
+                                          "e": 16})
+        assert table.mode == "general"
+        kernels.step_block_f32([[torch.rand(3, 4), torch.rand(3, 5),
+                                 torch.rand(16, 3, 3)]], table, block_long=8)
+        assert modes == {"dense": 6, "general": 1}
+        kernels.reset_launch_counts()
+        assert modes == {"dense": 0, "general": 0}
+    finally:
+        kernels.launch_counts.update(saved[0])
+        modes.update(saved[1])
+
+# }}}
+
+
+# {{{ the hexahedral cell's readers
+
+# the readers the hexahedral cell reports: its own roofline share, and the
+# shared ones it is listed under
+HEX_READERS = ("sumfact_roofline", "step_mfu", "launches_per_step",
+               "update_ms_per_step", "device_idle_pct", "host_ms_per_step")
+SB = ("void (anonymous namespace)::step_block_kernel<true>"
+      "((anonymous namespace)::Plan)")
+UPDATE32 = ("void (anonymous namespace)::step_update_kernel<float, 3, false>"
+            "((anonymous namespace)::UpdateArgs, float)")
+
+
+def _hex_run(device, steps=4, launches=32):
+    """A synthetic traced run of the hexahedral cell at E = 1,000."""
+    cfg = json.loads((BENCH / "configs" / "hexwave3d_q4.json").read_text())
+    peaks = {"flops": {"float32": 67e12}, "bytes_per_s": 3.35e12}
+    return SimpleNamespace(cfg=cfg, n_elements=1000, peaks=peaks,
+                           step_s=0.002, trace=SimpleNamespace(
+                               device=device, steps=steps, host=[],
+                               launches=launches, window_s=0.01,
+                               host_calls_s=[0.001, 0.003]))
+
+
+def test_hex_readers_on_a_synthetic_trace():
+    """The hexahedral cell's readers on a synthetic traced run:
+    ``sumfact_roofline``, the step's least time (12,000 operations and
+    8,500 bytes an element, D's 100 bytes once) over the device time per
+    step of the program's launches but ``step_update``; ``step_mfu``, the
+    same least time over the untraced time per step; ``launches_per_step``,
+    the launch counter per traced step; ``update_ms_per_step``, the
+    ``step_update`` launches per step; ``device_idle_pct`` and
+    ``host_ms_per_step`` as in every cell."""
+    if str(BENCH) not in sys.path:
+        sys.path.insert(0, str(BENCH))
+    import yardstick
+    run = _hex_run([(SB, 0.0, 0.003), (UPDATE32, 0.003, 0.004),
+                    (ADD, 0.004, 0.005), ("memset", 0.005, 0.0051),
+                    (SB, 0.006, 0.007)])
+    flops, nbytes = yardstick.step_counts(run.cfg, 1000)
+    assert (flops, nbytes) == (12000 * 1000, 8500 * 1000 + 100)
+    least = nbytes / 3.35e12
+    assert _reader("sumfact_roofline")(run) == pytest.approx(
+        100 * least / (0.004 / 4))
+    assert _reader("step_mfu")(run) == pytest.approx(100 * least / 0.002)
+    assert _reader("launches_per_step")(run) == 8
+    assert _reader("update_ms_per_step")(run) == pytest.approx(1e3 * 0.001
+                                                               / 4)
+    assert _reader("device_idle_pct")(run) == pytest.approx(
+        100 * (1 - 0.0061 / 0.01))
+    assert _reader("host_ms_per_step")(run) == pytest.approx(2.0)
+    # nothing it reads: no trace, no peaks, or no launch but the update's
+    only_update = _hex_run([(UPDATE32, 0.0, 0.001), (ADD, 0.001, 0.002)])
+    assert _reader("sumfact_roofline")(only_update) is None
+    for name in HEX_READERS:
+        assert _reader(name)(SimpleNamespace(trace=None, peaks=None)) \
+            is None
+    for name in ("sumfact_roofline", "step_mfu"):
+        assert _reader(name)(SimpleNamespace(
+            trace=run.trace, peaks=None)) is None
 
 # }}}
