@@ -210,13 +210,20 @@ Phases; any failure exits non-zero before the final line:
    shapes the step gives them (the metric products on the merged node
    axis, the three-row grad on u, the one-axis derivatives on (5, 5, 5, E)
    tensors), counters reset just before: one ``step_block_f32`` launch
-   each, counted under the mode ``"dense"``; each held against
+   each, counted under its path, ``"stream"`` for the two metric
+   products, ``"dense"`` for the others; each held against
    ``step_block_plain`` on the same operands within 2e-5 of the sum of the
-   terms' magnitudes and timed in turns against it, beside its bound; then
-   one model step, counters reset: six ``step_block_f32`` launches, all
-   dense, two of ``step_update`` and nothing else, its increments against
+   terms' magnitudes and timed in turns against it, beside its bound (the
+   metric products also on the same values one float off 16 bytes, one
+   ``"dense"`` launch each, whose output must equal the stream path's bit
+   for bit: the dense path's time in the same run); then
+   one model step, counters reset: six ``step_block_f32`` launches, two
+   on the stream path and four dense, two of ``step_update`` and nothing
+   else, its increments against
    the plain per-step route's (``use_pallas=False``) within 2e-5 of their
-   largest, and its time.
+   largest, and its time; then one step at E - 1 (n^3 E % 4 != 0, the
+   metric products' output rows off 16 bytes): six dense launches, and
+   its time.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -230,7 +237,9 @@ kernels' phase 15's, the lane-pack kernels' phase 18's (g = 8, their
 bound that of the logical einsum), ``step_block_f32``'s phase 19's,
 ``tc_steps_f32``'s phase 20's, the probe kernels' phase 21's (summed over
 its cases), ``step_update``'s and ``pairs_split``'s phase 22's (summed
-over its cases, no library call); launches are counted over the main path
+over its cases, no library call), ``step_block_stream``'s (the stream path
+of ``step_block_f32``) phase 23's two metric products, whose launches it
+counts apart and ``step_block_f32`` counts too; launches are counted over the main path
 (phase 3), the archive replays (phases 6, 8, 10, 16, 18, 20), the consumer
 flow's calls (phase 13), one step of each model (phases 14, 17), phase
 19's runs, phase 21's one drive of each probe case, phase 22's of each
@@ -283,6 +292,7 @@ REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "lane_pack_dg_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "lane_pack_dg_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "step_block_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "step_block_stream": "feinsum_tpu/ops/pallas_emitter.py:464",
             "tc_steps_f32": "feinsum_tpu/ops/pallas_emitter.py:268",
             "probe_stream_f32": "scripts/tpu_layout_probe.py:75;"
                                 " scripts/tpu_fold_probe.py:84, :96;"
@@ -321,6 +331,7 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "lane_pack_dg_f32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
            "lane_pack_dg_3xtf32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
            "step_block_f32": "feinsum_tpu_torch/csrc/step_block.cu",
+           "step_block_stream": "feinsum_tpu_torch/csrc/step_block.cu",
            "tc_steps_f32": "feinsum_tpu_torch/csrc/tc_steps.cu",
            "probe_stream_f32": "feinsum_tpu_torch/csrc/probe_stream.cu",
            "probe_apply_f32": "feinsum_tpu_torch/csrc/probe_apply.cu",
@@ -800,7 +811,7 @@ def main() -> int:
     log(f"[phase] 22 (the state update): {time.perf_counter() - t_phase:.1f}"
         " s")
     t_phase = time.perf_counter()
-    for k, n in hex_model_path(dev, label).items():
+    for k, n in hex_model_path(dev, label, stats).items():
         launches[k] = launches.get(k, 0) + n
     log(f"[phase] 23 (the hexahedral model): {time.perf_counter() - t_phase:.1f}"
         f" s; all phases {time.perf_counter() - t0:.1f} s")
@@ -962,17 +973,21 @@ def update_only(dev, card: str) -> int:
 
 def hex_only(dev, card: str) -> int:
     """Phase 23 alone, for work on the hexahedral model or on
-    ``step_block_f32`` at its size: its checks, launches and times.  It
-    prints no ``ok`` line."""
+    ``step_block_f32`` at its size: its checks, launches and times, and
+    the stream path's entry of the ``kernels`` line.  It prints no ``ok``
+    line."""
     import torch
 
     label = (f"[{torch.cuda.get_device_name(0)}, power limit"
              f" {card.split(',')[-1].strip()}]")
+    stats = KernelStats()
     t0 = time.perf_counter()
-    launches = hex_model_path(dev, label)
+    launches = hex_model_path(dev, label, stats)
     log(f"[phase] 23: {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"hex_launches": launches}))
+    log(json.dumps({"kernels": [stats.entry(
+        "step_block_stream", launches["step_block_stream"])]}))
     return 0
 
 
@@ -3625,17 +3640,33 @@ E_HEX = 2_000_000
 
 
 def _hex_counts(kernels, tracing) -> tuple:
-    """The launches and ``step_block_f32``'s modes counted since the last
+    """The launches and ``step_block_f32``'s paths counted since the last
     reset, without the zeros."""
     return ({k: n for k, n in kernels.launch_counts.items() if n},
-            dict(tracing.counters["step_block_mode"]))
+            {k: n for k, n in tracing.counters["step_block_mode"].items()
+             if n})
 
 
-def hex_model_path(dev, label: str) -> dict:
+def _off16(arrays: dict) -> dict:
+    """Copies of *arrays* one float into their storage: the same values
+    off 16 bytes, which ``step_block_f32``'s stream path refuses."""
+    import torch
+    out = {}
+    for k, t in arrays.items():
+        buf = torch.empty(t.numel() + 1, device=t.device)[1:]
+        out[k] = buf.view(t.shape).copy_(t)
+    return out
+
+
+def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
     """Phase 23 (module docstring): ``HexWaveOperator3D``'s six executables
     at E = 2M, each against ``step_block_plain`` and timed beside its
-    bound, then one whole step against the plain per-step route.  Returns
-    the launches of the counted runs."""
+    bound (the metric products on both paths of ``step_block_f32``, the
+    stream path's times into *stats* as ``step_block_stream``), then one
+    whole step against the plain per-step route, and one at E - 1, which
+    the stream path does not take.  Returns the launches of
+    the counted runs (``step_block_stream``: the timed metric products'
+    stream-path launches, also counted under ``step_block_f32``)."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -3665,8 +3696,8 @@ def hex_model_path(dev, label: str) -> dict:
         log(f"[hex] {name} {e.get_subscripts()} E={E} (long axis {length},"
             f" operands {shapes}): launches {counts}, step_block_mode"
             f" {modes}")
-        if counts != {"step_block_f32": 1} \
-                or modes != {"dense": 1, "general": 0}:
+        path = "stream" if "metric" in name else "dense"
+        if counts != {"step_block_f32": 1} or modes != {path: 1}:
             raise SmokeFailure(f"hex {name} ran {counts}, modes {modes}")
         for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
@@ -3675,25 +3706,56 @@ def hex_model_path(dev, label: str) -> dict:
         (terms,) = plan.plain(magnitudes(operands))
         torch.cuda.synchronize()
         abs_err, rel = max_err(got, want)
-        over = note_error("step_block_f32", got, want, terms)
+        kernel = "step_block_stream" if path == "stream" else "step_block_f32"
+        over = note_error(kernel, got, want, terms)
         ok = over <= RTOL
-        log(f"[compare] step_block_f32 hex {name} E={E}: max|kernel-plain|"
+        log(f"[compare] {kernel} hex {name} E={E}: max|kernel-plain|"
             f" {abs_err:.3e} = {rel:.2e} of max|plain|, {over:.2e} of the"
             f" terms' magnitudes (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SmokeFailure(f"step_block_f32 disagrees with its plain"
+            raise SmokeFailure(f"{kernel} disagrees with its plain"
                                f" version on hex {name}")
+        routes = {"kernel": fns[name],
+                  "plain": lambda a, plan=plan: plan.plain(plan.operands(a))}
+        inputs = {"kernel": arrays, "plain": arrays}
+        if path == "stream":
+            # the same values off 16 bytes take the block kernel's dense
+            # path, whose output the stream path's equals bit for bit
+            inputs["dense"] = _off16(arrays)
+            kernels.reset_launch_counts()
+            (dense_out,) = fns[name](inputs["dense"])
+            torch.cuda.synchronize()
+            counts, modes = _hex_counts(kernels, tracing)
+            if counts != {"step_block_f32": 1} or modes != {"dense": 1}:
+                raise SmokeFailure(f"hex {name} off 16 bytes ran {counts},"
+                                   f" modes {modes}")
+            same = torch.equal(dense_out, got)
+            log(f"[compare] step_block_f32 hex {name} E={E}: dense path"
+                f" (off 16 bytes) against the stream path, bit for bit"
+                f" {'ok' if same else 'FAIL'}")
+            if not same:
+                d_err, _ = max_err(dense_out, got)
+                raise SmokeFailure(f"hex {name}: the stream path differs"
+                                   f" from the dense path by {d_err:.3e}")
+            del dense_out
+            routes["dense"] = fns[name]
         del operands, got, want, terms
         torch.cuda.empty_cache()
-        times = timed_in_turns(
-            {"kernel": fns[name],
-             "plain": lambda a, plan=plan: plan.plain(plan.operands(a))},
-            {"kernel": arrays, "plain": arrays})
+        times = timed_in_turns(routes, inputs)
         ms = {k: sum(v) / len(v) for k, v in times.items()}
-        log(f"[time] step_block_f32 hex {name} E={E}: kernel"
-            f" {ms['kernel']:.4f} ms, plain version {ms['plain']:.4f} ms,"
-            f" {bound_text(e, length, program)} (runs {times}) {label}")
-        del arrays
+        nb = row_bound(e, length, program)[0] * PEAK_BYTES_PER_MS
+        rates = ", ".join(f"{k} {ms[k]:.4f} ms ({nb / (ms[k] * 1e9):.3f}"
+                          f" TB/s)" for k in routes if k != "plain")
+        log(f"[time] step_block_f32 hex {name} E={E}: {path} path {rates},"
+            f" plain version {ms['plain']:.4f} ms,"
+            f" {bound_text(e, length, program)} ({nb / 1e9:.3f} GB; runs"
+            f" {times}) {label}")
+        if path == "stream":
+            stats.add("step_block_stream", e, length, ms["kernel"],
+                      ms["plain"], program=program)
+            launches["step_block_stream"] = \
+                launches.get("step_block_stream", 0) + 1
+        del arrays, inputs
         torch.cuda.empty_cache()
 
     # one whole step, against the plain per-step route
@@ -3714,7 +3776,7 @@ def hex_model_path(dev, label: str) -> dict:
     log(f"[hex] one step at E={E}: launches {counts}, step_block_mode"
         f" {modes}")
     if counts != {"step_block_f32": 6, "step_update": 2} \
-            or modes != {"dense": 6, "general": 0}:
+            or modes != {"dense": 4, "stream": 2}:
         raise SmokeFailure(f"a hex step ran {counts}, modes {modes}")
     for k, c in counts.items():
         launches[k] = launches.get(k, 0) + c
@@ -3741,7 +3803,33 @@ def hex_model_path(dev, label: str) -> dict:
     torch.cuda.empty_cache()
     step_ms = timeit_cuda(lambda st: _tensors(step(st, geom)), state)
     log(f"[time] hex step E={E}: {step_ms:.4f} ms, the median of single"
-        f" steps (6 step_block_f32 and 2 step_update launches) {label}")
+        f" steps (6 step_block_f32, 2 of them streamed, and 2 step_update"
+        f" launches) {label}")
+
+    # one element fewer: n^3 E % 4 != 0 puts the metric products' output
+    # rows off 16 bytes, so every launch keeps the block kernel
+    odd = E - 1
+    state = {k: t[..., :odd].contiguous() for k, t in state.items()}
+    geom = {"G": geom["G"][..., :odd].contiguous(), "D": geom["D"]}
+    step = op.make_step(odd, dt=dt)
+    step(state, geom)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step(state, geom)
+    torch.cuda.synchronize()
+    counts, modes = _hex_counts(kernels, tracing)
+    log(f"[hex] one step at E={odd}: launches {counts}, step_block_mode"
+        f" {modes}")
+    if counts != {"step_block_f32": 6, "step_update": 2} \
+            or modes != {"dense": 6}:
+        raise SmokeFailure(f"a hex step at E={odd} ran {counts}, modes"
+                           f" {modes}")
+    for k, c in counts.items():
+        launches[k] = launches.get(k, 0) + c
+    odd_ms = timeit_cuda(lambda st: _tensors(step(st, geom)), state)
+    log(f"[time] hex step E={odd}: {odd_ms:.4f} ms, the median of single"
+        f" steps (6 step_block_f32 on the block kernel, 2 step_update"
+        f" launches) {label}")
     del state, geom
     torch.cuda.empty_cache()
     return launches

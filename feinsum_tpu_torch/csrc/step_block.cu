@@ -63,11 +63,38 @@
 // bounds the blocks per SM.  A general step of several contracted letters
 // reads its tables per term.
 //
+// The stream path, a kernel of its own (step_block_stream), for a table of
+// one dense element step whose operands are both streamed, with no batch
+// letter and a result over one operand's letters alone: per element
+// out[m] = sum_k W[m, k] * x[k], W the operand that carries the result's
+// letters, x the other, of NM x NK entries (each up to kStreamMax: the
+// metric products of sum factorization, xrn,rn->xn and xrn,xn->rn, are 3 x
+// 3).  The host takes it (ops/kernels.py::step_block_path) only when e lies
+// at stride 1 and every pointer and entry stride on 16 bytes, and builds
+// the step's dense tables with the tensors' own offsets.  Such a step does
+// 2 NM NK flops for 4 (NM NK + NK + NM) bytes an element, so bytes bound
+// it, and staging in shared memory only adds work: a thread takes four
+// consecutive elements, loads every entry of them as one 16-byte load
+// (ld.global.nc.v4) straight into registers, all NK + NM NK of them before
+// its first FMA, sums in registers and stores each result entry with one
+// 16-byte store; the blocks cover every group of four (up to kStreamBlocks
+// a row, then each thread takes the next groups a grid apart).  No shared
+// memory, no barrier, no table in the loop: the entries' offsets are
+// computed once per thread.  The 3 x 3 instance holds 15 entries, 60
+// floats, in registers (74 registers, no spill); the last E % 4 elements
+// take one thread each.  On an H100 at 250M elements the 3 x 3 product
+// streams at 3.16 TB/s with a block for every 256 groups, at 3.05 with a
+// grid of only the blocks resident at once walking them.  The sums are
+// the dense path's, term for term (fmaf is exact in its product, so the
+// operands' order does not matter): its results are the dense path's bit
+// for bit.
+//
 // Float32 throughout; each entry's products are summed in the contracted
 // entries' order, one fmaf per term.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -82,6 +109,9 @@ constexpr int kMaxRT = 8;
 constexpr int kStepInts = 24, kStepTables = 18, kStageInts = 8;
 constexpr int kSumX = 32, kSumY = 32;   // second launch: entries x groups
 constexpr size_t kMaxSmemBytes = 232448;
+constexpr int kStreamMax = 3;   // the stream path's NM, NK at most
+constexpr long long kStreamBlocks = 1 << 20;   // its blocks a row at most
+enum Path { kBlockPath = 0, kStreamPath = 1 };
 
 enum Kind { kFree = 0, kElement = 1, kReduce = 2 };
 
@@ -519,6 +549,10 @@ __device__ __forceinline__ void sub_tiles(const Plan& p, const Row& rw,
   SB_ELEMENT(N, A, 4) SB_ELEMENT(N, A, 5) SB_ELEMENT(N, A, 6)               \
   SB_ELEMENT(N, A, 7) SB_ELEMENT(N, A, 8)
 
+// The stream path's instances (NM, NK), each up to kStreamMax
+#define SB_STREAM_ROW(NM) SB_STREAM(NM, 1) SB_STREAM(NM, 2) SB_STREAM(NM, 3)
+#define SB_STREAM_SHAPES SB_STREAM_ROW(1) SB_STREAM_ROW(2) SB_STREAM_ROW(3)
+
 // One step on n elements from e0 (a free step: n = 1, e0 = 0).  Not
 // inlined: it holds every step instance, and its two call sites (the free
 // steps, the sub-tiles' loop) would each compile them all.
@@ -777,6 +811,101 @@ step_block_sum(const __grid_constant__ Plan p,
   }
 }
 
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The stream path (the note above): the one step of row blockIdx.y,
+// out[m] = sum_k W[m, k] * x[k] for every element, through its dense tables
+// (A_m, A_k, A_b, B_n, B_k, B_b, D_m, D_n, D_b; K's as strides when
+// affine), which hold the tensors' own offsets.  W is operand 0 when the
+// step has no N letter (its rows are M), else operand 1 (its rows are N).
+template <int NM, int NK>
+__global__ void __launch_bounds__(kThreads)
+step_block_stream(const __grid_constant__ Plan p,
+                  const long long* __restrict__ tables) {
+  const Row& rw = p.row[blockIdx.y];
+  const long long* tab = tables + blockIdx.y * p.row_len;
+  const Step& st = p.step[0];
+  const bool wa = st.nN == 1;
+  auto at = [&](int q, int i) { return tab[st.d[q] + i]; };
+  auto kth = [&](int q, int k) {
+    return st.affine ? k * st.d[q] : tab[st.d[q] + k];
+  };
+  long long ow[NM][NK], ox[NK], oo[NM];
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    ox[k] = wa ? at(3, 0) + kth(4, k) + at(5, 0)
+               : at(0, 0) + kth(1, k) + at(2, 0);
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      ow[m][k] = wa ? at(0, m) + kth(1, k) + at(2, 0)
+                    : at(3, m) + kth(4, k) + at(5, 0);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    oo[m] = (wa ? at(6, m) + at(7, 0) : at(6, 0) + at(7, m)) + at(8, 0);
+  }
+  const float* W = rw.in[st.src[wa ? 0 : 1]];
+  const float* X = rw.in[st.src[wa ? 1 : 0]];
+  float* out = rw.out;
+  const long long groups = p.E / 4;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long g = first; g < groups; g += step) {
+    const long long e = 4 * g;
+    float4 x[NK], w[NM][NK];
+#pragma unroll
+    for (int k = 0; k < NK; ++k) x[k] = ldg4(X + ox[k] + e);
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+#pragma unroll
+      for (int k = 0; k < NK; ++k) w[m][k] = ldg4(W + ow[m][k] + e);
+    }
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
+        acc.x = fmaf(w[m][k].x, x[k].x, acc.x);
+        acc.y = fmaf(w[m][k].y, x[k].y, acc.y);
+        acc.z = fmaf(w[m][k].z, x[k].z, acc.z);
+        acc.w = fmaf(w[m][k].w, x[k].w, acc.w);
+      }
+      *reinterpret_cast<float4*>(out + oo[m] + e) = acc;
+    }
+  }
+  const long long e = 4 * groups + first;   // the last E % 4 elements
+  if (e < p.E) {
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
+        acc = fmaf(W[ow[m][k] + e], X[ox[k] + e], acc);
+      }
+      out[oo[m] + e] = acc;
+    }
+  }
+}
+
+// One launch of the stream path's NM x NK instance: a block per kThreads
+// groups of four elements (one for the tail alone), at most kStreamBlocks a
+// row, blockIdx.y the row.
+template <int NM, int NK>
+cudaError_t launch_stream(const Plan& p, const long long* tab, int nrows,
+                          cudaStream_t s) {
+  static_assert(NM <= kStreamMax && NK <= kStreamMax, "a stream instance");
+  const long long blocks = std::max(
+      1LL, std::min(kStreamBlocks, (p.E / 4 + kThreads - 1) / kThreads));
+  step_block_stream<NM, NK><<<dim3(static_cast<unsigned>(blocks),
+                                   static_cast<unsigned>(nrows)),
+                              kThreads, 0, s>>>(p, tab);
+  return cudaGetLastError();
+}
+
 bool dense_tile_built(int rm, int rn) {
   bool built = false;
 #define SB_DENSE(RM, RN) built |= rm == RM && rn == RN;
@@ -799,20 +928,25 @@ int step_block_f32_max_rows() { return kMaxRows; }
 // {res, res_n, buf, buf_n, n, pitch, efast, gaff}, the last the output's
 // sub-tile; stage_t: (ninputs + 1) x goff (with gaff, the entries'
 // stride); tables: nrows x row_len int64 offsets on the card; smem_floats:
-// shared memory per block; workspace: nrows * ceil(E / block_long) * n_out floats when the last step
-// contracts e.  Returns the CUDA error of the launches (0 on success).
+// shared memory per block; path: 0 the block kernel, 1 the stream path
+// (ops/kernels.py::step_block_path chose it; its tables hold the tensors'
+// own offsets); workspace: nrows * ceil(E / block_long) * n_out floats when
+// the last step contracts e.  Returns the CUDA error of the launches (0 on
+// success).
 int step_block_f32(int nrows, int ninputs, void* const* ptrs,
                    const long long* es, int nsteps, const int* steps_i,
                    const long long* steps_t, const int* stage_i,
                    const long long* stage_t, const void* tables,
                    long long row_len, int te, int elem_fastest, long long E,
-                   int block_long, int smem_floats, void* workspace,
-                   void* stream) {
+                   int block_long, int smem_floats, int path,
+                   void* workspace, void* stream) {
   if (nrows < 1 || nrows > kMaxRows || ninputs < 1 || ninputs > kMaxInputs ||
       nsteps < 1 || nsteps > kMaxSteps || te < 1 || E < 1 || block_long < 1 ||
-      smem_floats < 0 || tables == nullptr) {
+      smem_floats < 0 || tables == nullptr ||
+      (path != kBlockPath && path != kStreamPath)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool streamed = path == kStreamPath;
   const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats);
   if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
@@ -893,7 +1027,7 @@ int step_block_f32(int nrows, int ninputs, void* const* ptrs,
       }
     }
     if (st.dense) {
-      for (int k = 0; k < 2; ++k) {
+      for (int k = 0; k < 2 && !streamed; ++k) {
         const int src = st.src[k];
         if (src >= 0 && src < ninputs && p.in[src].res < 0 &&
             p.in[src].buf < 0) {
@@ -904,9 +1038,10 @@ int step_block_f32(int nrows, int ninputs, void* const* ptrs,
           !dense_tile_built(st.rm, st.rn) || st.nM < 1 || st.nN < 1 ||
           st.nK < 1 || st.nB < 1 || st.tM * st.rm < st.nM ||
           st.tN * st.rn < st.nN || st.nM * st.nN * st.nB != st.n_out ||
-          st.dsm < 0 ||
-          st.dsm + 2LL * (st.nM + st.nN + st.nK) + 3LL * st.nB >
-              smem_floats ||
+          (!streamed &&
+           (st.dsm < 0 ||
+            st.dsm + 2LL * (st.nM + st.nN + st.nK) + 3LL * st.nB >
+                smem_floats)) ||
           (st.kind == kReduce && st.nB != 1)) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
@@ -931,6 +1066,23 @@ int step_block_f32(int nrows, int ninputs, void* const* ptrs,
     rw.out_es = es[(ninputs + 1) * r + ninputs];
     if (rw.out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* tab = static_cast<const long long*>(tables);
+  if (streamed) {
+    const Step& st = p.step[0];
+    if (nsteps != 1 || !st.dense || st.kind != kElement || st.nB != 1 ||
+        (st.nM != 1 && st.nN != 1)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    switch ((st.nN == 1 ? st.nM : st.nN) * 16 + st.nK) {
+#define SB_STREAM(NM, NK)                                                   \
+  case NM * 16 + NK:                                                        \
+    return static_cast<int>(launch_stream<NM, NK>(p, tab, nrows, s));
+      SB_STREAM_SHAPES
+#undef SB_STREAM
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         step_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -939,8 +1091,6 @@ int step_block_f32(int nrows, int ninputs, void* const* ptrs,
   }
   const long long nblocks = (E + block_long - 1) / block_long;
   if (nblocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long* tab = static_cast<const long long*>(tables);
   float* partial = static_cast<float*>(workspace);
   step_block_kernel<<<dim3(static_cast<unsigned>(nblocks),
                            static_cast<unsigned>(nrows)),

@@ -88,7 +88,10 @@ that no row family above takes (a step table of
   through offset tables built here (:func:`step_block_tables`); results
   between steps stay in shared memory; a contracted long axis ends in
   per-block partials (a dense one as a split-K product) summed by a second
-  launch in a fixed order.
+  launch in a fixed order.  Its stream path (a kernel of its own, chosen by
+  :func:`step_block_path`) runs a table of one element-local product over
+  streamed operands on 16 bytes, such as a metric product per node, with
+  16-byte loads straight into registers.
 
 And one runs K2's whole schedule, every step of a dense program with a
 tuple ``grid_index`` that ``tc_grid_f32`` does not take (a cell table of
@@ -124,6 +127,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -193,6 +197,9 @@ SB_SM_BLOCKS = 2
 SB_STEP_INTS = 24
 SB_STEP_TABLES = 18
 SB_STAGE_INTS = 8
+# csrc/step_block.cu: the stream path's instances, NM x NK entries an
+# element, NM and NK up to kStreamMax
+SB_STREAM_MAX = 3
 
 # csrc/tc_steps.cu: threads per block (kThreads, the most; the planner
 # takes fewer for a narrow cell); the most steps, operands per step,
@@ -1832,6 +1839,53 @@ def step_block_mode(table, in_strides: tuple, out_strides: tuple) -> bool:
     return _sb_strides(table.inputs[slot], in_strides[slot], table.el)[1] == 1
 
 
+@functools.lru_cache(maxsize=64)
+def _sb_stream_shape(table) -> Optional[tuple]:
+    """``(NM, NK)`` of a table the stream path can run: one dense element
+    step over two streamed inputs (no resident), with no batch letter and
+    a result over one operand's letters alone (M, or N when M is empty),
+    NM result entries and NK contracted entries an element, each up to
+    ``SB_STREAM_MAX``; ``None`` for any other table."""
+    if table.el is None or len(table.steps) != 1 \
+            or any(table.el not in letters for letters in table.inputs):
+        return None
+    (step,) = table.steps
+    if step.kind != "element" or step.mode != "dense":
+        return None
+    M, N, K, B = step.split
+    if B or (M and N):
+        return None
+    length = table.length
+    nm = math.prod(length[ix] for ix in M or N)
+    nk = math.prod(length[ix] for ix in K)
+    if nm > SB_STREAM_MAX or nk > SB_STREAM_MAX:
+        return None
+    return nm, nk
+
+
+def step_block_path(table, in_strides: tuple, out_strides: tuple,
+                    tensors) -> str:
+    """The path a ``step_block_f32`` launch takes, its key in
+    ``tracing.counters["step_block_mode"]``: ``"stream"`` when the stream
+    path can run the table (:func:`_sb_stream_shape`), the long letter
+    lies at stride 1 in every input (strides *in_strides*) and in the
+    output view (*out_strides*), and every entry stride and every pointer
+    of *tensors* (the launch's inputs and outputs) lies on 16 bytes; else
+    the table's mode, ``"dense"`` or ``"general"`` (the block kernel).
+    The one place the choice is made: the C entry takes it as given."""
+    if _sb_stream_shape(table) is None:
+        return table.mode
+    views = [*zip(table.inputs, in_strides),
+             (table.steps[-1].out, out_strides)]
+    for letters, strides in views:
+        per, es = _sb_strides(letters, strides, table.el)
+        if es != 1 or any(st % 4 for st in per.values()):
+            return table.mode
+    if any(t.data_ptr() % 16 for t in tensors):
+        return table.mode
+    return "stream"
+
+
 def _sb_sub_tile(letters: tuple, strides, el: str, length: dict,
                  te: int) -> tuple:
     """How a tensor over *letters* with these strides is held per sub-tile
@@ -1865,7 +1919,7 @@ def _sb_entries(order: tuple, length: dict, per: dict) -> tuple:
 
 @functools.lru_cache(maxsize=64)
 def step_block_tables(table, in_strides: tuple, out_strides: tuple,
-                      elem_fastest: bool) -> tuple:
+                      elem_fastest: bool, stream: bool = False) -> tuple:
     """``(tables, steps_i, steps_t, stage_i, stage_t)`` of
     ``step_block_f32`` for one row whose input views and output view have
     these strides (elements per axis, in the order of ``table.inputs`` and
@@ -1901,7 +1955,11 @@ def step_block_tables(table, in_strides: tuple, out_strides: tuple,
     is laid out [entry][element] (element-fastest threads) or
     [element][entry], at an odd pitch; a step's entries and contracted
     entries run in the order of its reference tensor's strides
-    (:func:`_sb_reference`), the smallest stride fastest."""
+    (:func:`_sb_reference`), the smallest stride fastest.
+
+    With *stream* (the stream path, :func:`step_block_path`) nothing is
+    staged: every offset, the dense tables' too, is one in the tensors
+    themselves, and may pass 32 bits."""
     el, length = table.el, table.length
     te = table.te
     last = len(table.steps) - 1
@@ -1925,7 +1983,7 @@ def step_block_tables(table, in_strides: tuple, out_strides: tuple,
     for slot, letters in enumerate(table.inputs):
         n_res = (0 if table.stage[slot] < 0 else int(np.prod(
             [length[ix] for ix in letters], dtype=np.int64)))
-        if not table.sin or table.sin[slot] < 0:
+        if stream or not table.sin or table.sin[slot] < 0:
             axis_strides.append(in_strides[slot])
             stage_i.append([table.stage[slot], n_res, -1, 0, 0, 0, 0, 0])
             stage_t.append(0)
@@ -1939,7 +1997,8 @@ def step_block_tables(table, in_strides: tuple, out_strides: tuple,
         stage_i.append([table.stage[slot], n_res, table.sin[slot],
                         table.sin_floats[slot], n, pitch, int(efast), gaff])
         stage_t.append(goff)
-    if table.sout >= 0:
+    staged_out = table.sout >= 0 and not stream
+    if staged_out:
         compact, order, n, pitch, efast = _sb_sub_tile(
             table.steps[last].out, out_strides, el, length, te)
         out_sub = compact
@@ -1972,7 +2031,7 @@ def step_block_tables(table, in_strides: tuple, out_strides: tuple,
         for ix in reversed(out_order):
             compact[ix] = stride
             stride *= length[ix]
-        if k == last and table.sout >= 0:
+        if k == last and staged_out:
             dst_per, es = out_sub, 0
         elif k == last:
             dst_per, es = out_st[0], 0
@@ -2004,7 +2063,8 @@ def step_block_tables(table, in_strides: tuple, out_strides: tuple,
             within = [_sb_offsets(g, length, st) for g, st in (
                 (M, sa), (K, sa), (B, sa), (N, sb), (K, sb), (B, sb))] + [
                 _sb_offsets(g, length, res) for g in (M, N, B)]
-            if max(int(np.abs(w).max()) for w in within) >= 2 ** 31:
+            if not stream and \
+                    max(int(np.abs(w).max()) for w in within) >= 2 ** 31:
                 raise InvalidParameterError(
                     "step_block_f32: a dense step's offsets within an"
                     " element exceed 32 bits")
@@ -2059,11 +2119,11 @@ def _sb_view_strides(rows, outs) -> tuple:
 
 @functools.lru_cache(maxsize=32)
 def _sb_device_tables(table, row_strides: tuple, elem_fastest: bool,
-                      device: torch.device) -> tuple:
+                      stream: bool, device: torch.device) -> tuple:
     """The rows' tables end to end on *device*, and ``(steps_i, steps_t,
     stage_i, stage_t, row_len)`` (equal across rows: the tables' offsets
     depend on the shapes alone)."""
-    per_row = [step_block_tables(table, ins, out, elem_fastest)
+    per_row = [step_block_tables(table, ins, out, elem_fastest, stream)
                for ins, out in row_strides]
     tables = np.concatenate([t[0] for t in per_row])
     _, steps_i, steps_t, stage_i, stage_t = per_row[0]
@@ -2162,7 +2222,8 @@ def step_block_f32(rows, table, *, block_long: int,
     contiguous in the stored order ``table.stored_out``.  All rows go in
     one launch (two for a contracted long axis; up to the kernel's row
     limit) unless *one_launch* is false; *block_long* elements per thread
-    block.  Each launch counts under its table's mode (``table.mode``) in
+    block.  Each launch counts under its path (:func:`step_block_path`:
+    ``"stream"``, else the table's mode) in
     ``tracing.counters["step_block_mode"]``."""
     if not rows:
         return []
@@ -2185,6 +2246,11 @@ def step_block_f32(rows, table, *, block_long: int,
         elem_fastest = step_block_mode(
             table, tuple(tuple(t.stride()) for t in ins[0]),
             tuple(views[0].stride()))
+        paths = {step_block_path(table, tuple(tuple(t.stride()) for t in row),
+                                 tuple(view.stride()), (*row, view))
+                 for row, view in zip(ins, views)}
+        path = paths.pop() if len(paths) == 1 else table.mode
+        stream = path == "stream"
         ni, ns = len(table.inputs), len(table.steps)
         nblocks = -(-E // int(block_long))
         for idx in _launch_rows(len(ins), one_launch,
@@ -2193,7 +2259,7 @@ def step_block_f32(rows, table, *, block_long: int,
                 _sb_device_tables(
                 table, _sb_view_strides([ins[r] for r in idx],
                                         [views[r] for r in idx]),
-                elem_fastest, device)
+                elem_fastest, stream, device)
             ptrs = (ctypes.c_void_p * ((ni + 1) * len(idx)))()
             es = (ctypes.c_int64 * ((ni + 1) * len(idx)))()
             for n, r in enumerate(idx):
@@ -2218,9 +2284,9 @@ def step_block_f32(rows, table, *, block_long: int,
                    (ctypes.c_int64 * (ni + 1))(*stage_t),
                    ctypes.c_void_p(tables.data_ptr()), row_len,
                    table.te, int(elem_fastest), E, int(block_long),
-                   table.smem_floats,
+                   table.smem_floats, int(stream),
                    ctypes.c_void_p(None if work is None else work.data_ptr()))
-            tracing.counters["step_block_mode"][table.mode] += 1
+            tracing.counters["step_block_mode"][path] += 1
         return outs
     return launch_frame("step_block_f32", device,
                         lambda: step_block_plain(rows, table, block_long),

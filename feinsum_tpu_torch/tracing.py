@@ -28,8 +28,9 @@ The spans, each at one boundary of the package:
 :data:`counters` holds every counter: ``"launches"``, the launches by
 kernel (``ops.kernels.launch_counts`` is the same dict),
 ``"dg_rows_f32_path"`` and ``"dd_rows_path"``, those kernels' launches by
-path, ``"step_block_mode"``, ``step_block_f32``'s launches by the mode of
-their step table (``"dense"`` when every step is dense, else
+path, ``"step_block_mode"``, ``step_block_f32``'s launches by the path
+they took (``"stream"``, ``ops.kernels.step_block_path``), else by the
+mode of their step table (``"dense"`` when every step is dense, else
 ``"general"``), ``"model_steps"``, the calls of a model's step,
 ``"pair_bytes"``, the bytes the steps' pair conversions read and write
 (a split 16 an entry: 8 of float64 read, 2 x 4 of pair written; a combine
@@ -91,9 +92,10 @@ counters = {
     "dg_rows_f32_path": {"tiled": 0, "general": 0},
     # dd_rows's launches by path, likewise
     "dd_rows_path": {"tiled": 0, "general": 0},
-    # step_block_f32's launches by the mode of their step table: every step
-    # dense (register tiles), or any general one (offset tables)
-    "step_block_mode": {"dense": 0, "general": 0},
+    # step_block_f32's launches by the path they took: the stream path
+    # (ops/kernels.step_block_path), else the mode of their step table:
+    # every step dense (register tiles), or any general one (offset tables)
+    "step_block_mode": {"dense": 0, "general": 0, "stream": 0},
     "model_steps": 0, "pair_bytes": 0,
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,

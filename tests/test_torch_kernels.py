@@ -2133,6 +2133,86 @@ def test_step_block_shared_memory_guard(cuda_device):
         plan_cuda_launch(ft.generate_program(e).with_descriptor(
             backend="pallas"), get_index_lengths(e, 64))
 
+
+
+def _node_product(name, n, device, seed, offset=0):
+    """``(rows, table, block_long, subscripts)`` of a node product at *n*
+    nodes on contiguous operands: the hexahedral model's ``grad_metric`` or
+    ``div_metric`` (its own program), or ``elementwise`` (``n,n->n``, no
+    entry strides); with *offset*, the same values one float into their
+    storage (off 16 bytes)."""
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.cuda_emitter import hoist_resident_steps
+    from feinsum_tpu_torch.ops.step_block import plan_step_block
+    if name == "elementwise":
+        e = ft.einsum("n,n->n", _sb_a("G", ("N",)), _sb_a("v", ("N",)))
+        program = ft.generate_program(e).with_descriptor(backend="pallas")
+        shapes = [(n,), (n,)]
+    else:
+        program = hoist_resident_steps(
+            ft.HexWaveOperator3D(device=device).programs[name])[0]
+        shapes = [(3, 3, n), (3, n)]
+    table = plan_step_block(program, get_index_lengths(program.einsum, n))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = [[]]
+    for shape in shapes:
+        count = int(np.prod(shape))
+        buf = torch.empty(count + offset, device=device)[offset:]
+        buf.copy_(torch.rand(count, generator=gen, device=device))
+        rows[0].append(buf.view(shape))
+    return (rows, table, program.descriptor.block_long,
+            program.einsum.get_subscripts().replace(" ", ""))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4097, 4099])
+@pytest.mark.parametrize("name", ["grad_metric", "div_metric",
+                                  "elementwise"])
+def test_step_block_stream_path_is_the_dense_path_bit_for_bit(cuda_device,
+                                                              name, n):
+    """The stream path against the dense path on the same values: the
+    operands on 16 bytes take the stream path (the node products where
+    their contiguous output is on 16 bytes, n % 4 = 0; the elementwise
+    product at every n, its last n % 4 nodes on the scalar tail), the same
+    values one float off 16 bytes the dense path; their outputs equal bit
+    for bit and within 2e-5 of the terms' magnitudes of
+    ``step_block_plain``."""
+    from feinsum_tpu_torch import tracing
+    modes = tracing.counters["step_block_mode"]
+    outs, paths = [], []
+    for offset in (0, 1):
+        rows, table, block_long, subs = _node_product(name, n, cuda_device,
+                                                      seed=n, offset=offset)
+        before = dict(modes)
+        (got,) = kernels.step_block_f32(rows, table, block_long=block_long)
+        torch.cuda.synchronize()
+        (path,) = [k for k, c in modes.items() if c != before[k]]
+        (plain,) = kernels.step_block_plain(rows, table, block_long)
+        (terms,) = kernels.step_block_plain([[t.abs() for t in rows[0]]],
+                                            table, block_long)
+        assert got.shape == plain.shape and got.is_contiguous()
+        assert float((got - plain).abs().max()) \
+            <= RTOL * float(terms.abs().max())
+        outs.append(got)
+        paths.append(path)
+    aligned = name == "elementwise" or n % 4 == 0
+    assert paths == (["stream", "dense"] if aligned else ["dense", "dense"])
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_step_block_resident_table_stays_dense(cuda_device):
+    """A one-step table with a resident (``ij,ejk->eik``, dof-major, on 16
+    bytes) counts ``"dense"``, not ``"stream"``."""
+    from feinsum_tpu_torch import tracing
+    rows, table, *_ = _sb_case("demo_ndof6", cuda_device, 4096, 512, True)
+    modes = tracing.counters["step_block_mode"]
+    before = dict(modes)
+    kernels.step_block_f32(rows, table, block_long=512)
+    torch.cuda.synchronize()
+    assert {k: c - before[k] for k, c in modes.items()} == {
+        "dense": 1, "general": 0, "stream": 0}
+
 # }}}
 
 
@@ -2672,13 +2752,15 @@ def test_probe_stream_kernel_matches_plain(cuda_device, case, block_elems):
 
 
 @pytest.mark.cuda
-def test_hex_model_step_matches_the_plain_route(cuda_device):
-    """A float32 step of the hexahedral model with its default plan at a
-    ragged E (six ``step_block_f32`` launches, every table dense, and two
+@pytest.mark.parametrize("E,stream", [(4099, 0), (4100, 2)])
+def test_hex_model_step_matches_the_plain_route(cuda_device, E, stream):
+    """A float32 step of the hexahedral model with its default plan (six
+    ``step_block_f32`` launches, the two metric products on the stream path
+    where n^3 E is a multiple of 4, every other one dense, and two
     ``step_update`` launches, nothing else) against the same model on the
     plain per-step route, increment against increment."""
     from feinsum_tpu_torch import tracing
-    E, dt = 4099, 0.1
+    dt = 0.1
     state, geom = ft.make_hexwave_state(E, seed=6, device=cuda_device)
     launches = dict(kernels.launch_counts)
     modes = dict(tracing.counters["step_block_mode"])
@@ -2688,7 +2770,7 @@ def test_hex_model_step_matches_the_plain_route(cuda_device):
             if n != launches[k]} == {"step_block_f32": 6, "step_update": 2}
     assert {k: n - modes[k] for k, n
             in tracing.counters["step_block_mode"].items()} \
-        == {"dense": 6, "general": 0}
+        == {"dense": 6 - stream, "general": 0, "stream": stream}
     want = ft.HexWaveOperator3D(use_pallas=False).make_step(E, dt=dt)(
         state, geom)
     for k, old in state.items():

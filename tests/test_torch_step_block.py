@@ -807,3 +807,161 @@ def test_bf16_3x_runs_f32_under_its_name():
         e, E)).kernel == "step_block_f32"
     ft.validate_batched_einsum_transform(e, lambda p: prog,
                                          long_dim_length=E)
+
+
+# {{{ the stream path
+
+def _node_table(subs, shapes, n):
+    """The step table of *subs* over operands of *shapes* ("N" the long
+    letter n, at length *n*) on its trivial schedule."""
+    e = ft.einsum(subs, *[_a(name, s) for name, s in zip("GV", shapes)])
+    program = ft.generate_program(e).with_descriptor(backend="pallas")
+    return plan_step_block(program, get_index_lengths(e, n))
+
+
+def _out_view(table, E_):
+    """The output view the wrapper allocates: contiguous in the stored
+    order, axes in the last step's order."""
+    out = torch.empty(tuple(E_ if ix == table.el else table.length[ix]
+                            for ix in table.stored_out))
+    return out.permute(tuple(table.stored_out.index(ix)
+                             for ix in table.steps[-1].out))
+
+
+def _storage(shape, pad=0, offset=0, perm=None):
+    """A float32 view of *shape*: its last axis padded by *pad* in the
+    storage, its first element *offset* floats into it, or (*perm*) a
+    permutation of a contiguous tensor of the permuted shape."""
+    if perm is not None:
+        inv = [perm.index(a) for a in range(len(shape))]
+        return torch.rand([shape[a] for a in perm]).permute(*inv)
+    full = (*shape[:-1], shape[-1] + pad)
+    flat = torch.rand(int(np.prod(full)) + offset)[offset:]
+    return flat.view(full)[..., :shape[-1]]
+
+
+# (einsum, operand shapes with "N", n, storage arguments per operand,
+# the path): the metric products take it; each other case falls back
+PATH_CASES = {
+    "grad_metric": ("xrn,rn->xn", ((3, 3, "N"), (3, "N")), 64, ({}, {}),
+                    "stream"),
+    "div_metric": ("xrn,xn->rn", ((3, 3, "N"), (3, "N")), 64, ({}, {}),
+                   "stream"),
+    "ragged_elementwise": ("n,n->n", (("N",), ("N",)), 61, ({}, {}),
+                           "stream"),
+    "ragged_output": ("xrn,rn->xn", ((3, 3, "N"), (3, "N")), 61,
+                      ({"pad": 3}, {"pad": 3}), "dense"),
+    "two_by_two": ("xrn,rn->xn", ((2, 2, "N"), (2, "N")), 64, ({}, {}),
+                   "stream"),
+    "scale": ("xn,n->xn", ((3, "N"), ("N",)), 64, ({}, {}), "stream"),
+    "resident": ("xr,rn->xn", ((3, 3), (3, "N")), 64, ({}, {}), "dense"),
+    "reduce": ("xrn,rn->xr", ((3, 3, "N"), (3, "N")), 64, ({}, {}), None),
+    "long_letter_strided": ("xrn,rn->xn", ((3, 3, "N"), (3, "N")), 64,
+                            ({"perm": (2, 0, 1)}, {}), "dense"),
+    "unaligned_entry_stride": ("xrn,rn->xn", ((3, 3, "N"), (3, "N")), 61,
+                               ({}, {}), "dense"),
+    "unaligned_pointer": ("xrn,rn->xn", ((3, 3, "N"), (3, "N")), 64,
+                          ({"offset": 1}, {}), "dense"),
+    "over_budget": ("xrn,rn->xn", ((4, 3, "N"), (3, "N")), 64, ({}, {}),
+                    "dense"),
+    "batch_letter": ("xn,xn->xn", ((3, "N"), (3, "N")), 64, ({}, {}),
+                     "dense"),
+}
+
+
+def _path_case(name):
+    subs, shapes, n, storage, want = PATH_CASES[name]
+    table = _node_table(subs, shapes, n)
+    ins = [_storage(tuple(n if d == "N" else d for d in s), **kw)
+           for s, kw in zip(shapes, storage)]
+    return table, ins, n, want
+
+
+@pytest.mark.parametrize("name", sorted(PATH_CASES))
+def test_step_block_path_takes_the_stream_path_where_it_may(name):
+    """``step_block_path`` on the launch's own tables, strides and
+    pointers: an element-local product without residents on 16 bytes takes
+    the stream path (a ragged n too, where no operand has an entry stride);
+    a resident, a reduce step, the long letter off stride 1, an unaligned
+    entry stride (of the contiguous output alone, beside inputs on padded
+    storage, too) or pointer, more entries than the stream instances hold
+    or a batch letter keep the table's mode (a reduce's ``None`` here)."""
+    table, ins, n, want = _path_case(name)
+    view = _out_view(table, n)
+    got = kernels.step_block_path(table, tuple(tuple(t.stride()) for t in ins),
+                                  tuple(view.stride()), (*ins, view))
+    assert got == (table.mode if want is None else want)
+
+
+def emulate_stream(row, table) -> torch.Tensor:
+    """``step_block_stream`` (``csrc/step_block.cu``) in float64 on the
+    CPU: the stream path's tables as the wrapper hands them over, W the
+    operand that carries the result's letters, each result entry summed
+    over the contracted entries in order, every element."""
+    el = table.el
+    (slot, letters), *_ = [(s, x) for s, x in enumerate(table.inputs)]
+    E_ = row[slot].shape[letters.index(el)]
+    view = _out_view(table, E_).double()
+    tabs, steps_i, steps_t, _si, _st = kernels.step_block_tables(
+        table, tuple(tuple(t.stride()) for t in row), tuple(view.stride()),
+        False, True)
+    (si,), (tt,) = steps_i, steps_t
+    src, affine, (nM, nN, nK) = si[4:6], si[11], si[17:20]
+    d = tt[9:18]
+
+    def at(q, i):
+        return int(tabs[d[q] + i])
+
+    def kth(q, k):
+        return k * d[q] if affine else int(tabs[d[q] + k])
+    flat = []
+    for t in row:
+        span = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+        f = torch.zeros(span, dtype=torch.float64)
+        torch.as_strided(f, t.shape, t.stride()).copy_(t.double())
+        flat.append(f.numpy())
+    out = torch.zeros(view.numel(), dtype=torch.float64)
+    wa = nN == 1
+    W, X = flat[src[0 if wa else 1]], flat[src[1 if wa else 0]]
+    e = np.arange(E_)
+    for m in range(nM if wa else nN):
+        acc = np.zeros(E_)
+        for k in range(nK):
+            ow = (at(0, m) + kth(1, k) + at(2, 0) if wa
+                  else at(3, m) + kth(4, k) + at(5, 0))
+            ox = (at(3, 0) + kth(4, k) + at(5, 0) if wa
+                  else at(0, 0) + kth(1, k) + at(2, 0))
+            acc = acc + W[ow + e] * X[ox + e]
+        oo = (at(6, m) + at(7, 0) if wa else at(6, 0) + at(7, m)) + at(8, 0)
+        out.numpy()[oo + e] = acc
+    return torch.as_strided(out, view.shape, view.stride())
+
+
+@pytest.mark.parametrize("name", ["grad_metric", "div_metric",
+                                  "ragged_elementwise", "two_by_two",
+                                  "scale",
+                                  "hex_grad_metric", "hex_div_metric"])
+def test_stream_tables_match_the_einsum(name):
+    """The stream path's tables (:func:`emulate_stream`) against the
+    einsum in float64: W first (the trivial schedule) and W second (the
+    hexahedral model's own programs, whose schedule takes the vector
+    first), G's offsets at the model's n^3 E nodes."""
+    if name.startswith("hex_"):
+        n = 125 * 4
+        program = hoist_resident_steps(ft.HexWaveOperator3D(
+            device="cpu").programs[name[4:]])[0]
+        table = plan_step_block(program, get_index_lengths(program.einsum,
+                                                           n))
+        subs = program.einsum.get_subscripts().replace(" ", "")
+        ins = [torch.rand(3, 3, n), torch.rand(3, n)]
+    else:
+        table, ins, n, _ = _path_case(name)
+        subs = PATH_CASES[name][0]
+    view = _out_view(table, n)
+    assert kernels.step_block_path(
+        table, tuple(tuple(t.stride()) for t in ins), tuple(view.stride()),
+        (*ins, view)) == "stream"
+    want = torch.einsum(subs, *[t.double() for t in ins])
+    assert_close(emulate_stream(ins, table), want, rtol=1e-12)
+
+# }}}

@@ -401,17 +401,22 @@ def test_a_hex_step_nests_its_executable_spans_and_counts_itself():
 
 
 def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
-    """Each ``step_block_f32`` launch counts once under its table's mode:
-    the hexahedral step's six, all dense, beside its two ``step_update``
-    launches; a table with a general step counts as general.  The wrappers
-    run their CUDA branch on CPU tensors against a stand-in library whose
-    every entry returns 0 (no kernel runs)."""
+    """Each ``step_block_f32`` launch counts once under its path: the
+    hexahedral step's six, its two metric products on the stream path
+    (path code 1 to the C entry) and four dense, beside its two
+    ``step_update`` launches; a table with a general step counts as
+    general.  The wrappers run their CUDA branch on CPU tensors against a
+    stand-in library whose every entry returns 0 (no kernel runs)."""
     from feinsum_tpu_torch.ops.step_block import plan_step_block
+    paths = []
 
     class Library:
         def __getattr__(self, entry):
-            return (lambda: 8) if entry.endswith("_max_rows") \
-                else (lambda *args: 0)
+            if entry.endswith("_max_rows"):
+                return lambda: 8
+            if entry == "step_block_f32":
+                return lambda *args: paths.append(args[16]) or 0
+            return lambda *args: 0
 
     def frame(name, device, plain, body):
         def launch(entry, *args):
@@ -426,7 +431,8 @@ def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
         op = ft.HexWaveOperator3D()
         state, geom = ft.make_hexwave_state(E, seed=2, device="cpu")
         op.make_step(E)(state, geom)
-        assert modes == {"dense": 6, "general": 0}
+        assert modes == {"dense": 4, "general": 0, "stream": 2}
+        assert paths == [0, 1, 1, 0, 0, 0]
         assert kernels.launch_counts["step_block_f32"] == 6
         assert kernels.launch_counts["step_update"] == 2
         # three operands in one step (the trivial schedule): general
@@ -439,9 +445,9 @@ def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
         assert table.mode == "general"
         kernels.step_block_f32([[torch.rand(3, 4), torch.rand(3, 5),
                                  torch.rand(16, 3, 3)]], table, block_long=8)
-        assert modes == {"dense": 6, "general": 1}
+        assert modes == {"dense": 4, "general": 1, "stream": 2}
         kernels.reset_launch_counts()
-        assert modes == {"dense": 0, "general": 0}
+        assert modes == {"dense": 0, "general": 0, "stream": 0}
     finally:
         kernels.launch_counts.update(saved[0])
         modes.update(saved[1])
