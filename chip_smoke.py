@@ -10,6 +10,7 @@
     python3 chip_smoke.py --update-only      # phases 1 and 22 alone
     python3 chip_smoke.py --fp64-only        # phases 1 and 5-6 alone
     python3 chip_smoke.py --hex-only         # phases 1 and 23 alone
+    python3 chip_smoke.py --ader-only        # phases 1 and 24 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -223,7 +224,23 @@ Phases; any failure exits non-zero before the final line:
    the plain per-step route's (``use_pallas=False``) within 2e-5 of their
    largest, and its time; then one step at E - 1 (n^3 E % 4 != 0, the
    metric products' output rows off 16 bytes): six dense launches, and
-   its time.
+   its time;
+24. SeisSol's elastic ADER-DG element ``AderElasticOperator3D`` at its
+   benchmark cell's size, E = 4,000,000: each of the six executables
+   ``make_step`` runs (the four derivatives, the volume and the flux term,
+   built by ``op.executables(E)``), on inputs drawn on the card in the
+   step's shapes, counters reset just before: one ``step_block_f32``
+   launch each, counted ``"dense"``; each held against
+   ``step_block_plain`` on the same operands within 2e-5 of the sum of the
+   terms' magnitudes and timed in turns against it, beside its bound (the
+   larger of its operations at the float32 peak and its bytes at the
+   memory peak: the flux is flop-bound, the other five bytes-bound, though
+   the step as a whole is flop-bound); then one model
+   step on the configuration's draw, counters reset: six
+   ``step_block_f32`` launches, all dense, six of ``step_update`` (the
+   time integral's five bands and the update) and nothing else, its
+   increment against the plain per-step route's (``use_pallas=False``, in
+   blocks of 2**20 elements) within 2e-5 of its largest, and its time.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -239,11 +256,13 @@ bound that of the logical einsum), ``step_block_f32``'s phase 19's,
 its cases), ``step_update``'s and ``pairs_split``'s phase 22's (summed
 over its cases, no library call), ``step_block_stream``'s (the stream path
 of ``step_block_f32``) phase 23's two metric products, whose launches it
-counts apart and ``step_block_f32`` counts too; launches are counted over the main path
-(phase 3), the archive replays (phases 6, 8, 10, 16, 18, 20), the consumer
-flow's calls (phase 13), one step of each model (phases 14, 17), phase
-19's runs, phase 21's one drive of each probe case, phase 22's of each
-update case and phase 23's executables and step.  It imports no JAX.
+counts apart and ``step_block_f32`` counts too, ``step_block_ader``'s
+phase 24's six ADER executables, likewise; launches are counted over the
+main path (phase 3), the archive replays (phases 6, 8, 10, 16, 18, 20),
+the consumer flow's calls (phase 13), one step of each model (phases 14,
+17), phase 19's runs, phase 21's one drive of each probe case, phase 22's
+of each update case and phase 23's and 24's executables and steps.  It
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -293,6 +312,7 @@ REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "lane_pack_dg_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "step_block_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "step_block_stream": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "step_block_ader": "feinsum_tpu/ops/pallas_emitter.py:464",
             "tc_steps_f32": "feinsum_tpu/ops/pallas_emitter.py:268",
             "probe_stream_f32": "scripts/tpu_layout_probe.py:75;"
                                 " scripts/tpu_fold_probe.py:84, :96;"
@@ -332,6 +352,7 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "lane_pack_dg_3xtf32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
            "step_block_f32": "feinsum_tpu_torch/csrc/step_block.cu",
            "step_block_stream": "feinsum_tpu_torch/csrc/step_block.cu",
+           "step_block_ader": "feinsum_tpu_torch/csrc/step_block.cu",
            "tc_steps_f32": "feinsum_tpu_torch/csrc/tc_steps.cu",
            "probe_stream_f32": "feinsum_tpu_torch/csrc/probe_stream.cu",
            "probe_apply_f32": "feinsum_tpu_torch/csrc/probe_apply.cu",
@@ -631,7 +652,9 @@ def main() -> int:
     if "--fp64-only" in sys.argv[1:]:
         return fp64_only(dev, card)
     if "--hex-only" in sys.argv[1:]:
-        return hex_only(dev, card)
+        return model_only(dev, card, 23, hex_model_path, "step_block_stream")
+    if "--ader-only" in sys.argv[1:]:
+        return model_only(dev, card, 24, ader_model_path, "step_block_ader")
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -814,6 +837,11 @@ def main() -> int:
     for k, n in hex_model_path(dev, label, stats).items():
         launches[k] = launches.get(k, 0) + n
     log(f"[phase] 23 (the hexahedral model): {time.perf_counter() - t_phase:.1f}"
+        " s")
+    t_phase = time.perf_counter()
+    for k, n in ader_model_path(dev, label, stats).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[phase] 24 (the ADER element): {time.perf_counter() - t_phase:.1f}"
         f" s; all phases {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k]) for k in SOURCES]
@@ -971,23 +999,22 @@ def update_only(dev, card: str) -> int:
     return 0
 
 
-def hex_only(dev, card: str) -> int:
-    """Phase 23 alone, for work on the hexahedral model or on
-    ``step_block_f32`` at its size: its checks, launches and times, and
-    the stream path's entry of the ``kernels`` line.  It prints no ``ok``
-    line."""
+def model_only(dev, card: str, phase: int, path, entry: str) -> int:
+    """Phase *phase* alone (23 the hexahedral model, 24 the ADER element),
+    for work on that model or on ``step_block_f32`` at its size: its
+    checks, launches and times, and its entry *entry* of the ``kernels``
+    line.  It prints no ``ok`` line."""
     import torch
 
     label = (f"[{torch.cuda.get_device_name(0)}, power limit"
              f" {card.split(',')[-1].strip()}]")
     stats = KernelStats()
     t0 = time.perf_counter()
-    launches = hex_model_path(dev, label, stats)
-    log(f"[phase] 23: {time.perf_counter() - t0:.1f} s")
+    launches = path(dev, label, stats)
+    log(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s")
     log(card)
-    log(json.dumps({"hex_launches": launches}))
-    log(json.dumps({"kernels": [stats.entry(
-        "step_block_stream", launches["step_block_stream"])]}))
+    log(json.dumps({"model_launches": launches}))
+    log(json.dumps({"kernels": [stats.entry(entry, launches[entry])]}))
     return 0
 
 
@@ -3639,12 +3666,17 @@ def update_path(dev, label: str, stats: KernelStats) -> dict:
 E_HEX = 2_000_000
 
 
-def _hex_counts(kernels, tracing) -> tuple:
+def _model_counts(kernels, tracing) -> tuple:
     """The launches and ``step_block_f32``'s paths counted since the last
     reset, without the zeros."""
     return ({k: n for k, n in kernels.launch_counts.items() if n},
             {k: n for k, n in tracing.counters["step_block_mode"].items()
              if n})
+
+
+def _add_launches(launches: dict, counts: dict) -> None:
+    for k, c in counts.items():
+        launches[k] = launches.get(k, 0) + c
 
 
 def _off16(arrays: dict) -> dict:
@@ -3656,6 +3688,145 @@ def _off16(arrays: dict) -> dict:
         buf = torch.empty(t.numel() + 1, device=t.device)[1:]
         out[k] = buf.view(t.shape).copy_(t)
     return out
+
+
+def _executables_against_plain(op, E: int, tag: str, dev, label: str,
+                               stats: KernelStats, lengths_of, path_of,
+                               entries: dict) -> dict:
+    """Each of model *op*'s executables at *E* elements, its long axis
+    ``lengths_of(name)`` long, on inputs drawn on the card: one
+    ``step_block_f32`` launch on the path ``path_of(name)``, its output
+    against ``step_block_plain`` row by row of its first axis (the
+    float64 copies of a whole output need not fit beside the operands),
+    a stream-path output bit for bit against the dense path's on the
+    same values off 16 bytes, and the routes timed in turns beside the
+    launch's bound.  A launch on a path in *entries* has its errors and
+    times kept under that entry of *stats*, else its errors under
+    ``step_block_f32``.  Returns the launches, each entry's among them
+    (also counted under ``step_block_f32``)."""
+    import torch
+
+    from feinsum_tpu_torch import tracing
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.measure import apply_layouts
+    from feinsum_tpu_torch.ops import kernels
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+
+    fns = op.executables(E)
+    launches: dict = {}
+    for name, program in op.programs.items():
+        e, length, path = program.einsum, lengths_of(name), path_of(name)
+        plan = plan_cuda_launch(program, get_index_lengths(e, length))
+        if plan.kernel != "step_block_f32":
+            raise SmokeFailure(f"{tag} {name} plans onto {plan.kernel}")
+        arrays = apply_layouts(program, device_inputs(e, length, 1, dev))
+        shapes = {k: tuple(t.shape) for k, t in arrays.items()}
+        kernels.reset_launch_counts()
+        (got,) = fns[name](arrays)
+        torch.cuda.synchronize()
+        counts, modes = _model_counts(kernels, tracing)
+        log(f"[{tag}] {name} {e.get_subscripts()} E={E} (long axis"
+            f" {length}, operands {shapes}): launches {counts},"
+            f" step_block_mode {modes}")
+        if counts != {"step_block_f32": 1} or modes != {path: 1}:
+            raise SmokeFailure(f"{tag} {name} ran {counts}, modes {modes}")
+        _add_launches(launches, counts)
+        kernel = entries.get(path, "step_block_f32")
+        operands = plan.operands(arrays)
+        (want,) = plan.plain(operands)
+        (terms,) = plan.plain(magnitudes(operands))
+        torch.cuda.synchronize()
+        errs = [(*max_err(g, w), note_error(kernel, g, w, t),
+                 float(w.abs().max()))
+                for g, w, t in zip(got, want, terms)]
+        abs_err = max(a for a, _, _, _ in errs)
+        rel = abs_err / (max(m for _, _, _, m in errs) or 1.0)
+        over = max(o for _, _, o, _ in errs)
+        ok = over <= RTOL
+        log(f"[compare] {kernel} {tag} {name} E={E}: max|kernel-plain|"
+            f" {abs_err:.3e} = {rel:.2e} of max|plain|, {over:.2e} of the"
+            f" terms' magnitudes (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"{kernel} disagrees with its plain"
+                               f" version on {tag} {name}")
+        del operands, want, terms
+        routes = {"kernel": fns[name],
+                  "plain": lambda a, plan=plan: plan.plain(plan.operands(a))}
+        inputs = {"kernel": arrays, "plain": arrays}
+        if path == "stream":
+            inputs["dense"] = _off16(arrays)
+            kernels.reset_launch_counts()
+            (dense_out,) = fns[name](inputs["dense"])
+            torch.cuda.synchronize()
+            counts, modes = _model_counts(kernels, tracing)
+            if counts != {"step_block_f32": 1} or modes != {"dense": 1}:
+                raise SmokeFailure(f"{tag} {name} off 16 bytes ran"
+                                   f" {counts}, modes {modes}")
+            same = torch.equal(dense_out, got)
+            log(f"[compare] step_block_f32 {tag} {name} E={E}: dense path"
+                f" (off 16 bytes) against the stream path, bit for bit"
+                f" {'ok' if same else 'FAIL'}")
+            if not same:
+                d_err, _ = max_err(dense_out, got)
+                raise SmokeFailure(f"{tag} {name}: the stream path differs"
+                                   f" from the dense path by {d_err:.3e}")
+            del dense_out
+            routes["dense"] = fns[name]
+        del got
+        torch.cuda.empty_cache()
+        times = timed_in_turns(routes, inputs)
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        t_bytes, t_ops = row_bound(e, length, program)
+        flop = t_ops * PEAK_OPS_PER_MS["float32"] / 1e9
+        nb = t_bytes * PEAK_BYTES_PER_MS / 1e9
+        rates = ", ".join(
+            f"{k} {ms[k]:.4f} ms ({100 * max(t_bytes, t_ops) / ms[k]:.2f}%"
+            f" of its bound; {flop / ms[k]:.3f} TFLOP/s, {nb / ms[k]:.3f}"
+            f" TB/s)" for k in routes if k != "plain")
+        log(f"[time] step_block_f32 {tag} {name} E={E}: {path} path"
+            f" {rates}, plain version {ms['plain']:.4f} ms,"
+            f" {bound_text(e, length, program)} (operations {t_ops:.4f} ms,"
+            f" bytes {t_bytes:.4f} ms; runs {times}) {label}")
+        if path in entries:
+            stats.add(kernel, e, length, ms["kernel"], ms["plain"],
+                      program=program)
+            _add_launches(launches, {kernel: 1})
+        del arrays, inputs
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _checked_step(step, state, geom, tag: str, E: int, want_counts: dict,
+                  want_modes: dict, launches: dict):
+    """One *step*, after a first that holds the geometry, with its
+    launches and ``step_block_f32``'s paths held to *want_counts* and
+    *want_modes* and added to *launches*; returns its output."""
+    import torch
+
+    from feinsum_tpu_torch import tracing
+    from feinsum_tpu_torch.ops import kernels
+
+    step(state, geom)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = step(state, geom)
+    torch.cuda.synchronize()
+    counts, modes = _model_counts(kernels, tracing)
+    log(f"[{tag}] one step at E={E}: launches {counts}, step_block_mode"
+        f" {modes}")
+    if counts != want_counts or modes != want_modes:
+        raise SmokeFailure(f"a {tag} step at E={E} ran {counts}, modes"
+                           f" {modes}")
+    _add_launches(launches, counts)
+    return got
+
+
+def _timed_step(step, state, geom, tag: str, E: int, what: str,
+                label: str) -> None:
+    from feinsum_tpu_torch.measure import timeit_cuda
+    ms = timeit_cuda(lambda st: _tensors(step(st, geom)), state)
+    log(f"[time] {tag} step E={E}: {ms:.4f} ms, the median of single steps"
+        f" ({what}) {label}")
 
 
 def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
@@ -3670,93 +3841,14 @@ def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
     import torch
 
     import feinsum_tpu_torch as ft
-    from feinsum_tpu_torch import tracing
-    from feinsum_tpu_torch.codegen.program import get_index_lengths
-    from feinsum_tpu_torch.measure import apply_layouts, timeit_cuda
-    from feinsum_tpu_torch.ops import kernels
-    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
 
     E, n = E_HEX, 5
     op = ft.HexWaveOperator3D(device=dev)
-    fns = op.executables(E)
-    launches: dict = {}
-    for name, program in op.programs.items():
-        e = program.einsum
-        length = n ** 3 * E if "metric" in name else E
-        lengths = get_index_lengths(e, length)
-        plan = plan_cuda_launch(program, lengths)
-        if plan.kernel != "step_block_f32":
-            raise SmokeFailure(f"hex {name} plans onto {plan.kernel}")
-        arrays = apply_layouts(program, device_inputs(e, length, 1, dev))
-        shapes = {k: tuple(t.shape) for k, t in arrays.items()}
-        kernels.reset_launch_counts()
-        (got,) = fns[name](arrays)
-        torch.cuda.synchronize()
-        counts, modes = _hex_counts(kernels, tracing)
-        log(f"[hex] {name} {e.get_subscripts()} E={E} (long axis {length},"
-            f" operands {shapes}): launches {counts}, step_block_mode"
-            f" {modes}")
-        path = "stream" if "metric" in name else "dense"
-        if counts != {"step_block_f32": 1} or modes != {path: 1}:
-            raise SmokeFailure(f"hex {name} ran {counts}, modes {modes}")
-        for k, c in counts.items():
-            launches[k] = launches.get(k, 0) + c
-        operands = plan.operands(arrays)
-        (want,) = plan.plain(operands)
-        (terms,) = plan.plain(magnitudes(operands))
-        torch.cuda.synchronize()
-        abs_err, rel = max_err(got, want)
-        kernel = "step_block_stream" if path == "stream" else "step_block_f32"
-        over = note_error(kernel, got, want, terms)
-        ok = over <= RTOL
-        log(f"[compare] {kernel} hex {name} E={E}: max|kernel-plain|"
-            f" {abs_err:.3e} = {rel:.2e} of max|plain|, {over:.2e} of the"
-            f" terms' magnitudes (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SmokeFailure(f"{kernel} disagrees with its plain"
-                               f" version on hex {name}")
-        routes = {"kernel": fns[name],
-                  "plain": lambda a, plan=plan: plan.plain(plan.operands(a))}
-        inputs = {"kernel": arrays, "plain": arrays}
-        if path == "stream":
-            # the same values off 16 bytes take the block kernel's dense
-            # path, whose output the stream path's equals bit for bit
-            inputs["dense"] = _off16(arrays)
-            kernels.reset_launch_counts()
-            (dense_out,) = fns[name](inputs["dense"])
-            torch.cuda.synchronize()
-            counts, modes = _hex_counts(kernels, tracing)
-            if counts != {"step_block_f32": 1} or modes != {"dense": 1}:
-                raise SmokeFailure(f"hex {name} off 16 bytes ran {counts},"
-                                   f" modes {modes}")
-            same = torch.equal(dense_out, got)
-            log(f"[compare] step_block_f32 hex {name} E={E}: dense path"
-                f" (off 16 bytes) against the stream path, bit for bit"
-                f" {'ok' if same else 'FAIL'}")
-            if not same:
-                d_err, _ = max_err(dense_out, got)
-                raise SmokeFailure(f"hex {name}: the stream path differs"
-                                   f" from the dense path by {d_err:.3e}")
-            del dense_out
-            routes["dense"] = fns[name]
-        del operands, got, want, terms
-        torch.cuda.empty_cache()
-        times = timed_in_turns(routes, inputs)
-        ms = {k: sum(v) / len(v) for k, v in times.items()}
-        nb = row_bound(e, length, program)[0] * PEAK_BYTES_PER_MS
-        rates = ", ".join(f"{k} {ms[k]:.4f} ms ({nb / (ms[k] * 1e9):.3f}"
-                          f" TB/s)" for k in routes if k != "plain")
-        log(f"[time] step_block_f32 hex {name} E={E}: {path} path {rates},"
-            f" plain version {ms['plain']:.4f} ms,"
-            f" {bound_text(e, length, program)} ({nb / 1e9:.3f} GB; runs"
-            f" {times}) {label}")
-        if path == "stream":
-            stats.add("step_block_stream", e, length, ms["kernel"],
-                      ms["plain"], program=program)
-            launches["step_block_stream"] = \
-                launches.get("step_block_stream", 0) + 1
-        del arrays, inputs
-        torch.cuda.empty_cache()
+    launches = _executables_against_plain(
+        op, E, "hex", dev, label, stats,
+        lambda name: n ** 3 * E if "metric" in name else E,
+        lambda name: "stream" if "metric" in name else "dense",
+        {"stream": "step_block_stream"})
 
     # one whole step, against the plain per-step route
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -3767,19 +3859,9 @@ def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
     geom = {"G": rand(3, 3, n, n, n, E), "D": rand(n, n)}
     dt = 0.1
     step = op.make_step(E, dt=dt)
-    step(state, geom)                      # the axis factors made once
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    got = step(state, geom)
-    torch.cuda.synchronize()
-    counts, modes = _hex_counts(kernels, tracing)
-    log(f"[hex] one step at E={E}: launches {counts}, step_block_mode"
-        f" {modes}")
-    if counts != {"step_block_f32": 6, "step_update": 2} \
-            or modes != {"dense": 4, "stream": 2}:
-        raise SmokeFailure(f"a hex step ran {counts}, modes {modes}")
-    for k, c in counts.items():
-        launches[k] = launches.get(k, 0) + c
+    step_launches = {"step_block_f32": 6, "step_update": 2}
+    got = _checked_step(step, state, geom, "hex", E, step_launches,
+                        {"dense": 4, "stream": 2}, launches)
     want = ft.HexWaveOperator3D(use_pallas=False, device=dev).make_step(
         E, dt=dt)(state, geom)
     torch.cuda.synchronize()
@@ -3801,10 +3883,8 @@ def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
                                f" route by {gap:.2e}")
     del got, want
     torch.cuda.empty_cache()
-    step_ms = timeit_cuda(lambda st: _tensors(step(st, geom)), state)
-    log(f"[time] hex step E={E}: {step_ms:.4f} ms, the median of single"
-        f" steps (6 step_block_f32, 2 of them streamed, and 2 step_update"
-        f" launches) {label}")
+    _timed_step(step, state, geom, "hex", E, "6 step_block_f32, 2 of them"
+                " streamed, and 2 step_update launches", label)
 
     # one element fewer: n^3 E % 4 != 0 puts the metric products' output
     # rows off 16 bytes, so every launch keeps the block kernel
@@ -3812,28 +3892,81 @@ def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
     state = {k: t[..., :odd].contiguous() for k, t in state.items()}
     geom = {"G": geom["G"][..., :odd].contiguous(), "D": geom["D"]}
     step = op.make_step(odd, dt=dt)
-    step(state, geom)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    step(state, geom)
-    torch.cuda.synchronize()
-    counts, modes = _hex_counts(kernels, tracing)
-    log(f"[hex] one step at E={odd}: launches {counts}, step_block_mode"
-        f" {modes}")
-    if counts != {"step_block_f32": 6, "step_update": 2} \
-            or modes != {"dense": 6}:
-        raise SmokeFailure(f"a hex step at E={odd} ran {counts}, modes"
-                           f" {modes}")
-    for k, c in counts.items():
-        launches[k] = launches.get(k, 0) + c
-    odd_ms = timeit_cuda(lambda st: _tensors(step(st, geom)), state)
-    log(f"[time] hex step E={odd}: {odd_ms:.4f} ms, the median of single"
-        f" steps (6 step_block_f32 on the block kernel, 2 step_update"
-        f" launches) {label}")
+    _checked_step(step, state, geom, "hex", odd, step_launches,
+                  {"dense": 6}, launches)
+    _timed_step(step, state, geom, "hex", odd, "6 step_block_f32 on the"
+                " block kernel, 2 step_update launches", label)
     del state, geom
     torch.cuda.empty_cache()
     return launches
 
+
+E_ADER = 4_000_000
+# the ADER step's launches: a step_block_f32 launch per einsum, a
+# step_update pass per band of the time integral and one for the update
+ADER_STEP_LAUNCHES = {"step_block_f32": 6, "step_update": 6}
+
+
+def ader_model_path(dev, label: str, stats: KernelStats) -> dict:
+    """Phase 24 (module docstring): ``AderElasticOperator3D``'s six
+    executables at E = 4M, each against ``step_block_plain`` and timed
+    beside its bound (into *stats* as ``step_block_ader``), then one whole
+    step against the plain per-step route, and its time.  Returns the
+    launches of the counted runs (``step_block_ader``: the six executables'
+    launches, also counted under ``step_block_f32``)."""
+    import torch
+
+    import feinsum_tpu_torch as ft
+
+    E = E_ADER
+    op = ft.AderElasticOperator3D(device=dev)
+    launches = _executables_against_plain(
+        op, E, "ader", dev, label, stats, lambda name: E,
+        lambda name: "dense", {"dense": "step_block_ader"})
+
+    # one whole step on the configuration's draw, against the plain
+    # per-step route in blocks of 2**20 elements
+    state, geom = ft.make_ader_state(E, seed=24, device=dev)
+    dt = 1e-3
+    step = op.make_step(E, dt=dt)
+    got = _checked_step(step, state, geom, "ader", E, ADER_STEP_LAUNCHES,
+                        {"dense": 6}, launches)["Q"]
+    block = 1 << 20
+    plain = ft.AderElasticOperator3D(use_pallas=False, device=dev)
+    worst = largest = 0.0
+    for a in range(0, E, block):
+        n = min(block, E - a)
+        cut = {k: t[..., a:a + n].contiguous() if k in ("S", "A") else t
+               for k, t in geom.items()}
+        old = state["Q"][..., a:a + n].contiguous()
+        want = plain.make_step(n, dt=dt)({"Q": old}, cut)["Q"]
+        # beyond the unit in the last place of the new state, which the
+        # two routes' roundings to float32 may cost between them: the
+        # increments are about 1e-3 of the state
+        ulp = (torch.nextafter(want.abs(), torch.tensor(
+            math.inf, device=dev)) - want.abs()).double()
+        worst = max(worst, float(((got[..., a:a + n].double()
+                                   - want.double()).abs() - ulp)
+                                 .clamp_min(0).max()))
+        largest = max(largest, float((want.double() - old.double())
+                                     .abs().max()))
+        del cut, old, want, ulp
+    gap = worst / largest
+    ok = gap <= RTOL and got.shape == state["Q"].shape
+    log(f"[compare] ader step Q E={E}: max|increment - plain route's|,"
+        f" beyond an ulp of the new state, = {gap:.2e} of its largest"
+        f" (tolerance {RTOL})"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"an ader step differs from the plain route by"
+                           f" {gap:.2e}")
+    del got
+    torch.cuda.empty_cache()
+    _timed_step(step, state, geom, "ader", E, "6 step_block_f32 and 6"
+                " step_update launches", label)
+    del state, geom
+    torch.cuda.empty_cache()
+    return launches
 
 if __name__ == "__main__":
     try:

@@ -14,9 +14,10 @@ replay the archived champion (``sql_utils``) onto the fp64 DG kernel of
 ``compile_fn_with_archive`` (a user's torch function, traced by
 ``torch.fx``, matched against the grammar and replayed from the archive)
 and the DG wave and Maxwell models (``models``).  Public names are those
-of ``feinsum_tpu``, and besides them the spectral-element wave model on
-hexahedra, which that package lacks (``HexWaveOperator3D``,
-``make_hexwave_state``).  The package imports ``torch`` and never ``jax``
+of ``feinsum_tpu``, and besides them two models that package lacks: the
+spectral-element wave model on hexahedra (``HexWaveOperator3D``,
+``make_hexwave_state``) and SeisSol's elastic ADER-DG element
+(``AderElasticOperator3D``, ``make_ader_state``).  The package imports ``torch`` and never ``jax``
 or ``feinsum_tpu``.
 """
 
@@ -90,9 +91,11 @@ from .sql_utils import (
     retrieve,
 )
 from .models import (
+    AderElasticOperator3D,
     HexWaveOperator3D,
     MaxwellOperator3D,
     WaveOperator3D,
+    make_ader_state,
     make_hexwave_state,
     make_maxwell_state,
     make_wave_state,
@@ -112,6 +115,7 @@ from .tuning import (
 __version__ = "0.1.0"
 
 __all__ = (
+    "AderElasticOperator3D",
     "Array",
     "BatchedEinsum",
     "BoolParameter",
@@ -169,6 +173,7 @@ __all__ = (
     "get_trivial_contraction_schedule",
     "hoist_cses_in_fn",
     "identify_as_einsum",
+    "make_ader_state",
     "make_hexwave_state",
     "make_maxwell_state",
     "make_wave_state",

@@ -1,11 +1,14 @@
 """Workload models built on the einsum framework: the DG wave and Maxwell
-operators of ``feinsum_tpu.models`` as ``torch.nn.Module``\\ s, and the
-spectral-element wave operator on hexahedra (``hexwave``)."""
+operators of ``feinsum_tpu.models`` as ``torch.nn.Module``\\ s, the
+spectral-element wave operator on hexahedra (``hexwave``) and SeisSol's
+elastic ADER-DG element (``ader``)."""
 
+from .ader import AderElasticOperator3D, make_ader_state
 from .hexwave import HexWaveOperator3D, make_hexwave_state
 from .maxwell import MaxwellOperator3D, make_maxwell_state
 from .wave import WaveOperator3D, make_wave_state, state_from_reference
 
-__all__ = ("HexWaveOperator3D", "MaxwellOperator3D", "WaveOperator3D",
+__all__ = ("AderElasticOperator3D", "HexWaveOperator3D",
+           "MaxwellOperator3D", "WaveOperator3D", "make_ader_state",
            "make_hexwave_state", "make_maxwell_state", "make_wave_state",
            "state_from_reference")

@@ -1207,18 +1207,39 @@ def _update_plain(base: torch.Tensor, groups: list, dt: float, signs: tuple,
     return outs[0] if base.ndim == 2 else torch.stack(outs)
 
 
+def _update_out(base: torch.Tensor, out) -> torch.Tensor:
+    """The update's output: *out*, checked as the base is (its shape,
+    dtype and device, unit stride along E, any row stride), or a new
+    contiguous tensor."""
+    if out is None:
+        return torch.empty(base.shape, dtype=base.dtype, device=base.device)
+    if isinstance(out, torch.Tensor) and out.ndim == base.ndim == 3 \
+            and out.shape == base.shape:
+        for g, o in enumerate(out.unbind(0)):
+            _check_view(f"out of group {g}", o, base.device, base.dtype,
+                        base.shape[1:])
+    else:
+        _check_view("out", out, base.device, base.dtype, base.shape)
+    return out
+
+
 def step_update_plain(base: torch.Tensor, terms: Sequence, dt: float,
-                      signs: Optional[Sequence[int]] = None) -> torch.Tensor:
+                      signs: Optional[Sequence[int]] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch version of ``step_update``, on any device: the
     glue the model steps ran before it, one PyTorch op at a time, with the
     same arguments and checks, and one storage more, base and terms
     float64 (the models' plain per-step route)."""
     signs, groups, pairs = _update_args(base, terms, signs, kernel=False)
-    return _update_plain(base, groups, dt, signs, pairs)
+    result = _update_plain(base, groups, dt, signs, pairs)
+    if out is None:
+        return result
+    return _update_out(base, out).copy_(result)
 
 
 def step_update(base: torch.Tensor, terms: Sequence, dt: float,
-                signs: Optional[Sequence[int]] = None) -> torch.Tensor:
+                signs: Optional[Sequence[int]] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A model step's state update in one pass: ``base + dt * (((s0 t0 +
     s1 t1) + s2 t2) + s3 t3)`` over one to four *terms* with *signs* (+1
     or -1 each, all +1 by default), as a new contiguous tensor of the
@@ -1232,21 +1253,23 @@ def step_update(base: torch.Tensor, terms: Sequence, dt: float,
     any distance apart), read as ``hi + lo`` in float64 and counted in
     ``pair_bytes`` at 8 bytes an entry.  Every view needs unit stride along
     E; any row stride.  ``csrc/step_update.cu``'s header says why the
-    result is the plain version's bit for bit."""
+    result is the plain version's bit for bit.  *out*, a tensor of the
+    base's shape and dtype (any row stride, such as rows of a larger
+    tensor), takes the result in place of a new tensor."""
     signs, groups, pairs = _update_args(base, terms, signs, kernel=True)
     if pairs:
         tracing.counters["pair_bytes"] += 8 * len(terms) * base.numel()
 
     def body(lib, launch):
-        out = torch.empty(base.shape, dtype=base.dtype, device=base.device)
+        result = _update_out(base, out)
         R, E = groups[0][0].shape
         if R * E == 0:
-            return out
+            return result
         K = UPDATE_MAX_TERMS
         ptrs = (ctypes.c_void_p * (len(groups) * (2 + 2 * K)))()
         strides = (ctypes.c_int64 * (len(groups) * (2 + K)))()
         for g, ((b, views), o) in enumerate(zip(
-                groups, out.unbind(0) if base.ndim == 3 else [out])):
+                groups, result.unbind(0) if base.ndim == 3 else [result])):
             p, s = g * (2 + 2 * K), g * (2 + K)
             ptrs[p], ptrs[p + 1] = b.data_ptr(), o.data_ptr()
             strides[s], strides[s + 1] = b.stride(0), o.stride(0)
@@ -1259,9 +1282,10 @@ def step_update(base: torch.Tensor, terms: Sequence, dt: float,
         neg = sum(1 << t for t, s in enumerate(signs) if s < 0)
         launch(lib.step_update, int(pairs), len(groups), len(terms), R, E,
                ptrs, strides, neg, float(dt))
-        return out
+        return result
     return launch_frame("step_update", base.device,
-                        lambda: _update_plain(base, groups, dt, signs, pairs),
+                        lambda: step_update_plain(base, terms, dt, signs,
+                                                  out=out),
                         body)
 
 

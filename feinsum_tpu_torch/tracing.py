@@ -11,7 +11,12 @@ device trace; nothing here exports, stores or switches anything.
 The spans, each at one boundary of the package:
 
 * ``feinsum.step:<class>`` — the body of a model's step closure
-  (``models/wave.py``, ``models/maxwell.py``, ``models/hexwave.py``);
+  (``models/wave.py``, ``models/maxwell.py``, ``models/hexwave.py``,
+  ``models/ader.py``);
+* ``feinsum.ader:predictor`` and ``feinsum.ader:corrector`` — the two
+  halves of the ADER step (``models/ader.py``), inside its ``feinsum.step``
+  span: the derivatives and the time integral, then the volume and flux
+  terms and the update;
 * ``feinsum.exec:<subscripts>`` — each call of an executable that
   :func:`~feinsum_tpu_torch.codegen.program.build_executable` returns;
 * ``feinsum.kernel:<kernel>`` — a kernel wrapper of ``ops/kernels.py`` or
@@ -32,6 +37,10 @@ path, ``"step_block_mode"``, ``step_block_f32``'s launches by the path
 they took (``"stream"``, ``ops.kernels.step_block_path``), else by the
 mode of their step table (``"dense"`` when every step is dense, else
 ``"general"``), ``"model_steps"``, the calls of a model's step,
+``"ader_predictor_launches"``, the launches issued inside the ADER step's
+``feinsum.ader:predictor`` span (``launches`` before and after it), so
+that ``ader_predictor_launches / model_steps`` is the predictor's launches
+per step,
 ``"pair_bytes"``, the bytes the steps' pair conversions read and write
 (a split 16 an entry: 8 of float64 read, 2 x 4 of pair written; a combine
 fused into the update 8 an entry, the pair read), so that ``pair_bytes /
@@ -96,7 +105,7 @@ counters = {
     # (ops/kernels.step_block_path), else the mode of their step table:
     # every step dense (register tiles), or any general one (offset tables)
     "step_block_mode": {"dense": 0, "general": 0, "stream": 0},
-    "model_steps": 0, "pair_bytes": 0,
+    "model_steps": 0, "pair_bytes": 0, "ader_predictor_launches": 0,
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,
     "archive_queries": 0, "archive_query_s": 0.0}

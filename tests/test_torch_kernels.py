@@ -2752,6 +2752,41 @@ def test_probe_stream_kernel_matches_plain(cuda_device, case, block_elems):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("E", [4099, 4100])
+def test_ader_model_step_matches_the_plain_route(cuda_device, E):
+    """A float32 step of the ADER element with its default plan (six
+    ``step_block_f32`` launches, every table dense, and six
+    ``step_update`` passes: five bands of the time integral written into
+    one tensor and the update; nothing else) against the same model on the
+    plain per-step route, increment against increment."""
+    from feinsum_tpu_torch import tracing
+    state, geom = ft.make_ader_state(E, seed=6, device=cuda_device)
+    launches = dict(kernels.launch_counts)
+    modes = dict(tracing.counters["step_block_mode"])
+    got = ft.AderElasticOperator3D().make_step(E)(state, geom)
+    torch.cuda.synchronize()
+    assert {k: n - launches[k] for k, n in kernels.launch_counts.items()
+            if n != launches[k]} == {"step_block_f32": 6, "step_update": 6}
+    assert {k: n - modes[k] for k, n
+            in tracing.counters["step_block_mode"].items()} \
+        == {"dense": 6, "general": 0, "stream": 0}
+    want = ft.AderElasticOperator3D(use_pallas=False).make_step(E)(
+        state, geom)["Q"]
+    old, got = state["Q"], got["Q"]
+    assert got.shape == old.shape and got.is_contiguous()
+    # the increments are about 1e-3 of the state: beyond the unit in the
+    # last place of the new state, which the two routes' roundings to
+    # float32 may cost between them, within RTOL of the largest increment
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"),
+                                                   device=want.device)) \
+        - want.abs()
+    excess = ((got.double() - want.double()).abs() - ulp.double()) \
+        .clamp_min(0)
+    assert float(excess.max()) <= RTOL * float(
+        (want.double() - old.double()).abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("E,stream", [(4099, 0), (4100, 2)])
 def test_hex_model_step_matches_the_plain_route(cuda_device, E, stream):
     """A float32 step of the hexahedral model with its default plan (six

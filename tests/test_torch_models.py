@@ -24,7 +24,11 @@ The spectral-element wave operator on hexahedra (``HexWaveOperator3D``),
 which the JAX package lacks, is held to the benchmark's plain reference
 (``benchmark_torch/configs/hexwave3d_q4.py``), and that reference to the
 kron-expanded dense operator, computed here apart; its element operator is
-skew-symmetric, and every program it plans runs on ``step_block_f32``."""
+skew-symmetric, and every program it plans runs on ``step_block_f32``.
+SeisSol's elastic ADER-DG element (``AderElasticOperator3D``), which the
+JAX package lacks too, is held to the benchmark's plain reference
+(``benchmark_torch/configs/seissol_elastic_o5.py``) on both routes, and a
+step without its last derivative has to fail that check."""
 
 from __future__ import annotations
 
@@ -408,17 +412,22 @@ BENCH = Path(__file__).resolve().parents[1] / "benchmark_torch"
 HEX_CONFIG = "hexwave3d_q4"
 
 
-def _hex_reference():
-    """``(cfg, reference module)`` of the benchmark's hexahedral cell."""
+def _bench_reference(config):
+    """``(cfg, reference module)`` of a benchmark configuration."""
     import sys
     if str(BENCH) not in sys.path:
         sys.path.insert(0, str(BENCH))       # the reference imports plain
     spec = importlib.util.spec_from_file_location(
-        f"reference_{HEX_CONFIG}", BENCH / "configs" / f"{HEX_CONFIG}.py")
+        f"reference_{config}", BENCH / "configs" / f"{config}.py")
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
-    cfg = json.loads((BENCH / "configs" / f"{HEX_CONFIG}.json").read_text())
+    cfg = json.loads((BENCH / "configs" / f"{config}.json").read_text())
     return cfg, ref
+
+
+def _hex_reference():
+    """``(cfg, reference module)`` of the benchmark's hexahedral cell."""
+    return _bench_reference(HEX_CONFIG)
 
 
 def _hex_inputs(n_elements, seed, dtype=torch.float32):
@@ -584,5 +593,142 @@ def test_hex_model_refuses_float64_and_draws_its_state():
         "D": (5, 5)}
     again, _ = ft.make_hexwave_state(6, seed=2, device="cpu")
     assert all(torch.equal(state[k], again[k]) for k in state)
+
+# }}}
+
+
+# {{{ SeisSol's elastic ADER-DG element
+
+ADER_CONFIG = "seissol_elastic_o5"
+# the degree boxes at order 5: modal functions of degree <= 4, 3, 2, 1, 0
+ADER_BOXES = (35, 20, 10, 4, 1)
+
+
+def _ader_inputs(n_elements, seed):
+    cfg, ref = _bench_reference(ADER_CONFIG)
+    state, geom = ref.make_inputs(cfg, n_elements,
+                                  torch.Generator().manual_seed(seed), "cpu")
+    return cfg, ref, state, geom
+
+
+def _gap(new, old, inc):
+    """The benchmark's ``increment_gap`` (``run.gap_terms``): the widest
+    excess of the new state over the old plus the increment beyond the
+    half unit in the last place that storing costs, over the largest
+    increment."""
+    half_ulp = 0.5 * (torch.nextafter(new.abs(), torch.tensor(
+        float("inf"))) - new.abs()).double()
+    excess = ((new.double() - (old.double() + inc.double())).abs()
+              - half_ulp).clamp_min(0)
+    return float(excess.max() / inc.abs().max())
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("n_elements", [37, 64])
+def test_ader_step_matches_the_benchmark_reference(n_elements, use_pallas):
+    """A float32 step of the model (its default plan, CPU tensors: the
+    kernels' plain versions; and the plain per-step route) against the
+    plain reference's increment, which follows the equations as written
+    (unscaled derivatives, the time integral's weights applied), within
+    the configuration's limit."""
+    cfg, ref, state, geom = _ader_inputs(n_elements, 2 ** 33 + n_elements)
+    op = ft.AderElasticOperator3D(use_pallas=use_pallas,
+                                  **cfg["operator"]["kwargs"])
+    new = op.make_step(n_elements, dt=cfg["dt"])(state, geom)
+    assert set(new) == {"Q"}
+    assert new["Q"].shape == state["Q"].shape and new["Q"].is_contiguous()
+    inc = ref.increments(cfg, state, geom)["Q"]
+    assert _gap(new["Q"], state["Q"], inc) \
+        < cfg["check"]["increment_gap_limit"]
+    # the module's forward is one step
+    torch.testing.assert_close(op(state, geom, dt=cfg["dt"])["Q"], new["Q"],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dropped", ["K3", "K2"])
+def test_ader_check_tells_a_short_predictor(dropped):
+    """A step whose last derivative (dQ4: K3 zeroed) or last two (K2
+    zeroed) are left out reads above the configuration's limit, so the
+    check tells a short predictor from the whole one."""
+    n = 64
+    cfg, ref, state, geom = _ader_inputs(n, 2 ** 33 + 7)
+    inc = ref.increments(cfg, state, geom)["Q"]
+    short = dict(geom, **{dropped: torch.zeros_like(geom[dropped])})
+    new = ft.AderElasticOperator3D().make_step(n, dt=cfg["dt"])(state, short)
+    assert _gap(new["Q"], state["Q"], inc) \
+        > 10 * cfg["check"]["increment_gap_limit"]
+
+
+def test_ader_einsums_keep_the_degree_boxes():
+    """The six einsums in the degree boxes B = (35, 20, 10, 4, 1): the
+    derivative d maps B_d functions to B_{d+1}, the volume term reads the
+    first B_1 of I, the flux all B_0 through 15 face functions; each
+    program runs on ``step_block_f32`` with every step dense and nothing
+    hoisted."""
+    from feinsum_tpu_torch.models import ader
+    from feinsum_tpu_torch.ops.cuda_emitter import hoist_resident_steps
+    from feinsum_tpu_torch.ops.step_block import plan_step_block
+    assert ader.B == ADER_BOXES and ader.F == 15
+    B = ADER_BOXES
+    op = ft.AderElasticOperator3D()
+    want = {**{f"derivative_{d}": {f"K{d}": (3, B[d + 1], B[d]),
+                                   f"dQ{d}": (B[d], 9, "E"),
+                                   "S": (3, 9, 9, "E")} for d in range(4)},
+            "volume": {"Kv": (3, 35, 20), "I": (20, 9, "E"),
+                       "S": (3, 9, 9, "E")},
+            "flux": {"L": (4, 35, 15), "R": (4, 15, 35), "I": (35, 9, "E"),
+                     "A": (4, 9, 9, "E")}}
+    assert list(op.einsums) == list(want)
+    n_elements = 4099
+    for name, program in op.programs.items():
+        shapes = {a.name: tuple(d if isinstance(d, int) else "E"
+                                for d in a.shape)
+                  for row in program.einsum.args for a in row}
+        assert shapes == want[name], name
+        assert program.descriptor.backend == "pallas", name
+        lengths = get_index_lengths(program.einsum, n_elements)
+        assert plan_cuda_launch(program, lengths).kernel \
+            == "step_block_f32", name
+        kernel_program, hoisted = hoist_resident_steps(program)
+        assert hoisted == (), name
+        assert plan_step_block(kernel_program, lengths).mode == "dense", name
+
+
+def test_ader_model_draws_its_state_and_refuses_what_it_lacks():
+    """``make_ader_state`` draws the same tensors for a seed, in the
+    model's layouts; the model runs float32 alone."""
+    state, geom = ft.make_ader_state(6, seed=2, device="cpu")
+    assert {k: tuple(t.shape) for k, t in {**state, **geom}.items()} == {
+        "Q": (35, 9, 6), "S": (3, 9, 9, 6), "A": (4, 9, 9, 6),
+        "K0": (3, 20, 35), "K1": (3, 10, 20), "K2": (3, 4, 10),
+        "K3": (3, 1, 4), "Kv": (3, 35, 20), "R": (4, 15, 35),
+        "L": (4, 35, 15)}
+    again = ft.make_ader_state(6, seed=2, device="cpu")
+    other = ft.make_ader_state(6, seed=3, device="cpu")
+    for k, t in {**state, **geom}.items():
+        assert t.dtype == torch.float32
+        assert torch.equal(t, {**again[0], **again[1]}[k])
+        assert not torch.equal(t, {**other[0], **other[1]}[k])
+    with pytest.raises(TypeError, match="dtype"):
+        ft.AderElasticOperator3D(dtype="float64")
+
+
+def test_ader_reference_matrices_are_scaled_once(monkeypatch):
+    """The factors dt / (d + 2), dt and dt ride in K_d, Kv and L, each
+    held in its program's stored layout with R: made on the first step,
+    and not again for a step with the same geometry."""
+    from feinsum_tpu_torch.models import ader
+    cfg, ref, state, geom = _ader_inputs(8, 3)
+    held, apply_layouts = [], ader.apply_layouts
+
+    def counted(program, arrays):
+        held.extend(arrays)
+        return apply_layouts(program, arrays)
+    monkeypatch.setattr(ader, "apply_layouts", counted)
+    step = ft.AderElasticOperator3D().make_step(8, dt=cfg["dt"])
+    first = step(state, geom)
+    again = step(state, geom)
+    assert sorted(held) == ["K0", "K1", "K2", "K3", "Kv", "L", "R"]
+    torch.testing.assert_close(first["Q"], again["Q"], rtol=0, atol=0)
 
 # }}}

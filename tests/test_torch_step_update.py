@@ -1,7 +1,8 @@
 """The model step's state update (``ops.kernels.step_update``) and the
 one-pass pair split (``ops.kernels.pairs_split``): on the CPU, the plain
 branch against the PyTorch glue the wave and Maxwell steps ran before it,
-bit for bit, the wrapper's refusals and the ``pair_bytes`` counts; in the
+bit for bit, the wrapper's refusals, its *out* (the result written into
+rows of a larger tensor) and the ``pair_bytes`` counts; in the
 tests marked ``cuda``, the kernels against their plain versions on the
 card bit for bit, and chained model steps against the same steps with the
 PyTorch glue.  This file imports no JAX; on a machine without it run
@@ -236,6 +237,36 @@ def test_the_wrapper_refuses_bad_signs(signs):
         kernels.step_update(b, [b, b], DT, signs=signs)
 
 
+@pytest.mark.parametrize("storage", sorted(STORAGES))
+def test_out_takes_the_result_in_rows_of_a_larger_tensor(storage):
+    """With *out*, the update writes into it (here a band of rows of a
+    larger tensor, as the ADER step's time integral writes its bands) and
+    returns it, the same values as a new tensor; the rest of the larger
+    tensor is left as it was."""
+    dtype, pairs = STORAGES[storage]
+    base = _rand(P, 16, dtype=dtype)
+    terms = [_pair(P, 16, seed=k) if pairs else _rand(P, 16, dtype=dtype,
+                                                      seed=k)
+             for k in (1, 2)]
+    for update in _updates(storage):
+        want = update(base, terms, DT, signs=(1, -1))
+        whole = torch.full((2 * P, 16), 7.0, dtype=dtype)
+        got = update(base, terms, DT, signs=(1, -1), out=whole[3:3 + P])
+        assert got.data_ptr() == whole[3].data_ptr()
+        _same(whole[3:3 + P], want)
+        assert bool((whole[:3] == 7).all() and (whole[3 + P:] == 7).all())
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "E stride"])
+def test_out_is_checked_as_the_base_is(case):
+    b, t = _rand(P, 16), _rand(P, 16)
+    out = {"shape": torch.empty(P, 8), "dtype": torch.empty(P, 16).double(),
+           "E stride": torch.empty(P, 32)[:, ::2]}[case]
+    for update in (kernels.step_update, kernels.step_update_plain):
+        with pytest.raises(ft.InvalidParameterError, match="out"):
+            update(b, [t], DT, out=out)
+
+
 def test_pairs_split_refuses_what_is_not_float64():
     with pytest.raises(ft.InvalidParameterError, match="float64"):
         kernels.pairs_split(_rand(4, 8))
@@ -369,6 +400,33 @@ def test_step_update_equals_its_plain_version_on_the_card(
         assert kernels.launch_counts["step_update"] == before + 1
         assert got.is_contiguous()
         _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(0, 9), (9, 36), (180, 315)])
+@pytest.mark.parametrize("E", [3, 4099, 1000003])
+def test_step_update_into_out_equals_its_plain_version_on_the_card(
+        cuda_device, E, rows):
+    """Bit for bit, the result written into a band of rows of a larger
+    tensor, as the ADER step's time integral writes its bands of (35 x 9,
+    E) rows; the rows around the band are left as they were."""
+    lo, hi = rows
+    R = hi - lo
+    base = _rand(315, E, seed=1)
+    terms = [_rand(315, E, seed=2 + k) for k in range(3)]
+    want = kernels.step_update_plain(base[lo:hi], [t[lo:hi] for t in terms],
+                                     1.0)
+    whole = torch.full((315, E), 7.0, device=cuda_device)
+    before = kernels.launch_counts["step_update"]
+    got = kernels.step_update(base[lo:hi].to(cuda_device),
+                              [t[lo:hi].to(cuda_device) for t in terms], 1.0,
+                              out=whole[lo:hi])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["step_update"] == before + 1
+    assert got.data_ptr() == whole[lo].data_ptr() and got.shape == (R, E)
+    _same(whole[lo:hi], want)
+    rest = torch.cat([whole[:lo], whole[hi:]])
+    assert bool((rest == 7).all())
 
 
 @pytest.mark.cuda

@@ -4,9 +4,10 @@ entered without one, the set-up counters, the launch counter, the pair
 conversions of a float64 step (their spans inside the step's, their bytes
 and the steps counted by hand), the hexahedral model's step (its spans,
 ``step_block_f32``'s launches counted by table mode through a stand-in
-library), and the benchmark's readers of the spans and counters
-(``benchmark_torch/metrics/``) on synthetic runs.  This file imports no
-JAX."""
+library), the ADER element's step (its predictor and corrector spans, the
+predictor's launches counted), and the benchmark's readers of the spans
+and counters (``benchmark_torch/metrics/``) on synthetic runs.  This file
+imports no JAX."""
 
 from __future__ import annotations
 
@@ -514,5 +515,172 @@ def test_hex_readers_on_a_synthetic_trace():
     for name in ("sumfact_roofline", "step_mfu"):
         assert _reader(name)(SimpleNamespace(
             trace=run.trace, peaks=None)) is None
+
+# }}}
+
+
+# {{{ the ADER element
+
+# the ADER step's launches: its predictor's four derivatives and five bands
+# of the time integral, then the volume and flux terms and the update
+ADER_PREDICTOR = 9
+ADER_LAUNCHES = {"step_block_f32": 6, "step_update": 6}
+
+
+def test_an_ader_step_records_its_spans_and_counts_itself():
+    """One step records ``feinsum.step:AderElasticOperator3D`` around its
+    two halves, ``feinsum.ader:predictor`` (the four derivatives' executable
+    spans) then ``feinsum.ader:corrector`` (the volume and flux terms'),
+    and counts one model step."""
+    op = ft.AderElasticOperator3D()
+    state, geom = ft.make_ader_state(E, seed=1, device="cpu")
+    step = op.make_step(E)
+    step(state, geom)
+    c = tracing.counters
+    steps = c["model_steps"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, geom)
+    assert c["model_steps"] == steps + 1
+    (s_name, s_lo, s_hi), = _spans(prof, "feinsum.step:")
+    assert s_name == "feinsum.step:AderElasticOperator3D"
+    halves = sorted(_spans(prof, "feinsum.ader:"), key=lambda s: s[1])
+    assert [name for name, _, _ in halves] == [
+        "feinsum.ader:predictor", "feinsum.ader:corrector"]
+    assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in halves)
+    execs = sorted(_spans(prof, "feinsum.exec:"), key=lambda s: s[1])
+    subs = {n: f"feinsum.exec:{p.einsum.get_subscripts()}"
+            for n, p in op.programs.items()}
+    for (_, lo, hi), names in zip(halves, [
+            [f"derivative_{d}" for d in range(4)], ["volume", "flux"]]):
+        inside = [name for name, a, b in execs if lo <= a <= b <= hi]
+        assert inside == [subs[n] for n in names]
+    assert len(execs) == 6
+
+
+def test_ader_predictor_launches_count_the_predictors_launches(monkeypatch):
+    """``ader_predictor_launches`` grows by the launches issued inside the
+    predictor's span, 9 a step (four ``step_block_f32``, five
+    ``step_update`` bands), of the step's 12.  The wrappers run their CUDA
+    branch on CPU tensors against a stand-in library whose every entry
+    returns 0 (no kernel runs)."""
+
+    class Library:
+        def __getattr__(self, entry):
+            if entry.endswith("_max_rows"):
+                return lambda: 8
+            return lambda *args: 0
+
+    def frame(name, device, plain, body):
+        def launch(entry, *args):
+            assert entry(*args) == 0
+            tracing.count_launch(name)
+        return body(Library(), launch)
+    monkeypatch.setattr(kernels, "launch_frame", frame)
+    saved = dict(kernels.launch_counts), dict(tracing.counters)
+    try:
+        kernels.reset_launch_counts()
+        op = ft.AderElasticOperator3D()
+        state, geom = ft.make_ader_state(E, seed=2, device="cpu")
+        step = op.make_step(E)
+        before = tracing.counters["ader_predictor_launches"]
+        for k in range(1, 3):
+            step(state, geom)
+            assert tracing.counters["ader_predictor_launches"] \
+                == before + k * ADER_PREDICTOR
+            assert {n: c for n, c in kernels.launch_counts.items() if c} \
+                == {n: k * c for n, c in ADER_LAUNCHES.items()}
+    finally:
+        kernels.launch_counts.update(saved[0])
+        for key in ("ader_predictor_launches", "model_steps"):
+            tracing.counters[key] = saved[1][key]
+
+
+SB_ADER = ("void (anonymous namespace)::step_block_kernel<false>"
+           "((anonymous namespace)::Plan)")
+
+
+def _ader_trace(steps, per_step, extra=()):
+    """A synthetic trace of *steps* ADER steps: each step's program
+    launches (the predictor's 9 at 1 ms each, the corrector's 3 at 2 ms
+    each, every other one a ``step_update``), and *extra* operations."""
+    device, t = list(extra), 0.0
+    for _ in range(steps):
+        for k in range(per_step):
+            length = 0.001 if k < ADER_PREDICTOR else 0.002
+            device.append((SB_ADER if k % 2 else UPDATE32, t, t + length))
+            t += length + 0.0001
+    return device
+
+
+def test_predictor_ms_per_step_reads_the_predictors_launches(monkeypatch):
+    """``predictor_ms_per_step``: the program's device operations in start
+    order (PyTorch's left out), cut into steps at the launches per step,
+    the first ``ader_predictor_launches / model_steps`` of each summed per
+    step; nothing where a step's operations are not as many as its
+    launches, where the program lacks the counter or counts none, or
+    without a trace."""
+    read = _reader("predictor_ms_per_step")
+    monkeypatch.setattr(tracing, "counters",
+                        {"model_steps": 10, "ader_predictor_launches": 90})
+    # a PyTorch kernel and a copy among them count for nothing
+    device = _ader_trace(3, 12, extra=[(ADD, 0.0005, 0.0006),
+                                       ("Memcpy DtoD", 0.02, 0.021)])
+    run = SimpleNamespace(trace=SimpleNamespace(device=device, steps=3,
+                                                launches=36))
+    assert read(run) == pytest.approx(9 * 1.0)
+    # one operation lost: the steps' operations are not their launches
+    run.trace.device = device[:-1]
+    assert read(run) is None
+    run.trace.device, run.trace.launches = device, 35
+    assert read(run) is None
+    run.trace.launches = 36
+    # the parent, or a model without a predictor: no such counter
+    monkeypatch.setattr(tracing, "counters", {"model_steps": 10})
+    assert read(run) is None
+    monkeypatch.setattr(tracing, "counters",
+                        {"model_steps": 0, "ader_predictor_launches": 0})
+    assert read(run) is None
+    assert read(SimpleNamespace(trace=None)) is None
+
+
+def test_the_ader_cell_feeds_the_accepted_generic_readers():
+    """The readers that the ADER cell shares with the tetrahedral cells
+    read its step: the host readers split a profiled step's spans (the
+    ``feinsum.ader:*`` halves belong to no layer of theirs), summing to
+    the step span; ``glue_ms_per_step`` reads 0 ms where every device
+    operation is the program's; ``kernels_roofline`` reads the sum of
+    the six einsums' least times over the program's device time per step
+    (the step counting 200,826 operations and 4,788 bytes an element);
+    ``setup_program_s``
+    reads the program's counters."""
+    if str(BENCH) not in sys.path:
+        sys.path.insert(0, str(BENCH))
+    import yardstick
+    step = ft.AderElasticOperator3D().make_step(E)
+    state, geom = ft.make_ader_state(E, seed=4, device="cpu")
+    step(state, geom)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, geom)
+    host = [(name, lo / 1e6, hi / 1e6)
+            for name, lo, hi in _spans(prof, "feinsum.")]
+    (_, s_lo, s_hi), = [s for s in host if s[0].startswith("feinsum.step:")]
+    got = {name: _reader(name)(_run(host, 1)) for name in HOST_READERS}
+    assert all(v is not None and v >= 0 for v in got.values()), got
+    assert sum(got.values()) == pytest.approx(1e3 * (s_hi - s_lo))
+    cfg = json.loads((BENCH / "configs"
+                      / "seissol_elastic_o5.json").read_text())
+    peaks = {"flops": {"float32": 67e12}, "bytes_per_s": 3.35e12}
+    flops, nbytes = yardstick.step_counts(cfg, 1000)
+    # the reference matrices' 9,132 floats once
+    assert (flops, nbytes) == (200826 * 1000, 4788 * 1000 + 4 * 9132)
+    device = _ader_trace(3, 12)
+    run = SimpleNamespace(cfg=cfg, n_elements=1000, peaks=peaks,
+                          trace=SimpleNamespace(device=device, steps=3))
+    assert _reader("glue_ms_per_step")(run) == 0.0
+    program = sum(hi - lo for _, lo, hi in device) / 3
+    least = yardstick.einsums_least_time(cfg, 1000, peaks)
+    assert _reader("kernels_roofline")(run) == pytest.approx(
+        100 * least / program)
+    assert _reader("setup_program_s")(run) >= 0
 
 # }}}
