@@ -212,15 +212,15 @@ Phases; any failure exits non-zero before the final line:
    axis, the three-row grad on u, the one-axis derivatives on (5, 5, 5, E)
    tensors), counters reset just before: one ``step_block_f32`` launch
    each, counted under its path, ``"stream"`` for the two metric
-   products, ``"dense"`` for the others; each held against
+   products, ``"lanes"`` for the others; each held against
    ``step_block_plain`` on the same operands within 2e-5 of the sum of the
-   terms' magnitudes and timed in turns against it, beside its bound (the
-   metric products also on the same values one float off 16 bytes, one
-   ``"dense"`` launch each, whose output must equal the stream path's bit
-   for bit: the dense path's time in the same run); then
+   terms' magnitudes and timed in turns against it, beside its bound (each
+   also on the same values one float off 16 bytes, one ``"dense"`` launch
+   each, whose output must equal the stream or lanes path's bit for bit:
+   the block kernel's time in the same run); then
    one model step, counters reset: six ``step_block_f32`` launches, two
-   on the stream path and four dense, two of ``step_update`` and nothing
-   else, its increments against
+   on the stream path and four on the lanes path, two of ``step_update``
+   and nothing else, its increments against
    the plain per-step route's (``use_pallas=False``) within 2e-5 of their
    largest, and its time; then one step at E - 1 (n^3 E % 4 != 0, the
    metric products' output rows off 16 bytes): six dense launches, and
@@ -230,17 +230,21 @@ Phases; any failure exits non-zero before the final line:
    ``make_step`` runs (the four derivatives, the volume and the flux term,
    built by ``op.executables(E)``), on inputs drawn on the card in the
    step's shapes, counters reset just before: one ``step_block_f32``
-   launch each, counted ``"dense"``; each held against
+   launch each, counted ``"lanes"``; each held against
    ``step_block_plain`` on the same operands within 2e-5 of the sum of the
-   terms' magnitudes and timed in turns against it, beside its bound (the
-   larger of its operations at the float32 peak and its bytes at the
-   memory peak: the flux is flop-bound, the other five bytes-bound, though
-   the step as a whole is flop-bound); then one model
-   step on the configuration's draw, counters reset: six
-   ``step_block_f32`` launches, all dense, six of ``step_update`` (the
-   time integral's five bands and the update) and nothing else, its
-   increment against the plain per-step route's (``use_pallas=False``, in
-   blocks of 2**20 elements) within 2e-5 of its largest, and its time.
+   terms' magnitudes, against the block kernel on the same values one
+   float off 16 bytes (one ``"dense"`` launch) bit for bit, and timed in
+   turns against both, beside its bound (the larger of its operations at
+   the float32 peak and its bytes at the memory peak: the flux is
+   flop-bound, the other five bytes-bound, though the step as a whole is
+   flop-bound); the flux at E = 7,000,000, whose operands' and output's
+   offsets pass 2**31, on the lanes path bit for bit the block kernel's;
+   then one model step on the configuration's draw, counters reset: six
+   ``step_block_f32`` launches, all on the lanes path, six of
+   ``step_update`` (the time integral's five bands and the update) and
+   nothing else, its increment against the plain per-step route's
+   (``use_pallas=False``, in blocks of 2**20 elements) within 2e-5 of its
+   largest, and its time.
 
 The last lines are the card line, one JSON object of per-kernel results
 (each kernel's time, its plain version's, the bound of the data-sheet
@@ -256,8 +260,9 @@ bound that of the logical einsum), ``step_block_f32``'s phase 19's,
 its cases), ``step_update``'s and ``pairs_split``'s phase 22's (summed
 over its cases, no library call), ``step_block_stream``'s (the stream path
 of ``step_block_f32``) phase 23's two metric products, whose launches it
-counts apart and ``step_block_f32`` counts too, ``step_block_ader``'s
-phase 24's six ADER executables, likewise; launches are counted over the
+counts apart and ``step_block_f32`` counts too, ``step_block_lanes``'s
+(its lanes path) phase 23's four other executables and phase 24's six
+ADER executables, likewise; launches are counted over the
 main path (phase 3), the archive replays (phases 6, 8, 10, 16, 18, 20),
 the consumer flow's calls (phase 13), one step of each model (phases 14,
 17), phase 19's runs, phase 21's one drive of each probe case, phase 22's
@@ -312,7 +317,7 @@ REPLACES = {"dg_rows_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "lane_pack_dg_3xtf32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "step_block_f32": "feinsum_tpu/ops/pallas_emitter.py:464",
             "step_block_stream": "feinsum_tpu/ops/pallas_emitter.py:464",
-            "step_block_ader": "feinsum_tpu/ops/pallas_emitter.py:464",
+            "step_block_lanes": "feinsum_tpu/ops/pallas_emitter.py:464",
             "tc_steps_f32": "feinsum_tpu/ops/pallas_emitter.py:268",
             "probe_stream_f32": "scripts/tpu_layout_probe.py:75;"
                                 " scripts/tpu_fold_probe.py:84, :96;"
@@ -352,7 +357,7 @@ SOURCES = {"dg_rows_f32": "feinsum_tpu_torch/csrc/dg_rows.cu",
            "lane_pack_dg_3xtf32": "feinsum_tpu_torch/csrc/lane_pack_dg.cu",
            "step_block_f32": "feinsum_tpu_torch/csrc/step_block.cu",
            "step_block_stream": "feinsum_tpu_torch/csrc/step_block.cu",
-           "step_block_ader": "feinsum_tpu_torch/csrc/step_block.cu",
+           "step_block_lanes": "feinsum_tpu_torch/csrc/step_block.cu",
            "tc_steps_f32": "feinsum_tpu_torch/csrc/tc_steps.cu",
            "probe_stream_f32": "feinsum_tpu_torch/csrc/probe_stream.cu",
            "probe_apply_f32": "feinsum_tpu_torch/csrc/probe_apply.cu",
@@ -652,9 +657,11 @@ def main() -> int:
     if "--fp64-only" in sys.argv[1:]:
         return fp64_only(dev, card)
     if "--hex-only" in sys.argv[1:]:
-        return model_only(dev, card, 23, hex_model_path, "step_block_stream")
+        return model_only(dev, card, 23, hex_model_path,
+                          ("step_block_stream", "step_block_lanes"))
     if "--ader-only" in sys.argv[1:]:
-        return model_only(dev, card, 24, ader_model_path, "step_block_ader")
+        return model_only(dev, card, 24, ader_model_path,
+                          ("step_block_lanes",))
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -999,11 +1006,11 @@ def update_only(dev, card: str) -> int:
     return 0
 
 
-def model_only(dev, card: str, phase: int, path, entry: str) -> int:
+def model_only(dev, card: str, phase: int, path, entries: tuple) -> int:
     """Phase *phase* alone (23 the hexahedral model, 24 the ADER element),
     for work on that model or on ``step_block_f32`` at its size: its
-    checks, launches and times, and its entry *entry* of the ``kernels``
-    line.  It prints no ``ok`` line."""
+    checks, launches and times, and those of its *entries* of the
+    ``kernels`` line that it launched.  It prints no ``ok`` line."""
     import torch
 
     label = (f"[{torch.cuda.get_device_name(0)}, power limit"
@@ -1014,7 +1021,8 @@ def model_only(dev, card: str, phase: int, path, entry: str) -> int:
     log(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"model_launches": launches}))
-    log(json.dumps({"kernels": [stats.entry(entry, launches[entry])]}))
+    log(json.dumps({"kernels": [stats.entry(k, launches[k])
+                                for k in entries if k in launches]}))
     return 0
 
 
@@ -3662,8 +3670,10 @@ def update_path(dev, label: str, stats: KernelStats) -> dict:
     return launches
 
 
-# phase 23: the hexahedral model at its benchmark cell's size
+# phase 23: the hexahedral model at its benchmark cell's size; the path
+# of its four launches off the stream path (ops/kernels.step_block_path)
 E_HEX = 2_000_000
+HEX_BLOCK_PATH = "lanes"
 
 
 def _model_counts(kernels, tracing) -> tuple:
@@ -3698,12 +3708,12 @@ def _executables_against_plain(op, E: int, tag: str, dev, label: str,
     ``step_block_f32`` launch on the path ``path_of(name)``, its output
     against ``step_block_plain`` row by row of its first axis (the
     float64 copies of a whole output need not fit beside the operands),
-    a stream-path output bit for bit against the dense path's on the
-    same values off 16 bytes, and the routes timed in turns beside the
-    launch's bound.  A launch on a path in *entries* has its errors and
-    times kept under that entry of *stats*, else its errors under
-    ``step_block_f32``.  Returns the launches, each entry's among them
-    (also counted under ``step_block_f32``)."""
+    a stream- or lanes-path output bit for bit against the dense path's
+    (the block kernel's) on the same values off 16 bytes, and the routes
+    timed in turns beside the launch's bound.  A launch on a path in
+    *entries* has its errors and times kept under that entry of *stats*,
+    else its errors under ``step_block_f32``.  Returns the launches, each
+    entry's among them (also counted under ``step_block_f32``)."""
     import torch
 
     from feinsum_tpu_torch import tracing
@@ -3753,7 +3763,7 @@ def _executables_against_plain(op, E: int, tag: str, dev, label: str,
         routes = {"kernel": fns[name],
                   "plain": lambda a, plan=plan: plan.plain(plan.operands(a))}
         inputs = {"kernel": arrays, "plain": arrays}
-        if path == "stream":
+        if path in ("stream", "lanes"):
             inputs["dense"] = _off16(arrays)
             kernels.reset_launch_counts()
             (dense_out,) = fns[name](inputs["dense"])
@@ -3764,11 +3774,11 @@ def _executables_against_plain(op, E: int, tag: str, dev, label: str,
                                    f" {counts}, modes {modes}")
             same = torch.equal(dense_out, got)
             log(f"[compare] step_block_f32 {tag} {name} E={E}: dense path"
-                f" (off 16 bytes) against the stream path, bit for bit"
+                f" (off 16 bytes) against the {path} path, bit for bit"
                 f" {'ok' if same else 'FAIL'}")
             if not same:
                 d_err, _ = max_err(dense_out, got)
-                raise SmokeFailure(f"{tag} {name}: the stream path differs"
+                raise SmokeFailure(f"{tag} {name}: the {path} path differs"
                                    f" from the dense path by {d_err:.3e}")
             del dense_out
             routes["dense"] = fns[name]
@@ -3832,12 +3842,13 @@ def _timed_step(step, state, geom, tag: str, E: int, what: str,
 def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
     """Phase 23 (module docstring): ``HexWaveOperator3D``'s six executables
     at E = 2M, each against ``step_block_plain`` and timed beside its
-    bound (the metric products on both paths of ``step_block_f32``, the
-    stream path's times into *stats* as ``step_block_stream``), then one
-    whole step against the plain per-step route, and one at E - 1, which
-    the stream path does not take.  Returns the launches of
-    the counted runs (``step_block_stream``: the timed metric products'
-    stream-path launches, also counted under ``step_block_f32``)."""
+    bound on its path and on the block kernel (the stream path's times
+    into *stats* as ``step_block_stream``, the lanes path's as
+    ``step_block_lanes``), then one whole step against the plain per-step
+    route, and one at E - 1, which neither path takes.  Returns the
+    launches of the counted runs (``step_block_stream``,
+    ``step_block_lanes``: the timed launches on those paths, also counted
+    under ``step_block_f32``)."""
     import torch
 
     import feinsum_tpu_torch as ft
@@ -3847,8 +3858,8 @@ def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
     launches = _executables_against_plain(
         op, E, "hex", dev, label, stats,
         lambda name: n ** 3 * E if "metric" in name else E,
-        lambda name: "stream" if "metric" in name else "dense",
-        {"stream": "step_block_stream"})
+        lambda name: "stream" if "metric" in name else HEX_BLOCK_PATH,
+        {"stream": "step_block_stream", "lanes": "step_block_lanes"})
 
     # one whole step, against the plain per-step route
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -3861,7 +3872,7 @@ def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
     step = op.make_step(E, dt=dt)
     step_launches = {"step_block_f32": 6, "step_update": 2}
     got = _checked_step(step, state, geom, "hex", E, step_launches,
-                        {"dense": 4, "stream": 2}, launches)
+                        {HEX_BLOCK_PATH: 4, "stream": 2}, launches)
     want = ft.HexWaveOperator3D(use_pallas=False, device=dev).make_step(
         E, dt=dt)(state, geom)
     torch.cuda.synchronize()
@@ -3884,7 +3895,8 @@ def hex_model_path(dev, label: str, stats: KernelStats) -> dict:
     del got, want
     torch.cuda.empty_cache()
     _timed_step(step, state, geom, "hex", E, "6 step_block_f32, 2 of them"
-                " streamed, and 2 step_update launches", label)
+                f" streamed, 4 {HEX_BLOCK_PATH}, and 2 step_update launches",
+                label)
 
     # one element fewer: n^3 E % 4 != 0 puts the metric products' output
     # rows off 16 bytes, so every launch keeps the block kernel
@@ -3907,12 +3919,55 @@ E_ADER = 4_000_000
 ADER_STEP_LAUNCHES = {"step_block_f32": 6, "step_update": 6}
 
 
+# the flux at E_ADER_WIDE elements: its operands' and output's offsets
+# pass 2**31 (I and the output 315 E floats, A 324 E)
+E_ADER_WIDE = 7_000_000
+
+
+def _lanes_past_32_bits(op, dev) -> None:
+    """The ADER flux at E_ADER_WIDE elements on the lanes path, bit for bit
+    the block kernel's (the same values one float off 16 bytes)."""
+    import torch
+
+    from feinsum_tpu_torch import tracing
+    from feinsum_tpu_torch.measure import apply_layouts
+    from feinsum_tpu_torch.ops import kernels
+
+    E = E_ADER_WIDE
+    program = op.programs["flux"]
+    fn = op.executables(E)["flux"]
+    arrays = apply_layouts(program, device_inputs(program.einsum, E, 2,
+                                                  dev))
+    outs = []
+    for a, path in ((arrays, "lanes"), (_off16(arrays), "dense")):
+        kernels.reset_launch_counts()
+        (got,) = fn(a)
+        torch.cuda.synchronize()
+        counts, modes = _model_counts(kernels, tracing)
+        if modes != {path: 1}:
+            raise SmokeFailure(f"the flux at E={E} ran {counts}, modes"
+                               f" {modes}")
+        outs.append(got)
+        del a
+    same = torch.equal(outs[0], outs[1])
+    log(f"[compare] step_block_f32 ader flux E={E} (offsets past 2**31):"
+        f" dense path (off 16 bytes) against the lanes path, bit for bit"
+        f" {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SmokeFailure(f"the flux at E={E}: the lanes path differs from"
+                           " the dense path")
+    del arrays, outs
+    torch.cuda.empty_cache()
+
+
 def ader_model_path(dev, label: str, stats: KernelStats) -> dict:
     """Phase 24 (module docstring): ``AderElasticOperator3D``'s six
-    executables at E = 4M, each against ``step_block_plain`` and timed
-    beside its bound (into *stats* as ``step_block_ader``), then one whole
-    step against the plain per-step route, and its time.  Returns the
-    launches of the counted runs (``step_block_ader``: the six executables'
+    executables at E = 4M on the lanes path, each against
+    ``step_block_plain`` and bit for bit the block kernel's, and timed on
+    both paths beside its bound (into *stats* as ``step_block_lanes``),
+    the flux at E = 7M bit for bit the block kernel's, then one whole step
+    against the plain per-step route, and its time.  Returns the launches
+    of the counted runs (``step_block_lanes``: the six executables'
     launches, also counted under ``step_block_f32``)."""
     import torch
 
@@ -3922,7 +3977,8 @@ def ader_model_path(dev, label: str, stats: KernelStats) -> dict:
     op = ft.AderElasticOperator3D(device=dev)
     launches = _executables_against_plain(
         op, E, "ader", dev, label, stats, lambda name: E,
-        lambda name: "dense", {"dense": "step_block_ader"})
+        lambda name: "lanes", {"lanes": "step_block_lanes"})
+    _lanes_past_32_bits(op, dev)
 
     # one whole step on the configuration's draw, against the plain
     # per-step route in blocks of 2**20 elements
@@ -3930,7 +3986,7 @@ def ader_model_path(dev, label: str, stats: KernelStats) -> dict:
     dt = 1e-3
     step = op.make_step(E, dt=dt)
     got = _checked_step(step, state, geom, "ader", E, ADER_STEP_LAUNCHES,
-                        {"dense": 6}, launches)["Q"]
+                        {"lanes": 6}, launches)["Q"]
     block = 1 << 20
     plain = ft.AderElasticOperator3D(use_pallas=False, device=dev)
     worst = largest = 0.0
@@ -3962,8 +4018,8 @@ def ader_model_path(dev, label: str, stats: KernelStats) -> dict:
                            f" {gap:.2e}")
     del got
     torch.cuda.empty_cache()
-    _timed_step(step, state, geom, "ader", E, "6 step_block_f32 and 6"
-                " step_update launches", label)
+    _timed_step(step, state, geom, "ader", E, "6 step_block_f32 on the"
+                " lanes path and 6 step_update launches", label)
     del state, geom
     torch.cuda.empty_cache()
     return launches

@@ -89,13 +89,64 @@
 // operands' order does not matter): its results are the dense path's bit
 // for bit.
 //
+// The lanes path, a kernel of its own (step_block_lanes), for a table whose
+// element steps are all dense products of two operands, at least one of
+// them per element, each streamed input and each result but the last read
+// by one step (ops/step_block.py::plan_lanes; the host takes it, ops/
+// kernels.py::step_block_path, where e lies at stride 1 in every streamed
+// input and the output, every pointer and entry stride on 16 bytes, E a
+// multiple of 4).  In such a step (SeisSol's ADER derivatives, volume and
+// flux terms, sum factorization on hexahedra) most of the work is a
+// reference matrix (a resident) times an element's entries, and the block
+// kernel's threads each take one element's register tile: every thread
+// loads the same reference values again from shared memory, and both
+// operands through per-entry offset tables, so that its FMAs wait on
+// shared-memory wavefronts, and each sub-tile is staged by 4-byte copies
+// through tables (the ADER cell's launches ran at 4-5 TFLOP/s, their
+// staging alone 40-46% of their time).  Here a warp's 32 lanes take 32
+// consecutive elements at the same tile coordinates: a per-element operand
+// (the dofs, S, A, an earlier step's result) lies in shared memory as rows
+// [entry][element] of the sub-tile, one conflict-free wavefront a row, and
+// a resident, packed once a block as [batch][contracted][free] (its free
+// entries padded to whole tiles), is the same for every lane: each
+// contracted entry's RW values of it are RW / 4 16-byte broadcasts.  A lane
+// keeps RX x RW results of its element in registers (RX rows of X, RW of W;
+// SB_LANES_RES, SB_LANES_ELEM), so that a contracted entry costs RX + RW /
+// 4 loads for RX RW FMAs (3 x 12: 6 for 36; two per-element operands, RX +
+// RW), and the inner loop walks each operand by one stride, the contracted
+// letters being the slowest of each region's rows.  Sub-tiles are 32 to 128
+// elements.  Each streamed input's sub-tile is one TMA box (a tensor map
+// over e and the region's letters, in the order of its rows, so that the
+// box lands as the rows [row][element]; zeros past E) that thread 0
+// issues, its bytes reported to an mbarrier that every thread waits on:
+// the copies take no issue slot of the computing warps (16-byte cp.async
+// from every thread, which stalled on the memory system, cost 11-34% of
+// a warp's cycles; a bulk copy a row was slower still).  Two buffers where
+// they fit, else one, refilled as soon as its reader (and any result laid
+// over it) is done, so that the copies run under the later steps; results
+// lie in shared memory, a region reused once its reader is done, and the
+// last step writes the output from registers, 128 bytes a warp.  What
+// bounds it on an H100: the FMAs against the loads' issue and wavefronts
+// (four FMA warp instructions a clock an SM, one wavefront); then the
+// sub-tile's shared memory, which bounds the blocks an SM: where one block
+// fits (the ADER cell's first derivative, volume and flux, whose
+// 540-float intermediates take 69 KB a 32-element sub-tile) a block has
+// 512 threads, else 256, so that 16 warps share an SM either way.  On an
+// H100 at E = 4M the ADER cell's six launches take about 44 ms against
+// 204 on the block kernel, the three flop-heavy ones at 19-21 TFLOP/s.
+// The sums are the block kernel's, term for term: its results are the
+// dense path's bit for bit.
+//
 // Float32 throughout; each entry's products are summed in the contracted
 // entries' order, one fmaf per term.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -382,7 +433,7 @@ __device__ void reduce_step(const Operand (&ops)[kMaxOps], int n_out,
   }
 }
 
-extern __shared__ float sb_smem[];
+extern __shared__ __align__(128) float sb_smem[];
 
 // The values of one k of a register tile: sm[a + oa[r]], sm[b + ob[c]]
 template <int RM, int RN>
@@ -906,6 +957,492 @@ cudaError_t launch_stream(const Plan& p, const long long* tab, int nrows,
   return cudaGetLastError();
 }
 
+// {{{ the lanes path (the note above)
+
+constexpr int kLaneHead = 7, kLaneStepInts = 19, kLaneRegInts = 6;
+constexpr int kLaneMaxRegions = kMaxInputs + kMaxSteps;
+// the streamed regions a table (a TMA tensor map each, per row), the
+// letters of one (a map's rank less the element axis), the entries of a
+// letter (a box's dimension), and the static shared memory: an mbarrier
+// per region and buffer
+constexpr int kLaneMaxMaps = 4, kLaneMaxLetters = 4, kLaneMaxBox = 256;
+constexpr int kLaneMapInts = 1 + 2 * kLaneMaxLetters;
+constexpr int kLaneMaxTe = 128;
+
+struct LaneStep {
+  int xreg;          // X's region
+  int wsrc;          // W's region, or (wres) the resident's input slot
+  int wres, nx, nw, nb, nk, rx, rw, tx, tw;
+  int xk, wk;        // contracted strides: rows of X (of W per element),
+                     // floats of the packed resident
+  int tab;           // int offset of its tables in shared memory
+  int dst;           // the region of its result; -1: the output
+  long long dg;      // the output's tables (X, W, batch) in the row's table
+  int poff, pn;      // the packed resident in shared memory, its floats
+  long long psrc;    // its gather offsets in the row's table
+};
+
+struct LaneRegion {
+  int off, second, rows, slot;   // second: -1 or the second buffer
+  int map;        // its tensor map (a streamed region), or -1
+  int refill;     // one buffer: refilled after this step
+};
+
+struct LanePlan {
+  LaneStep step[kMaxSteps];
+  LaneRegion reg[kLaneMaxRegions];
+  const float* in[kMaxRows][kMaxInputs];
+  float* out[kMaxRows];
+  int nsteps, nregs, te, dbl, n_ints, block_elems, threads;
+  int rank[kLaneMaxMaps];   // each map's rank
+  long long ints_src, E, row_len;
+};
+
+// Each row's streamed regions as TMA tensor maps: (e, its letters, the
+// fastest first), a box of te elements by all of its rows, which lands in
+// shared memory as the region's rows [row][element].
+struct LaneMaps {
+  CUtensorMap m[kMaxRows][kLaneMaxMaps];
+};
+
+__device__ __forceinline__ const float* lane_base(const LanePlan& p,
+                                                  const float* smem, int r,
+                                                  int parity) {
+  const LaneRegion& g = p.reg[r];
+  return smem + (parity && g.second >= 0 ? g.second : g.off);
+}
+
+// region r's box at element e0 into buffer `buf` (a box past E filled with
+// zeros), its bytes reported to the buffer's mbarrier: one TMA copy, by
+// the calling thread, after its fence orders the block's earlier accesses
+// of the buffer before it
+__device__ void lane_fill(const LanePlan& p, const CUtensorMap* maps,
+                          float* smem, unsigned long long* bars, int r,
+                          long long e0, int buf) {
+  const LaneRegion& g = p.reg[r];
+  float* dst = const_cast<float*>(lane_base(p, smem, r, buf));
+  unsigned long long* bar = bars + 2 * g.map + buf;
+  const CUtensorMap* map = maps + g.map;
+  const int c0 = static_cast<int>(e0);
+  fence_proxy_async();
+  bar_expect(bar, static_cast<unsigned>(g.rows * p.te * sizeof(float)));
+  const unsigned d = smem_addr(dst), b = smem_addr(bar);
+  switch (p.rank[g.map]) {
+    case 1:
+      asm volatile(
+          "cp.async.bulk.tensor.1d.shared::cluster.global.tile"
+          ".mbarrier::complete_tx::bytes [%0], [%1, {%2}], [%3];\n"
+          ::"r"(d), "l"(map), "r"(c0), "r"(b) : "memory");
+      break;
+    case 2:
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+          ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+          ::"r"(d), "l"(map), "r"(c0), "r"(0), "r"(b) : "memory");
+      break;
+    case 3:
+      asm volatile(
+          "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+          ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %3}], [%4];\n"
+          ::"r"(d), "l"(map), "r"(c0), "r"(0), "r"(b) : "memory");
+      break;
+    case 4:
+      asm volatile(
+          "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+          ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %3, %3}],"
+          " [%4];\n"
+          ::"r"(d), "l"(map), "r"(c0), "r"(0), "r"(b) : "memory");
+      break;
+    default:
+      asm volatile(
+          "cp.async.bulk.tensor.5d.shared::cluster.global.tile"
+          ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %3, %3, %3}],"
+          " [%4];\n"
+          ::"r"(d), "l"(map), "r"(c0), "r"(0), "r"(b) : "memory");
+      break;
+  }
+}
+
+// acc[r][c] += sum_k X_r[k] W_c[k]: X_r a per-element row (its pointer
+// advancing xkt floats a k), W a resident's RW consecutive floats (wk a k)
+// read as RW / 4 broadcasts; the next k's values are loaded before this
+// k's FMAs
+template <int RX, int RW>
+__device__ __forceinline__ void lanes_run_res(const float* (&xp)[RX],
+                                              const float* wp, int xkt,
+                                              int wk, int nk,
+                                              float (&acc)[RX][RW]) {
+  constexpr int RV = RW / 4;
+  float a[RX];
+  float4 w[RV];
+#pragma unroll
+  for (int r = 0; r < RX; ++r) a[r] = *xp[r];
+#pragma unroll
+  for (int c = 0; c < RV; ++c) w[c] = reinterpret_cast<const float4*>(wp)[c];
+  for (int k = 1; k < nk; ++k) {
+    float an[RX];
+    float4 wn[RV];
+    wp += wk;
+#pragma unroll
+    for (int r = 0; r < RX; ++r) {
+      xp[r] += xkt;
+      an[r] = *xp[r];
+    }
+#pragma unroll
+    for (int c = 0; c < RV; ++c) {
+      wn[c] = reinterpret_cast<const float4*>(wp)[c];
+    }
+#pragma unroll
+    for (int r = 0; r < RX; ++r) {
+#pragma unroll
+      for (int c = 0; c < RV; ++c) {
+        acc[r][4 * c] = fmaf(a[r], w[c].x, acc[r][4 * c]);
+        acc[r][4 * c + 1] = fmaf(a[r], w[c].y, acc[r][4 * c + 1]);
+        acc[r][4 * c + 2] = fmaf(a[r], w[c].z, acc[r][4 * c + 2]);
+        acc[r][4 * c + 3] = fmaf(a[r], w[c].w, acc[r][4 * c + 3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RX; ++r) a[r] = an[r];
+#pragma unroll
+    for (int c = 0; c < RV; ++c) w[c] = wn[c];
+  }
+#pragma unroll
+  for (int r = 0; r < RX; ++r) {
+#pragma unroll
+    for (int c = 0; c < RV; ++c) {
+      acc[r][4 * c] = fmaf(a[r], w[c].x, acc[r][4 * c]);
+      acc[r][4 * c + 1] = fmaf(a[r], w[c].y, acc[r][4 * c + 1]);
+      acc[r][4 * c + 2] = fmaf(a[r], w[c].z, acc[r][4 * c + 2]);
+      acc[r][4 * c + 3] = fmaf(a[r], w[c].w, acc[r][4 * c + 3]);
+    }
+  }
+}
+
+// the same with W per element too: RW rows, wkt floats a k
+template <int RX, int RW>
+__device__ __forceinline__ void lanes_run_elem(const float* (&xp)[RX],
+                                               const float* (&wq)[RW],
+                                               int xkt, int wkt, int nk,
+                                               float (&acc)[RX][RW]) {
+  float a[RX], w[RW];
+#pragma unroll
+  for (int r = 0; r < RX; ++r) a[r] = *xp[r];
+#pragma unroll
+  for (int c = 0; c < RW; ++c) w[c] = *wq[c];
+  for (int k = 1; k < nk; ++k) {
+    float an[RX], wn[RW];
+#pragma unroll
+    for (int r = 0; r < RX; ++r) {
+      xp[r] += xkt;
+      an[r] = *xp[r];
+    }
+#pragma unroll
+    for (int c = 0; c < RW; ++c) {
+      wq[c] += wkt;
+      wn[c] = *wq[c];
+    }
+#pragma unroll
+    for (int r = 0; r < RX; ++r) {
+#pragma unroll
+      for (int c = 0; c < RW; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < RX; ++r) a[r] = an[r];
+#pragma unroll
+    for (int c = 0; c < RW; ++c) w[c] = wn[c];
+  }
+#pragma unroll
+  for (int r = 0; r < RX; ++r) {
+#pragma unroll
+    for (int c = 0; c < RW; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
+  }
+}
+
+// One step on the sub-tile [e0, e0 + n): warp w takes the units w, w +
+// kWarps, ... (a unit: a batch entry, an X tile, a W tile and 32 of the
+// sub-tile's elements, one a lane).  Its tables in shared memory: X's
+// rows over its entries and the batch, W's (per element; a resident's
+// packed offset per batch entry), the result's rows; the output's as
+// int64 offsets in the row's table.
+template <int RX, int RW, bool WRES, int NT>
+__device__ void lane_step(const LanePlan& p, const LaneStep st,
+                          const long long* __restrict__ tab, float* smem,
+                          float* __restrict__ out, long long e0, int n,
+                          int parity) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int te = p.te, G = te / 32;
+  const int* Xx = reinterpret_cast<const int*>(smem) + st.tab;
+  const int* Xb = Xx + st.nx;
+  const int* Ww = Xb + st.nb;
+  const int* Wb = Ww + (WRES ? 0 : st.nw);
+  const int* Dx = Wb + st.nb;
+  const int* Dw = Dx + st.nx;
+  const int* Db = Dw + st.nw;
+  const float* X = lane_base(p, smem, st.xreg, parity);
+  const float* W = WRES ? smem + st.poff : lane_base(p, smem, st.wsrc,
+                                                      parity);
+  const int xkt = st.xk * te, wkt = WRES ? st.wk : st.wk * te;
+  const int units = st.nb * st.tx * st.tw * G;
+  float* const D0 = st.dst >= 0 ? smem + p.reg[st.dst].off : nullptr;
+  for (int u = warp; u < units; u += NT / 32) {
+    int t = u;
+    const int g = t % G;
+    t /= G;
+    const int ti = t % st.tx;
+    t /= st.tx;
+    const int wi = t % st.tw, b = t / st.tw;
+    const int col = g * 32 + lane;
+    const float* xp[RX];
+#pragma unroll
+    for (int r = 0; r < RX; ++r) {
+      const int x = min(ti * RX + r, st.nx - 1);
+      xp[r] = X + (Xx[x] + Xb[b]) * te + col;
+    }
+    float acc[RX][RW];
+#pragma unroll
+    for (int r = 0; r < RX; ++r) {
+#pragma unroll
+      for (int c = 0; c < RW; ++c) acc[r][c] = 0.f;
+    }
+    if constexpr (WRES) {
+      lanes_run_res<RX, RW>(xp, W + Wb[b] + wi * RW, xkt, wkt, st.nk, acc);
+    } else {
+      const float* wq[RW];
+#pragma unroll
+      for (int c = 0; c < RW; ++c) {
+        const int w = min(wi * RW + c, st.nw - 1);
+        wq[c] = W + (Ww[w] + Wb[b]) * te + col;
+      }
+      lanes_run_elem<RX, RW>(xp, wq, xkt, wkt, st.nk, acc);
+    }
+    if (st.dst >= 0) {
+      float* D = D0 + col;
+      int dw[RW];
+#pragma unroll
+      for (int c = 0; c < RW; ++c) dw[c] = Dw[min(wi * RW + c, st.nw - 1)];
+#pragma unroll
+      for (int r = 0; r < RX; ++r) {
+        const int x = ti * RX + r;
+        if (x >= st.nx) continue;
+        const int dr = Dx[x] + Db[b];
+#pragma unroll
+        for (int c = 0; c < RW; ++c) {
+          if (wi * RW + c < st.nw) D[(dr + dw[c]) * te] = acc[r][c];
+        }
+      }
+    } else if (col < n) {
+      const long long* dg = tab + st.dg;
+      long long dw[RW];
+#pragma unroll
+      for (int c = 0; c < RW; ++c) {
+        dw[c] = dg[st.nx + min(wi * RW + c, st.nw - 1)];
+      }
+      const long long ob = dg[st.nx + st.nw + b] + e0 + col;
+#pragma unroll
+      for (int r = 0; r < RX; ++r) {
+        const int x = ti * RX + r;
+        if (x >= st.nx) continue;
+        const long long dr = dg[x] + ob;
+#pragma unroll
+        for (int c = 0; c < RW; ++c) {
+          if (wi * RW + c < st.nw) out[dr + dw[c]] = acc[r][c];
+        }
+      }
+    }
+  }
+}
+
+// The lanes path's register tiles (RX, RW), ops/kernels.py::SB_LANE_TILES
+// (a resident W, RW a multiple of 4) and SB_LANE_TILES_ELEM (W per element)
+#define SB_LANES_RES                                                         \
+  SB_LANE(1, 4, true) SB_LANE(1, 8, true) SB_LANE(1, 12, true)               \
+  SB_LANE(1, 16, true) SB_LANE(2, 4, true) SB_LANE(2, 8, true)               \
+  SB_LANE(2, 12, true) SB_LANE(2, 16, true) SB_LANE(3, 4, true)              \
+  SB_LANE(3, 8, true) SB_LANE(3, 12, true) SB_LANE(3, 16, true)              \
+  SB_LANE(4, 4, true) SB_LANE(4, 8, true) SB_LANE(4, 12, true)               \
+  SB_LANE(5, 4, true) SB_LANE(5, 8, true) SB_LANE(6, 4, true)                \
+  SB_LANE(6, 8, true) SB_LANE(8, 4, true) SB_LANE(9, 4, true)
+#define SB_LANES_ELEM                                                        \
+  SB_LANE(1, 1, false) SB_LANE(1, 4, false) SB_LANE(1, 9, false)             \
+  SB_LANE(2, 4, false) SB_LANE(2, 5, false) SB_LANE(2, 9, false)             \
+  SB_LANE(3, 3, false) SB_LANE(3, 4, false) SB_LANE(3, 5, false)             \
+  SB_LANE(3, 9, false) SB_LANE(4, 4, false) SB_LANE(4, 5, false)             \
+  SB_LANE(4, 9, false) SB_LANE(5, 5, false) SB_LANE(5, 9, false)
+
+template <int NT>
+__device__ __noinline__ void run_lane_step(const LanePlan& p, int s,
+                                           const long long* tab,
+                                           float* smem, float* out,
+                                           long long e0, int n, int parity) {
+  const LaneStep st = p.step[s];
+  switch ((st.wres ? 1024 : 0) + st.rx * 32 + st.rw) {
+#define SB_LANE(RX, RW, R)                                                   \
+  case (R ? 1024 : 0) + RX * 32 + RW:                                        \
+    lane_step<RX, RW, R, NT>(p, st, tab, smem, out, e0, n, parity);          \
+    break;
+    SB_LANES_RES SB_LANES_ELEM
+#undef SB_LANE
+  }
+}
+
+// NT threads a block: 256 where two blocks fit an SM, 512 where one does
+// (the planner's choice), 128 registers a thread either way
+template <int NT>
+__global__ void __launch_bounds__(NT, 512 / NT)
+step_block_lanes(const __grid_constant__ LanePlan p,
+                 const __grid_constant__ LaneMaps maps,
+                 const long long* __restrict__ tables) {
+  float* smem = sb_smem;
+  const int row = blockIdx.y;
+  const long long* tab = tables + row * p.row_len;
+  const float* const* in = p.in[row];
+  float* out = p.out[row];
+  int* ints = reinterpret_cast<int*>(smem);
+  for (int i = threadIdx.x; i < p.n_ints; i += NT) {
+    ints[i] = static_cast<int>(tab[p.ints_src + i]);
+  }
+  for (int s = 0; s < p.nsteps; ++s) {
+    const LaneStep& st = p.step[s];
+    if (!st.wres) continue;
+    const float* src = in[st.wsrc];
+    const long long* g = tab + st.psrc;
+    for (int i = threadIdx.x; i < st.pn; i += NT) {
+      const long long o = g[i];
+      smem[st.poff + i] = o >= 0 ? src[o] : 0.f;
+    }
+  }
+  // thread 0 issues every region's box and an mbarrier per region and
+  // buffer reports it landed; every thread waits on it
+  __shared__ unsigned long long bars[2 * kLaneMaxMaps];
+  const CUtensorMap* rmaps = maps.m[row];
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < 2 * kLaneMaxMaps; ++j) bar_init(&bars[j], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int te = p.te;
+  const long long e_begin = static_cast<long long>(blockIdx.x) *
+                            p.block_elems;
+  const long long e_end = min(p.E, e_begin + p.block_elems);
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < p.nregs; ++r) {
+      if (p.reg[r].map >= 0) lane_fill(p, rmaps, smem, bars, r, e_begin, 0);
+    }
+  }
+  int parity = 0;
+  unsigned phase = 0;   // bit j: the phase of mbarrier j to wait for next
+  for (long long e0 = e_begin; e0 < e_end; e0 += te) {
+    const int n = static_cast<int>(min(static_cast<long long>(te),
+                                       e_end - e0));
+    const long long next = e0 + te;
+    if (p.dbl && next < e_end && threadIdx.x == 0) {
+      for (int r = 0; r < p.nregs; ++r) {
+        if (p.reg[r].map >= 0) {
+          lane_fill(p, rmaps, smem, bars, r, next, parity ^ 1);
+        }
+      }
+    }
+    for (int r = 0; r < p.nregs; ++r) {
+      if (p.reg[r].map < 0) continue;
+      const int j = 2 * p.reg[r].map + (p.dbl ? parity : 0);
+      bar_wait(&bars[j], (phase >> j) & 1u);
+      phase ^= 1u << j;
+    }
+    for (int s = 0; s < p.nsteps; ++s) {
+      run_lane_step<NT>(p, s, tab, smem, out, e0, n, parity);
+      __syncthreads();
+      if (!p.dbl && next < e_end && threadIdx.x == 0) {
+        for (int r = 0; r < p.nregs; ++r) {
+          if (p.reg[r].map >= 0 && p.reg[r].refill == s) {
+            lane_fill(p, rmaps, smem, bars, r, next, 0);
+          }
+        }
+      }
+    }
+    if (p.dbl) parity ^= 1;
+  }
+}
+
+template <int NT>
+cudaError_t launch_lanes(const LanePlan& p, const LaneMaps& maps,
+                         const void* tables, long long nblocks, int nrows,
+                         size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        step_block_lanes<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  step_block_lanes<NT><<<dim3(static_cast<unsigned>(nblocks),
+                              static_cast<unsigned>(nrows)),
+                         NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, maps, static_cast<const long long*>(tables));
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled lane_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* q = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &q, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &q, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(q);
+    }
+  }
+  return fn;
+}
+
+// region map: {rank, then per letter, fastest first, its entries and its
+// stride in floats}: the map over (e, the letters) of a box of te elements
+// by every entry
+bool lane_map(CUtensorMap* map, const float* base, long long E, int te,
+              const long long* d) {
+  const EncodeTiled encode = lane_encoder();
+  const int rank = static_cast<int>(d[0]);
+  if (!encode || rank < 1 || rank > 1 + kLaneMaxLetters) return false;
+  cuuint64_t dims[5] = {static_cast<cuuint64_t>(E)}, strides[4];
+  cuuint32_t box[5] = {static_cast<cuuint32_t>(te)}, step[5];
+  for (int i = 0; i < rank; ++i) step[i] = 1;
+  for (int i = 1; i < rank; ++i) {
+    const long long len = d[2 * i - 1], st = d[2 * i];
+    if (len < 1 || len > kLaneMaxBox || st < 1 || st % 4) return false;
+    dims[i] = static_cast<cuuint64_t>(len);
+    box[i] = static_cast<cuuint32_t>(len);
+    strides[i - 1] = static_cast<cuuint64_t>(st) * sizeof(float);
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                const_cast<float*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool lane_tile_built(int rx, int rw, bool res) {
+  bool built = false;
+#define SB_LANE(RX, RW, R) built |= rx == RX && rw == RW && res == R;
+  SB_LANES_RES SB_LANES_ELEM
+#undef SB_LANE
+  return built;
+}
+
+// }}}
+
 bool dense_tile_built(int rm, int rn) {
   bool built = false;
 #define SB_DENSE(RM, RN) built |= rm == RM && rn == RN;
@@ -1107,6 +1644,148 @@ int step_block_f32(int nrows, int ninputs, void* const* ptrs,
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
+}
+
+// The lanes path (ops/kernels.py::step_block_path chose it): ptrs as
+// step_block_f32's; meta: the header {steps, regions, te, two buffers, the
+// ints of the tables, their offset in a row's table, threads a block},
+// then per step
+// {X's region, W's region or resident slot, W resident, X, W, batch and
+// contracted entries, RX, RW, X and W tiles, X's and W's contracted
+// strides, its tables' int offset in shared memory, its result's region or
+// -1, the output tables' offset, the packed resident's float offset, its
+// floats, its gather offsets' offset}, then per region {float offset, the
+// second buffer's or -1, rows, input slot or -1, its tensor map or -1,
+// refill step or -1} (ops/kernels.py::step_block_lanes_tables); mapd: per
+// row and map {rank, then per letter, the fastest first, its entries and
+// its stride in floats};
+// tables: nrows x row_len int64 on the card; block_elems: elements a
+// block, a multiple of te.  Returns the CUDA error of the launch.
+int step_block_lanes_f32(int nrows, int ninputs, void* const* ptrs,
+                         const int* meta, int nmeta, const long long* mapd,
+                         const void* tables, long long row_len, long long E,
+                         int block_elems, int smem_floats, void* stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (nrows < 1 || nrows > kMaxRows || ninputs < 1 ||
+      ninputs > kMaxInputs || nmeta < kLaneHead || tables == nullptr ||
+      E < 1 || E % 4 || smem_floats < 0 ||
+      sizeof(float) * static_cast<size_t>(smem_floats) > kMaxSmemBytes) {
+    return bad;
+  }
+  LanePlan p;
+  p.nsteps = meta[0];
+  p.nregs = meta[1];
+  p.te = meta[2];
+  p.dbl = meta[3] ? 1 : 0;
+  p.n_ints = meta[4];
+  p.ints_src = meta[5];
+  p.threads = meta[6];
+  int nmaps = 0;
+  p.E = E;
+  p.row_len = row_len;
+  p.block_elems = block_elems;
+  if (p.nsteps < 1 || p.nsteps > kMaxSteps || p.nregs < 1 ||
+      p.nregs > kLaneMaxRegions || p.te < 32 || p.te > kLaneMaxTe ||
+      (p.threads != 256 && p.threads != 512) ||
+      p.te % 32 || block_elems < p.te || block_elems % p.te ||
+      nmeta != kLaneHead + kLaneStepInts * p.nsteps +
+                   kLaneRegInts * p.nregs ||
+      p.n_ints < 0 || p.n_ints > smem_floats || p.ints_src < 0 ||
+      p.ints_src + p.n_ints > row_len) {
+    return bad;
+  }
+  const int* rm = meta + kLaneHead + kLaneStepInts * p.nsteps;
+  for (int r = 0; r < p.nregs; ++r) {
+    const int* ri = rm + kLaneRegInts * r;
+    LaneRegion& g = p.reg[r];
+    g.off = ri[0];
+    g.second = ri[1];
+    g.rows = ri[2];
+    g.slot = ri[3];
+    g.map = ri[4];
+    g.refill = ri[5];
+    const long long span = static_cast<long long>(g.rows) * p.te;
+    if (g.rows < 1 || g.off < p.n_ints || g.off % 4 ||
+        g.off + span > smem_floats || g.slot >= ninputs || g.off % 32 ||
+        (g.slot >= 0) != (g.map >= 0) || g.map >= kLaneMaxMaps ||
+        (g.second >= 0 && (g.slot < 0 || g.second % 4 ||
+                           g.second < g.off + span ||
+                           g.second + span > smem_floats)) ||
+        (g.second >= 0 && g.second % 32) ||
+        (g.slot >= 0 && !p.dbl && (g.refill < 0 || g.refill >= p.nsteps))) {
+      return bad;
+    }
+    if (g.map >= 0) nmaps = std::max(nmaps, g.map + 1);
+  }
+  if (mapd == nullptr && nmaps > 0) return bad;
+  for (int s = 0; s < p.nsteps; ++s) {
+    const int* si = meta + kLaneHead + kLaneStepInts * s;
+    LaneStep& st = p.step[s];
+    st.xreg = si[0];
+    st.wsrc = si[1];
+    st.wres = si[2] ? 1 : 0;
+    st.nx = si[3];
+    st.nw = si[4];
+    st.nb = si[5];
+    st.nk = si[6];
+    st.rx = si[7];
+    st.rw = si[8];
+    st.tx = si[9];
+    st.tw = si[10];
+    st.xk = si[11];
+    st.wk = si[12];
+    st.tab = si[13];
+    st.dst = si[14];
+    st.dg = si[15];
+    st.poff = si[16];
+    st.pn = si[17];
+    st.psrc = si[18];
+    const bool last = s == p.nsteps - 1;
+    const int ints = 2 * st.nx + st.nw + 3 * st.nb + (st.wres ? 0 : st.nw);
+    if (st.nx < 1 || st.nw < 1 || st.nb < 1 || st.nk < 1 ||
+        !lane_tile_built(st.rx, st.rw, st.wres) || st.tx * st.rx < st.nx ||
+        st.tw * st.rw < st.nw || st.xreg < 0 || st.xreg >= p.nregs ||
+        st.tab < 0 || st.tab + ints > p.n_ints ||
+        last != (st.dst < 0) || st.dst >= p.nregs ||
+        (last && (st.dg < 0 || st.dg + st.nx + st.nw + st.nb > row_len)) ||
+        (st.wres ? (st.wsrc < 0 || st.wsrc >= ninputs || st.poff % 4 ||
+                    st.wk % 4 || st.poff < p.n_ints ||
+                    st.pn != st.nb * st.nk * st.tw * st.rw ||
+                    st.poff + st.pn > smem_floats || st.psrc < 0 ||
+                    st.psrc + st.pn > row_len)
+                 : (st.wsrc < 0 || st.wsrc >= p.nregs))) {
+      return bad;
+    }
+  }
+  LaneMaps maps = {};   // the launch's maps, passed by value
+  for (int r = 0; r < nrows; ++r) {
+    for (int i = 0; i < ninputs; ++i) {
+      p.in[r][i] = static_cast<const float*>(ptrs[(ninputs + 1) * r + i]);
+      if (p.in[r][i] == nullptr) return bad;
+    }
+    p.out[r] = static_cast<float*>(ptrs[(ninputs + 1) * r + ninputs]);
+    if (p.out[r] == nullptr) return bad;
+    for (int g = 0; g < p.nregs; ++g) {
+      const LaneRegion& rg = p.reg[g];
+      if (rg.map < 0) continue;
+      const long long* d = mapd + kLaneMapInts * (nmaps * r + rg.map);
+      p.rank[rg.map] = static_cast<int>(d[0]);
+      long long rows = 1;
+      for (int i = 1; i < d[0]; ++i) rows *= d[2 * i - 1];
+      if (rows != rg.rows ||
+          !lane_map(&maps.m[r][rg.map], p.in[r][rg.slot], E, p.te, d)) {
+        return bad;
+      }
+    }
+  }
+  const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats);
+  const long long nblocks = (E + block_elems - 1) / block_elems;
+  if (nblocks > 0x7fffffffLL) return bad;
+  return static_cast<int>(
+      p.threads == 512 ? launch_lanes<512>(p, maps, tables, nblocks, nrows,
+                                           smem, stream)
+                       : launch_lanes<256>(p, maps, tables, nblocks, nrows,
+                                           smem, stream));
 }
 
 }  // extern "C"

@@ -78,6 +78,8 @@ _SIGNATURES = (
     ("step_block_f32", _I, (_I, _I, _PP, _I64P, _I, _IP, _I64P, _IP, _I64P,
                             _P, _I64, _I, _I, _I64, _I, _I, _I, _P, _P)),
     ("step_block_f32_max_rows", _I, ()),
+    ("step_block_lanes_f32", _I, (_I, _I, _PP, _IP, _I, _I64P, _P, _I64,
+                                  _I64, _I, _I, _P)),
     ("tc_steps_f32", _I, (_I, _PP, _P, _I, _IP, _IP, _I, _I64P, _P, _I64,
                           _I, _I, _P)),
     ("probe_stream_f32", _I, (_I, _PP, _I64P, _P, _I64P, _I64P,

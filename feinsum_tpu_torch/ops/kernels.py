@@ -91,7 +91,11 @@ that no row family above takes (a step table of
   launch in a fixed order.  Its stream path (a kernel of its own, chosen by
   :func:`step_block_path`) runs a table of one element-local product over
   streamed operands on 16 bytes, such as a metric product per node, with
-  16-byte loads straight into registers.
+  16-byte loads straight into registers; its lanes path (another, chosen
+  there too) a table of dense element steps on 16 bytes, such as the ADER
+  element's and sum factorization's chains, with a warp's lanes on
+  consecutive elements and the reference matrices read as broadcasts
+  (:func:`step_block_lanes_tables`).
 
 And one runs K2's whole schedule, every step of a dense program with a
 tuple ``grid_index`` that ``tc_grid_f32`` does not take (a cell table of
@@ -200,6 +204,26 @@ SB_STAGE_INTS = 8
 # csrc/step_block.cu: the stream path's instances, NM x NK entries an
 # element, NM and NK up to kStreamMax
 SB_STREAM_MAX = 3
+# csrc/step_block.cu: the lanes path's register tiles (RX, RW), a lane's
+# entries of X (its element's) and of W: a resident W, read by 16-byte
+# broadcasts, takes RW a multiple of 4 (the SB_LANES_RES cases); a W per
+# element, RW any (the SB_LANES_ELEM cases)
+SB_LANE_TILES = ((1, 4), (1, 8), (1, 12), (1, 16), (2, 4), (2, 8), (2, 12),
+                 (2, 16), (3, 4), (3, 8), (3, 12), (3, 16), (4, 4), (4, 8),
+                 (4, 12), (5, 4), (5, 8), (6, 4), (6, 8), (8, 4), (9, 4))
+SB_LANE_TILES_ELEM = ((1, 1), (1, 4), (1, 9), (2, 4), (2, 5), (2, 9),
+                      (3, 3), (3, 4), (3, 5), (3, 9), (4, 4), (4, 5),
+                      (4, 9), (5, 5), (5, 9))
+# the threads of a lanes-path block (its kernel's instances); the streamed
+# regions of a table, the letters of one and the entries of a letter (each
+# region a TMA tensor map: kLaneMaxMaps, kLaneMaxLetters, kLaneMaxBox); its
+# static shared memory (the maps' mbarriers, with the dynamic part's
+# alignment)
+SB_LANE_THREADS = (256, 512)
+SB_LANE_MAX_MAPS = 4
+SB_LANE_MAX_LETTERS = 4
+SB_LANE_MAX_BOX = 256
+SB_LANE_STATIC_BYTES = 128
 
 # csrc/tc_steps.cu: threads per block (kThreads, the most; the planner
 # takes fewer for a narrow cell); the most steps, operands per step,
@@ -1887,27 +1911,222 @@ def _sb_stream_shape(table) -> Optional[tuple]:
     return nm, nk
 
 
+@functools.lru_cache(maxsize=64)
+def _sb_lanes_plan(table):
+    """The lanes-path plan of *table*
+    (:func:`~feinsum_tpu_torch.ops.step_block.plan_lanes`), ``None`` where
+    the path cannot run it."""
+    from .step_block import plan_lanes
+    return plan_lanes(table)
+
+
 def step_block_path(table, in_strides: tuple, out_strides: tuple,
                     tensors) -> str:
     """The path a ``step_block_f32`` launch takes, its key in
     ``tracing.counters["step_block_mode"]``: ``"stream"`` when the stream
-    path can run the table (:func:`_sb_stream_shape`), the long letter
-    lies at stride 1 in every input (strides *in_strides*) and in the
-    output view (*out_strides*), and every entry stride and every pointer
-    of *tensors* (the launch's inputs and outputs) lies on 16 bytes; else
-    the table's mode, ``"dense"`` or ``"general"`` (the block kernel).
-    The one place the choice is made: the C entry takes it as given."""
-    if _sb_stream_shape(table) is None:
+    path can run the table (:func:`_sb_stream_shape`), ``"lanes"`` when
+    the lanes path can (:func:`_sb_lanes_plan`: every step dense, none
+    that reduces; :mod:`~feinsum_tpu_torch.ops.step_block`), in either case
+    only where the long letter lies at stride 1 in every streamed input
+    (strides *in_strides*) and in the output view (*out_strides*), and
+    every entry stride of those and every pointer of *tensors* (the
+    launch's inputs and outputs) lies on 16 bytes, and for the lanes path
+    the long axis's length is a multiple of 4; else the table's mode,
+    ``"dense"`` or ``"general"`` (the block kernel).  The one place the
+    choice is made: the C entry takes it as given."""
+    if _sb_stream_shape(table) is not None:
+        path = "stream"
+    elif _sb_lanes_plan(table) is not None:
+        path = "lanes"
+    else:
         return table.mode
-    views = [*zip(table.inputs, in_strides),
-             (table.steps[-1].out, out_strides)]
+    el = table.el
+    views = [*((letters, st) for letters, st in zip(table.inputs, in_strides)
+               if el in letters), (table.steps[-1].out, out_strides)]
     for letters, strides in views:
-        per, es = _sb_strides(letters, strides, table.el)
+        per, es = _sb_strides(letters, strides, el)
         if es != 1 or any(st % 4 for st in per.values()):
             return table.mode
     if any(t.data_ptr() % 16 for t in tensors):
         return table.mode
-    return "stream"
+    if path == "lanes":
+        slot = next(s for s, letters in enumerate(table.inputs)
+                    if el in letters)
+        if tensors[slot].shape[table.inputs[slot].index(el)] % 4:
+            return table.mode
+    return path
+
+
+def _sb_row_strides(rows: tuple, length: dict) -> dict:
+    """Strides per letter of a region whose rows run over *rows*, slowest
+    first, compact."""
+    per, stride = {}, 1
+    for ix in reversed(rows):
+        per[ix] = stride
+        stride *= length[ix]
+    return per
+
+
+@functools.lru_cache(maxsize=64)
+def step_block_lanes_tables(table, in_strides: tuple,
+                            out_strides: tuple) -> tuple:
+    """``(meta, tables, maps)`` of the lanes path (``csrc/step_block.cu``,
+    ``step_block_lanes``) for one row whose input views and output view
+    have these strides, by the plan :func:`_sb_lanes_plan`.
+
+    ``tables`` (int64) holds each resident's gather offsets into its
+    packed copy (-1: a zero of the padding), the last step's output
+    offsets over X's, W's and the batch entries, and the ints for shared
+    memory: each step's tables (X's rows over its free entries and the
+    batch, W's likewise when it is per element, a resident W's packed
+    offset per batch entry, the result's rows over X's, W's and the batch
+    entries: in rows of an intermediate's region, zero for the last step).
+    ``maps`` gives each streamed region's TMA tensor map: its rank (one
+    more than its letters), then each letter's entries and stride in its
+    input, the fastest row letter first, padded to ``SB_LANE_MAX_LETTERS``
+    letters.
+
+    ``meta`` (ints): the header (steps, regions, ``te``, two buffers, the
+    ints of the tables and where they start in ``tables``, threads a
+    block), then per step
+    (X's region; W's region or the resident's input slot; W resident; X,
+    W, batch and contracted entries; RX, RW; X and W tiles; X's
+    contracted stride in rows, W's in rows or in floats of the packed
+    resident; the int offset of its tables in shared memory; the region
+    of its result, -1 for the output; the output tables' offset in
+    ``tables``; the packed resident's float offset in shared memory, its
+    floats and its gather table's offset in ``tables``), then per region
+    (float offset in shared memory, on 128 bytes, the second buffer's or
+    -1, rows, the input slot or -1, its map or -1, and the step after
+    which one buffer is refilled or -1)."""
+    from .step_block import _lane_table_ints, lane_region_base
+    plan = _sb_lanes_plan(table)
+    el, length = table.el, table.length
+    last = len(table.steps) - 1
+    te = plan.te
+    rows = dict(plan.rows)
+    reg_index = {src: i for i, (src, _at, _r) in enumerate(plan.regions)}
+    chunks: list = []
+    cursor = 0
+
+    def add(arr) -> int:
+        nonlocal cursor
+        arr = np.asarray(arr, dtype=np.int64).ravel()
+        chunks.append(arr)
+        cursor += len(arr)
+        return cursor - len(arr)
+
+    def count(letters) -> int:
+        return int(np.prod([length[ix] for ix in letters], dtype=np.int64))
+
+    # the consumer's row strides of each region, by the axis it names
+    reader = {}
+    for k, st in enumerate(table.steps):
+        for q, src in enumerate(st.operands):
+            reader[src] = (k, q)
+
+    def region_strides(src, names) -> dict:
+        """Row strides per letter of *names* (one per axis of region
+        *src*, as the step at hand names them)."""
+        k, q = reader[src]
+        mine = _sb_row_strides(rows[src], length)
+        return {n: mine[c] for n, c in zip(names, table.steps[k].letters[q])
+                if c != el}
+
+    # ints for shared memory, then per step its packing and output
+    int_cursor = 0
+    int_chunks = []
+    step_meta = []
+    n_ints = sum(_lane_table_ints(table, ls) for ls in plan.steps)
+    packed_base = -(-n_ints // 4) * 4
+    packed_cursor = packed_base
+    for k, (st, ls) in enumerate(zip(table.steps, plan.steps)):
+        xsrc, wsrc = st.operands[ls.x], st.operands[1 - ls.x]
+        xnames, wnames = st.letters[ls.x], st.letters[1 - ls.x]
+        nx, nw, nb, nk = (count(g) for g in (ls.xl, ls.wl, ls.bl, ls.kl))
+        rx, rw = ls.tile
+        tx, tw = -(-nx // rx), -(-nw // rw)
+        xs = region_strides(xsrc, xnames)
+        Xx = _sb_offsets(ls.xl, length, xs)
+        Xb = _sb_offsets(ls.bl, length, xs)
+        xk = xs[ls.kl[-1]] if ls.kl else 0
+        packed = [-1, 0, 0]
+        if ls.wres:
+            wpad = tw * rw
+            Wb = np.arange(nb, dtype=np.int64) * nk * wpad
+            Ww = np.zeros(0, np.int64)
+            wk = wpad
+            wreg = wsrc[1]
+            per, _ = _sb_strides(wnames, in_strides[wreg], el)
+            w = np.zeros(wpad, np.int64)
+            w[:nw] = _sb_offsets(ls.wl, length, per)
+            g = (_sb_offsets(ls.bl, length, per)[:, None, None]
+                 + _sb_offsets(ls.kl, length, per)[None, :, None]
+                 + w[None, None, :])
+            g[..., nw:] = -1
+            packed = [packed_cursor, g.size, add(g)]
+            packed_cursor += g.size
+        else:
+            ws = region_strides(wsrc, wnames)
+            Ww = _sb_offsets(ls.wl, length, ws)
+            Wb = _sb_offsets(ls.bl, length, ws)
+            wk = ws[ls.kl[-1]] if ls.kl else 0
+            wreg = reg_index[wsrc]
+        if k == last:
+            out_per, _ = _sb_strides(st.out, out_strides, el)
+            dg = add(np.concatenate([_sb_offsets(g_, length, out_per)
+                                     for g_ in (ls.xl, ls.wl, ls.bl)]))
+            Dx, Dw, Db = (np.zeros(count(g_), np.int64)
+                          for g_ in (ls.xl, ls.wl, ls.bl))
+            dst = -1
+        else:
+            ds = region_strides(("tmp", k), st.out)
+            Dx, Dw, Db = (_sb_offsets(g_, length, ds)
+                          for g_ in (ls.xl, ls.wl, ls.bl))
+            dg = -1
+            dst = reg_index[("tmp", k)]
+        tabs = np.concatenate([Xx, Xb, Ww, Wb, Dx, Dw, Db])
+        if len(tabs) != _lane_table_ints(table, ls):
+            raise AssertionError("lanes tables out of count")
+        int_chunks.append(tabs)
+        step_meta.append([reg_index[xsrc], wreg, int(ls.wres), nx, nw, nb,
+                          nk, rx, rw, tx, tw, int(xk), int(wk), int_cursor,
+                          dst, dg, *packed])
+        int_cursor += len(tabs)
+    ints = np.concatenate(int_chunks) if int_chunks else np.zeros(0, np.int64)
+    if int(np.abs(ints).max(initial=0)) >= 2 ** 31:
+        raise InvalidParameterError(
+            "step_block_f32: a lanes table's offsets exceed 32 bits")
+
+    region_base = lane_region_base(n_ints, packed_cursor - packed_base)
+    reg_meta, maps = [], []
+    for src, at, refill in plan.regions:
+        n = count(rows[src])
+        off = region_base + at * te
+        second = off + n * te if plan.double and src[0] == "in" else -1
+        if src[0] == "in":
+            per, _ = _sb_strides(table.inputs[src[1]], in_strides[src[1]],
+                                 el)
+            k, q = reader[src]
+            names = dict(zip(table.steps[k].letters[q], table.inputs[src[1]]))
+            # its TMA map: rank, then each letter's entries and stride,
+            # the fastest row letter first
+            desc = [1 + len(rows[src])]
+            for c in reversed(rows[src]):
+                desc += [length[c], per[names[c]]]
+            desc += [0] * (1 + 2 * SB_LANE_MAX_LETTERS - len(desc))
+            reg_meta.append([off, second, n, src[1], len(maps),
+                             -1 if plan.double else refill])
+            maps.append(desc)
+        else:
+            reg_meta.append([off, -1, n, -1, -1, -1])
+    ints_src = add(ints)
+    head = [len(table.steps), len(plan.regions), te, int(plan.double),
+            n_ints, ints_src, plan.threads]
+    meta = head + [v for m in step_meta for v in m] + [
+        v for m in reg_meta for v in m]
+    tables = np.concatenate(chunks) if chunks else np.zeros(1, np.int64)
+    return tuple(meta), tables, tuple(v for d in maps for v in d)
 
 
 def _sb_sub_tile(letters: tuple, strides, el: str, length: dict,
@@ -2155,6 +2374,21 @@ def _sb_device_tables(table, row_strides: tuple, elem_fastest: bool,
             stage_t, len(per_row[0][0]))
 
 
+@functools.lru_cache(maxsize=32)
+def _sb_lanes_device_tables(table, row_strides: tuple,
+                            device: torch.device) -> tuple:
+    """The lanes path's ``(meta, tables, row_len, maps)``: the rows' tables
+    end to end on *device* (the meta equal across rows: it depends on the
+    shapes alone) and their maps' descriptions end to end for the C
+    entry."""
+    per_row = [step_block_lanes_tables(table, ins, out)
+               for ins, out in row_strides]
+    tables = np.concatenate([t[1] for t in per_row])
+    maps = [v for t in per_row for v in t[2]]
+    return (per_row[0][0], torch.from_numpy(tables).to(device),
+            len(per_row[0][1]), (ctypes.c_int64 * max(1, len(maps)))(*maps))
+
+
 def _sb_check(rows, table) -> int:
     """The grid letter's length (1 without a grid: the whole program is one
     block of one element), with every operand checked against the table's
@@ -2247,7 +2481,7 @@ def step_block_f32(rows, table, *, block_long: int,
     one launch (two for a contracted long axis; up to the kernel's row
     limit) unless *one_launch* is false; *block_long* elements per thread
     block.  Each launch counts under its path (:func:`step_block_path`:
-    ``"stream"``, else the table's mode) in
+    ``"stream"`` or ``"lanes"``, else the table's mode) in
     ``tracing.counters["step_block_mode"]``."""
     if not rows:
         return []
@@ -2279,16 +2513,30 @@ def step_block_f32(rows, table, *, block_long: int,
         nblocks = -(-E // int(block_long))
         for idx in _launch_rows(len(ins), one_launch,
                                 lib.step_block_f32_max_rows):
+            ptrs = (ctypes.c_void_p * ((ni + 1) * len(idx)))()
+            for n, r in enumerate(idx):
+                ptrs[(ni + 1) * n:(ni + 1) * (n + 1)] = [
+                    *(t.data_ptr() for t in ins[r]), views[r].data_ptr()]
+            if path == "lanes":
+                meta, tables, row_len, maps = _sb_lanes_device_tables(
+                    table, _sb_view_strides([ins[r] for r in idx],
+                                            [views[r] for r in idx]),
+                    device)
+                plan = _sb_lanes_plan(table)
+                launch(lib.step_block_lanes_f32, len(idx), ni, ptrs,
+                       (ctypes.c_int * len(meta))(*meta), len(meta), maps,
+                       ctypes.c_void_p(tables.data_ptr()), row_len, E,
+                       -(-int(block_long) // plan.te) * plan.te,
+                       plan.smem_floats)
+                tracing.counters["step_block_mode"][path] += 1
+                continue
             tables, steps_i, steps_t, stage_i, stage_t, row_len = \
                 _sb_device_tables(
                 table, _sb_view_strides([ins[r] for r in idx],
                                         [views[r] for r in idx]),
                 elem_fastest, stream, device)
-            ptrs = (ctypes.c_void_p * ((ni + 1) * len(idx)))()
             es = (ctypes.c_int64 * ((ni + 1) * len(idx)))()
             for n, r in enumerate(idx):
-                ptrs[(ni + 1) * n:(ni + 1) * (n + 1)] = [
-                    *(t.data_ptr() for t in ins[r]), views[r].data_ptr()]
                 es[(ni + 1) * n:(ni + 1) * (n + 1)] = [
                     *(_sb_strides(letters, t.stride(), el)[1]
                       for letters, t in zip(table.inputs, ins[r])),

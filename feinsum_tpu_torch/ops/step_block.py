@@ -64,11 +64,19 @@ operands per step, operands per row, letters per step
 holds, such as an operand without the grid letter at a long length).
 These refusals are rulings: the reference holds the same operands whole
 in VMEM, and a Hopper block's 227 KB holds less.
+
+:func:`plan_lanes` plans a table of dense element steps for the kernel's
+lanes path (``ops/kernels.py::step_block_path``): a warp's lanes on 32
+consecutive elements, each step's roles (X per element, W a resident or
+per element) and register tile, the sub-tile, the buffers and the
+per-element regions' layout in shared memory, by a model of the steps'
+time (:func:`lane_step_cost`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from itertools import permutations, product
 from math import prod
 from typing import Optional
 
@@ -76,6 +84,13 @@ from ..contraction_schedule import EinsumOperand
 from ..diagnostics import InvalidParameterError
 from .kernels import (
     MAX_SMEM_BYTES,
+    SB_LANE_MAX_BOX,
+    SB_LANE_MAX_LETTERS,
+    SB_LANE_MAX_MAPS,
+    SB_LANE_STATIC_BYTES,
+    SB_LANE_THREADS,
+    SB_LANE_TILES,
+    SB_LANE_TILES_ELEM,
     SB_MAX_INPUTS,
     SB_MAX_LETTERS,
     SB_MAX_OPS,
@@ -523,6 +538,9 @@ def _tiled_step(kind, ops, out, letters, el, length, streamed,
 # which a thread's instructions issue slower (two blocks of 256)
 SB_SUB_TILE_COST = 500
 SB_BUSY_THREADS = 512
+# an SM's share of the card's memory bandwidth, bytes a clock (3.35 TB/s
+# over 132 SMs at 1.755 GHz)
+SB_SM_BYTES_PER_CLOCK = 14.5
 
 
 def step_work(step: SBStep, length: dict, el, n: int) -> tuple:
@@ -603,3 +621,281 @@ def _pick_te(steps, length: dict, el, cap: int, block_long: int,
         if best_key is None or key < best_key:
             best, best_key = (te, cand), key
     return best
+
+
+# {{{ the lanes path
+
+@dataclass(frozen=True)
+class LaneStep:
+    """One step of a table on ``step_block_f32``'s lanes path: X, the
+    operand ``x`` of the step, is per element (a streamed input's or an
+    earlier step's sub-tile in shared memory, rows of entries over the
+    sub-tile's elements); W, the other, is a resident (``wres``: one value
+    for the whole warp, packed per step [batch][contracted][free]) or per
+    element too.  ``xl``, ``wl``, ``bl`` and ``kl`` are the step's letters
+    (X's and W's free letters, the batch and the contracted letters, in the
+    dense split's order); a lane computes ``tile`` = (RX, RW) entries of
+    its element."""
+
+    x: int
+    wres: bool
+    xl: tuple
+    wl: tuple
+    bl: tuple
+    kl: tuple
+    tile: tuple
+
+
+@dataclass(frozen=True)
+class LanesPlan:
+    """A step table planned for the lanes path: the elements of a sub-tile
+    ``te`` (a multiple of 32: a warp's lanes take 32 consecutive elements),
+    whether the streamed inputs' sub-tiles have two buffers (``double``)
+    or one, the steps, and the per-element regions: ``rows`` gives each
+    (``("in", slot)`` or ``("tmp", step)``) the reader's letters of its
+    axes, slowest first (the contracted letters, the batch, the free ones),
+    ``regions`` its offset in rows of ``te`` floats past the packed
+    residents (an input's second buffer, with ``double``, right after the
+    first) and, for an input with one buffer, the step after which its next
+    sub-tile is copied in (its reader, or the last reader of a result laid
+    over it).  ``smem_floats``: the shared memory of a block;
+    ``threads``: its threads, 512 where one block fits an SM, else 256."""
+
+    te: int
+    double: bool
+    steps: tuple
+    rows: tuple
+    regions: tuple
+    smem_floats: int
+    threads: int = SB_THREADS
+
+
+def _lanes_regions(table) -> Optional[dict]:
+    """The per-element regions of *table* (its streamed inputs and its
+    steps' results but the last), each to its one reader ``(step,
+    operand)``; ``None`` where any is read twice or never, a resident is
+    read by more than one step, or a step reads one source twice."""
+    readers: dict = {}
+    for k, st in enumerate(table.steps):
+        if len(set(st.operands)) != len(st.operands):
+            return None
+        for q, src in enumerate(st.operands):
+            readers.setdefault(src, []).append((k, q))
+    last = len(table.steps) - 1
+    want = {("in", s) for s in range(len(table.inputs))} | {
+        ("tmp", k) for k in range(last)}
+    if set(readers) != want or any(len(r) != 1 for r in readers.values()):
+        return None
+    return {src: r[0] for src, r in readers.items()}
+
+
+def _lanes_per_element(table, src) -> bool:
+    kind, x = src
+    return kind == "tmp" or table.el in table.inputs[x]
+
+
+def lane_step_cost(table, ls: LaneStep, G: int, blocks: int,
+                   threads: int = SB_THREADS) -> float:
+    """The model's SM clocks of one lanes-path step on a sub-tile of 32 G
+    elements, a block's share while *blocks* blocks of *threads* share the
+    SM: each warp takes units (a register tile of 32 elements), RX·RW FMAs
+    and RX + RW loads a contracted entry (a resident's RW in 16-byte
+    broadcasts, a quarter of the wavefronts); a round of ``threads / 32``
+    units issues on the SM's four schedulers as if ``SB_BUSY_THREADS /
+    32`` warps were busy when fewer are, or waits on the shared-memory
+    wavefronts, one a clock."""
+    length = table.length
+    rx, rw = ls.tile
+    nx, nw, nb, nk = (_count(g, length) for g in (ls.xl, ls.wl, ls.bl,
+                                                  ls.kl))
+    units = nb * -(-nx // rx) * -(-nw // rw) * G
+    wl = rw // 4 if ls.wres else rw
+    instr = nk * (rx * rw + rx + wl + 2) + 3 * rx * rw + 12
+    waves = nk * (rx + wl) + rx * rw
+    warps = threads // 32
+    rounds = -(-units // warps)
+    active = min(units, warps) * blocks
+    return rounds * max(instr * max(active, SB_BUSY_THREADS // 32) / 4,
+                        waves * active) / blocks
+
+
+def _lane_roles(table) -> Optional[list]:
+    """Each step's choices of (X, W) roles, [(x, wres)], or ``None`` where
+    a step is not a dense product with a per-element operand."""
+    out = []
+    for k, st in enumerate(table.steps):
+        if st.kind != "element" or st.mode != "dense" \
+                or len(st.operands) != 2:
+            return None
+        per = [_lanes_per_element(table, src) for src in st.operands]
+        if not any(per):
+            return None
+        out.append([(q, not per[1 - q]) for q in (0, 1) if per[q]])
+    return out
+
+
+def _lane_layout(sizes: dict, lives: dict) -> tuple:
+    """``(rows, offsets)``: the per-element regions *sizes* (rows each) laid
+    out in the fewest rows, two overlapping only where their lifetimes
+    *lives* (inclusive step ranges) do not meet: first fit in the order of
+    each permutation of the regions (up to six), the best kept."""
+    names = sorted(sizes)
+    best = None
+    for order in (permutations(names) if len(names) <= 6 else [names]):
+        placed: dict = {}
+        for r in order:
+            lo, hi = lives[r]
+            busy = sorted((placed[o], placed[o] + sizes[o]) for o in placed
+                          if lives[o][0] <= hi and lo <= lives[o][1])
+            at = 0
+            for a, b in busy:
+                if at + sizes[r] <= a:
+                    break
+                at = max(at, b)
+            placed[r] = at
+        total = max((placed[r] + sizes[r] for r in names), default=0)
+        if best is None or total < best[0]:
+            best = (total, placed)
+    return best
+
+
+def plan_lanes(table, block_long: int = 512) -> Optional[LanesPlan]:
+    """The lanes-path plan of *table*, or ``None`` where the path cannot
+    run it: a long letter, every step a dense element step of two operands
+    (:func:`dense_split`), at least one per element, each streamed input
+    and each result but the last read by one step alone, each resident by
+    one step, at most ``SB_LANE_MAX_MAPS`` streamed inputs of at most
+    ``SB_LANE_MAX_LETTERS`` letters of up to ``SB_LANE_MAX_BOX`` entries
+    (each a TMA box), and the shared memory of a 32-element sub-tile
+    within a block's.  Among sub-tiles of 32 to 128 elements, two buffers or one
+    (results may then lie over an input whose reader is done), each step's
+    roles and tile of ``SB_LANE_TILES`` / ``SB_LANE_TILES_ELEM``, it takes
+    the least modelled time an element (:func:`lane_step_cost`;
+    *block_long* elements a block)."""
+    if table.el is None:
+        return None
+    regions = _lanes_regions(table)
+    if regions is None:
+        return None
+    roles = _lane_roles(table)
+    if roles is None:
+        return None
+    length = table.length
+    last = len(table.steps) - 1
+    cands = []
+    for k, st in enumerate(table.steps):
+        M, N, K, B = st.split
+        opts = []
+        for x, wres in roles[k]:
+            xl, wl = (M, N) if x == 0 else (N, M)
+            tiles = SB_LANE_TILES if wres else SB_LANE_TILES_ELEM
+            for t in tiles:
+                opts.append(LaneStep(x=x, wres=wres, xl=xl, wl=wl, bl=B,
+                                     kl=K, tile=t))
+        cands.append(opts)
+    # per-element rows: the reader's contracted letters, batch, free ones
+    rows = {}
+    for src, (k, q) in regions.items():
+        if not _lanes_per_element(table, src):
+            continue
+        M, N, K, B = table.steps[k].split
+        rows[src] = tuple(K) + tuple(B) + tuple(M if q == 0 else N)
+    n_rows = {src: _count(r, length) for src, r in rows.items()}
+    streamed = sorted(src for src in rows if src[0] == "in")
+    # each streamed region is one TMA box of te elements by its rows
+    if len(streamed) > SB_LANE_MAX_MAPS or any(
+            len(rows[s]) > SB_LANE_MAX_LETTERS
+            or any(length[ix] > SB_LANE_MAX_BOX for ix in rows[s])
+            for s in streamed):
+        return None
+
+    def layout(double: bool) -> tuple:
+        """(rows of the regions, offsets, refill steps)."""
+        lives = {src: ((-1, last + 1) if double else (-1, regions[src][0]))
+                 if src[0] == "in" else (src[1], regions[src][0])
+                 for src in rows}
+        sizes = {src: n_rows[src] * (2 if double and src[0] == "in" else 1)
+                 for src in rows}
+        total, at = _lane_layout(sizes, lives)
+        refill = {}
+        for s in streamed:
+            over = [lives[o][1] for o in rows if o[0] == "tmp"
+                    and at[o] < at[s] + sizes[s] and at[s] < at[o] + sizes[o]]
+            refill[s] = max([lives[s][1], *over])
+        return total, at, refill
+
+    layouts = {double: layout(double) for double in (True, False)}
+    small = [min(o, key=lambda c: c.tile[1]) for o in cands]
+    best, best_key = None, None
+    for double, G, threads in product((True, False), range(1, 5),
+                                      SB_LANE_THREADS):
+        total, at, refill = layouts[double]
+        te = 32 * G
+
+        def floats(steps) -> int:
+            ints = sum(_lane_table_ints(table, ls) for ls in steps)
+            return (lane_region_base(ints, sum(
+                _lane_packed(table, ls) for ls in steps if ls.wres))
+                + total * te)
+        if 4 * floats(small) + SB_LANE_STATIC_BYTES > MAX_SMEM_BYTES:
+            continue
+        # registers: 128 a thread, 512 threads an SM's
+        most = SB_LANE_THREADS[-1] // threads
+        blocks = max(1, min(most, SB_SM_SMEM_BYTES // (
+            4 * floats(small) + SB_LANE_STATIC_BYTES + 1024)))
+        steps = [min(opts, key=lambda c: lane_step_cost(
+            table, c, G, blocks, threads)) for opts in cands]
+        need = 4 * floats(steps)
+        if need + SB_LANE_STATIC_BYTES > MAX_SMEM_BYTES:
+            steps, need = small, 4 * floats(small)
+        blocks = max(1, min(most, SB_SM_SMEM_BYTES // (
+            need + SB_LANE_STATIC_BYTES + 1024)))
+        span = -(-max(block_long, 1) // te) * te
+        sub = sum(lane_step_cost(table, ls, G, blocks, threads)
+                  for ls in steps)
+        # a lone block waits for the copies into a buffer whose readers
+        # are done unless its steps run meanwhile: those after the
+        # refill's step
+        if not double and blocks == 1:
+            sub += sum(4 * te * n_rows[s] / SB_SM_BYTES_PER_CLOCK
+                       for s in streamed if refill[s] == last)
+        t = (sub + SB_SUB_TILE_COST * blocks * threads // 128) \
+            / (te * blocks) * (span / max(block_long, 1))
+        key = (round(t, 3), need)
+        if best_key is None or key < best_key:
+            best_key = key
+            best = LanesPlan(
+                te=te, double=double, steps=tuple(steps),
+                rows=tuple(sorted(rows.items())),
+                regions=tuple((src, at[src], refill.get(src, -1))
+                              for src in sorted(rows)),
+                smem_floats=need // 4, threads=threads)
+    return best
+
+
+def lane_region_base(ints: int, packed: int) -> int:
+    """The float offset of the per-element regions in shared memory: past
+    the tables' *ints* and the *packed* residents, on 128 bytes (a TMA
+    box's destination)."""
+    return -(-(-(-ints // 4) * 4 + packed) // 32) * 32
+
+
+def _lane_packed(table, ls: LaneStep) -> int:
+    """Floats of a step's packed resident: [batch][contracted][free], the
+    free entries padded to whole tiles."""
+    length = table.length
+    rw = ls.tile[1]
+    nw = _count(ls.wl, length)
+    return (_count(ls.bl, length) * _count(ls.kl, length)
+            * -(-nw // rw) * rw)
+
+
+def _lane_table_ints(table, ls: LaneStep) -> int:
+    """Ints of a step's tables in shared memory: X's rows over its free
+    entries and the batch, W's (rows per element; a resident's over the
+    batch alone), the result's over X's, W's and the batch entries."""
+    length = table.length
+    nx, nw, nb = (_count(g, length) for g in (ls.xl, ls.wl, ls.bl))
+    return 2 * nx + nw + 3 * nb + (0 if ls.wres else nw)
+
+# }}}

@@ -34,9 +34,9 @@ The spans, each at one boundary of the package:
 kernel (``ops.kernels.launch_counts`` is the same dict),
 ``"dg_rows_f32_path"`` and ``"dd_rows_path"``, those kernels' launches by
 path, ``"step_block_mode"``, ``step_block_f32``'s launches by the path
-they took (``"stream"``, ``ops.kernels.step_block_path``), else by the
-mode of their step table (``"dense"`` when every step is dense, else
-``"general"``), ``"model_steps"``, the calls of a model's step,
+they took (``"stream"`` or ``"lanes"``, ``ops.kernels.step_block_path``),
+else by the mode of their step table (``"dense"`` when every step is
+dense, else ``"general"``), ``"model_steps"``, the calls of a model's step,
 ``"ader_predictor_launches"``, the launches issued inside the ADER step's
 ``feinsum.ader:predictor`` span (``launches`` before and after it), so
 that ``ader_predictor_launches / model_steps`` is the predictor's launches
@@ -101,10 +101,11 @@ counters = {
     "dg_rows_f32_path": {"tiled": 0, "general": 0},
     # dd_rows's launches by path, likewise
     "dd_rows_path": {"tiled": 0, "general": 0},
-    # step_block_f32's launches by the path they took: the stream path
-    # (ops/kernels.step_block_path), else the mode of their step table:
-    # every step dense (register tiles), or any general one (offset tables)
-    "step_block_mode": {"dense": 0, "general": 0, "stream": 0},
+    # step_block_f32's launches by the path they took: the stream or the
+    # lanes path (ops/kernels.step_block_path), else the mode of their step
+    # table: every step dense (register tiles), or any general one (offset
+    # tables)
+    "step_block_mode": {"dense": 0, "general": 0, "stream": 0, "lanes": 0},
     "model_steps": 0, "pair_bytes": 0, "ader_predictor_launches": 0,
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,

@@ -2203,7 +2203,7 @@ def test_step_block_stream_path_is_the_dense_path_bit_for_bit(cuda_device,
 @pytest.mark.cuda
 def test_step_block_resident_table_stays_dense(cuda_device):
     """A one-step table with a resident (``ij,ejk->eik``, dof-major, on 16
-    bytes) counts ``"dense"``, not ``"stream"``."""
+    bytes) does not count ``"stream"``: it takes the lanes path."""
     from feinsum_tpu_torch import tracing
     rows, table, *_ = _sb_case("demo_ndof6", cuda_device, 4096, 512, True)
     modes = tracing.counters["step_block_mode"]
@@ -2211,7 +2211,53 @@ def test_step_block_resident_table_stays_dense(cuda_device):
     kernels.step_block_f32(rows, table, block_long=512)
     torch.cuda.synchronize()
     assert {k: c - before[k] for k, c in modes.items()} == {
-        "dense": 1, "general": 0, "stream": 0}
+        "dense": 0, "general": 0, "stream": 0, "lanes": 1}
+
+
+def _off16(arrays: dict) -> dict:
+    """Copies of *arrays* one float into their storage: the same values
+    off 16 bytes, which the stream and lanes paths refuse."""
+    out = {}
+    for k, t in arrays.items():
+        buf = torch.empty(t.numel() + 1, device=t.device)[1:]
+        out[k] = buf.view(t.shape).copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [4100, 5000])
+@pytest.mark.parametrize("name", [
+    "ader_derivative_0", "ader_derivative_1", "ader_derivative_2",
+    "ader_derivative_3", "ader_volume", "ader_flux", "hex_grad_axes",
+    "hex_div_1", "hex_div_2", "hex_div_3"])
+def test_step_block_lanes_path_is_the_dense_path_bit_for_bit(cuda_device,
+                                                             name, E):
+    """Each model executable on the lanes path (operands on 16 bytes)
+    against the block kernel on the same values one float off 16 bytes:
+    equal bit for bit, and within 2e-5 of ``step_block_plain``; E a
+    multiple of 4 that leaves a block's last sub-tile part full."""
+    from feinsum_tpu_torch import tracing
+    from feinsum_tpu_torch.codegen.program import get_index_lengths
+    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    model, exe = name.split("_", 1)
+    op = (ft.AderElasticOperator3D(device=cuda_device) if model == "ader"
+          else ft.HexWaveOperator3D(device=cuda_device))
+    program = op.programs[exe]
+    fn = op.executables(E)[exe]
+    arrays = ft.apply_layouts(program, ft.measure.generate_input_arrays(
+        program.einsum, long_dim_length=E, seed=7, device=cuda_device))
+    modes = tracing.counters["step_block_mode"]
+    outs = []
+    for a, path in ((arrays, "lanes"), (_off16(arrays), "dense")):
+        before = dict(modes)
+        (got,) = fn(a)
+        torch.cuda.synchronize()
+        assert [k for k, c in modes.items() if c != before[k]] == [path]
+        outs.append(got)
+    assert torch.equal(outs[0], outs[1])
+    plan = plan_cuda_launch(program, get_index_lengths(program.einsum, E))
+    (want,) = plan.plain(plan.operands(arrays))
+    assert_close(outs[0].cpu().numpy(), want.cpu().numpy())
 
 # }}}
 
@@ -2755,7 +2801,8 @@ def test_probe_stream_kernel_matches_plain(cuda_device, case, block_elems):
 @pytest.mark.parametrize("E", [4099, 4100])
 def test_ader_model_step_matches_the_plain_route(cuda_device, E):
     """A float32 step of the ADER element with its default plan (six
-    ``step_block_f32`` launches, every table dense, and six
+    ``step_block_f32`` launches, every table dense: on the lanes path
+    where E is a multiple of 4, else on the block kernel; and six
     ``step_update`` passes: five bands of the time integral written into
     one tensor and the update; nothing else) against the same model on the
     plain per-step route, increment against increment."""
@@ -2767,9 +2814,10 @@ def test_ader_model_step_matches_the_plain_route(cuda_device, E):
     torch.cuda.synchronize()
     assert {k: n - launches[k] for k, n in kernels.launch_counts.items()
             if n != launches[k]} == {"step_block_f32": 6, "step_update": 6}
+    lanes = 0 if E % 4 else 6
     assert {k: n - modes[k] for k, n
             in tracing.counters["step_block_mode"].items()} \
-        == {"dense": 6, "general": 0, "stream": 0}
+        == {"dense": 6 - lanes, "general": 0, "stream": 0, "lanes": lanes}
     want = ft.AderElasticOperator3D(use_pallas=False).make_step(E)(
         state, geom)["Q"]
     old, got = state["Q"], got["Q"]
@@ -2791,9 +2839,10 @@ def test_ader_model_step_matches_the_plain_route(cuda_device, E):
 def test_hex_model_step_matches_the_plain_route(cuda_device, E, stream):
     """A float32 step of the hexahedral model with its default plan (six
     ``step_block_f32`` launches, the two metric products on the stream path
-    where n^3 E is a multiple of 4, every other one dense, and two
-    ``step_update`` launches, nothing else) against the same model on the
-    plain per-step route, increment against increment."""
+    and the other four on the lanes path where n^3 E is a multiple of 4,
+    else all six dense, and two ``step_update`` launches, nothing else)
+    against the same model on the plain per-step route, increment against
+    increment."""
     from feinsum_tpu_torch import tracing
     dt = 0.1
     state, geom = ft.make_hexwave_state(E, seed=6, device=cuda_device)
@@ -2803,9 +2852,11 @@ def test_hex_model_step_matches_the_plain_route(cuda_device, E, stream):
     torch.cuda.synchronize()
     assert {k: n - launches[k] for k, n in kernels.launch_counts.items()
             if n != launches[k]} == {"step_block_f32": 6, "step_update": 2}
+    lanes = 2 * stream
     assert {k: n - modes[k] for k, n
             in tracing.counters["step_block_mode"].items()} \
-        == {"dense": 6 - stream, "general": 0, "stream": stream}
+        == {"dense": 6 - stream - lanes, "general": 0, "stream": stream,
+            "lanes": lanes}
     want = ft.HexWaveOperator3D(use_pallas=False).make_step(E, dt=dt)(
         state, geom)
     for k, old in state.items():

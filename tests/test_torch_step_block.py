@@ -10,9 +10,10 @@ carried across with ``feinsum_tpu_torch.interop``; both get the same seeded
 numpy inputs.  On CPU tensors the port's wrapper runs ``step_block_plain``;
 :func:`emulate` runs the offset tables the kernel receives
 (``step_block_tables``) the way ``csrc/step_block.cu`` reads them, so that
-the host's side of the kernel is held to the plain version here;
-``test_torch_kernels.py`` holds the kernel itself to its plain version on
-the card."""
+the host's side of the kernel is held to the plain version here, and
+:func:`emulate_stream` and :func:`emulate_lanes` run the stream and lanes
+paths' tables likewise against the einsum; ``test_torch_kernels.py``
+holds the kernels themselves to their plain version on the card."""
 
 from __future__ import annotations
 
@@ -841,7 +842,9 @@ def _storage(shape, pad=0, offset=0, perm=None):
 
 
 # (einsum, operand shapes with "N", n, storage arguments per operand,
-# the path): the metric products take it; each other case falls back
+# the path): the metric products take the stream path; a product the
+# stream path cannot run takes the lanes path where its layout allows;
+# each other case falls back
 PATH_CASES = {
     "grad_metric": ("xrn,rn->xn", ((3, 3, "N"), (3, "N")), 64, ({}, {}),
                     "stream"),
@@ -854,7 +857,7 @@ PATH_CASES = {
     "two_by_two": ("xrn,rn->xn", ((2, 2, "N"), (2, "N")), 64, ({}, {}),
                    "stream"),
     "scale": ("xn,n->xn", ((3, "N"), ("N",)), 64, ({}, {}), "stream"),
-    "resident": ("xr,rn->xn", ((3, 3), (3, "N")), 64, ({}, {}), "dense"),
+    "resident": ("xr,rn->xn", ((3, 3), (3, "N")), 64, ({}, {}), "lanes"),
     "reduce": ("xrn,rn->xr", ((3, 3, "N"), (3, "N")), 64, ({}, {}), None),
     "long_letter_strided": ("xrn,rn->xn", ((3, 3, "N"), (3, "N")), 64,
                             ({"perm": (2, 0, 1)}, {}), "dense"),
@@ -863,9 +866,18 @@ PATH_CASES = {
     "unaligned_pointer": ("xrn,rn->xn", ((3, 3, "N"), (3, "N")), 64,
                           ({"offset": 1}, {}), "dense"),
     "over_budget": ("xrn,rn->xn", ((4, 3, "N"), (3, "N")), 64, ({}, {}),
-                    "dense"),
+                    "lanes"),
     "batch_letter": ("xn,xn->xn", ((3, "N"), (3, "N")), 64, ({}, {}),
-                     "dense"),
+                     "lanes"),
+    # the lanes path: n % 4 != 0 alone (the streamed rows padded to 64
+    # floats, the output without an entry stride), a streamed operand off
+    # 16 bytes, one element-major
+    "lanes_ragged_long_axis": ("x,xn->n", ((3,), (3, "N")), 61,
+                               ({}, {"pad": 3}), "dense"),
+    "lanes_unaligned_pointer": ("xr,rn->xn", ((3, 3), (3, "N")), 64,
+                                ({}, {"offset": 1}), "dense"),
+    "lanes_element_major": ("xr,rn->xn", ((3, 3), (3, "N")), 64,
+                            ({}, {"perm": (1, 0)}), "dense"),
 }
 
 
@@ -882,10 +894,12 @@ def test_step_block_path_takes_the_stream_path_where_it_may(name):
     """``step_block_path`` on the launch's own tables, strides and
     pointers: an element-local product without residents on 16 bytes takes
     the stream path (a ragged n too, where no operand has an entry stride);
-    a resident, a reduce step, the long letter off stride 1, an unaligned
-    entry stride (of the contiguous output alone, beside inputs on padded
-    storage, too) or pointer, more entries than the stream instances hold
-    or a batch letter keep the table's mode (a reduce's ``None`` here)."""
+    a product with a resident, more entries than the stream instances hold
+    or a batch letter takes the lanes path on 16 bytes; a reduce step, the
+    long letter off stride 1, an unaligned entry stride (of the contiguous
+    output alone, beside inputs on padded storage, too) or pointer, or (the
+    lanes path) a long axis that is not a multiple of 4 keep the table's
+    mode (a reduce's ``None`` here)."""
     table, ins, n, want = _path_case(name)
     view = _out_view(table, n)
     got = kernels.step_block_path(table, tuple(tuple(t.stride()) for t in ins),
@@ -963,5 +977,228 @@ def test_stream_tables_match_the_einsum(name):
         (*ins, view)) == "stream"
     want = torch.einsum(subs, *[t.double() for t in ins])
     assert_close(emulate_stream(ins, table), want, rtol=1e-12)
+
+# }}}
+
+
+# {{{ the lanes path
+
+# the models' tables and the path each takes at the cells' sizes, on
+# contiguous operands on 16 bytes
+MODEL_PATHS = {
+    **{f"ader_{name}": "lanes" for name in (
+        "derivative_0", "derivative_1", "derivative_2", "derivative_3",
+        "volume", "flux")},
+    "hex_grad_axes": "lanes", "hex_div_1": "lanes", "hex_div_2": "lanes",
+    "hex_div_3": "lanes", "hex_grad_metric": "stream",
+    "hex_div_metric": "stream",
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_PATHS))
+def test_model_tables_take_their_paths(name):
+    """``step_block_path`` on each model's own tables at its cell's size
+    (E = 4M for ADER, 2M for the hexahedral model, the metric products
+    over its 125 E nodes), on contiguous tensors without storage (the
+    meta device): every ADER table and the four hexahedral tables off the
+    stream path take the lanes path, the two metric products stay on the
+    stream path."""
+    model, exe = name.split("_", 1)
+    op = (ft.AderElasticOperator3D(device="cpu") if model == "ader"
+          else ft.HexWaveOperator3D(device="cpu"))
+    n = 4_000_000 if model == "ader" else (
+        125 * 2_000_000 if "metric" in exe else 2_000_000)
+    program, table = _model_table(op, exe, n)
+    ins = [torch.empty(tuple(n if ix == table.el else table.length[ix]
+                             for ix in letters), device="meta")
+           for letters in table.inputs]
+    view = torch.empty(tuple(n if ix == table.el else table.length[ix]
+                             for ix in table.stored_out),
+                       device="meta").permute(tuple(
+                           table.stored_out.index(ix)
+                           for ix in table.steps[-1].out))
+    assert kernels.step_block_path(
+        table, tuple(tuple(t.stride()) for t in ins), tuple(view.stride()),
+        (*ins, view)) == MODEL_PATHS[name]
+
+
+@pytest.mark.parametrize("name", ["sumfact_q4_one_step",
+                                  "resident_reduce_ndof7", "gram_ndof70x66",
+                                  "two_letter_reduce"])
+def test_lanes_path_refuses_general_and_reduce_tables(name):
+    """A table with a general step (sum factorization in one step) or a
+    step that contracts the long axis has no lanes plan, and keeps its
+    mode whatever its layout."""
+    e, hoist = CASES[name]
+    kp = hoist_resident_steps(port_program(e, hoist, dofmajor=True))[0]
+    table = plan_step_block(kp, get_index_lengths(kp.einsum, 64))
+    assert kernels._sb_lanes_plan(table) is None
+    ins = _model_inputs(None, table, 64)
+    out = torch.empty(tuple(64 if ix == table.el else table.length[ix]
+                            for ix in table.stored_out))
+    view = out.permute(tuple(table.stored_out.index(ix)
+                             for ix in table.steps[-1].out))
+    assert kernels.step_block_path(
+        table, tuple(tuple(t.stride()) for t in ins), tuple(view.stride()),
+        (*ins, view)) == table.mode
+
+def _flat(t) -> np.ndarray:
+    """The float64 storage span of view *t*, its entries where it puts
+    them."""
+    span = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    f = torch.zeros(span, dtype=torch.float64)
+    torch.as_strided(f, t.shape, t.stride()).copy_(t.double())
+    return f.numpy()
+
+
+def emulate_lanes(row, table, block_long: int) -> torch.Tensor:
+    """``step_block_lanes`` (``csrc/step_block.cu``) in float64 on the CPU:
+    the lanes path's meta and tables as the wrapper hands them over, read
+    the way the kernel reads them: blocks of whole sub-tiles, the
+    residents packed once a block, each streamed region's sub-tile staged
+    when the kernel copies it (two buffers: at the top of the sub-tile
+    before; one: after its refill step), zeros past the last element, and
+    each step's entries over the 32-lane columns of shared memory, which
+    starts as NaN so that a read of a row nothing wrote shows."""
+    el = table.el
+    slot = next(s for s, x in enumerate(table.inputs) if el in x)
+    E_ = row[slot].shape[table.inputs[slot].index(el)]
+    view = _out_view(table, E_).double()
+    meta, tabs, maps = kernels.step_block_lanes_tables(
+        table, tuple(tuple(t.stride()) for t in row), tuple(view.stride()))
+    ns, nr, te, double, n_ints, ints_src, _threads = meta[:7]
+    steps = [meta[7 + 19 * k:7 + 19 * (k + 1)] for k in range(ns)]
+    base = 7 + 19 * ns
+    regs = [meta[base + 6 * r:base + 6 * (r + 1)] for r in range(nr)]
+    ints = tabs[ints_src:ints_src + n_ints]
+    flat = [_flat(t) for t in row]
+    out = np.zeros(view.numel())
+    smem_n = kernels._sb_lanes_plan(table).smem_floats
+    lanes = np.arange(te)
+
+    def stage(r, e0, n, parity):
+        off, second, rows, sl, m, _refill = regs[r]
+        at = second if parity else off
+        d = maps[9 * m:9 * (m + 1)]
+        lens, strides = d[1:2 * d[0] - 1:2], d[2:2 * d[0]:2]
+        for x in range(rows):
+            src, rest = e0, x
+            for ln, st in zip(lens, strides):   # the fastest letter first
+                src += (rest % ln) * st
+                rest //= ln
+            vals = np.zeros(te)
+            vals[:n] = flat[sl][src:src + n]
+            smem[at + x * te:at + (x + 1) * te] = vals
+
+    def base_of(r, parity):
+        off, second, *_ = regs[r]
+        return second if parity and second >= 0 else off
+
+    block = -(-block_long // te) * te
+    for b0 in range(0, E_, block):
+        smem = np.full(smem_n, np.nan)
+        for st in steps:
+            if st[2]:
+                poff, pn, psrc = st[16:19]
+                g = tabs[psrc:psrc + pn]
+                smem[poff:poff + pn] = np.where(
+                    g >= 0, flat[st[1]][np.maximum(g, 0)], 0.0)
+        e_end = min(E_, b0 + block)
+        streamed = [r for r in range(nr) if regs[r][3] >= 0]
+        for r in streamed:
+            stage(r, b0, min(te, e_end - b0), 0)
+        parity = 0
+        for e0 in range(b0, e_end, te):
+            n, nxt = min(te, e_end - e0), e0 + te
+            if double and nxt < e_end:
+                for r in streamed:
+                    stage(r, nxt, min(te, e_end - nxt), parity ^ 1)
+            for k, st in enumerate(steps):
+                (xreg, wreg, wres, nx, nw, nb, nk, _rx, _rw, _tx, _tw, xk,
+                 wk, tab, dst, dg, poff, _pn, _ps) = st
+                Xx = ints[tab:tab + nx]
+                Xb = ints[tab + nx:tab + nx + nb]
+                c = tab + nx + nb
+                Ww = ints[c:c + (0 if wres else nw)]
+                c += 0 if wres else nw
+                Wb = ints[c:c + nb]
+                Dx = ints[c + nb:c + nb + nx]
+                Dw = ints[c + nb + nx:c + nb + nx + nw]
+                Db = ints[c + nb + nx + nw:c + 2 * nb + nx + nw]
+                xb = base_of(xreg, parity)
+                for b in range(nb):
+                    for x in range(nx):
+                        for w in range(nw):
+                            acc = np.zeros(te)
+                            for kk in range(nk):
+                                xr = xb + (Xx[x] + Xb[b] + kk * xk) * te
+                                a = smem[xr + lanes]
+                                if wres:
+                                    v = smem[poff + Wb[b] + kk * wk + w]
+                                else:
+                                    wr = base_of(wreg, parity) + (
+                                        Ww[w] + Wb[b] + kk * wk) * te
+                                    v = smem[wr + lanes]
+                                acc = acc + a * v
+                            if dst >= 0:
+                                d = regs[dst][0] + (
+                                    Dx[x] + Dw[w] + Db[b]) * te
+                                smem[d + lanes] = acc
+                            else:
+                                o = (tabs[dg + x] + tabs[dg + nx + w]
+                                     + tabs[dg + nx + nw + b] + e0)
+                                out[o + lanes[:n]] = acc[:n]
+                if not double and nxt < e_end:
+                    for r in streamed:
+                        if regs[r][5] == k:
+                            stage(r, nxt, min(te, e_end - nxt), 0)
+            if double:
+                parity ^= 1
+    return torch.as_strided(torch.from_numpy(out), view.shape, view.stride())
+
+
+def _model_table(op, name, n):
+    program = hoist_resident_steps(op.programs[name])[0]
+    return program, plan_step_block(program, get_index_lengths(
+        program.einsum, n))
+
+
+def _model_inputs(program, table, n, storage=None):
+    """Random operands of *program* at long length *n* in its stored
+    layouts, one per table slot (``storage(slot, shape)`` may lay one out
+    otherwise)."""
+    el = table.el
+    ins = []
+    for slot, letters in enumerate(table.inputs):
+        shape = tuple(n if ix == el else table.length[ix] for ix in letters)
+        ins.append(torch.rand(shape) if storage is None
+                   else storage(slot, shape))
+    return ins
+
+
+ADER_EXECS = ("derivative_0", "derivative_1", "derivative_2",
+              "derivative_3", "volume", "flux")
+
+
+@pytest.mark.parametrize("name", ADER_EXECS + (
+    "hex_grad_axes", "hex_div_1", "hex_div_2", "hex_div_3"))
+def test_lanes_tables_match_the_einsum(name):
+    """The lanes path's tables (:func:`emulate_lanes`) against the einsum
+    in float64 on the models' own programs, at a length that leaves a
+    block's last sub-tile part full (blocks of 64 elements, a multiple of
+    4 elements that no sub-tile divides)."""
+    op = (ft.HexWaveOperator3D(device="cpu") if name.startswith("hex_")
+          else ft.AderElasticOperator3D(device="cpu"))
+    n = 140
+    program, table = _model_table(op, name.removeprefix("hex_"), n)
+    ins = _model_inputs(program, table, n)
+    view = _out_view(table, n)
+    assert kernels.step_block_path(
+        table, tuple(tuple(t.stride()) for t in ins), tuple(view.stride()),
+        (*ins, view)) == "lanes"
+    subs = ",".join("".join(x) for x in table.inputs) + "->" + "".join(
+        table.steps[-1].out)
+    want = torch.einsum(subs, *[t.double() for t in ins])
+    assert_close(emulate_lanes(ins, table, 64), want, rtol=1e-12)
 
 # }}}

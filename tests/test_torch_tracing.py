@@ -401,30 +401,44 @@ def test_a_hex_step_nests_its_executable_spans_and_counts_itself():
     assert not _spans(prof, "feinsum.kernel:")
 
 
-def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
-    """Each ``step_block_f32`` launch counts once under its path: the
-    hexahedral step's six, its two metric products on the stream path
-    (path code 1 to the C entry) and four dense, beside its two
-    ``step_update`` launches; a table with a general step counts as
-    general.  The wrappers run their CUDA branch on CPU tensors against a
-    stand-in library whose every entry returns 0 (no kernel runs)."""
-    from feinsum_tpu_torch.ops.step_block import plan_step_block
-    paths = []
+class _StandIn:
+    """A stand-in kernel library whose every entry returns 0 (no kernel
+    runs); it keeps ``step_block_f32``'s path codes and the lanes entry's
+    calls in *paths*."""
 
-    class Library:
-        def __getattr__(self, entry):
-            if entry.endswith("_max_rows"):
-                return lambda: 8
-            if entry == "step_block_f32":
-                return lambda *args: paths.append(args[16]) or 0
-            return lambda *args: 0
+    def __init__(self, paths):
+        self.paths = paths
 
+    def __getattr__(self, entry):
+        if entry.endswith("_max_rows"):
+            return lambda: 8
+        if entry == "step_block_f32":
+            return lambda *args: self.paths.append(args[16]) or 0
+        if entry == "step_block_lanes_f32":
+            return lambda *args: self.paths.append("lanes") or 0
+        return lambda *args: 0
+
+
+def _stand_in_frame(paths):
     def frame(name, device, plain, body):
         def launch(entry, *args):
             assert entry(*args) == 0
             tracing.count_launch(name)
-        return body(Library(), launch)
-    monkeypatch.setattr(kernels, "launch_frame", frame)
+        return body(_StandIn(paths), launch)
+    return frame
+
+
+def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
+    """Each ``step_block_f32`` launch counts once under its path: the
+    hexahedral step's six, its two metric products on the stream path
+    (path code 1 to the C entry) and four on the lanes path (the lanes
+    entry), beside its two ``step_update`` launches; a table with a
+    general step counts as general.  The wrappers run their CUDA branch on
+    CPU tensors against a stand-in library whose every entry returns 0 (no
+    kernel runs)."""
+    from feinsum_tpu_torch.ops.step_block import plan_step_block
+    paths = []
+    monkeypatch.setattr(kernels, "launch_frame", _stand_in_frame(paths))
     modes = tracing.counters["step_block_mode"]
     saved = dict(kernels.launch_counts), dict(modes)
     try:
@@ -432,8 +446,8 @@ def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
         op = ft.HexWaveOperator3D()
         state, geom = ft.make_hexwave_state(E, seed=2, device="cpu")
         op.make_step(E)(state, geom)
-        assert modes == {"dense": 4, "general": 0, "stream": 2}
-        assert paths == [0, 1, 1, 0, 0, 0]
+        assert modes == {"dense": 0, "general": 0, "stream": 2, "lanes": 4}
+        assert paths == ["lanes", 1, 1, "lanes", "lanes", "lanes"]
         assert kernels.launch_counts["step_block_f32"] == 6
         assert kernels.launch_counts["step_update"] == 2
         # three operands in one step (the trivial schedule): general
@@ -446,9 +460,36 @@ def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
         assert table.mode == "general"
         kernels.step_block_f32([[torch.rand(3, 4), torch.rand(3, 5),
                                  torch.rand(16, 3, 3)]], table, block_long=8)
-        assert modes == {"dense": 4, "general": 1, "stream": 2}
+        assert modes == {"dense": 0, "general": 1, "stream": 2, "lanes": 4}
         kernels.reset_launch_counts()
-        assert modes == {"dense": 0, "general": 0, "stream": 0}
+        assert modes == {"dense": 0, "general": 0, "stream": 0, "lanes": 0}
+    finally:
+        kernels.launch_counts.update(saved[0])
+        modes.update(saved[1])
+
+
+def test_step_block_mode_counts_the_ader_step_on_the_lanes_path(
+        monkeypatch):
+    """An ADER step planned on the CPU: its six ``step_block_f32``
+    launches count under ``"lanes"``, each through the lanes entry, beside
+    six ``step_update`` launches; at a long axis that is not a multiple of
+    4 all six keep the block kernel (``"dense"``, path code 0)."""
+    paths = []
+    monkeypatch.setattr(kernels, "launch_frame", _stand_in_frame(paths))
+    modes = tracing.counters["step_block_mode"]
+    saved = dict(kernels.launch_counts), dict(modes)
+    try:
+        op = ft.AderElasticOperator3D(device="cpu")
+        for n, want in ((E, "lanes"), (E - 2, 0)):
+            kernels.reset_launch_counts()
+            paths.clear()
+            state, geom = ft.make_ader_state(n, seed=3, device="cpu")
+            op.make_step(n)(state, geom)
+            key = "lanes" if want == "lanes" else "dense"
+            assert modes == {**dict.fromkeys(modes, 0), key: 6}
+            assert paths == [want] * 6
+            assert kernels.launch_counts["step_block_f32"] == 6
+            assert kernels.launch_counts["step_update"] == 6
     finally:
         kernels.launch_counts.update(saved[0])
         modes.update(saved[1])
