@@ -196,17 +196,9 @@ def _xla_chunked_fn(program: EinsumProgram, index_to_length: dict,
 @functools.lru_cache(maxsize=512)
 def _build_executable_cached(program: EinsumProgram, lengths_key: tuple,
                              device: Optional[torch.device]):
-    """A build (the set-up span ``feinsum.executable.build``); each call of
-    the executable is the span ``feinsum.exec:<subscripts>``."""
+    """A build (the set-up span ``feinsum.executable.build``)."""
     with tracing.setup("feinsum.executable.build"):
-        fn = _executable(program, lengths_key, device)
-    name = f"feinsum.exec:{program.einsum.get_subscripts()}"
-
-    def executable(arrays_by_name: dict):
-        with tracing.span(name):
-            return fn(arrays_by_name)
-
-    return executable
+        return _executable(program, lengths_key, device)
 
 
 def _executable(program: EinsumProgram, lengths_key: tuple,
@@ -281,7 +273,7 @@ def stored_lengths(program: EinsumProgram, index_to_length: dict) -> dict:
 def build_executable(program: EinsumProgram, *,
                      long_dim_length: int = 100_000,
                      index_to_length: Optional[dict] = None,
-                     device=None):
+                     device=None, name: Optional[str] = None):
     """Compile *program* into ``fn(arrays_by_name: dict) -> tuple`` returning
     the b row outputs as tensors in the stored output layout.  The arguments
     are tensors in the stored layout (:func:`~feinsum_tpu_torch.measure.
@@ -292,7 +284,10 @@ def build_executable(program: EinsumProgram, *,
     row-concatenation rewrite (``descriptor.rowcat`` = b) stretches the long
     axis b-fold (its rows lie end to end) and a lane-pack rewrite
     (``descriptor.lane_pack`` = g) divides it by g, in that order
-    (:func:`stored_lengths`)."""
+    (:func:`stored_lengths`).  Each call of the executable is the span
+    ``feinsum.exec:<name>``, ``feinsum.exec:<subscripts>`` without a
+    *name*; the name is no part of the cache's key, so callers of one
+    program share its build under their own names."""
     if index_to_length is None:
         index_to_length = get_index_lengths(program.einsum, long_dim_length)
     lengths_key = tuple(sorted(stored_lengths(program,
@@ -302,4 +297,11 @@ def build_executable(program: EinsumProgram, *,
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    return _build_executable_cached(program, lengths_key, dev)
+    fn = _build_executable_cached(program, lengths_key, dev)
+    span = f"feinsum.exec:{name or program.einsum.get_subscripts()}"
+
+    def executable(arrays_by_name: dict):
+        with tracing.span(span):
+            return fn(arrays_by_name)
+
+    return executable

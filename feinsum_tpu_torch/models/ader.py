@@ -100,7 +100,8 @@ class AderElasticOperator3D(torch.nn.Module):
 
     def executables(self, n_elements: int) -> dict:
         """Each program's executable at *n_elements*."""
-        return {name: build_executable(p, long_dim_length=n_elements)
+        return {name: build_executable(p, long_dim_length=n_elements,
+                                       name=name)
                 for name, p in self.programs.items()}
 
     def make_step(self, n_elements: int, dt: float = 1e-3):

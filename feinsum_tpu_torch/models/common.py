@@ -98,11 +98,9 @@ def on_pairs(programs) -> bool:
 def to_pairs(t: torch.Tensor) -> torch.Tensor:
     """*t* (float64) as its (2, ...) float32 hi/lo pair, one pass of
     :func:`~feinsum_tpu_torch.ops.kernels.pairs_split` on a contiguous
-    tensor: the span ``feinsum.pairs:split``, and 16 bytes an entry (the
-    float64 read, the pair written) added to
-    ``tracing.counters["pair_bytes"]``."""
-    with tracing.span("feinsum.pairs:split"):
-        out = kernels.pairs_split(t.contiguous())
+    tensor, and 16 bytes an entry (the float64 read, the pair written)
+    added to ``tracing.counters["pair_bytes"]``."""
+    out = kernels.pairs_split(t.contiguous())
     tracing.counters["pair_bytes"] += 16 * t.numel()
     return out
 

@@ -109,7 +109,7 @@ class HexWaveOperator3D(torch.nn.Module):
         nodes = self.n ** 3 * n_elements
         return {name: build_executable(
                     p, long_dim_length=nodes if name in _NODE_PROGRAMS
-                    else n_elements)
+                    else n_elements, name=name)
                 for name, p in self.programs.items()}
 
     def make_step(self, n_elements: int, dt: float = 1e-3):

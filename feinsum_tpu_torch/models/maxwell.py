@@ -72,7 +72,8 @@ class MaxwellOperator3D(torch.nn.Module):
         """``step(state, geom) -> state`` advancing (E, H) one
         explicit-Euler step, on dof-major tensors: E/H (3, P, E); on pair
         storage the same, in float64 (module docstring)."""
-        fn = build_executable(self.program, long_dim_length=n_elements)
+        fn = build_executable(self.program, long_dim_length=n_elements,
+                              name="curl")
         name = f"feinsum.step:{type(self).__name__}"
         storage = StepStorage([self.program], ("Jx", "Jy", "Jz", "D"))
 

@@ -82,7 +82,8 @@ class WaveOperator3D(torch.nn.Module):
         self.pairs = on_pairs(self.programs.values())
 
     def executables(self, n_elements: int) -> dict:
-        return {name: build_executable(p, long_dim_length=n_elements)
+        return {name: build_executable(p, long_dim_length=n_elements,
+                                       name=name)
                 for name, p in self.programs.items()}
 
     def make_step(self, n_elements: int, dt: float = 1e-3):

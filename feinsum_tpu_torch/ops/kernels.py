@@ -123,8 +123,10 @@ rather than an einsum:
 Every wrapper runs in one frame, :func:`launch_frame`: the plain version
 for tensors on the CPU, the kernel for CUDA tensors (there is no fallback
 from a CUDA tensor to the plain version), a refusal of any other device,
-the span ``feinsum.kernel:<kernel>`` and one count in
-:data:`launch_counts` per launch.
+the span ``feinsum.kernel:<kernel>``, and per launch a span
+``feinsum.launch:<kernel>.<path>`` (``.<path>`` for the kernels that
+choose one) and one count in :data:`launch_counts` (and one under its path
+in the kernel's path counter).
 """
 
 from __future__ import annotations
@@ -247,7 +249,7 @@ def reset_launch_counts() -> None:
     launches by path and ``step_block_f32``'s by mode."""
     for name in launch_counts:
         launch_counts[name] = 0
-    for counter in ("dg_rows_f32_path", "dd_rows_path", "step_block_mode"):
+    for counter in tracing.PATH_COUNTERS.values():
         for path in tracing.counters[counter]:
             tracing.counters[counter][path] = 0
 
@@ -314,9 +316,7 @@ def launch_frame(name: str, device: torch.device, plain, body):
     """The frame of every kernel wrapper: ``plain()`` for tensors on the
     CPU; on a CUDA device ``body(lib, launch)`` in the span
     ``feinsum.kernel:<name>`` and the device's context, *lib* the loaded
-    library and ``launch(entry, *args)`` one launch of its function
-    *entry* on the device's current stream, its return code checked and
-    the launch counted under *name*; any other device raises
+    library and ``launch`` :func:`launcher`'s; any other device raises
     :class:`ValueError`."""
     if device.type == "cpu":
         return plain()
@@ -325,14 +325,24 @@ def launch_frame(name: str, device: torch.device, plain, body):
             raise ValueError(f"{name}: no kernel for device {device}")
         from ._build import load_library
         lib = load_library()
-
-        def launch(entry, *args) -> None:
-            err = entry(*args, _stream_of(device))
-            if err:
-                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-            tracing.count_launch(name)
         with torch.cuda.device(device):
-            return body(lib, launch)
+            return body(lib, launcher(name, device))
+
+
+def launcher(name: str, device: torch.device):
+    """``launch(entry, *args, path=None)``: one launch of the library
+    function *entry* on the device's current stream, in the span
+    ``feinsum.launch:<name>.<path>`` (``tracing.launch_span``), its
+    return code checked, and the launch counted under *name* and, with a
+    *path*, under that path in the kernel's path counter
+    (``tracing.count_launch``)."""
+    def launch(entry, *args, path=None) -> None:
+        with tracing.launch_span(name, path):
+            err = entry(*args, _stream_of(device))
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        tracing.count_launch(name, path)
+    return launch
 
 
 # {{{ the 3xTF32 split
@@ -551,7 +561,8 @@ def dg_rows_f32(rows: Sequence[DGRow], *, block_long: int,
     unless *one_launch* is false; *block_long* elements per thread block
     (per block of elements on the tiled path, :func:`dg_rows_path`, where
     a thread block takes a run of whole blocks).  Each launch counts in
-    ``tracing.counters["dg_rows_f32_path"]`` under its path."""
+    ``tracing.counters["dg_rows_f32_path"]`` under its path, which names
+    its span."""
     return _dg_launch("dg_rows_f32", dg_rows_plain, rows, block_long,
                       out_order, one_launch, tiled=True)
 
@@ -587,7 +598,7 @@ def _dg_launch(name: str, plain, rows: Sequence[DGRow], block_long: int,
         else:
             _check_smem(name, lib.dg_rows_3xtf32_smem_bytes(
                 X, S, I, J, int(u_has_s)))
-            path_args = ()
+            path, path_args = None, ()
         shape = (X, I, E)
         inverse = tuple(sorted(range(3), key=lambda a: out_order[a]))
         outs = [torch.empty(tuple(shape[a] for a in out_order),
@@ -608,9 +619,7 @@ def _dg_launch(name: str, plain, rows: Sequence[DGRow], block_long: int,
                     *row.u.stride(), *row.R.stride(), *f_strides,
                     *out.stride()]
             launch(getattr(lib, name), len(idx), ptrs, strides, X, S, I, J, E,
-                   int(u_has_s), int(block_long), *path_args)
-            if tiled:
-                tracing.counters["dg_rows_f32_path"][path] += 1
+                   int(u_has_s), int(block_long), *path_args, path=path)
         return outs
     return launch_frame(name, device, lambda: plain(rows, out_order), body)
 
@@ -1088,7 +1097,8 @@ def dd_rows(rows: Sequence[DDRow], *, block_long: int,
     false; *block_long* elements per thread block (per block of elements on
     the tiled path, :func:`dd_rows_path`, where a thread block takes a run
     of whole blocks).  Each launch counts in
-    ``tracing.counters["dd_rows_path"]`` under its path."""
+    ``tracing.counters["dd_rows_path"]`` under its path, which names its
+    span."""
     if not rows:
         return []
     dims = X, S, I, J, E, u_has_s, has_f = _dd_dims(rows)
@@ -1113,8 +1123,8 @@ def dd_rows(rows: Sequence[DDRow], *, block_long: int,
                     *row.u.stride(), *row.R.stride(), *f_strides,
                     *out.stride()]
             launch(lib.dd_rows, len(idx), ptrs, strides, X, S, I, J, E,
-                   int(u_has_s), int(block_long), int(path == "tiled"))
-            tracing.counters["dd_rows_path"][path] += 1
+                   int(u_has_s), int(block_long), int(path == "tiled"),
+                   path=path)
         return outs
     return launch_frame("dd_rows", device, lambda: dd_rows_plain(rows), body)
 
@@ -2482,7 +2492,8 @@ def step_block_f32(rows, table, *, block_long: int,
     limit) unless *one_launch* is false; *block_long* elements per thread
     block.  Each launch counts under its path (:func:`step_block_path`:
     ``"stream"`` or ``"lanes"``, else the table's mode) in
-    ``tracing.counters["step_block_mode"]``."""
+    ``tracing.counters["step_block_mode"]``, and the path names its
+    span."""
     if not rows:
         return []
     E = _sb_check(rows, table)
@@ -2527,8 +2538,7 @@ def step_block_f32(rows, table, *, block_long: int,
                        (ctypes.c_int * len(meta))(*meta), len(meta), maps,
                        ctypes.c_void_p(tables.data_ptr()), row_len, E,
                        -(-int(block_long) // plan.te) * plan.te,
-                       plan.smem_floats)
-                tracing.counters["step_block_mode"][path] += 1
+                       plan.smem_floats, path=path)
                 continue
             tables, steps_i, steps_t, stage_i, stage_t, row_len = \
                 _sb_device_tables(
@@ -2557,8 +2567,8 @@ def step_block_f32(rows, table, *, block_long: int,
                    ctypes.c_void_p(tables.data_ptr()), row_len,
                    table.te, int(elem_fastest), E, int(block_long),
                    table.smem_floats, int(stream),
-                   ctypes.c_void_p(None if work is None else work.data_ptr()))
-            tracing.counters["step_block_mode"][path] += 1
+                   ctypes.c_void_p(None if work is None else work.data_ptr()),
+                   path=path)
         return outs
     return launch_frame("step_block_f32", device,
                         lambda: step_block_plain(rows, table, block_long),

@@ -17,16 +17,26 @@ The spans, each at one boundary of the package:
   halves of the ADER step (``models/ader.py``), inside its ``feinsum.step``
   span: the derivatives and the time integral, then the volume and flux
   terms and the update;
-* ``feinsum.exec:<subscripts>`` — each call of an executable that
-  :func:`~feinsum_tpu_torch.codegen.program.build_executable` returns;
+* ``feinsum.exec:<name>`` — each call of an executable that
+  :func:`~feinsum_tpu_torch.codegen.program.build_executable` returns,
+  under the name its caller gave, else the program's subscripts.  The
+  models name theirs by their einsums: wave ``grad``, ``div``,
+  ``restrict``, ``face``; Maxwell ``curl`` (called twice a step); the
+  hexahedral model ``grad_axes``, ``grad_metric``, ``div_metric``,
+  ``div_1``-``div_3``; ADER ``derivative_0``-``derivative_3``, ``volume``,
+  ``flux`` (Yateto's kernel names);
 * ``feinsum.kernel:<kernel>`` — a kernel wrapper of ``ops/kernels.py`` or
   ``ops/probe_kernels.py`` on its CUDA branch: the checks, the outputs'
   allocation, the ctypes packing and its one or more launches;
-* ``feinsum.pairs:split`` — a model step on pair storage converting a
-  float64 tensor to its (2, ...) float32 hi/lo pair (``models/common.py``,
-  ``to_pairs``), inside its ``feinsum.step`` span; the step's combines of
-  pairs back into float64 are fused into its state update
-  (``ops.kernels.step_update``) and lie in that kernel's span;
+* ``feinsum.launch:<kernel>.<path>`` — one launch, the call of the C
+  entry, inside its ``feinsum.kernel`` span (:func:`launch_span`, entered
+  by the ``launch`` of ``ops.kernels.launch_frame``).  ``<path>`` is the
+  path the wrapper chose: ``tiled`` or ``general`` for ``dg_rows_f32``
+  and ``dd_rows``; ``stream``, ``lanes``, ``dense`` or ``general`` for
+  ``step_block_f32``; any other kernel's span is
+  ``feinsum.launch:<kernel>``.  Every launch goes to the device's current
+  stream, so a trace's device operations start in the order of these
+  spans (one each, where the C entry launches one kernel);
 * ``feinsum.executable.build``, ``feinsum.library.load`` and
   ``feinsum.archive.query`` — the set-up work (:func:`setup`).
 
@@ -36,7 +46,9 @@ kernel (``ops.kernels.launch_counts`` is the same dict),
 path, ``"step_block_mode"``, ``step_block_f32``'s launches by the path
 they took (``"stream"`` or ``"lanes"``, ``ops.kernels.step_block_path``),
 else by the mode of their step table (``"dense"`` when every step is
-dense, else ``"general"``), ``"model_steps"``, the calls of a model's step,
+dense, else ``"general"``), the three counted at each launch
+(``ops.kernels.launcher``, :func:`count_launch`) from the path that names
+its span, ``"model_steps"``, the calls of a model's step,
 ``"ader_predictor_launches"``, the launches issued inside the ADER step's
 ``feinsum.ader:predictor`` span (``launches`` before and after it), so
 that ``ader_predictor_launches / model_steps`` is the predictor's launches
@@ -111,6 +123,11 @@ counters = {
     "library_loads": 0, "library_load_s": 0.0,
     "archive_queries": 0, "archive_query_s": 0.0}
 
+# the kernels whose launches count by path, and their counter's key
+PATH_COUNTERS = {"dg_rows_f32": "dg_rows_f32_path",
+                 "dd_rows": "dd_rows_path",
+                 "step_block_f32": "step_block_mode"}
+
 # each set-up span's count and seconds in :data:`counters`
 _SETUP = {"feinsum.executable.build": ("executable_builds",
                                        "executable_build_s"),
@@ -126,9 +143,23 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
-def count_launch(kernel: str) -> None:
-    """Count one launch of *kernel* (a key of ``counters["launches"]``)."""
+def launch_span(kernel: str, path=None):
+    """:func:`span` of one launch of *kernel* on *path*:
+    ``feinsum.launch:<kernel>.<path>``, or ``feinsum.launch:<kernel>``
+    without a path; its name is built only while a profiler records."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(
+        f"feinsum.launch:{kernel}" if path is None
+        else f"feinsum.launch:{kernel}.{path}")
+
+
+def count_launch(kernel: str, path=None) -> None:
+    """Count one launch of *kernel* (a key of ``counters["launches"]``),
+    and with *path* one under it in the kernel's path counter."""
     counters["launches"][kernel] += 1
+    if path is not None:
+        counters[PATH_COUNTERS[kernel]][path] += 1
 
 
 @contextlib.contextmanager

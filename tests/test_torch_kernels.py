@@ -112,7 +112,8 @@ def test_wrappers_check_their_operands():
 
 
 FRAME_CASES = ("cpu", "meta", "failed launch", "counted in its span",
-               "rows by max rows", "one row a launch", "shared memory")
+               "rows by max rows", "one row a launch", "shared memory",
+               "a span per launch by path")
 
 
 @pytest.mark.parametrize("case", FRAME_CASES)
@@ -121,8 +122,10 @@ def test_the_launch_frame(monkeypatch, case):
     context and stream stubbed: CPU tensors run the plain version passed
     in, another device is refused by name, a nonzero return raises, each
     launch counts once in the kernel's span, rows go by the library's
-    most a launch (one a launch without ``one_launch``), and the
-    shared-memory guard refuses one byte over a block's."""
+    most a launch (one a launch without ``one_launch``), the
+    shared-memory guard refuses one byte over a block's, and each launch
+    given a path runs in its launch span inside the kernel's, named by
+    that path, and counts under it."""
     spans, launched, loads = [], [], []
 
     class FakeLibrary:
@@ -150,6 +153,14 @@ def test_the_launch_frame(monkeypatch, case):
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(kernels, "_stream_of", lambda device: "stream")
     monkeypatch.setitem(kernels.launch_counts, "k", 0)
+    path = None
+    if case == "a span per launch by path":
+        path = "tiled"
+        monkeypatch.setitem(kernels.tracing.PATH_COUNTERS, "k", "k_path")
+        monkeypatch.setitem(kernels.tracing.counters, "k_path",
+                            {"tiled": 0, "general": 0})
+        monkeypatch.setattr(kernels.tracing, "launch_span",
+                            lambda kernel, path=None: span((kernel, path)))
 
     def body(lib, launch):
         if case == "shared memory":
@@ -157,7 +168,7 @@ def test_the_launch_frame(monkeypatch, case):
             kernels._check_smem("k", kernels.MAX_SMEM_BYTES + 1)
         for idx in kernels._launch_rows(5, case != "one row a launch",
                                         lib.k_max_rows):
-            launch(lib.k, list(idx))
+            launch(lib.k, list(idx), path=path)
         return "kernel"
     device = torch.device({"cpu": "cpu", "meta": "meta"}.get(case, "cuda"))
 
@@ -182,9 +193,14 @@ def test_the_launch_frame(monkeypatch, case):
         assert len(launched) == (case == "failed launch")
         return
     assert frame() == "kernel" and loads == [1] and not spans
-    assert all(stream == "stream" and inside == ["feinsum.kernel:k"]
+    inside_launch = [("k", "tiled")] if path else []
+    assert all(stream == "stream"
+               and inside == ["feinsum.kernel:k", *inside_launch]
                for _, stream, inside in launched)
     assert kernels.launch_counts["k"] == len(launched)
+    if path:
+        assert kernels.tracing.counters["k_path"] == {
+            "tiled": len(launched), "general": 0}
     assert [rows for rows, _, _ in launched] == (
         [[0], [1], [2], [3], [4]] if case == "one row a launch"
         else [[0, 1], [2, 3], [4]])

@@ -5,9 +5,11 @@ conversions of a float64 step (their spans inside the step's, their bytes
 and the steps counted by hand), the hexahedral model's step (its spans,
 ``step_block_f32``'s launches counted by table mode through a stand-in
 library), the ADER element's step (its predictor and corrector spans, the
-predictor's launches counted), and the benchmark's readers of the spans
-and counters (``benchmark_torch/metrics/``) on synthetic runs.  This file
-imports no JAX."""
+predictor's launches counted), one launch span per launch under its
+kernel's span and its executable's (named by the model's einsums), the
+path counters against the spans, and the benchmark's readers of the spans
+and counters (``benchmark_torch/metrics/``, ``launch_spans.py``) on
+synthetic runs.  This file imports no JAX."""
 
 from __future__ import annotations
 
@@ -46,11 +48,6 @@ def _model(key):
     return op, op.make_step(E), state, geom
 
 
-def _subscripts(op, name):
-    program = op.program if name == "curl" else op.programs[name]
-    return program.einsum.get_subscripts()
-
-
 def _spans(prof, prefix):
     return [(ev.name, ev.time_range.start, ev.time_range.end)
             for ev in prof.events() if ev.name.startswith(prefix)]
@@ -66,10 +63,12 @@ def test_a_step_records_its_step_and_executable_spans(key):
     assert s_name == f"feinsum.step:{type(op).__name__}"
     execs = sorted(_spans(prof, "feinsum.exec:"), key=lambda s: s[1])
     assert [name for name, _, _ in execs] == [
-        f"feinsum.exec:{_subscripts(op, n)}" for n in MODELS[key][2]]
+        f"feinsum.exec:{n}" for n in MODELS[key][2]]
     assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in execs)
-    # CPU tensors take the kernels' plain versions: no wrapper span
+    # CPU tensors take the kernels' plain versions: no wrapper or launch
+    # span
     assert not _spans(prof, "feinsum.kernel:")
+    assert not _spans(prof, "feinsum.launch:")
 
 
 @pytest.mark.parametrize("key", sorted(MODELS))
@@ -186,13 +185,17 @@ GEOM_ENTRIES = {"wave": (22, 3 * P * P + 2 * NF * PF * P),
 
 
 @pytest.mark.parametrize("key", sorted(MODELS))
-def test_pair_spans_nest_in_the_step_and_their_bytes_count(key):
-    """A float64 step on pair storage: every ``feinsum.pairs`` span lies
-    inside the ``feinsum.step`` span, no combine is a conversion of its own
-    (the update reads the pairs), and ``pair_bytes`` / ``model_steps``
-    equal the hand count at E = 96 (16 bytes an entry split, 8 an entry
-    combined in the update); the geometry is split on the first step and
-    again only for a tensor written in place or replaced."""
+def test_pair_spans_nest_in_the_step_and_their_bytes_count(key,
+                                                           monkeypatch):
+    """A float64 step on pair storage: every ``pairs_split`` wrapper span
+    lies inside the ``feinsum.step`` span, one for each tensor split, no
+    combine is a conversion of its own (the update reads the pairs), and
+    ``pair_bytes`` / ``model_steps`` equal the hand count at E = 96 (16
+    bytes an entry split, 8 an entry combined in the update); the geometry
+    is split on the first step and again only for a tensor written in
+    place or replaced.  The wrappers run their CUDA branch against a
+    stand-in library (no kernel runs, so no value is checked)."""
+    _stand_in(monkeypatch)
     n = 96
     cls, make_state, _ = MODELS[key]
     op = cls(dtype="float64")
@@ -203,12 +206,11 @@ def test_pair_spans_nest_in_the_step_and_their_bytes_count(key):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         state = step(state, geom)
     (_, s_lo, s_hi), = _spans(prof, "feinsum.step:")
-    pairs = _spans(prof, "feinsum.pairs:")
+    pairs = _spans(prof, "feinsum.kernel:pairs_split")
     per_elem, fixed = GEOM_ENTRIES[key]
     n_geom = 8 if key == "wave" else 4
-    names = [name for name, _, _ in pairs]
-    assert names.count("feinsum.pairs:split") == n_geom + 2
-    assert names.count("feinsum.pairs:combine") == 0
+    assert len(pairs) == n_geom + 2
+    assert not _spans(prof, "feinsum.pairs:")
     assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in pairs)
     split, combined = STEP_ENTRIES[key]
     step_bytes = (16 * split + 8 * combined) * n
@@ -395,8 +397,7 @@ def test_a_hex_step_nests_its_executable_spans_and_counts_itself():
     assert s_name == "feinsum.step:HexWaveOperator3D"
     execs = sorted(_spans(prof, "feinsum.exec:"), key=lambda s: s[1])
     assert [name for name, _, _ in execs] == [
-        f"feinsum.exec:{op.programs[n].einsum.get_subscripts()}"
-        for n in HEX_EXECS]
+        f"feinsum.exec:{n}" for n in HEX_EXECS]
     assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in execs)
     assert not _spans(prof, "feinsum.kernel:")
 
@@ -419,13 +420,28 @@ class _StandIn:
         return lambda *args: 0
 
 
-def _stand_in_frame(paths):
+def _keep_launch_counts(monkeypatch):
+    """Restore the launch and path counts when the test ends."""
+    for key in ("launches", *tracing.PATH_COUNTERS.values()):
+        for name, count in tracing.counters[key].items():
+            monkeypatch.setitem(tracing.counters[key], name, count)
+
+
+def _stand_in(monkeypatch):
+    """Run every kernel wrapper's CUDA branch on CPU tensors against
+    :class:`_StandIn`, inside the wrapper's span as ``launch_frame`` does
+    and through its ``launch`` (``kernels.launcher``: the launch span, the
+    counts), no stream; the list that keeps the path codes.  The launch
+    and path counts are restored when the test ends."""
+    paths = []
+    _keep_launch_counts(monkeypatch)
+
     def frame(name, device, plain, body):
-        def launch(entry, *args):
-            assert entry(*args) == 0
-            tracing.count_launch(name)
-        return body(_StandIn(paths), launch)
-    return frame
+        with tracing.span(f"feinsum.kernel:{name}"):
+            return body(_StandIn(paths), kernels.launcher(name, device))
+    monkeypatch.setattr(kernels, "launch_frame", frame)
+    monkeypatch.setattr(kernels, "_stream_of", lambda device: None)
+    return paths
 
 
 def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
@@ -437,35 +453,29 @@ def test_step_block_mode_counts_one_entry_per_launch(monkeypatch):
     CPU tensors against a stand-in library whose every entry returns 0 (no
     kernel runs)."""
     from feinsum_tpu_torch.ops.step_block import plan_step_block
-    paths = []
-    monkeypatch.setattr(kernels, "launch_frame", _stand_in_frame(paths))
+    paths = _stand_in(monkeypatch)
     modes = tracing.counters["step_block_mode"]
-    saved = dict(kernels.launch_counts), dict(modes)
-    try:
-        kernels.reset_launch_counts()
-        op = ft.HexWaveOperator3D()
-        state, geom = ft.make_hexwave_state(E, seed=2, device="cpu")
-        op.make_step(E)(state, geom)
-        assert modes == {"dense": 0, "general": 0, "stream": 2, "lanes": 4}
-        assert paths == ["lanes", 1, 1, "lanes", "lanes", "lanes"]
-        assert kernels.launch_counts["step_block_f32"] == 6
-        assert kernels.launch_counts["step_update"] == 2
-        # three operands in one step (the trivial schedule): general
-        e = ft.einsum("ai,bj,eab->eij", ft.array("X", (3, 4), "float32"),
-                      ft.array("Y", (3, 5), "float32"),
-                      ft.array("U", ("E", 3, 3), "float32"))
-        program = ft.generate_program(e).with_descriptor(backend="pallas")
-        table = plan_step_block(program, {"a": 3, "b": 3, "i": 4, "j": 5,
-                                          "e": 16})
-        assert table.mode == "general"
-        kernels.step_block_f32([[torch.rand(3, 4), torch.rand(3, 5),
-                                 torch.rand(16, 3, 3)]], table, block_long=8)
-        assert modes == {"dense": 0, "general": 1, "stream": 2, "lanes": 4}
-        kernels.reset_launch_counts()
-        assert modes == {"dense": 0, "general": 0, "stream": 0, "lanes": 0}
-    finally:
-        kernels.launch_counts.update(saved[0])
-        modes.update(saved[1])
+    kernels.reset_launch_counts()
+    op = ft.HexWaveOperator3D()
+    state, geom = ft.make_hexwave_state(E, seed=2, device="cpu")
+    op.make_step(E)(state, geom)
+    assert modes == {"dense": 0, "general": 0, "stream": 2, "lanes": 4}
+    assert paths == ["lanes", 1, 1, "lanes", "lanes", "lanes"]
+    assert kernels.launch_counts["step_block_f32"] == 6
+    assert kernels.launch_counts["step_update"] == 2
+    # three operands in one step (the trivial schedule): general
+    e = ft.einsum("ai,bj,eab->eij", ft.array("X", (3, 4), "float32"),
+                  ft.array("Y", (3, 5), "float32"),
+                  ft.array("U", ("E", 3, 3), "float32"))
+    program = ft.generate_program(e).with_descriptor(backend="pallas")
+    table = plan_step_block(program, {"a": 3, "b": 3, "i": 4, "j": 5,
+                                      "e": 16})
+    assert table.mode == "general"
+    kernels.step_block_f32([[torch.rand(3, 4), torch.rand(3, 5),
+                             torch.rand(16, 3, 3)]], table, block_long=8)
+    assert modes == {"dense": 0, "general": 1, "stream": 2, "lanes": 4}
+    kernels.reset_launch_counts()
+    assert modes == {"dense": 0, "general": 0, "stream": 0, "lanes": 0}
 
 
 def test_step_block_mode_counts_the_ader_step_on_the_lanes_path(
@@ -474,25 +484,19 @@ def test_step_block_mode_counts_the_ader_step_on_the_lanes_path(
     launches count under ``"lanes"``, each through the lanes entry, beside
     six ``step_update`` launches; at a long axis that is not a multiple of
     4 all six keep the block kernel (``"dense"``, path code 0)."""
-    paths = []
-    monkeypatch.setattr(kernels, "launch_frame", _stand_in_frame(paths))
+    paths = _stand_in(monkeypatch)
     modes = tracing.counters["step_block_mode"]
-    saved = dict(kernels.launch_counts), dict(modes)
-    try:
-        op = ft.AderElasticOperator3D(device="cpu")
-        for n, want in ((E, "lanes"), (E - 2, 0)):
-            kernels.reset_launch_counts()
-            paths.clear()
-            state, geom = ft.make_ader_state(n, seed=3, device="cpu")
-            op.make_step(n)(state, geom)
-            key = "lanes" if want == "lanes" else "dense"
-            assert modes == {**dict.fromkeys(modes, 0), key: 6}
-            assert paths == [want] * 6
-            assert kernels.launch_counts["step_block_f32"] == 6
-            assert kernels.launch_counts["step_update"] == 6
-    finally:
-        kernels.launch_counts.update(saved[0])
-        modes.update(saved[1])
+    op = ft.AderElasticOperator3D(device="cpu")
+    for n, want in ((E, "lanes"), (E - 2, 0)):
+        kernels.reset_launch_counts()
+        paths.clear()
+        state, geom = ft.make_ader_state(n, seed=3, device="cpu")
+        op.make_step(n)(state, geom)
+        key = "lanes" if want == "lanes" else "dense"
+        assert modes == {**dict.fromkeys(modes, 0), key: 6}
+        assert paths == [want] * 6
+        assert kernels.launch_counts["step_block_f32"] == 6
+        assert kernels.launch_counts["step_update"] == 6
 
 # }}}
 
@@ -589,12 +593,10 @@ def test_an_ader_step_records_its_spans_and_counts_itself():
         "feinsum.ader:predictor", "feinsum.ader:corrector"]
     assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in halves)
     execs = sorted(_spans(prof, "feinsum.exec:"), key=lambda s: s[1])
-    subs = {n: f"feinsum.exec:{p.einsum.get_subscripts()}"
-            for n, p in op.programs.items()}
     for (_, lo, hi), names in zip(halves, [
             [f"derivative_{d}" for d in range(4)], ["volume", "flux"]]):
         inside = [name for name, a, b in execs if lo <= a <= b <= hi]
-        assert inside == [subs[n] for n in names]
+        assert inside == [f"feinsum.exec:{n}" for n in names]
     assert len(execs) == 6
 
 
@@ -604,36 +606,20 @@ def test_ader_predictor_launches_count_the_predictors_launches(monkeypatch):
     ``step_update`` bands), of the step's 12.  The wrappers run their CUDA
     branch on CPU tensors against a stand-in library whose every entry
     returns 0 (no kernel runs)."""
-
-    class Library:
-        def __getattr__(self, entry):
-            if entry.endswith("_max_rows"):
-                return lambda: 8
-            return lambda *args: 0
-
-    def frame(name, device, plain, body):
-        def launch(entry, *args):
-            assert entry(*args) == 0
-            tracing.count_launch(name)
-        return body(Library(), launch)
-    monkeypatch.setattr(kernels, "launch_frame", frame)
-    saved = dict(kernels.launch_counts), dict(tracing.counters)
-    try:
-        kernels.reset_launch_counts()
-        op = ft.AderElasticOperator3D()
-        state, geom = ft.make_ader_state(E, seed=2, device="cpu")
-        step = op.make_step(E)
-        before = tracing.counters["ader_predictor_launches"]
-        for k in range(1, 3):
-            step(state, geom)
-            assert tracing.counters["ader_predictor_launches"] \
-                == before + k * ADER_PREDICTOR
-            assert {n: c for n, c in kernels.launch_counts.items() if c} \
-                == {n: k * c for n, c in ADER_LAUNCHES.items()}
-    finally:
-        kernels.launch_counts.update(saved[0])
-        for key in ("ader_predictor_launches", "model_steps"):
-            tracing.counters[key] = saved[1][key]
+    _stand_in(monkeypatch)
+    for key in ("ader_predictor_launches", "model_steps"):
+        monkeypatch.setitem(tracing.counters, key, tracing.counters[key])
+    kernels.reset_launch_counts()
+    op = ft.AderElasticOperator3D()
+    state, geom = ft.make_ader_state(E, seed=2, device="cpu")
+    step = op.make_step(E)
+    before = tracing.counters["ader_predictor_launches"]
+    for k in range(1, 3):
+        step(state, geom)
+        assert tracing.counters["ader_predictor_launches"] \
+            == before + k * ADER_PREDICTOR
+        assert {n: c for n, c in kernels.launch_counts.items() if c} \
+            == {n: k * c for n, c in ADER_LAUNCHES.items()}
 
 
 SB_ADER = ("void (anonymous namespace)::step_block_kernel<false>"
@@ -723,5 +709,321 @@ def test_the_ader_cell_feeds_the_accepted_generic_readers():
     assert _reader("kernels_roofline")(run) == pytest.approx(
         100 * least / program)
     assert _reader("setup_program_s")(run) >= 0
+
+# }}}
+
+
+# {{{ launch spans
+
+ADER_EXECS = ("derivative_0", "derivative_1", "derivative_2", "derivative_3",
+              "volume", "flux")
+# each model's constructor and state arguments, the executables its
+# launches lie in (in launch order), and its launches a step by span name
+# at E = 64 (every einsum launch on its tiled or lanes path)
+LAUNCH_MODELS = {
+    "wave": (ft.WaveOperator3D, make_wave_state, {}, MODELS["wave"][2],
+             {"dg_rows_f32.tiled": 4, "step_update": 2}),
+    "maxwell": (ft.MaxwellOperator3D, make_maxwell_state, {},
+                MODELS["maxwell"][2],
+                {"dg_rows_f32.tiled": 2, "step_update": 2}),
+    "wave_f64": (ft.WaveOperator3D, make_wave_state, {"dtype": "float64"},
+                 MODELS["wave"][2], {"dd_rows.tiled": 4, "step_update": 2,
+                                     "pairs_split": 2}),
+    "hex": (ft.HexWaveOperator3D, ft.make_hexwave_state, {}, HEX_EXECS,
+            {"step_block_f32.lanes": 4, "step_block_f32.stream": 2,
+             "step_update": 2}),
+    "ader": (ft.AderElasticOperator3D, ft.make_ader_state, {}, ADER_EXECS,
+             {"step_block_f32.lanes": 6, "step_update": 6}),
+}
+# the kernels a step launches outside any executable
+UPDATES = ("step_update", "pairs_split")
+
+
+def _holder(spans, lo, hi):
+    """The innermost of *spans* that holds ``[lo, hi]``, or ``None``."""
+    held = [s for s in spans if s[1] <= lo and hi <= s[2]]
+    return max(held, key=lambda s: (s[1], -s[2])) if held else None
+
+
+def _launch_spans():
+    if str(BENCH) not in sys.path:
+        sys.path.insert(0, str(BENCH))
+    import launch_spans
+    return launch_spans
+
+
+@pytest.mark.parametrize("key", sorted(LAUNCH_MODELS))
+def test_a_step_records_one_launch_span_per_launch(key, monkeypatch):
+    """A step whose wrappers run their CUDA branch against a stand-in
+    library records one ``feinsum.launch`` span per counted launch, named
+    by its kernel and, for the kernels that choose one, its path; each
+    lies in its kernel's ``feinsum.kernel`` span inside the step, an
+    einsum's launch in the executable span that the model names, the
+    update's in none; the path counters grow by the launch spans of each
+    path.  ``launch_spans.pair`` finds the same spans around each launch
+    in the profiled host spans, a device operation laid after each."""
+    cls, make_state, kwargs, execs, per_step = LAUNCH_MODELS[key]
+    _stand_in(monkeypatch)
+    state, geom = make_state(E, seed=5, device="cpu", **kwargs)
+    step = cls(**kwargs).make_step(E)
+    step(state, geom)                          # the geometry derived once
+    c = tracing.counters
+    keys = ("launches", *tracing.PATH_COUNTERS.values())
+    before = {k: dict(c[k]) for k in keys}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, geom)
+    grown = {k: {n: v - before[k][n] for n, v in c[k].items()
+                 if v != before[k][n]} for k in keys}
+    launches = sorted(_spans(prof, "feinsum.launch:"), key=lambda s: s[1])
+    kernel_spans = _spans(prof, "feinsum.kernel:")
+    exec_spans = _spans(prof, "feinsum.exec:")
+    (step_span,) = _spans(prof, "feinsum.step:")
+    names, held = {}, []
+    for name, lo, hi in launches:
+        short = name.removeprefix("feinsum.launch:")
+        names[short] = names.get(short, 0) + 1
+        kernel, _, path = short.partition(".")
+        assert bool(path) == (kernel in tracing.PATH_COUNTERS)
+        assert _holder(kernel_spans, lo, hi)[0] == f"feinsum.kernel:{kernel}"
+        assert step_span[1] <= lo and hi <= step_span[2]
+        ex = _holder(exec_spans, lo, hi)
+        assert (ex is None) == (kernel in UPDATES)
+        held.append(ex)
+    assert names == per_step
+    assert grown["launches"] == {
+        k: sum(n for s, n in names.items() if s.partition(".")[0] == k)
+        for k in {s.partition(".")[0] for s in names}}
+    for kernel, counter in tracing.PATH_COUNTERS.items():
+        assert grown[counter] == {
+            s.partition(".")[2]: n for s, n in names.items()
+            if s.partition(".")[0] == kernel}
+    execs_seen = [ex for k, ex in enumerate(held)
+                  if ex is not None and ex not in held[:k]]
+    assert [n for n, _, _ in execs_seen] == [f"feinsum.exec:{n}"
+                                             for n in execs]
+
+    # the benchmark's reader, on the same host spans (seconds) and one
+    # device operation a launch, 1 us after its span ends
+    host = [(n, lo / 1e6, hi / 1e6) for n, lo, hi in _spans(prof, "")]
+    device = [(SB, hi / 1e6 + 1e-6, hi / 1e6 + 2e-6)
+              for _, _, hi in launches]
+    trace = SimpleNamespace(host=host, device=device, steps=1,
+                            launches=len(launches))
+    prefixes = ("feinsum.step:", "feinsum.exec:", "feinsum.kernel:")
+    paired = _launch_spans().pair(trace, prefixes)
+    assert [launch[0] for _, launch, _ in paired] == [
+        n for n, _, _ in launches]
+    for (_, (_, lo, hi), holders), ex in zip(paired, held):
+        assert holders["feinsum.step:"][0] == step_span[0]
+        assert holders["feinsum.exec:"] == (ex and (ex[0], ex[1] / 1e6,
+                                                    ex[2] / 1e6))
+        kernel = _holder(kernel_spans, 1e6 * lo, 1e6 * hi)
+        assert holders["feinsum.kernel:"][0] == kernel[0]
+
+
+@pytest.mark.parametrize("recording", [False, True])
+def test_a_launch_span_is_named_by_its_kernel_and_path(recording,
+                                                      monkeypatch):
+    """``tracing.launch_span``: ``feinsum.launch:<kernel>.<path>``, or
+    ``feinsum.launch:<kernel>`` without a path, while a profiler records;
+    otherwise the span that does nothing, with no ``record_function``
+    entered (and no name built)."""
+    if not recording:
+        def refuse(name):
+            raise AssertionError(f"record_function({name!r}) entered")
+        monkeypatch.setattr(torch.profiler, "record_function", refuse)
+        assert tracing.launch_span("dd_rows", "tiled") is tracing._OFF
+        with tracing.launch_span("step_update"):
+            pass
+        return
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.launch_span("step_block_f32", "lanes"):
+            pass
+        with tracing.launch_span("step_update"):
+            pass
+    assert [n for n, _, _ in sorted(_spans(prof, "feinsum.launch:"),
+                                    key=lambda s: s[1])] == [
+        "feinsum.launch:step_block_f32.lanes", "feinsum.launch:step_update"]
+
+
+def test_count_launch_counts_the_path_it_is_given(monkeypatch):
+    """``tracing.count_launch`` counts the launch under its kernel and,
+    given a path, under that path in the kernel's path counter."""
+    _keep_launch_counts(monkeypatch)
+    c = tracing.counters
+    kernels.reset_launch_counts()
+    tracing.count_launch("dd_rows", "general")
+    tracing.count_launch("step_block_f32", "stream")
+    tracing.count_launch("step_update")
+    assert {k: n for k, n in c["launches"].items() if n} == {
+        "dd_rows": 1, "step_block_f32": 1, "step_update": 1}
+    assert c["dd_rows_path"] == {"tiled": 0, "general": 1}
+    assert c["step_block_mode"] == {"dense": 0, "general": 0, "stream": 1,
+                                    "lanes": 0}
+    assert set(c["dg_rows_f32_path"].values()) == {0}
+
+# }}}
+
+
+# {{{ launch_spans and its readers
+
+MS = 1e-3
+
+
+def _one_step(t):
+    """The host spans of one synthetic step at *t* (seconds), ms from t: a
+    step span 0-10 holding an executable ``a`` (1-4) whose wrapper (1.5-
+    3.5) launches at 2-2.1, the update's wrapper (5-6) launching at
+    5.2-5.3, and the executable ``flux`` (6.5-8) whose wrapper (7-7.8)
+    launches at 7.1-7.2; and the device operations those launches issue:
+    2.5-5.25, 5.4-7.5, 7.6-9.9."""
+    def at(lo, hi):
+        return t + lo * MS, t + hi * MS
+    host = [("feinsum.step:Op", *at(0, 10)),
+            ("feinsum.exec:a", *at(1, 4)),
+            ("feinsum.kernel:step_block_f32", *at(1.5, 3.5)),
+            ("feinsum.launch:step_block_f32.lanes", *at(2, 2.1)),
+            ("aten::empty", *at(3.6, 3.7)),
+            ("feinsum.kernel:step_update", *at(5, 6)),
+            ("feinsum.launch:step_update", *at(5.2, 5.3)),
+            ("feinsum.exec:flux", *at(6.5, 8)),
+            ("feinsum.kernel:step_block_f32", *at(7, 7.8)),
+            ("feinsum.launch:step_block_f32.lanes", *at(7.1, 7.2))]
+    device = [(SB, *at(2.5, 5.25)), (UPDATE32, *at(5.4, 7.5)),
+              (SB, *at(7.6, 9.9))]
+    return host, device
+
+
+def _launch_run(steps=2, device_extra=(), launches=None):
+    """A synthetic traced run of the wave cell's configuration at E =
+    1,000: *steps* of :func:`_one_step`, 10 ms apart, in a window of
+    ``10 * steps`` ms."""
+    host, device = [], list(device_extra)
+    for k in range(steps):
+        h, d = _one_step(1.0 + k * 10 * MS)
+        host += h
+        device += d
+    cfg = json.loads((BENCH / "configs" / "wave3d_p4.json").read_text())
+    peaks = {"flops": {"float32": 67e12}, "bytes_per_s": 3.35e12}
+    return SimpleNamespace(cfg=cfg, n_elements=1000, peaks=peaks,
+                           trace=SimpleNamespace(
+                               host=host, device=device, steps=steps,
+                               launches=(3 * steps if launches is None
+                                         else launches),
+                               window_s=10 * steps * MS))
+
+
+def test_launch_spans_pairs_each_operation_with_its_launch():
+    """Each of the program's device operations, in start order, with the
+    launch span in the same place of the launch spans' order, and the
+    innermost step, executable and kernel span around that launch (none
+    where no span holds it); PyTorch's operations are no launch's."""
+    ls = _launch_spans()
+    run = _launch_run(device_extra=[(ADD, 1.0095, 1.0096)])
+    prefixes = ("feinsum.step:", "feinsum.exec:", "feinsum.kernel:")
+    paired = ls.pair(run.trace, prefixes)
+    assert [(op[0], launch[0]) for op, launch, _ in paired] == [
+        (SB, "feinsum.launch:step_block_f32.lanes"),
+        (UPDATE32, "feinsum.launch:step_update"),
+        (SB, "feinsum.launch:step_block_f32.lanes")] * 2
+    assert [h["feinsum.exec:"] and h["feinsum.exec:"][0]
+            for _, _, h in paired] == [
+        "feinsum.exec:a", None, "feinsum.exec:flux"] * 2
+    assert [h["feinsum.kernel:"][0] for _, _, h in paired] == [
+        "feinsum.kernel:step_block_f32", "feinsum.kernel:step_update",
+        "feinsum.kernel:step_block_f32"] * 2
+    steps = [h["feinsum.step:"] for _, _, h in paired]
+    assert steps[0] == steps[2] != steps[3] == steps[5]
+    assert steps[0][1] == pytest.approx(1.0)
+    assert steps[3][1] == pytest.approx(1.01)
+    assert ls.seconds_per_step(run.trace, "feinsum.exec:") == \
+        pytest.approx((2.75 + 2.3) * MS)
+    assert ls.seconds_per_step(run.trace, "feinsum.exec:",
+                               "feinsum.exec:flux") == pytest.approx(2.3 * MS)
+    assert ls.seconds_per_step(run.trace, "feinsum.exec:",
+                               "feinsum.exec:none") is None
+
+
+def test_launch_spans_splits_each_gap_at_its_launch():
+    """An idle gap before an operation whose launch span ended inside it is
+    host-late up to that end and queued after it; one whose launch had
+    ended before the gap opened is all queued; a gap that one of PyTorch's
+    operations ends counts in neither."""
+    ls = _launch_spans()
+
+    def split(run):
+        gaps = ls.idle_gaps(run.trace)
+        late = sum(g[2] for g in gaps)
+        return late, sum(hi - lo for lo, hi, _ in gaps) - late, gaps
+    host_late, queued, gaps = split(_launch_run())
+    # each step: 5.25-5.4 (launch ended 5.3: 0.05 late, 0.1 queued) and
+    # 7.5-7.6 (ended 7.2: queued); between the steps 9.9-12.5 (the next
+    # step's first launch ended at 12.1: 2.2 late, 0.4 queued)
+    assert host_late == pytest.approx((0.05 + 2.2 + 0.05) * MS)
+    assert queued == pytest.approx((0.1 + 0.1 + 0.4 + 0.1 + 0.1) * MS)
+    assert len(gaps) == 5
+    assert max(gaps, key=lambda g: g[2])[:2] == pytest.approx(
+        (1.0099, 1.0125))
+    # PyTorch's add at 9.95-9.97 ends the gap 9.9-9.95 and opens the next
+    host_late, queued, gaps = split(
+        _launch_run(device_extra=[(ADD, 1.00995, 1.00997)]))
+    assert host_late == pytest.approx((0.05 + 2.13 + 0.05) * MS)
+    assert queued == pytest.approx((0.1 + 0.1 + 0.4 + 0.1 + 0.1) * MS)
+    assert len(gaps) == 5
+
+
+def _refusals():
+    """Runs ``launch_spans`` refuses: one operation lost, the program's
+    count off, an operation before its launch span, no launch spans (the
+    parent), no trace."""
+    lost = _launch_run()
+    lost.trace.device = lost.trace.device[:-1]
+    off = _launch_run(launches=5)
+    early = _launch_run()
+    name, _, hi = early.trace.device[0]
+    early.trace.device[0] = (name, 1.0019, hi)
+    parent = _launch_run()
+    parent.trace.host = [s for s in parent.trace.host
+                         if not s[0].startswith("feinsum.launch:")]
+    none = _launch_run()
+    none.trace = None
+    return {"lost": lost, "count": off, "early": early, "parent": parent,
+            "no trace": none}
+
+
+@pytest.mark.parametrize("case", sorted(_refusals()))
+def test_launch_spans_refuses_what_it_cannot_pair(case):
+    ls = _launch_spans()
+    run = _refusals()[case]
+    assert ls.pair(run.trace) is None
+    assert ls.idle_gaps(run.trace) is None
+    assert ls.seconds_per_step(run.trace, "feinsum.exec:") is None
+    for name in ("einsums_roofline", "host_late_idle_pct",
+                 "flux_ms_per_step"):
+        assert _reader(name)(run) is None
+
+
+def test_the_launch_readers_on_a_synthetic_trace():
+    """``einsums_roofline``: the einsums' least time over the device time
+    per step of the launches in executable spans (the update's left out);
+    ``flux_ms_per_step``: the launches in ``feinsum.exec:flux``;
+    ``host_late_idle_pct``: the host-late idle over the window, at most
+    ``device_idle_pct``."""
+    import yardstick
+    run = _launch_run()
+    least = yardstick.einsums_least_time(run.cfg, 1000, run.peaks)
+    assert _reader("einsums_roofline")(run) == pytest.approx(
+        100 * least / ((2.75 + 2.3) * MS))
+    assert _reader("flux_ms_per_step")(run) == pytest.approx(2.3)
+    late = _reader("host_late_idle_pct")(run)
+    assert late == pytest.approx(100 * 2.3 / 20)
+    assert late <= _reader("device_idle_pct")(run)
+    run.peaks = None
+    assert _reader("einsums_roofline")(run) is None
+    # a run whose executables are named by their subscripts: no flux
+    for s in range(len(run.trace.host)):
+        name, lo, hi = run.trace.host[s]
+        run.trace.host[s] = (name.replace("flux", "fkm,fmn->kn"), lo, hi)
+    assert _reader("flux_ms_per_step")(run) is None
 
 # }}}
