@@ -233,8 +233,11 @@ Phases; any failure exits non-zero before the final line:
    launch each, counted ``"lanes"``; each held against
    ``step_block_plain`` on the same operands within 2e-5 of the sum of the
    terms' magnitudes, against the block kernel on the same values one
-   float off 16 bytes (one ``"dense"`` launch) bit for bit, and timed in
-   turns against both, beside its bound (the larger of its operations at
+   float off 16 bytes (one ``"dense"`` launch) bit for bit, each launch
+   whose plan chains pairs of steps (the derivatives, the flux) also bit
+   for bit its run on the plan without chains (``plan_lanes``'s private
+   ``_chain=False``), and timed in turns against them all, beside its
+   bound (the larger of its operations at
    the float32 peak and its bytes at the memory peak: the flux is
    flop-bound, the other five bytes-bound, though the step as a whole is
    flop-bound); the flux at E = 7,000,000, whose operands' and output's
@@ -3702,7 +3705,8 @@ def _off16(arrays: dict) -> dict:
 
 def _executables_against_plain(op, E: int, tag: str, dev, label: str,
                                stats: KernelStats, lengths_of, path_of,
-                               entries: dict) -> dict:
+                               entries: dict, unchained: bool = False
+                               ) -> dict:
     """Each of model *op*'s executables at *E* elements, its long axis
     ``lengths_of(name)`` long, on inputs drawn on the card: one
     ``step_block_f32`` launch on the path ``path_of(name)``, its output
@@ -3710,7 +3714,10 @@ def _executables_against_plain(op, E: int, tag: str, dev, label: str,
     float64 copies of a whole output need not fit beside the operands),
     a stream- or lanes-path output bit for bit against the dense path's
     (the block kernel's) on the same values off 16 bytes, and the routes
-    timed in turns beside the launch's bound.  A launch on a path in
+    timed in turns beside the launch's bound.  With *unchained*, a lanes
+    launch whose plan chains pairs of steps is also run on the plan
+    without chains (``plan_lanes(table, _chain=False)``), bit for bit the
+    chained one's and timed beside it.  A launch on a path in
     *entries* has its errors and times kept under that entry of *stats*,
     else its errors under ``step_block_f32``.  Returns the launches, each
     entry's among them (also counted under ``step_block_f32``)."""
@@ -3720,7 +3727,9 @@ def _executables_against_plain(op, E: int, tag: str, dev, label: str,
     from feinsum_tpu_torch.codegen.program import get_index_lengths
     from feinsum_tpu_torch.measure import apply_layouts
     from feinsum_tpu_torch.ops import kernels
-    from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
+    from feinsum_tpu_torch.ops.cuda_emitter import hoist_resident_steps, \
+        plan_cuda_launch
+    from feinsum_tpu_torch.ops.step_block import plan_lanes, plan_step_block
 
     fns = op.executables(E)
     launches: dict = {}
@@ -3782,6 +3791,31 @@ def _executables_against_plain(op, E: int, tag: str, dev, label: str,
                                    f" from the dense path by {d_err:.3e}")
             del dense_out
             routes["dense"] = fns[name]
+        table = plan_step_block(
+            hoist_resident_steps(program)[0], get_index_lengths(e, length)) \
+            if unchained and path == "lanes" else None
+        if table is not None and kernels._sb_lanes_plan(table).chains:
+            flat = plan_lanes(table, _chain=False)
+            block = program.descriptor.block_long
+
+            def unchained_run(a, plan=plan, table=table, flat=flat,
+                              block=block):
+                return kernels.step_block_f32(plan.operands(a), table,
+                                              block_long=block,
+                                              _lanes_plan=flat)
+            (flat_out,) = unchained_run(arrays)
+            torch.cuda.synchronize()
+            same = torch.equal(flat_out, got)
+            log(f"[compare] step_block_f32 {tag} {name} E={E}: the lanes"
+                f" path without chains (pairs"
+                f" {kernels._sb_lanes_plan(table).chains} chained) against"
+                f" the chained one, bit for bit {'ok' if same else 'FAIL'}")
+            if not same:
+                raise SmokeFailure(f"{tag} {name}: the chained lanes plan"
+                                   " differs from the unchained one")
+            del flat_out
+            routes["unchained"] = unchained_run
+            inputs["unchained"] = arrays
         del got
         torch.cuda.empty_cache()
         times = timed_in_turns(routes, inputs)
@@ -3977,7 +4011,7 @@ def ader_model_path(dev, label: str, stats: KernelStats) -> dict:
     op = ft.AderElasticOperator3D(device=dev)
     launches = _executables_against_plain(
         op, E, "ader", dev, label, stats, lambda name: E,
-        lambda name: "lanes", {"lanes": "step_block_lanes"})
+        lambda name: "lanes", {"lanes": "step_block_lanes"}, unchained=True)
     _lanes_past_32_bits(op, dev)
 
     # one whole step on the configuration's draw, against the plain

@@ -132,10 +132,44 @@
 // fits (the ADER cell's first derivative, volume and flux, whose
 // 540-float intermediates take 69 KB a 32-element sub-tile) a block has
 // 512 threads, else 256, so that 16 warps share an SM either way.  On an
-// H100 at E = 4M the ADER cell's six launches take about 44 ms against
-// 204 on the block kernel, the three flop-heavy ones at 19-21 TFLOP/s.
-// The sums are the block kernel's, term for term: its results are the
-// dense path's bit for bit.
+// H100 at E = 4M the ADER cell's six launches took about 44 ms against
+// 204 on the block kernel, the three flop-heavy ones at 19-21 TFLOP/s;
+// 38.7 with chained pairs (below).  The sums are the block kernel's, term
+// for term: its results are the dense path's bit for bit.
+//
+// Chained pairs on the lanes path (lane_chain; ops/step_block.py::
+// lane_chain_groups finds them, plan_lanes weighs them).  Where a resident
+// x per-element step k feeds a per-element x per-element step k + 1 alone,
+// and step k + 1 contracts all of step k's X letters first (the ADER
+// derivatives' T[q, x, k] = sum_l I[l, q] K[x, k, l] then out[k, p] =
+// sum_{q, x} T[q, x, k] S[x, q, p]; the flux's T1[q, f, m] then T2[f, m, p]
+// = sum_q T1[q, f, m] A[f, q, p]), the per-element x per-element step was a
+// short contraction (9 or 27 entries) over an operand the step before had
+// just written to shared memory: 540 floats an element, 69 KB a 32-element
+// sub-tile, written, a barrier, read back.  A chained unit takes a batch
+// entry and RM of step k + 1's free entries on the first result's side
+// (RM k rows, or RM m rows of one face f) and keeps in registers, for RQ
+// of step k's X rows (q) at a time, the first result over its tile: RQ x
+// RW, RW the tile's NKW contracted entries of W's side (x) times RM, read
+// as RW / 4 broadcasts of a resident packed per tile; each of those
+// entries is then one contracted entry of step k + 1, NN (all of p) rows
+// of the per-element operand against RM x NN accumulators that also stay
+// in registers (the (3, 12) tile of q and (x, 4 k): 36 + 36 accumulators).
+// The first result never reaches shared memory, nor its barrier: the
+// derivatives' shared memory falls from 91-221 KB a block to the two
+// streamed regions, so that sub-tiles and blocks can grow.  A plan with
+// chains runs its own kernel instance (CHAIN), which inlines its steps and
+// pairs: as a second call out of the kernel the chained unit spilled, and
+// made run_lane_step spill; its next entry's values are not loaded ahead
+// (that spilled too), so the other warps hide the loads.  What bounds it
+// on an H100: a unit is long and there are few of them (5-20 a 32-element
+// sub-tile), so a round takes the busiest scheduler's units; then the
+// resident half's FMAs against the X rows' and broadcasts' issue, as in
+// an unchained step.  At E = 4M (chained / unchained plan, ms): derivative
+// 0 7.18 / 9.66, 1 3.27 / 4.41, 2 2.03 / 2.07, 3 1.53 / 1.60, flux 14.58
+// / 16.69; the first at 26.5 TFLOP/s.  The sums run in step k + 1's
+// contracted order (the X rows', then the tile's NKW), each first-result
+// entry in step k's: the block kernel's, term for term.
 //
 // Float32 throughout; each entry's products are summed in the contracted
 // entries' order, one fmaf per term.
@@ -959,7 +993,7 @@ cudaError_t launch_stream(const Plan& p, const long long* tab, int nrows,
 
 // {{{ the lanes path (the note above)
 
-constexpr int kLaneHead = 7, kLaneStepInts = 19, kLaneRegInts = 6;
+constexpr int kLaneHead = 7, kLaneStepInts = 20, kLaneRegInts = 6;
 constexpr int kLaneMaxRegions = kMaxInputs + kMaxSteps;
 // the streamed regions a table (a TMA tensor map each, per row), the
 // letters of one (a map's rank less the element axis), the entries of a
@@ -980,6 +1014,7 @@ struct LaneStep {
   long long dg;      // the output's tables (X, W, batch) in the row's table
   int poff, pn;      // the packed resident in shared memory, its floats
   long long psrc;    // its gather offsets in the row's table
+  int chain;         // 1: the first step of a chained pair, 2: the second
 };
 
 struct LaneRegion {
@@ -1270,11 +1305,168 @@ __device__ void lane_step(const LanePlan& p, const LaneStep st,
   SB_LANE(3, 9, false) SB_LANE(4, 4, false) SB_LANE(4, 5, false)             \
   SB_LANE(4, 9, false) SB_LANE(5, 5, false) SB_LANE(5, 9, false)
 
+// A chained pair (ops/step_block.py::plan_lanes): steps s and s + 1, a the
+// first (X per element, W a resident packed per unit tile) and c the second
+// (X its per-element operand Y, W the first's result), as one step of
+// units, each a batch entry b of c, RM of c's free entries on the first
+// result's side (a tile of RW floats of the packed resident: c's NKW
+// contracted entries on W's side times the RM) and 32 of the sub-tile's
+// elements, one a lane.  For every RQ of a's X rows the unit accumulates the
+// first result over its tile in registers (RQ x RW, RW / 4 broadcasts a
+// contracted entry), then takes each of those entries as one of c's
+// contracted entries, in c's order (the X rows', then the tile's NKW): NN
+// rows of Y, NN x RM FMAs into c's tile.  Only c's result is written, to its
+// region or to the output; the first result never reaches shared memory.
+// Each entry is summed in the order of the block kernel's, term for term.
+// The sub-tile (32 G elements) is a template parameter and a's X rows and
+// c's Y rows of one contracted entry are consecutive (the host checks), so
+// that every row of a load is an immediate offset of one shared-memory
+// address (sb_smem, 32-bit).
+template <int RQ, int NKW, int RM, int NN, int G, int NT>
+__device__ __forceinline__ void lane_chain(const LanePlan& p, int s,
+                            const long long* __restrict__ tab,
+                            float* __restrict__ out, long long e0, int n,
+                            int parity) {
+  constexpr int TE = 32 * G, RW = (NKW * RM + 3) / 4 * 4, RV = RW / 4;
+  const LaneStep& a = p.step[s];
+  const LaneStep& c = p.step[s + 1];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int* Yb = reinterpret_cast<const int*>(sb_smem) + c.tab + c.nx;
+  const int* Dx = Yb + 2 * c.nb + c.nw;
+  const int* Dw = Dx + c.nx;
+  const int* Db = Dw + c.nw;
+  const LaneRegion& xg = p.reg[a.xreg];
+  const LaneRegion& yg = p.reg[c.xreg];
+  const int X = parity && xg.second >= 0 ? xg.second : xg.off;
+  const int Y = parity && yg.second >= 0 ? yg.second : yg.off;
+  const int xkt = a.xk * TE, ykt = c.xk * TE, wk = a.wk, nk = a.nk;
+  const int units = c.nb * c.tw * G;
+  for (int u = warp; u < units; u += NT / 32) {
+    int t = u;
+    const int g = t % G;
+    t /= G;
+    const int mt = t % c.tw, b = t / c.tw;
+    const int col = g * 32 + lane;
+    const int w0 = a.poff + (b * c.tw + mt) * RW;
+    const int y0 = Y + Yb[b] * TE + col;
+    float o[NN][RM];
+#pragma unroll
+    for (int i = 0; i < NN; ++i) {
+#pragma unroll
+      for (int j = 0; j < RM; ++j) o[i][j] = 0.f;
+    }
+    for (int q0 = 0; q0 < a.nx; q0 += RQ) {
+      float acc[RQ][RW];
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+#pragma unroll
+        for (int j = 0; j < RW; ++j) acc[r][j] = 0.f;
+      }
+      int xo = X + q0 * TE + col, wo = w0;
+      for (int k = 0; k < nk; ++k) {
+        float xv[RQ];
+        float4 wv[RV];
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) xv[r] = sb_smem[xo + r * TE];
+#pragma unroll
+        for (int v = 0; v < RV; ++v) {
+          wv[v] = reinterpret_cast<const float4*>(sb_smem + wo)[v];
+        }
+        xo += xkt;
+        wo += wk;
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) {
+#pragma unroll
+          for (int v = 0; v < RV; ++v) {
+            acc[r][4 * v] = fmaf(xv[r], wv[v].x, acc[r][4 * v]);
+            acc[r][4 * v + 1] = fmaf(xv[r], wv[v].y, acc[r][4 * v + 1]);
+            acc[r][4 * v + 2] = fmaf(xv[r], wv[v].z, acc[r][4 * v + 2]);
+            acc[r][4 * v + 3] = fmaf(xv[r], wv[v].w, acc[r][4 * v + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+#pragma unroll
+        for (int kw = 0; kw < NKW; ++kw) {
+          const int yo = y0 + ((q0 + r) * NKW + kw) * ykt;
+          float y[NN];
+#pragma unroll
+          for (int i = 0; i < NN; ++i) y[i] = sb_smem[yo + i * TE];
+#pragma unroll
+          for (int i = 0; i < NN; ++i) {
+#pragma unroll
+            for (int j = 0; j < RM; ++j) {
+              o[i][j] = fmaf(acc[r][kw * RM + j], y[i], o[i][j]);
+            }
+          }
+        }
+      }
+    }
+    if (c.dst >= 0) {
+      const int d0 = p.reg[c.dst].off + Db[b] * TE + col;
+#pragma unroll
+      for (int j = 0; j < RM; ++j) {
+        const int w = mt * RM + j;
+        if (w >= c.nw) continue;
+        const int dw = d0 + Dw[w] * TE;
+#pragma unroll
+        for (int i = 0; i < NN; ++i) sb_smem[dw + Dx[i] * TE] = o[i][j];
+      }
+    } else if (col < n) {
+      const long long* dg = tab + c.dg;
+      const long long ob = dg[c.nx + c.nw + b] + e0 + col;
+#pragma unroll
+      for (int j = 0; j < RM; ++j) {
+        const int w = mt * RM + j;
+        if (w >= c.nw) continue;
+        const long long dw = dg[c.nx + w] + ob;
+#pragma unroll
+        for (int i = 0; i < NN; ++i) out[dg[i] + dw] = o[i][j];
+      }
+    }
+  }
+}
+
+// The chained pairs' instances (RQ, NKW, RM, NN), ops/kernels.py::
+// SB_LANE_CHAINS, each at the four sub-tiles
+#define SB_LANE_CHAINS                                                      \
+  SB_LANE_CHAIN(3, 3, 4, 9) SB_LANE_CHAIN(9, 3, 1, 9)                        \
+  SB_LANE_CHAIN(9, 1, 4, 9)
+
+__host__ __device__ constexpr int lane_chain_key(int rq, int nkw, int rm,
+                                                 int nn, int g) {
+  return (((rq * 16 + nkw) * 16 + rm) * 16 + nn) * 8 + g;
+}
+
 template <int NT>
-__device__ __noinline__ void run_lane_step(const LanePlan& p, int s,
-                                           const long long* tab,
-                                           float* smem, float* out,
-                                           long long e0, int n, int parity) {
+__device__ __forceinline__ void run_lane_chain(const LanePlan& p, int s,
+                                               const long long* tab,
+                                               float* out, long long e0,
+                                               int n, int parity) {
+  const LaneStep& a = p.step[s];
+  const LaneStep& c = p.step[s + 1];
+  switch (lane_chain_key(a.rx, c.nk / a.nx, c.rw, c.nx, p.te / 32)) {
+#define SB_LANE_CHAIN_G(RQ, NKW, RM, NN, G)                                 \
+  case lane_chain_key(RQ, NKW, RM, NN, G):                                  \
+    lane_chain<RQ, NKW, RM, NN, G, NT>(p, s, tab, out, e0, n, parity);      \
+    break;
+#define SB_LANE_CHAIN(RQ, NKW, RM, NN)                                      \
+  SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 1) SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 2)    \
+  SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 3) SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 4)
+    SB_LANE_CHAINS
+#undef SB_LANE_CHAIN
+#undef SB_LANE_CHAIN_G
+  }
+}
+
+// one unchained step: its tile's instance
+template <int NT>
+__device__ __forceinline__ void lane_step_any(const LanePlan& p, int s,
+                                              const long long* tab,
+                                              float* smem, float* out,
+                                              long long e0, int n,
+                                              int parity) {
   const LaneStep st = p.step[s];
   switch ((st.wres ? 1024 : 0) + st.rx * 32 + st.rw) {
 #define SB_LANE(RX, RW, R)                                                   \
@@ -1286,9 +1478,21 @@ __device__ __noinline__ void run_lane_step(const LanePlan& p, int s,
   }
 }
 
-// NT threads a block: 256 where two blocks fit an SM, 512 where one does
-// (the planner's choice), 128 registers a thread either way
 template <int NT>
+__device__ __noinline__ void run_lane_step(const LanePlan& p, int s,
+                                           const long long* tab,
+                                           float* smem, float* out,
+                                           long long e0, int n, int parity) {
+  lane_step_any<NT>(p, s, tab, smem, out, e0, n, parity);
+}
+
+// NT threads a block: 256 where two blocks fit an SM, 512 where one does
+// (the planner's choice), 128 registers a thread either way; CHAIN: a plan
+// with chained pairs, each run at its first step, its steps and pairs
+// inlined into the kernel (a call out of it would take registers from the
+// callee, and the chained units need all of them); a plan without chains
+// calls run_lane_step for each step
+template <int NT, bool CHAIN>
 __global__ void __launch_bounds__(NT, 512 / NT)
 step_block_lanes(const __grid_constant__ LanePlan p,
                  const __grid_constant__ LaneMaps maps,
@@ -1350,8 +1554,18 @@ step_block_lanes(const __grid_constant__ LanePlan p,
       phase ^= 1u << j;
     }
     for (int s = 0; s < p.nsteps; ++s) {
-      run_lane_step<NT>(p, s, tab, smem, out, e0, n, parity);
-      __syncthreads();
+      if constexpr (CHAIN) {
+        // a chained pair runs at its first step; its refills at both
+        if (p.step[s].chain == 1) {
+          run_lane_chain<NT>(p, s, tab, out, e0, n, parity);
+        } else if (p.step[s].chain == 0) {
+          lane_step_any<NT>(p, s, tab, smem, out, e0, n, parity);
+        }
+        if (p.step[s].chain != 2) __syncthreads();
+      } else {
+        run_lane_step<NT>(p, s, tab, smem, out, e0, n, parity);
+        __syncthreads();
+      }
       if (!p.dbl && next < e_end && threadIdx.x == 0) {
         for (int r = 0; r < p.nregs; ++r) {
           if (p.reg[r].map >= 0 && p.reg[r].refill == s) {
@@ -1364,17 +1578,17 @@ step_block_lanes(const __grid_constant__ LanePlan p,
   }
 }
 
-template <int NT>
+template <int NT, bool CHAIN>
 cudaError_t launch_lanes(const LanePlan& p, const LaneMaps& maps,
                          const void* tables, long long nblocks, int nrows,
                          size_t smem, void* stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        step_block_lanes<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        step_block_lanes<NT, CHAIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  step_block_lanes<NT><<<dim3(static_cast<unsigned>(nblocks),
+  step_block_lanes<NT, CHAIN><<<dim3(static_cast<unsigned>(nblocks),
                               static_cast<unsigned>(nrows)),
                          NT, smem, static_cast<cudaStream_t>(stream)>>>(
       p, maps, static_cast<const long long*>(tables));
@@ -1438,6 +1652,26 @@ bool lane_tile_built(int rx, int rw, bool res) {
 #define SB_LANE(RX, RW, R) built |= rx == RX && rw == RW && res == R;
   SB_LANES_RES SB_LANES_ELEM
 #undef SB_LANE
+  return built;
+}
+
+// whether steps a and c (its next) are a chained pair the kernel runs: an
+// instance of SB_LANE_CHAINS, a's X rows whole chunks of RQ, a resident W of
+// one tile a unit (c's batch entries times its tiles of RM free entries),
+// c's X per element over all its NN free entries, and a writing nothing
+bool lane_chain_ok(const LaneStep& a, const LaneStep& c) {
+  if (a.chain != 1 || c.chain != 2 || !a.wres || c.wres || a.nb != 1 ||
+      a.dst >= 0 || a.nx < 1 || c.nk % a.nx || a.tx * a.rx != a.nx ||
+      c.tx != 1 || c.rx != c.nx || a.tw != c.nb * c.tw) {
+    return false;
+  }
+  const int nkw = c.nk / a.nx;
+  bool built = false;
+#define SB_LANE_CHAIN(RQ, NKW, RM, NN)                                      \
+  built |= a.rx == RQ && nkw == NKW && c.rw == RM && c.nx == NN &&           \
+           a.rw == (NKW * RM + 3) / 4 * 4;
+  SB_LANE_CHAINS
+#undef SB_LANE_CHAIN
   return built;
 }
 
@@ -1740,20 +1974,31 @@ int step_block_lanes_f32(int nrows, int ninputs, void* const* ptrs,
     st.poff = si[16];
     st.pn = si[17];
     st.psrc = si[18];
+    st.chain = si[19];
     const bool last = s == p.nsteps - 1;
     const int ints = 2 * st.nx + st.nw + 3 * st.nb + (st.wres ? 0 : st.nw);
     if (st.nx < 1 || st.nw < 1 || st.nb < 1 || st.nk < 1 ||
-        !lane_tile_built(st.rx, st.rw, st.wres) || st.tx * st.rx < st.nx ||
+        st.chain < 0 || st.chain > 2 ||
+        (st.chain == 2 ? s == 0 || !lane_chain_ok(p.step[s - 1], st)
+                       : st.chain == 0 &&
+                             !lane_tile_built(st.rx, st.rw, st.wres)) ||
+        st.tx * st.rx < st.nx ||
         st.tw * st.rw < st.nw || st.xreg < 0 || st.xreg >= p.nregs ||
         st.tab < 0 || st.tab + ints > p.n_ints ||
-        last != (st.dst < 0) || st.dst >= p.nregs ||
+        last != (st.dst < 0 && st.chain != 1) || st.dst >= p.nregs ||
         (last && (st.dg < 0 || st.dg + st.nx + st.nw + st.nb > row_len)) ||
         (st.wres ? (st.wsrc < 0 || st.wsrc >= ninputs || st.poff % 4 ||
                     st.wk % 4 || st.poff < p.n_ints ||
                     st.pn != st.nb * st.nk * st.tw * st.rw ||
                     st.poff + st.pn > smem_floats || st.psrc < 0 ||
                     st.psrc + st.pn > row_len)
-                 : (st.wsrc < 0 || st.wsrc >= p.nregs))) {
+                 : st.chain != 2 && (st.wsrc < 0 || st.wsrc >= p.nregs))) {
+      return bad;
+    }
+  }
+  for (int s = 0; s < p.nsteps; ++s) {
+    if (p.step[s].chain == 1 &&
+        (s + 1 == p.nsteps || p.step[s + 1].chain != 2)) {
       return bad;
     }
   }
@@ -1781,11 +2026,21 @@ int step_block_lanes_f32(int nrows, int ninputs, void* const* ptrs,
   const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats);
   const long long nblocks = (E + block_elems - 1) / block_elems;
   if (nblocks > 0x7fffffffLL) return bad;
-  return static_cast<int>(
-      p.threads == 512 ? launch_lanes<512>(p, maps, tables, nblocks, nrows,
-                                           smem, stream)
-                       : launch_lanes<256>(p, maps, tables, nblocks, nrows,
-                                           smem, stream));
+  bool chained = false;
+  for (int s = 0; s < p.nsteps; ++s) chained |= p.step[s].chain != 0;
+  cudaError_t err;
+  if (p.threads == 512) {
+    err = chained ? launch_lanes<512, true>(p, maps, tables, nblocks, nrows,
+                                            smem, stream)
+                  : launch_lanes<512, false>(p, maps, tables, nblocks, nrows,
+                                             smem, stream);
+  } else {
+    err = chained ? launch_lanes<256, true>(p, maps, tables, nblocks, nrows,
+                                            smem, stream)
+                  : launch_lanes<256, false>(p, maps, tables, nblocks, nrows,
+                                             smem, stream);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -95,7 +95,9 @@ that no row family above takes (a step table of
   there too) a table of dense element steps on 16 bytes, such as the ADER
   element's and sum factorization's chains, with a warp's lanes on
   consecutive elements and the reference matrices read as broadcasts
-  (:func:`step_block_lanes_tables`).
+  (:func:`step_block_lanes_tables`), a reference-matrix step and the
+  per-element product that reads its result alone chained in one unit
+  whose first result stays in registers.
 
 And one runs K2's whole schedule, every step of a dense program with a
 tuple ``grid_index`` that ``tc_grid_f32`` does not take (a cell table of
@@ -216,6 +218,11 @@ SB_LANE_TILES = ((1, 4), (1, 8), (1, 12), (1, 16), (2, 4), (2, 8), (2, 12),
 SB_LANE_TILES_ELEM = ((1, 1), (1, 4), (1, 9), (2, 4), (2, 5), (2, 9),
                       (3, 3), (3, 4), (3, 5), (3, 9), (4, 4), (4, 5),
                       (4, 9), (5, 5), (5, 9))
+# csrc/step_block.cu: the lanes path's chained pairs (the SB_LANE_CHAIN
+# cases): (RQ, NKW, RM, NN), RQ rows of the first step's X at a time, NKW of
+# the second step's contracted entries on W's side, RM of its free entries
+# on the first result's side and NN on its per-element operand's
+SB_LANE_CHAINS = ((3, 3, 4, 9), (9, 3, 1, 9), (9, 1, 4, 9))
 # the threads of a lanes-path block (its kernel's instances); the streamed
 # regions of a table, the letters of one and the entries of a letter (each
 # region a TMA tensor map: kLaneMaxMaps, kLaneMaxLetters, kLaneMaxBox); its
@@ -1978,11 +1985,11 @@ def _sb_row_strides(rows: tuple, length: dict) -> dict:
 
 
 @functools.lru_cache(maxsize=64)
-def step_block_lanes_tables(table, in_strides: tuple,
-                            out_strides: tuple) -> tuple:
+def step_block_lanes_tables(table, in_strides: tuple, out_strides: tuple,
+                            plan=None) -> tuple:
     """``(meta, tables, maps)`` of the lanes path (``csrc/step_block.cu``,
     ``step_block_lanes``) for one row whose input views and output view
-    have these strides, by the plan :func:`_sb_lanes_plan`.
+    have these strides, by *plan* (default :func:`_sb_lanes_plan`'s).
 
     ``tables`` (int64) holds each resident's gather offsets into its
     packed copy (-1: a zero of the padding), the last step's output
@@ -2005,12 +2012,24 @@ def step_block_lanes_tables(table, in_strides: tuple,
     resident; the int offset of its tables in shared memory; the region
     of its result, -1 for the output; the output tables' offset in
     ``tables``; the packed resident's float offset in shared memory, its
-    floats and its gather table's offset in ``tables``), then per region
+    floats and its gather table's offset in ``tables``; 1 for the first
+    step of a chained pair, 2 for the second, else 0), then per region
     (float offset in shared memory, on 128 bytes, the second buffer's or
     -1, rows, the input slot or -1, its map or -1, and the step after
-    which one buffer is refilled or -1)."""
-    from .step_block import _lane_table_ints, lane_region_base
-    plan = _sb_lanes_plan(table)
+    which one buffer is refilled or -1).
+
+    A chained pair's first step has no result tables (zeros) and packs its
+    resident per tile of the pair's units: a batch entry of the second
+    step and RM of its free entries on the first result's side, each
+    tile's RW floats the second step's contracted entries on W's side
+    times the RM entries (-1 past the last of them); its second step's X
+    is its per-element operand, and its W, the first step's result, has no
+    region (zeros in its tables).  Both steps' X rows over their free
+    entries are consecutive (the kernel reads them at one offset)."""
+    from .step_block import (_lane_table_ints, lane_chain_groups,
+                             lane_region_base)
+    if plan is None:
+        plan = _sb_lanes_plan(table)
     el, length = table.el, table.length
     last = len(table.steps) - 1
     te = plan.te
@@ -2061,7 +2080,38 @@ def step_block_lanes_tables(table, in_strides: tuple,
         Xb = _sb_offsets(ls.bl, length, xs)
         xk = xs[ls.kl[-1]] if ls.kl else 0
         packed = [-1, 0, 0]
-        if ls.wres:
+        if ls.chain and not np.array_equal(Xx, np.arange(nx)):
+            raise AssertionError("a chained step's X rows are not"
+                                 " consecutive")
+        if ls.chain == 1:
+            # the pair's tiles: (batch entry, RM free entries) x (the
+            # second step's contracted entries on W's side, RM)
+            rm = plan.steps[k + 1].tile[1]
+            groups = lane_chain_groups(table, k)
+            per, _ = _sb_strides(wnames, in_strides[wsrc[1]], el)
+            okw, ob, om = (_sb_offsets(g_, length, per) for g_ in groups)
+            tm = -(-len(om) // rm)
+            m = np.arange(tm)[:, None] * rm + np.arange(rm)[None, :]
+            offs = (ob[:, None, None, None] + okw[None, None, :, None]
+                    + om[np.minimum(m, len(om) - 1)][None, :, None, :])
+            offs = np.where((m < len(om))[None, :, None, :], offs, -1)
+            w = np.full((len(ob), tm, rw), -1, np.int64)
+            w[:, :, :offs.shape[2] * rm] = offs.reshape(len(ob), tm, -1)
+            w = w.ravel()
+            if len(w) != ls.wt * rw:
+                raise AssertionError("lanes chain tiles out of count")
+            g = np.where(w[None, :] >= 0, _sb_offsets(ls.kl, length, per)
+                         [:, None] + w[None, :], -1)
+            Wb = np.zeros(nb, np.int64)
+            Ww = np.zeros(0, np.int64)
+            wk, wreg = len(w), wsrc[1]
+            packed = [packed_cursor, g.size, add(g)]
+            packed_cursor += g.size
+        elif ls.chain == 2:
+            # W is the chained first step's result, held in registers
+            Ww, Wb = np.zeros(nw, np.int64), np.zeros(nb, np.int64)
+            wk, wreg = 0, -1
+        elif ls.wres:
             wpad = tw * rw
             Wb = np.arange(nb, dtype=np.int64) * nk * wpad
             Ww = np.zeros(0, np.int64)
@@ -2089,6 +2139,10 @@ def step_block_lanes_tables(table, in_strides: tuple,
             Dx, Dw, Db = (np.zeros(count(g_), np.int64)
                           for g_ in (ls.xl, ls.wl, ls.bl))
             dst = -1
+        elif ls.chain == 1:
+            Dx, Dw, Db = (np.zeros(count(g_), np.int64)
+                          for g_ in (ls.xl, ls.wl, ls.bl))
+            dg = dst = -1
         else:
             ds = region_strides(("tmp", k), st.out)
             Dx, Dw, Db = (_sb_offsets(g_, length, ds)
@@ -2100,8 +2154,8 @@ def step_block_lanes_tables(table, in_strides: tuple,
             raise AssertionError("lanes tables out of count")
         int_chunks.append(tabs)
         step_meta.append([reg_index[xsrc], wreg, int(ls.wres), nx, nw, nb,
-                          nk, rx, rw, tx, tw, int(xk), int(wk), int_cursor,
-                          dst, dg, *packed])
+                          nk, rx, rw, tx, ls.wt or tw, int(xk), int(wk),
+                          int_cursor, dst, dg, *packed, ls.chain])
         int_cursor += len(tabs)
     ints = np.concatenate(int_chunks) if int_chunks else np.zeros(0, np.int64)
     if int(np.abs(ints).max(initial=0)) >= 2 ** 31:
@@ -2385,13 +2439,13 @@ def _sb_device_tables(table, row_strides: tuple, elem_fastest: bool,
 
 
 @functools.lru_cache(maxsize=32)
-def _sb_lanes_device_tables(table, row_strides: tuple,
-                            device: torch.device) -> tuple:
-    """The lanes path's ``(meta, tables, row_len, maps)``: the rows' tables
-    end to end on *device* (the meta equal across rows: it depends on the
-    shapes alone) and their maps' descriptions end to end for the C
-    entry."""
-    per_row = [step_block_lanes_tables(table, ins, out)
+def _sb_lanes_device_tables(table, row_strides: tuple, device: torch.device,
+                            plan) -> tuple:
+    """The lanes path's ``(meta, tables, row_len, maps)`` by *plan*: the
+    rows' tables end to end on *device* (the meta equal across rows: it
+    depends on the shapes alone) and their maps' descriptions end to end
+    for the C entry."""
+    per_row = [step_block_lanes_tables(table, ins, out, plan)
                for ins, out in row_strides]
     tables = np.concatenate([t[1] for t in per_row])
     maps = [v for t in per_row for v in t[2]]
@@ -2483,7 +2537,7 @@ def _is_flat(t: torch.Tensor) -> bool:
 
 
 def step_block_f32(rows, table, *, block_long: int,
-                   one_launch: bool = True) -> list:
+                   one_launch: bool = True, _lanes_plan=None) -> list:
     """Each row's output of the step table *table*
     (:class:`~feinsum_tpu_torch.ops.step_block.StepTable`) from its input
     views (one per slot, axes in the order of ``table.inputs``), allocated
@@ -2493,7 +2547,9 @@ def step_block_f32(rows, table, *, block_long: int,
     block.  Each launch counts under its path (:func:`step_block_path`:
     ``"stream"`` or ``"lanes"``, else the table's mode) in
     ``tracing.counters["step_block_mode"]``, and the path names its
-    span."""
+    span; a lanes launch counts its chained pairs in
+    ``tracing.counters["lane_chains"]``.  *_lanes_plan* replaces the lanes
+    path's plan (:func:`_sb_lanes_plan`'s)."""
     if not rows:
         return []
     E = _sb_check(rows, table)
@@ -2529,16 +2585,17 @@ def step_block_f32(rows, table, *, block_long: int,
                 ptrs[(ni + 1) * n:(ni + 1) * (n + 1)] = [
                     *(t.data_ptr() for t in ins[r]), views[r].data_ptr()]
             if path == "lanes":
+                plan = _lanes_plan or _sb_lanes_plan(table)
                 meta, tables, row_len, maps = _sb_lanes_device_tables(
                     table, _sb_view_strides([ins[r] for r in idx],
                                             [views[r] for r in idx]),
-                    device)
-                plan = _sb_lanes_plan(table)
+                    device, plan)
                 launch(lib.step_block_lanes_f32, len(idx), ni, ptrs,
                        (ctypes.c_int * len(meta))(*meta), len(meta), maps,
                        ctypes.c_void_p(tables.data_ptr()), row_len, E,
                        -(-int(block_long) // plan.te) * plan.te,
                        plan.smem_floats, path=path)
+                tracing.counters["lane_chains"] += len(plan.chains)
                 continue
             tables, steps_i, steps_t, stage_i, stage_t, row_len = \
                 _sb_device_tables(

@@ -84,6 +84,7 @@ from ..contraction_schedule import EinsumOperand
 from ..diagnostics import InvalidParameterError
 from .kernels import (
     MAX_SMEM_BYTES,
+    SB_LANE_CHAINS,
     SB_LANE_MAX_BOX,
     SB_LANE_MAX_LETTERS,
     SB_LANE_MAX_MAPS,
@@ -635,7 +636,18 @@ class LaneStep:
     element too.  ``xl``, ``wl``, ``bl`` and ``kl`` are the step's letters
     (X's and W's free letters, the batch and the contracted letters, in the
     dense split's order); a lane computes ``tile`` = (RX, RW) entries of
-    its element."""
+    its element.
+
+    ``chain`` is 1 for the first step of a chained pair (:func:`plan_lanes`),
+    2 for the second, 0 otherwise.  A chained pair runs as one step of
+    units, each a batch entry of the second step and RM of its free
+    entries on the first step's result's side, over 32 elements: the first
+    step's result for them, over every entry the second step contracts,
+    stays in the unit's registers.  The first's ``tile`` is then (RQ, RW):
+    RQ of X's rows at a time, and a W tile of RW floats (the second step's
+    contracted entries on W's side times RM, padded to a multiple of 4),
+    ``wt`` such tiles; the second's is (NN, RM), X its per-element operand
+    over all NN of its free entries and W the first step's result."""
 
     x: int
     wres: bool
@@ -644,6 +656,8 @@ class LaneStep:
     bl: tuple
     kl: tuple
     tile: tuple
+    chain: int = 0
+    wt: int = 0
 
 
 @dataclass(frozen=True)
@@ -668,6 +682,11 @@ class LanesPlan:
     regions: tuple
     smem_floats: int
     threads: int = SB_THREADS
+
+    @property
+    def chains(self) -> tuple:
+        """The first step of each chained pair."""
+        return tuple(k for k, ls in enumerate(self.steps) if ls.chain == 1)
 
 
 def _lanes_regions(table) -> Optional[dict]:
@@ -719,6 +738,98 @@ def lane_step_cost(table, ls: LaneStep, G: int, blocks: int,
                         waves * active) / blocks
 
 
+def lane_chain_cost(table, first: LaneStep, second: LaneStep, G: int,
+                    blocks: int, threads: int = SB_THREADS) -> float:
+    """:func:`lane_step_cost` of a chained pair: each unit runs the first
+    step's tile of RQ x RW (RW / 4 broadcasts) once for every RQ of X's
+    rows, then takes each of the second step's contracted entries from
+    its registers: NN loads of the per-element operand for NN·RM FMAs.
+    A unit runs hundreds of contracted entries: a round takes the
+    instructions of the busiest of the SM's four schedulers (a quarter of
+    the round's warps, however few), or waits on the wavefronts."""
+    length = table.length
+    rq, rw = first.tile
+    nn, rm = second.tile
+    nq, nl, nk = (_count(g, length) for g in (first.xl, first.kl,
+                                              second.kl))
+    chunks = nq // rq
+    instr = chunks * (nl * (rq * rw + rq + rw // 4 + 2) + rq * rw + 12) \
+        + nk * (nn * rm + nn + 2) + 3 * nn * rm + 12
+    waves = chunks * nl * (rq + rw // 4) + nk * nn + nn * rm
+    warps = threads // 32
+    units, t = first.wt * G, 0
+    while units > 0:
+        active = min(units, warps) * blocks
+        t += max(-(-active // 4) * instr, waves * active)
+        units -= warps
+    return t / blocks
+
+
+def lane_chain_groups(table, k: int) -> Optional[tuple]:
+    """``(rest, batch, free)``, in step *k*'s letters, of the pair of
+    steps *k* and *k* + 1 of a lanes table (:func:`_lanes_regions`: each
+    result read by one step) where it may chain: step *k* a resident x
+    per-element step without batch letters, its result read by step *k* +
+    1, a per-element x per-element step whose contracted letters
+    begin with all of step *k*'s X letters, in their order (``rest``: the
+    others, of W's side), its batch and result-side free letters among
+    W's; ``None`` for any other pair."""
+    if k + 1 >= len(table.steps) \
+            or ("tmp", k) not in table.steps[k + 1].operands:
+        return None
+    s0, s1 = table.steps[k], table.steps[k + 1]
+    per0 = [_lanes_per_element(table, src) for src in s0.operands]
+    if sorted(per0) != [False, True] or not all(
+            _lanes_per_element(table, src) for src in s1.operands):
+        return None
+    M0, N0, K0, B0 = s0.split
+    xl0, wl0 = (M0, N0) if per0[0] else (N0, M0)
+    q = s1.operands.index(("tmp", k))
+    ren = dict(zip(s1.letters[q], s0.out))
+    M1, N1, K1, B1 = s1.split
+    k1 = tuple(ren[ix] for ix in K1)
+    if B0 or k1[:len(xl0)] != tuple(xl0):
+        return None
+    free = tuple(ren[ix] for ix in (M1 if q == 0 else N1))
+    batch = tuple(ren[ix] for ix in B1)
+    rest = k1[len(xl0):]
+    if not set(rest) | set(batch) | set(free) <= set(wl0):
+        return None
+    return rest, batch, free
+
+
+def _lane_chains(table, k: int) -> list:
+    """The options ``(first, second)`` of chaining steps *k* and *k* + 1
+    (:func:`lane_chain_groups`), one for each instance of
+    ``SB_LANE_CHAINS`` (RQ, the second step's contracted entries on W's
+    side, RM, the second step's free entries on X's side) the pair's
+    shapes fit."""
+    groups = lane_chain_groups(table, k)
+    if groups is None:
+        return []
+    length = table.length
+    rest, _batch, _free = groups
+    s0, s1 = table.steps[k], table.steps[k + 1]
+    x0 = 0 if _lanes_per_element(table, s0.operands[0]) else 1
+    M0, N0, K0, _B0 = s0.split
+    xl0, wl0 = (M0, N0) if x0 == 0 else (N0, M0)
+    q = s1.operands.index(("tmp", k))
+    M1, N1, K1, B1 = s1.split
+    tf, yf = (M1, N1) if q == 0 else (N1, M1)
+    nq, nkw, nn = _count(xl0, length), _count(rest, length), _count(yf, length)
+    out = []
+    for rq, ckw, rm, cnn in SB_LANE_CHAINS:
+        if (ckw, cnn) != (nkw, nn) or nq % rq:
+            continue
+        tiles = _count(B1, length) * -(-_count(tf, length) // rm)
+        out.append((
+            LaneStep(x=x0, wres=True, xl=xl0, wl=wl0, bl=(), kl=K0,
+                     tile=(rq, -(-nkw * rm // 4) * 4), chain=1, wt=tiles),
+            LaneStep(x=1 - q, wres=False, xl=yf, wl=tf, bl=B1, kl=K1,
+                     tile=(nn, rm), chain=2)))
+    return out
+
+
 def _lane_roles(table) -> Optional[list]:
     """Each step's choices of (X, W) roles, [(x, wres)], or ``None`` where
     a step is not a dense product with a per-element operand."""
@@ -759,7 +870,7 @@ def _lane_layout(sizes: dict, lives: dict) -> tuple:
     return best
 
 
-def plan_lanes(table, block_long: int = 512) -> Optional[LanesPlan]:
+def plan_lanes(table, *, _chain: bool = True) -> Optional[LanesPlan]:
     """The lanes-path plan of *table*, or ``None`` where the path cannot
     run it: a long letter, every step a dense element step of two operands
     (:func:`dense_split`), at least one per element, each streamed input
@@ -769,17 +880,32 @@ def plan_lanes(table, block_long: int = 512) -> Optional[LanesPlan]:
     (each a TMA box), and the shared memory of a 32-element sub-tile
     within a block's.  Among sub-tiles of 32 to 128 elements, two buffers or one
     (results may then lie over an input whose reader is done), each step's
-    roles and tile of ``SB_LANE_TILES`` / ``SB_LANE_TILES_ELEM``, it takes
-    the least modelled time an element (:func:`lane_step_cost`;
-    *block_long* elements a block)."""
+    roles and tile of ``SB_LANE_TILES`` / ``SB_LANE_TILES_ELEM``, and each
+    pair of steps that may chain (:func:`lane_chain_groups`) chained, in a
+    tile of ``SB_LANE_CHAINS``, or not, it takes the least modelled time an
+    element (:func:`lanes_candidates`).  A chained pair's first result has
+    no region.  ``_chain=False`` plans without chains."""
+    best = min(lanes_candidates(table, _chain), key=lambda c: c[0],
+               default=None)
+    return None if best is None else best[1]
+
+
+def lanes_candidates(table, chain: bool = True):
+    """Each lanes-path plan :func:`plan_lanes` weighs, with its key: for
+    every choice of chained pairs (with *chain*) and tile of each, buffers,
+    sub-tile and threads, the unchained steps' tiles the model's best
+    (:func:`lane_step_cost`, :func:`lane_chain_cost`); nothing where the
+    path cannot run *table*.  The key is the modelled SM clocks an element
+    (the steps' rounds a block shares, the copies a lone block waits for,
+    ``SB_SUB_TILE_COST`` a sub-tile), then, for a chained plan, one buffer
+    after two (a chained pair reads its streamed regions to its end, so
+    that one buffer's copies wait on it), then the shared memory."""
     if table.el is None:
-        return None
+        return
     regions = _lanes_regions(table)
-    if regions is None:
-        return None
     roles = _lane_roles(table)
-    if roles is None:
-        return None
+    if regions is None or roles is None:
+        return
     length = table.length
     last = len(table.steps) - 1
     cands = []
@@ -790,9 +916,12 @@ def plan_lanes(table, block_long: int = 512) -> Optional[LanesPlan]:
             xl, wl = (M, N) if x == 0 else (N, M)
             tiles = SB_LANE_TILES if wres else SB_LANE_TILES_ELEM
             for t in tiles:
-                opts.append(LaneStep(x=x, wres=wres, xl=xl, wl=wl, bl=B,
-                                     kl=K, tile=t))
+                opts.append((LaneStep(x=x, wres=wres, xl=xl, wl=wl, bl=B,
+                                      kl=K, tile=t),))
         cands.append(opts)
+    chains = {k: _lane_chains(table, k) for k in range(last)} \
+        if chain else {}
+    chainable = [k for k, opts in chains.items() if opts]
     # per-element rows: the reader's contracted letters, batch, free ones
     rows = {}
     for src, (k, q) in regions.items():
@@ -807,70 +936,88 @@ def plan_lanes(table, block_long: int = 512) -> Optional[LanesPlan]:
             len(rows[s]) > SB_LANE_MAX_LETTERS
             or any(length[ix] > SB_LANE_MAX_BOX for ix in rows[s])
             for s in streamed):
-        return None
+        return
 
-    def layout(double: bool) -> tuple:
-        """(rows of the regions, offsets, refill steps)."""
-        lives = {src: ((-1, last + 1) if double else (-1, regions[src][0]))
-                 if src[0] == "in" else (src[1], regions[src][0])
-                 for src in rows}
+    def layout(double: bool, pairs: frozenset) -> tuple:
+        """(the regions, rows of them, offsets, refill steps) with the
+        pairs of steps that begin at *pairs* chained: a chain runs to its
+        second step, and its first result has no region."""
+        held = [src for src in rows
+                if not (src[0] == "tmp" and src[1] in pairs)]
+
+        def done(src) -> int:
+            k = regions[src][0]
+            return k + 1 if k in pairs else k
+        lives = {src: ((-1, last + 1) if double else (-1, done(src)))
+                 if src[0] == "in" else (src[1], done(src)) for src in held}
         sizes = {src: n_rows[src] * (2 if double and src[0] == "in" else 1)
-                 for src in rows}
+                 for src in held}
         total, at = _lane_layout(sizes, lives)
         refill = {}
         for s in streamed:
-            over = [lives[o][1] for o in rows if o[0] == "tmp"
+            over = [lives[o][1] for o in held if o[0] == "tmp"
                     and at[o] < at[s] + sizes[s] and at[s] < at[o] + sizes[o]]
             refill[s] = max([lives[s][1], *over])
-        return total, at, refill
+        return held, total, at, refill
 
-    layouts = {double: layout(double) for double in (True, False)}
-    small = [min(o, key=lambda c: c.tile[1]) for o in cands]
-    best, best_key = None, None
-    for double, G, threads in product((True, False), range(1, 5),
-                                      SB_LANE_THREADS):
-        total, at, refill = layouts[double]
-        te = 32 * G
+    def packed(opt) -> int:
+        return sum(_lane_packed(table, ls) for ls in opt if ls.wres)
 
-        def floats(steps) -> int:
-            ints = sum(_lane_table_ints(table, ls) for ls in steps)
-            return (lane_region_base(ints, sum(
-                _lane_packed(table, ls) for ls in steps if ls.wres))
-                + total * te)
-        if 4 * floats(small) + SB_LANE_STATIC_BYTES > MAX_SMEM_BYTES:
-            continue
-        # registers: 128 a thread, 512 threads an SM's
-        most = SB_LANE_THREADS[-1] // threads
-        blocks = max(1, min(most, SB_SM_SMEM_BYTES // (
-            4 * floats(small) + SB_LANE_STATIC_BYTES + 1024)))
-        steps = [min(opts, key=lambda c: lane_step_cost(
-            table, c, G, blocks, threads)) for opts in cands]
-        need = 4 * floats(steps)
-        if need + SB_LANE_STATIC_BYTES > MAX_SMEM_BYTES:
-            steps, need = small, 4 * floats(small)
-        blocks = max(1, min(most, SB_SM_SMEM_BYTES // (
-            need + SB_LANE_STATIC_BYTES + 1024)))
-        span = -(-max(block_long, 1) // te) * te
-        sub = sum(lane_step_cost(table, ls, G, blocks, threads)
-                  for ls in steps)
-        # a lone block waits for the copies into a buffer whose readers
-        # are done unless its steps run meanwhile: those after the
-        # refill's step
-        if not double and blocks == 1:
-            sub += sum(4 * te * n_rows[s] / SB_SM_BYTES_PER_CLOCK
-                       for s in streamed if refill[s] == last)
-        t = (sub + SB_SUB_TILE_COST * blocks * threads // 128) \
-            / (te * blocks) * (span / max(block_long, 1))
-        key = (round(t, 3), need)
-        if best_key is None or key < best_key:
-            best_key = key
-            best = LanesPlan(
-                te=te, double=double, steps=tuple(steps),
-                rows=tuple(sorted(rows.items())),
+    def cost(opt, G, blocks, threads) -> float:
+        if len(opt) == 2:
+            return lane_chain_cost(table, *opt, G, blocks, threads)
+        return lane_step_cost(table, opt[0], G, blocks, threads)
+
+    for chosen in product(*([None, *chains[k]] for k in chainable)):
+        pairs = {k: c for k, c in zip(chainable, chosen) if c is not None}
+        # the options of each step, or the tile of each chained pair
+        groups, k = [], 0
+        while k <= last:
+            groups.append([pairs[k]] if k in pairs else cands[k])
+            k += 2 if k in pairs else 1
+        layouts = {double: layout(double, frozenset(pairs))
+                   for double in (True, False)}
+        small = [min(o, key=lambda c: (packed(c), c[0].tile[1]))
+                 for o in groups]
+        for double, G, threads in product((True, False), range(1, 5),
+                                          SB_LANE_THREADS):
+            held, total, at, refill = layouts[double]
+            te = 32 * G
+
+            def floats(opts) -> int:
+                steps = [ls for opt in opts for ls in opt]
+                ints = sum(_lane_table_ints(table, ls) for ls in steps)
+                return (lane_region_base(ints, sum(map(packed, opts)))
+                        + total * te)
+            if 4 * floats(small) + SB_LANE_STATIC_BYTES > MAX_SMEM_BYTES:
+                continue
+            # registers: 128 a thread, 512 threads an SM's
+            most = SB_LANE_THREADS[-1] // threads
+            blocks = max(1, min(most, SB_SM_SMEM_BYTES // (
+                4 * floats(small) + SB_LANE_STATIC_BYTES + 1024)))
+            opts = [min(o, key=lambda c: cost(c, G, blocks, threads))
+                    for o in groups]
+            need = 4 * floats(opts)
+            if need + SB_LANE_STATIC_BYTES > MAX_SMEM_BYTES:
+                opts, need = small, 4 * floats(small)
+            blocks = max(1, min(most, SB_SM_SMEM_BYTES // (
+                need + SB_LANE_STATIC_BYTES + 1024)))
+            sub = sum(cost(o, G, blocks, threads) for o in opts)
+            # a lone block waits for the copies into a buffer whose readers
+            # are done unless its steps run meanwhile: those after the
+            # refill's step
+            if not double and blocks == 1:
+                sub += sum(4 * te * n_rows[s] / SB_SM_BYTES_PER_CLOCK
+                           for s in streamed if refill[s] == last)
+            t = (sub + SB_SUB_TILE_COST * threads // 128) / te
+            key = (round(t, 3), bool(pairs) and not double, need)
+            yield key, LanesPlan(
+                te=te, double=double,
+                steps=tuple(ls for opt in opts for ls in opt),
+                rows=tuple(sorted((src, rows[src]) for src in held)),
                 regions=tuple((src, at[src], refill.get(src, -1))
-                              for src in sorted(rows)),
+                              for src in sorted(held)),
                 smem_floats=need // 4, threads=threads)
-    return best
 
 
 def lane_region_base(ints: int, packed: int) -> int:
@@ -882,12 +1029,12 @@ def lane_region_base(ints: int, packed: int) -> int:
 
 def _lane_packed(table, ls: LaneStep) -> int:
     """Floats of a step's packed resident: [batch][contracted][free], the
-    free entries padded to whole tiles."""
+    free entries padded to whole tiles (a chained pair's first step: its
+    ``wt`` tiles)."""
     length = table.length
     rw = ls.tile[1]
-    nw = _count(ls.wl, length)
-    return (_count(ls.bl, length) * _count(ls.kl, length)
-            * -(-nw // rw) * rw)
+    tiles = ls.wt or -(-_count(ls.wl, length) // rw)
+    return _count(ls.bl, length) * _count(ls.kl, length) * tiles * rw
 
 
 def _lane_table_ints(table, ls: LaneStep) -> int:

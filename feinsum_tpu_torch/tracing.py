@@ -48,7 +48,9 @@ they took (``"stream"`` or ``"lanes"``, ``ops.kernels.step_block_path``),
 else by the mode of their step table (``"dense"`` when every step is
 dense, else ``"general"``), the three counted at each launch
 (``ops.kernels.launcher``, :func:`count_launch`) from the path that names
-its span, ``"model_steps"``, the calls of a model's step,
+its span, ``"lane_chains"``, the chained pairs of the lanes launches
+(``ops.step_block.plan_lanes``), counted at the launch,
+``"model_steps"``, the calls of a model's step,
 ``"ader_predictor_launches"``, the launches issued inside the ADER step's
 ``feinsum.ader:predictor`` span (``launches`` before and after it), so
 that ``ader_predictor_launches / model_steps`` is the predictor's launches
@@ -118,6 +120,9 @@ counters = {
     # table: every step dense (register tiles), or any general one (offset
     # tables)
     "step_block_mode": {"dense": 0, "general": 0, "stream": 0, "lanes": 0},
+    # the chained pairs of step_block_f32's lanes launches (ops/step_block.
+    # plan_lanes), counted at the launch: 5 an ADER step
+    "lane_chains": 0,
     "model_steps": 0, "pair_bytes": 0, "ader_predictor_launches": 0,
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,

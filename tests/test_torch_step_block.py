@@ -41,7 +41,7 @@ from feinsum_tpu_torch.contraction_schedule import (
 from feinsum_tpu_torch.interop import arrays_from_numpy, \
     program_from_reference
 from feinsum_tpu_torch.measure import apply_layouts, generate_input_arrays
-from feinsum_tpu_torch.ops import kernels
+from feinsum_tpu_torch.ops import kernels, step_block
 from feinsum_tpu_torch.ops.cuda_emitter import grid_letter, \
     hoist_resident_steps, plan_cuda_launch, row_family
 from feinsum_tpu_torch.ops.step_block import plan_step_block
@@ -1051,7 +1051,7 @@ def _flat(t) -> np.ndarray:
     return f.numpy()
 
 
-def emulate_lanes(row, table, block_long: int) -> torch.Tensor:
+def emulate_lanes(row, table, block_long: int, plan=None) -> torch.Tensor:
     """``step_block_lanes`` (``csrc/step_block.cu``) in float64 on the CPU:
     the lanes path's meta and tables as the wrapper hands them over, read
     the way the kernel reads them: blocks of whole sub-tiles, the
@@ -1059,21 +1059,25 @@ def emulate_lanes(row, table, block_long: int) -> torch.Tensor:
     when the kernel copies it (two buffers: at the top of the sub-tile
     before; one: after its refill step), zeros past the last element, and
     each step's entries over the 32-lane columns of shared memory, which
-    starts as NaN so that a read of a row nothing wrote shows."""
+    starts as NaN so that a read of a row nothing wrote shows; by *plan*
+    (default :func:`kernels._sb_lanes_plan`'s).  A chained pair runs at
+    its first step (:func:`_emulate_chain`), its refills at both."""
     el = table.el
     slot = next(s for s, x in enumerate(table.inputs) if el in x)
     E_ = row[slot].shape[table.inputs[slot].index(el)]
     view = _out_view(table, E_).double()
+    plan = plan or kernels._sb_lanes_plan(table)
     meta, tabs, maps = kernels.step_block_lanes_tables(
-        table, tuple(tuple(t.stride()) for t in row), tuple(view.stride()))
+        table, tuple(tuple(t.stride()) for t in row), tuple(view.stride()),
+        plan)
     ns, nr, te, double, n_ints, ints_src, _threads = meta[:7]
-    steps = [meta[7 + 19 * k:7 + 19 * (k + 1)] for k in range(ns)]
-    base = 7 + 19 * ns
+    steps = [meta[7 + 20 * k:7 + 20 * (k + 1)] for k in range(ns)]
+    base = 7 + 20 * ns
     regs = [meta[base + 6 * r:base + 6 * (r + 1)] for r in range(nr)]
     ints = tabs[ints_src:ints_src + n_ints]
     flat = [_flat(t) for t in row]
     out = np.zeros(view.numel())
-    smem_n = kernels._sb_lanes_plan(table).smem_floats
+    smem_n = plan.smem_floats
     lanes = np.arange(te)
 
     def stage(r, e0, n, parity):
@@ -1114,40 +1118,12 @@ def emulate_lanes(row, table, block_long: int) -> torch.Tensor:
                 for r in streamed:
                     stage(r, nxt, min(te, e_end - nxt), parity ^ 1)
             for k, st in enumerate(steps):
-                (xreg, wreg, wres, nx, nw, nb, nk, _rx, _rw, _tx, _tw, xk,
-                 wk, tab, dst, dg, poff, _pn, _ps) = st
-                Xx = ints[tab:tab + nx]
-                Xb = ints[tab + nx:tab + nx + nb]
-                c = tab + nx + nb
-                Ww = ints[c:c + (0 if wres else nw)]
-                c += 0 if wres else nw
-                Wb = ints[c:c + nb]
-                Dx = ints[c + nb:c + nb + nx]
-                Dw = ints[c + nb + nx:c + nb + nx + nw]
-                Db = ints[c + nb + nx + nw:c + 2 * nb + nx + nw]
-                xb = base_of(xreg, parity)
-                for b in range(nb):
-                    for x in range(nx):
-                        for w in range(nw):
-                            acc = np.zeros(te)
-                            for kk in range(nk):
-                                xr = xb + (Xx[x] + Xb[b] + kk * xk) * te
-                                a = smem[xr + lanes]
-                                if wres:
-                                    v = smem[poff + Wb[b] + kk * wk + w]
-                                else:
-                                    wr = base_of(wreg, parity) + (
-                                        Ww[w] + Wb[b] + kk * wk) * te
-                                    v = smem[wr + lanes]
-                                acc = acc + a * v
-                            if dst >= 0:
-                                d = regs[dst][0] + (
-                                    Dx[x] + Dw[w] + Db[b]) * te
-                                smem[d + lanes] = acc
-                            else:
-                                o = (tabs[dg + x] + tabs[dg + nx + w]
-                                     + tabs[dg + nx + nw + b] + e0)
-                                out[o + lanes[:n]] = acc[:n]
+                if st[19] == 1:
+                    _emulate_chain(smem, st, steps[k + 1], ints, tabs, out,
+                                   base_of, regs, e0, n, parity, lanes)
+                elif st[19] == 0:
+                    _emulate_step(smem, st, ints, tabs, out, base_of, regs,
+                                  e0, n, parity, lanes)
                 if not double and nxt < e_end:
                     for r in streamed:
                         if regs[r][5] == k:
@@ -1155,6 +1131,93 @@ def emulate_lanes(row, table, block_long: int) -> torch.Tensor:
             if double:
                 parity ^= 1
     return torch.as_strided(torch.from_numpy(out), view.shape, view.stride())
+
+
+def _emulate_step(smem, st, ints, tabs, out, base_of, regs, e0, n,
+                  parity, lanes) -> None:
+    """One step of :func:`emulate_lanes`, not chained: each entry of its
+    result over the sub-tile's columns, to its region or the output."""
+    te = len(lanes)
+    (xreg, wreg, wres, nx, nw, nb, nk, _rx, _rw, _tx, _tw, xk,
+     wk, tab, dst, dg, poff, _pn, _ps, _chain) = st
+    Xx = ints[tab:tab + nx]
+    Xb = ints[tab + nx:tab + nx + nb]
+    c = tab + nx + nb
+    Ww = ints[c:c + (0 if wres else nw)]
+    c += 0 if wres else nw
+    Wb = ints[c:c + nb]
+    Dx = ints[c + nb:c + nb + nx]
+    Dw = ints[c + nb + nx:c + nb + nx + nw]
+    Db = ints[c + nb + nx + nw:c + 2 * nb + nx + nw]
+    xb = base_of(xreg, parity)
+    for b in range(nb):
+        for x in range(nx):
+            for w in range(nw):
+                acc = np.zeros(te)
+                for kk in range(nk):
+                    xr = xb + (Xx[x] + Xb[b] + kk * xk) * te
+                    a = smem[xr + lanes]
+                    if wres:
+                        v = smem[poff + Wb[b] + kk * wk + w]
+                    else:
+                        wr = base_of(wreg, parity) + (
+                            Ww[w] + Wb[b] + kk * wk) * te
+                        v = smem[wr + lanes]
+                    acc = acc + a * v
+                if dst >= 0:
+                    d = regs[dst][0] + (Dx[x] + Dw[w] + Db[b]) * te
+                    smem[d + lanes] = acc
+                else:
+                    o = (tabs[dg + x] + tabs[dg + nx + w]
+                         + tabs[dg + nx + nw + b] + e0)
+                    out[o + lanes[:n]] = acc[:n]
+
+
+def _emulate_chain(smem, a, c, ints, tabs, out, base_of, regs, e0, n,
+                   parity, lanes) -> None:
+    """A chained pair of :func:`emulate_lanes` as ``lane_chain`` runs it:
+    per unit (a batch entry of the second step *c*, RM of its free entries
+    on the first result's side) the first step *a*'s result over the
+    unit's packed tile for each of *a*'s X rows, each of its entries
+    then one of *c*'s contracted entries against *c*'s per-element rows;
+    only *c*'s result written."""
+    rq, rw = a[7], a[8]
+    nn, rm = c[7], c[8]
+    nkw = c[6] // a[3]
+    ax = ints[a[13]:a[13] + a[3]]
+    yb = ints[c[13] + c[3]:c[13] + c[3] + c[5]]
+    d0 = c[13] + c[3] + 2 * c[5] + c[4]
+    Dx, Dw, Db = (ints[d0:d0 + c[3]], ints[d0 + c[3]:d0 + c[3] + c[4]],
+                  ints[d0 + c[3] + c[4]:d0 + c[3] + c[4] + c[5]])
+    X, Y = base_of(a[0], parity), base_of(c[0], parity)
+    for b in range(c[5]):
+        for mt in range(c[10]):
+            wp = a[16] + (b * c[10] + mt) * rw
+            o = np.zeros((nn, rm, len(lanes)))
+            for q in range(a[3]):
+                acc = np.zeros((rw, len(lanes)))
+                for kk in range(a[6]):
+                    xr = smem[X + (ax[q] + kk * a[11]) * len(lanes) + lanes]
+                    acc += xr[None, :] * smem[wp + kk * a[12]
+                                              + np.arange(rw)][:, None]
+                for kw in range(nkw):
+                    yr = yb[b] + (q * nkw + kw) * c[11]
+                    for i in range(nn):
+                        y = smem[Y + (yr + i) * len(lanes) + lanes]
+                        o[i] += acc[kw * rm:(kw + 1) * rm] * y[None, :]
+            for j in range(rm):
+                w = mt * rm + j
+                if w >= c[4]:
+                    continue
+                for i in range(nn):
+                    if c[14] >= 0:
+                        d = regs[c[14]][0] + (Dx[i] + Dw[w] + Db[b]) * len(
+                            lanes)
+                        smem[d + lanes] = o[i, j]
+                    else:
+                        at = (tabs[c[15] + i] + tabs[c[15] + c[3] + w]
+                              + tabs[c[15] + c[3] + c[4] + b] + e0)
+                        out[at + lanes[:n]] = o[i, j, :n]
 
 
 def _model_table(op, name, n):
@@ -1200,5 +1263,108 @@ def test_lanes_tables_match_the_einsum(name):
         table.steps[-1].out)
     want = torch.einsum(subs, *[t.double() for t in ins])
     assert_close(emulate_lanes(ins, table, 64), want, rtol=1e-12)
+
+
+# the pairs each model table may chain (lane_chain_groups: the second
+# step's contracted letters on W's side, its batch and its free letters on
+# the first result's side, in the first step's letters) and the pairs its
+# plan chains
+MODEL_CHAINS = {
+    **{f"ader_derivative_{d}": ({0: (("x",), (), ("k",))}, (0,))
+       for d in range(4)},
+    "ader_volume": ({}, ()),
+    "ader_flux": ({0: ((), ("f",), ("m",))}, (0,)),
+    **{f"hex_{name}": ({}, ()) for name in ("grad_axes", "div_1", "div_2",
+                                            "div_3")},
+}
+
+
+def _model_op(name):
+    model, exe = name.split("_", 1)
+    return (ft.AderElasticOperator3D(device="cpu") if model == "ader"
+            else ft.HexWaveOperator3D(device="cpu")), exe
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CHAINS))
+def test_model_tables_chain_their_pairs(name):
+    """Which pairs of each model table may chain, and which its plan
+    chains: every derivative's and the flux's first two steps (a reference
+    matrix times the element's entries, then a per-element product over
+    the first result's entries), not the volume term (its per-element
+    product comes first) and no hexahedral table (every step a resident
+    times the element's entries)."""
+    op, exe = _model_op(name)
+    _program, table = _model_table(op, exe, 4_000_000)
+    groups, chained = MODEL_CHAINS[name]
+    assert {k: step_block.lane_chain_groups(table, k)
+            for k in range(len(table.steps))
+            if step_block.lane_chain_groups(table, k)} == groups
+    plan = kernels._sb_lanes_plan(table)
+    assert plan.chains == chained
+    assert [ls.chain for ls in plan.steps] == [
+        1 if k in chained else 2 if k - 1 in chained else 0
+        for k in range(len(table.steps))]
+    assert step_block.plan_lanes(table, _chain=False).chains == ()
+
+
+# the plans of the tables that chain nothing, as before chains: (te, two
+# buffers, threads, shared memory in bytes, each step's (X operand,
+# resident W, tile))
+UNCHAINED_PLANS = {
+    "ader_volume": (32, False, 512, 132608,
+                    ((1, False, (4, 9)), (0, True, (2, 12)))),
+    "hex_grad_axes": (32, False, 256, 98176,
+                      ((0, True, (2, 16)), (0, True, (5, 8)),
+                       (0, True, (5, 8)))),
+    **{f"hex_div_{d}": (128, False, 256, 64512, ((0, True, (5, 4)),))
+       for d in (1, 2, 3)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNCHAINED_PLANS))
+def test_tables_without_chains_plan_as_before(name):
+    """The volume term and the four hexahedral lanes tables plan as they
+    did before chained pairs: the same sub-tile, buffers, threads, shared
+    memory and steps' roles and tiles, with or without chains weighed."""
+    op, exe = _model_op(name)
+    n = 4_000_000 if name.startswith("ader") else 2_000_000
+    _program, table = _model_table(op, exe, n)
+    for plan in (kernels._sb_lanes_plan(table),
+                 step_block.plan_lanes(table, _chain=False)):
+        assert (plan.te, plan.double, plan.threads, 4 * plan.smem_floats,
+                tuple((ls.x, ls.wres, ls.tile) for ls in plan.steps)) \
+            == UNCHAINED_PLANS[name]
+
+
+def _chain_cases() -> list:
+    """``(table name, chained tiles)`` of each chained tile of
+    ``SB_LANE_CHAINS`` that an ADER table's chained pair takes."""
+    op = ft.AderElasticOperator3D(device="cpu")
+    cases = []
+    for name in ADER_EXECS:
+        _program, table = _model_table(op, name, 140)
+        tiles = {tuple(ls.tile for ls in plan.steps if ls.chain)
+                 for _key, plan in step_block.lanes_candidates(table)}
+        cases += [(name, t) for t in sorted(tiles) if t]
+    return cases
+
+
+@pytest.mark.parametrize("name,tiles", _chain_cases())
+def test_lanes_chains_match_the_einsum(name, tiles):
+    """Each chained tile an ADER table may take, on the lanes tables of the
+    modelled best plan with that tile (:func:`emulate_lanes`), against the
+    einsum in float64, at 140 elements: a multiple of 4 that no sub-tile
+    divides, so that a block's last sub-tile is part full."""
+    op = ft.AderElasticOperator3D(device="cpu")
+    n = 140
+    program, table = _model_table(op, name, n)
+    _key, plan = min((c for c in step_block.lanes_candidates(table)
+                      if tuple(ls.tile for ls in c[1].steps if ls.chain)
+                      == tiles), key=lambda c: c[0])
+    ins = _model_inputs(program, table, n)
+    subs = ",".join("".join(x) for x in table.inputs) + "->" + "".join(
+        table.steps[-1].out)
+    want = torch.einsum(subs, *[t.double() for t in ins])
+    assert_close(emulate_lanes(ins, table, 64, plan), want, rtol=1e-12)
 
 # }}}

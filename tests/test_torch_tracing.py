@@ -498,6 +498,26 @@ def test_step_block_mode_counts_the_ader_step_on_the_lanes_path(
         assert kernels.launch_counts["step_block_f32"] == 6
         assert kernels.launch_counts["step_update"] == 6
 
+
+@pytest.mark.parametrize("model", ["ader", "hex"])
+def test_lane_chains_count_the_chained_pairs_of_a_step(monkeypatch, model):
+    """``lane_chains`` grows at each lanes launch by the pairs its plan
+    chains: 5 an ADER step (the four derivatives' and the flux's first two
+    steps), 0 a hexahedral step (no pair of its lanes tables chains)."""
+    _stand_in(monkeypatch)
+    monkeypatch.setitem(tracing.counters, "lane_chains", 0)
+    if model == "ader":
+        op = ft.AderElasticOperator3D(device="cpu")
+        state, geom = ft.make_ader_state(E, seed=3, device="cpu")
+    else:
+        op = ft.HexWaveOperator3D()
+        state, geom = ft.make_hexwave_state(E, seed=2, device="cpu")
+    step = op.make_step(E)
+    for steps in (1, 2):
+        step(state, geom)
+        assert tracing.counters["lane_chains"] == steps * (
+            5 if model == "ader" else 0)
+
 # }}}
 
 
