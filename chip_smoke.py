@@ -11,6 +11,7 @@
     python3 chip_smoke.py --fp64-only        # phases 1 and 5-6 alone
     python3 chip_smoke.py --hex-only         # phases 1 and 23 alone
     python3 chip_smoke.py --ader-only        # phases 1 and 24 alone
+    python3 chip_smoke.py --visco-only       # phases 1 and 25 alone
 
 Phases; any failure exits non-zero before the final line:
 
@@ -247,6 +248,18 @@ Phases; any failure exits non-zero before the final line:
    ``step_update`` (the time integral's five bands and the update) and
    nothing else, its increment against the plain per-step route's
    (``use_pallas=False``, in blocks of 2**20 elements) within 2e-5 of its
+   largest, and its time;
+25. SeisSol's viscoelastic ADER-DG element ``AderViscoelasticOperator3D``
+   at its benchmark cell's size, E = 1,000,000: one executable of each
+   kind ``make_step`` runs (a derivative, an anelastic source, a
+   relaxation, the volume and the flux term), as phase 24 holds its own:
+   one ``step_block_f32`` launch each, the flux on the block kernel
+   (``"dense"``), the others on the lanes path, held against
+   ``step_block_plain`` and the lanes launches bit for bit against the
+   block kernel, all timed beside their bounds; then one model step on
+   the configuration's draw: 15 ``step_block_f32`` launches (14 lanes,
+   one dense) and 12 of ``step_update``, nothing else, its increments of
+   Q and Qane against the plain per-step route's within 2e-5 of their
    largest, and its time.
 
 The last lines are the card line, one JSON object of per-kernel results
@@ -665,6 +678,9 @@ def main() -> int:
     if "--ader-only" in sys.argv[1:]:
         return model_only(dev, card, 24, ader_model_path,
                           ("step_block_lanes",))
+    if "--visco-only" in sys.argv[1:]:
+        return model_only(dev, card, 25, visco_model_path,
+                          ("step_block_lanes",))
     rows = suite()
     programs = {name: default_transform(e)(ft.generate_program(e))
                 for name, e in rows}
@@ -852,7 +868,13 @@ def main() -> int:
     for k, n in ader_model_path(dev, label, stats).items():
         launches[k] = launches.get(k, 0) + n
     log(f"[phase] 24 (the ADER element): {time.perf_counter() - t_phase:.1f}"
-        f" s; all phases {time.perf_counter() - t0:.1f} s")
+        " s")
+    t_phase = time.perf_counter()
+    for k, n in visco_model_path(dev, label, stats).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"[phase] 25 (the viscoelastic ADER element):"
+        f" {time.perf_counter() - t_phase:.1f} s; all phases"
+        f" {time.perf_counter() - t0:.1f} s")
 
     entries = [stats.entry(k, launches[k]) for k in SOURCES]
     for entry in entries:
@@ -1010,7 +1032,8 @@ def update_only(dev, card: str) -> int:
 
 
 def model_only(dev, card: str, phase: int, path, entries: tuple) -> int:
-    """Phase *phase* alone (23 the hexahedral model, 24 the ADER element),
+    """Phase *phase* alone (23 the hexahedral model, 24 the ADER element,
+    25 the viscoelastic ADER element),
     for work on that model or on ``step_block_f32`` at its size: its
     checks, launches and times, and those of its *entries* of the
     ``kernels`` line that it launched.  It prints no ``ok`` line."""
@@ -4054,6 +4077,83 @@ def ader_model_path(dev, label: str, stats: KernelStats) -> dict:
     torch.cuda.empty_cache()
     _timed_step(step, state, geom, "ader", E, "6 step_block_f32 on the"
                 " lanes path and 6 step_update launches", label)
+    del state, geom
+    torch.cuda.empty_cache()
+    return launches
+
+E_VISCO = 1_000_000
+# the viscoelastic step's launches: 15 einsums (four derivatives, five
+# sources, four relaxations, the volume and the flux term) and 12 updates
+# (two a derivative, the two time integrals, the update of Q and of Qane)
+VISCO_STEP_LAUNCHES = {"step_block_f32": 15, "step_update": 12}
+# the path of each kind of executable: the flux's intermediates exceed the
+# lanes path's shared memory
+VISCO_PATHS = {"derivative_0": "lanes", "source_0": "lanes",
+               "relax_0": "lanes", "volume": "lanes", "flux": "dense"}
+
+
+def visco_model_path(dev, label: str, stats: KernelStats) -> dict:
+    """Phase 25 (module docstring): ``AderViscoelasticOperator3D``'s five
+    kinds of executable at E = 1M against ``step_block_plain``, the lanes
+    launches bit for bit the block kernel's, timed beside their bounds
+    (into *stats* as ``step_block_lanes``), then one whole step against
+    the plain per-step route, and its time.  Returns the launches of the
+    counted runs."""
+    from types import SimpleNamespace
+
+    import torch
+
+    import feinsum_tpu_torch as ft
+
+    E = E_VISCO
+    op = ft.AderViscoelasticOperator3D(device=dev)
+    kinds = SimpleNamespace(
+        programs={n: op.programs[n] for n in VISCO_PATHS},
+        executables=op.executables)
+    launches = _executables_against_plain(
+        kinds, E, "visco", dev, label, stats, lambda name: E,
+        VISCO_PATHS.get, {"lanes": "step_block_lanes"})
+
+    # one whole step on the configuration's draw, against the plain
+    # per-step route in blocks of 2**20 elements
+    state, geom = ft.make_ader_visco_state(E, seed=25, device=dev)
+    dt = 1e-3
+    step = op.make_step(E, dt=dt)
+    modes = {"lanes": 14, "dense": 1}
+    got = _checked_step(step, state, geom, "visco", E, VISCO_STEP_LAUNCHES,
+                        modes, launches)
+    block = 1 << 20
+    plain = ft.AderViscoelasticOperator3D(use_pallas=False, device=dev)
+    per_element = ("S", "A", "Es", "w")
+    for field in ("Q", "Qane"):
+        worst = largest = 0.0
+        for a in range(0, E, block):
+            n = min(block, E - a)
+            cut = {k: t[..., a:a + n].contiguous() if k in per_element
+                   else t for k, t in geom.items()}
+            old = {k: t[..., a:a + n].contiguous() for k, t in state.items()}
+            want = plain.make_step(n, dt=dt)(old, cut)[field]
+            ulp = (torch.nextafter(want.abs(), torch.tensor(
+                math.inf, device=dev)) - want.abs()).double()
+            worst = max(worst, float(((got[field][..., a:a + n].double()
+                                       - want.double()).abs() - ulp)
+                                     .clamp_min(0).max()))
+            largest = max(largest, float((want.double()
+                                          - old[field].double())
+                                         .abs().max()))
+            del cut, old, want, ulp
+        gap = worst / largest
+        ok = gap <= RTOL and got[field].shape == state[field].shape
+        log(f"[compare] visco step {field} E={E}: max|increment - plain"
+            f" route's|, beyond an ulp of the new state, = {gap:.2e} of its"
+            f" largest (tolerance {RTOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"a visco step's {field} differs from the"
+                               f" plain route by {gap:.2e}")
+    del got
+    torch.cuda.empty_cache()
+    _timed_step(step, state, geom, "visco", E, "15 step_block_f32 (14 on"
+                " the lanes path) and 12 step_update launches", label)
     del state, geom
     torch.cuda.empty_cache()
     return launches

@@ -14,10 +14,12 @@ replay the archived champion (``sql_utils``) onto the fp64 DG kernel of
 ``compile_fn_with_archive`` (a user's torch function, traced by
 ``torch.fx``, matched against the grammar and replayed from the archive)
 and the DG wave and Maxwell models (``models``).  Public names are those
-of ``feinsum_tpu``, and besides them two models that package lacks: the
+of ``feinsum_tpu``, and besides them three models that package lacks: the
 spectral-element wave model on hexahedra (``HexWaveOperator3D``,
-``make_hexwave_state``) and SeisSol's elastic ADER-DG element
-(``AderElasticOperator3D``, ``make_ader_state``).  The package imports ``torch`` and never ``jax``
+``make_hexwave_state``), SeisSol's elastic ADER-DG element
+(``AderElasticOperator3D``, ``make_ader_state``) and its viscoelastic one
+with three attenuation mechanisms (``AderViscoelasticOperator3D``,
+``make_ader_visco_state``).  The package imports ``torch`` and never ``jax``
 or ``feinsum_tpu``.
 """
 
@@ -92,10 +94,12 @@ from .sql_utils import (
 )
 from .models import (
     AderElasticOperator3D,
+    AderViscoelasticOperator3D,
     HexWaveOperator3D,
     MaxwellOperator3D,
     WaveOperator3D,
     make_ader_state,
+    make_ader_visco_state,
     make_hexwave_state,
     make_maxwell_state,
     make_wave_state,
@@ -116,6 +120,7 @@ __version__ = "0.1.0"
 
 __all__ = (
     "AderElasticOperator3D",
+    "AderViscoelasticOperator3D",
     "Array",
     "BatchedEinsum",
     "BoolParameter",
@@ -174,6 +179,7 @@ __all__ = (
     "hoist_cses_in_fn",
     "identify_as_einsum",
     "make_ader_state",
+    "make_ader_visco_state",
     "make_hexwave_state",
     "make_maxwell_state",
     "make_wave_state",

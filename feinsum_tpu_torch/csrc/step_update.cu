@@ -19,9 +19,17 @@
 //     out = base + dt * (((s0 t0 + s1 t1) + s2 t2) + s3 t3)
 //
 // over one to kMaxTerms terms with signs s_k = +-1, where every operand is
-// a (rows, E) view with unit stride along E and any row stride.  A group is
-// one state tensor written (wave's u or v[x]) or one component of a
-// field (Maxwell's E[k], whose rows 2k and 2k+1 are separate tensors).  In
+// a (rows, E) view with unit stride along E and any row stride, or a
+// (rows / inner, inner, E) view with any two row strides (the rows of a
+// slice such as t[:, :9] of a (35, 15, E) tensor).  A group is one state
+// tensor written (wave's u or v[x]) or one component of a field
+// (Maxwell's E[k], whose rows 2k and 2k+1 are separate tensors; the
+// viscoelastic ADER element's mechanism m).  A group may carry a weight
+// w[e], one float an element (the relaxation frequency of a mechanism):
+//
+//     out = base + dt * (w * (((s0 t0 + s1 t1) + s2 t2) + s3 t3))
+//
+// in the float32 storage alone.  In
 // the float32 storage base, terms and out are float32; on pairs base and
 // out are float64 and each term is a float32 (hi, lo) pair whose planes may
 // lie any distance apart, read as (double)hi + (double)lo.  The models'
@@ -52,7 +60,10 @@
 //   3,360 bytes for E and H, 26.9 GB at E = 8M;
 // * wave3d_p4_f64 (float64 on pairs): v 105 x 24 (v, the grad pair, out),
 //   u 35 x 48 (u, three div pairs, the lift pair, out), 4,200 bytes, and
-//   the splits of u and v, 140 x 16, 2,240 bytes: 25.8 GB at E = 4M.
+//   the splits of u and v, 140 x 16, 2,240 bytes: 25.8 GB at E = 4M;
+// * seissol_viscoelastic_o5 (float32, 12 passes, rows at two strides, the
+//   relaxations weighted): 16,890 floats read and written an element,
+//   67.6 GB at E = 1M.
 
 #include <cuda_runtime.h>
 
@@ -70,12 +81,16 @@ struct UpdateGroup {
   void* out;                    // (rows, E), of the base's type
   const float* hi[kMaxTerms];   // each term (rows, E): float32, or on
   const float* lo[kMaxTerms];   // pairs its hi and lo planes
+  const float* weight;          // (E,): the group's weight, or null
+  // row r lies at (r / inner) * outer + (r % inner) * row
   long long base_row, out_row, term_row[kMaxTerms];
+  long long base_outer, out_outer, term_outer[kMaxTerms];
 };
 
 struct UpdateArgs {
   UpdateGroup group[kMaxGroups];
   int rows;
+  int inner;                    // rows at the inner stride (rows: one)
   long long E;
   int neg;                      // bit k: term k is subtracted
 };
@@ -110,12 +125,15 @@ __device__ __forceinline__ T term_at(const float* hi, const float* lo,
   }
 }
 
-// The update of one element from its terms t[0..K).
-template <typename T, int K>
-__device__ __forceinline__ T update(T base, const T (&t)[K], T dt, int neg) {
+// The update of one element from its terms t[0..K), with the group's
+// weight w where W.
+template <typename T, int K, bool W>
+__device__ __forceinline__ T update(T base, const T (&t)[K], T dt, int neg,
+                                    T w) {
   T acc = (neg & 1) ? -t[0] : t[0];
 #pragma unroll
   for (int k = 1; k < K; ++k) acc = add_rn(acc, (neg >> k & 1) ? -t[k] : t[k]);
+  if constexpr (W) acc = mul_rn(w, acc);
   return add_rn(base, mul_rn(dt, acc));
 }
 
@@ -167,22 +185,26 @@ __device__ __forceinline__ void store4(double* p, long long c,
 }
 
 // T: the base's type, float (float32 terms) or double (pair terms); K
-// terms; kVec: every row of every operand starts on 16 bytes, so whole
-// chunks of four elements move as vectors and only a row's last E % 4
-// elements go one by one.
-template <typename T, int K, bool kVec>
+// terms; kVec: every row of every operand (and the weight) starts on 16
+// bytes, so whole chunks of four elements move as vectors and only a row's
+// last E % 4 elements go one by one; W: the groups carry weights (float32
+// storage).
+template <typename T, int K, bool kVec, bool W>
 __global__ void __launch_bounds__(kThreads)
 step_update_kernel(const UpdateArgs a, const T dt) {
   const int g = blockIdx.y / a.rows;
   const int r = blockIdx.y - g * a.rows;
+  const long long r1 = r / a.inner, r2 = r - r1 * a.inner;
   const UpdateGroup& grp = a.group[g];
-  const T* base = static_cast<const T*>(grp.base) + r * grp.base_row;
-  T* out = static_cast<T*>(grp.out) + r * grp.out_row;
+  const T* base = static_cast<const T*>(grp.base) + r1 * grp.base_outer +
+                  r2 * grp.base_row;
+  T* out = static_cast<T*>(grp.out) + r1 * grp.out_outer + r2 * grp.out_row;
+  const T* weight = reinterpret_cast<const T*>(grp.weight);
   const float* hi[K];
   const float* lo[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const long long off = r * grp.term_row[k];
+    const long long off = r1 * grp.term_outer[k] + r2 * grp.term_row[k];
     hi[k] = grp.hi[k] + off;
     lo[k] = sizeof(T) == 8 ? grp.lo[k] + off : nullptr;
   }
@@ -194,16 +216,17 @@ step_update_kernel(const UpdateArgs a, const T dt) {
     const long long n4 = a.E / 4;
     for (long long c = first; c < n4; c += step) {
       T t[K][4];
-      T b[4], o[4];
+      T b[4], o[4], w[4] = {};
 #pragma unroll
       for (int k = 0; k < K; ++k) term4(hi[k], lo[k], c, t[k]);
       load_base4(base, c, b);
+      if constexpr (W) load_base4(weight, c, w);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         T tq[K];
 #pragma unroll
         for (int k = 0; k < K; ++k) tq[k] = t[k][q];
-        o[q] = update<T, K>(b[q], tq, dt, a.neg);
+        o[q] = update<T, K, W>(b[q], tq, dt, a.neg, w[q]);
       }
       store4(out, c, o);
     }
@@ -213,7 +236,7 @@ step_update_kernel(const UpdateArgs a, const T dt) {
     T t[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) t[k] = term_at<T>(hi[k], lo[k], e);
-    out[e] = update<T, K>(base[e], t, dt, a.neg);
+    out[e] = update<T, K, W>(base[e], t, dt, a.neg, W ? weight[e] : T(0));
   }
 }
 
@@ -252,10 +275,13 @@ pairs_split_kernel(const double* x, float* hi, float* lo, long long n) {
 
 bool on16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// Whether a row of `rows` through pointer p and row stride `row` (elements
-// of `size` bytes) always starts on 16 bytes.
-bool rows_on16(const void* p, long long row, int rows, int size) {
-  return on16(p) && (rows == 1 || (row * size) % 16 == 0);
+// Whether each of `rows` rows, `inner` of them at row stride `row` and
+// those runs at stride `outer` (elements of `size` bytes) from pointer p,
+// starts on 16 bytes.
+bool rows_on16(const void* p, long long row, long long outer, int rows,
+               int inner, int size) {
+  return on16(p) && (inner == 1 || (row * size) % 16 == 0) &&
+         (rows == inner || (outer * size) % 16 == 0);
 }
 
 // (blocks along E, rows): chunks of four elements over kThreads threads,
@@ -267,25 +293,25 @@ dim3 grid_of(long long E, int nrows) {
   return dim3(static_cast<unsigned>(per_row), static_cast<unsigned>(nrows));
 }
 
-template <typename T, int K>
+template <typename T, int K, bool W>
 void launch_update(const UpdateArgs& a, double dt, bool vec, dim3 grid,
                    cudaStream_t s) {
   const T d = static_cast<T>(dt);
   if (vec) {
-    step_update_kernel<T, K, true><<<grid, kThreads, 0, s>>>(a, d);
+    step_update_kernel<T, K, true, W><<<grid, kThreads, 0, s>>>(a, d);
   } else {
-    step_update_kernel<T, K, false><<<grid, kThreads, 0, s>>>(a, d);
+    step_update_kernel<T, K, false, W><<<grid, kThreads, 0, s>>>(a, d);
   }
 }
 
-template <typename T>
+template <typename T, bool W>
 void launch_update(const UpdateArgs& a, int nterms, double dt, bool vec,
                    dim3 grid, cudaStream_t s) {
   switch (nterms) {
-    case 1: launch_update<T, 1>(a, dt, vec, grid, s); break;
-    case 2: launch_update<T, 2>(a, dt, vec, grid, s); break;
-    case 3: launch_update<T, 3>(a, dt, vec, grid, s); break;
-    default: launch_update<T, 4>(a, dt, vec, grid, s); break;
+    case 1: launch_update<T, 1, W>(a, dt, vec, grid, s); break;
+    case 2: launch_update<T, 2, W>(a, dt, vec, grid, s); break;
+    case 3: launch_update<T, 3, W>(a, dt, vec, grid, s); break;
+    default: launch_update<T, 4, W>(a, dt, vec, grid, s); break;
   }
 }
 
@@ -297,51 +323,72 @@ int step_update_max_groups() { return kMaxGroups; }
 
 int step_update_max_terms() { return kMaxTerms; }
 
-// pairs: 0 float32, 1 float64 on pairs; ptrs: ngroups x {base, out,
-// term[kMaxTerms], lo[kMaxTerms]} (a term's float32 values or a pair's hi
-// plane, then the lo planes, ignored but on pairs); strides: ngroups x
-// {base, out, term[kMaxTerms]} row strides in elements; bit k of neg: term
-// k is subtracted.  Returns the CUDA error of the launch (0 on success).
-int step_update(int pairs, int ngroups, int nterms, int rows, long long E,
-                void* const* ptrs, const long long* strides, int neg,
-                double dt, void* stream) {
+// pairs: 0 float32, 1 float64 on pairs; rows: a group's rows, inner of
+// them at the row stride and those runs at the outer one (inner = rows:
+// one row stride); ptrs: ngroups x {base, out, term[kMaxTerms],
+// lo[kMaxTerms], weight} (a term's float32 values or a pair's hi plane,
+// then the lo planes, ignored but on pairs; the group's weight, E floats,
+// null for none: all groups weighted or none, float32 storage alone);
+// strides: ngroups x {base, out, term[kMaxTerms]} row strides, then the
+// same outer strides, in elements; bit k of neg: term k is subtracted.
+// Returns the CUDA error of the launch (0 on success).
+int step_update(int pairs, int ngroups, int nterms, int rows, int inner,
+                long long E, void* const* ptrs, const long long* strides,
+                int neg, double dt, void* stream) {
   if (pairs < 0 || pairs > 1 || ngroups < 1 || ngroups > kMaxGroups ||
       nterms < 1 || nterms > kMaxTerms || rows < 1 || E < 1 ||
+      inner < 1 || rows % inner != 0 ||
       static_cast<long long>(ngroups) * rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  constexpr int kPtrs = 3 + 2 * kMaxTerms, kStrides = 2 * (2 + kMaxTerms);
+  const bool weighted = ptrs[kPtrs - 1] != nullptr;
   const int size = pairs ? 8 : 4;
   UpdateArgs a;
   a.rows = rows;
+  a.inner = inner;
   a.E = E;
   a.neg = neg;
   bool vec = true;
   for (int g = 0; g < ngroups; ++g) {
     UpdateGroup& grp = a.group[g];
-    void* const* p = ptrs + g * (2 + 2 * kMaxTerms);
-    const long long* st = strides + g * (2 + kMaxTerms);
+    void* const* p = ptrs + g * kPtrs;
+    const long long* st = strides + g * kStrides;
+    const long long* outer = st + 2 + kMaxTerms;
     grp.base = p[0];
     grp.out = p[1];
+    grp.weight = static_cast<const float*>(p[kPtrs - 1]);
+    if ((grp.weight != nullptr) != weighted || (weighted && pairs)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     grp.base_row = st[0];
     grp.out_row = st[1];
-    vec = vec && rows_on16(p[0], st[0], rows, size) &&
-          rows_on16(p[1], st[1], rows, size);
+    grp.base_outer = outer[0];
+    grp.out_outer = outer[1];
+    vec = vec && rows_on16(p[0], st[0], outer[0], rows, inner, size) &&
+          rows_on16(p[1], st[1], outer[1], rows, inner, size) &&
+          (!weighted || on16(grp.weight));
     for (int k = 0; k < kMaxTerms; ++k) {
       grp.hi[k] = static_cast<const float*>(p[2 + k]);
       grp.lo[k] = static_cast<const float*>(p[2 + kMaxTerms + k]);
       grp.term_row[k] = st[2 + k];
+      grp.term_outer[k] = outer[2 + k];
       if (k < nterms) {
-        vec = vec && rows_on16(p[2 + k], st[2 + k], rows, 4) &&
-              (!pairs || rows_on16(p[2 + kMaxTerms + k], st[2 + k], rows, 4));
+        vec = vec &&
+              rows_on16(p[2 + k], st[2 + k], outer[2 + k], rows, inner, 4) &&
+              (!pairs || rows_on16(p[2 + kMaxTerms + k], st[2 + k],
+                                   outer[2 + k], rows, inner, 4));
       }
     }
   }
   const dim3 grid = grid_of(E, ngroups * rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pairs) {
-    launch_update<double>(a, nterms, dt, vec, grid, s);
+    launch_update<double, false>(a, nterms, dt, vec, grid, s);
+  } else if (weighted) {
+    launch_update<float, true>(a, nterms, dt, vec, grid, s);
   } else {
-    launch_update<float>(a, nterms, dt, vec, grid, s);
+    launch_update<float, false>(a, nterms, dt, vec, grid, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

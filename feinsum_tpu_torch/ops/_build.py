@@ -94,7 +94,7 @@ _SIGNATURES = (
     ("probe_apply_max_rows", _I, ()),
     ("probe_apply_max_s", _I, ()),
     ("probe_apply_max_dim", _I, ()),
-    ("step_update", _I, (_I, _I, _I, _I, _I64, _PP, _I64P, _I,
+    ("step_update", _I, (_I, _I, _I, _I, _I, _I64, _PP, _I64P, _I,
                          ctypes.c_double, _P)),
     ("step_update_max_groups", _I, ()),
     ("step_update_max_terms", _I, ()),

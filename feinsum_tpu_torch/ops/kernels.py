@@ -1169,10 +1169,11 @@ def _check_view(name: str, t, device: torch.device, dtype: torch.dtype,
 
 
 def _update_args(base: torch.Tensor, terms: Sequence, signs,
-                 kernel: bool) -> tuple:
-    """``(signs, groups, pairs)``, checked: per group its base and its
-    terms as (R, E) views (a term (2, R, E) on pairs); ``pairs`` when the
-    base is float64 and its terms float32 pairs.  *kernel*: refuse the
+                 kernel: bool, weights=None) -> tuple:
+    """``(signs, groups, pairs, weights)``, checked: per group its base and
+    its terms as (R, E) or (R1, R2, E) views (a term (2, ...) on pairs);
+    ``pairs`` when the base is float64 and its terms float32 pairs;
+    ``weights`` one (E,) view per group, or ``None``.  *kernel*: refuse the
     storage the kernel does not take (float64 terms)."""
     signs = (1,) * len(terms) if signs is None else tuple(signs)
     if len(signs) != len(terms) or any(s not in (1, -1) for s in signs):
@@ -1183,26 +1184,26 @@ def _update_args(base: torch.Tensor, terms: Sequence, signs,
         raise InvalidParameterError(
             f"base: {getattr(base, 'dtype', type(base).__name__)}, expected"
             " float32 or float64 (on pairs)")
-    if base.ndim not in (2, 3):
+    if base.ndim not in (2, 3, 4):
         raise InvalidParameterError(
-            f"base: shape {tuple(base.shape)}, expected (rows, E) or"
-            " (groups, rows, E)")
+            f"base: shape {tuple(base.shape)}, expected (rows, E),"
+            " (groups, rows, E) or (groups, rows, inner rows, E)")
     if not 1 <= len(terms) <= UPDATE_MAX_TERMS:
         raise InvalidParameterError(f"step_update takes 1 to"
                                     f" {UPDATE_MAX_TERMS} terms, got"
                                     f" {len(terms)}")
-    bases = list(base.unbind(0)) if base.ndim == 3 else [base]
+    bases = list(base.unbind(0)) if base.ndim >= 3 else [base]
     if len(bases) > UPDATE_MAX_GROUPS:
         raise InvalidParameterError(f"step_update takes at most"
                                     f" {UPDATE_MAX_GROUPS} groups, got"
                                     f" {len(bases)}")
-    R, E = bases[0].shape
-    if len(bases) * R > UPDATE_MAX_ROWS:
+    shape = tuple(bases[0].shape)
+    if len(bases) * math.prod(shape[:-1]) > UPDATE_MAX_ROWS:
         raise InvalidParameterError(f"step_update takes at most"
                                     f" {UPDATE_MAX_ROWS} rows, got"
-                                    f" {len(bases) * R}")
+                                    f" {len(bases) * math.prod(shape[:-1])}")
     # per term, its view of each group: one view of a (R, E) base, a
-    # sequence of one per group of a (G, R, E) one
+    # sequence of one per group of a (G, ...) one
     per_group = []
     for k, t in enumerate(terms):
         if base.ndim == 2:
@@ -1225,36 +1226,50 @@ def _update_args(base: torch.Tensor, terms: Sequence, signs,
     term_dtype = torch.float32 if pairs else base.dtype
     groups = []
     for g, b in enumerate(bases):
-        suffix = f" of group {g}" if base.ndim == 3 else ""
-        _check_view("base" + suffix, b, base.device, base.dtype, (R, E))
+        suffix = f" of group {g}" if base.ndim >= 3 else ""
+        _check_view("base" + suffix, b, base.device, base.dtype, shape)
         views = [ts[g] for ts in per_group]
         for k, v in enumerate(views):
             _check_view(f"term {k}{suffix}", v, base.device, term_dtype,
-                        lead + (R, E))
+                        lead + shape)
         groups.append((b, views))
-    return signs, groups, pairs
+    if weights is not None:
+        if pairs or base.dtype != torch.float32:
+            raise InvalidParameterError(
+                "weights: the float32 storage alone takes weights")
+        if len(weights) != len(bases):
+            raise InvalidParameterError(
+                f"weights: {len(weights)}, expected one (E,) tensor per"
+                f" group of {len(bases)}")
+        weights = list(weights)
+        for g, w in enumerate(weights):
+            _check_view(f"weight of group {g}", w, base.device,
+                        torch.float32, shape[-1:])
+    return signs, groups, pairs, weights
 
 
 def _update_plain(base: torch.Tensor, groups: list, dt: float, signs: tuple,
-                  pairs: bool) -> torch.Tensor:
+                  pairs: bool, weights=None) -> torch.Tensor:
     from .dd_emitter import combine_pairs
     outs = []
-    for b, views in groups:
+    for g, (b, views) in enumerate(groups):
         vals = [combine_pairs(v) if pairs else v for v in views]
         acc = -vals[0] if signs[0] < 0 else vals[0]
         for s, v in zip(signs[1:], vals[1:]):
             acc = acc - v if s < 0 else acc + v
+        if weights is not None:
+            acc = weights[g] * acc
         outs.append(b + dt * acc)
     return outs[0] if base.ndim == 2 else torch.stack(outs)
 
 
 def _update_out(base: torch.Tensor, out) -> torch.Tensor:
     """The update's output: *out*, checked as the base is (its shape,
-    dtype and device, unit stride along E, any row stride), or a new
+    dtype and device, unit stride along E, any row strides), or a new
     contiguous tensor."""
     if out is None:
         return torch.empty(base.shape, dtype=base.dtype, device=base.device)
-    if isinstance(out, torch.Tensor) and out.ndim == base.ndim == 3 \
+    if isinstance(out, torch.Tensor) and out.ndim == base.ndim >= 3 \
             and out.shape == base.shape:
         for g, o in enumerate(out.unbind(0)):
             _check_view(f"out of group {g}", o, base.device, base.dtype,
@@ -1266,13 +1281,16 @@ def _update_out(base: torch.Tensor, out) -> torch.Tensor:
 
 def step_update_plain(base: torch.Tensor, terms: Sequence, dt: float,
                       signs: Optional[Sequence[int]] = None,
-                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      out: Optional[torch.Tensor] = None,
+                      weights=None) -> torch.Tensor:
     """The plain PyTorch version of ``step_update``, on any device: the
     glue the model steps ran before it, one PyTorch op at a time, with the
     same arguments and checks, and one storage more, base and terms
     float64 (the models' plain per-step route)."""
-    signs, groups, pairs = _update_args(base, terms, signs, kernel=False)
-    result = _update_plain(base, groups, dt, signs, pairs)
+    signs, groups, pairs, weights = _update_args(base, terms, signs,
+                                                 kernel=False,
+                                                 weights=weights)
+    result = _update_plain(base, groups, dt, signs, pairs, weights)
     if out is None:
         return result
     return _update_out(base, out).copy_(result)
@@ -1280,7 +1298,8 @@ def step_update_plain(base: torch.Tensor, terms: Sequence, dt: float,
 
 def step_update(base: torch.Tensor, terms: Sequence, dt: float,
                 signs: Optional[Sequence[int]] = None,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                weights=None) -> torch.Tensor:
     """A model step's state update in one pass: ``base + dt * (((s0 t0 +
     s1 t1) + s2 t2) + s3 t3)`` over one to four *terms* with *signs* (+1
     or -1 each, all +1 by default), as a new contiguous tensor of the
@@ -1288,45 +1307,63 @@ def step_update(base: torch.Tensor, terms: Sequence, dt: float,
 
     *base* is (R, E), one group, with each term one tensor, or (G, R, E),
     G <= 3 groups updated in one launch, ``base[g]`` each, with each term
-    a sequence of G tensors, one per group.  The storage follows the
-    operands: base and terms float32, or a float64 base with each term a
-    (2, R, E) float32 hi/lo pair (a ``dd_rows`` output; its planes may lie
-    any distance apart), read as ``hi + lo`` in float64 and counted in
-    ``pair_bytes`` at 8 bytes an entry.  Every view needs unit stride along
-    E; any row stride.  ``csrc/step_update.cu``'s header says why the
-    result is the plain version's bit for bit.  *out*, a tensor of the
-    base's shape and dtype (any row stride, such as rows of a larger
-    tensor), takes the result in place of a new tensor."""
-    signs, groups, pairs = _update_args(base, terms, signs, kernel=True)
+    a sequence of G tensors, one per group; or (G, R1, R2, E), groups
+    whose R1 x R2 rows lie at two strides (the rows of a slice such as
+    ``t[:, :9]`` of a (35, 15, E) tensor), each term's views of the same
+    shape.  The storage follows the operands: base and terms float32, or
+    a float64 base with each term a (2, ...) float32 hi/lo pair (a
+    ``dd_rows`` output; its planes may lie any distance apart), read as
+    ``hi + lo`` in float64 and counted in ``pair_bytes`` at 8 bytes an
+    entry.  Every view needs unit stride along E; any row strides.  In
+    the float32 storage *weights*, one (E,) tensor per group (a (G, E)
+    tensor or a sequence), weight each element's sum: ``base + dt * (w *
+    (...))``.  ``csrc/step_update.cu``'s header says why the result is the
+    plain version's bit for bit.  *out*, a tensor of the base's shape and
+    dtype (any row strides, such as rows of a larger tensor), takes the
+    result in place of a new tensor."""
+    signs, groups, pairs, weights = _update_args(base, terms, signs,
+                                                 kernel=True,
+                                                 weights=weights)
     if pairs:
         tracing.counters["pair_bytes"] += 8 * len(terms) * base.numel()
 
     def body(lib, launch):
         result = _update_out(base, out)
-        R, E = groups[0][0].shape
+        shape = groups[0][0].shape
+        R, E = math.prod(shape[:-1]), shape[-1]
         if R * E == 0:
             return result
+        inner = shape[-2]
         K = UPDATE_MAX_TERMS
-        ptrs = (ctypes.c_void_p * (len(groups) * (2 + 2 * K)))()
-        strides = (ctypes.c_int64 * (len(groups) * (2 + K)))()
+        n_ptrs, n_strides = 3 + 2 * K, 2 * (2 + K)
+        ptrs = (ctypes.c_void_p * (len(groups) * n_ptrs))()
+        strides = (ctypes.c_int64 * (len(groups) * n_strides))()
+
+        def put(s: int, k: int, v: torch.Tensor) -> None:
+            """Row and outer strides of view *v* into slot *k*."""
+            strides[s + k] = v.stride(-2)
+            strides[s + 2 + K + k] = v.stride(0) if v.ndim == 3 else 0
         for g, ((b, views), o) in enumerate(zip(
-                groups, result.unbind(0) if base.ndim == 3 else [result])):
-            p, s = g * (2 + 2 * K), g * (2 + K)
+                groups, result.unbind(0) if base.ndim >= 3 else [result])):
+            p, s = g * n_ptrs, g * n_strides
             ptrs[p], ptrs[p + 1] = b.data_ptr(), o.data_ptr()
-            strides[s], strides[s + 1] = b.stride(0), o.stride(0)
+            put(s, 0, b)
+            put(s, 1, o)
             for t, v in enumerate(views):
                 hi = v[0] if pairs else v
                 ptrs[p + 2 + t] = hi.data_ptr()
                 if pairs:
                     ptrs[p + 2 + K + t] = v[1].data_ptr()
-                strides[s + 2 + t] = hi.stride(0)
+                put(s, 2 + t, hi)
+            if weights is not None:
+                ptrs[p + n_ptrs - 1] = weights[g].data_ptr()
         neg = sum(1 << t for t, s in enumerate(signs) if s < 0)
-        launch(lib.step_update, int(pairs), len(groups), len(terms), R, E,
-               ptrs, strides, neg, float(dt))
+        launch(lib.step_update, int(pairs), len(groups), len(terms), R,
+               inner, E, ptrs, strides, neg, float(dt))
         return result
     return launch_frame("step_update", base.device,
                         lambda: step_update_plain(base, terms, dt, signs,
-                                                  out=out),
+                                                  out=out, weights=weights),
                         body)
 
 

@@ -54,7 +54,9 @@ its span, ``"lane_chains"``, the chained pairs of the lanes launches
 ``"ader_predictor_launches"``, the launches issued inside the ADER step's
 ``feinsum.ader:predictor`` span (``launches`` before and after it), so
 that ``ader_predictor_launches / model_steps`` is the predictor's launches
-per step,
+per step, ``"anelastic_launches"``, likewise the launches inside the
+viscoelastic ADER step's ``feinsum.ader:anelastic`` spans (its source and
+relaxation products),
 ``"pair_bytes"``, the bytes the steps' pair conversions read and write
 (a split 16 an entry: 8 of float64 read, 2 x 4 of pair written; a combine
 fused into the update 8 an entry, the pair read), so that ``pair_bytes /
@@ -124,6 +126,9 @@ counters = {
     # plan_lanes), counted at the launch: 5 an ADER step
     "lane_chains": 0,
     "model_steps": 0, "pair_bytes": 0, "ader_predictor_launches": 0,
+    # the launches inside the viscoelastic ADER step's feinsum.ader:anelastic
+    # spans (its source and relaxation products): 9 a step
+    "anelastic_launches": 0,
     "executable_builds": 0, "executable_build_s": 0.0,
     "library_loads": 0, "library_load_s": 0.0,
     "archive_queries": 0, "archive_query_s": 0.0}

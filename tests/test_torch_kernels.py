@@ -2245,7 +2245,8 @@ def _off16(arrays: dict) -> dict:
 @pytest.mark.parametrize("name", [
     "ader_derivative_0", "ader_derivative_1", "ader_derivative_2",
     "ader_derivative_3", "ader_volume", "ader_flux", "hex_grad_axes",
-    "hex_div_1", "hex_div_2", "hex_div_3"])
+    "hex_div_1", "hex_div_2", "hex_div_3", "visco_derivative_0",
+    "visco_source_0", "visco_relax_0", "visco_volume"])
 def test_step_block_lanes_path_is_the_dense_path_bit_for_bit(cuda_device,
                                                              name, E):
     """Each model executable on the lanes path (operands on 16 bytes)
@@ -2256,8 +2257,8 @@ def test_step_block_lanes_path_is_the_dense_path_bit_for_bit(cuda_device,
     from feinsum_tpu_torch.codegen.program import get_index_lengths
     from feinsum_tpu_torch.ops.cuda_emitter import plan_cuda_launch
     model, exe = name.split("_", 1)
-    op = (ft.AderElasticOperator3D(device=cuda_device) if model == "ader"
-          else ft.HexWaveOperator3D(device=cuda_device))
+    op = {"ader": ft.AderElasticOperator3D, "hex": ft.HexWaveOperator3D,
+          "visco": ft.AderViscoelasticOperator3D}[model](device=cuda_device)
     program = op.programs[exe]
     fn = op.executables(E)[exe]
     arrays = ft.apply_layouts(program, ft.measure.generate_input_arrays(
@@ -2848,6 +2849,42 @@ def test_ader_model_step_matches_the_plain_route(cuda_device, E):
         .clamp_min(0)
     assert float(excess.max()) <= RTOL * float(
         (want.double() - old.double()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [4099, 4100])
+def test_visco_model_step_matches_the_plain_route(cuda_device, E):
+    """A float32 step of the viscoelastic ADER element with its default
+    plan (15 ``step_block_f32`` launches: the flux on the block kernel,
+    the four derivatives, five sources, four relaxations and the volume
+    term on the lanes path where E is a multiple of 4, else on the block
+    kernel too; and 12 ``step_update`` passes; nothing else) against the
+    same model on the plain per-step route, increment against increment,
+    for Q and Qane."""
+    from feinsum_tpu_torch import tracing
+    state, geom = ft.make_ader_visco_state(E, seed=6, device=cuda_device)
+    launches = dict(kernels.launch_counts)
+    modes = dict(tracing.counters["step_block_mode"])
+    got = ft.AderViscoelasticOperator3D().make_step(E)(state, geom)
+    torch.cuda.synchronize()
+    assert {k: n - launches[k] for k, n in kernels.launch_counts.items()
+            if n != launches[k]} == {"step_block_f32": 15, "step_update": 12}
+    lanes = 0 if E % 4 else 14
+    assert {k: n - modes[k] for k, n
+            in tracing.counters["step_block_mode"].items()} \
+        == {"dense": 15 - lanes, "general": 0, "stream": 0, "lanes": lanes}
+    want = ft.AderViscoelasticOperator3D(use_pallas=False).make_step(E)(
+        state, geom)
+    for k, old in state.items():
+        g, w = got[k], want[k]
+        assert g.shape == old.shape and g.is_contiguous()
+        ulp = torch.nextafter(w.abs(), torch.tensor(float("inf"),
+                                                    device=w.device)) \
+            - w.abs()
+        excess = ((g.double() - w.double()).abs() - ulp.double()) \
+            .clamp_min(0)
+        assert float(excess.max()) <= RTOL * float(
+            (w.double() - old.double()).abs().max()), k
 
 
 @pytest.mark.cuda

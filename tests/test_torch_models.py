@@ -28,7 +28,12 @@ skew-symmetric, and every program it plans runs on ``step_block_f32``.
 SeisSol's elastic ADER-DG element (``AderElasticOperator3D``), which the
 JAX package lacks too, is held to the benchmark's plain reference
 (``benchmark_torch/configs/seissol_elastic_o5.py``) on both routes, and a
-step without its last derivative has to fail that check."""
+step without its last derivative has to fail that check; its viscoelastic
+element (``AderViscoelasticOperator3D``) to the plain reference in the
+27-quantity form (``benchmark_torch/configs/seissol_viscoelastic_o5.py``),
+which the faults of the mathematics it plants have to fail; and the plans
+of the elastic and hexahedral tables, which share its planner, are
+pinned."""
 
 from __future__ import annotations
 
@@ -730,5 +735,196 @@ def test_ader_reference_matrices_are_scaled_once(monkeypatch):
     again = step(state, geom)
     assert sorted(held) == ["K0", "K1", "K2", "K3", "Kv", "L", "R"]
     torch.testing.assert_close(first["Q"], again["Q"], rtol=0, atol=0)
+
+# }}}
+
+
+# {{{ SeisSol's viscoelastic ADER-DG element
+
+VISCO_CONFIG = "seissol_viscoelastic_o5"
+# the executables of a step, in the order it calls them by kind
+VISCO_EXECS = ([f"derivative_{d}" for d in range(4)]
+               + [f"source_{d}" for d in range(5)]
+               + [f"relax_{d}" for d in range(4)] + ["volume", "flux"])
+
+
+def _visco_inputs(n_elements, seed):
+    cfg, ref = _bench_reference(VISCO_CONFIG)
+    state, geom = ref.make_inputs(cfg, n_elements,
+                                  torch.Generator().manual_seed(seed), "cpu")
+    return cfg, ref, state, geom
+
+
+def _visco_gap(new, old, inc):
+    """The benchmark's ``increment_gap`` over both fields."""
+    return max(_gap(new[k], old[k], inc[k]) for k in ("Q", "Qane"))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("n_elements", [37, 64])
+def test_visco_step_matches_the_27_quantity_reference(n_elements,
+                                                      use_pallas):
+    """A float32 step of the viscoelastic model (its default plan, CPU
+    tensors: the kernels' plain versions; and the plain per-step route)
+    against the plain reference's increments of Q and Qane, which the
+    reference computes in Kaeser et al.'s 27-quantity form (unscaled
+    derivatives, the time integral's weights applied), within the
+    configuration's limit."""
+    cfg, ref, state, geom = _visco_inputs(n_elements, 2 ** 33 + n_elements)
+    op = ft.AderViscoelasticOperator3D(use_pallas=use_pallas,
+                                       **cfg["operator"]["kwargs"])
+    new = op.make_step(n_elements, dt=cfg["dt"])(state, geom)
+    assert set(new) == {"Q", "Qane"}
+    for k, t in new.items():
+        assert t.shape == state[k].shape and t.is_contiguous(), k
+    inc = ref.increments(cfg, state, geom)
+    assert _visco_gap(new, state, inc) < cfg["check"]["increment_gap_limit"]
+    again = op(state, geom, dt=cfg["dt"])
+    for k in new:
+        torch.testing.assert_close(again[k], new[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fault", ["degree_boxes", "source_zeroed",
+                                   "relaxation_left_out"])
+def test_visco_check_tells_the_faults_of_the_mathematics(fault):
+    """Each fault of the mathematics that the reference can plant (the
+    derivatives cut to the elastic element's degree boxes, Es zeroed, the
+    relaxation left out) reads above 10 times the configuration's limit
+    against the sound reference; the program itself with Es zeroed too."""
+    n = 64
+    cfg, ref, state, geom = _visco_inputs(n, 2 ** 33 + 11)
+    limit = cfg["check"]["increment_gap_limit"]
+    inc = ref.increments(cfg, state, geom)
+    bad = ref.increments(cfg, state, geom, fault=fault)
+    planted = {k: state[k] + bad[k] for k in state}
+    assert _visco_gap(planted, state, inc) > 10 * limit
+    if fault == "source_zeroed":
+        zeroed = dict(geom, Es=torch.zeros_like(geom["Es"]))
+        new = ft.AderViscoelasticOperator3D().make_step(
+            n, dt=cfg["dt"])(state, zeroed)
+        assert _visco_gap(new, state, inc) > 10 * limit
+
+
+def test_visco_anelastic_state_stays_bounded():
+    """64 chained steps from the benchmark's draw: Q and Qane stay finite
+    and within a few times their first magnitudes (the anelastic state
+    settles where its relaxation balances the strain rates that drive it,
+    near 30)."""
+    n = 32
+    cfg, ref, state, geom = _visco_inputs(n, 2 ** 33 + 5)
+    step = ft.AderViscoelasticOperator3D().make_step(n, dt=cfg["dt"])
+    first = {k: float(t.abs().max()) for k, t in state.items()}
+    for _ in range(64):
+        state = step(state, geom)
+    for k, t in state.items():
+        assert bool(torch.isfinite(t).all()), k
+    assert float(state["Q"].abs().max()) < 2 * first["Q"]
+    assert float(state["Qane"].abs().max()) < 20 * first["Qane"]
+
+
+def test_visco_einsums_run_on_step_block_f32():
+    """The 15 executables, one program a kind of product shared by its
+    executables: each planned onto ``step_block_f32`` with every step
+    dense and nothing hoisted; the operands in the configuration's
+    shapes; the model imports its constants from the elastic element's."""
+    from feinsum_tpu_torch.models import ader, ader_visco
+    from feinsum_tpu_torch.ops.cuda_emitter import hoist_resident_steps
+    from feinsum_tpu_torch.ops.step_block import plan_step_block
+    assert (ader_visco.ORDER, ader_visco.B, ader_visco.F, ader_visco.NQ,
+            ader_visco.NFACES) == (ader.ORDER, ader.B, ader.F, ader.NQ,
+                                   ader.NFACES)
+    op = ft.AderViscoelasticOperator3D()
+    assert list(op.programs) == VISCO_EXECS
+    kinds = {name.rstrip("_0123456789") for name in VISCO_EXECS}
+    assert len({id(p) for p in op.programs.values()}) == len(kinds) == 5
+    want = {"derivative": {"Kt": (3, 20, 35), "dQ": (35, 9, "E"),
+                           "S": (3, 9, 15, "E")},
+            "source": {"dQane": (35, 6, 3, "E"), "Es": (6, 3, 9, "E")},
+            "relax": {"dQane": (35, 6, 3, "E"), "w": (3, "E")},
+            "volume": {"Kv": (3, 35, 20), "I": (20, 9, "E"),
+                       "S": (3, 9, 15, "E")},
+            "flux": {"L": (4, 35, 15), "R": (4, 15, 35), "I": (35, 9, "E"),
+                     "A": (4, 9, 15, "E")}}
+    n_elements = 4099
+    for name, program in op.programs.items():
+        shapes = {a.name: tuple(d if isinstance(d, int) else "E"
+                                for d in a.shape)
+                  for row in program.einsum.args for a in row}
+        assert shapes == want[name.rstrip("_0123456789")], name
+        lengths = get_index_lengths(program.einsum, n_elements)
+        assert plan_cuda_launch(program, lengths).kernel \
+            == "step_block_f32", name
+        kernel_program, hoisted = hoist_resident_steps(program)
+        assert hoisted == (), name
+        assert plan_step_block(kernel_program, lengths).mode == "dense", name
+
+
+def test_visco_model_draws_its_state():
+    """``make_ader_visco_state`` draws the same tensors for a seed, in the
+    model's layouts, w every element's relaxation frequencies (2 pi times
+    0.05, 0.5 and 5 Hz: FreqCentral 0.5, FreqRatio 100)."""
+    state, geom = ft.make_ader_visco_state(6, seed=2, device="cpu")
+    assert {k: tuple(t.shape) for k, t in {**state, **geom}.items()} == {
+        "Q": (35, 9, 6), "Qane": (35, 6, 3, 6), "S": (3, 9, 15, 6),
+        "A": (4, 9, 15, 6), "Es": (6, 3, 9, 6), "Kt": (3, 20, 35),
+        "Kv": (3, 35, 20), "R": (4, 15, 35), "L": (4, 35, 15),
+        "w": (3, 6)}
+    again = ft.make_ader_visco_state(6, seed=2, device="cpu")
+    for k, t in {**state, **geom}.items():
+        assert t.dtype == torch.float32
+        assert torch.equal(t, {**again[0], **again[1]}[k])
+    w = torch.tensor([2 * np.pi * f for f in (0.05, 0.5, 5.0)],
+                     dtype=torch.float64)
+    torch.testing.assert_close(geom["w"], w[:, None].expand(3, 6).float())
+    cfg, ref = _bench_reference(VISCO_CONFIG)
+    torch.testing.assert_close(torch.tensor(ref.frequencies(cfg),
+                                            dtype=torch.float64), w)
+
+
+# the plans of the elastic ADER element's six tables (E = 4M) and of the
+# hexahedral model's four lanes tables (E = 2M) on step_block_f32's lanes
+# path: (table mode, sub-tile, two buffers, threads, per step (X, W
+# resident, tile, chain), shared memory floats)
+ELASTIC_AND_HEX_PLANS = {
+    "derivative_0": ("dense", 32, False, 256, (
+        (0, True, (3, 12), 1), (1, False, (9, 4), 2)), 20128),
+    "derivative_1": ("dense", 64, False, 256, (
+        (0, True, (3, 12), 1), (1, False, (9, 4), 2)), 27904),
+    "derivative_2": ("dense", 64, False, 256, (
+        (0, True, (3, 12), 1), (1, False, (9, 4), 2)), 21504),
+    "derivative_3": ("dense", 96, True, 256, (
+        (0, True, (9, 4), 1), (1, False, (9, 1), 2)), 53632),
+    "volume": ("dense", 32, False, 512, (
+        (1, False, (4, 9), 0), (0, True, (2, 12), 0)), 33152),
+    "flux": ("dense", 32, False, 512, (
+        (0, True, (9, 4), 1), (1, False, (9, 4), 2),
+        (0, True, (2, 12), 0)), 42336),
+    "grad_axes": ("dense", 32, False, 256, (
+        (0, True, (2, 16), 0), (0, True, (5, 8), 0),
+        (0, True, (5, 8), 0)), 24544),
+    "div_1": ("dense", 128, False, 256, ((0, True, (5, 4), 0),), 16128),
+    "div_2": ("dense", 128, False, 256, ((0, True, (5, 4), 0),), 16128),
+    "div_3": ("dense", 128, False, 256, ((0, True, (5, 4), 0),), 16128)}
+
+
+@pytest.mark.parametrize("name", sorted(ELASTIC_AND_HEX_PLANS))
+def test_the_elastic_and_hexahedral_plans_stay_as_they_were(name):
+    """The viscoelastic element's tables share the planner with the
+    elastic element's and the hexahedral model's: each of those plans as
+    it did before it came (the lanes plan of each table at its cell's
+    size)."""
+    from feinsum_tpu_torch.ops.cuda_emitter import hoist_resident_steps
+    from feinsum_tpu_torch.ops.step_block import plan_lanes, plan_step_block
+    if name in ("grad_axes", "div_1", "div_2", "div_3"):
+        op, n_elements = ft.HexWaveOperator3D(), 2_000_000
+    else:
+        op, n_elements = ft.AderElasticOperator3D(device="cpu"), 4_000_000
+    program = op.programs[name]
+    table = plan_step_block(hoist_resident_steps(program)[0],
+                            get_index_lengths(program.einsum, n_elements))
+    plan = plan_lanes(table)
+    assert (table.mode, plan.te, plan.double, plan.threads,
+            tuple((ls.x, ls.wres, ls.tile, ls.chain) for ls in plan.steps),
+            plan.smem_floats) == ELASTIC_AND_HEX_PLANS[name]
 
 # }}}

@@ -2,7 +2,8 @@
 one-pass pair split (``ops.kernels.pairs_split``): on the CPU, the plain
 branch against the PyTorch glue the wave and Maxwell steps ran before it,
 bit for bit, the wrapper's refusals, its *out* (the result written into
-rows of a larger tensor) and the ``pair_bytes`` counts; in the
+rows of a larger tensor), rows at two strides and per-group weights (the
+viscoelastic ADER step's forms) and the ``pair_bytes`` counts; in the
 tests marked ``cuda``, the kernels against their plain versions on the
 card bit for bit, and chained model steps against the same steps with the
 PyTorch glue.  This file imports no JAX; on a machine without it run
@@ -427,6 +428,89 @@ def test_step_update_into_out_equals_its_plain_version_on_the_card(
     _same(whole[lo:hi], want)
     rest = torch.cat([whole[:lo], whole[hi:]])
     assert bool((rest == 7).all())
+
+
+def _visco_update_cases(E: int, device, seed: int = 0) -> list:
+    """The viscoelastic ADER step's update forms on the same operands on
+    *device*, ``(base, terms, dt, kwargs)`` each: a derivative's 9 of its
+    15 columns (rows at two strides) added into the source's output; the
+    strain rates weighted by w into the relaxation's output, one group a
+    mechanism; the update of Q (three terms, rows at two strides) and of
+    Qane (weighted, signs +1, +1, -1)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return (2 * torch.rand(shape, generator=gen) - 1).to(device)
+    X, P, H = rand(20, 15, E), rand(35, 9, E), rand(35, 6, 3, E)
+    V, F, Q = rand(35, 15, E), rand(35, 15, E), rand(35, 9, E)
+    Qane, Iane, w = rand(35, 6, 3, E), rand(35, 6, 3, E), rand(3, E)
+
+    def mech(t):
+        return t.permute(2, 0, 1, 3)
+    return [
+        (X[:, :9].unsqueeze(0), [[P[:20]]], 1.0, {}),
+        (mech(H[:20]), [[X[:, 9:]] * 3], 1.0, {"weights": w}),
+        (Q.unsqueeze(0), [[V[:, :9]], [F[:, :9]], [P]], DT, {}),
+        (mech(Qane), [[V[:, 9:]] * 3, [F[:, 9:]] * 3, list(mech(Iane))], DT,
+         {"signs": (1, 1, -1), "weights": list(w)})]
+
+
+def test_rows_at_two_strides_and_weights_are_the_formula():
+    """A (G, R1, R2, E) base takes its groups' rows at two strides, each
+    term a view of that shape per group; *weights* multiply each group's
+    sum by its (E,) weight before dt: ``base + dt * (w * sum)``, bit for
+    bit the formula in PyTorch, and *out* takes the result in rows of a
+    larger tensor (in place too)."""
+    for base, terms, dt, kw in _visco_update_cases(7, "cpu"):
+        signs = kw.get("signs", (1,) * len(terms))
+        got = kernels.step_update(base, terms, dt, **kw)
+        assert got.shape == base.shape and got.is_contiguous()
+        for g in range(base.shape[0]):
+            acc = terms[0][g] * signs[0]
+            for s, t in zip(signs[1:], terms[1:]):
+                acc = acc + t[g] if s > 0 else acc - t[g]
+            if "weights" in kw:
+                acc = kw["weights"][g] * acc
+            _same(got[g], base[g] + dt * acc)
+    # in place: the derivative's rows added into the source's output
+    base, terms, dt, kw = _visco_update_cases(7, "cpu")[0]
+    want = kernels.step_update(base, terms, dt)
+    out = terms[0][0].unsqueeze(0)
+    assert kernels.step_update(base, terms, dt, out=out) is out
+    _same(out, want)
+
+
+@pytest.mark.parametrize("case", ["float64", "count", "shape", "stride"])
+def test_weights_are_refused_naming_what_is_wrong(case):
+    base, terms, dt, kw = _visco_update_cases(5, "cpu")[1]
+    w = kw["weights"]
+    if case == "float64":
+        with pytest.raises(ft.InvalidParameterError, match="weights"):
+            kernels.step_update(_rand(3, 5, dtype=torch.float64),
+                                [_pair(3, 5)], DT, weights=[w[0]])
+        return
+    bad = {"count": w[:2], "shape": w[:, :4],
+           "stride": torch.rand(3, 10)[:, ::2]}[case]
+    with pytest.raises(ft.InvalidParameterError, match="weight"):
+        kernels.step_update(base, terms, dt, weights=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [3, 4099, 4100, 1000003])
+def test_rows_at_two_strides_and_weights_equal_the_plain_version_on_the_card(
+        cuda_device, E):
+    """Bit for bit, the viscoelastic step's four update forms (rows at two
+    strides; one group a mechanism with its weight; the views on 16 bytes
+    where E % 4 = 0, else the scalar path), each one launch."""
+    for (b, ts, dt, kw), (b_dev, ts_dev, _, kw_dev) in zip(
+            _visco_update_cases(E, "cpu", seed=E),
+            _visco_update_cases(E, cuda_device, seed=E)):
+        want = kernels.step_update_plain(b, ts, dt, **kw)
+        before = kernels.launch_counts["step_update"]
+        got = kernels.step_update(b_dev, ts_dev, dt, **kw_dev)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["step_update"] == before + 1
+        _same(got, want)
 
 
 @pytest.mark.cuda

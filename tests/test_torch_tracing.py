@@ -9,7 +9,9 @@ predictor's launches counted), one launch span per launch under its
 kernel's span and its executable's (named by the model's einsums), the
 path counters against the spans, and the benchmark's readers of the spans
 and counters (``benchmark_torch/metrics/``, ``launch_spans.py``) on
-synthetic runs.  This file imports no JAX."""
+synthetic runs; the viscoelastic ADER element's step likewise, its
+``feinsum.ader:anelastic`` spans and ``anelastic_launches``, and the
+readers of them.  This file imports no JAX."""
 
 from __future__ import annotations
 
@@ -737,6 +739,12 @@ def test_the_ader_cell_feeds_the_accepted_generic_readers():
 
 ADER_EXECS = ("derivative_0", "derivative_1", "derivative_2", "derivative_3",
               "volume", "flux")
+# the viscoelastic step's executables in launch order: each derivative,
+# its source and its relaxation, then the corrector's (the flux on the
+# block kernel)
+VISCO_EXECS = (*(f"{kind}_{d}" for d in range(4)
+                 for kind in ("derivative", "source", "relax")),
+               "volume", "flux", "source_4")
 # each model's constructor and state arguments, the executables its
 # launches lie in (in launch order), and its launches a step by span name
 # at E = 64 (every einsum launch on its tiled or lanes path)
@@ -754,6 +762,9 @@ LAUNCH_MODELS = {
              "step_update": 2}),
     "ader": (ft.AderElasticOperator3D, ft.make_ader_state, {}, ADER_EXECS,
              {"step_block_f32.lanes": 6, "step_update": 6}),
+    "visco": (ft.AderViscoelasticOperator3D, ft.make_ader_visco_state, {},
+              VISCO_EXECS, {"step_block_f32.lanes": 14,
+                            "step_block_f32.dense": 1, "step_update": 12}),
 }
 # the kernels a step launches outside any executable
 UPDATES = ("step_update", "pairs_split")
@@ -1045,5 +1056,208 @@ def test_the_launch_readers_on_a_synthetic_trace():
         name, lo, hi = run.trace.host[s]
         run.trace.host[s] = (name.replace("flux", "fkm,fmn->kn"), lo, hi)
     assert _reader("flux_ms_per_step")(run) is None
+
+# }}}
+
+
+# {{{ the viscoelastic ADER element
+
+# a step's launches: 15 einsums (four derivatives, five sources, four
+# relaxations, the volume and flux terms), 12 updates; the predictor's 22
+# of them (each derivative's five, the two time integrals); the anelastic
+# products' 9
+VISCO_LAUNCHES = {"step_block_f32": 15, "step_update": 12}
+VISCO_PREDICTOR = 22
+VISCO_ANELASTIC = 9
+
+
+def test_a_visco_step_records_its_spans_and_counts_itself():
+    """One step records ``feinsum.step:AderViscoelasticOperator3D`` around
+    ``feinsum.ader:predictor`` (the derivatives', sources' and
+    relaxations' executable spans) then ``feinsum.ader:corrector`` (the
+    volume, flux and last source's); each source and relaxation executable
+    lies in a ``feinsum.ader:anelastic`` span of its own, and no other."""
+    op = ft.AderViscoelasticOperator3D()
+    state, geom = ft.make_ader_visco_state(E, seed=1, device="cpu")
+    step = op.make_step(E)
+    step(state, geom)
+    c = tracing.counters
+    steps = c["model_steps"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, geom)
+    assert c["model_steps"] == steps + 1
+    (s_name, s_lo, s_hi), = _spans(prof, "feinsum.step:")
+    assert s_name == "feinsum.step:AderViscoelasticOperator3D"
+    halves = sorted((s for s in _spans(prof, "feinsum.ader:")
+                     if not s[0].endswith("anelastic")), key=lambda s: s[1])
+    assert [name for name, _, _ in halves] == [
+        "feinsum.ader:predictor", "feinsum.ader:corrector"]
+    assert all(s_lo <= lo <= hi <= s_hi for _, lo, hi in halves)
+    execs = sorted(_spans(prof, "feinsum.exec:"), key=lambda s: s[1])
+    assert [n.removeprefix("feinsum.exec:") for n, _, _ in execs] \
+        == list(VISCO_EXECS)
+    for (_, lo, hi), names in zip(halves, [VISCO_EXECS[:12],
+                                           VISCO_EXECS[12:]]):
+        inside = [n for n, a, b in execs if lo <= a <= b <= hi]
+        assert inside == [f"feinsum.exec:{n}" for n in names]
+    anelastic = _spans(prof, "feinsum.ader:anelastic")
+    assert len(anelastic) == VISCO_ANELASTIC
+    held = [n.removeprefix("feinsum.exec:") for n, a, b in execs
+            if any(lo <= a <= b <= hi for _, lo, hi in anelastic)]
+    assert held == [n for n in VISCO_EXECS
+                    if n.startswith(("source", "relax"))]
+
+
+def test_visco_launch_counters_count_the_steps_launches(monkeypatch):
+    """``ader_predictor_launches`` grows by the predictor's 22 launches a
+    step and ``anelastic_launches`` by the anelastic products' 9, of the
+    step's 27; the wrappers run their CUDA branch on CPU tensors against a
+    stand-in library whose every entry returns 0 (no kernel runs), and
+    the step's einsums count 14 lanes launches and one on the block
+    kernel (the flux)."""
+    _stand_in(monkeypatch)
+    for key in ("ader_predictor_launches", "anelastic_launches",
+                "model_steps"):
+        monkeypatch.setitem(tracing.counters, key, tracing.counters[key])
+    kernels.reset_launch_counts()
+    op = ft.AderViscoelasticOperator3D()
+    state, geom = ft.make_ader_visco_state(E, seed=2, device="cpu")
+    step = op.make_step(E)
+    c = tracing.counters
+    before = (c["ader_predictor_launches"], c["anelastic_launches"])
+    for k in range(1, 3):
+        step(state, geom)
+        assert (c["ader_predictor_launches"], c["anelastic_launches"]) \
+            == (before[0] + k * VISCO_PREDICTOR,
+                before[1] + k * VISCO_ANELASTIC)
+        assert {n: v for n, v in kernels.launch_counts.items() if v} \
+            == {n: k * v for n, v in VISCO_LAUNCHES.items()}
+        assert c["step_block_mode"] == {"dense": k, "general": 0,
+                                        "stream": 0, "lanes": 14 * k}
+
+
+def _visco_cfg():
+    return json.loads((BENCH / "configs"
+                       / "seissol_viscoelastic_o5.json").read_text())
+
+
+def _anelastic_run(steps=2, anelastic=True):
+    """A synthetic traced run of the viscoelastic configuration at E =
+    1,000: each step (10 ms) launches a derivative (1 ms on the device), a
+    source and a relaxation, each in a ``feinsum.ader:anelastic`` span
+    (unless not *anelastic*; 2 and 0.5 ms), and an update (0.25 ms)."""
+    host, device = [], []
+    for k in range(steps):
+        t = 1.0 + k * 10 * MS
+
+        def at(lo, hi, t=t):
+            return t + lo * MS, t + hi * MS
+        host += [("feinsum.step:Op", *at(0, 10)),
+                 ("feinsum.exec:derivative_0", *at(0.1, 0.4)),
+                 ("feinsum.launch:step_block_f32.lanes", *at(0.2, 0.3))]
+        for name, lo in (("source_0", 1.0), ("relax_0", 2.0)):
+            if anelastic:
+                host.append(("feinsum.ader:anelastic", *at(lo, lo + 0.5)))
+            host += [(f"feinsum.exec:{name}", *at(lo + 0.1, lo + 0.4)),
+                     ("feinsum.launch:step_block_f32.lanes",
+                      *at(lo + 0.2, lo + 0.3))]
+        host += [("feinsum.launch:step_update", *at(3.0, 3.1))]
+        device += [(SB, *at(0.5, 1.5)), (SB, *at(1.5, 3.5)),
+                   (SB, *at(3.5, 4.0)), (UPDATE32, *at(4.0, 4.25))]
+    peaks = {"flops": {"float32": 67e12}, "bytes_per_s": 3.35e12}
+    return SimpleNamespace(cfg=_visco_cfg(), n_elements=1000, peaks=peaks,
+                           trace=SimpleNamespace(
+                               host=host, device=device, steps=steps,
+                               launches=4 * steps, window_s=10 * steps * MS))
+
+
+def test_the_anelastic_readers_on_a_synthetic_trace():
+    """``anelastic_ms_per_step``: the device time per step of the launches
+    inside ``feinsum.ader:anelastic`` spans (the source's 2 ms and the
+    relaxation's 0.5); ``anelastic_roofline``: the least time of the
+    configuration's anelastic einsums (five sources, four relaxations)
+    over it; both nothing where no launch lies in such a span, as in the
+    parent, whose program has no such span, or without a trace."""
+    import yardstick
+    run = _anelastic_run()
+    assert _reader("anelastic_ms_per_step")(run) == pytest.approx(2.5)
+    cfg = run.cfg
+    specs = [s for s in cfg["einsums"] if s.get("part") == "anelastic"]
+    assert [s["name"] for s in specs] == [
+        *(f"source_{d}" for d in range(5)), *(f"relax_{d}" for d in range(4))]
+    least = sum(yardstick.least_time(*yardstick.einsum_counts(
+        s, cfg, 1000), run.peaks, "float32")[0] for s in specs)
+    assert _reader("anelastic_roofline")(run) == pytest.approx(
+        100 * least / (2.5 * MS))
+    for bare in (_anelastic_run(anelastic=False), SimpleNamespace(
+            trace=None, peaks=run.peaks, cfg=cfg, n_elements=1000)):
+        assert _reader("anelastic_ms_per_step")(bare) is None
+        assert _reader("anelastic_roofline")(bare) is None
+    run.peaks = None
+    assert _reader("anelastic_roofline")(run) is None
+
+
+def test_the_visco_cell_feeds_the_generic_readers(monkeypatch):
+    """The readers the viscoelastic cell is listed under read its step:
+    the host readers split a profiled step's spans, summing to the step
+    span; the step counts 454,770 operations and 12,000 bytes an element
+    (the reference matrices' 8,400 floats once); on a synthetic trace of
+    its 27 launches a step, ``glue_ms_per_step`` reads 0, the update's,
+    the predictor's (its first 22 launches), the roofline and the launch
+    readers read, and ``setup_program_s`` reads the counters."""
+    if str(BENCH) not in sys.path:
+        sys.path.insert(0, str(BENCH))
+    import yardstick
+    step = ft.AderViscoelasticOperator3D().make_step(E)
+    state, geom = ft.make_ader_visco_state(E, seed=4, device="cpu")
+    step(state, geom)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, geom)
+    host = [(name, lo / 1e6, hi / 1e6)
+            for name, lo, hi in _spans(prof, "feinsum.")]
+    (_, s_lo, s_hi), = [s for s in host if s[0].startswith("feinsum.step:")]
+    got = {name: _reader(name)(_run(host, 1)) for name in HOST_READERS}
+    assert all(v is not None and v >= 0 for v in got.values()), got
+    assert sum(got.values()) == pytest.approx(1e3 * (s_hi - s_lo))
+    cfg = _visco_cfg()
+    flops, nbytes = yardstick.step_counts(cfg, 1000)
+    assert (flops, nbytes) == (454770 * 1000, 12000 * 1000 + 4 * 8400)
+    # 3 steps of 27 launches, the first 22 the predictor's (1 ms each), the
+    # corrector's 2 ms; every launch paired with a launch span in an
+    # executable but the updates (every other one)
+    device, launch_host, t = [], [], 1.0
+    for _ in range(3):
+        launch_host.append(("feinsum.step:Op", t, t + 0.1))
+        for k in range(27):
+            length = 0.001 if k < VISCO_PREDICTOR else 0.002
+            name = SB_ADER if k % 2 else UPDATE32
+            launch_host.append(("feinsum.launch:x", t, t + 1e-5))
+            if k % 2:
+                launch_host.append(("feinsum.exec:e", t, t + 2e-5))
+            device.append((name, t + 5e-5, t + 5e-5 + length))
+            t += length + 0.0001
+    monkeypatch.setattr(tracing, "counters", {
+        **tracing.counters, "model_steps": 5,
+        "ader_predictor_launches": 5 * VISCO_PREDICTOR})
+    peaks = {"flops": {"float32": 67e12}, "bytes_per_s": 3.35e12}
+    run = SimpleNamespace(cfg=cfg, n_elements=1000, peaks=peaks, step_s=0.05,
+                          trace=SimpleNamespace(
+                              device=device, host=launch_host, steps=3,
+                              launches=81, window_s=t - 1.0))
+    assert _reader("glue_ms_per_step")(run) == 0.0
+    assert _reader("predictor_ms_per_step")(run) == pytest.approx(22.0)
+    updates = sum(hi - lo for n, lo, hi in device if n == UPDATE32) / 3
+    assert _reader("update_ms_per_step")(run) == pytest.approx(1e3 * updates)
+    least, _ = yardstick.least_time(flops, nbytes, peaks, "float32")
+    einsums = sum(hi - lo for n, lo, hi in device if n == SB_ADER) / 3
+    assert _reader("sumfact_roofline")(run) == pytest.approx(
+        100 * least / einsums)
+    assert _reader("step_mfu")(run) == pytest.approx(100 * least / 0.05)
+    assert _reader("einsums_roofline")(run) == pytest.approx(
+        100 * yardstick.einsums_least_time(cfg, 1000, peaks) / einsums)
+    assert _reader("launches_per_step")(run) == 27
+    assert 0 <= _reader("host_late_idle_pct")(run) \
+        <= _reader("device_idle_pct")(run)
+    assert _reader("setup_program_s")(run) >= 0
 
 # }}}
