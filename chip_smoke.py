@@ -253,12 +253,13 @@ Phases; any failure exits non-zero before the final line:
    at its benchmark cell's size, E = 1,000,000: one executable of each
    kind ``make_step`` runs (a derivative, an anelastic source, a
    relaxation, the volume and the flux term), as phase 24 holds its own:
-   one ``step_block_f32`` launch each, the flux on the block kernel
-   (``"dense"``), the others on the lanes path, held against
-   ``step_block_plain`` and the lanes launches bit for bit against the
-   block kernel, all timed beside their bounds; then one model step on
-   the configuration's draw: 15 ``step_block_f32`` launches (14 lanes,
-   one dense) and 12 of ``step_update``, nothing else, its increments of
+   one ``step_block_f32`` launch each, all on the lanes path (the flux's
+   last two steps a chained pair whose tile carries the face), held
+   against ``step_block_plain`` and bit for bit against the block kernel
+   (operands off 16 bytes), both timed beside their bounds; then one
+   model step on the configuration's draw: 15 ``step_block_f32`` launches,
+   all on the lanes path, one chained pair among them, and 12 of
+   ``step_update``, nothing else, its increments of
    Q and Qane against the plain per-step route's within 2e-5 of their
    largest, and its time.
 
@@ -4086,10 +4087,9 @@ E_VISCO = 1_000_000
 # sources, four relaxations, the volume and the flux term) and 12 updates
 # (two a derivative, the two time integrals, the update of Q and of Qane)
 VISCO_STEP_LAUNCHES = {"step_block_f32": 15, "step_update": 12}
-# the path of each kind of executable: the flux's intermediates exceed the
-# lanes path's shared memory
+# the path of each kind of executable
 VISCO_PATHS = {"derivative_0": "lanes", "source_0": "lanes",
-               "relax_0": "lanes", "volume": "lanes", "flux": "dense"}
+               "relax_0": "lanes", "volume": "lanes", "flux": "lanes"}
 
 
 def visco_model_path(dev, label: str, stats: KernelStats) -> dict:
@@ -4104,6 +4104,7 @@ def visco_model_path(dev, label: str, stats: KernelStats) -> dict:
     import torch
 
     import feinsum_tpu_torch as ft
+    from feinsum_tpu_torch import tracing
 
     E = E_VISCO
     op = ft.AderViscoelasticOperator3D(device=dev)
@@ -4119,9 +4120,15 @@ def visco_model_path(dev, label: str, stats: KernelStats) -> dict:
     state, geom = ft.make_ader_visco_state(E, seed=25, device=dev)
     dt = 1e-3
     step = op.make_step(E, dt=dt)
-    modes = {"lanes": 14, "dense": 1}
+    chains = tracing.counters["lane_chains"]
     got = _checked_step(step, state, geom, "visco", E, VISCO_STEP_LAUNCHES,
-                        modes, launches)
+                        {"lanes": 15}, launches)
+    # _checked_step runs two steps, the first holding the geometry
+    chains = tracing.counters["lane_chains"] - chains
+    log(f"[visco] two steps at E={E}: lane_chains {chains}")
+    if chains != 2:
+        raise SmokeFailure(f"two visco steps at E={E} chained {chains}"
+                           " pairs")
     block = 1 << 20
     plain = ft.AderViscoelasticOperator3D(use_pallas=False, device=dev)
     per_element = ("S", "A", "Es", "w")
@@ -4152,8 +4159,8 @@ def visco_model_path(dev, label: str, stats: KernelStats) -> dict:
                                f" plain route by {gap:.2e}")
     del got
     torch.cuda.empty_cache()
-    _timed_step(step, state, geom, "visco", E, "15 step_block_f32 (14 on"
-                " the lanes path) and 12 step_update launches", label)
+    _timed_step(step, state, geom, "visco", E, "15 step_block_f32 on the"
+                " lanes path and 12 step_update launches", label)
     del state, geom
     torch.cuda.empty_cache()
     return launches

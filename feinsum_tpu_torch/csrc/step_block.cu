@@ -171,6 +171,27 @@
 // contracted order (the X rows', then the tile's NKW), each first-result
 // entry in step k's: the block kernel's, term for term.
 //
+// A second kind of pair: step k has batch letters, which step k + 1
+// contracts after step k's X letters (SeisSol's viscoelastic flux, whose
+// schedule at 15 quantities is T0[q, f, m] = sum_n I[n, q] R[f, m, n],
+// T1[q, f, k] = sum_m T0[q, f, m] L[f, k, m], batch f, then out[k, p] =
+// sum_{q, f} T1[q, f, k] A[f, q, p]).  Unchained, T1 (1,260 floats an
+// element) and its operands need 1,800 rows of regions at a step, 230 KB a
+// 32-element sub-tile, more than a block has, and the launch ran on the
+// block kernel at 2.4 TFLOP/s.  Chained, the unit's tile carries the batch:
+// its NKW entries (the faces) each read X's rows at their own batch entry
+// (RQ x NKW loads a contracted entry, XB in lane_chain), and only I, A and
+// T0 hold regions: 1,395 rows, 196,608 bytes a block with the packed R and
+// L.  So only 32-element sub-tiles fit, one 512-thread block an SM, and
+// these instances (SB_LANE_CHAINS_BATCH) run in a kernel instance of their
+// own (CHAIN 2), so that the other chains' code stays as it was.  What
+// bounds it on an H100: a sub-tile has 35 / RM units for 16 warps, each a
+// long run of X loads (four a broadcast of the resident) and FMAs; at RQ 3,
+// RM 3 (12 units) 12 loads and 3 broadcasts a contracted entry for 36
+// FMAs.  At E = 1M the flux took 4.93 ms against 47.69 on the block kernel
+// (23.3 TFLOP/s, 35% of its bound; RQ 1 and RM 2-5, RQ 3 and RM 2:
+// 5.58-6.99 ms).
+//
 // Float32 throughout; each entry's products are summed in the contracted
 // entries' order, one fmaf per term.
 
@@ -1305,6 +1326,49 @@ __device__ void lane_step(const LanePlan& p, const LaneStep st,
   SB_LANE(3, 9, false) SB_LANE(4, 4, false) SB_LANE(4, 5, false)             \
   SB_LANE(4, 9, false) SB_LANE(5, 5, false) SB_LANE(5, 9, false)
 
+// A chained first step's tile over RQ of its X rows where the tile carries
+// the step's batch (lane_chain's XB): for each contracted entry, each tile
+// entry kw's RQ rows of X at its own batch entry (xb[kw] floats past xo)
+// and the tile's RW / 4 broadcasts of the resident, acc[r][kw RM + j] += X
+// of (r, kw) times W's j of kw (the padding's columns the last entry's)
+template <int RQ, int NKW, int RM, int RW, int TE>
+__device__ __forceinline__ void lane_chain_rows_xb(int xo, int wo,
+                                                   const int (&xb)[NKW],
+                                                   int xkt, int wk, int nk,
+                                                   float (&acc)[RQ][RW]) {
+  constexpr int RV = RW / 4;
+  for (int k = 0; k < nk; ++k) {
+    float xv[RQ][NKW];
+    float4 wv[RV];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+#pragma unroll
+      for (int kw = 0; kw < NKW; ++kw) {
+        xv[r][kw] = sb_smem[xo + xb[kw] + r * TE];
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < RV; ++v) {
+      wv[v] = reinterpret_cast<const float4*>(sb_smem + wo)[v];
+    }
+    xo += xkt;
+    wo += wk;
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+#pragma unroll
+      for (int v = 0; v < RV; ++v) {
+        const float w4[4] = {wv[v].x, wv[v].y, wv[v].z, wv[v].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * v + i;
+          const int kw = j / RM < NKW ? j / RM : NKW - 1;
+          acc[r][j] = fmaf(xv[r][kw], w4[i], acc[r][j]);
+        }
+      }
+    }
+  }
+}
+
 // A chained pair (ops/step_block.py::plan_lanes): steps s and s + 1, a the
 // first (X per element, W a resident packed per unit tile) and c the second
 // (X its per-element operand Y, W the first's result), as one step of
@@ -1321,8 +1385,11 @@ __device__ void lane_step(const LanePlan& p, const LaneStep st,
 // The sub-tile (32 G elements) is a template parameter and a's X rows and
 // c's Y rows of one contracted entry are consecutive (the host checks), so
 // that every row of a load is an immediate offset of one shared-memory
-// address (sb_smem, 32-bit).
-template <int RQ, int NKW, int RM, int NN, int G, int NT>
+// address (sb_smem, 32-bit).  XB: a has batch letters, which c contracts
+// (the tile carries them): each of the tile's NKW entries reads X's rows at
+// its own batch entry (a's batch table holds them, a.nb = NKW), RQ x NKW
+// loads a contracted entry.
+template <int RQ, int NKW, int RM, int NN, int G, int NT, bool XB>
 __device__ __forceinline__ void lane_chain(const LanePlan& p, int s,
                             const long long* __restrict__ tab,
                             float* __restrict__ out, long long e0, int n,
@@ -1331,6 +1398,13 @@ __device__ __forceinline__ void lane_chain(const LanePlan& p, int s,
   const LaneStep& a = p.step[s];
   const LaneStep& c = p.step[s + 1];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // XB: X's rows of each tile entry, floats past its first row
+  [[maybe_unused]] int xb[NKW];
+  if constexpr (XB) {
+    const int* Xb = reinterpret_cast<const int*>(sb_smem) + a.tab + a.nx;
+#pragma unroll
+    for (int kw = 0; kw < NKW; ++kw) xb[kw] = Xb[kw] * TE;
+  }
   const int* Yb = reinterpret_cast<const int*>(sb_smem) + c.tab + c.nx;
   const int* Dx = Yb + 2 * c.nb + c.nw;
   const int* Dw = Dx + c.nx;
@@ -1363,25 +1437,30 @@ __device__ __forceinline__ void lane_chain(const LanePlan& p, int s,
         for (int j = 0; j < RW; ++j) acc[r][j] = 0.f;
       }
       int xo = X + q0 * TE + col, wo = w0;
-      for (int k = 0; k < nk; ++k) {
-        float xv[RQ];
-        float4 wv[RV];
+      if constexpr (XB) {
+        lane_chain_rows_xb<RQ, NKW, RM, RW, TE>(xo, wo, xb, xkt, wk, nk,
+                                                acc);
+      } else {
+        for (int k = 0; k < nk; ++k) {
+          float xv[RQ];
+          float4 wv[RV];
 #pragma unroll
-        for (int r = 0; r < RQ; ++r) xv[r] = sb_smem[xo + r * TE];
-#pragma unroll
-        for (int v = 0; v < RV; ++v) {
-          wv[v] = reinterpret_cast<const float4*>(sb_smem + wo)[v];
-        }
-        xo += xkt;
-        wo += wk;
-#pragma unroll
-        for (int r = 0; r < RQ; ++r) {
+          for (int r = 0; r < RQ; ++r) xv[r] = sb_smem[xo + r * TE];
 #pragma unroll
           for (int v = 0; v < RV; ++v) {
-            acc[r][4 * v] = fmaf(xv[r], wv[v].x, acc[r][4 * v]);
-            acc[r][4 * v + 1] = fmaf(xv[r], wv[v].y, acc[r][4 * v + 1]);
-            acc[r][4 * v + 2] = fmaf(xv[r], wv[v].z, acc[r][4 * v + 2]);
-            acc[r][4 * v + 3] = fmaf(xv[r], wv[v].w, acc[r][4 * v + 3]);
+            wv[v] = reinterpret_cast<const float4*>(sb_smem + wo)[v];
+          }
+          xo += xkt;
+          wo += wk;
+#pragma unroll
+          for (int r = 0; r < RQ; ++r) {
+#pragma unroll
+            for (int v = 0; v < RV; ++v) {
+              acc[r][4 * v] = fmaf(xv[r], wv[v].x, acc[r][4 * v]);
+              acc[r][4 * v + 1] = fmaf(xv[r], wv[v].y, acc[r][4 * v + 1]);
+              acc[r][4 * v + 2] = fmaf(xv[r], wv[v].z, acc[r][4 * v + 2]);
+              acc[r][4 * v + 3] = fmaf(xv[r], wv[v].w, acc[r][4 * v + 3]);
+            }
           }
         }
       }
@@ -1429,35 +1508,48 @@ __device__ __forceinline__ void lane_chain(const LanePlan& p, int s,
 }
 
 // The chained pairs' instances (RQ, NKW, RM, NN), ops/kernels.py::
-// SB_LANE_CHAINS, each at the four sub-tiles
+// SB_LANE_CHAINS, each at the four sub-tiles, and those whose tile carries
+// the first step's batch, SB_LANE_CHAINS_BATCH, at 32-element sub-tiles
+// alone (the only ones whose regions fit)
 #define SB_LANE_CHAINS                                                      \
   SB_LANE_CHAIN(3, 3, 4, 9) SB_LANE_CHAIN(9, 3, 1, 9)                        \
   SB_LANE_CHAIN(9, 1, 4, 9)
+#define SB_LANE_CHAINS_BATCH SB_LANE_CHAIN_BATCH(3, 4, 3, 15)
 
 __host__ __device__ constexpr int lane_chain_key(int rq, int nkw, int rm,
                                                  int nn, int g) {
   return (((rq * 16 + nkw) * 16 + rm) * 16 + nn) * 8 + g;
 }
 
-template <int NT>
+// XB: the instances whose tile carries the first step's batch
+template <int NT, bool XB>
 __device__ __forceinline__ void run_lane_chain(const LanePlan& p, int s,
                                                const long long* tab,
                                                float* out, long long e0,
                                                int n, int parity) {
   const LaneStep& a = p.step[s];
   const LaneStep& c = p.step[s + 1];
-  switch (lane_chain_key(a.rx, c.nk / a.nx, c.rw, c.nx, p.te / 32)) {
 #define SB_LANE_CHAIN_G(RQ, NKW, RM, NN, G)                                 \
   case lane_chain_key(RQ, NKW, RM, NN, G):                                  \
-    lane_chain<RQ, NKW, RM, NN, G, NT>(p, s, tab, out, e0, n, parity);      \
+    lane_chain<RQ, NKW, RM, NN, G, NT, XB>(p, s, tab, out, e0, n, parity);  \
     break;
 #define SB_LANE_CHAIN(RQ, NKW, RM, NN)                                      \
   SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 1) SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 2)    \
   SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 3) SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 4)
-    SB_LANE_CHAINS
+#define SB_LANE_CHAIN_BATCH(RQ, NKW, RM, NN)                                \
+  SB_LANE_CHAIN_G(RQ, NKW, RM, NN, 1)
+  if constexpr (XB) {
+    switch (lane_chain_key(a.rx, c.nk / a.nx, c.rw, c.nx, p.te / 32)) {
+      SB_LANE_CHAINS_BATCH
+    }
+  } else {
+    switch (lane_chain_key(a.rx, c.nk / a.nx, c.rw, c.nx, p.te / 32)) {
+      SB_LANE_CHAINS
+    }
+  }
+#undef SB_LANE_CHAIN_BATCH
 #undef SB_LANE_CHAIN
 #undef SB_LANE_CHAIN_G
-  }
 }
 
 // one unchained step: its tile's instance
@@ -1487,12 +1579,15 @@ __device__ __noinline__ void run_lane_step(const LanePlan& p, int s,
 }
 
 // NT threads a block: 256 where two blocks fit an SM, 512 where one does
-// (the planner's choice), 128 registers a thread either way; CHAIN: a plan
-// with chained pairs, each run at its first step, its steps and pairs
+// (the planner's choice), 128 registers a thread either way; CHAIN: 1 a
+// plan with chained pairs, each run at its first step, its steps and pairs
 // inlined into the kernel (a call out of it would take registers from the
-// callee, and the chained units need all of them); a plan without chains
-// calls run_lane_step for each step
-template <int NT, bool CHAIN>
+// callee, and the chained units need all of them), 2 the same with pairs
+// whose tile carries the first step's batch (SB_LANE_CHAINS_BATCH, an
+// instance of its own at 512 threads, so that the others' code stays as
+// it was); 0 a plan without chains, which calls run_lane_step for each
+// step
+template <int NT, int CHAIN>
 __global__ void __launch_bounds__(NT, 512 / NT)
 step_block_lanes(const __grid_constant__ LanePlan p,
                  const __grid_constant__ LaneMaps maps,
@@ -1554,10 +1649,10 @@ step_block_lanes(const __grid_constant__ LanePlan p,
       phase ^= 1u << j;
     }
     for (int s = 0; s < p.nsteps; ++s) {
-      if constexpr (CHAIN) {
+      if constexpr (CHAIN != 0) {
         // a chained pair runs at its first step; its refills at both
         if (p.step[s].chain == 1) {
-          run_lane_chain<NT>(p, s, tab, out, e0, n, parity);
+          run_lane_chain<NT, CHAIN == 2>(p, s, tab, out, e0, n, parity);
         } else if (p.step[s].chain == 0) {
           lane_step_any<NT>(p, s, tab, smem, out, e0, n, parity);
         }
@@ -1578,7 +1673,7 @@ step_block_lanes(const __grid_constant__ LanePlan p,
   }
 }
 
-template <int NT, bool CHAIN>
+template <int NT, int CHAIN>
 cudaError_t launch_lanes(const LanePlan& p, const LaneMaps& maps,
                          const void* tables, long long nblocks, int nrows,
                          size_t smem, void* stream) {
@@ -1655,12 +1750,14 @@ bool lane_tile_built(int rx, int rw, bool res) {
   return built;
 }
 
-// whether steps a and c (its next) are a chained pair the kernel runs: an
-// instance of SB_LANE_CHAINS, a's X rows whole chunks of RQ, a resident W of
-// one tile a unit (c's batch entries times its tiles of RM free entries),
-// c's X per element over all its NN free entries, and a writing nothing
-bool lane_chain_ok(const LaneStep& a, const LaneStep& c) {
-  if (a.chain != 1 || c.chain != 2 || !a.wres || c.wres || a.nb != 1 ||
+// whether steps a and c (its next) are a chained pair the kernel runs at
+// sub-tiles of te elements: an instance of SB_LANE_CHAINS (a without batch
+// entries) or, at te 32, of SB_LANE_CHAINS_BATCH (a's batch entries the
+// tile's NKW), a's X rows whole chunks of RQ, a resident W of one tile a
+// unit (c's batch entries times its tiles of RM free entries), c's X per
+// element over all its NN free entries, and a writing nothing
+bool lane_chain_ok(const LaneStep& a, const LaneStep& c, int te) {
+  if (a.chain != 1 || c.chain != 2 || !a.wres || c.wres || a.nb < 1 ||
       a.dst >= 0 || a.nx < 1 || c.nk % a.nx || a.tx * a.rx != a.nx ||
       c.tx != 1 || c.rx != c.nx || a.tw != c.nb * c.tw) {
     return false;
@@ -1668,9 +1765,14 @@ bool lane_chain_ok(const LaneStep& a, const LaneStep& c) {
   const int nkw = c.nk / a.nx;
   bool built = false;
 #define SB_LANE_CHAIN(RQ, NKW, RM, NN)                                      \
-  built |= a.rx == RQ && nkw == NKW && c.rw == RM && c.nx == NN &&           \
+  built |= a.nb == 1 && a.rx == RQ && nkw == NKW && c.rw == RM &&            \
+           c.nx == NN && a.rw == (NKW * RM + 3) / 4 * 4;
+#define SB_LANE_CHAIN_BATCH(RQ, NKW, RM, NN)                                \
+  built |= a.nb > 1 && a.nb == nkw && te == 32 && a.rx == RQ &&              \
+           nkw == NKW && c.rw == RM && c.nx == NN &&                         \
            a.rw == (NKW * RM + 3) / 4 * 4;
-  SB_LANE_CHAINS
+  SB_LANE_CHAINS SB_LANE_CHAINS_BATCH
+#undef SB_LANE_CHAIN_BATCH
 #undef SB_LANE_CHAIN
   return built;
 }
@@ -1979,7 +2081,7 @@ int step_block_lanes_f32(int nrows, int ninputs, void* const* ptrs,
     const int ints = 2 * st.nx + st.nw + 3 * st.nb + (st.wres ? 0 : st.nw);
     if (st.nx < 1 || st.nw < 1 || st.nb < 1 || st.nk < 1 ||
         st.chain < 0 || st.chain > 2 ||
-        (st.chain == 2 ? s == 0 || !lane_chain_ok(p.step[s - 1], st)
+        (st.chain == 2 ? s == 0 || !lane_chain_ok(p.step[s - 1], st, p.te)
                        : st.chain == 0 &&
                              !lane_tile_built(st.rx, st.rw, st.wres)) ||
         st.tx * st.rx < st.nx ||
@@ -1989,7 +2091,8 @@ int step_block_lanes_f32(int nrows, int ninputs, void* const* ptrs,
         (last && (st.dg < 0 || st.dg + st.nx + st.nw + st.nb > row_len)) ||
         (st.wres ? (st.wsrc < 0 || st.wsrc >= ninputs || st.poff % 4 ||
                     st.wk % 4 || st.poff < p.n_ints ||
-                    st.pn != st.nb * st.nk * st.tw * st.rw ||
+                    st.pn != (st.chain == 1 ? 1 : st.nb) * st.nk * st.tw *
+                                 st.rw ||
                     st.poff + st.pn > smem_floats || st.psrc < 0 ||
                     st.psrc + st.pn > row_len)
                  : st.chain != 2 && (st.wsrc < 0 || st.wsrc >= p.nregs))) {
@@ -2026,19 +2129,29 @@ int step_block_lanes_f32(int nrows, int ninputs, void* const* ptrs,
   const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats);
   const long long nblocks = (E + block_elems - 1) / block_elems;
   if (nblocks > 0x7fffffffLL) return bad;
-  bool chained = false;
-  for (int s = 0; s < p.nsteps; ++s) chained |= p.step[s].chain != 0;
+  // the kind of chained pairs: 0 none, 1 SB_LANE_CHAINS, 2
+  // SB_LANE_CHAINS_BATCH (every pair of one kind; 2 at 512 threads alone)
+  int chained = 0;
+  for (int s = 0; s < p.nsteps; ++s) {
+    if (p.step[s].chain != 1) continue;
+    const int kind = p.step[s].nb > 1 ? 2 : 1;
+    if (chained != 0 && chained != kind) return bad;
+    chained = kind;
+  }
+  if (chained == 2 && p.threads != 512) return bad;
   cudaError_t err;
-  if (p.threads == 512) {
-    err = chained ? launch_lanes<512, true>(p, maps, tables, nblocks, nrows,
-                                            smem, stream)
-                  : launch_lanes<512, false>(p, maps, tables, nblocks, nrows,
-                                             smem, stream);
+  if (chained == 2) {
+    err = launch_lanes<512, 2>(p, maps, tables, nblocks, nrows, smem, stream);
+  } else if (p.threads == 512) {
+    err = chained ? launch_lanes<512, 1>(p, maps, tables, nblocks, nrows,
+                                         smem, stream)
+                  : launch_lanes<512, 0>(p, maps, tables, nblocks, nrows,
+                                         smem, stream);
   } else {
-    err = chained ? launch_lanes<256, true>(p, maps, tables, nblocks, nrows,
-                                            smem, stream)
-                  : launch_lanes<256, false>(p, maps, tables, nblocks, nrows,
-                                             smem, stream);
+    err = chained ? launch_lanes<256, 1>(p, maps, tables, nblocks, nrows,
+                                         smem, stream)
+                  : launch_lanes<256, 0>(p, maps, tables, nblocks, nrows,
+                                         smem, stream);
   }
   return static_cast<int>(err);
 }

@@ -223,6 +223,10 @@ SB_LANE_TILES_ELEM = ((1, 1), (1, 4), (1, 9), (2, 4), (2, 5), (2, 9),
 # the second step's contracted entries on W's side, RM of its free entries
 # on the first result's side and NN on its per-element operand's
 SB_LANE_CHAINS = ((3, 3, 4, 9), (9, 3, 1, 9), (9, 1, 4, 9))
+# the chained pairs whose first step has batch letters that the second
+# contracts, the tile's NKW entries each with X's rows at its own batch
+# entry (the SB_LANE_CHAIN_BATCH cases, 32-element sub-tiles alone)
+SB_LANE_CHAINS_BATCH = ((3, 4, 3, 15),)
 # the threads of a lanes-path block (its kernel's instances); the streamed
 # regions of a table, the letters of one and the entries of a letter (each
 # region a TMA tensor map: kLaneMaxMaps, kLaneMaxLetters, kLaneMaxBox); its
@@ -2062,7 +2066,10 @@ def step_block_lanes_tables(table, in_strides: tuple, out_strides: tuple,
     times the RM entries (-1 past the last of them); its second step's X
     is its per-element operand, and its W, the first step's result, has no
     region (zeros in its tables).  Both steps' X rows over their free
-    entries are consecutive (the kernel reads them at one offset)."""
+    entries are consecutive (the kernel reads them at one offset).  Where
+    the first step's tile carries its batch (``xb``), its batch table
+    holds X's row offset of each of the tile's entries, and ``meta``'s
+    batch entries are the tile's."""
     from .step_block import (_lane_table_ints, lane_chain_groups,
                              lane_region_base)
     if plan is None:
@@ -2109,12 +2116,15 @@ def step_block_lanes_tables(table, in_strides: tuple, out_strides: tuple,
     for k, (st, ls) in enumerate(zip(table.steps, plan.steps)):
         xsrc, wsrc = st.operands[ls.x], st.operands[1 - ls.x]
         xnames, wnames = st.letters[ls.x], st.letters[1 - ls.x]
-        nx, nw, nb, nk = (count(g) for g in (ls.xl, ls.wl, ls.bl, ls.kl))
+        # a chained first step whose tile carries the batch: X's rows of
+        # each tile entry in place of the batch's
+        nx, nw, nb, nk = (count(g) for g in (ls.xl, ls.wl, ls.xb or ls.bl,
+                                             ls.kl))
         rx, rw = ls.tile
         tx, tw = -(-nx // rx), -(-nw // rw)
         xs = region_strides(xsrc, xnames)
         Xx = _sb_offsets(ls.xl, length, xs)
-        Xb = _sb_offsets(ls.bl, length, xs)
+        Xb = _sb_offsets(ls.xb or ls.bl, length, xs)
         xk = xs[ls.kl[-1]] if ls.kl else 0
         packed = [-1, 0, 0]
         if ls.chain and not np.array_equal(Xx, np.arange(nx)):
@@ -2177,8 +2187,7 @@ def step_block_lanes_tables(table, in_strides: tuple, out_strides: tuple,
                           for g_ in (ls.xl, ls.wl, ls.bl))
             dst = -1
         elif ls.chain == 1:
-            Dx, Dw, Db = (np.zeros(count(g_), np.int64)
-                          for g_ in (ls.xl, ls.wl, ls.bl))
+            Dx, Dw, Db = (np.zeros(n_, np.int64) for n_ in (nx, nw, nb))
             dg = dst = -1
         else:
             ds = region_strides(("tmp", k), st.out)

@@ -85,6 +85,7 @@ from ..diagnostics import InvalidParameterError
 from .kernels import (
     MAX_SMEM_BYTES,
     SB_LANE_CHAINS,
+    SB_LANE_CHAINS_BATCH,
     SB_LANE_MAX_BOX,
     SB_LANE_MAX_LETTERS,
     SB_LANE_MAX_MAPS,
@@ -647,7 +648,11 @@ class LaneStep:
     RQ of X's rows at a time, and a W tile of RW floats (the second step's
     contracted entries on W's side times RM, padded to a multiple of 4),
     ``wt`` such tiles; the second's is (NN, RM), X its per-element operand
-    over all NN of its free entries and W the first step's result."""
+    over all NN of its free entries and W the first step's result.  Where
+    the first step has batch letters, which the second contracts, the
+    tile carries them: ``xb`` names the tile's contracted letters (the
+    second step's on W's side, NKW entries), each entry with X's rows at
+    its own batch entry, and ``bl`` is empty."""
 
     x: int
     wres: bool
@@ -658,6 +663,7 @@ class LaneStep:
     tile: tuple
     chain: int = 0
     wt: int = 0
+    xb: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -741,7 +747,8 @@ def lane_step_cost(table, ls: LaneStep, G: int, blocks: int,
 def lane_chain_cost(table, first: LaneStep, second: LaneStep, G: int,
                     blocks: int, threads: int = SB_THREADS) -> float:
     """:func:`lane_step_cost` of a chained pair: each unit runs the first
-    step's tile of RQ x RW (RW / 4 broadcasts) once for every RQ of X's
+    step's tile of RQ x RW (RQ loads of X, RQ x NKW where the tile
+    carries the batch, and RW / 4 broadcasts) once for every RQ of X's
     rows, then takes each of the second step's contracted entries from
     its registers: NN loads of the per-element operand for NN·RM FMAs.
     A unit runs hundreds of contracted entries: a round takes the
@@ -753,9 +760,10 @@ def lane_chain_cost(table, first: LaneStep, second: LaneStep, G: int,
     nq, nl, nk = (_count(g, length) for g in (first.xl, first.kl,
                                               second.kl))
     chunks = nq // rq
-    instr = chunks * (nl * (rq * rw + rq + rw // 4 + 2) + rq * rw + 12) \
+    rx = rq * _count(first.xb, length)
+    instr = chunks * (nl * (rq * rw + rx + rw // 4 + 2) + rq * rw + 12) \
         + nk * (nn * rm + nn + 2) + 3 * nn * rm + 12
-    waves = chunks * nl * (rq + rw // 4) + nk * nn + nn * rm
+    waves = chunks * nl * (rx + rw // 4) + nk * nn + nn * rm
     warps = threads // 32
     units, t = first.wt * G, 0
     while units > 0:
@@ -769,11 +777,11 @@ def lane_chain_groups(table, k: int) -> Optional[tuple]:
     """``(rest, batch, free)``, in step *k*'s letters, of the pair of
     steps *k* and *k* + 1 of a lanes table (:func:`_lanes_regions`: each
     result read by one step) where it may chain: step *k* a resident x
-    per-element step without batch letters, its result read by step *k* +
-    1, a per-element x per-element step whose contracted letters
-    begin with all of step *k*'s X letters, in their order (``rest``: the
-    others, of W's side), its batch and result-side free letters among
-    W's; ``None`` for any other pair."""
+    per-element step, its result read by step *k* + 1, a per-element x
+    per-element step whose contracted letters begin with all of step
+    *k*'s X letters, in their order (``rest``: the others, W's or step
+    *k*'s batch letters, every one of which it contracts), its batch and
+    result-side free letters among W's; ``None`` for any other pair."""
     if k + 1 >= len(table.steps) \
             or ("tmp", k) not in table.steps[k + 1].operands:
         return None
@@ -788,12 +796,13 @@ def lane_chain_groups(table, k: int) -> Optional[tuple]:
     ren = dict(zip(s1.letters[q], s0.out))
     M1, N1, K1, B1 = s1.split
     k1 = tuple(ren[ix] for ix in K1)
-    if B0 or k1[:len(xl0)] != tuple(xl0):
+    if k1[:len(xl0)] != tuple(xl0):
         return None
     free = tuple(ren[ix] for ix in (M1 if q == 0 else N1))
     batch = tuple(ren[ix] for ix in B1)
     rest = k1[len(xl0):]
-    if not set(rest) | set(batch) | set(free) <= set(wl0):
+    if not set(B0) <= set(rest) <= set(wl0) | set(B0) \
+            or not set(batch) | set(free) <= set(wl0):
         return None
     return rest, batch, free
 
@@ -803,7 +812,8 @@ def _lane_chains(table, k: int) -> list:
     (:func:`lane_chain_groups`), one for each instance of
     ``SB_LANE_CHAINS`` (RQ, the second step's contracted entries on W's
     side, RM, the second step's free entries on X's side) the pair's
-    shapes fit."""
+    shapes fit, or of ``SB_LANE_CHAINS_BATCH`` where step *k* has batch
+    letters (its tile carries them, ``xb``)."""
     groups = lane_chain_groups(table, k)
     if groups is None:
         return []
@@ -811,20 +821,21 @@ def _lane_chains(table, k: int) -> list:
     rest, _batch, _free = groups
     s0, s1 = table.steps[k], table.steps[k + 1]
     x0 = 0 if _lanes_per_element(table, s0.operands[0]) else 1
-    M0, N0, K0, _B0 = s0.split
+    M0, N0, K0, B0 = s0.split
     xl0, wl0 = (M0, N0) if x0 == 0 else (N0, M0)
     q = s1.operands.index(("tmp", k))
     M1, N1, K1, B1 = s1.split
     tf, yf = (M1, N1) if q == 0 else (N1, M1)
     nq, nkw, nn = _count(xl0, length), _count(rest, length), _count(yf, length)
     out = []
-    for rq, ckw, rm, cnn in SB_LANE_CHAINS:
+    for rq, ckw, rm, cnn in SB_LANE_CHAINS_BATCH if B0 else SB_LANE_CHAINS:
         if (ckw, cnn) != (nkw, nn) or nq % rq:
             continue
         tiles = _count(B1, length) * -(-_count(tf, length) // rm)
         out.append((
             LaneStep(x=x0, wres=True, xl=xl0, wl=wl0, bl=(), kl=K0,
-                     tile=(rq, -(-nkw * rm // 4) * 4), chain=1, wt=tiles),
+                     tile=(rq, -(-nkw * rm // 4) * 4), chain=1, wt=tiles,
+                     xb=rest if B0 else ()),
             LaneStep(x=1 - q, wres=False, xl=yf, wl=tf, bl=B1, kl=K1,
                      tile=(nn, rm), chain=2)))
     return out
@@ -882,9 +893,11 @@ def plan_lanes(table, *, _chain: bool = True) -> Optional[LanesPlan]:
     (results may then lie over an input whose reader is done), each step's
     roles and tile of ``SB_LANE_TILES`` / ``SB_LANE_TILES_ELEM``, and each
     pair of steps that may chain (:func:`lane_chain_groups`) chained, in a
-    tile of ``SB_LANE_CHAINS``, or not, it takes the least modelled time an
-    element (:func:`lanes_candidates`).  A chained pair's first result has
-    no region.  ``_chain=False`` plans without chains."""
+    tile of ``SB_LANE_CHAINS`` (``SB_LANE_CHAINS_BATCH`` where the tile
+    carries the first step's batch: 32-element sub-tiles and 512 threads
+    alone), or not, it takes the least modelled time an element
+    (:func:`lanes_candidates`).  A chained pair's first result has no
+    region.  ``_chain=False`` plans without chains."""
     best = min(lanes_candidates(table, _chain), key=lambda c: c[0],
                default=None)
     return None if best is None else best[1]
@@ -979,8 +992,16 @@ def lanes_candidates(table, chain: bool = True):
                    for double in (True, False)}
         small = [min(o, key=lambda c: (packed(c), c[0].tile[1]))
                  for o in groups]
-        for double, G, threads in product((True, False), range(1, 5),
-                                          SB_LANE_THREADS):
+        # pairs whose tile carries the batch (SB_LANE_CHAINS_BATCH) are
+        # built at 32-element sub-tiles and 512 threads alone, in a kernel
+        # of their own: no other kind of pair beside them
+        kinds = {bool(c[0].xb) for c in pairs.values()}
+        if len(kinds) > 1:
+            continue
+        sub_tiles, block_threads = ((1,), SB_LANE_THREADS[-1:]) \
+            if any(kinds) else (range(1, 5), SB_LANE_THREADS)
+        for double, G, threads in product((True, False), sub_tiles,
+                                          block_threads):
             held, total, at, refill = layouts[double]
             te = 32 * G
 
@@ -1039,10 +1060,12 @@ def _lane_packed(table, ls: LaneStep) -> int:
 
 def _lane_table_ints(table, ls: LaneStep) -> int:
     """Ints of a step's tables in shared memory: X's rows over its free
-    entries and the batch, W's (rows per element; a resident's over the
+    entries and the batch (a chained first step's tile entries, where its
+    tile carries the batch), W's (rows per element; a resident's over the
     batch alone), the result's over X's, W's and the batch entries."""
     length = table.length
-    nx, nw, nb = (_count(g, length) for g in (ls.xl, ls.wl, ls.bl))
+    nx, nw, nb = (_count(g, length) for g in (ls.xl, ls.wl,
+                                             ls.xb or ls.bl))
     return 2 * nx + nw + 3 * nb + (0 if ls.wres else nw)
 
 # }}}

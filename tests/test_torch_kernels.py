@@ -2246,7 +2246,7 @@ def _off16(arrays: dict) -> dict:
     "ader_derivative_0", "ader_derivative_1", "ader_derivative_2",
     "ader_derivative_3", "ader_volume", "ader_flux", "hex_grad_axes",
     "hex_div_1", "hex_div_2", "hex_div_3", "visco_derivative_0",
-    "visco_source_0", "visco_relax_0", "visco_volume"])
+    "visco_source_0", "visco_relax_0", "visco_volume", "visco_flux"])
 def test_step_block_lanes_path_is_the_dense_path_bit_for_bit(cuda_device,
                                                              name, E):
     """Each model executable on the lanes path (operands on 16 bytes)
@@ -2855,10 +2855,10 @@ def test_ader_model_step_matches_the_plain_route(cuda_device, E):
 @pytest.mark.parametrize("E", [4099, 4100])
 def test_visco_model_step_matches_the_plain_route(cuda_device, E):
     """A float32 step of the viscoelastic ADER element with its default
-    plan (15 ``step_block_f32`` launches: the flux on the block kernel,
-    the four derivatives, five sources, four relaxations and the volume
-    term on the lanes path where E is a multiple of 4, else on the block
-    kernel too; and 12 ``step_update`` passes; nothing else) against the
+    plan (15 ``step_block_f32`` launches: the four derivatives, five
+    sources, four relaxations, the volume and the flux term on the lanes
+    path where E is a multiple of 4, else on the block kernel; and 12
+    ``step_update`` passes; nothing else) against the
     same model on the plain per-step route, increment against increment,
     for Q and Qane."""
     from feinsum_tpu_torch import tracing
@@ -2869,7 +2869,7 @@ def test_visco_model_step_matches_the_plain_route(cuda_device, E):
     torch.cuda.synchronize()
     assert {k: n - launches[k] for k, n in kernels.launch_counts.items()
             if n != launches[k]} == {"step_block_f32": 15, "step_update": 12}
-    lanes = 0 if E % 4 else 14
+    lanes = 0 if E % 4 else 15
     assert {k: n - modes[k] for k, n
             in tracing.counters["step_block_mode"].items()} \
         == {"dense": 15 - lanes, "general": 0, "stream": 0, "lanes": lanes}

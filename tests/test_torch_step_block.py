@@ -985,6 +985,9 @@ def test_stream_tables_match_the_einsum(name):
 
 # the models' tables and the path each takes at the cells' sizes, on
 # contiguous operands on 16 bytes
+VISCO_EXECS = tuple(f"{kind}_{d}" for kind, n in (
+    ("derivative", 4), ("source", 5), ("relax", 4)) for d in range(n)) + (
+    "volume", "flux")
 MODEL_PATHS = {
     **{f"ader_{name}": "lanes" for name in (
         "derivative_0", "derivative_1", "derivative_2", "derivative_3",
@@ -992,22 +995,31 @@ MODEL_PATHS = {
     "hex_grad_axes": "lanes", "hex_div_1": "lanes", "hex_div_2": "lanes",
     "hex_div_3": "lanes", "hex_grad_metric": "stream",
     "hex_div_metric": "stream",
+    **{f"visco_{name}": "lanes" for name in VISCO_EXECS},
 }
+
+
+def _model_op(name):
+    """The model of a ``<model>_<executable>`` case name, the executable's
+    name, and its cell's long length (the metric products over 125 E
+    nodes)."""
+    model, exe = name.split("_", 1)
+    op, n = {"ader": (ft.AderElasticOperator3D, 4_000_000),
+             "hex": (ft.HexWaveOperator3D, 2_000_000),
+             "visco": (ft.AderViscoelasticOperator3D, 1_000_000)}[model]
+    return op(device="cpu"), exe, 125 * n if "metric" in exe else n
 
 
 @pytest.mark.parametrize("name", sorted(MODEL_PATHS))
 def test_model_tables_take_their_paths(name):
     """``step_block_path`` on each model's own tables at its cell's size
     (E = 4M for ADER, 2M for the hexahedral model, the metric products
-    over its 125 E nodes), on contiguous tensors without storage (the
-    meta device): every ADER table and the four hexahedral tables off the
-    stream path take the lanes path, the two metric products stay on the
-    stream path."""
-    model, exe = name.split("_", 1)
-    op = (ft.AderElasticOperator3D(device="cpu") if model == "ader"
-          else ft.HexWaveOperator3D(device="cpu"))
-    n = 4_000_000 if model == "ader" else (
-        125 * 2_000_000 if "metric" in exe else 2_000_000)
+    over its 125 E nodes, 1M for viscoelastic ADER), on contiguous tensors
+    without storage (the meta device): every ADER table, the viscoelastic
+    flux's among them, and the four hexahedral tables off the stream path
+    take the lanes path, the two metric products stay on the stream
+    path."""
+    op, exe, n = _model_op(name)
     program, table = _model_table(op, exe, n)
     ins = [torch.empty(tuple(n if ix == table.el else table.length[ix]
                              for ix in letters), device="meta")
@@ -1178,13 +1190,18 @@ def _emulate_chain(smem, a, c, ints, tabs, out, base_of, regs, e0, n,
     """A chained pair of :func:`emulate_lanes` as ``lane_chain`` runs it:
     per unit (a batch entry of the second step *c*, RM of its free entries
     on the first result's side) the first step *a*'s result over the
-    unit's packed tile for each of *a*'s X rows, each of its entries
-    then one of *c*'s contracted entries against *c*'s per-element rows;
-    only *c*'s result written."""
+    unit's packed tile for each of *a*'s X rows (where the tile carries
+    *a*'s batch, each tile entry's X rows at its own batch entry), each
+    of its entries then one of *c*'s contracted entries against *c*'s
+    per-element rows; only *c*'s result written."""
     rq, rw = a[7], a[8]
     nn, rm = c[7], c[8]
     nkw = c[6] // a[3]
     ax = ints[a[13]:a[13] + a[3]]
+    # X's rows of each tile column: its tile entry's batch entry
+    xb = (ints[a[13] + a[3]:a[13] + a[3] + a[5]][
+        np.minimum(np.arange(rw) // rm, nkw - 1)] if a[5] > 1
+        else np.zeros(rw, np.int64))
     yb = ints[c[13] + c[3]:c[13] + c[3] + c[5]]
     d0 = c[13] + c[3] + 2 * c[5] + c[4]
     Dx, Dw, Db = (ints[d0:d0 + c[3]], ints[d0 + c[3]:d0 + c[3] + c[4]],
@@ -1197,9 +1214,10 @@ def _emulate_chain(smem, a, c, ints, tabs, out, base_of, regs, e0, n,
             for q in range(a[3]):
                 acc = np.zeros((rw, len(lanes)))
                 for kk in range(a[6]):
-                    xr = smem[X + (ax[q] + kk * a[11]) * len(lanes) + lanes]
-                    acc += xr[None, :] * smem[wp + kk * a[12]
-                                              + np.arange(rw)][:, None]
+                    xr = smem[X + (ax[q] + xb[:, None] + kk * a[11])
+                              * len(lanes) + lanes[None, :]]
+                    acc += xr * smem[wp + kk * a[12]
+                                     + np.arange(rw)][:, None]
                 for kw in range(nkw):
                     yr = yb[b] + (q * nkw + kw) * c[11]
                     for i in range(nn):
@@ -1244,16 +1262,17 @@ ADER_EXECS = ("derivative_0", "derivative_1", "derivative_2",
 
 
 @pytest.mark.parametrize("name", ADER_EXECS + (
-    "hex_grad_axes", "hex_div_1", "hex_div_2", "hex_div_3"))
+    "hex_grad_axes", "hex_div_1", "hex_div_2", "hex_div_3", "visco_flux"))
 def test_lanes_tables_match_the_einsum(name):
     """The lanes path's tables (:func:`emulate_lanes`) against the einsum
     in float64 on the models' own programs, at a length that leaves a
     block's last sub-tile part full (blocks of 64 elements, a multiple of
-    4 elements that no sub-tile divides)."""
-    op = (ft.HexWaveOperator3D(device="cpu") if name.startswith("hex_")
-          else ft.AderElasticOperator3D(device="cpu"))
+    4 elements that no sub-tile divides); the viscoelastic flux chains a
+    pair whose tile carries the first step's batch."""
+    op, exe, _n = _model_op(name if name.startswith(("hex_", "visco_"))
+                            else f"ader_{name}")
     n = 140
-    program, table = _model_table(op, name.removeprefix("hex_"), n)
+    program, table = _model_table(op, exe, n)
     ins = _model_inputs(program, table, n)
     view = _out_view(table, n)
     assert kernels.step_block_path(
@@ -1276,25 +1295,27 @@ MODEL_CHAINS = {
     "ader_flux": ({0: ((), ("f",), ("m",))}, (0,)),
     **{f"hex_{name}": ({}, ()) for name in ("grad_axes", "div_1", "div_2",
                                             "div_3")},
+    **{f"visco_derivative_{d}": ({0: (("x",), (), ("k",))}, ())
+       for d in range(4)},
+    "visco_volume": ({0: (("x",), (), ("k",))}, ()),
+    "visco_flux": ({1: (("f",), (), ("k",))}, (1,)),
 }
-
-
-def _model_op(name):
-    model, exe = name.split("_", 1)
-    return (ft.AderElasticOperator3D(device="cpu") if model == "ader"
-            else ft.HexWaveOperator3D(device="cpu")), exe
 
 
 @pytest.mark.parametrize("name", sorted(MODEL_CHAINS))
 def test_model_tables_chain_their_pairs(name):
     """Which pairs of each model table may chain, and which its plan
-    chains: every derivative's and the flux's first two steps (a reference
-    matrix times the element's entries, then a per-element product over
-    the first result's entries), not the volume term (its per-element
-    product comes first) and no hexahedral table (every step a resident
-    times the element's entries)."""
-    op, exe = _model_op(name)
-    _program, table = _model_table(op, exe, 4_000_000)
+    chains: every elastic derivative's and the elastic flux's first two
+    steps (a reference matrix times the element's entries, then a
+    per-element product over the first result's entries), not the elastic
+    volume term (its per-element product comes first) and no hexahedral
+    table (every step a resident times the element's entries); the
+    viscoelastic derivatives and volume term may chain but have no
+    instance of their widths (NN = 15, NKW = 3), and the viscoelastic
+    flux chains its last two steps, the first's batch letter (the face)
+    contracted by the second."""
+    op, exe, n = _model_op(name)
+    _program, table = _model_table(op, exe, n)
     groups, chained = MODEL_CHAINS[name]
     assert {k: step_block.lane_chain_groups(table, k)
             for k in range(len(table.steps))
@@ -1304,7 +1325,12 @@ def test_model_tables_chain_their_pairs(name):
     assert [ls.chain for ls in plan.steps] == [
         1 if k in chained else 2 if k - 1 in chained else 0
         for k in range(len(table.steps))]
-    assert step_block.plan_lanes(table, _chain=False).chains == ()
+    flat = step_block.plan_lanes(table, _chain=False)
+    if name == "visco_flux":
+        # unchained, its regions exceed a block's shared memory
+        assert flat is None
+    else:
+        assert flat.chains == ()
 
 
 # the plans of the tables that chain nothing, as before chains: (te, two
@@ -1326,8 +1352,7 @@ def test_tables_without_chains_plan_as_before(name):
     """The volume term and the four hexahedral lanes tables plan as they
     did before chained pairs: the same sub-tile, buffers, threads, shared
     memory and steps' roles and tiles, with or without chains weighed."""
-    op, exe = _model_op(name)
-    n = 4_000_000 if name.startswith("ader") else 2_000_000
+    op, exe, n = _model_op(name)
     _program, table = _model_table(op, exe, n)
     for plan in (kernels._sb_lanes_plan(table),
                  step_block.plan_lanes(table, _chain=False)):
@@ -1338,11 +1363,13 @@ def test_tables_without_chains_plan_as_before(name):
 
 def _chain_cases() -> list:
     """``(table name, chained tiles)`` of each chained tile of
-    ``SB_LANE_CHAINS`` that an ADER table's chained pair takes."""
-    op = ft.AderElasticOperator3D(device="cpu")
+    ``SB_LANE_CHAINS`` and ``SB_LANE_CHAINS_BATCH`` that an ADER table's
+    chained pair takes (the viscoelastic flux's the latter)."""
     cases = []
-    for name in ADER_EXECS:
-        _program, table = _model_table(op, name, 140)
+    for name in ADER_EXECS + ("visco_flux",):
+        op, exe, _n = _model_op(name if name.startswith("visco_")
+                                else f"ader_{name}")
+        _program, table = _model_table(op, exe, 140)
         tiles = {tuple(ls.tile for ls in plan.steps if ls.chain)
                  for _key, plan in step_block.lanes_candidates(table)}
         cases += [(name, t) for t in sorted(tiles) if t]
@@ -1355,9 +1382,10 @@ def test_lanes_chains_match_the_einsum(name, tiles):
     modelled best plan with that tile (:func:`emulate_lanes`), against the
     einsum in float64, at 140 elements: a multiple of 4 that no sub-tile
     divides, so that a block's last sub-tile is part full."""
-    op = ft.AderElasticOperator3D(device="cpu")
+    op, exe, _n = _model_op(name if name.startswith("visco_")
+                            else f"ader_{name}")
     n = 140
-    program, table = _model_table(op, name, n)
+    program, table = _model_table(op, exe, n)
     _key, plan = min((c for c in step_block.lanes_candidates(table)
                       if tuple(ls.tile for ls in c[1].steps if ls.chain)
                       == tiles), key=lambda c: c[0])

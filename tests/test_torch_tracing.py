@@ -501,24 +501,28 @@ def test_step_block_mode_counts_the_ader_step_on_the_lanes_path(
         assert kernels.launch_counts["step_update"] == 6
 
 
-@pytest.mark.parametrize("model", ["ader", "hex"])
+@pytest.mark.parametrize("model", ["ader", "hex", "visco"])
 def test_lane_chains_count_the_chained_pairs_of_a_step(monkeypatch, model):
     """``lane_chains`` grows at each lanes launch by the pairs its plan
     chains: 5 an ADER step (the four derivatives' and the flux's first two
-    steps), 0 a hexahedral step (no pair of its lanes tables chains)."""
+    steps), 0 a hexahedral step (no pair of its lanes tables chains), 1 a
+    viscoelastic ADER step (the flux's last two steps)."""
     _stand_in(monkeypatch)
     monkeypatch.setitem(tracing.counters, "lane_chains", 0)
     if model == "ader":
         op = ft.AderElasticOperator3D(device="cpu")
         state, geom = ft.make_ader_state(E, seed=3, device="cpu")
+    elif model == "visco":
+        op = ft.AderViscoelasticOperator3D(device="cpu")
+        state, geom = ft.make_ader_visco_state(E, seed=3, device="cpu")
     else:
         op = ft.HexWaveOperator3D()
         state, geom = ft.make_hexwave_state(E, seed=2, device="cpu")
     step = op.make_step(E)
     for steps in (1, 2):
         step(state, geom)
-        assert tracing.counters["lane_chains"] == steps * (
-            5 if model == "ader" else 0)
+        assert tracing.counters["lane_chains"] == steps * {
+            "ader": 5, "hex": 0, "visco": 1}[model]
 
 # }}}
 
@@ -740,8 +744,7 @@ def test_the_ader_cell_feeds_the_accepted_generic_readers():
 ADER_EXECS = ("derivative_0", "derivative_1", "derivative_2", "derivative_3",
               "volume", "flux")
 # the viscoelastic step's executables in launch order: each derivative,
-# its source and its relaxation, then the corrector's (the flux on the
-# block kernel)
+# its source and its relaxation, then the corrector's
 VISCO_EXECS = (*(f"{kind}_{d}" for d in range(4)
                  for kind in ("derivative", "source", "relax")),
                "volume", "flux", "source_4")
@@ -763,8 +766,7 @@ LAUNCH_MODELS = {
     "ader": (ft.AderElasticOperator3D, ft.make_ader_state, {}, ADER_EXECS,
              {"step_block_f32.lanes": 6, "step_update": 6}),
     "visco": (ft.AderViscoelasticOperator3D, ft.make_ader_visco_state, {},
-              VISCO_EXECS, {"step_block_f32.lanes": 14,
-                            "step_block_f32.dense": 1, "step_update": 12}),
+              VISCO_EXECS, {"step_block_f32.lanes": 15, "step_update": 12}),
 }
 # the kernels a step launches outside any executable
 UPDATES = ("step_update", "pairs_split")
@@ -1113,8 +1115,8 @@ def test_visco_launch_counters_count_the_steps_launches(monkeypatch):
     step and ``anelastic_launches`` by the anelastic products' 9, of the
     step's 27; the wrappers run their CUDA branch on CPU tensors against a
     stand-in library whose every entry returns 0 (no kernel runs), and
-    the step's einsums count 14 lanes launches and one on the block
-    kernel (the flux)."""
+    the step's einsums count 15 lanes launches (the flux's among them)
+    and none on the block kernel."""
     _stand_in(monkeypatch)
     for key in ("ader_predictor_launches", "anelastic_launches",
                 "model_steps"):
@@ -1132,8 +1134,8 @@ def test_visco_launch_counters_count_the_steps_launches(monkeypatch):
                 before[1] + k * VISCO_ANELASTIC)
         assert {n: v for n, v in kernels.launch_counts.items() if v} \
             == {n: k * v for n, v in VISCO_LAUNCHES.items()}
-        assert c["step_block_mode"] == {"dense": k, "general": 0,
-                                        "stream": 0, "lanes": 14 * k}
+        assert c["step_block_mode"] == {"dense": 0, "general": 0,
+                                        "stream": 0, "lanes": 15 * k}
 
 
 def _visco_cfg():
